@@ -1,0 +1,59 @@
+"""Weight initializers: `smart_uniform` and `normal`.
+
+Mirror of the two `paddle_tpu.nn.initializers` schemes the transformer
+uses, with the same distributions. An initializer is called as
+`init(rng, shape)` where `rng` is a numpy `RandomState` or a CPU
+`torch.Generator`; it returns a float32 CPU tensor (callers move it to
+their device). The draws differ from `jax.random`'s, so tests that
+compare with the JAX package carry weights across with
+`models.weights.params_from_numpy` instead.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+
+def _fans(shape):
+    if len(shape) == 1:
+        return shape[0], shape[0]
+    if len(shape) == 2:
+        return shape[0], shape[1]
+    receptive = math.prod(shape[:-2])
+    return shape[-2] * receptive, shape[-1] * receptive
+
+
+def _uniform(rng, shape, low, high):
+    if isinstance(rng, np.random.RandomState):
+        return torch.from_numpy(
+            rng.uniform(low, high, size=shape).astype(np.float32))
+    return torch.empty(shape, dtype=torch.float32).uniform_(
+        low, high, generator=rng)
+
+
+def _standard_normal(rng, shape):
+    if isinstance(rng, np.random.RandomState):
+        return torch.from_numpy(
+            rng.standard_normal(size=shape).astype(np.float32))
+    return torch.randn(shape, dtype=torch.float32, generator=rng)
+
+
+def normal(std: float = 0.01, mean: float = 0.0):
+    def init(rng, shape):
+        return mean + std * _standard_normal(rng, tuple(shape))
+
+    return init
+
+
+def smart_uniform():
+    """The reference's 'initial_smart': uniform(+-1/sqrt(fan_in))."""
+
+    def init(rng, shape):
+        fan_in, _ = _fans(tuple(shape))
+        limit = 1.0 / math.sqrt(fan_in)
+        return _uniform(rng, tuple(shape), -limit, limit)
+
+    return init

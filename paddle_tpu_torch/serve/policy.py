@@ -1,0 +1,214 @@
+"""Scheduler policy: the DECISIONS of the serving schedulers, split
+from the executor.
+
+`serve/engine.py` used to interleave two different jobs: the EXECUTOR
+(the jitted prefill/step bodies, the page-pool writes, the staged
+device scalars — everything whose correctness is "bit-exact greedy
+parity with generate()") and the SCHEDULER POLICY (which queued
+request admits next, who is preempted when the page pool runs dry,
+how chunked prefills interleave with decode steps, whether a request
+may admit against the pool right now). The reliability server
+(`serve/server.py`) re-implemented the same decisions with its own
+shed/deadline twists, and the multi-replica router (`serve/router.py`)
+needs them a third time — so the decisions now live HERE, once, and
+every scheduler (engine `serve()` loop, `ServingServer`, the fleet
+router's replica pick) consumes this policy surface instead of
+hard-coding them. Admission control, preemption order, and future
+features (speculative decoding's draft/verify interleave, priority
+classes) become pluggable: pass a `SchedulerPolicy` subclass to
+`DecodeEngine`/`ServingServer` instead of editing the drive loops.
+
+The default `SchedulerPolicy` reproduces the pre-split behavior
+EXACTLY (FIFO admission, cheapest-to-retry shed, junior-most
+preemption with a total priority order, fair one-chunk-per-slot
+interleave, `pool.admissible` gating) — the engine-consistency tests
+and the serve golden pass unmodified against it.
+
+Division of labor, for orientation:
+
+- policy (this module): pure host-side choices over host-side state.
+  No jax, no device work, nothing jitted — safe under
+  `transfer_guard("disallow")` by construction.
+- executor (`DecodeEngine`): `init_state` / `prefill_begin` /
+  `prefill_advance` / `decode_step` / `ensure_decode_page` /
+  `release_slot` — the jitted bodies and pool writes. It OWNS parity.
+- schedulers (`engine.serve()`, `ServingServer`, `ServingRouter`):
+  drive the executor, asking the policy at every choice point.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+
+class SchedulerPolicy:
+    """The default serving scheduler policy — FIFO admission,
+    cheapest-to-retry shedding, junior-most (latest-submitted)
+    preemption, fair chunked-prefill interleave. Subclass and override
+    individual choice points; every method is a pure function of the
+    host-side arguments it is handed."""
+
+    # -- admission ---------------------------------------------------------
+
+    def next_index(self, queue: Sequence) -> int:
+        """Index into `queue` of the request to admit next. FIFO: the
+        head. The queue-front requeue convention (transient faults and
+        preemption victims re-enter at index 0) composes with this —
+        a retried request keeps its place in line."""
+        return 0
+
+    def can_admit(self, pool, prompt, true_len: int) -> bool:
+        """May the queue head take a slot right now? On a paged
+        engine the binding resource is PAGES, not slots: defer while
+        the pool could not map the request's post-prefix-reuse need
+        (`pool.admissible` mirrors admit()'s own reclaim arithmetic,
+        so a passed gate cannot raise spuriously). Engines without a
+        pool admit on free slots alone."""
+        if pool is None:
+            return True
+        return pool.admissible(prompt, true_len)
+
+    # -- overload ----------------------------------------------------------
+
+    def shed_victim(self, queue: Sequence, incoming):
+        """Full admission queue: which request (queued or the
+        incoming one) is shed. Cheapest-to-retry — least prefill work
+        to redo, then most deadline slack, then newest (the
+        `Request.retry_cost` ordering) — so a shed costs its client
+        one resubmission of the smallest prompt, not a lost
+        long-context request."""
+        return min(list(queue) + [incoming],
+                   key=lambda r: r.retry_cost)
+
+    # -- preemption --------------------------------------------------------
+
+    def preemption_victim(
+            self, holders: Sequence[Tuple[int, int]]) -> int:
+        """Page-pool exhaustion: pick the slot to evict among
+        `holders` — (slot, priority) pairs where a LARGER priority
+        means a more junior (later-submitted) request. The junior-most
+        holder yields (recompute preemption: cheapest progress loss,
+        and priority is a TOTAL order so the most senior request
+        always progresses — no mutual-preemption livelock)."""
+        return max(holders, key=lambda sp: sp[1])[0]
+
+    # -- prefill/decode interleave ----------------------------------------
+
+    def prefill_slots(self, pending: Sequence[int]) -> List[int]:
+        """Which mid-prefill slots advance ONE chunk this loop
+        iteration, in order. All of them, slot order — long prompts
+        share the interleave budget fairly and none head-of-line
+        stalls the decode steps between iterations."""
+        return sorted(pending)
+
+    def should_decode(self, decoding_slots: int,
+                      prefilling_slots: int) -> bool:
+        """Run a decode step this iteration? Only when some active
+        slot is past its prefill — an all-prefilling pool steps
+        nothing (the chunked-prefill early-out)."""
+        return decoding_slots > 0
+
+    # -- speculative decoding ----------------------------------------------
+
+    #: widest draft any round may carry — the engine pads every slot's
+    #: drafts to this, so the jitted verify step compiles ONCE (a
+    #: per-round width would recompile per distinct k)
+    spec_draft_max: int = 4
+
+    def draft_len(self, *, pos: int, max_len: int,
+                  remaining: int) -> int:
+        """Draft budget for ONE slot this round, 0 = plain decode.
+        Clamped so a full acceptance can never overrun anything: the
+        verify window writes positions pos..pos+k (k <= max_len-1-pos
+        keeps it inside the cache) and emits up to k+1 tokens
+        (k <= remaining-1 keeps it inside the request's max_new) —
+        so the engine loop needs NO after-the-fact truncation and
+        greedy parity stays exact. Override for adaptive draft
+        lengths (e.g. shrink on low recent acceptance)."""
+        return max(0, min(self.spec_draft_max, max_len - 1 - pos,
+                          remaining - 1))
+
+    # -- fleet routing (serve.router) --------------------------------------
+
+    def route(self, chain: Sequence[tuple], affinity: dict,
+              candidates: Sequence) -> Optional[object]:
+        """Pick the replica for a request. `chain` is the prompt's
+        chained block-key list (shallowest first — `paged.chain_keys`,
+        the SAME derivation the replica's own prefix cache hashes
+        with), `affinity` maps chain key -> replica for blocks the
+        fleet has served before, `candidates` are the routable
+        replicas (alive, breaker not open, queue space) ordered by
+        replica id. Deepest affinity hit wins — the replica holding
+        the LONGEST cached prefix saves the most prefill compute;
+        a miss (or an unroutable affinity target) spills to the
+        least-loaded candidate. Returns None when no candidate can
+        take the request."""
+        if not candidates:
+            return None
+        cand = set(candidates)
+        for key in reversed(list(chain)):       # deepest first
+            rep = affinity.get(key)
+            if rep is not None and rep in cand:
+                return rep
+        return self.spill(candidates)
+
+    def spill(self, candidates: Sequence):
+        """Affinity miss: least-loaded candidate (queued + in-flight),
+        replica order breaking ties — keeps the fleet level while
+        cold prefixes warm exactly one replica each."""
+        return min(candidates, key=lambda r: r.load())
+
+    # -- disaggregated prefill/decode (serve.router tiered mode) -----------
+
+    def route_tiered(self, chain: Sequence[tuple], affinity: dict,
+                     prefill_cands: Sequence,
+                     decode_cands: Sequence) -> Optional[object]:
+        """The tiered routing order for a disaggregated fleet:
+        cached-prefix replica -> prefill tier -> decode tier. The
+        deepest affinity hit wins REGARDLESS of tier — a decode
+        replica whose cache was seeded by an earlier migration serves
+        the repeat prefix without a cross-tier hop at all (the
+        prefix-seeding payoff). A cold prompt lands on the
+        least-loaded prefill-tier replica (compute-bound work where
+        it belongs; its KV blocks migrate after prefill); with NO
+        routable prefill replica the decode tier serves end-to-end —
+        graceful degrade, never an outage."""
+        cand = set(prefill_cands) | set(decode_cands)
+        if not cand:
+            return None
+        for key in reversed(list(chain)):       # deepest first
+            rep = affinity.get(key)
+            if rep is not None and rep in cand:
+                return rep
+        if prefill_cands:
+            return self.spill(prefill_cands)
+        return self.spill(decode_cands)
+
+    def migration_target(self, candidates: Sequence):
+        """Destination for one KV-block migration: the least-loaded
+        routable decode-tier replica (decode is memory-bound, so load
+        — queued + in-flight streams — is the right pressure gauge).
+        Returns None when no decode replica can take it; the
+        orchestrator then cancels the handoff and the source decodes
+        locally."""
+        if not candidates:
+            return None
+        return min(candidates, key=lambda r: r.load())
+
+
+class RandomRoutingPolicy(SchedulerPolicy):
+    """Affinity-blind control arm: route every request to a
+    seeded-uniform random candidate. Exists for the router bench's
+    affinity-vs-random prefix-hit comparison — NOT a production
+    policy (it scatters hot prefixes across the fleet, so every
+    replica pays the prefill the affinity map would have saved)."""
+
+    def __init__(self, seed: int = 0):
+        import random
+
+        self._rng = random.Random(seed)
+
+    def route(self, chain, affinity, candidates):
+        if not candidates:
+            return None
+        return self._rng.choice(list(candidates))
