@@ -13,20 +13,33 @@ Phases, in order; any failure exits non-zero:
    cold), beside the least time the card could take (`bound_ms`) and,
    for flash attention,
    `torch.nn.functional.scaled_dot_product_attention` as a yardstick.
+   A: flash attention forward; B: the ragged walk over float arenas;
+   C: the walk over int8 (s8, scale) arenas, dequant fused.
    Tolerances: float32 1e-4, bfloat16 2e-2, on outputs of unit scale.
 3. serve  -- the transformer LM at the serving benchmark's width (vocab
    32000, dim 512, 8 layers, 8 heads, f32) with seeded random weights
-   serves 32 requests (128-token prompts, half sharing a 64-token
-   prefix, 128 new tokens) through DecodeEngine(slots=8, max_len=256,
-   page_size=16). Every kernel must have launched in that run. The same
-   requests then go through the plain path (dense attention, the ragged
-   walk's plain version) and the greedy tokens must agree; where they
+   through DecodeEngine(slots=8, max_len=256, page_size=16). Each path
+   below runs with every launch count set to 0 just before it, and
+   each kernel it should use must have launched; the same requests
+   then go through the plain path (dense attention, the ragged walk's
+   plain version) and the greedy tokens must agree -- where they
    differ, the plain path's top-2 logit gap at the first differing step
-   must be <= 1e-3 (a near tie, not a fault). Four sampled requests
-   must repeat their tokens under the same seeds, and the plain engine
-   must match generate() on two requests.
-4. report -- the card's name and power limit, a `kernels` JSON line,
-   and last the device JSON line.
+   must be <= 1e-3 (a near tie, not a fault).
+   - float KV: 32 requests (128-token prompts, half sharing a 64-token
+     prefix, 128 new tokens) launch A and B (TQ=1 and TQ>1). Four
+     sampled requests must repeat their tokens under the same seeds,
+     and the plain engine must match generate() on two requests.
+   - int8 KV (kv_cache_dtype="int8"): the same 32 requests launch A and
+     C (TQ=1 and TQ>1).
+   - int8 weights (serve.quant.quantize_params), float KV: 8 requests.
+   - speculative (serve(speculative=True), NGramProposer, 4 drafts), on
+     the float and the int8 pool: 16 requests, half repeating a
+     16-token motif; tokens agree with the same engine's one-token
+     decode, and every verify round read the cache through B or C with
+     TQ=5 (at least rounds x layers TQ>1 launches).
+4. report -- the launch counts of every path, the serve numbers, the
+   card's name and power limit, a `kernels` JSON line, and last the
+   device JSON line.
 
 TF32 is switched off for matmuls and cuDNN, so float32 means float32.
 """
@@ -45,7 +58,9 @@ import torch
 from paddle_tpu_torch.models import transformer as TT
 from paddle_tpu_torch.ops import _cuda
 from paddle_tpu_torch.ops import flash_attention as FA
+from paddle_tpu_torch.ops import paged_attention as PA
 from paddle_tpu_torch.ops import ragged_paged_attention as RPA
+from paddle_tpu_torch.serve import quant as Q
 from paddle_tpu_torch.serve.engine import DecodeEngine
 
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM
@@ -57,6 +72,7 @@ GAP_LIMIT = 1e-3
 SERVE_CFG = dict(vocab=32000, dim=512, n_layers=8, n_heads=8)
 SLOTS, MAX_LEN, PAGE = 8, 256, 16
 N_REQ, PROMPT, SHARED, MAX_NEW = 32, 128, 64, 128
+N_WEIGHT_REQ, N_SPEC_REQ = 8, 16
 
 
 def log(*a):
@@ -104,11 +120,13 @@ def bound(bytes_, flops, dtype):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-# -- kernel B: the ragged page-table walk ------------------------------------
+# -- kernels B and C: the ragged page-table walk ------------------------------
 
 
 def ragged_case(name, *, r, tq, h, hkv, dh=64, dtype=torch.float32,
-                pos0=None, inactive=0, sentinel_tail=0, seed=0):
+                pos0=None, inactive=0, sentinel_tail=0, seed=0, int8=False):
+    """One walk case: kernel B over float arenas, or kernel C (int8=True)
+    over (s8, scale) arenas quantized from the same kind of values."""
     rs = np.random.RandomState(seed)
     max_pages = -(-MAX_LEN // PAGE)
     num_pages = max(r, SLOTS) * max_pages
@@ -118,6 +136,8 @@ def ragged_case(name, *, r, tq, h, hkv, dh=64, dtype=torch.float32,
     q = mk(r, tq, h, dh)
     ka = mk(num_pages, PAGE, hkv, dh)
     va = mk(num_pages, PAGE, hkv, dh)
+    if int8:
+        ka, va = PA.kv_quantize(ka), PA.kv_quantize(va)
     pt = np.stack([rs.permutation(num_pages)[:max_pages]
                    for _ in range(r)]).astype(np.int32)
     if sentinel_tail:
@@ -136,22 +156,25 @@ def ragged_case(name, *, r, tq, h, hkv, dh=64, dtype=torch.float32,
     torch.cuda.synchronize()
     err = (got.float() - ref.float()).abs().max().item()
     # the work this data needs: active rows attend keys <= pos0 + i, an
-    # inactive row all max_len keys
+    # inactive row all max_len keys; a key is read once per KV head as
+    # Dh values (s8 for C, with its f32 scale) for K and for V
     isz = q.element_size()
     keys_q = np.where(active[:, None],
                       np.minimum(pos0[:, None] + np.arange(tq) + 1, MAX_LEN),
                       MAX_LEN)                                # [R, TQ]
     keys_row = keys_q.max(axis=1)
-    bytes_ = (2 * q.numel() * isz + 2 * keys_row.sum() * hkv * dh * isz
+    key_bytes = dh + 4 if int8 else dh * isz
+    bytes_ = (2 * q.numel() * isz + 2 * keys_row.sum() * hkv * key_bytes
               + pt.nbytes + pos0.nbytes + active.nbytes)
     flops = 4 * dh * h * keys_q.sum()
     bound_ms, bound_by = bound(bytes_, flops, dtype)
     k_ms = time_ms(lambda: RPA.ragged_kernel(*args, **kw))
     p_ms = time_ms(lambda: RPA.ragged_reference(*args, **kw))
     ok = err <= TOL[dtype]
-    log(f"  B {name:<22} {str(dtype)[6:]:<8} err {err:.2e} "
-        f"(tol {TOL[dtype]:.0e}) kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
-        f"bound_ms {bound_ms:.4f} ({bound_by}) {'ok' if ok else 'FAIL'}")
+    log(f"  {'C' if int8 else 'B'} {name:<22} {str(dtype)[6:]:<8} err "
+        f"{err:.2e} (tol {TOL[dtype]:.0e}) kernel_ms {k_ms:.4f} plain_ms "
+        f"{p_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}) "
+        f"{'ok' if ok else 'FAIL'}")
     return dict(name=name, err=err, ok=ok, ms=k_ms, plain_ms=p_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 tol=TOL[dtype])
@@ -254,10 +277,37 @@ def kernels_phase():
                                                         170, 200, 250][:8])
         b["hd128" + sfx] = ragged_case("head_dim128", r=4, tq=2, h=4,
                                        hkv=2, dh=128, dtype=dt, seed=4)
-    bad = [k for k, v in {**a, **b}.items() if not v["ok"]]
+    log("phase kernels: ragged paged-attention walk, int8 arenas (C)")
+    c = {
+        "main_decode": ragged_case("main_decode_r8", r=8, tq=1, h=8, hkv=8,
+                                   int8=True),
+        "main_chunk": ragged_case("main_prefix_chunk_tq64", r=1, tq=64,
+                                  h=8, hkv=8, pos0=SHARED, int8=True),
+    }
+    for dt in (f32, bf16):
+        sfx = "_" + str(dt)[6:]
+        c["verify" + sfx] = ragged_case("verify_window_tq5", r=8, tq=5,
+                                        h=8, hkv=8, dtype=dt, seed=5,
+                                        int8=True)
+        c["gqa" + sfx] = ragged_case("gqa_h8_hkv2", r=8, tq=4, h=8, hkv=2,
+                                     dtype=dt, seed=2, int8=True)
+        c["sentinel" + sfx] = ragged_case(
+            "sentinels_inactive", r=8, tq=3, h=8, hkv=4, dtype=dt,
+            inactive=2, sentinel_tail=3, seed=3, pos0=[0, 9, 40, 100, 150,
+                                                        170, 200, 250],
+            int8=True)
+        c["hd128" + sfx] = ragged_case("head_dim128", r=4, tq=2, h=4,
+                                       hkv=2, dh=128, dtype=dt, seed=4,
+                                       int8=True)
+    c["decode_bf16"] = ragged_case("decode_r8", r=8, tq=1, h=8, hkv=8,
+                                   dtype=bf16, seed=1, int8=True)
+    c["chunk_bf16"] = ragged_case("prefix_chunk_tq100", r=1, tq=100, h=8,
+                                  hkv=8, dtype=bf16, pos0=SHARED, int8=True)
+    bad = [f"{n}:{k}" for n, d in (("A", a), ("B", b), ("C", c))
+           for k, v in d.items() if not v["ok"]]
     if bad:
         raise Fail(f"kernel disagrees with its plain version: {bad}")
-    return a, b
+    return a, b, c
 
 
 # -- the serving path ---------------------------------------------------------
@@ -277,6 +327,21 @@ def make_prompts():
     return prompts
 
 
+def make_spec_prompts(n):
+    """Half the prompts repeat a 16-token motif (drafts the n-gram
+    proposer gets right), half are random."""
+    rs = np.random.RandomState(2)
+    prompts = []
+    for i in range(n):
+        if i % 2 == 0:
+            motif = rs.randint(0, SERVE_CFG["vocab"], 16)
+            prompts.append(np.tile(motif, PROMPT // 16).astype(np.int32))
+        else:
+            prompts.append(rs.randint(0, SERVE_CFG["vocab"],
+                                      PROMPT).astype(np.int32))
+    return prompts
+
+
 def reset_counts():
     FA.reset_launch_counts()
     RPA.reset_launch_counts()
@@ -285,76 +350,158 @@ def reset_counts():
 def counts():
     return {"flash_fwd": FA.launch_counts["fwd"],
             "ragged_tq1": RPA.launch_counts["tq1"],
-            "ragged_tqn": RPA.launch_counts["tqn"]}
+            "ragged_tqn": RPA.launch_counts["tqn"],
+            "int8_tq1": RPA.launch_counts["int8_tq1"],
+            "int8_tqn": RPA.launch_counts["int8_tqn"]}
 
 
-def timed_serve(eng, prompts):
+def timed_serve(eng, prompts, **kw):
+    """Serve with every launch count set to 0 just before; returns
+    (tokens, wall seconds, launch counts of this run)."""
     torch.cuda.synchronize()
+    reset_counts()
     t0 = time.perf_counter()
-    toks = eng.serve(prompts, max_new=MAX_NEW)
+    toks = eng.serve(prompts, max_new=MAX_NEW, **kw)
     torch.cuda.synchronize()
-    return toks, time.perf_counter() - t0
+    return toks, time.perf_counter() - t0, counts()
+
+
+def plain_gap(params, plain_cfg, prompt, step):
+    """The plain engine's top-2 logit gap at generated token `step` of
+    `prompt`: one slot, prefill then `step` decode steps (each mapping
+    the next page, as serve() does), reading the logits its token
+    selection sees."""
+    eng = DecodeEngine(params, plain_cfg, ragged_impl="torch", slots=1,
+                       max_len=MAX_LEN, page_size=PAGE)
+    seen, select = [], eng._select
+
+    def spy(logits, *a):
+        seen.append(logits[0].float())
+        return select(logits, *a)
+
+    eng._select = spy
+    state = eng.prefill(eng.init_state(), 0, prompt)
+    for _ in range(step):
+        state = eng.decode_step(state)[0]
+        state = eng.ensure_decode_page(state, 0)
+    top2 = torch.topk(seen[step], 2).values
+    return (top2[0] - top2[1]).item()
+
+
+def check_greedy(label, toks, ref, prompts, params, plain_cfg):
+    """Greedy tokens equal to the reference's, or differing only where
+    the plain path's top-2 logit gap is <= GAP_LIMIT (a near tie)."""
+    same, worst = 0, None
+    for i, (a, b) in enumerate(zip(toks, ref)):
+        if a == b:
+            same += 1
+            continue
+        d = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if d is None:
+            raise Fail(f"{label}: request {i} emitted {len(a)} tokens, the "
+                       f"reference {len(b)}")
+        gap = plain_gap(params, plain_cfg, prompts[i], d)
+        worst = gap if worst is None else max(worst, gap)
+        log(f"  {label}: request {i}: first differing step {d}: {a[d]} vs "
+            f"{b[d]}, plain top-2 logit gap {gap:.3e}")
+    log(f"  {label}: greedy tokens equal on {same}/{len(toks)} requests")
+    if worst is not None and worst > GAP_LIMIT:
+        raise Fail(f"{label}: greedy tokens differ at a top-2 gap "
+                   f"{worst:.3e} > {GAP_LIMIT}")
+    return same
+
+
+def kernel_and_plain(label, params, cfg, prompts, need):
+    """Serve `prompts` on the kernel path and on the plain path (dense
+    attention, the walk's plain version); every kernel in `need` must
+    have launched in the kernel path's run, none in the plain one's, and
+    the greedy tokens must agree."""
+    plain_cfg = dataclasses.replace(cfg, attn_impl="dense")
+    geom = dict(slots=SLOTS, max_len=MAX_LEN, page_size=PAGE)
+    eng = DecodeEngine(params, cfg, **geom)
+    toks, wall, launched = timed_serve(eng, prompts)
+    st = eng.last_stats
+    n_tok = sum(len(t) for t in toks)
+    log(f"  {label} kernel path: {n_tok} tokens in {wall:.3f} s = "
+        f"{n_tok / wall:.1f} generated tokens/s; steps {st.steps}, prefix "
+        f"hits {st.prefix_hits}, launches {launched}")
+    missing = [k for k in need if launched[k] == 0]
+    if missing:
+        raise Fail(f"{label}: kernels never launched: {missing}")
+    if any(len(t) != MAX_NEW for t in toks):
+        raise Fail(f"{label}: a request did not emit max_new tokens")
+    if any(not (0 <= x < cfg.vocab) for t in toks for x in t):
+        raise Fail(f"{label}: token out of vocabulary range")
+    plain = DecodeEngine(params, plain_cfg, ragged_impl="torch", **geom)
+    ptoks, pwall, plaunched = timed_serve(plain, prompts)
+    if any(plaunched.values()):
+        raise Fail(f"{label}: the plain path launched kernels: {plaunched}")
+    log(f"  {label} plain path:  {n_tok} tokens in {pwall:.3f} s = "
+        f"{n_tok / pwall:.1f} generated tokens/s")
+    same = check_greedy(label, toks, ptoks, prompts, params, plain_cfg)
+    return launched, ptoks, dict(
+        requests=len(prompts), tokens=n_tok, wall_s=wall,
+        tok_s=n_tok / wall, plain_wall_s=pwall, plain_tok_s=n_tok / pwall,
+        same=same, steps=st.steps, prefix_hits=st.prefix_hits)
+
+
+def speculative_vs_plain_decode(label, params, cfg, prompts, tqn_key):
+    """serve(speculative=True) against the same engine's one-token
+    decode on the same prompts: greedy tokens agree, and every verify
+    round read the cache through the walk with TQ = K+1."""
+    geom = dict(slots=SLOTS, max_len=MAX_LEN, page_size=PAGE)
+    eng = DecodeEngine(params, cfg, **geom)
+    base, bwall, _ = timed_serve(eng, prompts)
+    toks, wall, launched = timed_serve(eng, prompts, speculative=True)
+    st = eng.last_stats
+    n_tok = sum(len(t) for t in toks)
+    need = st.spec_rounds * cfg.n_layers
+    log(f"  {label}: {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} "
+        f"generated tokens/s (one-token decode {n_tok / bwall:.1f}); "
+        f"spec_rounds {st.spec_rounds}, draft_proposed "
+        f"{st.draft_proposed}, draft_accepted {st.draft_accepted} "
+        f"({st.draft_accepted / max(st.draft_proposed, 1):.3f}), "
+        f"launches {launched}")
+    if launched[tqn_key] < need:
+        raise Fail(f"{label}: {launched[tqn_key]} {tqn_key} launches < "
+                   f"{need} verify reads ({st.spec_rounds} rounds x "
+                   f"{cfg.n_layers} layers)")
+    if st.draft_accepted == 0:
+        raise Fail(f"{label}: no draft was accepted")
+    same = check_greedy(label, toks, base, prompts, params,
+                        dataclasses.replace(cfg, attn_impl="dense"))
+    return launched, dict(
+        requests=len(prompts), tokens=n_tok, wall_s=wall,
+        tok_s=n_tok / wall, decode_tok_s=n_tok / bwall,
+        spec_rounds=st.spec_rounds, draft_proposed=st.draft_proposed,
+        draft_accepted=st.draft_accepted, same=same)
 
 
 def serve_phase():
     cfg = TT.TransformerConfig(**SERVE_CFG)
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
     plain_cfg = dataclasses.replace(cfg, attn_impl="dense")
     log(f"phase serve: {SERVE_CFG}, f32, slots={SLOTS} max_len={MAX_LEN} "
         f"page={PAGE}, {N_REQ} requests x {PROMPT}-token prompts "
         f"({N_REQ // 2} share a {SHARED}-token prefix), max_new={MAX_NEW}")
     params = TT.init_params(np.random.RandomState(0), cfg, device="cuda")
+    qparams = Q.quantize_params(params)
     prompts = make_prompts()
     geom = dict(slots=SLOTS, max_len=MAX_LEN, page_size=PAGE)
 
     # warm the kernels and the allocator outside the measured runs
-    DecodeEngine(params, cfg, **geom).serve(prompts[:2], max_new=4)
-    DecodeEngine(params, plain_cfg, ragged_impl="torch",
-                 **geom).serve(prompts[:2], max_new=4)
+    for c, p in ((cfg, params), (cfg8, params), (cfg, qparams)):
+        DecodeEngine(p, c, **geom).serve(prompts[:2], max_new=4)
+        DecodeEngine(p, dataclasses.replace(c, attn_impl="dense"),
+                     ragged_impl="torch", **geom).serve(prompts[:2],
+                                                        max_new=4)
+    DecodeEngine(params, cfg, **geom).serve(prompts[:2], max_new=4,
+                                            speculative=True)
 
-    eng = DecodeEngine(params, cfg, **geom)
-    reset_counts()
-    toks, wall = timed_serve(eng, prompts)
-    launched = counts()
-    stats = eng.last_stats
-    n_tok = sum(len(t) for t in toks)
-    log(f"  kernel path: {n_tok} tokens in {wall:.3f} s = "
-        f"{n_tok / wall:.1f} generated tokens/s; steps {stats.steps}, "
-        f"prefix hits {stats.prefix_hits}, prefill chunks "
-        f"{stats.prefill_chunks}, launches {launched}")
-    missing = [k for k, v in launched.items() if v == 0]
-    if missing:
-        raise Fail(f"kernels never launched on the serving path: {missing}")
-    if any(len(t) != MAX_NEW for t in toks):
-        raise Fail("a request did not emit max_new tokens")
-    if any(not (0 <= x < cfg.vocab) for t in toks for x in t):
-        raise Fail("token out of vocabulary range")
-
-    plain = DecodeEngine(params, plain_cfg, ragged_impl="torch", **geom)
-    reset_counts()
-    ptoks, pwall = timed_serve(plain, prompts)
-    if any(counts().values()):
-        raise Fail(f"the plain path launched kernels: {counts()}")
-    log(f"  plain path:  {n_tok} tokens in {pwall:.3f} s = "
-        f"{n_tok / pwall:.1f} generated tokens/s")
-
-    same, worst_gap = 0, None
-    for i, (a, b) in enumerate(zip(toks, ptoks)):
-        if a == b:
-            same += 1
-            continue
-        d = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
-        ctx = np.concatenate([prompts[i], np.asarray(b[:d], np.int32)])
-        logits = TT.apply(params, plain_cfg,
-                          torch.from_numpy(ctx)[None].cuda())[0, -1]
-        top2 = torch.topk(logits.float(), 2).values
-        gap = (top2[0] - top2[1]).item()
-        worst_gap = gap if worst_gap is None else max(worst_gap, gap)
-        log(f"  request {i}: first differing step {d}: kernel {a[d]} vs "
-            f"plain {b[d]}, plain top-2 logit gap {gap:.3e}")
-    log(f"  greedy tokens equal on {same}/{N_REQ} requests")
-    if worst_gap is not None and worst_gap > GAP_LIMIT:
-        raise Fail(f"greedy tokens differ at a top-2 gap {worst_gap:.3e} > "
-                   f"{GAP_LIMIT}")
+    out, launches = {}, {}
+    launches["float"], ptoks, out["float_kv"] = kernel_and_plain(
+        "float KV", params, cfg, prompts,
+        ("flash_fwd", "ragged_tq1", "ragged_tqn"))
     # sampled requests draw from per-slot CUDA generators: the same
     # seeds must give the same tokens
     samp = [{"temperature": 0.8, "top_k": 50, "seed": i} for i in range(4)]
@@ -372,10 +519,22 @@ def serve_phase():
         if ref != ptoks[i]:
             raise Fail(f"plain engine differs from generate() on request "
                        f"{i}")
-    return launched, dict(tokens=n_tok, wall_s=wall, tok_s=n_tok / wall,
-                          plain_wall_s=pwall, plain_tok_s=n_tok / pwall,
-                          same=same, steps=stats.steps,
-                          prefix_hits=stats.prefix_hits)
+
+    launches["int8_kv"], _, out["int8_kv"] = kernel_and_plain(
+        "int8 KV", params, cfg8, prompts,
+        ("flash_fwd", "int8_tq1", "int8_tqn"))
+    launches["int8_weights"], _, out["int8_weights"] = kernel_and_plain(
+        "int8 weights", qparams, cfg, prompts[:N_WEIGHT_REQ],
+        ("flash_fwd", "ragged_tq1", "ragged_tqn"))
+
+    spec_prompts = make_spec_prompts(N_SPEC_REQ)
+    launches["spec_float"], out["spec_float_kv"] = \
+        speculative_vs_plain_decode("speculative, float KV", params, cfg,
+                                    spec_prompts, "ragged_tqn")
+    launches["spec_int8"], out["spec_int8_kv"] = \
+        speculative_vs_plain_decode("speculative, int8 KV", params, cfg8,
+                                    spec_prompts, "int8_tqn")
+    return launches, out
 
 
 def main() -> int:
@@ -396,10 +555,11 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     for name in _cuda.SOURCES:
         for line in _cuda.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
                 log(f"  {name}: {line.strip()}")
 
-    a, b = kernels_phase()
+    a, b, c = kernels_phase()
     launched, serve = serve_phase()
 
     smi = subprocess.run(
@@ -417,20 +577,28 @@ def main() -> int:
                 "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
                 "library_ms": case["library_ms"]}
 
+    # launches: A and B from the float serve, C from the int8-KV serve,
+    # each counted from 0 just before that run
+    walk = "paddle_tpu_torch/csrc/ragged_paged_attention.cu"
     kernels = [
         entry("flash_attention_fwd",
               "paddle_tpu_torch/csrc/flash_attention.cu",
-              "paddle_tpu/ops/flash_attention.py:45", launched["flash_fwd"],
-              a["main_prefill_t128"]),
-        entry("ragged_paged_walk[tq=1]",
-              "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+              "paddle_tpu/ops/flash_attention.py:45",
+              launched["float"]["flash_fwd"], a["main_prefill_t128"]),
+        entry("ragged_paged_walk[tq=1]", walk,
               "paddle_tpu/ops/ragged_paged_attention.py:153",
-              launched["ragged_tq1"], b["main_decode"]),
-        entry("ragged_paged_walk[tq>1]",
-              "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+              launched["float"]["ragged_tq1"], b["main_decode"]),
+        entry("ragged_paged_walk[tq>1]", walk,
               "paddle_tpu/ops/ragged_paged_attention.py:153",
-              launched["ragged_tqn"], b["main_chunk"]),
+              launched["float"]["ragged_tqn"], b["main_chunk"]),
+        entry("ragged_paged_walk_int8[tq=1]", walk,
+              "paddle_tpu/ops/ragged_paged_attention.py:188",
+              launched["int8_kv"]["int8_tq1"], c["main_decode"]),
+        entry("ragged_paged_walk_int8[tq>1]", walk,
+              "paddle_tpu/ops/ragged_paged_attention.py:188",
+              launched["int8_kv"]["int8_tqn"], c["main_chunk"]),
     ]
+    log(json.dumps({"launches": launched}))
     log(json.dumps({"serve": serve}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -38,10 +38,25 @@
 // first: no TMA, no tensor cores, no split-K over pages (one group of 8
 // lanes walks a decode row alone), which is where a later, faster
 // version starts.
+//
+// int8 arenas (kernel C). Replaces: paddle_tpu/ops/ragged_paged_attention.py
+// `_walk_kernel_int8`, which DMAs each page's s8 data block and its f32
+// scale plane into VMEM and dequantizes the block on scratch as it lands.
+// Here the same walk body runs with a different tile loader (the KV
+// template argument): the tile's 32 per-(key, head) scales are read once
+// into shared memory beside the key's source index -- both through the
+// same clipped page id, so real bytes never meet another page's scale --
+// and each 16-byte load carries 16 s8 values, dequantized as
+// `(float)s8 * scale`, rounded to q's dtype (kv_dequantize's element
+// sequence), into the same f32 tile. It moves (Dh + 4) bytes per key and
+// head where the f32 walk moves 4 * Dh, but it keeps the serial walk, so
+// at decode it is bound by the same latency, not by the bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tile_io.cuh"
 
@@ -77,24 +92,60 @@ struct Score<__nv_bfloat16> {
   }
 };
 
-template <typename T, int D>
+// A value rounded to T and widened back (the pointer only selects T).
+__device__ __forceinline__ float round_to(float x, const float*) {
+  return x;
+}
+__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// Dequantize one 16-byte vector of 16 s8 values into f32 at dst:
+// (float)s8 * scale, rounded to T -- kv_dequantize's element sequence.
+template <typename T>
+__device__ __forceinline__ void store_dequant(float* dst, const uint4& raw,
+                                              float scale) {
+  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float f[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int8_t v = static_cast<int8_t>((w[j] >> (8 * b)) & 0xffu);
+      f[b] = round_to(__fmul_rn(static_cast<float>(v), scale),
+                      static_cast<const T*>(nullptr));
+    }
+    *reinterpret_cast<float4*>(dst + 4 * j) =
+        make_float4(f[0], f[1], f[2], f[3]);
+  }
+}
+
+// KV is the arena's element type: T for a float arena (kernel B), int8_t
+// for an (s8 data, f32 scale) pair (kernel C; kscale/vscale are the
+// [P, page, Hkv] scale planes, unused for float arenas).
+template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(kThreads)
-    ragged_walk_kernel(const T* __restrict__ q, const T* __restrict__ karena,
-                       const T* __restrict__ varena,
+    ragged_walk_kernel(const T* __restrict__ q, const KV* __restrict__ karena,
+                       const float* __restrict__ kscale,
+                       const KV* __restrict__ varena,
+                       const float* __restrict__ vscale,
                        const int* __restrict__ page_table,
                        const int* __restrict__ pos0,
                        const uint8_t* __restrict__ active,
                        T* __restrict__ out, int TQ, int H, int Hkv, int P,
                        int page, int max_pages, int max_len,
                        int rows_per_block) {
+  constexpr bool kQuant = std::is_same<KV, int8_t>::value;
   constexpr int kDims = D / kLanes;  // head_dim slice of one lane
-  constexpr int kVec = Vec16<T>::kN;
+  constexpr int kVec = Vec16<KV>::kN;  // 4 f32, 8 bf16 or 16 s8 values
   constexpr int kVecsPerKey = D / kVec;
   constexpr int kLoads = kTileKeys * kVecsPerKey / kThreads;
   static_assert(kTileKeys * kVecsPerKey % kThreads == 0, "tile split");
+  constexpr int kScales = kQuant ? kTileKeys : 1;
   __shared__ __align__(16) float ks[kTileKeys][D];
   __shared__ __align__(16) float vs[kTileKeys][D];
   __shared__ long long tile_src[kTileKeys];
+  __shared__ float tile_kscale[kScales], tile_vscale[kScales];
 
   const int r = blockIdx.x;
   const int hk = blockIdx.y;
@@ -138,6 +189,11 @@ __global__ void __launch_bounds__(kThreads)
         src = ((long long)pg * page + kp % page) * Hkv + hk;
       }
       tile_src[tid] = src;
+      if constexpr (kQuant) {
+        // the scale of (key, head) sits at the data vector's index
+        tile_kscale[tid] = src >= 0 ? kscale[src] : 0.f;
+        tile_vscale[tid] = src >= 0 ? vscale[src] : 0.f;
+      }
     }
     __syncthreads();
     // every 16-byte load of the tile is in flight before the first store
@@ -156,8 +212,13 @@ __global__ void __launch_bounds__(kThreads)
     for (int it = 0; it < kLoads; ++it) {
       const int e = tid + it * kThreads;
       const int kk = e / kVecsPerKey, c = (e % kVecsPerKey) * kVec;
-      store_vec(&ks[kk][c], kraw[it], karena);
-      store_vec(&vs[kk][c], vraw[it], varena);
+      if constexpr (kQuant) {
+        store_dequant<T>(&ks[kk][c], kraw[it], tile_kscale[kk]);
+        store_dequant<T>(&vs[kk][c], vraw[it], tile_vscale[kk]);
+      } else {
+        store_vec(&ks[kk][c], kraw[it], karena);
+        store_vec(&vs[kk][c], vraw[it], varena);
+      }
     }
     __syncthreads();
 
@@ -203,49 +264,72 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* pt, const void* pos0, const void* active,
-                   void* out, int R, int TQ, int H, int Hkv, int P, int page,
-                   int max_pages, int max_len, cudaStream_t stream) {
-  const int G = H / Hkv;
+struct WalkArgs {
+  const void *q, *k, *kscale, *v, *vscale, *pt, *pos0, *active;
+  void* out;
+  int R, TQ, H, Hkv, P, page, max_pages, max_len;
+};
+
+template <typename T, typename KV, int D>
+cudaError_t launch(const WalkArgs& a, cudaStream_t stream) {
+  const int G = a.H / a.Hkv;
   const int rows = G >= kQueries ? 1 : kQueries / G;
-  const dim3 grid(R, Hkv, (TQ + rows - 1) / rows);
-  ragged_walk_kernel<T, D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(pt),
-      static_cast<const int*>(pos0), static_cast<const uint8_t*>(active),
-      static_cast<T*>(out), TQ, H, Hkv, P, page, max_pages, max_len, rows);
+  const dim3 grid(a.R, a.Hkv, (a.TQ + rows - 1) / rows);
+  ragged_walk_kernel<T, KV, D><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const KV*>(a.k),
+      static_cast<const float*>(a.kscale), static_cast<const KV*>(a.v),
+      static_cast<const float*>(a.vscale), static_cast<const int*>(a.pt),
+      static_cast<const int*>(a.pos0), static_cast<const uint8_t*>(a.active),
+      static_cast<T*>(a.out), a.TQ, a.H, a.Hkv, a.P, a.page, a.max_pages,
+      a.max_len, rows);
   return cudaGetLastError();
+}
+
+// dtype: 0 = float32, 1 = bfloat16 queries; KV32/KV16 are the arena
+// element types that go with them. Returns the launch's cudaError_t.
+// The walk reads key kp < max_len through table entry kp / page, so it
+// touches min(max_pages, ceil(max_len / page)) entries at most.
+template <typename KV32, typename KV16>
+int dispatch(int dtype, int head_dim, const WalkArgs& a, void* stream) {
+  if (a.Hkv < 1 || a.H % a.Hkv != 0 || a.H / a.Hkv > kQueries ||
+      a.page < 1 || (long long)a.max_pages * a.page < a.max_len)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && head_dim == 64)
+    return (int)launch<float, KV32, 64>(a, s);
+  if (dtype == 0 && head_dim == 128)
+    return (int)launch<float, KV32, 128>(a, s);
+  if (dtype == 1 && head_dim == 64)
+    return (int)launch<__nv_bfloat16, KV16, 64>(a, s);
+  if (dtype == 1 && head_dim == 128)
+    return (int)launch<__nv_bfloat16, KV16, 128>(a, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the launch's cudaError_t.
-// The walk reads key kp < max_len through table entry kp / page, so it
-// touches min(max_pages, ceil(max_len / page)) entries at most.
+// Kernel B: float arenas in q's dtype.
 extern "C" int ragged_walk(int dtype, int head_dim, const void* q,
                            const void* k, const void* v, const void* pt,
                            const void* pos0, const void* active, void* out,
                            int R, int TQ, int H, int Hkv, int P, int page,
                            int max_pages, int max_len, void* stream) {
-  if (Hkv < 1 || H % Hkv != 0 || H / Hkv > kQueries || page < 1 ||
-      (long long)max_pages * page < max_len)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64)
-    return (int)launch<float, 64>(q, k, v, pt, pos0, active, out, R, TQ, H,
-                                  Hkv, P, page, max_pages, max_len, s);
-  if (dtype == 0 && head_dim == 128)
-    return (int)launch<float, 128>(q, k, v, pt, pos0, active, out, R, TQ, H,
-                                   Hkv, P, page, max_pages, max_len, s);
-  if (dtype == 1 && head_dim == 64)
-    return (int)launch<__nv_bfloat16, 64>(q, k, v, pt, pos0, active, out, R,
-                                          TQ, H, Hkv, P, page, max_pages,
-                                          max_len, s);
-  if (dtype == 1 && head_dim == 128)
-    return (int)launch<__nv_bfloat16, 128>(q, k, v, pt, pos0, active, out,
-                                           R, TQ, H, Hkv, P, page, max_pages,
-                                           max_len, s);
-  return (int)cudaErrorInvalidValue;
+  const WalkArgs a{q,   k,  nullptr, v,   nullptr, pt,   pos0,      active,
+                   out, R,  TQ,      H,   Hkv,     P,    page,      max_pages,
+                   max_len};
+  return dispatch<float, __nv_bfloat16>(dtype, head_dim, a, stream);
+}
+
+// Kernel C: (s8 data [P, page, Hkv, Dh], f32 scale [P, page, Hkv]) pairs.
+extern "C" int ragged_walk_int8(int dtype, int head_dim, const void* q,
+                                const void* kd, const void* ks,
+                                const void* vd, const void* vs,
+                                const void* pt, const void* pos0,
+                                const void* active, void* out, int R, int TQ,
+                                int H, int Hkv, int P, int page,
+                                int max_pages, int max_len, void* stream) {
+  const WalkArgs a{q,   kd, ks, vd,  vs, pt,   pos0,      active,
+                   out, R,  TQ, H,   Hkv, P,   page,      max_pages,
+                   max_len};
+  return dispatch<int8_t, int8_t>(dtype, head_dim, a, stream);
 }

@@ -12,9 +12,10 @@ plain version; "dense" is the materialized-scores path everywhere.
 Ported here: the config, `init_params`, `_rope` (linear/NTK scaling),
 `_dense_attention`, `_expand_kv`, `_attention`, the dense `_ffn`,
 `_block_parts`/`_forward`/`apply`, `_head`, `_cached_attention` and
-greedy `generate` (full attention, compute-dtype KV). MoE blocks,
-int8 KV caches and rolling sliding-window decode raise
-NotImplementedError until their slices.
+greedy `generate` (full attention; compute-dtype or int8 KV caches;
+float or weight-only int8 params, `_int8_step_params`). MoE blocks and
+rolling sliding-window decode raise NotImplementedError until their
+slices.
 """
 
 from __future__ import annotations
@@ -29,20 +30,22 @@ import torch.nn.functional as F
 from paddle_tpu_torch.core.devices import resolve_device
 from paddle_tpu_torch.core.dtypes import (at_least_f32, default_policy,
                                           sqrt_in)
-from paddle_tpu_torch.models.weights import tree_map
+from paddle_tpu_torch.core.pytree import tree_map
 from paddle_tpu_torch.nn import initializers
 from paddle_tpu_torch.ops import linalg
 from paddle_tpu_torch.ops import norm as norm_ops
 from paddle_tpu_torch.ops.flash_attention import flash_attention
-from paddle_tpu_torch.ops.paged_attention import grouped_masked_attention
+from paddle_tpu_torch.ops.paged_attention import (grouped_masked_attention,
+                                                  kv_dequantize, kv_quantize)
+from paddle_tpu_torch.serve import quant as _quant
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """The JAX package's config, field for field, so one set of keyword
     arguments builds both. Fields of paths not ported yet (`remat`,
-    `fused_ce_chunk`, the `moe_*` family, `kv_cache_dtype="int8"`) are
-    carried but raise or do nothing until their slices."""
+    `fused_ce_chunk`, the `moe_*` family) are carried but raise or do
+    nothing until their slices."""
 
     vocab: int
     dim: int = 256
@@ -251,6 +254,17 @@ def apply(params, cfg: TransformerConfig, tokens, positions=None):
         return _forward(params, cfg, tokens, positions)
 
 
+def _int8_step_params(params):
+    """(full_params, step_params) for a decode path: full_params is the
+    dequantized tree one-shot prefills read, step_params() dequantizes
+    the resident int8 tree again for each decode step (the numbers equal
+    `serve.quant.dequantize_params`). Identity for float params."""
+    if _quant.has_quantized(params):
+        return (_quant.dequantize_params(params),
+                lambda: _quant.dequantize_params(params))
+    return params, lambda: params
+
+
 def _head(params, x_last):
     """Final LN + LM head over the last dim: [..., D] -> [..., V]."""
     x_last = norm_ops.layer_norm(x_last, params["ln_f"]["scale"],
@@ -259,14 +273,25 @@ def _head(params, x_last):
 
 
 def _cached_attention(q, k, v, k_buf, v_buf, t: int, valid):
-    """The single-position decode attention over a dense [B, total,
-    Hkv, Dh] cache: write this step's K/V at slot t (in place), attend
-    over `valid` keys ([..., total] bool broadcastable over [B, H, 1,
-    total]). Returns (out, k_buf, v_buf)."""
+    """The decode attention over a dense [B, total, Hkv, Dh] cache:
+    write this step's K/V at slots t..t+Tq-1 (in place), attend over
+    `valid` keys ([..., total] bool broadcastable over [B, H, Tq,
+    total]). k_buf/v_buf may be (s8 data, scale) pairs: the new K/V are
+    quantized before the write and the whole buffer is dequantized to
+    q's dtype for the read. Returns (out, k_buf, v_buf)."""
     tq = q.shape[1]
-    k_buf[:, t:t + tq] = k.to(k_buf.dtype)
-    v_buf[:, t:t + tq] = v.to(v_buf.dtype)
-    return grouped_masked_attention(q, k_buf, v_buf, valid), k_buf, v_buf
+    if isinstance(k_buf, tuple):
+        for buf, new in ((k_buf, k), (v_buf, v)):
+            nd, nsc = kv_quantize(new)
+            buf[0][:, t:t + tq] = nd
+            buf[1][:, t:t + tq] = nsc
+        k_read = kv_dequantize(*k_buf, q.dtype)
+        v_read = kv_dequantize(*v_buf, q.dtype)
+    else:
+        k_buf[:, t:t + tq] = k.to(k_buf.dtype)
+        v_buf[:, t:t + tq] = v.to(v_buf.dtype)
+        k_read, v_read = k_buf, v_buf
+    return grouped_masked_attention(q, k_read, v_read, valid), k_buf, v_buf
 
 
 def generate(params, cfg: TransformerConfig, prompt, steps: int, *,
@@ -274,10 +299,14 @@ def generate(params, cfg: TransformerConfig, prompt, steps: int, *,
              prompt_lens=None):
     """Greedy decode with a dense KV cache. prompt [B,T0] int ->
     [B, T0+steps]. eos_id: once a row emits it, later positions are
-    pad_id (default eos_id). prompt_lens [B]: right-padded prompts."""
+    pad_id (default eos_id). prompt_lens [B]: right-padded prompts.
+    kv_cache_dtype "int8" quantizes the prefilled caches once and each
+    step's K/V as it is written. Weight-only int8 params (serve.quant)
+    prefill from their dequantized tree and dequantize again per step."""
     b, t0 = prompt.shape
-    if cfg.kv_cache_dtype != "compute":
-        raise NotImplementedError("int8 KV caches are not ported yet")
+    if cfg.kv_cache_dtype not in ("compute", "int8"):
+        raise ValueError(f"kv_cache_dtype must be compute|int8, got "
+                         f"{cfg.kv_cache_dtype!r}")
     total = t0 + steps
     window = cfg.attn_window
     if window is not None and window < total:
@@ -288,6 +317,7 @@ def generate(params, cfg: TransformerConfig, prompt, steps: int, *,
                          "unsupported")
     fill = eos_id if pad_id is None else pad_id
     dev = prompt.device
+    params, step_params = _int8_step_params(params)
     with torch.no_grad():
         x = _embed(params, prompt)
         pos = torch.arange(t0, dtype=torch.int32, device=dev).expand(b, t0)
@@ -304,6 +334,9 @@ def generate(params, cfg: TransformerConfig, prompt, steps: int, *,
             v_buf = torch.zeros_like(k_buf)
             k_buf[:, :t0] = k
             v_buf[:, :t0] = v
+            if cfg.kv_cache_dtype == "int8":
+                # the whole buffer once (zero slots quantize to 0)
+                k_buf, v_buf = kv_quantize(k_buf), kv_quantize(v_buf)
             caches.append((k_buf, v_buf))
         if prompt_lens is None:
             x_last = x[:, -1]
@@ -318,7 +351,8 @@ def generate(params, cfg: TransformerConfig, prompt, steps: int, *,
             out.append(tok)
             if s == steps - 1:
                 break
-            x = _embed(params, tok[:, None])
+            p_full = step_params()
+            x = _embed(p_full, tok[:, None])
             if prompt_lens is None:
                 pos = torch.full((b, 1), t, dtype=torch.int32, device=dev)
                 valid = ar <= t
@@ -330,11 +364,11 @@ def generate(params, cfg: TransformerConfig, prompt, steps: int, *,
                 valid = ((ar[None, :] < prompt_lens.to(dev)[:, None])
                          | ((ar[None, :] >= t0) & (ar[None, :] <= t)))
                 valid = valid[:, None, None, :]
-            for p, (k_buf, v_buf) in zip(params["blocks"], caches):
+            for p, (k_buf, v_buf) in zip(p_full["blocks"], caches):
                 attn = lambda q, k, v, kb=k_buf, vb=v_buf: _cached_attention(
                     q, k, v, kb, vb, t, valid)[0]
                 x, _, _ = _block_parts(cfg, p, x, pos, attn)
-            nxt = torch.argmax(at_least_f32(_head(params, x[:, -1])), dim=-1)
+            nxt = torch.argmax(at_least_f32(_head(p_full, x[:, -1])), dim=-1)
             if eos_id is not None:
                 done = done | (tok == eos_id)
                 nxt = torch.where(done, torch.full_like(nxt, fill), nxt)

@@ -1,10 +1,18 @@
 """Block-paged KV-cache attention: the page-table gather/scatter path
-(mirror of `paddle_tpu.ops.paged_attention`, float arenas).
+(mirror of `paddle_tpu.ops.paged_attention`).
 
 One `[num_pages, page_size, Hkv, Dh]` arena per layer plus a static
 `[S, max_pages_per_slot]` int32 page table of physical page ids per
 slot. Reads gather in page-table order (= position order) and slice to
 `max_len`, so the key axis is exactly a dense pool's.
+
+int8 KV pools: an arena may be an `(s8 data [P, page, Hkv, Dh], f32
+scale [P, page, Hkv])` pair -- THE per-(position, kv-head) absmax
+convention (`kv_quantize`, shared with the dense caches of
+`models.transformer`). Writes quantize first and scatter data and scale
+with one drop plan; reads dequantize inside the gathered read
+(`kv_dequantize`), and the ragged walk's kernel fuses the same element
+sequence into its tile loads.
 
 Out-of-range discipline: unmapped page-table entries and inactive rows
 carry the sentinel page id `num_pages`. Reads clip it to the last page
@@ -13,7 +21,6 @@ dropped (`write_kv` implements the drop without a host sync).
 
 Writes update the arena IN PLACE (the JAX functions return a new
 arena); the functions still return the arenas so the call shapes match.
-`(s8, scale)` int8 arenas raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -23,12 +30,28 @@ import torch
 from paddle_tpu_torch.core.dtypes import at_least_f32, sqrt_in
 
 
-def _float_arena(arena):
-    if isinstance(arena, tuple):
-        raise NotImplementedError(
-            "int8 (s8, scale) KV arenas are not ported yet; use "
-            "kv_cache_dtype='compute'")
-    return arena
+def num_pages_of(arena) -> int:
+    """Pages of a float arena or an (s8, scale) pair."""
+    return (arena[0] if isinstance(arena, tuple) else arena).shape[0]
+
+
+# -- KV quantization (THE convention, shared with the dense caches) ------
+
+
+def kv_quantize(x):
+    """[..., T, Hkv, Dh] float -> (s8 data, f32 scale [..., T, Hkv]):
+    absmax symmetric per (position, kv-head). The element sequence is
+    the JAX package's: a division by the scale (not a multiply by its
+    reciprocal), then round half to even, then clip."""
+    xf = at_least_f32(x)
+    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def kv_dequantize(q, scale, dtype):
+    """(s8 -> f32) * scale, then rounded to `dtype`."""
+    return (q.to(torch.float32) * scale[..., None]).to(dtype)
 
 
 # -- page-table reads / writes -------------------------------------------
@@ -36,14 +59,20 @@ def _float_arena(arena):
 
 def gather_kv(arena, page_table, limit: int, dtype):
     """Read rows' caches through their page tables: arena [P, page,
-    Hkv, Dh], page_table [R, max_pages] (entries clip to [0, P-1]).
-    Returns [R, limit, Hkv, Dh] in `dtype`."""
-    arena = _float_arena(arena)
-    idx = page_table.long().clamp(0, arena.shape[0] - 1)
-    g = arena[idx]                                  # [R, mp, page, Hkv, Dh]
-    r, mp, page = g.shape[:3]
-    g = g.reshape((r, mp * page) + tuple(g.shape[3:]))
-    return g[:, :limit].to(dtype)
+    Hkv, Dh] or an (s8, scale) pair, page_table [R, max_pages] (entries
+    clip to [0, P-1], in the data and the scale plane alike). Returns
+    [R, limit, Hkv, Dh] in `dtype`, dequantized for a pair."""
+    idx = page_table.long().clamp(0, num_pages_of(arena) - 1)
+
+    def one(buf):
+        g = buf[idx]                                # [R, mp, page, ...]
+        r, mp, page = g.shape[:3]
+        return g.reshape((r, mp * page) + tuple(g.shape[3:]))[:, :limit]
+
+    if isinstance(arena, tuple):
+        data, scale = arena
+        return kv_dequantize(one(data), one(scale), dtype)
+    return one(arena).to(dtype)
 
 
 def _drop_plan(arena, pages, offsets):
@@ -76,27 +105,41 @@ def _drop_plan(arena, pages, offsets):
 def _drop_write(arena, new, plan):
     pg, off, keep, first, any_kept = plan
     new = new.to(arena.dtype)
-    fill = torch.where(any_kept[:, None, None], new.index_select(0, first),
+    # rows of data [N, Hkv, Dh] or of a scale plane [N, Hkv]
+    bcast = (-1,) + (1,) * (new.ndim - 1)
+    fill = torch.where(any_kept.view(bcast), new.index_select(0, first),
                        arena[pg, off])
-    arena[pg, off] = torch.where(keep[:, None, None], new, fill)
+    arena[pg, off] = torch.where(keep.view(bcast), new, fill)
 
 
 def write_kv(arena, new, pages, offsets):
     """Write per-row K/V vectors in place: new [N, Hkv, Dh] at (pages
-    [N], offsets [N]). A row whose page (or offset) is out of range --
-    the sentinel -- is dropped, as the JAX scatter's mode="drop" does,
-    without a host sync (see _drop_plan). Returns the arena."""
-    arena = _float_arena(arena)
+    [N], offsets [N]); an (s8, scale) pair quantizes first and scatters
+    data and scale with one plan. A row whose page (or offset) is out of
+    range -- the sentinel -- is dropped, as the JAX scatter's
+    mode="drop" does, without a host sync (see _drop_plan). Returns the
+    arena."""
     if new.shape[0]:
-        _drop_write(arena, new, _drop_plan(arena, pages, offsets))
+        _write_planned([arena], [new], pages, offsets)
     return arena
 
 
 def write_kv_pair(k_arena, v_arena, k, v, pages, offsets):
-    """write_kv for a K/V pair sharing one address plan."""
-    plan = _drop_plan(_float_arena(k_arena), pages, offsets)
-    _drop_write(k_arena, k, plan)
-    _drop_write(_float_arena(v_arena), v, plan)
+    """write_kv for a K/V pair sharing one address plan (one plan for
+    all four arenas of an int8 pair)."""
+    _write_planned([k_arena, v_arena], [k, v], pages, offsets)
+
+
+def _write_planned(arenas, news, pages, offsets):
+    plan = _drop_plan(arenas[0][0] if isinstance(arenas[0], tuple)
+                      else arenas[0], pages, offsets)
+    for arena, new in zip(arenas, news):
+        if isinstance(arena, tuple):
+            nd, nsc = kv_quantize(new)
+            _drop_write(arena[0], nd, plan)
+            _drop_write(arena[1], nsc, plan)
+        else:
+            _drop_write(arena, new, plan)
 
 
 # -- the shared attention body -------------------------------------------
@@ -141,7 +184,7 @@ def paged_decode_attention(q, k, v, k_arena, v_arena, page_table, pos,
     s = q.shape[0]
     if q.shape[1] != 1:
         raise ValueError("decode writes are single-position")
-    num_pages = _float_arena(k_arena).shape[0]
+    num_pages = num_pages_of(k_arena)
     max_pages = page_table.shape[1]
     blk = torch.clamp(pos // page_size, 0, max_pages - 1).long()
     pg = page_table[torch.arange(s, device=q.device), blk]
@@ -178,15 +221,21 @@ def paged_verify_attention(q, k, v, k_arena, v_arena, page_table, pos,
     """The speculative verify step: write TQ consecutive positions per
     slot from its own `pos`, attend each window query over keys <= its
     position, all slots in one read. q/k/v [S, TQ, ., Dh]. Returns
-    (out [S, TQ, H, Dh], k_arena, v_arena)."""
+    (out [S, TQ, H, Dh], k_arena, v_arena).
+
+    A window position at or past `max_len` (padding of a row near the
+    cache's end) is dropped. The JAX function clips its block index to
+    the table instead, which writes such a position over the row's own
+    cached keys in its last page."""
     s, tq = q.shape[0], q.shape[1]
-    num_pages = _float_arena(k_arena).shape[0]
+    num_pages = num_pages_of(k_arena)
     ap = pos[:, None] + torch.arange(tq, dtype=pos.dtype,
                                      device=q.device)[None, :]
     blk = torch.clamp(ap // page_size, 0, page_table.shape[1] - 1).long()
     pg = torch.gather(page_table, 1, blk)
     off = ap % page_size
-    pg = torch.where(active[:, None], pg, torch.full_like(pg, num_pages))
+    keep = active[:, None] & (ap < max_len)
+    pg = torch.where(keep, pg, torch.full_like(pg, num_pages))
     rows = lambda x: x.reshape((s * tq,) + tuple(x.shape[2:]))
     write_kv_pair(k_arena, v_arena, rows(k), rows(v), pg.reshape(-1),
                   off.reshape(-1))

@@ -1,17 +1,22 @@
 """Ragged paged attention: the page-table walk as one CUDA kernel
-(port of `paddle_tpu.ops.ragged_paged_attention`, float arenas).
+(port of `paddle_tpu.ops.ragged_paged_attention`).
 
 `q [R, TQ, H, Dh]` with query i of row r at absolute position
 `pos0[r] + i`, attending keys `<= pos0[r] + i` of its row's page walk.
-Decode rows are TQ=1, prefill chunks TQ=C: one function, one kernel.
+Decode rows are TQ=1, prefill chunks TQ=C, speculative verify windows
+TQ=K+1: one function, one kernel.
 
 - `ragged_reference`: the plain PyTorch version -- gather through the
-  page table, then `grouped_masked_attention`; the kernel's target.
-- `ragged_kernel`: the wrapper of `csrc/ragged_paged_attention.cu`. It
-  takes CUDA tensors only and raises on anything the kernel does not
-  take (dtype, head_dim, contiguity, shapes). It counts its launches in
-  `launch_counts` ("tq1" for TQ=1 decode reads, "tqn" for TQ>1 chunk
-  reads).
+  page table (dequantizing an `(s8, scale)` pair), then
+  `grouped_masked_attention`; the kernel's target.
+- `ragged_kernel`: the wrapper of `csrc/ragged_paged_attention.cu`:
+  float arenas go to its walk (kernel B), `(s8 data, f32 scale)` pairs
+  to its int8 walk with the dequant fused into the tile loads (kernel
+  C). It takes CUDA tensors only and raises on anything the kernels do
+  not take (dtype, head_dim, contiguity, shapes). It counts its
+  launches in `launch_counts`: "tq1"/"tqn" for float reads with TQ=1
+  (decode) and TQ>1 (chunks, verify windows), "int8_tq1"/"int8_tqn"
+  for the int8 walk.
 - `ragged_attention(..., impl=None|"torch"|"kernel")`: None launches the
   kernel for CUDA tensors and runs the reference for CPU tensors;
   "kernel" on a CPU tensor raises.
@@ -31,7 +36,7 @@ from paddle_tpu_torch.ops.paged_attention import (
 
 #: launches of the walk kernel, by query width (reset with
 #: `reset_launch_counts`)
-launch_counts = {"tq1": 0, "tqn": 0}
+launch_counts = {"tq1": 0, "tqn": 0, "int8_tq1": 0, "int8_tqn": 0}
 
 #: head_dims the kernel is compiled for
 KERNEL_HEAD_DIMS = (64, 128)
@@ -40,16 +45,23 @@ _QUERIES_PER_BLOCK = 16
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+_SIZES = [ctypes.c_int, ctypes.c_int, ctypes.c_int,        # R, TQ, H
+          ctypes.c_int, ctypes.c_int, ctypes.c_int,        # Hkv, P, page
+          ctypes.c_int, ctypes.c_int,                      # max_pages,
+          ctypes.c_void_p]                                 # max_len; stream
 _SIGNATURES = {
     "ragged_walk": [ctypes.c_int, ctypes.c_int,            # dtype, head_dim
                     ctypes.c_void_p, ctypes.c_void_p,      # q, k arena
                     ctypes.c_void_p, ctypes.c_void_p,      # v arena, table
                     ctypes.c_void_p, ctypes.c_void_p,      # pos0, active
-                    ctypes.c_void_p,                       # out
-                    ctypes.c_int, ctypes.c_int, ctypes.c_int,  # R, TQ, H
-                    ctypes.c_int, ctypes.c_int, ctypes.c_int,  # Hkv, P, page
-                    ctypes.c_int, ctypes.c_int,            # max_pages,
-                    ctypes.c_void_p],                      # max_len; stream
+                    ctypes.c_void_p] + _SIZES,             # out
+    "ragged_walk_int8": [ctypes.c_int, ctypes.c_int,       # dtype, head_dim
+                         ctypes.c_void_p,                  # q
+                         ctypes.c_void_p, ctypes.c_void_p,  # k data, scale
+                         ctypes.c_void_p, ctypes.c_void_p,  # v data, scale
+                         ctypes.c_void_p, ctypes.c_void_p,  # table, pos0
+                         ctypes.c_void_p,                  # active
+                         ctypes.c_void_p] + _SIZES,        # out
 }
 
 
@@ -78,13 +90,7 @@ def ragged_reference(q, k_arena, v_arena, page_table, pos0, active, *,
 # -- the kernel ----------------------------------------------------------
 
 
-def _check(q, k_arena, v_arena, page_table, pos0, active, page_size,
-           max_len):
-    if isinstance(k_arena, tuple) or isinstance(v_arena, tuple):
-        raise NotImplementedError(
-            "the int8 (s8, scale) walk is not ported yet")
-    tensors = dict(q=q, k_arena=k_arena, v_arena=v_arena,
-                   page_table=page_table, pos0=pos0, active=active)
+def _check_tensors(what, tensors, q):
     for name, t in tensors.items():
         if not t.is_cuda:
             raise ValueError(f"ragged_kernel: {name} is on {t.device}, "
@@ -94,19 +100,59 @@ def _check(q, k_arena, v_arena, page_table, pos0, active, page_size,
                              f"q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"ragged_kernel: {name} is not contiguous")
+    for name in what:
+        if tensors[name].data_ptr() % 16:
+            raise ValueError(f"ragged_kernel: {name} must start on a "
+                             f"16-byte boundary (the kernel loads 16-byte "
+                             f"vectors)")
+
+
+def _check(q, k_arena, v_arena, page_table, pos0, active, page_size,
+           max_len):
+    """Validate a launch; returns the data arena's shape [P, page, Hkv,
+    Dh] (of the s8 data for an int8 pair)."""
+    quant = isinstance(k_arena, tuple)
+    if quant != isinstance(v_arena, tuple):
+        raise ValueError("ragged_kernel: K and V arenas must both be "
+                         "float or both (s8, scale) pairs")
+    tensors = dict(q=q, page_table=page_table, pos0=pos0, active=active)
+    if quant:
+        if len(k_arena) != 2 or len(v_arena) != 2:
+            raise ValueError("ragged_kernel: an int8 arena is an (s8 data,"
+                             " f32 scale) pair")
+        tensors.update(k_data=k_arena[0], k_scale=k_arena[1],
+                       v_data=v_arena[0], v_scale=v_arena[1])
+        data = ("k_data", "v_data")
+    else:
+        tensors.update(k_arena=k_arena, v_arena=v_arena)
+        data = ("k_arena", "v_arena")
+    _check_tensors(data, tensors, q)
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"ragged_kernel: dtype {q.dtype} not supported "
                          f"(float32, bfloat16)")
-    if k_arena.dtype != q.dtype or v_arena.dtype != q.dtype:
+    kd, vd = tensors[data[0]], tensors[data[1]]
+    if quant:
+        if kd.dtype != torch.int8 or vd.dtype != torch.int8:
+            raise ValueError("ragged_kernel: int8 arena data must be int8, "
+                             f"got {kd.dtype}/{vd.dtype}")
+        ks, vs = tensors["k_scale"], tensors["v_scale"]
+        if ks.dtype != torch.float32 or vs.dtype != torch.float32:
+            raise ValueError("ragged_kernel: int8 arena scales must be "
+                             f"float32, got {ks.dtype}/{vs.dtype}")
+        if ks.shape != kd.shape[:-1] or vs.shape != vd.shape[:-1]:
+            raise ValueError("ragged_kernel: scale planes must be [P, page,"
+                             f" Hkv] = data.shape[:-1], got "
+                             f"{tuple(ks.shape)}/{tuple(vs.shape)} for data "
+                             f"{tuple(kd.shape)}")
+    elif kd.dtype != q.dtype or vd.dtype != q.dtype:
         raise ValueError("ragged_kernel: arenas must be in q's dtype "
-                         f"({q.dtype}), got {k_arena.dtype}/"
-                         f"{v_arena.dtype}")
-    if q.ndim != 4 or k_arena.ndim != 4:
+                         f"({q.dtype}), got {kd.dtype}/{vd.dtype}")
+    if q.ndim != 4 or kd.ndim != 4:
         raise ValueError("ragged_kernel: q [R,TQ,H,Dh] and arenas "
                          "[P,page,Hkv,Dh] expected")
     r, tq, h, dh = q.shape
-    p, page, hkv, dh_k = k_arena.shape
-    if v_arena.shape != k_arena.shape:
+    p, page, hkv, dh_k = kd.shape
+    if vd.shape != kd.shape:
         raise ValueError("ragged_kernel: K and V arenas differ in shape")
     if dh_k != dh or dh not in KERNEL_HEAD_DIMS:
         raise ValueError(f"ragged_kernel: head_dim {dh} (arena {dh_k}) "
@@ -131,31 +177,37 @@ def _check(q, k_arena, v_arena, page_table, pos0, active, page_size,
                          f"max_len {max_len}")
     if p < 1 or r < 1 or tq < 1 or max_len < 1:
         raise ValueError("ragged_kernel: empty input")
-    if k_arena.data_ptr() % 16 or v_arena.data_ptr() % 16:
-        raise ValueError("ragged_kernel: arenas must start on a 16-byte "
-                         "boundary (the kernel loads 16-byte vectors)")
+    return p, page, hkv, dh
 
 
 def ragged_kernel(q, k_arena, v_arena, page_table, pos0, active, *,
                   page_size: int, max_len: int):
     """Launch the CUDA walk (csrc/ragged_paged_attention.cu) on the
-    current stream. CUDA tensors only; raises on anything the kernel
-    does not take."""
-    _check(q, k_arena, v_arena, page_table, pos0, active, page_size,
-           max_len)
+    current stream: kernel B for float arenas, kernel C for (s8, scale)
+    pairs. CUDA tensors only; raises on anything the kernel does not
+    take."""
+    p, page, hkv, _ = _check(q, k_arena, v_arena, page_table, pos0, active,
+                             page_size, max_len)
     lib = _cuda.library("ragged_paged_attention", _SIGNATURES)
     r, tq, h, dh = q.shape
-    p, page, hkv, _ = k_arena.shape
-    max_pages = page_table.shape[1]
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.ragged_walk(
-        _DTYPE_CODE[q.dtype], dh, q.data_ptr(), k_arena.data_ptr(),
-        v_arena.data_ptr(), page_table.data_ptr(), pos0.data_ptr(),
-        active.data_ptr(), out.data_ptr(), r, tq, h, hkv, p, page,
-        max_pages, max_len, stream)
-    _cuda.check_launch(err, "ragged_walk")
-    launch_counts["tq1" if tq == 1 else "tqn"] += 1
+    sizes = (r, tq, h, hkv, p, page, page_table.shape[1], max_len, stream)
+    tail = (page_table.data_ptr(), pos0.data_ptr(), active.data_ptr(),
+            out.data_ptr()) + sizes
+    if isinstance(k_arena, tuple):
+        err = lib.ragged_walk_int8(
+            _DTYPE_CODE[q.dtype], dh, q.data_ptr(), k_arena[0].data_ptr(),
+            k_arena[1].data_ptr(), v_arena[0].data_ptr(),
+            v_arena[1].data_ptr(), *tail)
+        _cuda.check_launch(err, "ragged_walk_int8")
+        launch_counts["int8_tq1" if tq == 1 else "int8_tqn"] += 1
+    else:
+        err = lib.ragged_walk(
+            _DTYPE_CODE[q.dtype], dh, q.data_ptr(), k_arena.data_ptr(),
+            v_arena.data_ptr(), *tail)
+        _cuda.check_launch(err, "ragged_walk")
+        launch_counts["tq1" if tq == 1 else "tqn"] += 1
     return out
 
 

@@ -14,11 +14,33 @@ The device work of a step is eager PyTorch around two kernels:
 - a prompt's first prefill chunk (`from_zero`) runs causal attention
   within the chunk -- `transformer._attention`, which is the flash
   kernel on CUDA under `attn_impl="auto"`;
-- every cached read -- each decode step (TQ=1) and each later or
-  prefix-hit prefill chunk (TQ=C) -- goes through the ragged page-table
-  walk (`ops.ragged_paged_attention`), chosen by `ragged_impl`:
+- every cached read -- each decode step (TQ=1), each later or
+  prefix-hit prefill chunk (TQ=C) and each speculative verify window
+  (TQ=K+1) -- goes through the ragged page-table walk
+  (`ops.ragged_paged_attention`), chosen by `ragged_impl`:
   None = the kernel on CUDA tensors (the plain version on CPU),
   "torch" = the plain version, "kernel" = the kernel (raises on CPU).
+
+int8 serving, two independent levers:
+
+- `kv_cache_dtype="int8"` holds every arena as an (s8 data, f32 scale)
+  pair: half the bytes of a bf16 pool, a quarter of an f32 one. Writes
+  quantize; cached reads go through the walk's int8 kernel. A
+  from-zero chunk still attends to its exact K/V and writes them
+  quantized, so under a prefix hit or chunked prefill a request reads
+  quantized prefix K/V where a one-shot prefill read exact values (the
+  boundary the JAX engine states too).
+- weight-only int8 params (`serve.quant.quantize_params`): prefill reads
+  the dequantized tree, each decode step and verify round dequantizes
+  the resident int8 tree again (`transformer._int8_step_params`).
+
+Speculative decoding (`serve(speculative=True)`): each round a proposer
+(default `serve.speculative.NGramProposer`) drafts up to
+`policy.spec_draft_max` tokens per slot from its history, the pages
+under the window are reserved, ONE forward scores the window
+(`spec_step`), the accepted prefix plus the verify's own token is
+consumed, and the pool commits and rolls back the rejected tail. Greedy
+requests keep the exact token contract.
 
 State tensors are allocated once by `init_state` and updated in place
 (K/V writes, page-table rows, per-slot scalars), so a step's shapes
@@ -31,10 +53,9 @@ chunked. Sampled requests draw from a per-slot `torch.Generator` seeded
 from (engine seed, request identity); those draws are not JAX's.
 
 Not ported yet (raise NotImplementedError): sliding-window ring pools
-(`attn_window`), speculative `spec_step`/`serve(speculative=True)`, KV
-migration, serving artifacts, int8 KV pools and int8 weights. Also not
-yet here: the JAX engine's pool-wide `select_fn`, custom scheduler
-`policy` and prefix-cache knobs (the defaults are used).
+(`attn_window`), KV migration and serving artifacts. Also not yet here:
+the JAX engine's pool-wide `select_fn`, custom scheduler `policy` and
+prefix-cache knobs (the defaults are used).
 """
 
 from __future__ import annotations
@@ -53,12 +74,15 @@ from paddle_tpu_torch.ops import sampling as sampling_ops
 from paddle_tpu_torch.serve.paged import (PagePool, PoolExhaustedError,
                                           blocks_for)
 from paddle_tpu_torch.serve.policy import SchedulerPolicy
+from paddle_tpu_torch.serve.speculative import NGramProposer
 
 
 @dataclass
 class EngineState:
     """Device-resident pool state, updated in place. caches: per layer
-    (k_arena, v_arena) [num_pages, page_size, Hkv, Dh]; page_table [S,
+    (k_arena, v_arena) [num_pages, page_size, Hkv, Dh], each an (s8,
+    f32 scale [num_pages, page_size, Hkv]) pair under
+    kv_cache_dtype="int8"; page_table [S,
     max_pages] int32 (sentinel num_pages on unmapped entries); pos [S]
     int32 next write position (sentinel max_len on inactive rows);
     active [S] bool; last_tok [S] int64; temp/top_k/top_p the slot's
@@ -80,8 +104,11 @@ class EngineState:
 @dataclass
 class PoolStats:
     """Host-side accounting for one serve() run: steps = decode_step
-    calls, tokens = emitted tokens, retried = preemption requeues; the
-    page-pool counters at the end of the run."""
+    calls (or verify rounds), tokens = emitted tokens, retried =
+    preemption requeues; the page-pool counters at the end of the run.
+    Speculative rounds: draft_proposed/draft_accepted count DRAFT tokens
+    (the carry token of a round is not a draft), spec_reserved/
+    spec_rolled_back the pool's page reserve/rollback ledger."""
 
     steps: int = 0
     tokens: int = 0
@@ -96,6 +123,11 @@ class PoolStats:
     prefix_hits: int = 0
     prefix_misses: int = 0
     prefill_chunks: int = 0
+    spec_rounds: int = 0
+    draft_proposed: int = 0
+    draft_accepted: int = 0
+    spec_reserved: int = 0
+    spec_rolled_back: int = 0
 
 
 def pad_to_bucket(prompt, buckets):
@@ -135,7 +167,8 @@ class DecodeEngine:
 
     device None -> cuda (raises without one); the params must already
     live on that device (`models.weights.params_from_numpy` or
-    `transformer.init_params(..., device=...)`)."""
+    `transformer.init_params(..., device=...)`). Weight-only int8 params
+    (`serve.quant.quantize_params`) are served as they are."""
 
     def __init__(self, params, cfg: T.TransformerConfig, *, slots: int,
                  max_len: int, eos_id: Optional[int] = None,
@@ -148,10 +181,10 @@ class DecodeEngine:
             raise ValueError(
                 f"ragged_impl must be None|torch|kernel, got "
                 f"{ragged_impl!r}")
-        if cfg.kv_cache_dtype != "compute":
-            raise NotImplementedError(
-                "int8 KV pools are not ported yet (kv_cache_dtype must be "
-                "'compute')")
+        if cfg.kv_cache_dtype not in ("compute", "int8"):
+            raise ValueError(
+                f"kv_cache_dtype must be compute|int8, got "
+                f"{cfg.kv_cache_dtype!r}")
         if cfg.attn_window is not None:
             raise NotImplementedError(
                 "sliding-window ring pools (attn_window) are not ported "
@@ -162,7 +195,10 @@ class DecodeEngine:
             raise ValueError(
                 f"prefill_chunk must be >= 1, got {prefill_chunk}")
         self.device = resolve_device(device)
-        self.params = params
+        # prefill reads the dequantized tree; each decode step and
+        # verify round dequantizes the resident int8 tree again (the
+        # same tree object for float params)
+        self.params, self._step_params = T._int8_step_params(params)
         self.cfg = cfg
         self.policy = SchedulerPolicy()
         self.slots = slots
@@ -189,6 +225,11 @@ class DecodeEngine:
         shape = (self.num_pages, self.page_size, cfg.kv_heads, cfg.head_dim)
 
         def arena():
+            if cfg.kv_cache_dtype == "int8":
+                # zeros quantize to data 0 with the eps-floor scale
+                return (torch.zeros(shape, dtype=torch.int8, device=dev),
+                        torch.full(shape[:-1], 1e-8 / 127.0,
+                                   dtype=torch.float32, device=dev))
             return torch.zeros(shape, dtype=policy.compute_dtype, device=dev)
 
         self.pool = PagePool(
@@ -391,8 +432,9 @@ class DecodeEngine:
         meaningful where was_active[r]; finished rows just emitted their
         final token (eos or cache-full) -- callers still `release_slot`
         them so the host pool frees their pages."""
-        cfg, params, L = self.cfg, self.params, self.max_len
+        cfg, L = self.cfg, self.max_len
         with torch.no_grad():
+            params = self._step_params()
             x = T._embed(params, state.last_tok[:, None])
             pos = state.pos[:, None]
             for p, (k_buf, v_buf) in zip(params["blocks"], state.caches):
@@ -448,11 +490,111 @@ class DecodeEngine:
         state.generators[slot] = None
         return state
 
-    # -- not ported yet ------------------------------------------------------
+    # -- the speculative verify round --------------------------------------
 
-    def spec_step(self, state, drafts, draft_len):
-        raise NotImplementedError(
-            "speculative verify rounds are not ported yet")
+    def spec_step(self, state: EngineState, drafts, draft_len):
+        """One speculative verify round over the pool: score each slot's
+        drafts against the target in ONE forward over the window (the
+        carry token plus the K drafts), accept the distribution-
+        preserving prefix, carry the break position's token as the next
+        round's. drafts [S, K] / draft_len [S] are host arrays (entries
+        past draft_len[r] arbitrary), staged as one tensor each.
+
+        Returns (state, emitted [S, K+1], emitted_lp [S, K+1], n_emit
+        [S], was_active [S], finished [S], n_accepted [S]): row r emitted
+        emitted[r, :n_emit[r]] this round. The caller must have reserved
+        pages under pos..pos+draft_len[r] (`reserve_spec_pages`) and
+        settles continuing rows with `settle_spec` after."""
+        cfg, L, dev = self.cfg, self.max_len, self.device
+        d = torch.from_numpy(np.asarray(drafts, np.int64)).to(dev)
+        dl = torch.from_numpy(np.asarray(draft_len, np.int64)).to(dev)
+        k = d.shape[1]
+        with torch.no_grad():
+            params = self._step_params()
+            window = torch.cat([state.last_tok[:, None], d], dim=1)
+            x = T._embed(params, window)
+            pos = state.pos[:, None] + torch.arange(
+                k + 1, dtype=torch.int32, device=dev)[None, :]
+            for p, (k_buf, v_buf) in zip(params["blocks"], state.caches):
+                # write the whole window's K/V through the table, then
+                # the ragged read at per-row offsets; rejected positions
+                # are rolled back on the host (pool.commit) and
+                # rewritten before any later read
+                def attn(q, kk, vv, k_buf=k_buf, v_buf=v_buf):
+                    return pa.paged_verify_attention(
+                        q, kk, vv, k_buf, v_buf, state.page_table,
+                        state.pos, state.active, page_size=self.page_size,
+                        max_len=L, impl=self.ragged_impl)[0]
+
+                x, _, _ = T._block_parts(cfg, p, x, pos, attn)
+            logits = T._head(params, x)                     # [S, K+1, V]
+            # an all-greedy pool takes the sort-free argmax rule, as the
+            # plain step takes argmax; the host knows which
+            if all(g is None for g in state.generators):
+                nxt, n_acc, lp_draft, lp_next = \
+                    sampling_ops.greedy_spec_verify(logits, window, dl)
+            else:
+                gens = [g if g is not None else torch.Generator(dev)
+                        for g in state.generators]
+                nxt, n_acc, lp_draft, lp_next = \
+                    sampling_ops.ngram_spec_verify(
+                        logits, window, dl, state.temp, state.top_k,
+                        state.top_p, generators=gens)
+            # a round CONSUMES window[:n_acc+1] and emits each consumed
+            # token (generate()'s emit-the-carry convention per token)
+            emitted = window
+            emitted_lp = torch.cat([state.last_lp[:, None], lp_draft], dim=1)
+            was_active = state.active.clone()
+            n_con = n_acc + 1
+            fin = torch.zeros_like(was_active)
+            n_emit = n_con
+            if self.eos_id is not None:
+                # eos anywhere in the consumed prefix finishes the row at
+                # that token; later accepted tokens go with the row
+                is_eos = (window == self.eos_id) & (
+                    torch.arange(k + 1, device=dev)[None, :]
+                    < n_con[:, None])
+                has_eos = is_eos.any(dim=1)
+                n_emit = torch.where(
+                    has_eos, torch.argmax(is_eos.to(torch.int32), dim=1) + 1,
+                    n_con)
+                fin = was_active & has_eos
+            # capacity: policy.draft_len keeps pos + n_emit <= L
+            fin = fin | (was_active & (state.pos + n_emit >= L))
+            cont = was_active & ~fin
+            state.pos.copy_(torch.where(cont, state.pos + n_emit,
+                                        torch.full_like(state.pos, L)))
+            state.active.copy_(cont)
+            state.last_tok.copy_(nxt)
+            state.last_lp.copy_(lp_next)
+        return state, emitted, emitted_lp, n_emit, was_active, fin, n_acc
+
+    def reserve_spec_pages(self, state: EngineState, slot: int,
+                           k: int) -> EngineState:
+        """Map the verify window's write blocks for one slot BEFORE a
+        spec_step (pool.reserve: all or nothing, pos untouched). Raises
+        PoolExhaustedError with pool and table unchanged; the caller
+        degrades the slot to a 0-draft round."""
+        for blk, page in self.pool.reserve(slot, k):
+            state.page_table[slot, blk] = page
+        return state
+
+    def settle_spec(self, state: EngineState, slot: int,
+                    n_emit: int) -> EngineState:
+        """Settle one CONTINUING slot after a spec_step consumed n_emit
+        tokens: pool.commit advances pos, maps the next write block when
+        full acceptance crossed a boundary (may raise PoolExhaustedError
+        with pos NOT advanced, like ensure_decode_page) and rolls the
+        rejected tail's pages back; their table entries return to the
+        drop sentinel."""
+        added, dropped = self.pool.commit(slot, n_emit)
+        for blk, page in added:
+            state.page_table[slot, blk] = page
+        for blk in dropped:
+            state.page_table[slot, blk] = self.num_pages
+        return state
+
+    # -- not ported yet ------------------------------------------------------
 
     def pause_slot(self, state, slot):
         raise NotImplementedError("KV-block migration is not ported yet")
@@ -471,6 +613,36 @@ class DecodeEngine:
 
     # -- the host loop -----------------------------------------------------
 
+    def _propose(self, state, proposer, prompt_hist, emitted, remaining,
+                 slot_req, pending, stats):
+        """One round's drafts: per decoding slot, up to the policy's
+        draft budget from the proposer over the request's true prompt and
+        its output so far, with the window's pages reserved; a slot that
+        finds no pages runs a 0-draft round (never a preemption for
+        speculative work). Returns (drafts [S, K], draft_len [S])."""
+        kmax = int(self.policy.spec_draft_max)
+        drafts = np.zeros((self.slots, kmax), np.int64)
+        dlen = np.zeros((self.slots,), np.int64)
+        draft_fn = getattr(proposer, "draft", proposer.propose)
+        for slot, req in enumerate(slot_req):
+            if req == -1 or slot in pending:
+                continue
+            budget = self.policy.draft_len(
+                pos=self.pool.slot_pos[slot], max_len=self.max_len,
+                remaining=remaining[req])
+            prop = (draft_fn(prompt_hist[req] + emitted[req],
+                             budget)[:budget] if budget > 0 else [])
+            if prop:
+                try:
+                    state = self.reserve_spec_pages(state, slot, len(prop))
+                except PoolExhaustedError:
+                    prop = []
+            drafts[slot, :len(prop)] = prop
+            dlen[slot] = len(prop)
+            stats.draft_proposed += len(prop)
+        return drafts, dlen
+
+
     def serve(self, prompts, *, max_new: int, buckets=None,
               sampling=None, return_logprobs: bool = False,
               speculative: bool = False, proposer=None):
@@ -480,10 +652,17 @@ class DecodeEngine:
         generate()), and per-token log-probabilities with
         return_logprobs. On page-pool exhaustion mid-decode the policy's
         victim is preempted back onto the queue (its decode restarts,
-        tokens identical), or a lone request retires at pool capacity."""
-        if speculative or proposer is not None:
-            raise NotImplementedError(
-                "speculative serving is not ported yet")
+        tokens identical), or a lone request retires at pool capacity.
+
+        speculative: decode in draft/verify rounds instead of one-token
+        steps -- each round scores up to policy.spec_draft_max drafts per
+        slot from `proposer` (default NGramProposer(); its
+        propose(history, k), or draft(history, k) where it has one) in
+        ONE forward and consumes the accepted prefix plus the verify's
+        own token. Greedy requests keep the exact token contract;
+        sampled ones keep the output distribution. A slot whose window
+        finds no pages runs a 0-draft round (never a preemption for
+        speculative work)."""
         if max_new < 1:
             raise ValueError(f"max_new must be >= 1, got {max_new}")
         if sampling is not None and len(sampling) != len(prompts):
@@ -514,6 +693,18 @@ class DecodeEngine:
                 raise ValueError(
                     f"prompt {i} needs {need} pages > page pool "
                     f"num_pages {self.num_pages}")
+
+        prompt_hist: list = []
+        if speculative:
+            if int(self.policy.spec_draft_max) < 1:
+                raise ValueError(
+                    f"policy.spec_draft_max must be >= 1, got "
+                    f"{self.policy.spec_draft_max}")
+            if proposer is None:
+                proposer = NGramProposer()
+            # the proposer's view: the TRUE prompt (unpadded) plus
+            # everything emitted so far, host ints only
+            prompt_hist = [[int(x) for x in p.reshape(-1)] for p in prompts]
 
         state = self.init_state()
         stats = PoolStats(requests=len(prompts))
@@ -585,33 +776,63 @@ class DecodeEngine:
                            for s_ in range(self.slots))
             if not self.policy.should_decode(decoding, len(pending)):
                 continue
-            state, toks, tok_lps, was_active, fin = self.decode_step(state)
+            if speculative:
+                # propose -> reserve -> verify in one forward -> settle
+                drafts, dlen = self._propose(state, proposer, prompt_hist,
+                                             emitted, remaining, slot_req,
+                                             pending, stats)
+                state, em, em_lp, n_emit, was_active, fin, n_acc = \
+                    self.spec_step(state, drafts, dlen)
+                stats.spec_rounds += 1
+            else:
+                state, toks, tok_lps, was_active, fin = \
+                    self.decode_step(state)
+                em, em_lp = toks[:, None], tok_lps[:, None]
             stats.steps += 1
-            # ONE host sync per step: the admission decision needs it
-            host = torch.stack([toks.double(), tok_lps.double(),
-                                was_active.double(), fin.double()]).cpu()
-            toks_h = host[0].long().tolist()
-            lps_h = host[1].tolist()
-            was_active_h = host[2].bool().tolist()
-            fin_h = host[3].bool().tolist()
+            # ONE host sync per step or round: the admission decision
+            # needs it
+            cols = [was_active, fin] + (
+                [n_emit, n_acc] if speculative else [])
+            host = torch.cat([em.double(), em_lp.double(),
+                              torch.stack([c.double() for c in cols],
+                                          dim=1)], dim=1).cpu()
+            k1 = em.shape[1]
+            em_h = host[:, :k1].long().tolist()
+            lp_h = host[:, k1:2 * k1].tolist()
+            was_active_h = host[:, 2 * k1].bool().tolist()
+            fin_h = host[:, 2 * k1 + 1].bool().tolist()
+            if speculative:
+                n_emit_h = host[:, 2 * k1 + 2].long().tolist()
+                n_acc_h = host[:, 2 * k1 + 3].long().tolist()
+            else:
+                n_emit_h, n_acc_h = [1] * self.slots, [0] * self.slots
             freed = False
             for slot in range(self.slots):
                 req = slot_req[slot]
                 if req == -1 or slot in pending or not was_active_h[slot]:
                     continue
-                emitted[req].append(toks_h[slot])
-                lps[req].append(lps_h[slot])
-                stats.tokens += 1
-                remaining[req] -= 1
+                ne = n_emit_h[slot]
+                stats.draft_accepted += n_acc_h[slot]
+                emitted[req].extend(em_h[slot][:ne])
+                lps[req].extend(lp_h[slot][:ne])
+                stats.tokens += ne
+                remaining[req] -= ne
                 if fin_h[slot] or remaining[req] <= 0:
+                    # release also frees a round's reserved-but-rejected
+                    # pages
                     state = self.release_slot(state, slot)
                     slot_req[slot] = -1
                     stats.completed += 1
                     freed = True
                     continue
+                # continuing row: map the next write block (and, after a
+                # round, roll the rejected tail's pages back)
                 while True:
                     try:
-                        state = self.ensure_decode_page(state, slot)
+                        if speculative:
+                            state = self.settle_spec(state, slot, ne)
+                        else:
+                            state = self.ensure_decode_page(state, slot)
                         break
                     except PoolExhaustedError:
                         if not preempt_or_retire(slot):
@@ -622,7 +843,8 @@ class DecodeEngine:
         toks_out = [emitted[i] for i in range(len(prompts))]
         pc = self.pool.counters()
         for k in ("pages_in_use", "pages_free", "peak_pages_in_use",
-                  "prefix_hits", "prefix_misses", "prefill_chunks"):
+                  "prefix_hits", "prefix_misses", "prefill_chunks",
+                  "spec_reserved", "spec_rolled_back"):
             setattr(stats, k, pc[k])
         self.last_stats = stats
         if return_logprobs:

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where a serving step's time goes in the PyTorch/CUDA port, on one card.
 
-    python3 scripts/torch_serve_profile.py
+    python3 scripts/torch_serve_profile.py [--kv-cache-dtype int8]
 
 Builds the chip smoke's serving configuration (vocab 32000, dim 512, 8
 layers, 8 heads, f32, DecodeEngine slots=8 max_len=256 page_size=16,
-seeded random weights), fills all 8 slots with 128-token prompts, then:
+seeded random weights; KV pool in the compute dtype, or int8 (s8,
+scale) arenas read through the int8 walk), fills all 8 slots with
+128-token prompts, then:
 
 - times 64 decode steps on the host clock (each ends in the host sync
   the serve loop does anyway), unprofiled: ms per step;
@@ -20,6 +22,7 @@ Prints one JSON line last. Needs a CUDA device; exits 2 without one.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
@@ -42,7 +45,7 @@ SLOTS, MAX_LEN, PAGE, PROMPT, SHARED = 8, 256, 16, 128, 64
 def kind(name: str) -> str:
     n = name.lower()
     if "ragged_walk" in n:
-        return "ragged walk kernel"
+        return "ragged walk kernel"   # float and int8 arenas alike
     if "flash_fwd" in n:
         return "flash kernel"
     if "gemm" in n or "gemv" in n or "cutlass" in n or "xmma" in n:
@@ -73,11 +76,15 @@ def step(eng, state):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kv-cache-dtype", choices=("compute", "int8"),
+                    default="compute")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = TT.TransformerConfig(**CFG)
+    cfg = TT.TransformerConfig(**CFG, kv_cache_dtype=args.kv_cache_dtype)
     params = TT.init_params(np.random.RandomState(0), cfg, device="cuda")
     rs = np.random.RandomState(1)
     prompts = [rs.randint(0, CFG["vocab"], PROMPT).astype(np.int32)
@@ -116,7 +123,8 @@ def main() -> int:
         by_kind[kind(e.name)] += dur
     busy_us = union_us([(e.time_range.start, e.time_range.end)
                         for e in kernels])
-    print(f"card: {torch.cuda.get_device_name(0)}")
+    print(f"card: {torch.cuda.get_device_name(0)}, KV pool "
+          f"{args.kv_cache_dtype}")
     print(f"decode step (8 slots, unprofiled): {step_ms:.3f} ms")
     if kernels:
         print(f"profiled 16 steps: wall {wall_us / 1e3:.3f} ms, device busy "
@@ -145,7 +153,8 @@ def main() -> int:
     state = eng.prefill(state, 1, p2.astype(np.int32))
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    out = {"card": torch.cuda.get_device_name(0), "decode_step_ms": step_ms,
+    out = {"card": torch.cuda.get_device_name(0),
+           "kv_cache_dtype": args.kv_cache_dtype, "decode_step_ms": step_ms,
            "device_busy_share": (busy_us / wall_us if kernels else None),
            "kernels_per_step": len(kernels) / 16,
            "device_us_per_step_by_kind": {k: v / 16

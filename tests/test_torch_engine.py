@@ -152,12 +152,16 @@ def test_unported_paths_raise(models):
     with pytest.raises(NotImplementedError, match="sliding-window"):
         DecodeEngine(tp, dataclasses.replace(tcfg, attn_window=4), slots=1,
                      max_len=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        DecodeEngine(tp, dataclasses.replace(tcfg, kv_cache_dtype="int8"),
-                     slots=1, max_len=16, device="cpu")
+    # int8 KV pools and speculative rounds are ported: they run
+    eng8 = DecodeEngine(tp, dataclasses.replace(tcfg, kv_cache_dtype="int8"),
+                        slots=1, max_len=16, page_size=PAGE, device="cpu")
+    assert len(eng8.serve([np.arange(3)], max_new=4)[0]) == 4
+    assert eng8.init_state().caches[0][0][0].dtype == torch.int8
     eng = DecodeEngine(tp, tcfg, slots=1, max_len=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="speculative"):
-        eng.serve([np.arange(3)], max_new=2, speculative=True)
+    out = eng.serve([np.arange(3)], max_new=4, speculative=True)
+    assert len(out[0]) == 4 and eng.last_stats.spec_rounds > 0
+    with pytest.raises(NotImplementedError, match="migration"):
+        eng.pause_slot(eng.init_state(), 0)
     with pytest.raises(ValueError, match="ragged_impl"):
         DecodeEngine(tp, tcfg, slots=1, max_len=16, device="cpu",
                      ragged_impl="pallas")

@@ -28,6 +28,7 @@ MODULES = [
     "paddle_tpu_torch.models.transformer", "paddle_tpu_torch.models.weights",
     "paddle_tpu_torch.serve.paged", "paddle_tpu_torch.serve.policy",
     "paddle_tpu_torch.serve.speculative", "paddle_tpu_torch.serve.engine",
+    "paddle_tpu_torch.core.pytree", "paddle_tpu_torch.serve.quant",
 ]
 
 

@@ -216,10 +216,3 @@ def test_ragged_attention_dispatch_on_cpu():
     with pytest.raises(ValueError, match="impl must be"):
         RPA.ragged_attention(*args, impl="pallas", **kw)
 
-
-def test_int8_arenas_raise_until_ported():
-    arena = (torch.zeros(2, PAGE, 1, DH, dtype=torch.int8),
-             torch.ones(2, PAGE, 1))
-    with pytest.raises(NotImplementedError):
-        PA.gather_kv(arena, torch.zeros(1, 2, dtype=torch.int32), 8,
-                     torch.float32)
