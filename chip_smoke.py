@@ -5,8 +5,8 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. build  -- compile every CUDA kernel of the serving path from
-   paddle_tpu_torch/csrc (one nvcc per source, all at once).
+1. build  -- compile every CUDA kernel of the serving and training
+   paths from paddle_tpu_torch/csrc (one nvcc per source, all at once).
 2. kernels -- hold each kernel against its plain PyTorch version on the
    card, case by case, and time both (CUDA events around device work
    only, L2 flushed before every call, as a serving step finds it
@@ -16,6 +16,13 @@ Phases, in order; any failure exits non-zero:
    A: flash attention forward; B: the ragged walk over float arenas;
    C: the walk over int8 (s8, scale) arenas, dequant fused.
    Tolerances: float32 1e-4, bfloat16 2e-2, on outputs of unit scale.
+   D and E: the fused LSTM time loop, forward and backward, at
+   bench_lstm's shape (T=100, B=64, H=512) with full, ragged ([50, 100])
+   and reversed ragged lengths and nonzero h0/c0, at H=256 B=128 and
+   H=1280 B=64, and with bf16 x_proj and w_hh; E gets random
+   cotangents. Error: max abs error over max |plain| (dW sums T*B
+   terms), same tolerances. cuDNN's torch.nn.LSTM is the yardstick,
+   its input projection timed beside it.
 3. serve  -- the transformer LM at the serving benchmark's width (vocab
    32000, dim 512, 8 layers, 8 heads, f32) with seeded random weights
    through DecodeEngine(slots=8, max_len=256, page_size=16). Each path
@@ -37,9 +44,19 @@ Phases, in order; any failure exits non-zero:
      16-token motif; tokens agree with the same engine's one-token
      decode, and every verify round read the cache through B or C with
      TQ=5 (at least rounds x layers TQ>1 launches).
-4. report -- the launch counts of every path, the serve numbers, the
-   card's name and power limit, a `kernels` JSON line, and last the
-   device JSON line.
+4. train  -- the bench_lstm classifier (benchmarks/suite.py:144: vocab
+   10000, embedding = hidden = 512, 2 x nn.LSTM, mean over time,
+   Dense(2), adam 1e-3; B=64, T=100) with seeded random weights through
+   the port's Trainer for 10 steps over 4 seeded batches, launch counts
+   set to 0 just before: exactly 2 D and 2 E launches per step. The
+   same weights then train on the plain path (nn.LSTM(impl="torch")):
+   first-step gradients agree to 1e-4 relative, every loss to 1e-3.
+   Then text_lstm at the same width (max pool) on lengths uniform in
+   [50, 100]: one forward and backward launches D and E twice each, and
+   its gradients agree with the plain path's to 1e-4 relative.
+5. report -- the launch counts of every path, the serve and train
+   numbers, the card's name and power limit, a `kernels` JSON line, and
+   last the device JSON line.
 
 TF32 is switched off for matmuls and cuDNN, so float32 means float32.
 """
@@ -55,13 +72,24 @@ import time
 import numpy as np
 import torch
 
+from paddle_tpu_torch.core.pytree import tree_leaves, tree_map
+from paddle_tpu_torch.models import text_lstm as TTL
 from paddle_tpu_torch.models import transformer as TT
+from paddle_tpu_torch.nn import layers as NL
+from paddle_tpu_torch.nn import module as NM
+from paddle_tpu_torch.nn import recurrent as NR
 from paddle_tpu_torch.ops import _cuda
 from paddle_tpu_torch.ops import flash_attention as FA
+from paddle_tpu_torch.ops import fused_lstm as FL
+from paddle_tpu_torch.ops import losses as LS
 from paddle_tpu_torch.ops import paged_attention as PA
 from paddle_tpu_torch.ops import ragged_paged_attention as RPA
 from paddle_tpu_torch.serve import quant as Q
+from paddle_tpu_torch.optim import optimizers as OPT
 from paddle_tpu_torch.serve.engine import DecodeEngine
+from paddle_tpu_torch.train import events as EV
+from paddle_tpu_torch.train.state import TrainState
+from paddle_tpu_torch.train.trainer import Trainer, loss_and_grads
 
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM
 PEAK_FLOPS = {torch.float32: 67e12,           # f32, CUDA cores
@@ -73,6 +101,12 @@ SERVE_CFG = dict(vocab=32000, dim=512, n_layers=8, n_heads=8)
 SLOTS, MAX_LEN, PAGE = 8, 256, 16
 N_REQ, PROMPT, SHARED, MAX_NEW = 32, 128, 64, 128
 N_WEIGHT_REQ, N_SPEC_REQ = 8, 16
+
+# bench_lstm(hidden=512, batch=64, seq_len=100, vocab=10000)
+# (benchmarks/suite.py:144, sizes at :778-781)
+LSTM_T, LSTM_B, LSTM_H, LSTM_VOCAB = 100, 64, 512, 10000
+TRAIN_STEPS, TRAIN_BATCHES = 10, 4
+LOSS_RTOL, GRAD_RTOL = 1e-3, 1e-4
 
 
 def log(*a):
@@ -308,6 +342,298 @@ def kernels_phase():
     if bad:
         raise Fail(f"kernel disagrees with its plain version: {bad}")
     return a, b, c
+
+
+# -- kernels D and E: the fused LSTM time loop ---------------------------------
+
+
+def abs_err(got, ref):
+    return (got.float() - ref.float()).abs().max().item()
+
+
+def rel_err(got, ref):
+    """max |got - ref| over max |ref|: the LSTM cases' error measure (dW
+    sums T*B terms, so its error is relative to its scale)."""
+    return abs_err(got, ref) / max(ref.float().abs().max().item(), 1e-30)
+
+
+def lstm_case_inputs(*, t, b, h, dtype, lengths, reverse, initial, seed):
+    """x_proj [T, B, 4H] N(0, 1), w_hh [H, 4H] uniform(+-1/sqrt(H)) (the
+    initializer's), both in `dtype`; h0/c0 zero or N(0, 0.25); bounds
+    from lengths uniform in [T/2, T] (or full)."""
+    rs = np.random.RandomState(seed)
+    dev = "cuda"
+    xp = torch.from_numpy(rs.standard_normal((t, b, 4 * h)).astype(
+        np.float32)).to(dev, dtype)
+    lim = 1.0 / np.sqrt(h)
+    w = torch.from_numpy(rs.uniform(-lim, lim, (h, 4 * h)).astype(
+        np.float32)).to(dev, dtype)
+    st = lambda: torch.from_numpy(
+        (0.5 * rs.standard_normal((b, h))).astype(np.float32)).to(dev)
+    h0, c0 = (st(), st()) if initial else (
+        torch.zeros(b, h, device=dev), torch.zeros(b, h, device=dev))
+    lens = rs.randint(t // 2, t + 1, b) if lengths else np.full(b, t)
+    bounds = FL.make_bounds(b, t, torch.from_numpy(lens).to(dev) if lengths
+                            else None, reverse, device=dev)
+    return (xp, w, h0, c0, bounds), lens
+
+
+def cudnn_lstm_ms(t, b, h):
+    """torch.nn.LSTM(h, h) (cuDNN, TF32 off) on [T, B, H], full lengths:
+    (training forward ms, backward ms, input projection ms). cuDNN also
+    does the input projection, which the port leaves to torch.matmul:
+    its product [T*B, H] x [H, 4H] is timed on its own."""
+    lstm = torch.nn.LSTM(h, h).cuda()
+    x = torch.randn(t, b, h, device="cuda", requires_grad=True)
+    fwd = time_ms(lambda: lstm(x))
+    out, _ = lstm(x)
+    g = torch.randn_like(out)
+    wrt = [x] + list(lstm.parameters())
+    bwd = time_ms(lambda: torch.autograd.grad(out, wrt, g,
+                                              retain_graph=True))
+    w_ih = torch.randn(h, 4 * h, device="cuda")
+    proj = time_ms(lambda: x.detach().view(t * b, h) @ w_ih)
+    return fwd, bwd, proj
+
+
+def lstm_case(name, *, t=LSTM_T, b=LSTM_B, h=LSTM_H, dtype=torch.float32,
+              lengths=False, reverse=False, initial=False, seed=0,
+              library=False):
+    """Kernels D and E on one case against their plain versions. E gets
+    the plain forward's hs/cs and random cotangents."""
+    args, lens = lstm_case_inputs(t=t, b=b, h=h, dtype=dtype,
+                                  lengths=lengths, reverse=reverse,
+                                  initial=initial, seed=seed)
+    xp, w = args[0], args[1]
+    rs = np.random.RandomState(seed + 100)
+    cot = lambda *s: torch.from_numpy(
+        rs.standard_normal(s).astype(np.float32)).cuda()
+    dhs, dhl, dcl = cot(t, b, h).to(dtype), cot(b, h), cot(b, h)
+    hs, cs = FL.lstm_forward_kernel(*args)
+    hs_r, cs_r = FL.lstm_forward_reference(*args)
+    bargs = args + (hs_r, cs_r, dhs, dhl, dcl)
+    grads = FL.lstm_backward_kernel(*bargs)
+    grads_r = FL.lstm_backward_reference(*bargs)
+    torch.cuda.synchronize()
+    d_pairs = ((hs, hs_r), (cs, cs_r))
+    e_pairs = tuple(zip(grads, grads_r))
+    d_err = max(rel_err(a, r) for a, r in d_pairs)
+    e_err = max(rel_err(a, r) for a, r in e_pairs)
+    d_abs = max(abs_err(a, r) for a, r in d_pairs)
+    e_abs = max(abs_err(a, r) for a, r in e_pairs)
+    # the work this data needs: products only on live (row, step) pairs;
+    # each input read once, each output written once
+    live = int(lens.sum())
+    xsz, wsz = xp.element_size(), w.element_size()
+    seq = t * b * h
+    common = 4 * seq * xsz + 4 * h * h * wsz + 2 * b * h * 4 + b * 8
+    fwd_bytes = common + seq * xsz + seq * 4                   # hs, cs
+    bwd_bytes = (common + 2 * seq * xsz + seq * 4 + 2 * b * h * 4
+                 + 4 * seq * xsz + 4 * h * h * 4 + 2 * b * h * 4)
+    flops_step = 2 * h * 4 * h
+    d_bound, d_by = bound(fwd_bytes, live * flops_step, w.dtype)
+    e_bound, e_by = bound(bwd_bytes, 3 * live * flops_step, w.dtype)
+    d_ms = time_ms(lambda: FL.lstm_forward_kernel(*args))
+    e_ms = time_ms(lambda: FL.lstm_backward_kernel(*bargs))
+    dp_ms = time_ms(lambda: FL.lstm_forward_reference(*args), iters=3,
+                    warmup=1)
+    ep_ms = time_ms(lambda: FL.lstm_backward_reference(*bargs), iters=3,
+                    warmup=1)
+    lib = cudnn_lstm_ms(t, b, h) if library else (None, None, None)
+    tol = TOL[dtype]
+    out = {}
+    for kern, err, a_err, ms, p_ms, b_ms, by, lib_ms in (
+            ("D", d_err, d_abs, d_ms, dp_ms, d_bound, d_by, lib[0]),
+            ("E", e_err, e_abs, e_ms, ep_ms, e_bound, e_by, lib[1])):
+        ok = err <= tol
+        lib_s = "-" if lib_ms is None else f"{lib_ms:.4f}"
+        log(f"  {kern} {name:<24} {str(dtype)[6:]:<8} rel_err {err:.2e} "
+            f"(tol {tol:.0e}) kernel_ms {ms:.4f} plain_ms {p_ms:.4f} "
+            f"bound_ms {b_ms:.4f} ({by}) library_ms {lib_s} "
+            f"{'ok' if ok else 'FAIL'}")
+        out[kern] = dict(name=name, err=a_err, rel_err=err, ok=ok, ms=ms,
+                         plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
+                         library_ms=lib_ms, tol=tol)
+    if library:
+        log(f"    cuDNN torch.nn.LSTM({h}, {h}) T={t} B={b}: forward "
+            f"{lib[0]:.4f} ms, backward {lib[1]:.4f} ms; its input "
+            f"projection [{t * b}, {h}] x [{h}, {4 * h}] alone "
+            f"{lib[2]:.4f} ms")
+    return out
+
+
+def lstm_kernels_phase():
+    log("phase kernels: fused LSTM time loop, forward (D) and backward (E); "
+        f"T={LSTM_T} B={LSTM_B} H={LSTM_H} unless named")
+    cases = {
+        "main": lstm_case("main_full_f32", library=True),
+        "ragged": lstm_case("ragged_len50-100", lengths=True, seed=1),
+        "reverse": lstm_case("reverse_ragged", lengths=True, reverse=True,
+                             seed=2),
+        "initial": lstm_case("nonzero_h0_c0", initial=True, seed=3),
+        "h256": lstm_case("h256_b128", h=256, b=128, seed=4, library=True),
+        "h1280": lstm_case("h1280_b64", h=1280, seed=5, library=True),
+        "bf16": lstm_case("bf16_xproj_whh_ragged", dtype=torch.bfloat16,
+                          lengths=True, seed=6),
+    }
+    bad = [f"{k}:{c}" for c, d in cases.items() for k, v in d.items()
+           if not v["ok"]]
+    if bad:
+        raise Fail(f"LSTM kernel disagrees with its plain version: {bad}")
+    return cases
+
+
+# -- training the LSTM classifier ----------------------------------------------
+
+
+def bench_lstm_model(impl):
+    """bench_lstm's network: embedding -> 2 x LSTM -> mean over time ->
+    fc(2). impl None: kernels D and E; "torch": their plain versions."""
+    return NM.Sequential([
+        NL.Embedding(LSTM_VOCAB, LSTM_H, name="emb"),
+        NR.LSTM(LSTM_H, name="lstm1", impl=impl),
+        NR.LSTM(LSTM_H, name="lstm2", impl=impl),
+        NL.Lambda(lambda x: x.mean(dim=1), name="pool",
+                  out_spec_fn=lambda s: NM.ShapeSpec(
+                      (s.shape[0], s.shape[2]), s.dtype)),
+        NL.Dense(2, name="fc"),
+    ])
+
+
+def ce_loss(logits, labels):
+    return torch.mean(LS.softmax_cross_entropy(logits, labels))
+
+
+def clone_state(st):
+    copy = lambda tree: tree_map(lambda t: t.clone(), tree)
+    return TrainState(copy(st.params), copy(st.model_state),
+                      copy(st.opt_state), st.step.clone())
+
+
+def grad_rel_err(ga, gb):
+    return max(rel_err(a, b) for a, b in zip(tree_leaves(ga),
+                                             tree_leaves(gb)))
+
+
+def timed_train(trainer, state, batches):
+    """TRAIN_STEPS steps through Trainer.train with the launch counts set
+    to 0 just before: (state, losses, wall seconds, (D, E) launches)."""
+    events = []
+    torch.cuda.synchronize()
+    FL.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = trainer.train(
+        state, lambda: (batches[i % len(batches)]
+                        for i in range(TRAIN_STEPS)),
+        event_handler=events.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = (FL.launch_counts["fwd"], FL.launch_counts["bwd"])
+    losses = [e.cost for e in events if isinstance(e, EV.EndIteration)]
+    return state, losses, wall, launched
+
+
+def train_phase():
+    """The bench_lstm classifier at its width through the port's Trainer,
+    on kernels D and E and then on their plain versions from the same
+    weights: first-step gradients, every step's loss, launches."""
+    log(f"phase train: bench_lstm classifier, vocab {LSTM_VOCAB}, emb = "
+        f"hidden = {LSTM_H}, 2 x LSTM, mean pool, Dense(2), adam 1e-3, "
+        f"B={LSTM_B} T={LSTM_T}, {TRAIN_STEPS} steps over {TRAIN_BATCHES} "
+        f"batches")
+    rs = np.random.RandomState(3)
+    batches = [(rs.randint(0, LSTM_VOCAB, (LSTM_B, LSTM_T)).astype(np.int32),
+                rs.randint(0, 2, LSTM_B).astype(np.int32))
+               for _ in range(TRAIN_BATCHES)]
+    spec = NM.ShapeSpec((LSTM_B, LSTM_T), torch.int32)
+    kern = Trainer(bench_lstm_model(None), ce_loss, OPT.adam(1e-3), seed=0)
+    plain = Trainer(bench_lstm_model("torch"), ce_loss, OPT.adam(1e-3),
+                    seed=0)
+    state0 = kern.init_state(spec)
+
+    x, y = (torch.from_numpy(a).cuda() for a in batches[0])
+    _, _, gk, _ = loss_and_grads(kern.model, ce_loss, state0.params, {},
+                                 None, (x,), (y,))
+    _, _, gp, _ = loss_and_grads(plain.model, ce_loss, state0.params, {},
+                                 None, (x,), (y,))
+    g_err = grad_rel_err(gk, gp)
+    log(f"  first-step gradients, kernel vs plain path: max rel err "
+        f"{g_err:.2e} (tol {GRAD_RTOL:.0e})")
+    if g_err > GRAD_RTOL:
+        raise Fail(f"train: first-step gradients differ: {g_err:.2e}")
+
+    for tr in (kern, plain):     # warm the allocator and cuBLAS
+        tr.train(clone_state(state0), lambda: batches[:1])
+    _, k_loss, k_wall, k_launch = timed_train(kern, clone_state(state0),
+                                              batches)
+    _, p_loss, p_wall, p_launch = timed_train(plain, clone_state(state0),
+                                              batches)
+    tokens = TRAIN_STEPS * LSTM_B * LSTM_T
+    out = dict(steps=TRAIN_STEPS, kernel_ms_per_step=1e3 * k_wall /
+               TRAIN_STEPS, kernel_tok_s=tokens / k_wall,
+               plain_ms_per_step=1e3 * p_wall / TRAIN_STEPS,
+               plain_tok_s=tokens / p_wall, grad_rel_err=g_err,
+               losses=k_loss, plain_losses=p_loss,
+               launches={"D": k_launch[0], "E": k_launch[1]})
+    log(f"  kernel path: {out['kernel_ms_per_step']:.3f} ms/step = "
+        f"{out['kernel_tok_s']:.1f} tokens/s; launches D {k_launch[0]}, "
+        f"E {k_launch[1]}; losses {['%.6f' % v for v in k_loss]}")
+    log(f"  plain path:  {out['plain_ms_per_step']:.3f} ms/step = "
+        f"{out['plain_tok_s']:.1f} tokens/s; launches {p_launch}; losses "
+        f"{['%.6f' % v for v in p_loss]}")
+    want = (2 * TRAIN_STEPS, 2 * TRAIN_STEPS)
+    if k_launch != want:
+        raise Fail(f"train: (D, E) launched {k_launch} times, want {want} "
+                   f"(2 of each per step)")
+    if p_launch != (0, 0):
+        raise Fail(f"train: the plain path launched kernels: {p_launch}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(k_loss, p_loss))
+    out["loss_rel_err"] = rel
+    log(f"  losses agree to {rel:.2e} relative (tol {LOSS_RTOL:.0e})")
+    if len(k_loss) != TRAIN_STEPS or not all(np.isfinite(k_loss)) or \
+            rel > LOSS_RTOL:
+        raise Fail(f"train: kernel and plain losses differ: {rel:.2e}")
+    return out
+
+
+def ragged_phase():
+    """text_lstm at the same width (embed 512, hidden 512, max pool) on
+    lengths uniform in [50, 100]: one forward and backward on kernels D
+    and E, its gradients held against the plain path's."""
+    log("phase ragged: text_lstm, embed = hidden = 512, max pool, B=64, "
+        "T=100, lengths uniform in [50, 100]")
+    rs = np.random.RandomState(4)
+    params = TTL.init_params(rs, LSTM_VOCAB, embed_dim=LSTM_H,
+                             hidden=LSTM_H, device="cuda")
+    tokens = torch.from_numpy(rs.randint(0, LSTM_VOCAB, (LSTM_B, LSTM_T))
+                              .astype(np.int32)).cuda()
+    lens = torch.from_numpy(rs.randint(LSTM_T // 2, LSTM_T + 1,
+                                      LSTM_B)).cuda()
+    labels = torch.from_numpy(rs.randint(0, 2, LSTM_B)).cuda()
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+
+    def grads(impl):
+        logits = TTL.apply(params, tokens, lens, pool="max", impl=impl)
+        loss = ce_loss(logits, labels)
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    torch.cuda.synchronize()
+    FL.reset_launch_counts()
+    k_loss, gk = grads(None)
+    launched = (FL.launch_counts["fwd"], FL.launch_counts["bwd"])
+    p_loss, gp = grads("torch")
+    err = grad_rel_err(gk, gp)
+    log(f"  loss kernel {k_loss:.6f} plain {p_loss:.6f}; gradients max rel "
+        f"err {err:.2e} (tol {GRAD_RTOL:.0e}); launches D {launched[0]}, "
+        f"E {launched[1]}")
+    if launched != (2, 2):
+        raise Fail(f"ragged: (D, E) launched {launched} times, want (2, 2)")
+    if err > GRAD_RTOL or abs(k_loss - p_loss) > LOSS_RTOL * abs(p_loss):
+        raise Fail(f"ragged: kernel and plain paths differ: grads {err:.2e}")
+    return dict(loss=k_loss, plain_loss=p_loss, grad_rel_err=err,
+                launches={"D": launched[0], "E": launched[1]})
 
 
 # -- the serving path ---------------------------------------------------------
@@ -560,7 +886,10 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     a, b, c = kernels_phase()
+    lstm = lstm_kernels_phase()
     launched, serve = serve_phase()
+    train = train_phase()
+    ragged = ragged_phase()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -569,9 +898,9 @@ def main() -> int:
     log(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
         else "nvidia-smi: no output")
 
-    def entry(name, source, replaces, launches, case):
+    def entry(name, source, replaces, launches, case, **extra):
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
+                "replaces": replaces, "launches": launches, **extra,
                 "max_abs_err": case["err"], "tolerance": case["tol"],
                 "ms": case["ms"], "plain_ms": case["plain_ms"],
                 "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
@@ -597,9 +926,20 @@ def main() -> int:
         entry("ragged_paged_walk_int8[tq>1]", walk,
               "paddle_tpu/ops/ragged_paged_attention.py:188",
               launched["int8_kv"]["int8_tqn"], c["main_chunk"]),
+        # D and E: launches of the train phase's run (2 of each per step)
+        # (their tolerance holds rel_err, max abs error over max |plain|)
+        entry("lstm_fwd", "paddle_tpu_torch/csrc/fused_lstm.cu",
+              "paddle_tpu/ops/pallas_lstm.py:58", train["launches"]["D"],
+              lstm["main"]["D"], launches_per_train_step=2,
+              rel_err=lstm["main"]["D"]["rel_err"]),
+        entry("lstm_bwd", "paddle_tpu_torch/csrc/fused_lstm.cu",
+              "paddle_tpu/ops/pallas_lstm.py:86", train["launches"]["E"],
+              lstm["main"]["E"], launches_per_train_step=2,
+              rel_err=lstm["main"]["E"]["rel_err"]),
     ]
     log(json.dumps({"launches": launched}))
     log(json.dumps({"serve": serve}))
+    log(json.dumps({"train": train, "ragged": ragged}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

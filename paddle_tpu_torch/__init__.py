@@ -12,4 +12,4 @@ a CUDA tensor it launches the kernel or raises.
 Importing this package imports neither JAX nor `paddle_tpu`.
 """
 
-__all__ = ["core", "models", "nn", "ops", "serve"]
+__all__ = ["core", "models", "nn", "ops", "optim", "serve", "train"]

@@ -18,6 +18,7 @@ import torch
 from paddle_tpu_torch.core.devices import resolve_device
 from paddle_tpu_torch.core.pytree import tree_map
 from paddle_tpu_torch.serve.quant import QuantizedTensor
+from paddle_tpu_torch.train.state import TrainState
 
 
 def _is_quantized(leaf) -> bool:
@@ -61,3 +62,26 @@ def params_to_numpy(tree):
         return arr(t)
 
     return tree_map(leaf, tree)
+
+
+def train_state_from_numpy(state, *, device=None):
+    """A training state with numpy leaves -- the JAX package's TrainState
+    after `jax.device_get`, or any object with its four fields -> the
+    port's `train.state.TrainState` on `device` (None -> cuda): params,
+    model_state and opt_state (adam's `m`/`v`, momentum's `velocity`)
+    through params_from_numpy, step as an int32 0-d tensor."""
+    conv = lambda tree: params_from_numpy(tree, device=device)
+    return TrainState(params=conv(state.params),
+                      model_state=conv(state.model_state),
+                      opt_state=conv(state.opt_state),
+                      step=conv(np.asarray(state.step, np.int32)))
+
+
+def train_state_to_numpy(state):
+    """The port's TrainState -> the same four fields with numpy leaves
+    (a TrainState of numpy trees; the JAX side rebuilds its own TrainState
+    from the fields)."""
+    return type(state)(params=params_to_numpy(state.params),
+                       model_state=params_to_numpy(state.model_state),
+                       opt_state=params_to_numpy(state.opt_state),
+                       step=params_to_numpy(state.step))

@@ -1,12 +1,11 @@
-"""Weight initializers: `smart_uniform` and `normal`.
+"""Weight initializers (mirror of the `paddle_tpu.nn.initializers`
+schemes the ported layers use, with the same distributions).
 
-Mirror of the two `paddle_tpu.nn.initializers` schemes the transformer
-uses, with the same distributions. An initializer is called as
-`init(rng, shape)` where `rng` is a numpy `RandomState` or a CPU
-`torch.Generator`; it returns a float32 CPU tensor (callers move it to
-their device). The draws differ from `jax.random`'s, so tests that
-compare with the JAX package carry weights across with
-`models.weights.params_from_numpy` instead.
+An initializer is called as `init(rng, shape)` where `rng` is a numpy
+`RandomState` or a CPU `torch.Generator`; it returns a float32 CPU
+tensor (callers move it to their device). The draws differ from
+`jax.random`'s, so tests that compare with the JAX package carry
+weights across with `models.weights.params_from_numpy` instead.
 """
 
 from __future__ import annotations
@@ -15,6 +14,14 @@ import math
 
 import numpy as np
 import torch
+
+
+def as_rng(rng):
+    """An int seed becomes a numpy RandomState; a RandomState or a CPU
+    torch.Generator passes through."""
+    if isinstance(rng, (int, np.integer)):
+        return np.random.RandomState(int(rng))
+    return rng
 
 
 def _fans(shape):
@@ -26,7 +33,8 @@ def _fans(shape):
     return shape[-2] * receptive, shape[-1] * receptive
 
 
-def _uniform(rng, shape, low, high):
+def uniform_between(rng, shape, low, high):
+    """float32 CPU tensor drawn uniformly from [low, high)."""
     if isinstance(rng, np.random.RandomState):
         return torch.from_numpy(
             rng.uniform(low, high, size=shape).astype(np.float32))
@@ -39,6 +47,16 @@ def _standard_normal(rng, shape):
         return torch.from_numpy(
             rng.standard_normal(size=shape).astype(np.float32))
     return torch.randn(shape, dtype=torch.float32, generator=rng)
+
+
+def constant(value: float = 0.0):
+    def init(rng, shape):
+        return torch.full(tuple(shape), value, dtype=torch.float32)
+
+    return init
+
+
+zeros = constant(0.0)
 
 
 def normal(std: float = 0.01, mean: float = 0.0):
@@ -54,6 +72,23 @@ def smart_uniform():
     def init(rng, shape):
         fan_in, _ = _fans(tuple(shape))
         limit = 1.0 / math.sqrt(fan_in)
-        return _uniform(rng, tuple(shape), -limit, limit)
+        return uniform_between(rng, tuple(shape), -limit, limit)
 
     return init
+
+
+def get(name_or_fn):
+    """An initializer by name (the ported subset of the JAX table), or a
+    callable as it is."""
+    if callable(name_or_fn):
+        return name_or_fn
+    table = {
+        "zeros": zeros,
+        "smart": smart_uniform(),
+        "normal": normal(),
+    }
+    try:
+        return table[name_or_fn]
+    except KeyError:
+        raise ValueError(f"unknown initializer {name_or_fn!r}; known: "
+                         f"{sorted(table)}") from None

@@ -34,6 +34,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = {
     "flash_attention": "flash_attention.cu",
     "ragged_paged_attention": "ragged_paged_attention.cu",
+    "fused_lstm": "fused_lstm.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

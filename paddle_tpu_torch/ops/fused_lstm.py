@@ -1,0 +1,344 @@
+"""The fused LSTM time loop (port of `paddle_tpu.ops.pallas_lstm`).
+
+- `lstm_forward_reference`, `lstm_backward_reference`: the plain PyTorch
+  versions of the two TPU kernels -- the step loop of `_fwd_kernel` and
+  the reverse loop of `_bwd_kernel`, written out (not autograd). In
+  bf16 the backward recomputes the gates from `hs` (x_proj's dtype), as
+  the TPU kernel does, so it differs slightly from autograd through the
+  plain scan; that is the reference's behaviour.
+- `lstm_forward_kernel`, `lstm_backward_kernel`: the wrappers of
+  `csrc/fused_lstm.cu` (kernels D and E), one cooperative launch each
+  for the whole sequence. CUDA tensors only; they raise on what the
+  kernels do not take and count their launches in `launch_counts`.
+- `fused_lstm(x_proj, w_hh, h0, c0, bounds, *, impl=None)`: the
+  `custom_vjp` as a `torch.autograd.Function`. impl None runs the
+  kernels on CUDA tensors and the plain versions on CPU tensors;
+  "torch" the plain versions anywhere; "kernel" the kernels (a CPU
+  tensor raises).
+- `make_bounds`: the per-row `[start, end)` step windows.
+
+Shapes: x_proj [T, B, 4H] (f32 or bf16), w_hh [H, 4H] (f32 or bf16, gate
+order i, f, g, o), h0/c0 [B, H], bounds [B, 2] int32. Returns hs [T, B,
+H] in x_proj's dtype, h_last = hs[-1] and c_last = cs[-1] in c0's dtype,
+with the carries f32 throughout. There is no `fits_vmem` gate: a shape
+the kernels do not take raises ValueError naming the limit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from paddle_tpu_torch.ops import _cuda
+
+#: launches of kernel D ("fwd") and kernel E ("bwd")
+launch_counts = {"fwd": 0, "bwd": 0}
+
+#: the kernels' geometry (csrc/fused_lstm.cu): threads per CTA, (row,
+#: unit) pairs per thread, and the widths a staged tile may take (the
+#: widest that fits shared memory is used; a row is padded by 4 floats)
+MAX_THREADS = 512
+MAX_PAIRS = 4
+TILE_WIDTHS = (512, 256, 128, 64)
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_COOP_TOO_LARGE = 720   # cudaErrorCooperativeLaunchTooLarge
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "lstm_device_limits": [_P],
+    "lstm_fwd": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                 _I, _I, _I, _I, _I, _I, ctypes.c_longlong, _P],
+    "lstm_bwd": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                 _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                 ctypes.c_longlong, _P],
+}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def make_bounds(b: int, t: int, lengths, reverse: bool, device=None):
+    """Per-row [start, end) step window [B, 2] int32: forward sequences
+    occupy [0, len); time-flipped ones occupy [T-len, T)."""
+    if lengths is None:
+        lo = torch.zeros((b, 1), dtype=torch.int32, device=device)
+        hi = torch.full((b, 1), t, dtype=torch.int32, device=device)
+    else:
+        ln = lengths.to(device=device, dtype=torch.int32)[:, None]
+        full = torch.full((b, 1), t, dtype=torch.int32, device=device)
+        lo = (t - ln) if reverse else torch.zeros_like(ln)
+        hi = full if reverse else ln
+    return torch.cat([lo, hi], dim=1)
+
+
+# -- the plain versions --------------------------------------------------------
+
+
+def _operand(x, w_dtype):
+    """x rounded to the weight's dtype, then f32: the TPU kernel's
+    `x.astype(w_hh.dtype)` fed to an f32-accumulating product."""
+    return x.to(w_dtype).float()
+
+
+def _gates(x_proj_t, hprev, w_hh, hidden):
+    g = x_proj_t.float() + _operand(hprev, w_hh.dtype) @ w_hh.float()
+    return (torch.sigmoid(g[:, :hidden]), torch.sigmoid(g[:, hidden:2 * hidden]),
+            torch.tanh(g[:, 2 * hidden:3 * hidden]),
+            torch.sigmoid(g[:, 3 * hidden:]))
+
+
+def _live(bounds, t):
+    """[B, 1] bool: is step t inside each row's [start, end) window."""
+    return ((bounds[:, :1] <= t) & (t < bounds[:, 1:2]))
+
+
+def lstm_forward_reference(x_proj, w_hh, h0, c0, bounds):
+    """The step loop of `_fwd_kernel`: returns (hs [T, B, H] in x_proj's
+    dtype, cs [T, B, H] f32)."""
+    steps, _, g4 = x_proj.shape
+    hidden = g4 // 4
+    h, c = h0.float(), c0.float()
+    hs, cs = [], []
+    for t in range(steps):
+        i, f, g, o = _gates(x_proj[t], h, w_hh, hidden)
+        c_new = f * c + i * g
+        h_new = o * torch.tanh(c_new)
+        m = _live(bounds, t)
+        h = torch.where(m, h_new, h)          # masked steps carry through
+        c = torch.where(m, c_new, c)
+        hs.append(h.to(x_proj.dtype))
+        cs.append(c)
+    return torch.stack(hs), torch.stack(cs)
+
+
+def lstm_backward_reference(x_proj, w_hh, h0, c0, bounds, hs, cs, dhs,
+                            dh_last, dc_last):
+    """The reverse loop of `_bwd_kernel`: returns (dxp in x_proj's
+    dtype, dW_hh f32, dh0 f32, dc0 f32)."""
+    steps, _, g4 = x_proj.shape
+    hidden = g4 // 4
+    w_f = w_hh.float()
+    dh_c, dc_c = dh_last.float(), dc_last.float()
+    dw = torch.zeros(w_hh.shape, dtype=torch.float32, device=w_hh.device)
+    dxp = torch.empty_like(x_proj)
+    for t in reversed(range(steps)):
+        hprev = hs[t - 1].float() if t > 0 else h0.float()
+        cprev = cs[t - 1] if t > 0 else c0.float()
+        i, f, g, o = _gates(x_proj[t], hprev, w_hh, hidden)
+        tanh_c = torch.tanh(cs[t])
+        dh = dhs[t].float() + dh_c
+        do = dh * tanh_c * o * (1.0 - o)
+        dc = dc_c + dh * o * (1.0 - tanh_c * tanh_c)
+        di = dc * g * i * (1.0 - i)
+        df = dc * cprev * f * (1.0 - f)
+        dg = dc * i * (1.0 - g * g)
+        m = _live(bounds, t)
+        dgates = torch.where(m, torch.cat([di, df, dg, do], dim=-1), 0.0)
+        dxp[t] = dgates.to(dxp.dtype)
+        dgates_c = _operand(dgates, w_hh.dtype)
+        # masked steps are identity: the whole cotangent passes through
+        dh_c = torch.where(m, dgates_c @ w_f.T, dh)
+        dc_c = torch.where(m, dc * f, dc_c)
+        dw += _operand(hprev, w_hh.dtype).T @ dgates_c
+    return dxp, dw, dh_c, dc_c
+
+
+# -- the kernels ---------------------------------------------------------------
+
+
+def geometry(batch: int, hidden: int, sms: int, smem_optin: int, *,
+             backward: bool):
+    """(hb, threads, w_resident, tile width, smem bytes) of one launch:
+    the fewest hidden units per CTA (hb, a divisor of H) with at most one
+    CTA per SM, (B x hb) pairs spread over at most MAX_THREADS threads,
+    the w_hh slices resident in shared memory when they fit beside a
+    64-column tile, and the widest tile that fits beside them. Raises
+    ValueError on a shape the kernels do not take."""
+    if hidden % 4:
+        raise ValueError(f"fused_lstm kernel: hidden {hidden} must be a "
+                         f"multiple of 4 (16-byte tile rows)")
+    hb = next(d for d in range(1, hidden + 1)
+              if hidden % d == 0 and hidden // d <= sms)
+    pairs = batch * hb
+    if pairs > MAX_THREADS * MAX_PAIRS:
+        raise ValueError(
+            f"fused_lstm kernel: B={batch} x {hb} units per CTA = {pairs} "
+            f"(row, unit) pairs exceeds {MAX_THREADS * MAX_PAIRS} "
+            f"({MAX_THREADS} threads x {MAX_PAIRS} pairs)")
+    per_thread = -(-pairs // MAX_THREADS)
+    threads = -(-pairs // per_thread)
+    threads = -(-threads // 32) * 32
+    tile = lambda width: batch * (width + 4) * 4
+    fixed = batch * 4 * hb * 4 if backward else 0     # E's own dgates
+    # D keeps its units' gate columns; E also their rows and dW columns
+    resident = 4 * hidden * hb * 4 * (3 if backward else 1)
+    if fixed + tile(TILE_WIDTHS[-1]) > smem_optin:
+        raise ValueError(
+            f"fused_lstm kernel: B={batch} needs "
+            f"{fixed + tile(TILE_WIDTHS[-1])} bytes of shared memory for "
+            f"its tiles, the card allows {smem_optin}")
+    w_resident = fixed + resident + tile(TILE_WIDTHS[-1]) <= smem_optin
+    used = fixed + (resident if w_resident else 0)
+    width = next(w for w in TILE_WIDTHS if used + tile(w) <= smem_optin)
+    return hb, threads, w_resident, width, used + tile(width)
+
+
+_LIMITS = {}
+
+
+def device_limits(device):
+    """(SM count, opt-in shared memory per block) of the card, read once
+    per device; raises if it has no cooperative launches."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _LIMITS:
+        lib = _cuda.library("fused_lstm", _SIGNATURES)
+        out = (ctypes.c_int * 3)()
+        with torch.cuda.device(idx):
+            err = lib.lstm_device_limits(ctypes.addressof(out))
+        _cuda.check_launch(err, "lstm_device_limits")
+        if not out[2]:
+            raise RuntimeError("fused_lstm kernel: the card does not "
+                               "support cooperative launches")
+        _LIMITS[idx] = (out[0], out[1])
+    return _LIMITS[idx]
+
+
+def _check(x_proj, w_hh, h0, c0, bounds):
+    for name, t in dict(x_proj=x_proj, w_hh=w_hh, h0=h0, c0=c0,
+                        bounds=bounds).items():
+        if not t.is_cuda:
+            raise ValueError(f"fused_lstm kernel: {name} is on {t.device}, "
+                             f"the kernel takes CUDA tensors only")
+        if t.device != x_proj.device:
+            raise ValueError(f"fused_lstm kernel: {name} is on {t.device}, "
+                             f"x_proj on {x_proj.device}")
+    if x_proj.dtype not in _DTYPE_CODE or w_hh.dtype not in _DTYPE_CODE:
+        raise ValueError(f"fused_lstm kernel: x_proj and w_hh must be "
+                         f"float32 or bfloat16, got {x_proj.dtype}/"
+                         f"{w_hh.dtype}")
+    if x_proj.ndim != 3 or x_proj.shape[2] % 4:
+        raise ValueError(f"fused_lstm kernel: x_proj [T, B, 4H] expected, "
+                         f"got {tuple(x_proj.shape)}")
+    steps, b, g4 = x_proj.shape
+    hidden = g4 // 4
+    if steps < 1 or b < 1:
+        raise ValueError("fused_lstm kernel: empty sequence or batch")
+    if tuple(w_hh.shape) != (hidden, g4):
+        raise ValueError(f"fused_lstm kernel: w_hh {tuple(w_hh.shape)} does "
+                         f"not match x_proj {tuple(x_proj.shape)}")
+    for name, t in dict(h0=h0, c0=c0).items():
+        if tuple(t.shape) != (b, hidden):
+            raise ValueError(f"fused_lstm kernel: {name} must be [B, H] = "
+                             f"({b}, {hidden}), got {tuple(t.shape)}")
+    if bounds.dtype != torch.int32 or tuple(bounds.shape) != (b, 2):
+        raise ValueError("fused_lstm kernel: bounds must be int32 [B, 2]")
+    return steps, b, hidden
+
+
+def _launch_error(err, what):
+    if err == _COOP_TOO_LARGE:
+        raise RuntimeError(f"{what}: the grid cannot be co-resident on this "
+                           f"card (cudaErrorCooperativeLaunchTooLarge)")
+    _cuda.check_launch(err, what)
+
+
+def lstm_forward_kernel(x_proj, w_hh, h0, c0, bounds):
+    """Launch kernel D (csrc/fused_lstm.cu `lstm_fwd`) on the current
+    stream. Same contract as lstm_forward_reference."""
+    steps, b, hidden = _check(x_proj, w_hh, h0, c0, bounds)
+    hb, threads, resident, width, smem = geometry(
+        b, hidden, *device_limits(x_proj.device), backward=False)
+    lib = _cuda.library("fused_lstm", _SIGNATURES)
+    dev = x_proj.device
+    x_proj, w_hh = x_proj.contiguous(), w_hh.contiguous()
+    h0f = h0.float().contiguous()
+    c0f = c0.float().contiguous()
+    bounds = bounds.contiguous()
+    hs = torch.empty((steps, b, hidden), dtype=x_proj.dtype, device=dev)
+    cs = torch.empty((steps, b, hidden), dtype=torch.float32, device=dev)
+    hbuf = torch.empty((2, b, hidden), dtype=torch.float32, device=dev)
+    err = lib.lstm_fwd(
+        _DTYPE_CODE[x_proj.dtype], _DTYPE_CODE[w_hh.dtype], int(resident),
+        x_proj.data_ptr(), w_hh.data_ptr(), h0f.data_ptr(), c0f.data_ptr(),
+        bounds.data_ptr(), hs.data_ptr(), cs.data_ptr(), hbuf.data_ptr(),
+        steps, b, hidden, hb, width, threads, smem,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _launch_error(err, "lstm_fwd")
+    launch_counts["fwd"] += 1
+    return hs, cs
+
+
+def lstm_backward_kernel(x_proj, w_hh, h0, c0, bounds, hs, cs, dhs,
+                         dh_last, dc_last):
+    """Launch kernel E (csrc/fused_lstm.cu `lstm_bwd`) on the current
+    stream. Same contract as lstm_backward_reference."""
+    steps, b, hidden = _check(x_proj, w_hh, h0, c0, bounds)
+    for name, t, dt in (("hs", hs, x_proj.dtype), ("cs", cs, torch.float32)):
+        if tuple(t.shape) != (steps, b, hidden) or t.dtype != dt:
+            raise ValueError(f"fused_lstm kernel: {name} must be {dt} "
+                             f"[T, B, H]")
+    hb, threads, resident, width, smem = geometry(
+        b, hidden, *device_limits(x_proj.device), backward=True)
+    lib = _cuda.library("fused_lstm", _SIGNATURES)
+    dev = x_proj.device
+    f32 = torch.float32
+    x_proj, w_hh = x_proj.contiguous(), w_hh.contiguous()
+    args = [t.contiguous() for t in (
+        h0.float(), c0.float(), bounds, hs, cs, dhs.to(x_proj.dtype),
+        dh_last.float(), dc_last.float())]
+    dxp = torch.empty_like(x_proj)
+    dw = torch.empty(w_hh.shape, dtype=f32, device=dev)
+    dh0 = torch.empty((b, hidden), dtype=f32, device=dev)
+    dc0 = torch.empty((b, hidden), dtype=f32, device=dev)
+    dgbuf = torch.empty((2, b, 4 * hidden), dtype=f32, device=dev)
+    err = lib.lstm_bwd(
+        _DTYPE_CODE[x_proj.dtype], _DTYPE_CODE[w_hh.dtype], int(resident),
+        x_proj.data_ptr(), w_hh.data_ptr(), *(a.data_ptr() for a in args),
+        dxp.data_ptr(), dw.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+        dgbuf.data_ptr(), steps, b, hidden, hb, width, threads, smem,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _launch_error(err, "lstm_bwd")
+    launch_counts["bwd"] += 1
+    return dxp, dw, dh0, dc0
+
+
+# -- the autograd Function -----------------------------------------------------
+
+
+class _FusedLSTM(torch.autograd.Function):
+    """`fused_lstm`'s custom_vjp: forward returns (hs, h_last, c_last),
+    backward receives (dhs, dh_last, dc_last); bounds gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x_proj, w_hh, h0, c0, bounds, use_kernel):
+        fwd = lstm_forward_kernel if use_kernel else lstm_forward_reference
+        hs, cs = fwd(x_proj, w_hh, h0, c0, bounds)
+        ctx.save_for_backward(x_proj, w_hh, h0, c0, bounds, hs, cs)
+        ctx.use_kernel = use_kernel
+        return hs, hs[-1].clone(), cs[-1].to(c0.dtype, copy=True)
+
+    @staticmethod
+    def backward(ctx, dhs, dh_last, dc_last):
+        x_proj, w_hh, h0, c0, bounds, hs, cs = ctx.saved_tensors
+        bwd = lstm_backward_kernel if ctx.use_kernel else \
+            lstm_backward_reference
+        dxp, dw, dh0, dc0 = bwd(x_proj, w_hh, h0, c0, bounds, hs, cs, dhs,
+                                dh_last, dc_last)
+        return (dxp, dw.to(w_hh.dtype), dh0.to(h0.dtype), dc0.to(c0.dtype),
+                None, None)
+
+
+def fused_lstm(x_proj, w_hh, h0, c0, bounds, *, impl=None):
+    """Fused scan: returns (hs [T, B, H], h_last [B, H], c_last [B, H]).
+    impl None: the kernels for CUDA tensors, the plain versions for CPU
+    tensors; "torch": the plain versions; "kernel": the kernels."""
+    if impl not in (None, "torch", "kernel"):
+        raise ValueError(f"impl must be None|torch|kernel, got {impl!r}")
+    use_kernel = impl == "kernel" or (impl is None and x_proj.is_cuda)
+    return _FusedLSTM.apply(x_proj, w_hh, h0, c0, bounds, use_kernel)

@@ -1,0 +1,293 @@
+"""The port's fused LSTM time loop against the JAX package's: the plain
+forward and backward of `paddle_tpu_torch.ops.fused_lstm` (what kernels
+D and E compute) against `paddle_tpu.ops.rnn.lstm(impl="pallas")`, which
+runs the Pallas kernels in interpret mode on the CPU, and the port's
+masked scan against the JAX scan.
+
+Tolerances (f32): 1e-5 on outputs and final states, 1e-4 relative to
+the largest magnitude on gradients (they sum T*B products)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu import nn as jnn
+from paddle_tpu.ops import pallas_lstm as JPL
+from paddle_tpu.ops import rnn as JR
+from paddle_tpu_torch.models.weights import params_from_numpy
+from paddle_tpu_torch.nn import recurrent as TNR
+from paddle_tpu_torch.nn.module import ShapeSpec
+from paddle_tpu_torch.ops import fused_lstm as FL
+from paddle_tpu_torch.ops import rnn as TR
+from torch_parity import np_f32, to_jax, to_torch
+
+B, T, F, H = 4, 9, 12, 16
+LENS = [9, 4, 1, 7]
+
+
+def _params(seed=0, f=F, h=H):
+    jp = JR.init_lstm_params(jax.random.key(seed), f, h)
+    jp = jax.tree_util.tree_map(lambda a: a.astype(jnp.float32), jp)
+    return jp, params_from_numpy(jax.device_get(jp), device="cpu")
+
+
+def _close(got, want, tol):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= tol, np.abs(got - want).max()
+
+
+def _close_rel(got, want, rel=1e-4):
+    want = np.asarray(want, np.float64)
+    _close(got, want, rel * max(np.abs(want).max(), 1e-30))
+
+
+def _run_both(reverse, lengths, initial):
+    """Outputs, final states and gradients of one seeded loss through
+    JAX's Pallas LSTM and the port's fused LSTM (plain versions)."""
+    rs = np.random.RandomState(1)
+    jp, tp = _params()
+    x = np_f32(rs, B, T, F)
+    w_o, w_h, w_c = np_f32(rs, B, T, H), np_f32(rs, B, H), np_f32(rs, B, H)
+    h0 = np_f32(rs, B, H) * 0.5 if initial else None
+    c0 = np_f32(rs, B, H) * 0.5 if initial else None
+    lens = None if lengths is None else np.asarray(lengths, np.int32)
+
+    def jloss(p, x, h0, c0):
+        st = None if h0 is None else JR.LSTMState(h0, c0)
+        o, fin = JR.lstm(p, x, None if lens is None else to_jax(lens),
+                         initial_state=st, reverse=reverse, impl="pallas")
+        loss = (jnp.sum(o * w_o) + jnp.sum(fin.h * w_h)
+                + jnp.sum(fin.c * w_c))
+        return loss, (o, fin.h, fin.c)
+
+    args = (jp, to_jax(x), None if h0 is None else to_jax(h0),
+            None if c0 is None else to_jax(c0))
+    argnums = (0, 1, 2, 3) if initial else (0, 1)
+    (_, jout), jgrads = jax.value_and_grad(jloss, argnums=argnums,
+                                           has_aux=True)(*args)
+
+    tx = to_torch(x).requires_grad_(True)
+    leaves = [tp["w_ih"], tp["w_hh"], tp["b"]]
+    for t in leaves:
+        t.requires_grad_(True)
+    st = None
+    wrt = [tx] + leaves
+    if initial:
+        th0, tc0 = (to_torch(a).requires_grad_(True) for a in (h0, c0))
+        st = TR.LSTMState(th0, tc0)
+        wrt += [th0, tc0]
+    o, fin = TR.lstm(tp, tx, None if lens is None else to_torch(lens),
+                     initial_state=st, reverse=reverse)
+    loss = (torch.sum(o * to_torch(w_o)) + torch.sum(fin.h * to_torch(w_h))
+            + torch.sum(fin.c * to_torch(w_c)))
+    tgrads = torch.autograd.grad(loss, wrt)
+    jg = [jgrads[1], jgrads[0]["w_ih"], jgrads[0]["w_hh"], jgrads[0]["b"]]
+    if initial:
+        jg += [jgrads[2], jgrads[3]]
+    tout = (o.detach(), fin.h.detach(), fin.c.detach())
+    return jout, tout, jg, tgrads
+
+
+@pytest.mark.parametrize("case", [
+    dict(reverse=False, lengths=None, initial=False),
+    dict(reverse=False, lengths=LENS, initial=False),
+    dict(reverse=True, lengths=None, initial=False),
+    dict(reverse=True, lengths=LENS, initial=False),
+    dict(reverse=False, lengths=None, initial=True),
+    dict(reverse=True, lengths=LENS, initial=True),
+], ids=["full", "ragged", "reverse", "reverse_ragged", "initial_state",
+        "initial_state_reverse_ragged"])
+def test_fused_lstm_matches_jax_pallas(case):
+    jout, tout, jg, tg = _run_both(**case)
+    for j, t in zip(jout, tout):
+        _close(t, j, 1e-5)
+    names = ["x", "w_ih", "w_hh", "b", "h0", "c0"]
+    for name, j, t in zip(names, jg, tg):
+        assert t.shape == tuple(j.shape), name
+        _close_rel(t, j)
+    if case["lengths"] is not None:
+        # positions past each length are zeroed
+        assert float(tout[0][1, 4:].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_lstm_op_vjp_matches_jax(dtype):
+    """fused_lstm itself: explicit ragged and reversed windows, random
+    cotangents for (hs, h_last, c_last). In bf16 both sides round hs and
+    the product operands at the same places; the tolerance is bf16's."""
+    rs = np.random.RandomState(2)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    xp = np_f32(rs, T, B, 4 * H)
+    w = np_f32(rs, H, 4 * H) * 0.3
+    h0, c0 = np_f32(rs, B, H) * 0.5, np_f32(rs, B, H) * 0.5
+    bounds = np.array([[0, 9], [0, 4], [5, 9], [2, 7]], np.int32)
+    dhs, dhl, dcl = np_f32(rs, T, B, H), np_f32(rs, B, H), np_f32(rs, B, H)
+    jin = (to_jax(xp).astype(jdt), to_jax(w).astype(jdt), to_jax(h0),
+           to_jax(c0), to_jax(bounds))
+    jouts, vjp = jax.vjp(lambda a, b, c, d: JPL.fused_lstm(a, b, c, d,
+                                                           jin[4]),
+                         *jin[:4])
+    jgr = vjp((to_jax(dhs).astype(jdt), to_jax(dhl).astype(jdt),
+               to_jax(dcl)))
+    tin = [to_torch(xp).to(tdt), to_torch(w).to(tdt), to_torch(h0),
+           to_torch(c0)]
+    for t in tin:
+        t.requires_grad_(True)
+    touts = FL.fused_lstm(*tin, to_torch(bounds))
+    tgr = torch.autograd.grad(touts, tin, (to_torch(dhs).to(tdt),
+                                           to_torch(dhl).to(tdt),
+                                           to_torch(dcl)))
+    f32 = lambda a: np.asarray(jnp.asarray(a, jnp.float32))
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    for j, t in zip(jouts, touts):
+        assert t.dtype == tdt or t.dtype == torch.float32
+        _close(t.detach().float(), f32(j), tol)
+    for j, t, src in zip(jgr, tgr, tin):
+        assert t.dtype == src.dtype
+        _close_rel(t.float(), f32(j), 1e-4 if dtype == "float32" else 2e-2)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_masked_scan_matches_jax_scan(reverse):
+    rs = np.random.RandomState(3)
+    jp, tp = _params(seed=1)
+    x = np_f32(rs, B, T, F)
+    lens = np.asarray(LENS, np.int32)
+    jo, jst = JR.lstm(jp, to_jax(x), to_jax(lens), reverse=reverse,
+                      impl="xla")
+    to, tst = TR.lstm(tp, to_torch(x), to_torch(lens), reverse=reverse,
+                      impl="scan")
+    _close(to, jo, 1e-5)
+    _close(tst.h, jst.h, 1e-5)
+    _close(tst.c, jst.c, 1e-5)
+
+
+def test_bilstm_layer_matches_jax(monkeypatch):
+    """nn.BiLSTM on ragged lengths; JAX's layer is forced onto its
+    Pallas kernels with its environment override."""
+    monkeypatch.setenv("PADDLE_TPU_RNN_IMPL", "pallas")
+    rs = np.random.RandomState(4)
+    x = np_f32(rs, B, T, F)
+    lens = np.asarray(LENS, np.int32)
+    jl = jnn.BiLSTM(H)
+    jp, js = jl.init(jax.random.key(5), jnn.ShapeSpec(x.shape))
+    jp = jax.tree_util.tree_map(lambda a: a.astype(jnp.float32), jp)
+    w_o = np_f32(rs, B, T, 2 * H)
+
+    def jloss(p):
+        return jnp.sum(jl.apply(p, js, to_jax(x), to_jax(lens))[0] * w_o)
+
+    jval, jg = jax.value_and_grad(jloss)(jp)
+    tl = TNR.BiLSTM(H)
+    assert tl.out_spec(ShapeSpec(x.shape)).shape == (B, T, 2 * H)
+    tp = params_from_numpy(jax.device_get(jp), device="cpu")
+    leaves = [tp[d][k] for d in ("fwd", "bwd") for k in ("w_ih", "w_hh",
+                                                         "b")]
+    for t in leaves:
+        t.requires_grad_(True)
+    out, _ = tl.apply(tp, {}, to_torch(x), to_torch(lens))
+    loss = torch.sum(out * to_torch(w_o))
+    assert abs(loss.item() - float(jval)) <= 1e-4 * max(1.0, abs(float(jval)))
+    for t, (d, k) in zip(torch.autograd.grad(loss, leaves),
+                         [(d, k) for d in ("fwd", "bwd")
+                          for k in ("w_ih", "w_hh", "b")]):
+        _close_rel(t, jg[d][k])
+
+
+def test_make_bounds_matches_jax():
+    lens = np.asarray(LENS, np.int32)
+    for reverse in (False, True):
+        for ln in (None, lens):
+            want = JPL.make_bounds(B, T, None if ln is None else to_jax(ln),
+                                   reverse)
+            got = FL.make_bounds(B, T, None if ln is None else to_torch(ln),
+                                 reverse)
+            assert got.dtype == torch.int32
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_dispatch_on_cpu_runs_plain_versions_and_counts_nothing():
+    jp, tp = _params()
+    x = torch.randn(B, T, F)
+    FL.reset_launch_counts()
+    o_none, _ = TR.lstm(tp, x)
+    o_torch, _ = TR.lstm(tp, x, impl="torch")
+    assert torch.equal(o_none, o_torch)
+    assert FL.launch_counts == {"fwd": 0, "bwd": 0}
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        TR.lstm(tp, x, impl="kernel")
+    with pytest.raises(ValueError, match="impl"):
+        TR.lstm(tp, x, impl="pallas")
+    with pytest.raises(ValueError, match="impl"):
+        TNR.LSTM(H, impl="xla")
+
+
+def test_kernel_geometry_and_limits():
+    """The launch geometry on an H100 (132 SMs, 227 KB opt-in shared
+    memory) at bench_lstm's shapes, and the shapes it refuses."""
+    sms, smem = 132, 232448
+    # (B, H) -> hidden units per CTA, threads; every grid fits the SMs
+    for (b, h), (hb, threads) in {(64, 256): (2, 128), (128, 256): (2, 256),
+                                  (64, 512): (4, 256), (128, 512): (4, 512),
+                                  (64, 1280): (10, 320)}.items():
+        for backward in (False, True):
+            g = FL.geometry(b, h, sms, smem, backward=backward)
+            assert g[:2] == (hb, threads)
+            assert h // g[0] <= sms and g[4] <= smem
+            assert g[1] * FL.MAX_PAIRS >= b * hb and g[1] % 32 == 0
+            assert g[3] in FL.TILE_WIDTHS
+    # D stages all of h in one tile at H=512
+    assert FL.geometry(64, 512, sms, smem, backward=False)[3] == 512
+    # the w_hh slices stay resident except E's three at H=1280
+    assert FL.geometry(64, 512, sms, smem, backward=True)[2]
+    assert FL.geometry(64, 1280, sms, smem, backward=False)[2]
+    assert not FL.geometry(64, 1280, sms, smem, backward=True)[2]
+    with pytest.raises(ValueError, match="multiple of 4"):
+        FL.geometry(64, 510, sms, smem, backward=False)
+    with pytest.raises(ValueError, match="pairs"):
+        FL.geometry(1024, 1280, sms, smem, backward=False)
+    with pytest.raises(ValueError, match="shared"):
+        FL.geometry(1024, 8, sms, smem, backward=False)
+
+
+def test_lstm_step_matches_jax():
+    rs = np.random.RandomState(9)
+    jp, tp = _params(seed=2)
+    x, h, c = np_f32(rs, B, F), np_f32(rs, B, H), np_f32(rs, B, H)
+    jst = JR.lstm_step(jp, to_jax(x), JR.LSTMState(to_jax(h), to_jax(c)))
+    tst = TR.lstm_step(tp, to_torch(x), TR.LSTMState(to_torch(h),
+                                                     to_torch(c)))
+    _close(tst.h, jst.h, 1e-5)
+    _close(tst.c, jst.c, 1e-5)
+
+
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+def test_lstm_under_bf16_policy_matches_jax(param_dtype):
+    """Under the bf16 compute policy: the carries stay f32, and x_proj
+    (so hs) is f32 with f32 parameters and bf16 with bf16 ones -- the
+    dtypes and values of the JAX package's Pallas path (bf16 tolerance)."""
+    from paddle_tpu.core import dtypes as JD
+    from paddle_tpu_torch.core import dtypes as TD
+
+    rs = np.random.RandomState(10)
+    jp, tp = _params(seed=3)
+    jp = jax.tree_util.tree_map(lambda a: a.astype(param_dtype), jp)
+    tp = {k: v.to(getattr(torch, param_dtype)) for k, v in tp.items()}
+    x = np_f32(rs, B, T, F)
+    lens = np.asarray(LENS, np.int32)
+    jold, told = JD.default_policy(), TD.default_policy()
+    JD.set_default_policy(JD.bf16_compute_policy())
+    TD.set_default_policy(TD.bf16_compute_policy())
+    try:
+        assert TR._carry_dtype() == torch.float32
+        jo, jst = JR.lstm(jp, to_jax(x), to_jax(lens), impl="pallas")
+        to, tst = TR.lstm(tp, to_torch(x), to_torch(lens))
+    finally:
+        JD.set_default_policy(jold)
+        TD.set_default_policy(told)
+    for j, t in ((jo, to), (jst.h, tst.h), (jst.c, tst.c)):
+        assert str(t.dtype).split(".")[-1] == str(j.dtype)
+        _close(t.float(), np.asarray(j, np.float32), 2e-2)

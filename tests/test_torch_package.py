@@ -11,10 +11,15 @@ import pytest
 import torch
 
 from paddle_tpu_torch.core.devices import resolve_device
+from paddle_tpu_torch.models import text_lstm
 from paddle_tpu_torch.models import transformer as TT
 from paddle_tpu_torch.models.weights import params_from_numpy
 from paddle_tpu_torch.ops import _cuda
+from paddle_tpu_torch.nn.module import ShapeSpec
+from paddle_tpu_torch.nn.recurrent import LSTM
+from paddle_tpu_torch.optim.optimizers import sgd
 from paddle_tpu_torch.serve.engine import DecodeEngine
+from paddle_tpu_torch.train.trainer import Trainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -29,6 +34,13 @@ MODULES = [
     "paddle_tpu_torch.serve.paged", "paddle_tpu_torch.serve.policy",
     "paddle_tpu_torch.serve.speculative", "paddle_tpu_torch.serve.engine",
     "paddle_tpu_torch.core.pytree", "paddle_tpu_torch.serve.quant",
+    "paddle_tpu_torch.ops.fused_lstm", "paddle_tpu_torch.ops.rnn",
+    "paddle_tpu_torch.ops.losses", "paddle_tpu_torch.ops.sequence",
+    "paddle_tpu_torch.nn.module", "paddle_tpu_torch.nn.layers",
+    "paddle_tpu_torch.nn.recurrent", "paddle_tpu_torch.optim.schedules",
+    "paddle_tpu_torch.optim.optimizers", "paddle_tpu_torch.train.state",
+    "paddle_tpu_torch.train.events", "paddle_tpu_torch.train.trainer",
+    "paddle_tpu_torch.models.text_lstm",
 ]
 
 
@@ -74,9 +86,25 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_training_entry_points_need_the_card_unless_asked_for_cpu(
+        monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    layer = LSTM(8)
+    spec = ShapeSpec((2, 3, 4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        layer.init(0, spec)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(layer, lambda out: out.sum(), sgd())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        text_lstm.init_params(0, 10, embed_dim=4, hidden=4)
+    params, _ = layer.init(0, spec, device="cpu")
+    assert params["w_hh"].device == torch.device("cpu")
+    Trainer(layer, lambda out: out.sum(), sgd(), device="cpu")
+
+
 def test_kernel_libraries_are_keyed_by_source_hash(tmp_path, monkeypatch):
     assert set(_cuda.SOURCES) == {"flash_attention",
-                                  "ragged_paged_attention"}
+                                  "ragged_paged_attention", "fused_lstm"}
     for name, src in _cuda.SOURCES.items():
         assert (_cuda.CSRC_DIR / src).exists()
         path = _cuda.library_path(name)
