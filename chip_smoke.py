@@ -23,6 +23,16 @@ Phases, in order; any failure exits non-zero:
    cotangents. Error: max abs error over max |plain| (dW sums T*B
    terms), same tolerances. cuDNN's torch.nn.LSTM is the yardstick,
    its input projection timed beside it.
+   F and G: the fused GRU time loop (csrc/fused_gru.cu), forward and
+   backward, at the seq2seq encoder's shape (T=30, B=64, H=512) with
+   full, ragged ([15, 30]) and reversed ragged lengths, nonzero h0, and
+   bf16 x_proj and w_hh; H and I: the fused tanh-RNN time loop
+   (csrc/fused_rnn.cu) at T=100, B=64, H=512, full, ragged ([50, 100]),
+   reversed and bf16. The backward kernels get random cotangents; the
+   error measure and tolerances are D/E's. Yardsticks: cuDNN's
+   torch.nn.GRU(256, 512) with b_hn zeroed (the port's n gate) and
+   torch.nn.RNN(512, 512, tanh), their input projections timed beside
+   them. Bounds count live (row, step) pairs.
 3. serve  -- the transformer LM at the serving benchmark's width (vocab
    32000, dim 512, 8 layers, 8 heads, f32) with seeded random weights
    through DecodeEngine(slots=8, max_len=256, page_size=16). Each path
@@ -54,9 +64,33 @@ Phases, in order; any failure exits non-zero:
    Then text_lstm at the same width (max pool) on lengths uniform in
    [50, 100]: one forward and backward launches D and E twice each, and
    its gradients agree with the plain path's to 1e-4 relative.
-5. report -- the launch counts of every path, the serve and train
-   numbers, the card's name and power limit, a `kernels` JSON line, and
-   last the device JSON line.
+5. seq2seq -- seq2seq_attn at bench_seq2seq's width
+   (benchmarks/suite.py:188: vocab 30000, embed 256, hidden 512, B=64,
+   source and target length 30, lengths uniform in [15, 30], adam 1e-3)
+   with seeded random weights, 10 hand-rolled steps (gradients, then
+   adam's update) over 4 seeded batches, launch counts set to 0 just
+   before: exactly 2 F and 2 G launches per step (the bidirectional
+   encoder), no H or I. The same weights then train on the plain path
+   (impl="torch", none of F-I launches): first-step gradients agree to
+   1e-4 relative (each leaf on its own scale, floored at 1e-6 of the
+   largest gradient), every loss to 1e-3. Target tokens/s is
+   sum(tgt_lens) over the steps / wall time, the bench's definition.
+6. generation -- generate(beam_size=4, max_len=30) and greedy_generate
+   on 16 source rows with the trained weights, on the kernels (2 F
+   launches per call, no G) and on the plain path: tokens and lengths
+   equal, except at a near tie (greedy: the plain path's top-2 logit
+   gap at the first differing step <= 1e-3; beam: the plain search's
+   smallest gap among its K+1 best candidates or final scores <= 1e-3);
+   beam scores within 1e-4 relative.
+7. simple_rnn -- ops.rnn.simple_rnn at T=100, B=64, H=512 on lengths
+   uniform in [50, 100]: one forward and backward launches H and I once
+   each, and its gradients agree with the plain path's to 1e-4 relative.
+8. report -- the launch counts of every path, the serve, train, seq2seq
+   and generation numbers, the card's name and power limit, a `kernels`
+   JSON line (nine entries, A-I), and last the device JSON line.
+
+One phase alone, on the card: `python3 -c "import chip_smoke as S;
+S.seq2seq_phase()"` (each phase builds what it launches at first use).
 
 TF32 is switched off for matmuls and cuDNN, so float32 means float32.
 """
@@ -72,7 +106,9 @@ import time
 import numpy as np
 import torch
 
-from paddle_tpu_torch.core.pytree import tree_leaves, tree_map
+from paddle_tpu_torch.core.pytree import (tree_leaves, tree_map,
+                                          tree_map_with_name)
+from paddle_tpu_torch.models import seq2seq_attn as TS
 from paddle_tpu_torch.models import text_lstm as TTL
 from paddle_tpu_torch.models import transformer as TT
 from paddle_tpu_torch.nn import layers as NL
@@ -80,10 +116,13 @@ from paddle_tpu_torch.nn import module as NM
 from paddle_tpu_torch.nn import recurrent as NR
 from paddle_tpu_torch.ops import _cuda
 from paddle_tpu_torch.ops import flash_attention as FA
+from paddle_tpu_torch.ops import fused_gru as FG
 from paddle_tpu_torch.ops import fused_lstm as FL
+from paddle_tpu_torch.ops import fused_rnn as FR
 from paddle_tpu_torch.ops import losses as LS
 from paddle_tpu_torch.ops import paged_attention as PA
 from paddle_tpu_torch.ops import ragged_paged_attention as RPA
+from paddle_tpu_torch.ops import rnn as RNN
 from paddle_tpu_torch.serve import quant as Q
 from paddle_tpu_torch.optim import optimizers as OPT
 from paddle_tpu_torch.serve.engine import DecodeEngine
@@ -107,6 +146,14 @@ N_WEIGHT_REQ, N_SPEC_REQ = 8, 16
 LSTM_T, LSTM_B, LSTM_H, LSTM_VOCAB = 100, 64, 512, 10000
 TRAIN_STEPS, TRAIN_BATCHES = 10, 4
 LOSS_RTOL, GRAD_RTOL = 1e-3, 1e-4
+
+# bench_seq2seq(batch=64, src_len=tgt_len=30, hidden=512, embed=256,
+# vocab=30000) (benchmarks/suite.py:188, sizes at :803-808)
+S2S_VOCAB, S2S_EMBED, S2S_H, S2S_B, S2S_LEN = 30000, 256, 512, 64, 30
+GEN_ROWS, GEN_BEAM, GEN_MAX_LEN = 16, 4, 30
+SCORE_RTOL = 1e-4
+# the tanh RNN at the reference RNN benchmark's shape (bench_lstm's)
+RNN_T, RNN_B, RNN_H = 100, 64, 512
 
 
 def log(*a):
@@ -378,22 +425,29 @@ def lstm_case_inputs(*, t, b, h, dtype, lengths, reverse, initial, seed):
     return (xp, w, h0, c0, bounds), lens
 
 
-def cudnn_lstm_ms(t, b, h):
-    """torch.nn.LSTM(h, h) (cuDNN, TF32 off) on [T, B, H], full lengths:
-    (training forward ms, backward ms, input projection ms). cuDNN also
-    does the input projection, which the port leaves to torch.matmul:
-    its product [T*B, H] x [H, 4H] is timed on its own."""
-    lstm = torch.nn.LSTM(h, h).cuda()
-    x = torch.randn(t, b, h, device="cuda", requires_grad=True)
-    fwd = time_ms(lambda: lstm(x))
-    out, _ = lstm(x)
+def cudnn_ms(rnn, t, b, gates):
+    """A cuDNN torch.nn recurrent module (TF32 off) on [T, B, F], full
+    lengths: (training forward ms, backward ms, input projection ms).
+    cuDNN also does the input projection, which the port leaves to
+    torch.matmul: its product [T*B, F] x [F, gates*H] is timed on its
+    own."""
+    rnn = rnn.cuda()
+    f, h = rnn.input_size, rnn.hidden_size
+    x = torch.randn(t, b, f, device="cuda", requires_grad=True)
+    fwd = time_ms(lambda: rnn(x))
+    out, _ = rnn(x)
     g = torch.randn_like(out)
-    wrt = [x] + list(lstm.parameters())
+    wrt = [x] + list(rnn.parameters())
     bwd = time_ms(lambda: torch.autograd.grad(out, wrt, g,
                                               retain_graph=True))
-    w_ih = torch.randn(h, 4 * h, device="cuda")
-    proj = time_ms(lambda: x.detach().view(t * b, h) @ w_ih)
+    w_ih = torch.randn(f, gates * h, device="cuda")
+    proj = time_ms(lambda: x.detach().view(t * b, f) @ w_ih)
     return fwd, bwd, proj
+
+
+def cudnn_lstm_ms(t, b, h):
+    """torch.nn.LSTM(h, h) on [T, B, H]; see cudnn_ms."""
+    return cudnn_ms(torch.nn.LSTM(h, h), t, b, 4)
 
 
 def lstm_case(name, *, t=LSTM_T, b=LSTM_B, h=LSTM_H, dtype=torch.float32,
@@ -634,6 +688,450 @@ def ragged_phase():
         raise Fail(f"ragged: kernel and plain paths differ: grads {err:.2e}")
     return dict(loss=k_loss, plain_loss=p_loss, grad_rel_err=err,
                 launches={"D": launched[0], "E": launched[1]})
+
+
+# -- kernels F, G (GRU) and H, I (tanh RNN): the other fused time loops -------
+
+# (forward, plain forward, backward, plain backward, gates, products per
+# live step in the backward, does the backward read x_proj)
+GRU_LOOP = (FG.gru_forward_kernel, FG.gru_forward_reference,
+            FG.gru_backward_kernel, FG.gru_backward_reference, 3, 3, True)
+RNN_LOOP = (FR.rnn_forward_kernel, FR.rnn_forward_reference,
+            FR.rnn_backward_kernel, FR.rnn_backward_reference, 1, 2, False)
+
+
+def time_loop_case(loop, names, name, *, t, b, h, dtype=torch.float32,
+                   lengths=False, reverse=False, initial=False, seed=0,
+                   library=None):
+    """One GRU or RNN time-loop case: the forward and backward kernels
+    against their plain versions, the backward on the plain forward's hs
+    and random cotangents. x_proj [T, B, gates*H] N(0, 1) and w_hh
+    uniform(+-1/sqrt(H)) in `dtype`, h0 zero or N(0, 0.25), lengths
+    uniform in [T/2, T] (or full). `library` is (cuDNN module, its input
+    width), timed with cudnn_ms."""
+    fwd_k, fwd_r, bwd_k, bwd_r, gates, bwd_products, bwd_xp = loop
+    rs = np.random.RandomState(seed)
+    dev = "cuda"
+    xp = torch.from_numpy(rs.standard_normal((t, b, gates * h)).astype(
+        np.float32)).to(dev, dtype)
+    lim = 1.0 / np.sqrt(h)
+    w = torch.from_numpy(rs.uniform(-lim, lim, (h, gates * h)).astype(
+        np.float32)).to(dev, dtype)
+    h0 = (torch.from_numpy((0.5 * rs.standard_normal((b, h))).astype(
+        np.float32)).to(dev) if initial else torch.zeros(b, h, device=dev))
+    lens = rs.randint(t // 2, t + 1, b) if lengths else np.full(b, t)
+    bounds = FG.make_bounds(b, t, torch.from_numpy(lens).to(dev)
+                            if lengths else None, reverse, device=dev)
+    args = (xp, w, h0, bounds)
+    cot = np.random.RandomState(seed + 100)
+    dhs = torch.from_numpy(cot.standard_normal((t, b, h)).astype(
+        np.float32)).to(dev)
+    dhl = torch.from_numpy(cot.standard_normal((b, h)).astype(
+        np.float32)).to(dev)
+    hs = fwd_k(*args)
+    hs_r = fwd_r(*args)
+    bargs = args + (hs_r, dhs, dhl)
+    grads = bwd_k(*bargs)
+    grads_r = bwd_r(*bargs)
+    torch.cuda.synchronize()
+    pairs = {names[0]: ((hs, hs_r),), names[1]: tuple(zip(grads, grads_r))}
+    # the work this data needs: products only on live (row, step) pairs;
+    # each input read once, each output written once
+    live = int(lens.sum())
+    xsz, wsz = xp.element_size(), w.element_size()
+    seq, state = t * b * h, b * h * 4
+    common = gates * h * h * wsz + state + b * 8          # w_hh, h0, bounds
+    fwd_bytes = common + gates * seq * xsz + seq * 4      # x_proj; hs
+    bwd_bytes = (common + (gates * seq * xsz if bwd_xp else 0)
+                 + 2 * seq * 4 + state                    # hs, dhs, dh_last
+                 + gates * seq * xsz + gates * h * h * 4 + state)
+    flops = live * 2 * h * gates * h
+    bounds_ms = {names[0]: bound(fwd_bytes, flops, w.dtype),
+                 names[1]: bound(bwd_bytes, bwd_products * flops, w.dtype)}
+    ms = {names[0]: time_ms(lambda: fwd_k(*args)),
+          names[1]: time_ms(lambda: bwd_k(*bargs))}
+    plain = {names[0]: time_ms(lambda: fwd_r(*args), iters=3, warmup=1),
+             names[1]: time_ms(lambda: bwd_r(*bargs), iters=3, warmup=1)}
+    lib = (None, None, None)
+    if library is not None:
+        module, width = library
+        lib = cudnn_ms(module, t, b, gates)
+    tol = TOL[dtype]
+    out = {}
+    for kern, lib_ms in zip(names, lib[:2]):
+        err = max(rel_err(a, r) for a, r in pairs[kern])
+        ok = err <= tol
+        b_ms, by = bounds_ms[kern]
+        lib_s = "-" if lib_ms is None else f"{lib_ms:.4f}"
+        log(f"  {kern} {name:<24} {str(dtype)[6:]:<8} rel_err {err:.2e} "
+            f"(tol {tol:.0e}) kernel_ms {ms[kern]:.4f} plain_ms "
+            f"{plain[kern]:.4f} bound_ms {b_ms:.4f} ({by}) library_ms "
+            f"{lib_s} {'ok' if ok else 'FAIL'}")
+        out[kern] = dict(name=name, err=max(abs_err(a, r)
+                                            for a, r in pairs[kern]),
+                         rel_err=err, ok=ok, ms=ms[kern],
+                         plain_ms=plain[kern], bound_ms=b_ms, bound_by=by,
+                         library_ms=lib_ms, tol=tol)
+    if library is not None:
+        log(f"    cuDNN {type(module).__name__}({width}, {h}) T={t} B={b}: "
+            f"forward {lib[0]:.4f} ms, backward {lib[1]:.4f} ms; its input "
+            f"projection [{t * b}, {width}] x [{width}, {gates * h}] alone "
+            f"{lib[2]:.4f} ms")
+    return out
+
+
+def cudnn_gru():
+    """cuDNN's GRU at the encoder's widths with b_hn = 0: PyTorch's
+    n = tanh(xn + r * (h W_hn + b_hn)) is then the port's n, in the same
+    r, z, n order."""
+    gru = torch.nn.GRU(S2S_EMBED, S2S_H)
+    with torch.no_grad():
+        gru.bias_hh_l0.zero_()
+    return gru, S2S_EMBED
+
+
+def gru_rnn_kernels_phase():
+    bf16 = torch.bfloat16
+    log("phase kernels: fused GRU time loop, forward (F) and backward (G); "
+        f"T={S2S_LEN} B={S2S_B} H={S2S_H} (the seq2seq encoder's)")
+    kw = dict(t=S2S_LEN, b=S2S_B, h=S2S_H)
+    gru = {
+        "main": time_loop_case(GRU_LOOP, "FG", "main_full_f32",
+                               library=cudnn_gru(), **kw),
+        "ragged": time_loop_case(GRU_LOOP, "FG", "ragged_len15-30",
+                                 lengths=True, seed=1, **kw),
+        "reverse": time_loop_case(GRU_LOOP, "FG", "reverse_ragged",
+                                  lengths=True, reverse=True, seed=2, **kw),
+        "initial": time_loop_case(GRU_LOOP, "FG", "nonzero_h0", initial=True,
+                                  seed=3, **kw),
+        "bf16": time_loop_case(GRU_LOOP, "FG", "bf16_xproj_whh_ragged",
+                               dtype=bf16, lengths=True, seed=4, **kw),
+    }
+    log("phase kernels: fused tanh-RNN time loop, forward (H) and backward "
+        f"(I); T={RNN_T} B={RNN_B} H={RNN_H}")
+    kw = dict(t=RNN_T, b=RNN_B, h=RNN_H)
+    rnn = {
+        "main": time_loop_case(
+            RNN_LOOP, "HI", "main_full_f32", library=(torch.nn.RNN(
+                RNN_H, RNN_H, nonlinearity="tanh"), RNN_H), **kw),
+        "ragged": time_loop_case(RNN_LOOP, "HI", "ragged_len50-100",
+                                 lengths=True, seed=5, **kw),
+        "reverse": time_loop_case(RNN_LOOP, "HI", "reverse_ragged",
+                                  lengths=True, reverse=True, seed=6, **kw),
+        "bf16": time_loop_case(RNN_LOOP, "HI", "bf16_xproj_whh_ragged",
+                               dtype=bf16, lengths=True, initial=True,
+                               seed=7, **kw),
+    }
+    bad = [f"{k}:{c}" for d in (gru, rnn) for c, case in d.items()
+           for k, v in case.items() if not v["ok"]]
+    if bad:
+        raise Fail(f"GRU/RNN kernel disagrees with its plain version: {bad}")
+    return gru, rnn
+
+
+# -- training and decoding seq2seq-attention NMT -------------------------------
+
+
+def time_loop_counts():
+    return {"F": FG.launch_counts["fwd"], "G": FG.launch_counts["bwd"],
+            "H": FR.launch_counts["fwd"], "I": FR.launch_counts["bwd"]}
+
+
+def reset_time_loop_counts():
+    FG.reset_launch_counts()
+    FR.reset_launch_counts()
+
+
+def trainable(params):
+    return tree_map(lambda t: t.detach().clone().requires_grad_(True), params)
+
+
+LEAF_FLOOR = 1e-6
+
+
+def leaf_rel_errs(params, ga, gb):
+    """(max rel err, one log line per leaf) of two gradient lists in
+    tree_leaves(params) order. Each leaf's max abs error is taken over
+    its own largest plain magnitude, floored at LEAF_FLOOR x the largest
+    plain gradient of any leaf: at random init attention's w_dec has a
+    gradient ~1e-9 of the others' (the softmax's shift invariance cancels
+    it while tanh is near linear), so on its own scale it measures f32
+    cancellation, not the kernels."""
+    names = []
+    tree_map_with_name(lambda n, _: names.append(n), params)
+    top = max(b.abs().max().item() for b in gb)
+    worst, lines = 0.0, []
+    for n, a, b in zip(names, ga, gb):
+        mag = b.abs().max().item()
+        err = abs_err(a, b)
+        rel = err / max(mag, LEAF_FLOOR * top, 1e-30)
+        worst = max(worst, rel)
+        lines.append(f"    {n:<16} max|plain| {mag:.3e} max abs err "
+                     f"{err:.3e} rel {rel:.2e}")
+    return worst, lines
+
+
+def s2s_grads(params, batch, impl):
+    """(loss, gradients in tree_leaves order) of seq2seq_attn.loss."""
+    loss = TS.loss(params, *batch, impl=impl)
+    return loss, torch.autograd.grad(loss, tree_leaves(params))
+
+
+def s2s_train(params, batches, impl, steps):
+    """`steps` hand-rolled steps (the bench's: gradients, then adam's
+    update in place) from a copy of params: (params, losses, wall
+    seconds, launches of F-I in this run)."""
+    params = trainable(params)
+    opt = OPT.adam(1e-3)
+    opt_state = opt.init(params)
+    losses = []
+    torch.cuda.synchronize()
+    reset_time_loop_counts()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        loss, grads = s2s_grads(params, batches[i % len(batches)], impl)
+        it = iter(grads)
+        opt.update(tree_map(lambda _: next(it), params), opt_state, params,
+                   torch.tensor(i, dtype=torch.int32, device="cuda"))
+        losses.append(loss.detach())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return params, [v.item() for v in losses], wall, time_loop_counts()
+
+
+def seq2seq_phase():
+    """seq2seq_attn at bench_seq2seq's width: 10 train steps on kernels F
+    and G and then on their plain versions from the same weights; the
+    first step's gradients, every loss, the launches."""
+    log(f"phase seq2seq: seq2seq_attn, vocab {S2S_VOCAB}, embed {S2S_EMBED}, "
+        f"hidden {S2S_H}, B={S2S_B}, src_len = tgt_len = {S2S_LEN}, lengths "
+        f"uniform in [{S2S_LEN // 2}, {S2S_LEN}], adam 1e-3, {TRAIN_STEPS} "
+        f"steps over {TRAIN_BATCHES} batches")
+    rs = np.random.RandomState(5)
+    params = TS.init_params(rs, S2S_VOCAB, S2S_VOCAB, embed_dim=S2S_EMBED,
+                            hidden=S2S_H, device="cuda")
+    cuda = lambda a: torch.from_numpy(a).cuda()
+    shape, half = (S2S_B, S2S_LEN), S2S_LEN // 2
+    batches = [(cuda(rs.randint(2, S2S_VOCAB, shape).astype(np.int32)),
+                cuda(rs.randint(half, S2S_LEN + 1, S2S_B).astype(np.int32)),
+                cuda(rs.randint(2, S2S_VOCAB, shape).astype(np.int32)),
+                cuda(rs.randint(half, S2S_LEN + 1, S2S_B).astype(np.int32)))
+               for _ in range(TRAIN_BATCHES)]
+
+    p0 = trainable(params)
+    _, gk = s2s_grads(p0, batches[0], None)
+    _, gp = s2s_grads(p0, batches[0], "torch")
+    g_err, table = leaf_rel_errs(p0, gk, gp)
+    for line in table:
+        log(line)
+    log(f"  first-step gradients ({len(gk)} leaves), kernel vs plain path: "
+        f"max rel err {g_err:.2e} (tol {GRAD_RTOL:.0e})")
+    if g_err > GRAD_RTOL:
+        raise Fail(f"seq2seq: first-step gradients differ: {g_err:.2e}")
+
+    for impl in (None, "torch"):     # warm the allocator and cuBLAS
+        s2s_train(params, batches, impl, 1)
+    trained, k_loss, k_wall, k_launch = s2s_train(params, batches, None,
+                                                  TRAIN_STEPS)
+    _, p_loss, p_wall, p_launch = s2s_train(params, batches, "torch",
+                                            TRAIN_STEPS)
+    tokens = sum(int(batches[i % TRAIN_BATCHES][3].sum())
+                 for i in range(TRAIN_STEPS))
+    out = dict(steps=TRAIN_STEPS, tgt_tokens=tokens,
+               kernel_ms_per_step=1e3 * k_wall / TRAIN_STEPS,
+               kernel_tgt_tok_s=tokens / k_wall,
+               plain_ms_per_step=1e3 * p_wall / TRAIN_STEPS,
+               plain_tgt_tok_s=tokens / p_wall, grad_rel_err=g_err,
+               losses=k_loss, plain_losses=p_loss, launches=k_launch)
+    log(f"  kernel path: {out['kernel_ms_per_step']:.3f} ms/step = "
+        f"{out['kernel_tgt_tok_s']:.1f} target tokens/s; launches "
+        f"{k_launch}; losses {['%.6f' % v for v in k_loss]}")
+    log(f"  plain path:  {out['plain_ms_per_step']:.3f} ms/step = "
+        f"{out['plain_tgt_tok_s']:.1f} target tokens/s; launches "
+        f"{p_launch}; losses {['%.6f' % v for v in p_loss]}")
+    want = dict(F=2 * TRAIN_STEPS, G=2 * TRAIN_STEPS, H=0, I=0)
+    if k_launch != want:
+        raise Fail(f"seq2seq: launched {k_launch}, want {want} (2 F and 2 G "
+                   f"per step)")
+    if any(p_launch.values()):
+        raise Fail(f"seq2seq: the plain path launched kernels: {p_launch}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(k_loss, p_loss))
+    out["loss_rel_err"] = rel
+    log(f"  losses agree to {rel:.2e} relative (tol {LOSS_RTOL:.0e})")
+    if len(k_loss) != TRAIN_STEPS or not all(np.isfinite(k_loss)) or \
+            rel > LOSS_RTOL:
+        raise Fail(f"seq2seq: kernel and plain losses differ: {rel:.2e}")
+    return out, trained, batches[0]
+
+
+def beam_gaps(params, src, lens):
+    """Per source row, the smallest score gap among the K+1 best
+    candidates of any step of the plain path's beam search (and among its
+    final scores): where it is <= GAP_LIMIT the kernel path may pick
+    another beam at a near tie."""
+    k = GEN_BEAM
+    enc_out, h0 = TS.encode(params, src, lens, impl="torch")
+    mask = torch.arange(src.shape[1], device=src.device)[None] < lens[:, None]
+    statics = (enc_out, TS.project_encoder(params, enc_out), mask)
+    gaps = torch.full((src.shape[0],), float("inf"), device=src.device)
+
+    def record(step, logits, st):
+        b = st.scores.shape[0]
+        log_p = torch.log_softmax(logits.float(), -1).reshape(b, k, -1)
+        eos_only = torch.full_like(log_p[0, 0], -1e30)
+        eos_only[0] = 0.0
+        log_p = torch.where(st.finished[:, :, None], eos_only, log_p)
+        top = torch.topk((st.scores[:, :, None] + log_p).reshape(b, -1),
+                         k + 1).values
+        live = top[:, :-1] > -1e29
+        gap = torch.where(live, top[:, :-1] - top[:, 1:], float("inf"))
+        gaps.copy_(torch.minimum(gaps, gap.min(dim=1).values))
+        return logits
+
+    _, scores, _ = TS.decoder_group(h0.shape[-1]).generate(
+        params, embed_fn=lambda toks: params["tgt_embed"][toks.long()],
+        batch_size=src.shape[0], vocab_size=params["out"]["kernel"].shape[1],
+        max_len=GEN_MAX_LEN, bos_id=1, eos_id=0, beam_size=k,
+        boots={"h": h0}, statics=statics, modify_logits_fn=record,
+        greedy=False)
+    final = (scores[:, :-1] - scores[:, 1:]).min(dim=1).values
+    return torch.minimum(gaps, final).tolist()
+
+
+def greedy_gap(params, src, lens, tokens, row, step):
+    """The plain path's top-2 logit gap at greedy step `step` of `row`:
+    the decoder teacher-forced on the plain path's own tokens."""
+    bos = torch.ones_like(tokens[:, :1])
+    tgt_in = torch.cat([bos, tokens[:, :-1]], dim=1)
+    logits = TS.teacher_forced_logits(params, src, lens, tgt_in,
+                                      impl="torch")
+    top2 = torch.topk(logits[row, step], 2).values
+    return (top2[0] - top2[1]).item()
+
+
+def generation_phase(params, batch):
+    """Beam (K=4) and greedy decoding of GEN_ROWS source rows with the
+    trained weights, on the kernels and on the plain path."""
+    log(f"phase generation: generate(beam_size={GEN_BEAM}, max_len="
+        f"{GEN_MAX_LEN}) and greedy_generate on {GEN_ROWS} source rows of "
+        f"the trained weights")
+    params = tree_map(lambda t: t.detach(), params)
+    src, lens = batch[0][:GEN_ROWS], batch[1][:GEN_ROWS]
+    runs, launches, walls = {}, {}, {}
+    for label, fn, impl in (
+            ("beam", TS.generate, None), ("greedy", TS.greedy_generate, None),
+            ("beam_plain", TS.generate, "torch"),
+            ("greedy_plain", TS.greedy_generate, "torch")):
+        kw = dict(beam_size=GEN_BEAM) if fn is TS.generate else {}
+        with torch.no_grad():
+            fn(params, src, lens, max_len=GEN_MAX_LEN, impl=impl, **kw)
+            torch.cuda.synchronize()
+            reset_time_loop_counts()
+            t0 = time.perf_counter()
+            runs[label] = fn(params, src, lens, max_len=GEN_MAX_LEN,
+                             impl=impl, **kw)
+            torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        launches[label] = time_loop_counts()
+        lengths = runs[label][-1]
+        log(f"  {label}: {walls[label] * 1e3:.1f} ms, launches "
+            f"{launches[label]}, mean length "
+            f"{lengths.float().mean().item():.2f}")
+    for label in ("beam", "greedy"):
+        if launches[label] != dict(F=2, G=0, H=0, I=0):
+            raise Fail(f"generation: {label} launched {launches[label]}, "
+                       f"want 2 F and no other")
+        if any(launches[label + "_plain"].values()):
+            raise Fail(f"generation: the plain path launched kernels: "
+                       f"{launches[label + '_plain']}")
+    out = dict(rows=GEN_ROWS, beam=GEN_BEAM, max_len=GEN_MAX_LEN,
+               launches={k: launches[k] for k in ("beam", "greedy")},
+               ms={k: 1e3 * v for k, v in walls.items()})
+
+    tok, scores, blen = runs["beam"]
+    ptok, pscores, plen = runs["beam_plain"]
+    same = (tok == ptok).flatten(1).all(dim=1) & (blen == plen).all(dim=1)
+    diff = [i for i in range(GEN_ROWS) if not bool(same[i])]
+    if diff:
+        gaps = beam_gaps(params, src, lens)
+        for i in diff:
+            log(f"  beam: row {i} differs; the plain search's smallest "
+                f"candidate gap {gaps[i]:.3e}")
+            if gaps[i] > GAP_LIMIT:
+                raise Fail(f"generation: beam row {i} differs away from a "
+                           f"near tie (gap {gaps[i]:.3e} > {GAP_LIMIT})")
+    keep = same[:, None].expand_as(scores)
+    s_err = ((scores - pscores).abs() / pscores.abs().clamp(min=1.0))[keep]
+    s_err = s_err.max().item() if s_err.numel() else 0.0
+    out.update(beam_rows_equal=GEN_ROWS - len(diff), beam_score_rel_err=s_err)
+    log(f"  beam: tokens equal on {GEN_ROWS - len(diff)}/{GEN_ROWS} rows; "
+        f"scores agree to {s_err:.2e} relative (tol {SCORE_RTOL:.0e})")
+    if s_err > SCORE_RTOL:
+        raise Fail(f"generation: beam scores differ: {s_err:.2e}")
+
+    gtok, glen = runs["greedy"]
+    pgtok, pglen = runs["greedy_plain"]
+    same_g = 0
+    for i in range(GEN_ROWS):
+        d = (gtok[i] != pgtok[i]).nonzero()
+        if not len(d):
+            same_g += 1
+            continue
+        gap = greedy_gap(params, src, lens, pgtok, i, int(d[0]))
+        log(f"  greedy: row {i}: first differing step {int(d[0])}, plain "
+            f"top-2 logit gap {gap:.3e}")
+        if gap > GAP_LIMIT:
+            raise Fail(f"generation: greedy row {i} differs at a top-2 gap "
+                       f"{gap:.3e} > {GAP_LIMIT}")
+    out["greedy_rows_equal"] = same_g
+    log(f"  greedy: tokens equal on {same_g}/{GEN_ROWS} rows")
+    for t, ln in ((tok, blen), (gtok, glen)):
+        if not bool(((t >= 0) & (t < S2S_VOCAB)).all()) or \
+                not bool(((ln >= 1) & (ln <= GEN_MAX_LEN)).all()):
+            raise Fail("generation: token or length out of range")
+    if not bool(torch.isfinite(scores).all()):
+        raise Fail("generation: beam scores are not finite")
+    return out
+
+
+def simple_rnn_phase():
+    """simple_rnn at T=100, B=64, H=512 on lengths uniform in [50, 100]:
+    one forward and backward on kernels H and I and on the plain path."""
+    log(f"phase simple_rnn: T={RNN_T} B={RNN_B} F=H={RNN_H}, lengths "
+        f"uniform in [{RNN_T // 2}, {RNN_T}]")
+    rs = np.random.RandomState(6)
+    params = tree_map(lambda t: t.cuda().requires_grad_(True),
+                      RNN.init_rnn_params(rs, RNN_H, RNN_H))
+    mk = lambda *s: torch.from_numpy(
+        rs.standard_normal(s).astype(np.float32)).cuda()
+    x = mk(RNN_B, RNN_T, RNN_H).requires_grad_(True)
+    w_o, w_h = mk(RNN_B, RNN_T, RNN_H), mk(RNN_B, RNN_H)
+    lens = torch.from_numpy(rs.randint(RNN_T // 2, RNN_T + 1, RNN_B)).cuda()
+    wrt = [x] + tree_leaves(params)
+
+    def grads(impl):
+        out, fin = RNN.simple_rnn(params, x, lens, impl=impl)
+        loss = torch.sum(out * w_o) + torch.sum(fin * w_h)
+        return loss.item(), torch.autograd.grad(loss, wrt)
+
+    torch.cuda.synchronize()
+    reset_time_loop_counts()
+    k_loss, gk = grads(None)
+    launched = time_loop_counts()
+    p_loss, gp = grads("torch")
+    plain_launched = time_loop_counts()
+    err = max(rel_err(a, b) for a, b in zip(gk, gp))
+    log(f"  loss kernel {k_loss:.6f} plain {p_loss:.6f}; gradients max rel "
+        f"err {err:.2e} (tol {GRAD_RTOL:.0e}); launches {launched}")
+    if launched != dict(F=0, G=0, H=1, I=1):
+        raise Fail(f"simple_rnn: launched {launched}, want one H and one I")
+    if plain_launched != launched:
+        raise Fail("simple_rnn: the plain path launched kernels")
+    if err > GRAD_RTOL or abs(k_loss - p_loss) > LOSS_RTOL * abs(p_loss):
+        raise Fail(f"simple_rnn: kernel and plain paths differ: grads "
+                   f"{err:.2e}")
+    return dict(loss=k_loss, plain_loss=p_loss, grad_rel_err=err,
+                launches={"H": launched["H"], "I": launched["I"]})
 
 
 # -- the serving path ---------------------------------------------------------
@@ -887,9 +1385,13 @@ def main() -> int:
 
     a, b, c = kernels_phase()
     lstm = lstm_kernels_phase()
+    gru, rnn = gru_rnn_kernels_phase()
     launched, serve = serve_phase()
     train = train_phase()
     ragged = ragged_phase()
+    s2s, trained, batch0 = seq2seq_phase()
+    gen = generation_phase(trained, batch0)
+    srnn = simple_rnn_phase()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -936,10 +1438,30 @@ def main() -> int:
               "paddle_tpu/ops/pallas_lstm.py:86", train["launches"]["E"],
               lstm["main"]["E"], launches_per_train_step=2,
               rel_err=lstm["main"]["E"]["rel_err"]),
+        # F and G: launches of the seq2seq phase's run (2 of each per
+        # step); H and I: of the simple_rnn phase's forward and backward
+        entry("gru_fwd", "paddle_tpu_torch/csrc/fused_gru.cu",
+              "paddle_tpu/ops/pallas_gru.py:37", s2s["launches"]["F"],
+              gru["main"]["F"], launches_per_train_step=2,
+              rel_err=gru["main"]["F"]["rel_err"]),
+        entry("gru_bwd", "paddle_tpu_torch/csrc/fused_gru.cu",
+              "paddle_tpu/ops/pallas_gru.py:59", s2s["launches"]["G"],
+              gru["main"]["G"], launches_per_train_step=2,
+              rel_err=gru["main"]["G"]["rel_err"]),
+        entry("rnn_fwd", "paddle_tpu_torch/csrc/fused_rnn.cu",
+              "paddle_tpu/ops/pallas_rnn.py:26", srnn["launches"]["H"],
+              rnn["main"]["H"], launches_per_train_step=1,
+              rel_err=rnn["main"]["H"]["rel_err"]),
+        entry("rnn_bwd", "paddle_tpu_torch/csrc/fused_rnn.cu",
+              "paddle_tpu/ops/pallas_rnn.py:44", srnn["launches"]["I"],
+              rnn["main"]["I"], launches_per_train_step=1,
+              rel_err=rnn["main"]["I"]["rel_err"]),
     ]
     log(json.dumps({"launches": launched}))
     log(json.dumps({"serve": serve}))
     log(json.dumps({"train": train, "ragged": ragged}))
+    log(json.dumps({"seq2seq": s2s, "generation": gen,
+                    "simple_rnn": srnn}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,12 @@
-"""Recurrent layers over the module system (port of the LSTM layers of
-`paddle_tpu.nn.recurrent`). Inputs are dense padded [B, T, F] plus
-optional lengths [B].
+"""Recurrent layers over the module system (port of the LSTM and GRU
+layers of `paddle_tpu.nn.recurrent`). Inputs are dense padded [B, T, F]
+plus optional lengths [B].
 
-`impl` selects the time loop (`ops.rnn.lstm`): None runs the fused
-kernels D and E on CUDA tensors and their plain versions on CPU
-tensors; "torch" the plain versions; "kernel" the kernels; "scan" the
-masked scan under autograd. It replaces the JAX package's
-`PADDLE_TPU_RNN_IMPL` environment override.
+`impl` selects the time loop (`ops.rnn.lstm`, `ops.rnn.gru`): None runs
+the fused kernels (D and E, or F and G) on CUDA tensors and their plain
+versions on CPU tensors; "torch" the plain versions; "kernel" the
+kernels; "scan" the masked scan under autograd. It replaces the JAX
+package's `PADDLE_TPU_RNN_IMPL` environment override.
 """
 
 from __future__ import annotations
@@ -46,6 +46,31 @@ class LSTM(Layer):
                rng):
         out, _ = rnn_ops.lstm(params, x, lengths, reverse=self.reverse,
                               impl=self.impl)
+        return out, {}
+
+
+class GRU(Layer):
+    """Unidirectional GRU; returns [B, T, H] outputs."""
+
+    def __init__(self, hidden: int, *, reverse: bool = False,
+                 name: Optional[str] = None, impl=None):
+        self.hidden = hidden
+        self.reverse = reverse
+        self.name = name
+        self.impl = _check_impl(impl)
+
+    def _init(self, rng, spec: ShapeSpec, lengths_spec=None,
+              _abstract=False):
+        b, t, f = spec.shape
+        out = ShapeSpec((b, t, self.hidden), spec.dtype)
+        if _abstract:
+            return {}, {}, out
+        return rnn_ops.init_gru_params(rng, f, self.hidden), {}, out
+
+    def _apply(self, params, state, x, lengths=None, *, training: bool,
+               rng):
+        out, _ = rnn_ops.gru(params, x, lengths, reverse=self.reverse,
+                             impl=self.impl)
         return out, {}
 
 

@@ -35,6 +35,8 @@ SOURCES = {
     "flash_attention": "flash_attention.cu",
     "ragged_paged_attention": "ragged_paged_attention.cu",
     "fused_lstm": "fused_lstm.cu",
+    "fused_gru": "fused_gru.cu",
+    "fused_rnn": "fused_rnn.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,0 +1,222 @@
+"""The fused GRU time loop (port of `paddle_tpu.ops.pallas_gru`).
+
+- `gru_forward_reference`, `gru_backward_reference`: the plain PyTorch
+  versions of the two TPU kernels -- the step loop of `_fwd_kernel` and
+  the reverse loop of `_bwd_kernel`, written out (not autograd); the
+  backward recomputes r, z, n from the saved f32 stream, as the TPU
+  kernel does.
+- `gru_forward_kernel`, `gru_backward_kernel`: the wrappers of
+  `csrc/fused_gru.cu` (kernels F and G), one cooperative launch each for
+  the whole sequence. CUDA tensors only; they raise on what the kernels
+  do not take and count their launches in `launch_counts`.
+- `fused_gru(x_proj, w_hh, h0, bounds, *, impl=None)`: the `custom_vjp`
+  as a `torch.autograd.Function`. impl None runs the kernels on CUDA
+  tensors and the plain versions on CPU tensors; "torch" the plain
+  versions anywhere; "kernel" the kernels (a CPU tensor raises).
+- `make_bounds`: the per-row `[start, end)` step windows
+  (`ops.fused_lstm.make_bounds`).
+
+Shapes: x_proj [T, B, 3H] (f32 or bf16, gate order r, z, n), w_hh
+[H, 3H] (f32 or bf16), h0 [B, H], bounds [B, 2] int32. Returns hs
+[T, B, H] in f32 whatever x_proj's dtype, and h_last = hs[-1] in h0's
+dtype. The backward gives dxp in x_proj's dtype, dW in w_hh's and dh0
+in h0's. There is no `fits_vmem` gate: a shape the kernels do not take
+raises ValueError naming the limit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from paddle_tpu_torch.ops import _cuda
+from paddle_tpu_torch.ops import time_loop as TL
+from paddle_tpu_torch.ops.fused_lstm import make_bounds  # noqa: F401
+
+#: launches of kernel F ("fwd") and kernel G ("bwd")
+launch_counts = {"fwd": 0, "bwd": 0}
+
+_WHAT = "fused_gru kernel"
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "gru_device_limits": [_P],
+    "gru_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                ctypes.c_longlong, _P],
+    "gru_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                _I, _I, _I, _I, ctypes.c_longlong, _P],
+}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+# -- the plain versions --------------------------------------------------------
+
+
+def _gates(x_proj_t, hprev, w_hh, hidden):
+    """(r, z, n, hn) of one step: hn is the n column of round_w(hprev) @
+    w_hh, summed in f32."""
+    hp = TL.operand(hprev, w_hh.dtype) @ w_hh.float()
+    xp = x_proj_t.float()
+    hn = hp[:, 2 * hidden:]
+    r = torch.sigmoid(xp[:, :hidden] + hp[:, :hidden])
+    z = torch.sigmoid(xp[:, hidden:2 * hidden] + hp[:, hidden:2 * hidden])
+    n = torch.tanh(xp[:, 2 * hidden:] + r * hn)
+    return r, z, n, hn
+
+
+def gru_forward_reference(x_proj, w_hh, h0, bounds):
+    """The step loop of `_fwd_kernel`: returns hs [T, B, H] f32."""
+    steps, _, g3 = x_proj.shape
+    hidden = g3 // 3
+    h = h0.float()
+    hs = []
+    for t in range(steps):
+        r, z, n, _ = _gates(x_proj[t], h, w_hh, hidden)
+        h = torch.where(TL.live(bounds, t), (1.0 - z) * n + z * h, h)
+        hs.append(h)
+    return torch.stack(hs)
+
+
+def gru_backward_reference(x_proj, w_hh, h0, bounds, hs, dhs, dh_last):
+    """The reverse loop of `_bwd_kernel`: returns (dxp in x_proj's dtype,
+    dW_hh f32, dh0 f32)."""
+    steps, _, g3 = x_proj.shape
+    hidden = g3 // 3
+    w_f = w_hh.float()
+    dh_c = dh_last.float()
+    dw = torch.zeros(w_hh.shape, dtype=torch.float32, device=w_hh.device)
+    dxp = torch.empty_like(x_proj)
+    for t in reversed(range(steps)):
+        hprev = hs[t - 1].float() if t > 0 else h0.float()
+        r, z, n, hn = _gates(x_proj[t], hprev, w_hh, hidden)
+        dh = dhs[t].float() + dh_c
+        dz = dh * (hprev - n)
+        dn = dh * (1.0 - z)
+        dgn = dn * (1.0 - n * n)
+        dr = dgn * hn
+        dgz = dz * z * (1.0 - z)
+        dgr = dr * r * (1.0 - r)
+        m = TL.live(bounds, t)
+        # masked once on the x side; dhp differs only in the n column
+        dxp_full = torch.where(m, torch.cat([dgr, dgz, dgn], dim=-1), 0.0)
+        dhp = torch.cat([dxp_full[:, :2 * hidden],
+                         dxp_full[:, 2 * hidden:] * r], dim=-1)
+        dxp[t] = dxp_full.to(dxp.dtype)
+        dhp_c = TL.operand(dhp, w_hh.dtype)
+        # masked steps are identity: the whole cotangent passes through
+        dh_c = torch.where(m, dh * z + dhp_c @ w_f.T, dh)
+        dw += TL.operand(hprev, w_hh.dtype).T @ dhp_c
+    return dxp, dw, dh_c
+
+
+# -- the kernels ---------------------------------------------------------------
+
+
+def geometry(batch: int, hidden: int, sms: int, smem_optin: int, *,
+             backward: bool):
+    """(hb, threads, tile width, smem bytes) of one launch. F keeps its
+    units' gate columns resident ([H][hb][4] f32); G also their rows
+    ([hb][3H]), their dW columns ([H][hb][4]) and its own dhp ([B][hb]
+    [4]). Raises ValueError on a shape the kernels do not take."""
+    hb, threads = TL.units_and_threads(_WHAT, batch, hidden, sms)
+    resident = 16 * hidden * hb
+    if backward:
+        resident += 12 * hidden * hb + 16 * hidden * hb + 16 * batch * hb
+    width, smem = TL.pick_tile(_WHAT, batch, hidden, resident, smem_optin)
+    return hb, threads, width, smem
+
+
+def _limits(device):
+    return TL.device_limits("fused_gru", _SIGNATURES, "gru_device_limits",
+                            device)
+
+
+def gru_forward_kernel(x_proj, w_hh, h0, bounds):
+    """Launch kernel F (csrc/fused_gru.cu `gru_fwd`) on the current
+    stream. Same contract as gru_forward_reference."""
+    steps, b, hidden = TL.check_inputs(_WHAT, x_proj, w_hh, h0, bounds, 3)
+    hb, threads, width, smem = geometry(b, hidden, *_limits(x_proj.device),
+                                        backward=False)
+    lib = _cuda.library("fused_gru", _SIGNATURES)
+    dev = x_proj.device
+    x_proj, w_hh = x_proj.contiguous(), w_hh.contiguous()
+    h0f, bounds = h0.float().contiguous(), bounds.contiguous()
+    hs = torch.empty((steps, b, hidden), dtype=torch.float32, device=dev)
+    hbuf = torch.empty((2, b, hidden), dtype=torch.float32, device=dev)
+    err = lib.gru_fwd(
+        TL.DTYPE_CODE[x_proj.dtype], TL.DTYPE_CODE[w_hh.dtype],
+        x_proj.data_ptr(), w_hh.data_ptr(), h0f.data_ptr(),
+        bounds.data_ptr(), hs.data_ptr(), hbuf.data_ptr(), steps, b, hidden,
+        hb, width, threads, smem, torch.cuda.current_stream(dev).cuda_stream)
+    TL.launch_error(err, "gru_fwd")
+    launch_counts["fwd"] += 1
+    return hs
+
+
+def gru_backward_kernel(x_proj, w_hh, h0, bounds, hs, dhs, dh_last):
+    """Launch kernel G (csrc/fused_gru.cu `gru_bwd`) on the current
+    stream. Same contract as gru_backward_reference."""
+    steps, b, hidden = TL.check_inputs(_WHAT, x_proj, w_hh, h0, bounds, 3)
+    for name, t in (("hs", hs), ("dhs", dhs)):
+        if tuple(t.shape) != (steps, b, hidden):
+            raise ValueError(f"{_WHAT}: {name} must be [T, B, H]")
+    hb, threads, width, smem = geometry(b, hidden, *_limits(x_proj.device),
+                                        backward=True)
+    lib = _cuda.library("fused_gru", _SIGNATURES)
+    dev = x_proj.device
+    f32 = torch.float32
+    x_proj, w_hh = x_proj.contiguous(), w_hh.contiguous()
+    args = [t.contiguous() for t in (h0.float(), bounds, hs.float(),
+                                     dhs.float(), dh_last.float())]
+    dxp = torch.empty_like(x_proj)
+    dw = torch.empty(w_hh.shape, dtype=f32, device=dev)
+    dh0 = torch.empty((b, hidden), dtype=f32, device=dev)
+    dpbuf = torch.empty((2, b, 3 * hidden), dtype=f32, device=dev)
+    err = lib.gru_bwd(
+        TL.DTYPE_CODE[x_proj.dtype], TL.DTYPE_CODE[w_hh.dtype],
+        x_proj.data_ptr(), w_hh.data_ptr(), *(a.data_ptr() for a in args),
+        dxp.data_ptr(), dw.data_ptr(), dh0.data_ptr(), dpbuf.data_ptr(),
+        steps, b, hidden, hb, width, threads, smem,
+        torch.cuda.current_stream(dev).cuda_stream)
+    TL.launch_error(err, "gru_bwd")
+    launch_counts["bwd"] += 1
+    return dxp, dw, dh0
+
+
+# -- the autograd Function -----------------------------------------------------
+
+
+class _FusedGRU(torch.autograd.Function):
+    """`fused_gru`'s custom_vjp: forward returns (hs, h_last), backward
+    receives (dhs, dh_last); bounds gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x_proj, w_hh, h0, bounds, use_kernel):
+        fwd = gru_forward_kernel if use_kernel else gru_forward_reference
+        hs = fwd(x_proj, w_hh, h0, bounds)
+        ctx.save_for_backward(x_proj, w_hh, h0, bounds, hs)
+        ctx.use_kernel = use_kernel
+        return hs, hs[-1].to(h0.dtype, copy=True)
+
+    @staticmethod
+    def backward(ctx, dhs, dh_last):
+        x_proj, w_hh, h0, bounds, hs = ctx.saved_tensors
+        bwd = gru_backward_kernel if ctx.use_kernel else \
+            gru_backward_reference
+        dxp, dw, dh0 = bwd(x_proj, w_hh, h0, bounds, hs, dhs, dh_last)
+        return dxp, dw.to(w_hh.dtype), dh0.to(h0.dtype), None, None
+
+
+def fused_gru(x_proj, w_hh, h0, bounds, *, impl=None):
+    """Fused scan: returns (hs [T, B, H] f32, h_last [B, H]). impl None:
+    the kernels for CUDA tensors, the plain versions for CPU tensors;
+    "torch": the plain versions; "kernel": the kernels."""
+    if impl not in (None, "torch", "kernel"):
+        raise ValueError(f"impl must be None|torch|kernel, got {impl!r}")
+    use_kernel = impl == "kernel" or (impl is None and x_proj.is_cuda)
+    return _FusedGRU.apply(x_proj, w_hh, h0, bounds, use_kernel)

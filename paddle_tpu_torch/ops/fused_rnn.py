@@ -1,0 +1,196 @@
+"""The fused tanh-RNN time loop (port of `paddle_tpu.ops.pallas_rnn`).
+
+- `rnn_forward_reference`, `rnn_backward_reference`: the plain PyTorch
+  versions of the two TPU kernels -- the step loop of `_fwd_kernel` and
+  the reverse loop of `_bwd_kernel`, written out (not autograd); the
+  backward needs no recomputation: dz = dh (1 - h_t^2) comes from the
+  saved f32 stream.
+- `rnn_forward_kernel`, `rnn_backward_kernel`: the wrappers of
+  `csrc/fused_rnn.cu` (kernels H and I), one cooperative launch each for
+  the whole sequence. CUDA tensors only; they raise on what the kernels
+  do not take and count their launches in `launch_counts`.
+- `fused_simple_rnn(x_proj, w_hh, h0, bounds, *, impl=None)`: the
+  `custom_vjp` as a `torch.autograd.Function`, with `impl` as in
+  `ops.fused_gru.fused_gru`.
+- `make_bounds`: the per-row `[start, end)` step windows
+  (`ops.fused_lstm.make_bounds`).
+
+Shapes: x_proj [T, B, H] (f32 or bf16), w_hh [H, H] (f32 or bf16), h0
+[B, H], bounds [B, 2] int32. Returns hs [T, B, H] in f32 and h_last =
+hs[-1] in h0's dtype; the backward gives dxp in x_proj's dtype, dW in
+w_hh's and dh0 in h0's. A shape the kernels do not take raises
+ValueError naming the limit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from paddle_tpu_torch.ops import _cuda
+from paddle_tpu_torch.ops import time_loop as TL
+from paddle_tpu_torch.ops.fused_lstm import make_bounds  # noqa: F401
+
+#: launches of kernel H ("fwd") and kernel I ("bwd")
+launch_counts = {"fwd": 0, "bwd": 0}
+
+_WHAT = "fused_simple_rnn kernel"
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "rnn_device_limits": [_P],
+    "rnn_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                ctypes.c_longlong, _P],
+    "rnn_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                _I, _I, _I, ctypes.c_longlong, _P],
+}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+# -- the plain versions --------------------------------------------------------
+
+
+def rnn_forward_reference(x_proj, w_hh, h0, bounds):
+    """The step loop of `_fwd_kernel`: returns hs [T, B, H] f32."""
+    h = h0.float()
+    w_f = w_hh.float()
+    hs = []
+    for t in range(x_proj.shape[0]):
+        nh = torch.tanh(x_proj[t].float() + TL.operand(h, w_hh.dtype) @ w_f)
+        h = torch.where(TL.live(bounds, t), nh, h)
+        hs.append(h)
+    return torch.stack(hs)
+
+
+def rnn_backward_reference(x_proj, w_hh, h0, bounds, hs, dhs, dh_last):
+    """The reverse loop of `_bwd_kernel`: returns (dxp in x_proj's dtype,
+    dW_hh f32, dh0 f32)."""
+    w_f = w_hh.float()
+    dh_c = dh_last.float()
+    dw = torch.zeros(w_hh.shape, dtype=torch.float32, device=w_hh.device)
+    dxp = torch.empty_like(x_proj)
+    for t in reversed(range(x_proj.shape[0])):
+        hprev = hs[t - 1].float() if t > 0 else h0.float()
+        ht = hs[t].float()
+        dh = dhs[t].float() + dh_c
+        m = TL.live(bounds, t)
+        dz = torch.where(m, dh * (1.0 - ht * ht), 0.0)
+        dxp[t] = dz.to(dxp.dtype)
+        dz_c = TL.operand(dz, w_hh.dtype)
+        # masked steps are identity: the whole cotangent passes through
+        dh_c = torch.where(m, dz_c @ w_f.T, dh)
+        dw += TL.operand(hprev, w_hh.dtype).T @ dz_c
+    return dxp, dw, dh_c
+
+
+# -- the kernels ---------------------------------------------------------------
+
+
+def geometry(batch: int, hidden: int, sms: int, smem_optin: int, *,
+             backward: bool):
+    """(hb, threads, tile width, smem bytes) of one launch. H keeps its
+    units' columns of w_hh resident ([H][hb] f32); I their rows ([hb][H]),
+    their dW columns ([H][hb]) and its own dz ([B][hb]). Raises
+    ValueError on a shape the kernels do not take."""
+    hb, threads = TL.units_and_threads(_WHAT, batch, hidden, sms)
+    resident = 4 * hidden * hb
+    if backward:
+        resident += 4 * hidden * hb + 4 * batch * hb
+    width, smem = TL.pick_tile(_WHAT, batch, hidden, resident, smem_optin)
+    return hb, threads, width, smem
+
+
+def _limits(device):
+    return TL.device_limits("fused_rnn", _SIGNATURES, "rnn_device_limits",
+                            device)
+
+
+def rnn_forward_kernel(x_proj, w_hh, h0, bounds):
+    """Launch kernel H (csrc/fused_rnn.cu `rnn_fwd`) on the current
+    stream. Same contract as rnn_forward_reference."""
+    steps, b, hidden = TL.check_inputs(_WHAT, x_proj, w_hh, h0, bounds, 1)
+    hb, threads, width, smem = geometry(b, hidden, *_limits(x_proj.device),
+                                        backward=False)
+    lib = _cuda.library("fused_rnn", _SIGNATURES)
+    dev = x_proj.device
+    x_proj, w_hh = x_proj.contiguous(), w_hh.contiguous()
+    h0f, bounds = h0.float().contiguous(), bounds.contiguous()
+    hs = torch.empty((steps, b, hidden), dtype=torch.float32, device=dev)
+    hbuf = torch.empty((2, b, hidden), dtype=torch.float32, device=dev)
+    err = lib.rnn_fwd(
+        TL.DTYPE_CODE[x_proj.dtype], TL.DTYPE_CODE[w_hh.dtype],
+        x_proj.data_ptr(), w_hh.data_ptr(), h0f.data_ptr(),
+        bounds.data_ptr(), hs.data_ptr(), hbuf.data_ptr(), steps, b, hidden,
+        hb, width, threads, smem, torch.cuda.current_stream(dev).cuda_stream)
+    TL.launch_error(err, "rnn_fwd")
+    launch_counts["fwd"] += 1
+    return hs
+
+
+def rnn_backward_kernel(x_proj, w_hh, h0, bounds, hs, dhs, dh_last):
+    """Launch kernel I (csrc/fused_rnn.cu `rnn_bwd`) on the current
+    stream. Same contract as rnn_backward_reference (x_proj only sets
+    dxp's dtype and shape; I reads the saved stream, not x_proj)."""
+    steps, b, hidden = TL.check_inputs(_WHAT, x_proj, w_hh, h0, bounds, 1)
+    for name, t in (("hs", hs), ("dhs", dhs)):
+        if tuple(t.shape) != (steps, b, hidden):
+            raise ValueError(f"{_WHAT}: {name} must be [T, B, H]")
+    hb, threads, width, smem = geometry(b, hidden, *_limits(x_proj.device),
+                                        backward=True)
+    lib = _cuda.library("fused_rnn", _SIGNATURES)
+    dev = x_proj.device
+    f32 = torch.float32
+    w_hh = w_hh.contiguous()
+    args = [t.contiguous() for t in (h0.float(), bounds, hs.float(),
+                                     dhs.float(), dh_last.float())]
+    dxp = torch.empty(x_proj.shape, dtype=x_proj.dtype, device=dev)
+    dw = torch.empty(w_hh.shape, dtype=f32, device=dev)
+    dh0 = torch.empty((b, hidden), dtype=f32, device=dev)
+    dzbuf = torch.empty((2, b, hidden), dtype=f32, device=dev)
+    err = lib.rnn_bwd(
+        TL.DTYPE_CODE[x_proj.dtype], TL.DTYPE_CODE[w_hh.dtype],
+        w_hh.data_ptr(), *(a.data_ptr() for a in args), dxp.data_ptr(),
+        dw.data_ptr(), dh0.data_ptr(), dzbuf.data_ptr(), steps, b, hidden,
+        hb, width, threads, smem, torch.cuda.current_stream(dev).cuda_stream)
+    TL.launch_error(err, "rnn_bwd")
+    launch_counts["bwd"] += 1
+    return dxp, dw, dh0
+
+
+# -- the autograd Function -----------------------------------------------------
+
+
+class _FusedSimpleRNN(torch.autograd.Function):
+    """`fused_simple_rnn`'s custom_vjp: forward returns (hs, h_last),
+    backward receives (dhs, dh_last); bounds gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x_proj, w_hh, h0, bounds, use_kernel):
+        fwd = rnn_forward_kernel if use_kernel else rnn_forward_reference
+        hs = fwd(x_proj, w_hh, h0, bounds)
+        ctx.save_for_backward(x_proj, w_hh, h0, bounds, hs)
+        ctx.use_kernel = use_kernel
+        return hs, hs[-1].to(h0.dtype, copy=True)
+
+    @staticmethod
+    def backward(ctx, dhs, dh_last):
+        x_proj, w_hh, h0, bounds, hs = ctx.saved_tensors
+        bwd = rnn_backward_kernel if ctx.use_kernel else \
+            rnn_backward_reference
+        dxp, dw, dh0 = bwd(x_proj, w_hh, h0, bounds, hs, dhs, dh_last)
+        return dxp, dw.to(w_hh.dtype), dh0.to(h0.dtype), None, None
+
+
+def fused_simple_rnn(x_proj, w_hh, h0, bounds, *, impl=None):
+    """Fused scan: returns (hs [T, B, H] f32, h_last [B, H]). impl None:
+    the kernels for CUDA tensors, the plain versions for CPU tensors;
+    "torch": the plain versions; "kernel": the kernels."""
+    if impl not in (None, "torch", "kernel"):
+        raise ValueError(f"impl must be None|torch|kernel, got {impl!r}")
+    use_kernel = impl == "kernel" or (impl is None and x_proj.is_cuda)
+    return _FusedSimpleRNN.apply(x_proj, w_hh, h0, bounds, use_kernel)

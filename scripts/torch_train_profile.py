@@ -1,0 +1,205 @@
+#!/usr/bin/env python3
+"""Where a training step's time goes in the PyTorch/CUDA port, on one card.
+
+    python3 scripts/torch_train_profile.py [--model seq2seq|lstm]
+
+seq2seq (default): seq2seq_attn at bench_seq2seq's width
+(benchmarks/suite.py:188: vocab 30000, embed 256, hidden 512, B=64,
+source and target length 30, lengths uniform in [15, 30], adam 1e-3),
+the bench's hand-rolled step (gradients, then adam's update), encoder
+on kernels F and G. lstm: the bench_lstm classifier (suite.py:144:
+vocab 10000, embedding = hidden = 512, 2 x LSTM, mean over time,
+Dense(2), adam 1e-3, B=64, T=100) through `make_train_step`, on kernels
+D and E. Seeded random weights and data, f32, TF32 off. Then:
+
+- times 10 steps on the host clock, ending in a sync: ms per step;
+- profiles 3 steps with torch.profiler (CPU + CUDA activity): the
+  device-busy share of the window (union of kernel intervals over wall
+  time), kernels per step, and device time by kind and by kernel.
+
+Prints one JSON line last. Needs a CUDA device; exits 2 without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+from paddle_tpu_torch.core.pytree import tree_leaves, tree_map  # noqa: E402
+from paddle_tpu_torch.models import seq2seq_attn as TS  # noqa: E402
+from paddle_tpu_torch.nn import layers as NL  # noqa: E402
+from paddle_tpu_torch.nn import module as NM  # noqa: E402
+from paddle_tpu_torch.nn import recurrent as NR  # noqa: E402
+from paddle_tpu_torch.ops import losses as LS  # noqa: E402
+from paddle_tpu_torch.optim import optimizers as OPT  # noqa: E402
+from paddle_tpu_torch.train.trainer import Trainer, make_train_step  # noqa
+
+S2S_VOCAB, S2S_EMBED, S2S_H, S2S_B, S2S_LEN = 30000, 256, 512, 64, 30
+LSTM_VOCAB, LSTM_H, LSTM_B, LSTM_T = 10000, 512, 64, 100
+TIMED, PROFILED = 10, 3
+
+
+def kind(name: str) -> str:
+    n = name.lower()
+    if any(k in n for k in ("gru_fwd", "gru_bwd", "lstm_fwd", "lstm_bwd",
+                            "rnn_fwd", "rnn_bwd")):
+        return "fused time-loop kernel"
+    if "gemm" in n or "gemv" in n or "cutlass" in n or "xmma" in n:
+        return "matmul"
+    if "index" in n or "scatter" in n or "gather" in n or "embedding" in n:
+        return "index/scatter"
+    if "reduce" in n or "softmax" in n or "argmax" in n:
+        return "reduction"
+    return "elementwise/other"
+
+
+def union_us(intervals):
+    total, end = 0.0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def seq2seq_step_fn():
+    """(step(i), target tokens per step): the bench's hand-rolled step."""
+    rs = np.random.RandomState(5)
+    params = TS.init_params(rs, S2S_VOCAB, S2S_VOCAB, embed_dim=S2S_EMBED,
+                            hidden=S2S_H, device="cuda")
+    params = tree_map(lambda t: t.requires_grad_(True), params)
+    cuda = lambda a: torch.from_numpy(a).cuda()
+    shape, half = (S2S_B, S2S_LEN), S2S_LEN // 2
+    batches = [(cuda(rs.randint(2, S2S_VOCAB, shape).astype(np.int32)),
+                cuda(rs.randint(half, S2S_LEN + 1, S2S_B).astype(np.int32)),
+                cuda(rs.randint(2, S2S_VOCAB, shape).astype(np.int32)),
+                cuda(rs.randint(half, S2S_LEN + 1, S2S_B).astype(np.int32)))
+               for _ in range(4)]
+    opt = OPT.adam(1e-3)
+    opt_state = opt.init(params)
+    leaves = tree_leaves(params)
+
+    def step(i):
+        loss = TS.loss(params, *batches[i % len(batches)])
+        it = iter(torch.autograd.grad(loss, leaves))
+        opt.update(tree_map(lambda _: next(it), params), opt_state, params,
+                   torch.tensor(i, dtype=torch.int32, device="cuda"))
+
+    tokens = np.mean([int(b[3].sum()) for b in batches])
+    return step, tokens
+
+
+def lstm_step_fn():
+    model = NM.Sequential([
+        NL.Embedding(LSTM_VOCAB, LSTM_H, name="emb"),
+        NR.LSTM(LSTM_H, name="lstm1"),
+        NR.LSTM(LSTM_H, name="lstm2"),
+        NL.Lambda(lambda x: x.mean(dim=1), name="pool",
+                  out_spec_fn=lambda s: NM.ShapeSpec(
+                      (s.shape[0], s.shape[2]), s.dtype)),
+        NL.Dense(2, name="fc"),
+    ])
+    ce = lambda logits, labels: torch.mean(
+        LS.softmax_cross_entropy(logits, labels))
+    opt = OPT.adam(1e-3)
+    trainer = Trainer(model, ce, opt, seed=0)
+    box = [trainer.init_state(NM.ShapeSpec((LSTM_B, LSTM_T), torch.int32))]
+    train_step = make_train_step(model, ce, opt)
+    rs = np.random.RandomState(3)
+    batches = [(torch.from_numpy(rs.randint(0, LSTM_VOCAB, (LSTM_B, LSTM_T))
+                                 .astype(np.int32)).cuda(),
+                torch.from_numpy(rs.randint(0, 2, LSTM_B)).cuda())
+               for _ in range(4)]
+
+    def step(i):
+        x, y = batches[i % len(batches)]
+        box[0], _, _ = train_step(box[0], None, (x,), (y,))
+
+    return step, LSTM_B * LSTM_T
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", choices=("seq2seq", "lstm"),
+                    default="seq2seq")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    step, tokens = (seq2seq_step_fn if args.model == "seq2seq"
+                    else lstm_step_fn)()
+    for i in range(2):
+        step(i)
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    for i in range(TIMED):
+        step(i)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / TIMED * 1e3
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(PROFILED):
+            step(i)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name, by_kind = defaultdict(lambda: [0.0, 0]), defaultdict(float)
+    for e in kernels:
+        dur = e.time_range.end - e.time_range.start
+        by_name[e.name][0] += dur
+        by_name[e.name][1] += 1
+        by_kind[kind(e.name)] += dur
+    busy_us = union_us([(e.time_range.start, e.time_range.end)
+                        for e in kernels])
+    print(f"card: {torch.cuda.get_device_name(0)}, model {args.model}")
+    print(f"train step (unprofiled, {TIMED} steps): {step_ms:.3f} ms = "
+          f"{tokens / step_ms * 1e3:.1f} tokens/s")
+    if kernels:
+        print(f"profiled {PROFILED} steps: wall {wall_us / 1e3:.3f} ms, "
+              f"device busy {busy_us / 1e3:.3f} ms "
+              f"({100 * busy_us / wall_us:.1f}%), "
+              f"{len(kernels) / PROFILED:.0f} kernels per step")
+        for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1]):
+            print(f"  {k:<24} {v / PROFILED / 1e3:9.3f} ms/step")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+        for name, (t, n) in top:
+            print(f"  {t / PROFILED / 1e3:9.3f} ms/step  x{n / PROFILED:6.1f}"
+                  f"  {name[:90]}")
+    else:
+        print("profiler recorded no device activity: device busy share "
+              "not measured")
+    out = {"card": torch.cuda.get_device_name(0), "model": args.model,
+           "step_ms": step_ms, "tokens_per_step": float(tokens),
+           "tokens_per_s": tokens / step_ms * 1e3,
+           "profiled_wall_ms_per_step": wall_us / PROFILED / 1e3,
+           "device_busy_share": (busy_us / wall_us if kernels else None),
+           "kernels_per_step": len(kernels) / PROFILED,
+           "device_ms_per_step_by_kind": {k: v / PROFILED / 1e3
+                                          for k, v in by_kind.items()}}
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

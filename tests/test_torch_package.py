@@ -11,12 +11,12 @@ import pytest
 import torch
 
 from paddle_tpu_torch.core.devices import resolve_device
-from paddle_tpu_torch.models import text_lstm
+from paddle_tpu_torch.models import seq2seq_attn, text_lstm
 from paddle_tpu_torch.models import transformer as TT
 from paddle_tpu_torch.models.weights import params_from_numpy
 from paddle_tpu_torch.ops import _cuda
 from paddle_tpu_torch.nn.module import ShapeSpec
-from paddle_tpu_torch.nn.recurrent import LSTM
+from paddle_tpu_torch.nn.recurrent import GRU, LSTM
 from paddle_tpu_torch.optim.optimizers import sgd
 from paddle_tpu_torch.serve.engine import DecodeEngine
 from paddle_tpu_torch.train.trainer import Trainer
@@ -40,7 +40,10 @@ MODULES = [
     "paddle_tpu_torch.nn.recurrent", "paddle_tpu_torch.optim.schedules",
     "paddle_tpu_torch.optim.optimizers", "paddle_tpu_torch.train.state",
     "paddle_tpu_torch.train.events", "paddle_tpu_torch.train.trainer",
-    "paddle_tpu_torch.models.text_lstm",
+    "paddle_tpu_torch.models.text_lstm", "paddle_tpu_torch.ops.time_loop",
+    "paddle_tpu_torch.ops.fused_gru", "paddle_tpu_torch.ops.fused_rnn",
+    "paddle_tpu_torch.ops.beam_search", "paddle_tpu_torch.nn.recurrent_group",
+    "paddle_tpu_torch.models.seq2seq_attn",
 ]
 
 
@@ -97,6 +100,10 @@ def test_training_entry_points_need_the_card_unless_asked_for_cpu(
         Trainer(layer, lambda out: out.sum(), sgd())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         text_lstm.init_params(0, 10, embed_dim=4, hidden=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        seq2seq_attn.init_params(0, 10, 10, embed_dim=4, hidden=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GRU(8).init(0, spec)
     params, _ = layer.init(0, spec, device="cpu")
     assert params["w_hh"].device == torch.device("cpu")
     Trainer(layer, lambda out: out.sum(), sgd(), device="cpu")
@@ -104,7 +111,8 @@ def test_training_entry_points_need_the_card_unless_asked_for_cpu(
 
 def test_kernel_libraries_are_keyed_by_source_hash(tmp_path, monkeypatch):
     assert set(_cuda.SOURCES) == {"flash_attention",
-                                  "ragged_paged_attention", "fused_lstm"}
+                                  "ragged_paged_attention", "fused_lstm",
+                                  "fused_gru", "fused_rnn"}
     for name, src in _cuda.SOURCES.items():
         assert (_cuda.CSRC_DIR / src).exists()
         path = _cuda.library_path(name)
