@@ -22,14 +22,27 @@ Phases, in order; any failure exits non-zero:
    H=1280 B=64, and with bf16 x_proj and w_hh; E gets random
    cotangents. Error: max abs error over max |plain| (dW sums T*B
    terms), same tolerances. cuDNN's torch.nn.LSTM is the yardstick,
-   its input projection timed beside it.
+   its input projection timed beside it. E runs in three phases (the
+   gates of every step as one tiled product; the serial loop, one
+   cooperative launch over row groups x unit groups with only the
+   carry's product in it; dW_hh as a split tiled product summed in a
+   fixed order): every E case must repeat all its outputs bit for bit
+   on a second call, and at the main shape the device time of each
+   phase is printed (CUDA events the wrapper records between its
+   launches).
    F and G: the fused GRU time loop (csrc/fused_gru.cu), forward and
    backward, at the seq2seq encoder's shape (T=30, B=64, H=512) with
    full, ragged ([15, 30]) and reversed ragged lengths, nonzero h0, and
    bf16 x_proj and w_hh; H and I: the fused tanh-RNN time loop
    (csrc/fused_rnn.cu) at T=100, B=64, H=512, full, ragged ([50, 100]),
    reversed and bf16. The backward kernels get random cotangents; the
-   error measure and tolerances are D/E's. Yardsticks: cuDNN's
+   error measure and tolerances are D/E's. G has E's three phases: its
+   cases repeat bit for bit, and its main case prints the phase split.
+   E and G then run alone at their loop's other grids (`WIDE_CASES`:
+   w_hh's rows read through L2 at H >= 1536, 2 or 4 pairs per thread at
+   wide H or B), ragged with nonzero initial state, against their plain
+   versions and bit for bit on a second call.
+   Yardsticks: cuDNN's
    torch.nn.GRU(256, 512) with b_hn zeroed (the port's n gate) and
    torch.nn.RNN(512, 512, tanh), their input projections timed beside
    them. Bounds count live (row, step) pairs.
@@ -58,7 +71,9 @@ Phases, in order; any failure exits non-zero:
    10000, embedding = hidden = 512, 2 x nn.LSTM, mean over time,
    Dense(2), adam 1e-3; B=64, T=100) with seeded random weights through
    the port's Trainer for 10 steps over 4 seeded batches, launch counts
-   set to 0 just before: exactly 2 D and 2 E launches per step. The
+   set to 0 just before: exactly 2 D and 2 E launches per step, each E
+   call making at least three device launches (its phases, counted by
+   the wrapper as it launches them). The
    same weights then train on the plain path (nn.LSTM(impl="torch")):
    first-step gradients agree to 1e-4 relative, every loss to 1e-3.
    Then text_lstm at the same width (max pool) on lengths uniform in
@@ -70,7 +85,7 @@ Phases, in order; any failure exits non-zero:
    with seeded random weights, 10 hand-rolled steps (gradients, then
    adam's update) over 4 seeded batches, launch counts set to 0 just
    before: exactly 2 F and 2 G launches per step (the bidirectional
-   encoder), no H or I. The same weights then train on the plain path
+   encoder; at least three device launches per G call), no H or I. The same weights then train on the plain path
    (impl="torch", none of F-I launches): first-step gradients agree to
    1e-4 relative (each leaf on its own scale, floored at 1e-6 of the
    largest gradient), every loss to 1e-3. Target tokens/s is
@@ -86,8 +101,11 @@ Phases, in order; any failure exits non-zero:
    uniform in [50, 100]: one forward and backward launches H and I once
    each, and its gradients agree with the plain path's to 1e-4 relative.
 8. report -- the launch counts of every path, the serve, train, seq2seq
-   and generation numbers, the card's name and power limit, a `kernels`
-   JSON line (nine entries, A-I), and last the device JSON line.
+   and generation numbers, the wide E/G cases, the card's name and
+   power limit, a `kernels` JSON line (nine entries, A-I; E and G add
+   their device launches in the main path's run and per call, their
+   phase split and whether they repeated bit for bit), and last the
+   device JSON line.
 
 One phase alone, on the card: `python3 -c "import chip_smoke as S;
 S.seq2seq_phase()"` (each phase builds what it launches at first use).
@@ -192,6 +210,40 @@ def time_ms(fn, iters=20, warmup=3):
         e.record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+
+
+def phase_ms(bwd, bargs, iters=10, warmup=2):
+    """Mean device ms of each of the three phases of one call of a
+    redesigned backward kernel (E or G): the wrapper records four CUDA
+    events, before its first launch and after each phase. L2 flushed
+    before each call, as in time_ms."""
+    time_ms(lambda: bwd(*bargs), iters=1, warmup=warmup)
+    sums = [0.0, 0.0, 0.0]
+    for _ in range(iters):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        _FLUSH.zero_()
+        torch.cuda._sleep(_SPIN_CYCLES)
+        bwd(*bargs, events=ev)
+        torch.cuda.synchronize()
+        for i in range(3):
+            sums[i] += ev[i].elapsed_time(ev[i + 1])
+    return dict(zip(("gates", "loop", "dw"), (x / iters for x in sums)))
+
+
+def log_phases(kern, phases, ms, steps):
+    log(f"    {kern} phases (device ms, mean of 10 calls): gates "
+        f"{phases['gates']:.4f}, serial loop {phases['loop']:.4f} "
+        f"({phases['loop'] / steps * 1e3:.2f} us per step), dW "
+        f"{phases['dw']:.4f}; sum {sum(phases.values()):.4f} vs kernel_ms "
+        f"{ms:.4f}")
+
+
+def bitwise_repeat(bwd, bargs, first):
+    """Does a second call on the same inputs give every output bit for
+    bit (dW_hh above all: its split parts are summed in a fixed order)?"""
+    again = bwd(*bargs)
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def bound(bytes_, flops, dtype):
@@ -469,6 +521,7 @@ def lstm_case(name, *, t=LSTM_T, b=LSTM_B, h=LSTM_H, dtype=torch.float32,
     grads = FL.lstm_backward_kernel(*bargs)
     grads_r = FL.lstm_backward_reference(*bargs)
     torch.cuda.synchronize()
+    same = bitwise_repeat(FL.lstm_backward_kernel, bargs, grads)
     d_pairs = ((hs, hs_r), (cs, cs_r))
     e_pairs = tuple(zip(grads, grads_r))
     d_err = max(rel_err(a, r) for a, r in d_pairs)
@@ -494,12 +547,13 @@ def lstm_case(name, *, t=LSTM_T, b=LSTM_B, h=LSTM_H, dtype=torch.float32,
     ep_ms = time_ms(lambda: FL.lstm_backward_reference(*bargs), iters=3,
                     warmup=1)
     lib = cudnn_lstm_ms(t, b, h) if library else (None, None, None)
+    phases = phase_ms(FL.lstm_backward_kernel, bargs) if library else None
     tol = TOL[dtype]
     out = {}
     for kern, err, a_err, ms, p_ms, b_ms, by, lib_ms in (
             ("D", d_err, d_abs, d_ms, dp_ms, d_bound, d_by, lib[0]),
             ("E", e_err, e_abs, e_ms, ep_ms, e_bound, e_by, lib[1])):
-        ok = err <= tol
+        ok = err <= tol and (kern == "D" or same)
         lib_s = "-" if lib_ms is None else f"{lib_ms:.4f}"
         log(f"  {kern} {name:<24} {str(dtype)[6:]:<8} rel_err {err:.2e} "
             f"(tol {tol:.0e}) kernel_ms {ms:.4f} plain_ms {p_ms:.4f} "
@@ -508,6 +562,11 @@ def lstm_case(name, *, t=LSTM_T, b=LSTM_B, h=LSTM_H, dtype=torch.float32,
         out[kern] = dict(name=name, err=a_err, rel_err=err, ok=ok, ms=ms,
                          plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
                          library_ms=lib_ms, tol=tol)
+    out["E"].update(bitwise=same, phases_ms=phases)
+    log(f"    E: a second call on the same inputs is bitwise equal "
+        f"(dxp, dW_hh, dh0, dc0): {same}")
+    if phases:
+        log_phases("E", phases, e_ms, t)
     if library:
         log(f"    cuDNN torch.nn.LSTM({h}, {h}) T={t} B={b}: forward "
             f"{lib[0]:.4f} ms, backward {lib[1]:.4f} ms; its input "
@@ -571,7 +630,8 @@ def grad_rel_err(ga, gb):
 
 def timed_train(trainer, state, batches):
     """TRAIN_STEPS steps through Trainer.train with the launch counts set
-    to 0 just before: (state, losses, wall seconds, (D, E) launches)."""
+    to 0 just before: (state, losses, wall seconds, (D, E) launches, E's
+    device launches)."""
     events = []
     torch.cuda.synchronize()
     FL.reset_launch_counts()
@@ -584,7 +644,7 @@ def timed_train(trainer, state, batches):
     wall = time.perf_counter() - t0
     launched = (FL.launch_counts["fwd"], FL.launch_counts["bwd"])
     losses = [e.cost for e in events if isinstance(e, EV.EndIteration)]
-    return state, losses, wall, launched
+    return state, losses, wall, launched, FL.device_launches["bwd"]
 
 
 def train_phase():
@@ -618,20 +678,22 @@ def train_phase():
 
     for tr in (kern, plain):     # warm the allocator and cuBLAS
         tr.train(clone_state(state0), lambda: batches[:1])
-    _, k_loss, k_wall, k_launch = timed_train(kern, clone_state(state0),
-                                              batches)
-    _, p_loss, p_wall, p_launch = timed_train(plain, clone_state(state0),
-                                              batches)
+    _, k_loss, k_wall, k_launch, k_dev = timed_train(
+        kern, clone_state(state0), batches)
+    _, p_loss, p_wall, p_launch, p_dev = timed_train(
+        plain, clone_state(state0), batches)
     tokens = TRAIN_STEPS * LSTM_B * LSTM_T
     out = dict(steps=TRAIN_STEPS, kernel_ms_per_step=1e3 * k_wall /
                TRAIN_STEPS, kernel_tok_s=tokens / k_wall,
                plain_ms_per_step=1e3 * p_wall / TRAIN_STEPS,
                plain_tok_s=tokens / p_wall, grad_rel_err=g_err,
                losses=k_loss, plain_losses=p_loss,
-               launches={"D": k_launch[0], "E": k_launch[1]})
+               launches={"D": k_launch[0], "E": k_launch[1]},
+               device_launches={"E": k_dev})
     log(f"  kernel path: {out['kernel_ms_per_step']:.3f} ms/step = "
         f"{out['kernel_tok_s']:.1f} tokens/s; launches D {k_launch[0]}, "
-        f"E {k_launch[1]}; losses {['%.6f' % v for v in k_loss]}")
+        f"E {k_launch[1]} ({k_dev} device launches); losses "
+        f"{['%.6f' % v for v in k_loss]}")
     log(f"  plain path:  {out['plain_ms_per_step']:.3f} ms/step = "
         f"{out['plain_tok_s']:.1f} tokens/s; launches {p_launch}; losses "
         f"{['%.6f' % v for v in p_loss]}")
@@ -639,8 +701,12 @@ def train_phase():
     if k_launch != want:
         raise Fail(f"train: (D, E) launched {k_launch} times, want {want} "
                    f"(2 of each per step)")
-    if p_launch != (0, 0):
-        raise Fail(f"train: the plain path launched kernels: {p_launch}")
+    if k_dev < 3 * k_launch[1]:
+        raise Fail(f"train: {k_launch[1]} E calls made {k_dev} device "
+                   f"launches, fewer than their three phases")
+    if p_launch != (0, 0) or p_dev:
+        raise Fail(f"train: the plain path launched kernels: {p_launch}, "
+                   f"{p_dev} device launches of E")
     rel = max(abs(a - b) / abs(b) for a, b in zip(k_loss, p_loss))
     out["loss_rel_err"] = rel
     log(f"  losses agree to {rel:.2e} relative (tol {LOSS_RTOL:.0e})")
@@ -693,11 +759,14 @@ def ragged_phase():
 # -- kernels F, G (GRU) and H, I (tanh RNN): the other fused time loops -------
 
 # (forward, plain forward, backward, plain backward, gates, products per
-# live step in the backward, does the backward read x_proj)
+# live step in the backward, does the backward read x_proj, is the
+# backward the three-phase design)
 GRU_LOOP = (FG.gru_forward_kernel, FG.gru_forward_reference,
-            FG.gru_backward_kernel, FG.gru_backward_reference, 3, 3, True)
+            FG.gru_backward_kernel, FG.gru_backward_reference, 3, 3, True,
+            True)
 RNN_LOOP = (FR.rnn_forward_kernel, FR.rnn_forward_reference,
-            FR.rnn_backward_kernel, FR.rnn_backward_reference, 1, 2, False)
+            FR.rnn_backward_kernel, FR.rnn_backward_reference, 1, 2, False,
+            False)
 
 
 def time_loop_case(loop, names, name, *, t, b, h, dtype=torch.float32,
@@ -708,8 +777,10 @@ def time_loop_case(loop, names, name, *, t, b, h, dtype=torch.float32,
     and random cotangents. x_proj [T, B, gates*H] N(0, 1) and w_hh
     uniform(+-1/sqrt(H)) in `dtype`, h0 zero or N(0, 0.25), lengths
     uniform in [T/2, T] (or full). `library` is (cuDNN module, its input
-    width), timed with cudnn_ms."""
-    fwd_k, fwd_r, bwd_k, bwd_r, gates, bwd_products, bwd_xp = loop
+    width), timed with cudnn_ms. A three-phase backward (G) must also
+    repeat its outputs bit for bit, and its phases are timed beside
+    cuDNN."""
+    fwd_k, fwd_r, bwd_k, bwd_r, gates, bwd_products, bwd_xp, phased = loop
     rs = np.random.RandomState(seed)
     dev = "cuda"
     xp = torch.from_numpy(rs.standard_normal((t, b, gates * h)).astype(
@@ -734,6 +805,7 @@ def time_loop_case(loop, names, name, *, t, b, h, dtype=torch.float32,
     grads = bwd_k(*bargs)
     grads_r = bwd_r(*bargs)
     torch.cuda.synchronize()
+    same = bitwise_repeat(bwd_k, bargs, grads) if phased else True
     pairs = {names[0]: ((hs, hs_r),), names[1]: tuple(zip(grads, grads_r))}
     # the work this data needs: products only on live (row, step) pairs;
     # each input read once, each output written once
@@ -756,11 +828,13 @@ def time_loop_case(loop, names, name, *, t, b, h, dtype=torch.float32,
     if library is not None:
         module, width = library
         lib = cudnn_ms(module, t, b, gates)
+    phases = (phase_ms(bwd_k, bargs) if phased and library is not None
+              else None)
     tol = TOL[dtype]
     out = {}
     for kern, lib_ms in zip(names, lib[:2]):
         err = max(rel_err(a, r) for a, r in pairs[kern])
-        ok = err <= tol
+        ok = err <= tol and (kern == names[0] or same)
         b_ms, by = bounds_ms[kern]
         lib_s = "-" if lib_ms is None else f"{lib_ms:.4f}"
         log(f"  {kern} {name:<24} {str(dtype)[6:]:<8} rel_err {err:.2e} "
@@ -772,6 +846,12 @@ def time_loop_case(loop, names, name, *, t, b, h, dtype=torch.float32,
                          rel_err=err, ok=ok, ms=ms[kern],
                          plain_ms=plain[kern], bound_ms=b_ms, bound_by=by,
                          library_ms=lib_ms, tol=tol)
+    if phased:
+        out[names[1]].update(bitwise=same, phases_ms=phases)
+        log(f"    {names[1]}: a second call on the same inputs is bitwise "
+            f"equal (dxp, dW_hh, dh0): {same}")
+    if phases:
+        log_phases(names[1], phases, ms[names[1]], t)
     if library is not None:
         log(f"    cuDNN {type(module).__name__}({width}, {h}) T={t} B={b}: "
             f"forward {lib[0]:.4f} ms, backward {lib[1]:.4f} ms; its input "
@@ -829,6 +909,81 @@ def gru_rnn_kernels_phase():
     return gru, rnn
 
 
+# E and G at shapes of their loop's other grids: w_hh's rows read from
+# global memory (H >= 1536) and several pairs per thread (wide H or B);
+# (kernel, name, T, B, H, dtype), T cut to keep the plain versions short
+WIDE_CASES = (
+    ("E", "h1536_b64_l2_rows", 20, 64, 1536, torch.float32),
+    ("E", "h2048_b64_l2_rows_2pairs", 20, 64, 2048, torch.float32),
+    ("E", "h2048_b64_bf16", 20, 64, 2048, torch.bfloat16),
+    ("E", "h4096_b64_l2_rows_4pairs", 10, 64, 4096, torch.float32),
+    ("E", "b256_h512_2pairs", 40, 256, 512, torch.float32),
+    ("E", "b200_h1024_4pairs", 20, 200, 1024, torch.float32),
+    ("G", "h2048_b64_l2_rows_2pairs", 20, 64, 2048, torch.float32),
+    ("G", "b128_h1024_bf16", 20, 128, 1024, torch.bfloat16),
+)
+
+
+def wide_case(kern, name, t, b, h, dtype, seed):
+    """E or G alone against its plain version on the plain forward's
+    outputs, with ragged lengths, nonzero initial state and random
+    cotangents; a second call must repeat every output bit for bit. Its
+    device time (5 calls) is logged beside the grid it ran."""
+    rs = np.random.RandomState(seed + 100)
+    cot = lambda *sh: torch.from_numpy(
+        rs.standard_normal(sh).astype(np.float32)).cuda()
+    if kern == "E":
+        args, _ = lstm_case_inputs(t=t, b=b, h=h, dtype=dtype, lengths=True,
+                                   reverse=False, initial=True, seed=seed)
+        bargs = args + FL.lstm_forward_reference(*args) + (
+            cot(t, b, h).to(dtype), cot(b, h), cot(b, h))
+        bwd_k, bwd_r = FL.lstm_backward_kernel, FL.lstm_backward_reference
+        geo = FL.backward_geometry(b, h, *FL.device_limits(args[0].device))
+    else:
+        gr = np.random.RandomState(seed)
+        lim = 1.0 / np.sqrt(h)
+        xp = torch.from_numpy(gr.standard_normal((t, b, 3 * h)).astype(
+            np.float32)).to("cuda", dtype)
+        w = torch.from_numpy(gr.uniform(-lim, lim, (h, 3 * h)).astype(
+            np.float32)).to("cuda", dtype)
+        h0 = torch.from_numpy((0.5 * gr.standard_normal((b, h))).astype(
+            np.float32)).cuda()
+        lens = torch.from_numpy(gr.randint(t // 2, t + 1, b)).cuda()
+        args = (xp, w, h0, FG.make_bounds(b, t, lens, False, device="cuda"))
+        bargs = args + (FG.gru_forward_reference(*args), cot(t, b, h),
+                        cot(b, h))
+        bwd_k, bwd_r = FG.gru_backward_kernel, FG.gru_backward_reference
+        geo = FG.backward_geometry(b, h, *FG._limits(xp.device))
+    got = bwd_k(*bargs)
+    ref = bwd_r(*bargs)
+    torch.cuda.synchronize()
+    same = bitwise_repeat(bwd_k, bargs, got)
+    err = max(rel_err(a, r) for a, r in zip(got, ref))
+    ms = time_ms(lambda: bwd_k(*bargs), iters=5, warmup=1)
+    tol = TOL[dtype]
+    ok = err <= tol and same
+    log(f"  {kern} {name:<26} {str(dtype)[6:]:<8} T={t} rel_err {err:.2e} "
+        f"(tol {tol:.0e}) bitwise {same} kernel_ms {ms:.4f}; grid "
+        f"{geo.row_groups} x {geo.unit_groups}, hb {geo.hb}, br {geo.br}, "
+        f"{geo.rep} pairs/thread, w_hh rows "
+        f"{'resident' if geo.resident else 'from L2'} "
+        f"{'ok' if ok else 'FAIL'}")
+    return dict(name=name, kernel=kern, t=t, b=b, h=h,
+                dtype=str(dtype)[6:], rel_err=err, bitwise=same, ms=ms,
+                rep=geo.rep, resident=geo.resident, ok=ok)
+
+
+def wide_phase():
+    log("phase kernels: E and G on their loop's other grids (w_hh's rows "
+        "read from L2, several pairs per thread), ragged, nonzero initial "
+        "state")
+    cases = [wide_case(*c, seed=20 + i) for i, c in enumerate(WIDE_CASES)]
+    bad = [f"{c['kernel']}:{c['name']}" for c in cases if not c["ok"]]
+    if bad:
+        raise Fail(f"E/G disagree with their plain versions: {bad}")
+    return cases
+
+
 # -- training and decoding seq2seq-attention NMT -------------------------------
 
 
@@ -880,7 +1035,7 @@ def s2s_grads(params, batch, impl):
 def s2s_train(params, batches, impl, steps):
     """`steps` hand-rolled steps (the bench's: gradients, then adam's
     update in place) from a copy of params: (params, losses, wall
-    seconds, launches of F-I in this run)."""
+    seconds, launches of F-I in this run, G's device launches)."""
     params = trainable(params)
     opt = OPT.adam(1e-3)
     opt_state = opt.init(params)
@@ -896,7 +1051,8 @@ def s2s_train(params, batches, impl, steps):
         losses.append(loss.detach())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return params, [v.item() for v in losses], wall, time_loop_counts()
+    return (params, [v.item() for v in losses], wall, time_loop_counts(),
+            FG.device_launches["bwd"])
 
 
 def seq2seq_phase():
@@ -931,10 +1087,10 @@ def seq2seq_phase():
 
     for impl in (None, "torch"):     # warm the allocator and cuBLAS
         s2s_train(params, batches, impl, 1)
-    trained, k_loss, k_wall, k_launch = s2s_train(params, batches, None,
-                                                  TRAIN_STEPS)
-    _, p_loss, p_wall, p_launch = s2s_train(params, batches, "torch",
-                                            TRAIN_STEPS)
+    trained, k_loss, k_wall, k_launch, k_dev = s2s_train(
+        params, batches, None, TRAIN_STEPS)
+    _, p_loss, p_wall, p_launch, p_dev = s2s_train(params, batches, "torch",
+                                                   TRAIN_STEPS)
     tokens = sum(int(batches[i % TRAIN_BATCHES][3].sum())
                  for i in range(TRAIN_STEPS))
     out = dict(steps=TRAIN_STEPS, tgt_tokens=tokens,
@@ -942,10 +1098,12 @@ def seq2seq_phase():
                kernel_tgt_tok_s=tokens / k_wall,
                plain_ms_per_step=1e3 * p_wall / TRAIN_STEPS,
                plain_tgt_tok_s=tokens / p_wall, grad_rel_err=g_err,
-               losses=k_loss, plain_losses=p_loss, launches=k_launch)
+               losses=k_loss, plain_losses=p_loss, launches=k_launch,
+               device_launches={"G": k_dev})
     log(f"  kernel path: {out['kernel_ms_per_step']:.3f} ms/step = "
         f"{out['kernel_tgt_tok_s']:.1f} target tokens/s; launches "
-        f"{k_launch}; losses {['%.6f' % v for v in k_loss]}")
+        f"{k_launch} (G: {k_dev} device launches); losses "
+        f"{['%.6f' % v for v in k_loss]}")
     log(f"  plain path:  {out['plain_ms_per_step']:.3f} ms/step = "
         f"{out['plain_tgt_tok_s']:.1f} target tokens/s; launches "
         f"{p_launch}; losses {['%.6f' % v for v in p_loss]}")
@@ -953,8 +1111,12 @@ def seq2seq_phase():
     if k_launch != want:
         raise Fail(f"seq2seq: launched {k_launch}, want {want} (2 F and 2 G "
                    f"per step)")
-    if any(p_launch.values()):
-        raise Fail(f"seq2seq: the plain path launched kernels: {p_launch}")
+    if k_dev < 3 * k_launch["G"]:
+        raise Fail(f"seq2seq: {k_launch['G']} G calls made {k_dev} device "
+                   f"launches, fewer than their three phases")
+    if any(p_launch.values()) or p_dev:
+        raise Fail(f"seq2seq: the plain path launched kernels: {p_launch}, "
+                   f"{p_dev} device launches of G")
     rel = max(abs(a - b) / abs(b) for a, b in zip(k_loss, p_loss))
     out["loss_rel_err"] = rel
     log(f"  losses agree to {rel:.2e} relative (tol {LOSS_RTOL:.0e})")
@@ -1386,6 +1548,7 @@ def main() -> int:
     a, b, c = kernels_phase()
     lstm = lstm_kernels_phase()
     gru, rnn = gru_rnn_kernels_phase()
+    wide = wide_phase()
     launched, serve = serve_phase()
     train = train_phase()
     ragged = ragged_phase()
@@ -1407,6 +1570,15 @@ def main() -> int:
                 "ms": case["ms"], "plain_ms": case["plain_ms"],
                 "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
                 "library_ms": case["library_ms"]}
+
+    def redesigned(case, calls, device):
+        # E and G: the device launches of the main path's run (counted by
+        # the wrapper as it launches each phase) and per call, the phase
+        # split, and whether a second call repeated every output bit for
+        # bit
+        return {"device_launches": device,
+                "device_launches_per_call": device / calls,
+                "phases_ms": case["phases_ms"], "bitwise": case["bitwise"]}
 
     # launches: A and B from the float serve, C from the int8-KV serve,
     # each counted from 0 just before that run
@@ -1432,29 +1604,37 @@ def main() -> int:
         # (their tolerance holds rel_err, max abs error over max |plain|)
         entry("lstm_fwd", "paddle_tpu_torch/csrc/fused_lstm.cu",
               "paddle_tpu/ops/pallas_lstm.py:58", train["launches"]["D"],
-              lstm["main"]["D"], launches_per_train_step=2,
+              lstm["main"]["D"],
+              launches_per_train_step=train["launches"]["D"] / TRAIN_STEPS,
               rel_err=lstm["main"]["D"]["rel_err"]),
         entry("lstm_bwd", "paddle_tpu_torch/csrc/fused_lstm.cu",
               "paddle_tpu/ops/pallas_lstm.py:86", train["launches"]["E"],
-              lstm["main"]["E"], launches_per_train_step=2,
-              rel_err=lstm["main"]["E"]["rel_err"]),
+              lstm["main"]["E"],
+              launches_per_train_step=train["launches"]["E"] / TRAIN_STEPS,
+              rel_err=lstm["main"]["E"]["rel_err"],
+              **redesigned(lstm["main"]["E"], train["launches"]["E"],
+                           train["device_launches"]["E"])),
         # F and G: launches of the seq2seq phase's run (2 of each per
         # step); H and I: of the simple_rnn phase's forward and backward
         entry("gru_fwd", "paddle_tpu_torch/csrc/fused_gru.cu",
               "paddle_tpu/ops/pallas_gru.py:37", s2s["launches"]["F"],
-              gru["main"]["F"], launches_per_train_step=2,
+              gru["main"]["F"],
+              launches_per_train_step=s2s["launches"]["F"] / TRAIN_STEPS,
               rel_err=gru["main"]["F"]["rel_err"]),
         entry("gru_bwd", "paddle_tpu_torch/csrc/fused_gru.cu",
               "paddle_tpu/ops/pallas_gru.py:59", s2s["launches"]["G"],
-              gru["main"]["G"], launches_per_train_step=2,
-              rel_err=gru["main"]["G"]["rel_err"]),
+              gru["main"]["G"],
+              launches_per_train_step=s2s["launches"]["G"] / TRAIN_STEPS,
+              rel_err=gru["main"]["G"]["rel_err"],
+              **redesigned(gru["main"]["G"], s2s["launches"]["G"],
+                           s2s["device_launches"]["G"])),
         entry("rnn_fwd", "paddle_tpu_torch/csrc/fused_rnn.cu",
               "paddle_tpu/ops/pallas_rnn.py:26", srnn["launches"]["H"],
-              rnn["main"]["H"], launches_per_train_step=1,
+              rnn["main"]["H"], launches_per_train_step=srnn["launches"]["H"],
               rel_err=rnn["main"]["H"]["rel_err"]),
         entry("rnn_bwd", "paddle_tpu_torch/csrc/fused_rnn.cu",
               "paddle_tpu/ops/pallas_rnn.py:44", srnn["launches"]["I"],
-              rnn["main"]["I"], launches_per_train_step=1,
+              rnn["main"]["I"], launches_per_train_step=srnn["launches"]["I"],
               rel_err=rnn["main"]["I"]["rel_err"]),
     ]
     log(json.dumps({"launches": launched}))
@@ -1462,6 +1642,7 @@ def main() -> int:
     log(json.dumps({"train": train, "ragged": ragged}))
     log(json.dumps({"seq2seq": s2s, "generation": gen,
                     "simple_rnn": srnn}))
+    log(json.dumps({"wide_cases": wide}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

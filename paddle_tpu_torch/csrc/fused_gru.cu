@@ -27,24 +27,31 @@
 // B=64, H=512 in f32, F does 2 T B H 3H = 3.02 GFLOP (0.045 ms at the 67
 // TFLOP/s of the f32 CUDA cores) against ~18 MB; G three such products.
 //
-// Design: the LSTM kernels' (fused_lstm.cu). The time loop runs inside
-// one cooperative launch, as the TPU kernel runs it inside one
-// pallas_call. CTA k owns hb hidden units j in [k*hb, (k+1)*hb) and their
-// gate columns j, H+j, 2H+j of w_hh, resident in shared memory as [H][hb]
-// [4] (the fourth lane zero, so one 16-byte load gives a unit's three
-// gates). A thread carries up to kMaxPairs (row, unit) pairs and their f32
-// carries in registers: the cell update is elementwise in j. Every CTA
-// needs all of h_{t-1} for its products, so each step writes its units of
-// h into a ping-pong buffer [2, B, H] and ends with one grid barrier. G
-// also keeps its units' rows of w_hh (for dhp @ w_hh^T) and their dW
-// columns (each column has one owner: no atomics) resident; because hs is
-// known before G starts, its gate recomputation needs no exchange, and
-// only the dhp row block [B, 3H] crosses CTAs each step, through a second
-// ping-pong buffer. Tiles move through shared memory by cp.async, as wide
-// as shared memory allows beside the resident slices (the host picks the
-// width; all of h at once at H=512, and G then reuses its hprev tile for
-// dW). A shape whose slices do not fit is refused by the host. Later work:
-// tensor-core products, register tiles over rows.
+// F's design: the LSTM forward's (fused_lstm.cu). The time loop runs
+// inside one cooperative launch. CTA k owns hb hidden units j in [k*hb,
+// (k+1)*hb) and their gate columns j, H+j, 2H+j of w_hh, resident in
+// shared memory as [H][hb][4] (the fourth lane zero, so one 16-byte load
+// gives a unit's three gates). A thread carries up to kMaxPairs (row,
+// unit) pairs and their f32 carries in registers. Every CTA needs all of
+// h_{t-1}, so each step writes its units of h into a ping-pong buffer [2,
+// B, H] and ends with one grid barrier.
+//
+// G's design: the LSTM backward's (E in fused_lstm.cu), in three launches.
+// Of G's three products only dhp @ w_hh^T feeds the recurrence.
+//   1. gru_bwd_gates: round_w(hprev) @ w_hh for all T*B rows at once (a
+//      tiled product, columns permuted to (unit, gate) with a zero fourth
+//      lane that the product skips), whose epilogue stores (r, z, n, hn)
+//      of each unit as one float4: gates [T, B, H, 4] f32 (hn is needed
+//      for dgr).
+//   2. gru_bwd_loop, one cooperative launch of time_loop.cuh's
+//      backward_loop_kernel with G's cell (GruCell below), over row groups
+//      x unit groups: each step a CTA computes its pairs' dxp and dhp from
+//      the stored gates, hprev and dhs, writes dhp (w_hh's dtype, exact)
+//      into the operand scratch [T, B, 3H], passes its row group's
+//      barrier, and multiplies its rows of dhp by its rows of w_hh
+//      (resident where they fit, else read through L2).
+//   3. gru_bwd_dw: dW_hh = round_w(hprev)^T @ dhp, split over the T*B rows,
+//      the parts summed in a fixed order.
 
 #include "time_loop.cuh"
 
@@ -147,166 +154,115 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-template <typename T, typename TW>
-__global__ void __launch_bounds__(kMaxThreads)
-    gru_bwd_kernel(const T* __restrict__ xp, const TW* __restrict__ w,
-                   const float* __restrict__ h0,
-                   const int* __restrict__ bounds,
-                   const float* __restrict__ hs,
-                   const float* __restrict__ dhs,
-                   const float* __restrict__ dh_last, T* __restrict__ dxp,
-                   float* __restrict__ dw, float* __restrict__ dh0,
-                   float* dpbuf, int Tn, int B, int H, int hb, int kt) {
-  extern __shared__ __align__(16) float smem[];
-  const int ld = kt + 4;                    // 16-byte tile rows
-  const int G = 3 * H;
-  const int cols = 4 * hb;
-  // resident: ws [H][hb][4] (gate columns), wr [hb][3H] (rows j), dwacc
-  // [H][hb][4]; then tile [B][ld] and dgo [B][hb][4] (own dhp)
-  float* ws = smem;
-  float* wr = ws + H * cols;
-  float* dwacc = wr + hb * G;
-  float* tile = dwacc + H * cols;
-  float* dgo = tile + B * ld;
-  const int j0 = blockIdx.x * hb;
-  load_gate_columns(ws, w, H, hb, j0);
-  for (int e = threadIdx.x; e < H * cols; e += blockDim.x) dwacc[e] = 0.f;
-  for (int e = threadIdx.x; e < hb * G; e += blockDim.x)
-    wr[e] = load_f(w + (size_t)(j0 + e / G) * G + e % G);
-  int pb[kMaxPairs], pu[kMaxPairs];
-  const int np = my_pairs(pb, pu, B, hb);
-  float dhc[kMaxPairs], dhk[kMaxPairs], zk[kMaxPairs];
-  bool live[kMaxPairs];
-  int lo[kMaxPairs], hi[kMaxPairs];
-#pragma unroll
-  for (int n = 0; n < kMaxPairs; ++n) {
-    dhc[n] = n < np ? dh_last[pb[n] * H + j0 + pu[n]] : 0.f;
-    dhk[n] = zk[n] = 0.f;
-    live[n] = false;
-    lo[n] = bounds[2 * pb[n]];
-    hi[n] = bounds[2 * pb[n] + 1];
-  }
-  cg::grid_group grid = cg::this_grid();
-  const size_t plane = (size_t)B * H;
-  const TW* wtype = nullptr;
-  const bool whole = kt >= H;               // one tile holds all of hprev
 
-  for (int t = Tn - 1; t >= 0; --t) {
-    const float* hprev = t > 0 ? hs + (size_t)(t - 1) * plane : h0;
-    // 1. the gates of this CTA's units, recomputed from hprev
-    float acc[kMaxPairs][3];
+// -- G, phase 1: the gates of every step, in parallel ------------------------
+
+// gates[m][u] = (r, z, n, hn) of row m = t*B + b and unit u; block (0, 0)
+// also zeroes the loop's group-barrier counters
+template <typename T, typename TW>
+__global__ void __launch_bounds__(tile_gemm::kThreads)
+    gru_bwd_gates_kernel(const T* __restrict__ xp, const TW* __restrict__ w,
+                         const float* __restrict__ h0,
+                         const float* __restrict__ hs,
+                         float* __restrict__ gates,
+                         unsigned* __restrict__ counters, int n_groups, int M,
+                         int B, int H) {
+  __shared__ __align__(16) tile_gemm::Smem sm;
+  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x < n_groups)
+    counters[threadIdx.x] = 0;
+  const int n0 = blockIdx.x * tile_gemm::kBN, m0 = blockIdx.y * tile_gemm::kBM;
+  const Hprev<float, TW, true> la{hs, h0, M, B, H};
+  const GateCols<TW, 3> lb{w, H};
+  float acc[8][8];
+  tile_gemm::product<3>(acc, sm, la, lb, m0, n0, 0, H);  // no 4th lane
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16, G = 3 * H;
 #pragma unroll
-    for (int n = 0; n < kMaxPairs; ++n) acc[n][0] = acc[n][1] = acc[n][2] = 0.f;
-    for (int k0 = 0; k0 < H; k0 += kt) {
-      const int kw = min(kt, H - k0);
-      __syncthreads();
-      stage_tile(tile, ld, hprev, H, B, k0, kw);
-      __syncthreads();
-      gate_products(acc, tile, ld, ws, pb, pu, np, k0, kw, hb, wtype);
+  for (int ii = 0; ii < 8; ++ii) {
+    const int m = m0 + tile_gemm::out_index(ty, ii);
+    if (m >= M) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int u = (n0 + tile_gemm::out_index(tx, 4 * h)) / 4;
+      if (u >= H) continue;
+      const T* x = xp + (size_t)m * G + u;
+      const float* p = &acc[ii][4 * h];
+      const float r = sigmoidf(load_f(x) + p[0]);
+      const float z = sigmoidf(load_f(x + H) + p[1]);
+      const float n = tanhf(load_f(x + 2 * H) + r * p[2]);
+      *reinterpret_cast<float4*>(gates + ((size_t)m * H + u) * 4) =
+          make_float4(r, z, n, p[2]);
     }
-    // 2. dxp and dhp of this CTA's units: dhp into the exchange buffer
-    // and dgo
-    float* dpx = dpbuf + (size_t)(t & 1) * B * G;
-#pragma unroll
-    for (int n = 0; n < kMaxPairs; ++n) {
-      if (n >= np) break;
-      const int b = pb[n], u = pu[n], j = j0 + u;
-      const size_t row = (size_t)t * B + b;
-      const T* x = xp + row * G + j;
-      const float hn = acc[n][2];
-      const float r = sigmoidf(load_f(x) + acc[n][0]);
-      const float z = sigmoidf(load_f(x + H) + acc[n][1]);
-      const float nn = tanhf(load_f(x + 2 * H) + r * hn);
-      const float hp = hprev[b * H + j];
-      const float dh = dhs[row * H + j] + dhc[n];
-      const float dz = dh * (hp - nn);
-      const float dgn = dh * (1.f - z) * (1.f - nn * nn);
-      const float dgz = dz * z * (1.f - z);
-      const float dgr = dgn * hn * r * (1.f - r);
-      live[n] = lo[n] <= t && t < hi[n];
-      const float d0 = live[n] ? dgr : 0.f;
-      const float d1 = live[n] ? dgz : 0.f;
-      const float d2 = live[n] ? dgn : 0.f;
-      T* dx = dxp + row * G + j;
+  }
+}
+
+// -- G, phase 2: the serial loop (time_loop.cuh backward_loop_kernel) -------
+
+// G's cell: the f32 carry dh of one (row, unit) pair
+template <typename T, typename TWt>
+struct GruCell {
+  using TW = TWt;
+  struct Step {       // the step's inputs, loaded a step ahead
+    float4 g;         // r, z, n, hn
+    float hprev, dh;
+  };
+  struct Carry {
+    float dh, z;      // dh, and the step's z until the product is in
+  };
+  const float* gates;      // [T*B][H][4]
+  const float* hs;         // [T*B][H]
+  const float* h0;         // [B][H]
+  const float* dhs;        // [T*B][H]
+  const float* dh_last;    // [B][H]
+  T* dxp;                  // [T*B][3H]
+  float* dh0;
+  int B, H;
+
+  __device__ __forceinline__ Carry init(int b, int j) const {
+    return {dh_last[b * H + j], 0.f};
+  }
+  __device__ __forceinline__ Step fetch(int t, int b, int j) const {
+    const size_t o = ((size_t)t * B + b) * H + j;
+    Step s;
+    s.g = *reinterpret_cast<const float4*>(gates + o * 4);
+    s.hprev = t > 0 ? hs[o - (size_t)B * H] : h0[b * H + j];
+    s.dh = dhs[o];
+    return s;
+  }
+  // [dgr, dgz, dgn] (zero at a masked step) into dxp, and the operand dhp
+  // = [dgr, dgz, dgn * r] rounded; carry <- (dh, z)
+  __device__ __forceinline__ void step(const Step& s, Carry& c, bool live,
+                                       bool store, size_t row, int j,
+                                       TW* op) const {
+    const float r = s.g.x, z = s.g.y, nn = s.g.z, hn = s.g.w;
+    const float dh = s.dh + c.dh;
+    const float dz = dh * (s.hprev - nn);
+    const float dgn = dh * (1.f - z) * (1.f - nn * nn);
+    const float dgz = dz * z * (1.f - z);
+    const float dgr = dgn * hn * r * (1.f - r);
+    if (store) {
+      const float d0 = live ? dgr : 0.f, d1 = live ? dgz : 0.f,
+                  d2 = live ? dgn : 0.f;
+      T* dx = dxp + row * 3 * H + j;
       store_f(dx, d0);
       store_f(dx + H, d1);
       store_f(dx + 2 * H, d2);
-      const float p0 = round_as(d0, wtype), p1 = round_as(d1, wtype),
-                  p2 = round_as(d2 * r, wtype);
-      __stcg(dpx + (size_t)b * G + j, p0);
-      __stcg(dpx + (size_t)b * G + H + j, p1);
-      __stcg(dpx + (size_t)b * G + 2 * H + j, p2);
-      *reinterpret_cast<float4*>(dgo + (b * hb + u) * 4) =
-          make_float4(p0, p1, p2, 0.f);
-      dhk[n] = dh;
-      zk[n] = z;
+      store_cg(op + j, round_as(d0, op));
+      store_cg(op + H + j, round_as(d1, op));
+      store_cg(op + 2 * H + j, round_as(d2 * r, op));
     }
-    // 3. dW_hh[:, own columns] += round_w(hprev)^T @ dgo
-    for (int k0 = 0; k0 < H; k0 += kt) {
-      const int kw = min(kt, H - k0);
-      __syncthreads();
-      if (!whole) stage_tile(tile, ld, hprev, H, B, k0, kw);
-      __syncthreads();
-      for (int e = threadIdx.x; e < kw * hb; e += blockDim.x) {
-        const int k = e / hb, u = e % hb;
-        float a0 = 0.f, a1 = 0.f, a2 = 0.f;
-        for (int b = 0; b < B; ++b) {
-          const float hv = round_as(tile[b * ld + k], wtype);
-          const float4 gv =
-              *reinterpret_cast<const float4*>(dgo + (b * hb + u) * 4);
-          a0 = fmaf(hv, gv.x, a0);
-          a1 = fmaf(hv, gv.y, a1);
-          a2 = fmaf(hv, gv.z, a2);
-        }
-        float4* p = reinterpret_cast<float4*>(dwacc + ((k0 + k) * hb + u) * 4);
-        float4 v = *p;
-        v.x += a0;
-        v.y += a1;
-        v.z += a2;
-        *p = v;
-      }
-    }
-    grid.sync();
-    // 4. carry = dh z + dhp @ w_hh^T for this CTA's units (live steps)
-    float back[kMaxPairs];
-#pragma unroll
-    for (int n = 0; n < kMaxPairs; ++n) back[n] = 0.f;
-    for (int c0 = 0; c0 < G; c0 += kt) {
-      const int cw = min(kt, G - c0);
-      __syncthreads();
-      stage_tile(tile, ld, dpx, G, B, c0, cw);
-      __syncthreads();
-      for (int cc = 0; cc < cw; cc += 4) {
-#pragma unroll
-        for (int n = 0; n < kMaxPairs; ++n) {
-          if (n >= np) break;
-          const float4 gv =
-              *reinterpret_cast<const float4*>(tile + pb[n] * ld + cc);
-          const float4 wv =
-              *reinterpret_cast<const float4*>(wr + pu[n] * G + c0 + cc);
-          back[n] = fmaf(gv.x, wv.x, back[n]);
-          back[n] = fmaf(gv.y, wv.y, back[n]);
-          back[n] = fmaf(gv.z, wv.z, back[n]);
-          back[n] = fmaf(gv.w, wv.w, back[n]);
-        }
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < kMaxPairs; ++n)
-      dhc[n] = live[n] ? dhk[n] * zk[n] + back[n] : dhk[n];
+    c.dh = dh;
+    c.z = z;
   }
-
-  __syncthreads();
-#pragma unroll
-  for (int n = 0; n < kMaxPairs; ++n) {
-    if (n >= np) break;
-    dh0[pb[n] * H + j0 + pu[n]] = dhc[n];
+  // a masked step passes dh through
+  __device__ __forceinline__ void carry(Carry& c, float back,
+                                        bool live) const {
+    if (live) c.dh = c.dh * c.z + back;
   }
-  for (int e = threadIdx.x; e < H * cols; e += blockDim.x) {
-    const int k = e / cols, u = (e / 4) % hb, g = e % 4;
-    if (g < 3) dw[(size_t)k * G + g * H + j0 + u] = dwacc[e];
+  __device__ __forceinline__ void finish(const Carry& c, int b,
+                                         int j) const {
+    dh0[b * H + j] = c.dh;
   }
-}
+};
 
 }  // namespace
 
@@ -335,30 +291,64 @@ extern "C" int gru_fwd(int x_dtype, int w_dtype, const void* xp,
   });
 }
 
-extern "C" int gru_bwd(int x_dtype, int w_dtype, const void* xp,
-                       const void* w, const void* h0, const void* bounds,
-                       const void* hs, const void* dhs, const void* dh_last,
-                       void* dxp, void* dw, void* dh0, void* dpbuf, int Tn,
-                       int B, int H, int hb, int kt, int threads,
-                       long long smem, void* stream) {
+
+// G in three launches on `stream`, each returning its cudaError_t; the
+// arguments as lstm_bwd_* (fused_lstm.cu) with 3H gate columns, hs f32
+// and no c carry.
+extern "C" int gru_bwd_gates(int x_dtype, int w_dtype, const void* xp,
+                             const void* w, const void* h0, const void* hs,
+                             void* gates, void* counters, int n_groups,
+                             int Tn, int B, int H, void* stream) {
   return dispatch_dtypes(x_dtype, w_dtype, [&](auto* xt, auto* wt) {
     using T = std::remove_pointer_t<decltype(xt)>;
     using TW = std::remove_pointer_t<decltype(wt)>;
-    const T* a_xp = static_cast<const T*>(xp);
-    const TW* a_w = static_cast<const TW*>(w);
-    const float* a_h0 = static_cast<const float*>(h0);
-    const int* a_bounds = static_cast<const int*>(bounds);
-    const float* a_hs = static_cast<const float*>(hs);
-    const float* a_dhs = static_cast<const float*>(dhs);
-    const float* a_dhl = static_cast<const float*>(dh_last);
-    T* a_dxp = static_cast<T*>(dxp);
-    float* a_dw = static_cast<float*>(dw);
-    float* a_dh0 = static_cast<float*>(dh0);
-    float* a_dpbuf = static_cast<float*>(dpbuf);
-    void* args[] = {&a_xp,  &a_w,   &a_h0,  &a_bounds, &a_hs, &a_dhs,
-                    &a_dhl, &a_dxp, &a_dw,  &a_dh0,    &a_dpbuf,
-                    &Tn,    &B,     &H,     &hb,       &kt};
-    return launch_coop(gru_bwd_kernel<T, TW>, H / hb, threads, (size_t)smem,
-                       args, static_cast<cudaStream_t>(stream));
+    const int M = Tn * B;
+    const dim3 grid((4 * H + tile_gemm::kBN - 1) / tile_gemm::kBN,
+                    (M + tile_gemm::kBM - 1) / tile_gemm::kBM);
+    gru_bwd_gates_kernel<T, TW>
+        <<<grid, tile_gemm::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const T*>(xp), static_cast<const TW*>(w),
+            static_cast<const float*>(h0), static_cast<const float*>(hs),
+            static_cast<float*>(gates), static_cast<unsigned*>(counters),
+            n_groups, M, B, H);
+    return cudaGetLastError();
+  });
+}
+
+extern "C" int gru_bwd_loop(int x_dtype, int w_dtype, int ut, int rep,
+                            int resident, const void* gates, const void* h0,
+                            const void* bounds, const void* hs,
+                            const void* dhs, const void* dh_last,
+                            const void* w, void* dxp, void* opnd, int ldo,
+                            void* dh0, void* counters, int Tn, int B, int H,
+                            int hb, int br, int cw, int threads,
+                            long long smem, void* stream) {
+  return dispatch_dtypes(x_dtype, w_dtype, [&](auto* xt, auto* wt) {
+    using T = std::remove_pointer_t<decltype(xt)>;
+    using TW = std::remove_pointer_t<decltype(wt)>;
+    const GruCell<T, TW> cell{
+        static_cast<const float*>(gates), static_cast<const float*>(hs),
+        static_cast<const float*>(h0),    static_cast<const float*>(dhs),
+        static_cast<const float*>(dh_last), static_cast<T*>(dxp),
+        static_cast<float*>(dh0),         B,
+        H};
+    const LoopArgs<TW> a{static_cast<const TW*>(w), static_cast<TW*>(opnd),
+                         static_cast<const int*>(bounds),
+                         static_cast<unsigned*>(counters),
+                         ldo, Tn, B, H, 3 * H, hb, br, cw};
+    return launch_loop(cell, a, ut, rep, resident, threads, (size_t)smem,
+                       static_cast<cudaStream_t>(stream));
+  });
+}
+
+extern "C" int gru_bwd_dw(int w_dtype, const void* hs, const void* h0,
+                          const void* opnd, int ldo, void* part, void* dw,
+                          int Tn, int B, int H, int splits, int kchunk,
+                          int* launched, void* stream) {
+  return dispatch_dtypes(0, w_dtype, [&](auto*, auto* wt) {
+    using TW = std::remove_pointer_t<decltype(wt)>;
+    return launch_dw<float, TW>(hs, h0, opnd, ldo, part, dw, Tn * B, B, H,
+                                3 * H, splits, kchunk, launched,
+                                static_cast<cudaStream_t>(stream));
   });
 }

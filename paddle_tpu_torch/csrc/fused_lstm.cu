@@ -25,112 +25,56 @@
 //
 // What bounds them on an H100: operations. At T=100, B=64, H=512 in f32
 // D does 13.4 GFLOP (0.20 ms at the 67 TFLOP/s of the f32 CUDA cores)
-// and moves ~82 MB (0.025 ms); E does three such products per step.
+// and moves ~82 MB (0.025 ms); E does three such products.
 //
-// Design. The time loop runs inside one cooperative launch, as the TPU
-// kernel runs it inside one pallas_call. CTA k owns hb hidden units j in
-// [k*hb, (k+1)*hb), and with them the gate columns j, H+j, 2H+j, 3H+j of
-// w_hh, staged once into shared memory (interleaved [H][hb][4], so one
+// D's design. The time loop runs inside one cooperative launch, as the
+// TPU kernel runs it inside one pallas_call. CTA k owns hb hidden units j
+// in [k*hb, (k+1)*hb), and with them the gate columns j, H+j, 2H+j, 3H+j
+// of w_hh, staged once into shared memory (interleaved [H][hb][4], so one
 // 16-byte load gives a unit's four gates) when the slice fits; otherwise
 // (H=1280) each step reads it from global memory through L1/L2. A thread
-// owns up to kMaxPairs (row b, unit j) pairs, and the c carry (and in E
-// the dh, dc carries) of each pair in registers: the cell update is
-// elementwise in j, so c never leaves the CTA. Only h crosses CTAs: every
-// CTA needs all of h_{t-1} [B, H] for its product, so each step writes
-// its units of h (f32, not hs, which may be bf16) into a ping-pong buffer
-// [2, B, H] and ends with one grid-wide barrier (cooperative_groups
-// this_grid().sync()). E does the same with dgates through a [2, B, 4H]
-// buffer; its dh_back for its units reads the rows j of w_hh, a second
-// resident slice, and it accumulates its columns of dW_hh in shared
-// memory (no atomics: each column has one owner), written once at the
-// end. Tiles of h (and of dgates) move through shared memory kt columns
-// at a time, kt as wide as shared memory allows beside the resident
-// slices (the host picks it: all of h at once in D at H=512), copied with
-// cp.async so that a tile costs one trip to L2, not one per load. Buffers
-// written during the launch are read at L2 only (cp.async.cg,
-// ld.global.cg): L1 is not coherent across SMs. The host checks that the
-// grid is co-resident before launching. Later work: tensor-core
-// products, double-buffered tiles, a cheaper dgates exchange for E.
+// owns up to kMaxPairs (row b, unit j) pairs and the c carry of each in
+// registers: the cell update is elementwise in j, so c never leaves the
+// CTA. Only h crosses CTAs: every CTA needs all of h_{t-1} [B, H], so
+// each step writes its units of h (f32) into a ping-pong buffer [2, B, H]
+// and ends with one grid barrier. Tiles of h move through shared memory
+// by cp.async, read at L2 only (L1 is not coherent across SMs).
+//
+// E's design. On the TPU the grid runs in order, so the Pallas kernel
+// does all of a step's work in one grid step. Here a step is a serial
+// round trip across the card, and of E's three products only one feeds
+// the recurrence: the gates read only hs (saved by D) and x_proj, and
+// dW_hh only hprev and the step's rounded dgates. So E runs in three
+// launches on the stream:
+//   1. lstm_bwd_gates: round_w(hprev) @ w_hh for all T*B rows at once, a
+//      tiled product (tile_gemm.cuh) whose columns are permuted to (unit,
+//      gate) so that each thread's epilogue adds x_proj and stores the
+//      four activations of a unit as one float4: gates [T, B, H, 4] f32.
+//   2. lstm_bwd_loop, one cooperative launch of time_loop.cuh's
+//      backward_loop_kernel with E's cell (LstmCell below): the serial
+//      loop with only the carry's product in it. The grid is row groups x
+//      unit groups; CTA (g, k) owns br rows and hb units, keeps only its
+//      units' rows of w_hh resident (where they fit; from H=1536 on the
+//      loop reads them through L2), and carries (dh, dc) of one pair per
+//      thread (two or four where the pairs outnumber the threads) in
+//      registers. Each step it computes its pairs' dgates from the stored
+//      gates, writes dxp[t] and round_w(dgates) into the operand scratch
+//      [T, B, 4H] (w_hh's dtype, exact), passes a barrier of its row
+//      group only (the rows of the batch are independent), and multiplies
+//      its rows of the operand (cp.async chunks, double-buffered) by its
+//      rows of w_hh. The next step's loads are issued before the barrier.
+//   3. lstm_bwd_dw: dW_hh = round_w(hprev)^T @ operand, split over the
+//      T*B rows to fill the card, the parts summed in a fixed order (no
+//      atomics: dW is the same bit for bit every run).
+// What is left on the serial path is one product of B x 4H x H per step,
+// one group barrier and one L2 trip of the group's operand rows.
 
-#include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include "tile_io.cuh"
+#include "time_loop.cuh"
 
 namespace cg = cooperative_groups;
+using namespace time_loop;
 
 namespace {
-
-using tile_io::load_f;
-using tile_io::store_f;
-
-constexpr int kMaxPairs = 4;  // (row, unit) pairs one thread carries
-constexpr int kMaxThreads = 512;
-
-__device__ __forceinline__ float sigmoidf(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
-// an operand rounded to the weight's dtype, as the TPU kernel casts it
-__device__ __forceinline__ float round_as(float x, const float*) { return x; }
-__device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-// 4 consecutive values of a row of src (f32 or bf16) as f32; cg loads
-// (L2 only) for buffers other CTAs write during the launch
-__device__ __forceinline__ float4 load4(const float* p) {
-  return __ldcg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = __ldcg(reinterpret_cast<const uint2*>(p));
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// Stage columns [k0, k0+kw) of src [B, ld_src] (kw % 4 == 0) into tile
-// [B][ld] as f32; the caller synchronises the block after it. An f32
-// source moves by cp.async (16 bytes a copy, L2 only, every copy of the
-// thread in flight at once); a bf16 source through registers, 8 loads in
-// flight per thread.
-__device__ __forceinline__ void stage_tile(float* tile, int ld,
-                                           const float* src, int ld_src,
-                                           int B, int k0, int kw) {
-  const int q = kw / 4;
-  for (int e = threadIdx.x; e < B * q; e += blockDim.x) {
-    const int b = e / q, c = (e % q) * 4;
-    const unsigned dst =
-        static_cast<unsigned>(__cvta_generic_to_shared(tile + b * ld + c));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-                 "l"(src + (size_t)b * ld_src + k0 + c));
-  }
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-__device__ __forceinline__ void stage_tile(float* tile, int ld,
-                                           const __nv_bfloat16* src,
-                                           int ld_src, int B, int k0,
-                                           int kw) {
-  constexpr int kBatch = 8;
-  const int q = kw / 4, n = B * q;
-  for (int e0 = threadIdx.x; e0 < n; e0 += kBatch * blockDim.x) {
-    float4 v[kBatch];
-#pragma unroll
-    for (int i = 0; i < kBatch; ++i) {
-      const int e = e0 + i * blockDim.x;
-      if (e < n) v[i] = load4(src + (size_t)(e / q) * ld_src + k0 + (e % q) * 4);
-    }
-#pragma unroll
-    for (int i = 0; i < kBatch; ++i) {
-      const int e = e0 + i * blockDim.x;
-      if (e < n)
-        *reinterpret_cast<float4*>(tile + (e / q) * ld + (e % q) * 4) = v[i];
-    }
-  }
-}
 
 // The four gate weights (i, f, g, o) of unit u at row k of w_hh: from the
 // resident slice [H][hb][4], or from global memory.
@@ -170,23 +114,6 @@ __device__ __forceinline__ void gate_products(
   }
 }
 
-// this thread's (row, unit) pairs: pair p = tid + n * blockDim
-__device__ __forceinline__ int my_pairs(int (&pb)[kMaxPairs],
-                                        int (&pu)[kMaxPairs], int B, int hb) {
-  int np = 0;
-#pragma unroll
-  for (int n = 0; n < kMaxPairs; ++n) {
-    const int p = threadIdx.x + n * blockDim.x;
-    pb[n] = 0;
-    pu[n] = 0;
-    if (p < B * hb) {
-      pb[n] = p / hb;
-      pu[n] = p % hb;
-      np = n + 1;
-    }
-  }
-  return np;
-}
 
 template <typename T, typename TW, bool kSmem>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -260,301 +187,121 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-template <typename T, typename TW, bool kSmem>
-__global__ void __launch_bounds__(kMaxThreads)
-    lstm_bwd_kernel(const T* __restrict__ xp, const TW* __restrict__ w,
-                    const float* __restrict__ h0, const float* __restrict__ c0,
-                    const int* __restrict__ bounds, const T* __restrict__ hs,
-                    const float* __restrict__ cs, const T* __restrict__ dhs,
-                    const float* __restrict__ dh_last,
-                    const float* __restrict__ dc_last, T* __restrict__ dxp,
-                    float* __restrict__ dw, float* __restrict__ dh0,
-                    float* __restrict__ dc0, float* dgbuf, int Tn, int B,
-                    int H, int hb, int kt) {
-  extern __shared__ __align__(16) float smem[];
-  const int ld = kt + 4;                             // 16-byte tile rows
-  const int G = 4 * H;
-  const int cols = 4 * hb;
-  // resident: ws [H][hb][4] (columns), wr [hb][4H] (rows j), dwacc
-  // [H][hb][4]; always: tile [B][ld], dgo [B][hb][4] (own dgates)
-  float* ws = smem;
-  float* wr = ws + (kSmem ? H * cols : 0);
-  float* dwacc = wr + (kSmem ? H * cols : 0);
-  float* tile = dwacc + (kSmem ? H * cols : 0);
-  float* dgo = tile + B * ld;
-  const int j0 = blockIdx.x * hb;
-  if (kSmem) {
-    for (int e = threadIdx.x; e < H * cols; e += blockDim.x) {
-      const int k = e / cols, u = (e / 4) % hb, g = e % 4;
-      ws[e] = load_f(w + (size_t)k * G + g * H + j0 + u);
-      dwacc[e] = 0.f;
-    }
-    for (int e = threadIdx.x; e < H * cols; e += blockDim.x) {
-      const int u = e / G, c = e % G;
-      wr[e] = load_f(w + (size_t)(j0 + u) * G + c);
-    }
-  } else {
-    for (int e = threadIdx.x; e < H * cols; e += blockDim.x) {
-      const int k = e / cols, u = (e / 4) % hb, g = e % 4;
-      dw[(size_t)k * G + g * H + j0 + u] = 0.f;
-    }
-  }
-  int pb[kMaxPairs], pu[kMaxPairs];
-  const int np = my_pairs(pb, pu, B, hb);
-  float dhc[kMaxPairs], dcc[kMaxPairs], dhk[kMaxPairs];
-  bool live[kMaxPairs];
-  int lo[kMaxPairs], hi[kMaxPairs];
-#pragma unroll
-  for (int n = 0; n < kMaxPairs; ++n) {
-    const int o = pb[n] * H + j0 + pu[n];
-    dhc[n] = n < np ? dh_last[o] : 0.f;
-    dcc[n] = n < np ? dc_last[o] : 0.f;
-    dhk[n] = 0.f;
-    live[n] = false;
-    lo[n] = bounds[2 * pb[n]];
-    hi[n] = bounds[2 * pb[n] + 1];
-  }
-  cg::grid_group grid = cg::this_grid();
-  const size_t plane = (size_t)B * H;
-  const TW* wtype = nullptr;
 
-  for (int t = Tn - 1; t >= 0; --t) {
-    // 1. the gates of this CTA's units, recomputed from hprev
-    float acc[kMaxPairs][4];
+// -- E, phase 1: the gates of every step, in parallel ------------------------
+
+// gates[m][u] = (sig(i), sig(f), tanh(g), sig(o)) of row m = t*B + b and
+// unit u, from x_proj and round_w(hprev) @ w_hh. Block (0, 0) also zeroes
+// the loop's group-barrier counters.
+template <typename T, typename TW>
+__global__ void __launch_bounds__(tile_gemm::kThreads)
+    lstm_bwd_gates_kernel(const T* __restrict__ xp, const TW* __restrict__ w,
+                          const float* __restrict__ h0,
+                          const T* __restrict__ hs, float* __restrict__ gates,
+                          unsigned* __restrict__ counters, int n_groups,
+                          int M, int B, int H) {
+  __shared__ __align__(16) tile_gemm::Smem sm;
+  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x < n_groups)
+    counters[threadIdx.x] = 0;
+  const int n0 = blockIdx.x * tile_gemm::kBN, m0 = blockIdx.y * tile_gemm::kBM;
+  const Hprev<T, TW, true> la{hs, h0, M, B, H};
+  const GateCols<TW, 4> lb{w, H};
+  float acc[8][8];
+  tile_gemm::product(acc, sm, la, lb, m0, n0, 0, H);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16, G = 4 * H;
 #pragma unroll
-    for (int n = 0; n < kMaxPairs; ++n)
-      acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-    for (int k0 = 0; k0 < H; k0 += kt) {
-      const int kw = min(kt, H - k0);
-      __syncthreads();
-      if (t > 0)
-        stage_tile(tile, ld, hs + (t - 1) * plane, H, B, k0, kw);
-      else
-        stage_tile(tile, ld, h0, H, B, k0, kw);
-      __syncthreads();
-      gate_products<kSmem>(acc, tile, ld, ws, w, pb, pu, np, k0, kw, hb, H,
-                           j0);
+  for (int ii = 0; ii < 8; ++ii) {
+    const int m = m0 + tile_gemm::out_index(ty, ii);
+    if (m >= M) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int u = (n0 + tile_gemm::out_index(tx, 4 * h)) / 4;
+      if (u >= H) continue;
+      const T* x = xp + (size_t)m * G + u;
+      const float* p = &acc[ii][4 * h];
+      *reinterpret_cast<float4*>(gates + ((size_t)m * H + u) * 4) =
+          make_float4(sigmoidf(load_f(x) + p[0]),
+                      sigmoidf(load_f(x + H) + p[1]),
+                      tanhf(load_f(x + 2 * H) + p[2]),
+                      sigmoidf(load_f(x + 3 * H) + p[3]));
     }
-    // 2. dgates of this CTA's units: into dxp, the exchange buffer and dgo
-    float* dgx = dgbuf + (size_t)(t & 1) * B * G;
-#pragma unroll
-    for (int n = 0; n < kMaxPairs; ++n) {
-      if (n >= np) break;
-      const int b = pb[n], u = pu[n], j = j0 + u;
-      const size_t row = (size_t)t * B + b;
-      const T* x = xp + row * G + j;
-      const float gi = sigmoidf(load_f(x) + acc[n][0]);
-      const float gf = sigmoidf(load_f(x + H) + acc[n][1]);
-      const float gg = tanhf(load_f(x + 2 * H) + acc[n][2]);
-      const float go = sigmoidf(load_f(x + 3 * H) + acc[n][3]);
-      const float ct = cs[row * H + j];
-      const float cprev = t > 0 ? cs[(row - B) * H + j] : c0[b * H + j];
-      const float tc = tanhf(ct);
-      const float dh = load_f(dhs + row * H + j) + dhc[n];
-      const float d_o = dh * tc * go * (1.f - go);
-      const float dc = dcc[n] + dh * go * (1.f - tc * tc);
-      const float d_i = dc * gg * gi * (1.f - gi);
-      const float d_f = dc * cprev * gf * (1.f - gf);
-      const float d_g = dc * gi * (1.f - gg * gg);
-      live[n] = lo[n] <= t && t < hi[n];
-      float d[4] = {d_i, d_f, d_g, d_o};
-      T* dx = dxp + row * G + j;
+  }
+}
+
+// -- E, phase 2: the serial loop (time_loop.cuh backward_loop_kernel) -------
+
+// E's cell: the f32 carries (dh, dc) of one (row, unit) pair
+template <typename T, typename TWt>
+struct LstmCell {
+  using TW = TWt;
+  struct Step {       // the step's inputs, loaded a step ahead
+    float4 g;         // i, f, g, o
+    float c, cprev, dh;
+  };
+  struct Carry {
+    float dh, dc;
+  };
+  const float* gates;      // [T*B][H][4]
+  const float* cs;         // [T*B][H]
+  const float* c0;         // [B][H]
+  const T* dhs;            // [T*B][H]
+  const float* dh_last;    // [B][H]
+  const float* dc_last;
+  T* dxp;                  // [T*B][4H]
+  float* dh0;
+  float* dc0;
+  int B, H;
+
+  __device__ __forceinline__ Carry init(int b, int j) const {
+    return {dh_last[b * H + j], dc_last[b * H + j]};
+  }
+  __device__ __forceinline__ Step fetch(int t, int b, int j) const {
+    const size_t o = ((size_t)t * B + b) * H + j;
+    Step s;
+    s.g = *reinterpret_cast<const float4*>(gates + o * 4);
+    s.c = cs[o];
+    s.cprev = t > 0 ? cs[o - (size_t)B * H] : c0[b * H + j];
+    s.dh = load_f(dhs + o);
+    return s;
+  }
+  // dgates (zero at a masked step) into dxp and, rounded, the operand;
+  // carry.dh <- dh, and carry.dc <- dc * sig(f) at a live step
+  __device__ __forceinline__ void step(const Step& s, Carry& c, bool live,
+                                       bool store, size_t row, int j,
+                                       TW* op) const {
+    const float gi = s.g.x, gf = s.g.y, gg = s.g.z, go = s.g.w;
+    const float tc = tanhf(s.c);
+    const float dh = s.dh + c.dh;
+    const float dc = c.dc + dh * go * (1.f - tc * tc);
+    float d[4] = {dc * gg * gi * (1.f - gi), dc * s.cprev * gf * (1.f - gf),
+                  dc * gi * (1.f - gg * gg), dh * tc * go * (1.f - go)};
+    if (store) {
+      const int G = 4 * H;
 #pragma unroll
       for (int g = 0; g < 4; ++g) {
-        if (!live[n]) d[g] = 0.f;
-        store_f(dx + g * H, d[g]);
-        d[g] = round_as(d[g], wtype);
-        __stcg(dgx + (size_t)b * G + g * H + j, d[g]);
-      }
-      *reinterpret_cast<float4*>(dgo + (b * hb + u) * 4) =
-          make_float4(d[0], d[1], d[2], d[3]);
-      dhk[n] = dh;
-      if (live[n]) dcc[n] = dc * gf;
-    }
-    // 3. dW_hh[:, own columns] += round_w(hprev)^T @ dgo
-    for (int k0 = 0; k0 < H; k0 += kt) {
-      const int kw = min(kt, H - k0);
-      __syncthreads();
-      if (t > 0)
-        stage_tile(tile, ld, hs + (t - 1) * plane, H, B, k0, kw);
-      else
-        stage_tile(tile, ld, h0, H, B, k0, kw);
-      __syncthreads();
-      for (int e = threadIdx.x; e < kw * hb; e += blockDim.x) {
-        const int k = e / hb, u = e % hb;
-        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-        for (int b = 0; b < B; ++b) {
-          const float hv = round_as(tile[b * ld + k], wtype);
-          const float4 gv =
-              *reinterpret_cast<const float4*>(dgo + (b * hb + u) * 4);
-          a0 = fmaf(hv, gv.x, a0);
-          a1 = fmaf(hv, gv.y, a1);
-          a2 = fmaf(hv, gv.z, a2);
-          a3 = fmaf(hv, gv.w, a3);
-        }
-        const int kg = k0 + k;
-        if (kSmem) {
-          float4* p = reinterpret_cast<float4*>(dwacc + (kg * hb + u) * 4);
-          float4 v = *p;
-          v.x += a0;
-          v.y += a1;
-          v.z += a2;
-          v.w += a3;
-          *p = v;
-        } else {
-          float* p = dw + (size_t)kg * G + j0 + u;
-          p[0] += a0;
-          p[H] += a1;
-          p[2 * H] += a2;
-          p[3 * H] += a3;
-        }
+        if (!live) d[g] = 0.f;
+        store_f(dxp + row * G + g * H + j, d[g]);
+        store_cg(op + g * H + j, round_as(d[g], op));
       }
     }
-    grid.sync();
-    // 4. dh_back = round_w(dgates) @ w_hh^T for this CTA's units
-    float back[kMaxPairs];
-#pragma unroll
-    for (int n = 0; n < kMaxPairs; ++n) back[n] = 0.f;
-    for (int c0_ = 0; c0_ < G; c0_ += kt) {
-      const int cw = min(kt, G - c0_);
-      __syncthreads();
-      stage_tile(tile, ld, dgx, G, B, c0_, cw);
-      __syncthreads();
-      for (int cc4 = 0; cc4 < cw; cc4 += 4) {
-#pragma unroll
-        for (int n = 0; n < kMaxPairs; ++n) {
-          if (n >= np) break;
-          const float4 gv =
-              *reinterpret_cast<const float4*>(tile + pb[n] * ld + cc4);
-          float4 wv;
-          if (kSmem) {
-            wv = *reinterpret_cast<const float4*>(wr + pu[n] * G + c0_ + cc4);
-          } else {
-            const TW* r = w + (size_t)(j0 + pu[n]) * G + c0_ + cc4;
-            wv = make_float4(load_f(r), load_f(r + 1), load_f(r + 2),
-                             load_f(r + 3));
-          }
-          back[n] = fmaf(gv.x, wv.x, back[n]);
-          back[n] = fmaf(gv.y, wv.y, back[n]);
-          back[n] = fmaf(gv.z, wv.z, back[n]);
-          back[n] = fmaf(gv.w, wv.w, back[n]);
-        }
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < kMaxPairs; ++n) dhc[n] = live[n] ? back[n] : dhk[n];
+    c.dh = dh;
+    if (live) c.dc = dc * gf;
   }
-
-  __syncthreads();
-#pragma unroll
-  for (int n = 0; n < kMaxPairs; ++n) {
-    if (n >= np) break;
-    const int o = pb[n] * H + j0 + pu[n];
-    dh0[o] = dhc[n];
-    dc0[o] = dcc[n];
+  // a masked step passes dh through
+  __device__ __forceinline__ void carry(Carry& c, float back,
+                                        bool live) const {
+    if (live) c.dh = back;
   }
-  if (kSmem) {
-    for (int e = threadIdx.x; e < H * cols; e += blockDim.x) {
-      const int k = e / cols, u = (e / 4) % hb, g = e % 4;
-      dw[(size_t)k * G + g * H + j0 + u] = dwacc[e];
-    }
+  __device__ __forceinline__ void finish(const Carry& c, int b,
+                                         int j) const {
+    dh0[b * H + j] = c.dh;
+    dc0[b * H + j] = c.dc;
   }
-}
-
-// Launch kern over `grid` CTAs as one cooperative launch, after checking
-// that the grid can be co-resident (a grid barrier over CTAs that cannot
-// all run at once never returns).
-template <typename K>
-cudaError_t launch_coop(K kern, int grid, int threads, size_t smem,
-                        void** args, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return cudaErrorNotSupported;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
-                                                      smem);
-  if (err != cudaSuccess) return err;
-  if ((long long)per_sm * sms < grid) return cudaErrorCooperativeLaunchTooLarge;
-  err = cudaLaunchCooperativeKernel((const void*)kern, dim3(grid),
-                                    dim3(threads), args, smem, stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
-template <typename T, typename TW>
-cudaError_t fwd(int w_smem, const void* xp, const void* w, const void* h0,
-                const void* c0, const void* bounds, void* hs, void* cs,
-                void* hbuf, int Tn, int B, int H, int hb, int kt,
-                int threads, size_t smem, cudaStream_t stream) {
-  const T* a_xp = static_cast<const T*>(xp);
-  const TW* a_w = static_cast<const TW*>(w);
-  const float* a_h0 = static_cast<const float*>(h0);
-  const float* a_c0 = static_cast<const float*>(c0);
-  const int* a_bounds = static_cast<const int*>(bounds);
-  T* a_hs = static_cast<T*>(hs);
-  float* a_cs = static_cast<float*>(cs);
-  float* a_hbuf = static_cast<float*>(hbuf);
-  void* args[] = {&a_xp, &a_w, &a_h0, &a_c0, &a_bounds, &a_hs,
-                  &a_cs, &a_hbuf, &Tn, &B, &H, &hb, &kt};
-  if (w_smem)
-    return launch_coop(lstm_fwd_kernel<T, TW, true>, H / hb, threads, smem,
-                       args, stream);
-  return launch_coop(lstm_fwd_kernel<T, TW, false>, H / hb, threads, smem,
-                     args, stream);
-}
-
-template <typename T, typename TW>
-cudaError_t bwd(int w_smem, const void* xp, const void* w, const void* h0,
-                const void* c0, const void* bounds, const void* hs,
-                const void* cs, const void* dhs, const void* dh_last,
-                const void* dc_last, void* dxp, void* dw, void* dh0,
-                void* dc0, void* dgbuf, int Tn, int B, int H, int hb,
-                int kt, int threads, size_t smem, cudaStream_t stream) {
-  const T* a_xp = static_cast<const T*>(xp);
-  const TW* a_w = static_cast<const TW*>(w);
-  const float* a_h0 = static_cast<const float*>(h0);
-  const float* a_c0 = static_cast<const float*>(c0);
-  const int* a_bounds = static_cast<const int*>(bounds);
-  const T* a_hs = static_cast<const T*>(hs);
-  const float* a_cs = static_cast<const float*>(cs);
-  const T* a_dhs = static_cast<const T*>(dhs);
-  const float* a_dhl = static_cast<const float*>(dh_last);
-  const float* a_dcl = static_cast<const float*>(dc_last);
-  T* a_dxp = static_cast<T*>(dxp);
-  float* a_dw = static_cast<float*>(dw);
-  float* a_dh0 = static_cast<float*>(dh0);
-  float* a_dc0 = static_cast<float*>(dc0);
-  float* a_dgbuf = static_cast<float*>(dgbuf);
-  void* args[] = {&a_xp,  &a_w,   &a_h0,  &a_c0,  &a_bounds, &a_hs,
-                  &a_cs,  &a_dhs, &a_dhl, &a_dcl, &a_dxp,    &a_dw,
-                  &a_dh0, &a_dc0, &a_dgbuf, &Tn,  &B,        &H,
-                  &hb,    &kt};
-  if (w_smem)
-    return launch_coop(lstm_bwd_kernel<T, TW, true>, H / hb, threads, smem,
-                       args, stream);
-  return launch_coop(lstm_bwd_kernel<T, TW, false>, H / hb, threads, smem,
-                     args, stream);
-}
+};
 
 }  // namespace
 
-// The card's limits the host's geometry needs: out[0] = SM count, out[1] =
-// shared memory a block may opt in to (bytes), out[2] = 1 if cooperative
-// launches are supported.
-extern "C" int lstm_device_limits(int* out) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  cudaDeviceGetAttribute(&out[0], cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&out[1], cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
-  cudaDeviceGetAttribute(&out[2], cudaDevAttrCooperativeLaunch, dev);
-  return (int)cudaGetLastError();
-}
+extern "C" int lstm_device_limits(int* out) { return device_limits(out); }
 
 // x_dtype / w_dtype: 0 = float32, 1 = bfloat16. Grid H/hb CTAs of
 // `threads` threads and `smem` bytes of dynamic shared memory, tiles of
@@ -565,52 +312,99 @@ extern "C" int lstm_fwd(int x_dtype, int w_dtype, int w_smem, const void* xp,
                         const void* bounds, void* hs, void* cs, void* hbuf,
                         int Tn, int B, int H, int hb, int kt, int threads,
                         long long smem, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t sm = (size_t)smem;
-  if (x_dtype == 0 && w_dtype == 0)
-    return (int)fwd<float, float>(w_smem, xp, w, h0, c0, bounds, hs, cs, hbuf,
-                                  Tn, B, H, hb, kt, threads, sm, s);
-  if (x_dtype == 0 && w_dtype == 1)
-    return (int)fwd<float, __nv_bfloat16>(w_smem, xp, w, h0, c0, bounds, hs,
-                                          cs, hbuf, Tn, B, H, hb, kt, threads, sm,
-                                          s);
-  if (x_dtype == 1 && w_dtype == 0)
-    return (int)fwd<__nv_bfloat16, float>(w_smem, xp, w, h0, c0, bounds, hs,
-                                          cs, hbuf, Tn, B, H, hb, kt, threads, sm,
-                                          s);
-  if (x_dtype == 1 && w_dtype == 1)
-    return (int)fwd<__nv_bfloat16, __nv_bfloat16>(w_smem, xp, w, h0, c0,
-                                                  bounds, hs, cs, hbuf, Tn, B,
-                                                  H, hb, kt, threads, sm, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch_dtypes(x_dtype, w_dtype, [&](auto* xt, auto* wt) {
+    using T = std::remove_pointer_t<decltype(xt)>;
+    using TW = std::remove_pointer_t<decltype(wt)>;
+    const T* a_xp = static_cast<const T*>(xp);
+    const TW* a_w = static_cast<const TW*>(w);
+    const float* a_h0 = static_cast<const float*>(h0);
+    const float* a_c0 = static_cast<const float*>(c0);
+    const int* a_bounds = static_cast<const int*>(bounds);
+    T* a_hs = static_cast<T*>(hs);
+    float* a_cs = static_cast<float*>(cs);
+    float* a_hbuf = static_cast<float*>(hbuf);
+    void* args[] = {&a_xp, &a_w, &a_h0, &a_c0, &a_bounds, &a_hs,
+                    &a_cs, &a_hbuf, &Tn, &B, &H, &hb, &kt};
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (w_smem)
+      return launch_coop(lstm_fwd_kernel<T, TW, true>, H / hb, threads,
+                         (size_t)smem, args, s);
+    return launch_coop(lstm_fwd_kernel<T, TW, false>, H / hb, threads,
+                       (size_t)smem, args, s);
+  });
 }
 
-extern "C" int lstm_bwd(int x_dtype, int w_dtype, int w_smem, const void* xp,
-                        const void* w, const void* h0, const void* c0,
-                        const void* bounds, const void* hs, const void* cs,
-                        const void* dhs, const void* dh_last,
-                        const void* dc_last, void* dxp, void* dw, void* dh0,
-                        void* dc0, void* dgbuf, int Tn, int B, int H, int hb,
-                        int kt, int threads, long long smem, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t sm = (size_t)smem;
-  if (x_dtype == 0 && w_dtype == 0)
-    return (int)bwd<float, float>(w_smem, xp, w, h0, c0, bounds, hs, cs, dhs,
-                                  dh_last, dc_last, dxp, dw, dh0, dc0, dgbuf,
-                                  Tn, B, H, hb, kt, threads, sm, s);
-  if (x_dtype == 0 && w_dtype == 1)
-    return (int)bwd<float, __nv_bfloat16>(w_smem, xp, w, h0, c0, bounds, hs,
-                                          cs, dhs, dh_last, dc_last, dxp, dw,
-                                          dh0, dc0, dgbuf, Tn, B, H, hb,
-                                          kt, threads, sm, s);
-  if (x_dtype == 1 && w_dtype == 0)
-    return (int)bwd<__nv_bfloat16, float>(w_smem, xp, w, h0, c0, bounds, hs,
-                                          cs, dhs, dh_last, dc_last, dxp, dw,
-                                          dh0, dc0, dgbuf, Tn, B, H, hb,
-                                          kt, threads, sm, s);
-  if (x_dtype == 1 && w_dtype == 1)
-    return (int)bwd<__nv_bfloat16, __nv_bfloat16>(
-        w_smem, xp, w, h0, c0, bounds, hs, cs, dhs, dh_last, dc_last, dxp, dw,
-        dh0, dc0, dgbuf, Tn, B, H, hb, kt, threads, sm, s);
-  return (int)cudaErrorInvalidValue;
+// E in three launches on `stream`, each returning its cudaError_t.
+// x_dtype / w_dtype: 0 = float32, 1 = bfloat16.
+//
+// Phase 1: gates [T*B, H, 4] f32 from x_proj, w_hh, h0 and hs; zeroes
+// counters[0 .. n_groups).
+extern "C" int lstm_bwd_gates(int x_dtype, int w_dtype, const void* xp,
+                              const void* w, const void* h0, const void* hs,
+                              void* gates, void* counters, int n_groups,
+                              int Tn, int B, int H, void* stream) {
+  return dispatch_dtypes(x_dtype, w_dtype, [&](auto* xt, auto* wt) {
+    using T = std::remove_pointer_t<decltype(xt)>;
+    using TW = std::remove_pointer_t<decltype(wt)>;
+    const int M = Tn * B;
+    const dim3 grid((4 * H + tile_gemm::kBN - 1) / tile_gemm::kBN,
+                    (M + tile_gemm::kBM - 1) / tile_gemm::kBM);
+    lstm_bwd_gates_kernel<T, TW>
+        <<<grid, tile_gemm::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const T*>(xp), static_cast<const TW*>(w),
+            static_cast<const float*>(h0), static_cast<const T*>(hs),
+            static_cast<float*>(gates), static_cast<unsigned*>(counters),
+            n_groups, M, B, H);
+    return cudaGetLastError();
+  });
+}
+
+// Phase 2: one cooperative launch of (B / br row groups) x (H / hb unit
+// groups) CTAs of `threads` threads, thread tiles of `ut` units x 4 *
+// `rep` rows, w_hh's rows resident in shared memory when `resident`,
+// operand chunks of cw columns, `smem` bytes of dynamic shared memory;
+// writes dxp, the operand opnd [T*B, ldo] (w_hh's dtype), dh0 and dc0.
+extern "C" int lstm_bwd_loop(int x_dtype, int w_dtype, int ut, int rep,
+                             int resident, const void* gates, const void* c0,
+                             const void* bounds, const void* cs,
+                             const void* dhs, const void* dh_last,
+                             const void* dc_last, const void* w, void* dxp,
+                             void* opnd, int ldo, void* dh0, void* dc0,
+                             void* counters, int Tn, int B, int H, int hb,
+                             int br, int cw, int threads, long long smem,
+                             void* stream) {
+  return dispatch_dtypes(x_dtype, w_dtype, [&](auto* xt, auto* wt) {
+    using T = std::remove_pointer_t<decltype(xt)>;
+    using TW = std::remove_pointer_t<decltype(wt)>;
+    const LstmCell<T, TW> cell{
+        static_cast<const float*>(gates),   static_cast<const float*>(cs),
+        static_cast<const float*>(c0),      static_cast<const T*>(dhs),
+        static_cast<const float*>(dh_last), static_cast<const float*>(dc_last),
+        static_cast<T*>(dxp),               static_cast<float*>(dh0),
+        static_cast<float*>(dc0),           B,
+        H};
+    const LoopArgs<TW> a{static_cast<const TW*>(w), static_cast<TW*>(opnd),
+                         static_cast<const int*>(bounds),
+                         static_cast<unsigned*>(counters),
+                         ldo, Tn, B, H, 4 * H, hb, br, cw};
+    return launch_loop(cell, a, ut, rep, resident, threads, (size_t)smem,
+                       static_cast<cudaStream_t>(stream));
+  });
+}
+
+// Phase 3: dw [H, 4H] f32 = round_w(hprev)^T @ opnd, split `splits` ways
+// over the T*B rows (kchunk rows each; part [splits, H, 4H] f32 scratch);
+// *launched = the kernels it launched.
+extern "C" int lstm_bwd_dw(int x_dtype, int w_dtype, const void* hs,
+                           const void* h0, const void* opnd, int ldo,
+                           void* part, void* dw, int Tn, int B, int H,
+                           int splits, int kchunk, int* launched,
+                           void* stream) {
+  return dispatch_dtypes(x_dtype, w_dtype, [&](auto* xt, auto* wt) {
+    using T = std::remove_pointer_t<decltype(xt)>;
+    using TW = std::remove_pointer_t<decltype(wt)>;
+    return launch_dw<T, TW>(hs, h0, opnd, ldo, part, dw, Tn * B, B, H, 4 * H,
+                            splits, kchunk, launched,
+                            static_cast<cudaStream_t>(stream));
+  });
 }

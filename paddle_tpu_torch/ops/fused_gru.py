@@ -6,9 +6,13 @@
   backward recomputes r, z, n from the saved f32 stream, as the TPU
   kernel does.
 - `gru_forward_kernel`, `gru_backward_kernel`: the wrappers of
-  `csrc/fused_gru.cu` (kernels F and G), one cooperative launch each for
-  the whole sequence. CUDA tensors only; they raise on what the kernels
-  do not take and count their launches in `launch_counts`.
+  `csrc/fused_gru.cu` (kernels F and G). F is one cooperative launch for
+  the whole sequence; G is three launches on the stream (the gates of
+  every step, the serial loop as one cooperative launch, dW_hh) plus one
+  that sums dW's split parts. CUDA tensors only; they raise on what the
+  kernels do not take and count one launch per call in `launch_counts`
+  (G's device launches in `device_launches`). Where gradients are
+  wanted, `fused_gru` checks G's geometry before F runs.
 - `fused_gru(x_proj, w_hh, h0, bounds, *, impl=None)`: the `custom_vjp`
   as a `torch.autograd.Function`. impl None runs the kernels on CUDA
   tensors and the plain versions on CPU tensors; "torch" the plain
@@ -36,6 +40,9 @@ from paddle_tpu_torch.ops.fused_lstm import make_bounds  # noqa: F401
 
 #: launches of kernel F ("fwd") and kernel G ("bwd")
 launch_counts = {"fwd": 0, "bwd": 0}
+#: device launches made by kernel G's calls: its three phases, and the
+#: sum of dW's split parts where dW is split
+device_launches = {"bwd": 0}
 
 _WHAT = "fused_gru kernel"
 _P = ctypes.c_void_p
@@ -44,14 +51,18 @@ _SIGNATURES = {
     "gru_device_limits": [_P],
     "gru_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                 ctypes.c_longlong, _P],
-    "gru_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                _I, _I, _I, _I, ctypes.c_longlong, _P],
+    "gru_bwd_gates": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "gru_bwd_loop": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                     _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                     ctypes.c_longlong, _P],
+    "gru_bwd_dw": [_I, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P],
 }
 
 
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+    device_launches["bwd"] = 0
 
 
 # -- the plain versions --------------------------------------------------------
@@ -117,18 +128,19 @@ def gru_backward_reference(x_proj, w_hh, h0, bounds, hs, dhs, dh_last):
 # -- the kernels ---------------------------------------------------------------
 
 
-def geometry(batch: int, hidden: int, sms: int, smem_optin: int, *,
-             backward: bool):
-    """(hb, threads, tile width, smem bytes) of one launch. F keeps its
-    units' gate columns resident ([H][hb][4] f32); G also their rows
-    ([hb][3H]), their dW columns ([H][hb][4]) and its own dhp ([B][hb]
-    [4]). Raises ValueError on a shape the kernels do not take."""
+def geometry(batch: int, hidden: int, sms: int, smem_optin: int):
+    """F's (hb, threads, tile width, smem bytes): its units' gate columns
+    resident ([H][hb][4] f32) beside one staged tile. Raises ValueError on
+    a shape the kernel does not take."""
     hb, threads = TL.units_and_threads(_WHAT, batch, hidden, sms)
-    resident = 16 * hidden * hb
-    if backward:
-        resident += 12 * hidden * hb + 16 * hidden * hb + 16 * batch * hb
-    width, smem = TL.pick_tile(_WHAT, batch, hidden, resident, smem_optin)
+    width, smem = TL.pick_tile(_WHAT, batch, hidden, 16 * hidden * hb,
+                               smem_optin)
     return hb, threads, width, smem
+
+
+def backward_geometry(batch: int, hidden: int, sms: int, smem_optin: int):
+    """G's serial loop: `time_loop.backward_geometry` over 3H columns."""
+    return TL.backward_geometry(_WHAT, batch, hidden, 3, sms, smem_optin)
 
 
 def _limits(device):
@@ -140,8 +152,7 @@ def gru_forward_kernel(x_proj, w_hh, h0, bounds):
     """Launch kernel F (csrc/fused_gru.cu `gru_fwd`) on the current
     stream. Same contract as gru_forward_reference."""
     steps, b, hidden = TL.check_inputs(_WHAT, x_proj, w_hh, h0, bounds, 3)
-    hb, threads, width, smem = geometry(b, hidden, *_limits(x_proj.device),
-                                        backward=False)
+    hb, threads, width, smem = geometry(b, hidden, *_limits(x_proj.device))
     lib = _cuda.library("fused_gru", _SIGNATURES)
     dev = x_proj.device
     x_proj, w_hh = x_proj.contiguous(), w_hh.contiguous()
@@ -158,32 +169,62 @@ def gru_forward_kernel(x_proj, w_hh, h0, bounds):
     return hs
 
 
-def gru_backward_kernel(x_proj, w_hh, h0, bounds, hs, dhs, dh_last):
-    """Launch kernel G (csrc/fused_gru.cu `gru_bwd`) on the current
-    stream. Same contract as gru_backward_reference."""
+def gru_backward_kernel(x_proj, w_hh, h0, bounds, hs, dhs, dh_last, *,
+                        events=None):
+    """Launch kernel G (csrc/fused_gru.cu `gru_bwd_gates`, `gru_bwd_loop`,
+    `gru_bwd_dw`) on the current stream. Same contract as
+    gru_backward_reference. `events`, four timing CUDA events or None,
+    are recorded before phase 1 and after each phase."""
     steps, b, hidden = TL.check_inputs(_WHAT, x_proj, w_hh, h0, bounds, 3)
     for name, t in (("hs", hs), ("dhs", dhs)):
         if tuple(t.shape) != (steps, b, hidden):
             raise ValueError(f"{_WHAT}: {name} must be [T, B, H]")
-    hb, threads, width, smem = geometry(b, hidden, *_limits(x_proj.device),
-                                        backward=True)
+    sms, smem_optin = _limits(x_proj.device)
+    geo = backward_geometry(b, hidden, sms, smem_optin)
+    splits, kchunk = TL.dw_splits(steps * b, hidden, 3, sms)
     lib = _cuda.library("fused_gru", _SIGNATURES)
     dev = x_proj.device
     f32 = torch.float32
+    g3 = 3 * hidden
     x_proj, w_hh = x_proj.contiguous(), w_hh.contiguous()
-    args = [t.contiguous() for t in (h0.float(), bounds, hs.float(),
-                                     dhs.float(), dh_last.float())]
+    h0f, bounds, hs, dhs, dhl = (t.contiguous() for t in (
+        h0.float(), bounds, hs.float(), dhs.float(), dh_last.float()))
+    codes = (TL.DTYPE_CODE[x_proj.dtype], TL.DTYPE_CODE[w_hh.dtype])
+    ldo = TL.operand_ld(g3)
     dxp = torch.empty_like(x_proj)
     dw = torch.empty(w_hh.shape, dtype=f32, device=dev)
     dh0 = torch.empty((b, hidden), dtype=f32, device=dev)
-    dpbuf = torch.empty((2, b, 3 * hidden), dtype=f32, device=dev)
-    err = lib.gru_bwd(
-        TL.DTYPE_CODE[x_proj.dtype], TL.DTYPE_CODE[w_hh.dtype],
-        x_proj.data_ptr(), w_hh.data_ptr(), *(a.data_ptr() for a in args),
-        dxp.data_ptr(), dw.data_ptr(), dh0.data_ptr(), dpbuf.data_ptr(),
-        steps, b, hidden, hb, width, threads, smem,
-        torch.cuda.current_stream(dev).cuda_stream)
-    TL.launch_error(err, "gru_bwd")
+    gates = torch.empty((steps, b, hidden, 4), dtype=f32, device=dev)
+    opnd = torch.empty((steps, b, ldo), dtype=w_hh.dtype, device=dev)
+    counters = torch.empty(geo.row_groups, dtype=torch.int32, device=dev)
+    part = torch.empty((splits, hidden, g3) if splits > 1 else (1,),
+                       dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    launched = ctypes.c_int(0)
+    TL.record(events, 0)
+    err = lib.gru_bwd_gates(*codes, x_proj.data_ptr(), w_hh.data_ptr(),
+                            h0f.data_ptr(), hs.data_ptr(), gates.data_ptr(),
+                            counters.data_ptr(), geo.row_groups, steps, b,
+                            hidden, stream)
+    TL.launch_error(err, "gru_bwd_gates")
+    device_launches["bwd"] += 1
+    TL.record(events, 1)
+    err = lib.gru_bwd_loop(
+        *codes, geo.unit_tile, geo.rep, int(geo.resident), gates.data_ptr(), h0f.data_ptr(),
+        bounds.data_ptr(), hs.data_ptr(), dhs.data_ptr(), dhl.data_ptr(),
+        w_hh.data_ptr(), dxp.data_ptr(), opnd.data_ptr(), ldo,
+        dh0.data_ptr(), counters.data_ptr(), steps, b, hidden, geo.hb,
+        geo.br, geo.chunk, geo.threads, geo.smem, stream)
+    TL.launch_error(err, "gru_bwd_loop")
+    device_launches["bwd"] += 1
+    TL.record(events, 2)
+    err = lib.gru_bwd_dw(codes[1], hs.data_ptr(), h0f.data_ptr(),
+                         opnd.data_ptr(), ldo, part.data_ptr(),
+                         dw.data_ptr(), steps, b, hidden, splits, kchunk,
+                         ctypes.addressof(launched), stream)
+    device_launches["bwd"] += launched.value
+    TL.launch_error(err, "gru_bwd_dw")
+    TL.record(events, 3)
     launch_counts["bwd"] += 1
     return dxp, dw, dh0
 
@@ -197,6 +238,10 @@ class _FusedGRU(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x_proj, w_hh, h0, bounds, use_kernel):
+        if use_kernel and any(ctx.needs_input_grad[:3]):
+            # G and F take different shapes: refuse before the step starts
+            _, b, hidden = TL.check_inputs(_WHAT, x_proj, w_hh, h0, bounds, 3)
+            backward_geometry(b, hidden, *_limits(x_proj.device))
         fwd = gru_forward_kernel if use_kernel else gru_forward_reference
         hs = fwd(x_proj, w_hh, h0, bounds)
         ctx.save_for_backward(x_proj, w_hh, h0, bounds, hs)

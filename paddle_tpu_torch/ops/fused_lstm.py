@@ -7,9 +7,13 @@
   the TPU kernel does, so it differs slightly from autograd through the
   plain scan; that is the reference's behaviour.
 - `lstm_forward_kernel`, `lstm_backward_kernel`: the wrappers of
-  `csrc/fused_lstm.cu` (kernels D and E), one cooperative launch each
-  for the whole sequence. CUDA tensors only; they raise on what the
-  kernels do not take and count their launches in `launch_counts`.
+  `csrc/fused_lstm.cu` (kernels D and E). D is one cooperative launch
+  for the whole sequence; E is three launches on the stream (the gates
+  of every step, the serial loop as one cooperative launch, dW_hh) plus
+  one that sums dW's split parts. CUDA tensors only; they raise on what
+  the kernels do not take and count one launch per call in
+  `launch_counts` (E's device launches in `device_launches`). Where
+  gradients are wanted, `fused_lstm` checks E's geometry before D runs.
 - `fused_lstm(x_proj, w_hh, h0, c0, bounds, *, impl=None)`: the
   `custom_vjp` as a `torch.autograd.Function`. impl None runs the
   kernels on CUDA tensors and the plain versions on CPU tensors;
@@ -31,19 +35,21 @@ import ctypes
 import torch
 
 from paddle_tpu_torch.ops import _cuda
+from paddle_tpu_torch.ops import time_loop as TL
 
 #: launches of kernel D ("fwd") and kernel E ("bwd")
 launch_counts = {"fwd": 0, "bwd": 0}
+#: device launches made by kernel E's calls: its three phases, and the
+#: sum of dW's split parts where dW is split
+device_launches = {"bwd": 0}
 
-#: the kernels' geometry (csrc/fused_lstm.cu): threads per CTA, (row,
-#: unit) pairs per thread, and the widths a staged tile may take (the
-#: widest that fits shared memory is used; a row is padded by 4 floats)
-MAX_THREADS = 512
-MAX_PAIRS = 4
-TILE_WIDTHS = (512, 256, 128, 64)
+#: D's geometry (csrc/fused_lstm.cu): threads per CTA, (row, unit) pairs
+#: per thread, and the widths a staged tile may take (the widest that
+#: fits shared memory is used; a row is padded by 4 floats)
+MAX_THREADS, MAX_PAIRS, TILE_WIDTHS = (TL.MAX_THREADS, TL.MAX_PAIRS,
+                                      TL.TILE_WIDTHS)
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_COOP_TOO_LARGE = 720   # cudaErrorCooperativeLaunchTooLarge
+_WHAT = "fused_lstm kernel"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,15 +57,19 @@ _SIGNATURES = {
     "lstm_device_limits": [_P],
     "lstm_fwd": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                  _I, _I, _I, _I, _I, _I, ctypes.c_longlong, _P],
-    "lstm_bwd": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                 _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                 ctypes.c_longlong, _P],
+    "lstm_bwd_gates": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "lstm_bwd_loop": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                      ctypes.c_longlong, _P],
+    "lstm_bwd_dw": [_I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P,
+                    _P],
 }
 
 
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+    device_launches["bwd"] = 0
 
 
 def make_bounds(b: int, t: int, lengths, reverse: bool, device=None):
@@ -151,101 +161,52 @@ def lstm_backward_reference(x_proj, w_hh, h0, c0, bounds, hs, cs, dhs,
 # -- the kernels ---------------------------------------------------------------
 
 
-def geometry(batch: int, hidden: int, sms: int, smem_optin: int, *,
-             backward: bool):
-    """(hb, threads, w_resident, tile width, smem bytes) of one launch:
-    the fewest hidden units per CTA (hb, a divisor of H) with at most one
-    CTA per SM, (B x hb) pairs spread over at most MAX_THREADS threads,
-    the w_hh slices resident in shared memory when they fit beside a
+def geometry(batch: int, hidden: int, sms: int, smem_optin: int):
+    """D's (hb, threads, w_resident, tile width, smem bytes): the fewest
+    hidden units per CTA (hb, a divisor of H) with at most one CTA per
+    SM, (B x hb) pairs spread over at most MAX_THREADS threads, the w_hh
+    gate columns resident in shared memory when they fit beside a
     64-column tile, and the widest tile that fits beside them. Raises
-    ValueError on a shape the kernels do not take."""
+    ValueError on a shape the kernel does not take."""
     if hidden % 4:
-        raise ValueError(f"fused_lstm kernel: hidden {hidden} must be a "
-                         f"multiple of 4 (16-byte tile rows)")
-    hb = next(d for d in range(1, hidden + 1)
-              if hidden % d == 0 and hidden // d <= sms)
-    pairs = batch * hb
-    if pairs > MAX_THREADS * MAX_PAIRS:
-        raise ValueError(
-            f"fused_lstm kernel: B={batch} x {hb} units per CTA = {pairs} "
-            f"(row, unit) pairs exceeds {MAX_THREADS * MAX_PAIRS} "
-            f"({MAX_THREADS} threads x {MAX_PAIRS} pairs)")
-    per_thread = -(-pairs // MAX_THREADS)
-    threads = -(-pairs // per_thread)
-    threads = -(-threads // 32) * 32
+        raise ValueError(f"{_WHAT}: hidden {hidden} must be a multiple of 4 "
+                         f"(16-byte tile rows)")
+    hb, threads = TL.units_and_threads(_WHAT, batch, hidden, sms)
     tile = lambda width: batch * (width + 4) * 4
-    fixed = batch * 4 * hb * 4 if backward else 0     # E's own dgates
-    # D keeps its units' gate columns; E also their rows and dW columns
-    resident = 4 * hidden * hb * 4 * (3 if backward else 1)
-    if fixed + tile(TILE_WIDTHS[-1]) > smem_optin:
+    resident = 4 * hidden * hb * 4
+    if tile(TILE_WIDTHS[-1]) > smem_optin:
         raise ValueError(
-            f"fused_lstm kernel: B={batch} needs "
-            f"{fixed + tile(TILE_WIDTHS[-1])} bytes of shared memory for "
-            f"its tiles, the card allows {smem_optin}")
-    w_resident = fixed + resident + tile(TILE_WIDTHS[-1]) <= smem_optin
-    used = fixed + (resident if w_resident else 0)
+            f"{_WHAT}: B={batch} needs {tile(TILE_WIDTHS[-1])} "
+            f"bytes of shared memory for its tiles, the card allows "
+            f"{smem_optin}")
+    w_resident = resident + tile(TILE_WIDTHS[-1]) <= smem_optin
+    used = resident if w_resident else 0
     width = next(w for w in TILE_WIDTHS if used + tile(w) <= smem_optin)
     return hb, threads, w_resident, width, used + tile(width)
 
 
-_LIMITS = {}
+def backward_geometry(batch: int, hidden: int, sms: int, smem_optin: int):
+    """E's serial loop: `time_loop.backward_geometry` over 4H columns."""
+    return TL.backward_geometry(_WHAT, batch, hidden, 4, sms, smem_optin)
 
 
 def device_limits(device):
     """(SM count, opt-in shared memory per block) of the card, read once
     per device; raises if it has no cooperative launches."""
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if idx not in _LIMITS:
-        lib = _cuda.library("fused_lstm", _SIGNATURES)
-        out = (ctypes.c_int * 3)()
-        with torch.cuda.device(idx):
-            err = lib.lstm_device_limits(ctypes.addressof(out))
-        _cuda.check_launch(err, "lstm_device_limits")
-        if not out[2]:
-            raise RuntimeError("fused_lstm kernel: the card does not "
-                               "support cooperative launches")
-        _LIMITS[idx] = (out[0], out[1])
-    return _LIMITS[idx]
+    return TL.device_limits("fused_lstm", _SIGNATURES, "lstm_device_limits",
+                            device)
 
 
 def _check(x_proj, w_hh, h0, c0, bounds):
-    for name, t in dict(x_proj=x_proj, w_hh=w_hh, h0=h0, c0=c0,
-                        bounds=bounds).items():
-        if not t.is_cuda:
-            raise ValueError(f"fused_lstm kernel: {name} is on {t.device}, "
-                             f"the kernel takes CUDA tensors only")
-        if t.device != x_proj.device:
-            raise ValueError(f"fused_lstm kernel: {name} is on {t.device}, "
-                             f"x_proj on {x_proj.device}")
-    if x_proj.dtype not in _DTYPE_CODE or w_hh.dtype not in _DTYPE_CODE:
-        raise ValueError(f"fused_lstm kernel: x_proj and w_hh must be "
-                         f"float32 or bfloat16, got {x_proj.dtype}/"
-                         f"{w_hh.dtype}")
-    if x_proj.ndim != 3 or x_proj.shape[2] % 4:
-        raise ValueError(f"fused_lstm kernel: x_proj [T, B, 4H] expected, "
-                         f"got {tuple(x_proj.shape)}")
-    steps, b, g4 = x_proj.shape
-    hidden = g4 // 4
-    if steps < 1 or b < 1:
-        raise ValueError("fused_lstm kernel: empty sequence or batch")
-    if tuple(w_hh.shape) != (hidden, g4):
-        raise ValueError(f"fused_lstm kernel: w_hh {tuple(w_hh.shape)} does "
-                         f"not match x_proj {tuple(x_proj.shape)}")
-    for name, t in dict(h0=h0, c0=c0).items():
-        if tuple(t.shape) != (b, hidden):
-            raise ValueError(f"fused_lstm kernel: {name} must be [B, H] = "
-                             f"({b}, {hidden}), got {tuple(t.shape)}")
-    if bounds.dtype != torch.int32 or tuple(bounds.shape) != (b, 2):
-        raise ValueError("fused_lstm kernel: bounds must be int32 [B, 2]")
+    """`time_loop.check_inputs`, and c0 like h0. Returns (T, B, H)."""
+    steps, b, hidden = TL.check_inputs(_WHAT, x_proj, w_hh, h0, bounds, 4)
+    if tuple(c0.shape) != (b, hidden):
+        raise ValueError(f"{_WHAT}: c0 must be [B, H] = ({b}, {hidden}), "
+                         f"got {tuple(c0.shape)}")
+    if c0.device != x_proj.device:
+        raise ValueError(f"{_WHAT}: c0 is on {c0.device}, x_proj on "
+                         f"{x_proj.device}")
     return steps, b, hidden
-
-
-def _launch_error(err, what):
-    if err == _COOP_TOO_LARGE:
-        raise RuntimeError(f"{what}: the grid cannot be co-resident on this "
-                           f"card (cudaErrorCooperativeLaunchTooLarge)")
-    _cuda.check_launch(err, what)
 
 
 def lstm_forward_kernel(x_proj, w_hh, h0, c0, bounds):
@@ -253,7 +214,7 @@ def lstm_forward_kernel(x_proj, w_hh, h0, c0, bounds):
     stream. Same contract as lstm_forward_reference."""
     steps, b, hidden = _check(x_proj, w_hh, h0, c0, bounds)
     hb, threads, resident, width, smem = geometry(
-        b, hidden, *device_limits(x_proj.device), backward=False)
+        b, hidden, *device_limits(x_proj.device))
     lib = _cuda.library("fused_lstm", _SIGNATURES)
     dev = x_proj.device
     x_proj, w_hh = x_proj.contiguous(), w_hh.contiguous()
@@ -264,46 +225,75 @@ def lstm_forward_kernel(x_proj, w_hh, h0, c0, bounds):
     cs = torch.empty((steps, b, hidden), dtype=torch.float32, device=dev)
     hbuf = torch.empty((2, b, hidden), dtype=torch.float32, device=dev)
     err = lib.lstm_fwd(
-        _DTYPE_CODE[x_proj.dtype], _DTYPE_CODE[w_hh.dtype], int(resident),
+        TL.DTYPE_CODE[x_proj.dtype], TL.DTYPE_CODE[w_hh.dtype], int(resident),
         x_proj.data_ptr(), w_hh.data_ptr(), h0f.data_ptr(), c0f.data_ptr(),
         bounds.data_ptr(), hs.data_ptr(), cs.data_ptr(), hbuf.data_ptr(),
         steps, b, hidden, hb, width, threads, smem,
         torch.cuda.current_stream(dev).cuda_stream)
-    _launch_error(err, "lstm_fwd")
+    TL.launch_error(err, "lstm_fwd")
     launch_counts["fwd"] += 1
     return hs, cs
 
 
 def lstm_backward_kernel(x_proj, w_hh, h0, c0, bounds, hs, cs, dhs,
-                         dh_last, dc_last):
-    """Launch kernel E (csrc/fused_lstm.cu `lstm_bwd`) on the current
-    stream. Same contract as lstm_backward_reference."""
+                         dh_last, dc_last, *, events=None):
+    """Launch kernel E (csrc/fused_lstm.cu `lstm_bwd_gates`,
+    `lstm_bwd_loop`, `lstm_bwd_dw`) on the current stream. Same contract
+    as lstm_backward_reference. `events`, four timing CUDA events or
+    None, are recorded before phase 1 and after each phase."""
     steps, b, hidden = _check(x_proj, w_hh, h0, c0, bounds)
     for name, t, dt in (("hs", hs, x_proj.dtype), ("cs", cs, torch.float32)):
         if tuple(t.shape) != (steps, b, hidden) or t.dtype != dt:
             raise ValueError(f"fused_lstm kernel: {name} must be {dt} "
                              f"[T, B, H]")
-    hb, threads, resident, width, smem = geometry(
-        b, hidden, *device_limits(x_proj.device), backward=True)
+    sms, smem_optin = device_limits(x_proj.device)
+    geo = backward_geometry(b, hidden, sms, smem_optin)
+    splits, kchunk = TL.dw_splits(steps * b, hidden, 4, sms)
     lib = _cuda.library("fused_lstm", _SIGNATURES)
     dev = x_proj.device
     f32 = torch.float32
+    g4 = 4 * hidden
     x_proj, w_hh = x_proj.contiguous(), w_hh.contiguous()
-    args = [t.contiguous() for t in (
+    h0f, c0f, bounds, hs, cs, dhs, dhl, dcl = (t.contiguous() for t in (
         h0.float(), c0.float(), bounds, hs, cs, dhs.to(x_proj.dtype),
-        dh_last.float(), dc_last.float())]
+        dh_last.float(), dc_last.float()))
+    codes = (TL.DTYPE_CODE[x_proj.dtype], TL.DTYPE_CODE[w_hh.dtype])
+    ldo = TL.operand_ld(g4)
     dxp = torch.empty_like(x_proj)
     dw = torch.empty(w_hh.shape, dtype=f32, device=dev)
     dh0 = torch.empty((b, hidden), dtype=f32, device=dev)
     dc0 = torch.empty((b, hidden), dtype=f32, device=dev)
-    dgbuf = torch.empty((2, b, 4 * hidden), dtype=f32, device=dev)
-    err = lib.lstm_bwd(
-        _DTYPE_CODE[x_proj.dtype], _DTYPE_CODE[w_hh.dtype], int(resident),
-        x_proj.data_ptr(), w_hh.data_ptr(), *(a.data_ptr() for a in args),
-        dxp.data_ptr(), dw.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-        dgbuf.data_ptr(), steps, b, hidden, hb, width, threads, smem,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _launch_error(err, "lstm_bwd")
+    gates = torch.empty((steps, b, hidden, 4), dtype=f32, device=dev)
+    opnd = torch.empty((steps, b, ldo), dtype=w_hh.dtype, device=dev)
+    counters = torch.empty(geo.row_groups, dtype=torch.int32, device=dev)
+    part = torch.empty((splits, hidden, g4) if splits > 1 else (1,),
+                       dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    launched = ctypes.c_int(0)
+    TL.record(events, 0)
+    err = lib.lstm_bwd_gates(*codes, x_proj.data_ptr(), w_hh.data_ptr(),
+                             h0f.data_ptr(), hs.data_ptr(), gates.data_ptr(),
+                             counters.data_ptr(), geo.row_groups, steps, b,
+                             hidden, stream)
+    TL.launch_error(err, "lstm_bwd_gates")
+    device_launches["bwd"] += 1
+    TL.record(events, 1)
+    err = lib.lstm_bwd_loop(
+        *codes, geo.unit_tile, geo.rep, int(geo.resident), gates.data_ptr(), c0f.data_ptr(),
+        bounds.data_ptr(), cs.data_ptr(), dhs.data_ptr(), dhl.data_ptr(),
+        dcl.data_ptr(), w_hh.data_ptr(), dxp.data_ptr(), opnd.data_ptr(),
+        ldo, dh0.data_ptr(), dc0.data_ptr(), counters.data_ptr(), steps, b,
+        hidden, geo.hb, geo.br, geo.chunk, geo.threads, geo.smem, stream)
+    TL.launch_error(err, "lstm_bwd_loop")
+    device_launches["bwd"] += 1
+    TL.record(events, 2)
+    err = lib.lstm_bwd_dw(*codes, hs.data_ptr(), h0f.data_ptr(),
+                          opnd.data_ptr(), ldo, part.data_ptr(),
+                          dw.data_ptr(), steps, b, hidden, splits, kchunk,
+                          ctypes.addressof(launched), stream)
+    device_launches["bwd"] += launched.value
+    TL.launch_error(err, "lstm_bwd_dw")
+    TL.record(events, 3)
     launch_counts["bwd"] += 1
     return dxp, dw, dh0, dc0
 
@@ -317,6 +307,10 @@ class _FusedLSTM(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x_proj, w_hh, h0, c0, bounds, use_kernel):
+        if use_kernel and any(ctx.needs_input_grad[:4]):
+            # E takes fewer shapes than D: refuse before the step starts
+            _, b, hidden = _check(x_proj, w_hh, h0, c0, bounds)
+            backward_geometry(b, hidden, *device_limits(x_proj.device))
         fwd = lstm_forward_kernel if use_kernel else lstm_forward_reference
         hs, cs = fwd(x_proj, w_hh, h0, c0, bounds)
         ctx.save_for_backward(x_proj, w_hh, h0, c0, bounds, hs, cs)

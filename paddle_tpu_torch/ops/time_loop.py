@@ -1,20 +1,33 @@
-"""Host plumbing shared by the GRU and tanh-RNN time-loop kernels
-(`csrc/time_loop.cuh`, used by `csrc/fused_gru.cu` and
+"""Host plumbing shared by the time-loop kernels (`csrc/time_loop.cuh`,
+used by `csrc/fused_lstm.cu`, `csrc/fused_gru.cu` and
 `csrc/fused_rnn.cu`): input checks, the launch geometry, the card's
 limits and launch errors.
 
-Geometry: CTA k owns hb hidden units (hb the smallest divisor of H with
-H / hb <= the SM count, so the grid is at most one CTA per SM and can be
-co-resident), a thread carries up to MAX_PAIRS (row, unit) pairs, and
-every CTA keeps its units' slices of w_hh resident in shared memory
-beside one staged tile of B rows, as wide as the room left allows. A
-shape the kernels do not take raises ValueError naming the limit; there
-is no fallback.
+Forward geometry (and I's): CTA k owns hb hidden units (hb the smallest
+divisor of H with H / hb <= the SM count, so the grid is at most one CTA
+per SM and can be co-resident), a thread carries up to MAX_PAIRS (row,
+unit) pairs, and every CTA keeps its units' slices of w_hh resident in
+shared memory beside one staged tile of B rows, as wide as the room left
+allows.
+
+Backward geometry of E and G (`backward_geometry`): the serial loop's
+grid is row groups x unit groups; a CTA owns br rows and hb units in
+thread tiles of ROW_TILE * rep rows x unit_tile units (`LOOP_TILES`),
+`rep` (row, unit) pairs per thread, keeps its units' rows of w_hh
+resident ([hb][gates*H + 4] f32) where they fit (else the loop reads
+them from global memory, through L2) and stages its rows of the
+exchanged operand in two chunks of `chunk` columns. The parallel phases
+are tiled products of GEMM_TILE x GEMM_TILE outputs; dW_hh's is split
+over the T*B rows (`dw_splits`) to fill the card.
+
+A shape the kernels do not take raises ValueError naming the limit;
+there is no fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -106,6 +119,110 @@ def pick_tile(what, batch, hidden, resident, smem_optin):
             f"shared memory per block")
     width = next(w for w in widths if resident + tile(w) <= smem_optin)
     return width, resident + tile(width)
+
+
+#: the backward loop's thread tiles, (unit_tile, rep, launch bound): a
+#: tile of ROW_TILE * rep rows x unit_tile units, 4 * unit_tile lanes each
+#: carrying rep pairs; more pairs per thread at a lower bound, so that
+#: the registers hold them. Then the operand chunk widths (a staged row
+#: is padded by 16 bytes) and the tiled products' tile.
+LOOP_TILES = ((4, 1, 768), (2, 1, 768), (2, 2, 512), (2, 4, 512))
+ROW_TILE = 4
+CHUNK_WIDTHS = (512, 256, 128, 64, 32)
+GEMM_TILE = 128
+
+
+class BackwardGeometry(NamedTuple):
+    row_groups: int
+    unit_groups: int
+    hb: int           # hidden units per CTA
+    br: int           # batch rows per CTA
+    unit_tile: int    # units per thread tile
+    threads: int
+    chunk: int        # operand columns per staged chunk
+    smem: int         # dynamic shared memory bytes
+    rep: int          # pairs per thread (thread tiles of 4 * rep rows)
+    resident: bool    # w_hh's rows held in shared memory
+
+    @property
+    def ctas(self):
+        return self.row_groups * self.unit_groups
+
+
+def backward_geometry(what, batch, hidden, gates, sms, smem_optin):
+    """The serial loop's grid for G = gates*H columns. Among the grids
+    whose staged chunks (and resident rows) fit `smem_optin` and whose
+    thread tiles fit their launch bound: w_hh's rows resident if any
+    grid holds them, then the most CTAs (<= sms, so the grid can be
+    co-resident), then the fewest rows read from L2 each step (operand
+    rows, and w_hh's rows once per row group when they are not
+    resident), then the fewest pairs per thread, the widest chunk and
+    the larger unit tile."""
+    if hidden % 4:
+        raise ValueError(f"{what}: hidden {hidden} must be a multiple of 4 "
+                         f"(16-byte tile rows)")
+    g = gates * hidden
+    best = None
+    for ut, rep, bound in LOOP_TILES:
+        rows_tile = ROW_TILE * rep
+        for hb in range(ut, hidden + 1, ut):
+            units = hidden // hb
+            if hidden % hb or units > sms:
+                continue
+            for resident in (True, False):
+                held = hb * (g + 4) * 4 if resident else 0
+                for rows in range(1, sms // units + 1):
+                    br = -(-(-(-batch // rows)) // rows_tile) * rows_tile
+                    if -(-batch // br) != rows:     # no empty row group
+                        continue
+                    threads = -(-br * hb // rep // 32) * 32
+                    fit = [w for w in CHUNK_WIDTHS
+                           if held + 2 * br * (w + 4) * 4 <= smem_optin]
+                    if threads > bound or not fit:
+                        continue
+                    width = min(fit[0], -(-g // 8) * 8)
+                    cand = BackwardGeometry(
+                        rows, units, hb, br, ut, threads, width,
+                        held + 2 * br * (width + 4) * 4, rep, resident)
+                    # rows of operand (and of w_hh, when not resident)
+                    # that the CTAs read from L2 each step
+                    trips = cand.ctas * br + (0 if resident else
+                                              rows * hidden)
+                    key = (not resident, -cand.ctas, trips, rep, -width,
+                           -ut)
+                    if best is None or key < best[0]:
+                        best = (key, cand)
+    if best is None:
+        most = max(bound * rep for _, rep, bound in LOOP_TILES)
+        raise ValueError(
+            f"{what}: B={batch}, H={hidden}: no grid of row groups x unit "
+            f"groups fits -- at most {sms} CTAs (one per SM), {most} "
+            f"(row, unit) pairs per CTA, and two staged operand chunks "
+            f"within the card's {smem_optin} bytes of shared memory per "
+            f"block")
+    return best[1]
+
+
+def dw_splits(rows, hidden, gates, sms):
+    """(splits, rows per split) of dW_hh's product over the T*B rows:
+    about two CTAs per SM over the [H, gates*H] output tiles, at most 16
+    parts, each a multiple of 8 rows."""
+    tiles = -(-hidden // GEMM_TILE) * -(-gates * hidden // GEMM_TILE)
+    splits = max(1, min(16, round(2 * sms / tiles)))
+    chunk = -(-(-(-rows // splits)) // 8) * 8
+    return -(-rows // chunk), chunk
+
+
+def operand_ld(cols):
+    """Row stride of the exchanged operand: columns rounded up to 8, so a
+    row of bf16 starts on 16 bytes."""
+    return -(-cols // 8) * 8
+
+
+def record(events, i):
+    """Record events[i] on the current stream, if events were given."""
+    if events is not None:
+        events[i].record()
 
 
 _LIMITS = {}

@@ -22,6 +22,7 @@ from paddle_tpu_torch.nn import recurrent as TNR
 from paddle_tpu_torch.nn.module import ShapeSpec
 from paddle_tpu_torch.ops import fused_gru as FG
 from paddle_tpu_torch.ops import rnn as TR
+from paddle_tpu_torch.ops import time_loop as TL
 from torch_parity import np_f32, to_jax, to_torch
 
 B, T, F, H = 4, 9, 12, 16
@@ -254,19 +255,179 @@ def test_kernel_path_refuses_shapes_it_does_not_take():
 def test_kernel_geometry_and_limits():
     """The launch geometry on an H100 (132 SMs, 227 KB opt-in shared
     memory) at the seq2seq encoder's and generation's shapes, and the
-    shapes it refuses."""
+    shapes it refuses: F's (one CTA per unit group) and G's serial loop
+    (row groups x unit groups)."""
     sms, smem = 132, 232448
     for (b, h), (hb, threads) in {(64, 512): (4, 256), (16, 512): (4, 64),
                                   (64, 256): (2, 128), (128, 512): (4, 512),
                                   (4, 16): (1, 32)}.items():
-        for backward in (False, True):
-            g = FG.geometry(b, h, sms, smem, backward=backward)
-            assert g[:2] == (hb, threads)
-            assert h // g[0] <= sms and g[3] <= smem and g[2] <= h
-    # all of h in one tile at the encoder's shape, forward and backward
-    assert FG.geometry(64, 512, sms, smem, backward=False)[2] == 512
-    assert FG.geometry(64, 512, sms, smem, backward=True)[2] == 512
+        g = FG.geometry(b, h, sms, smem)
+        assert g[:2] == (hb, threads)
+        assert h // g[0] <= sms and g[3] <= smem and g[2] <= h
+        g = FG.backward_geometry(b, h, sms, smem)
+        assert g.ctas <= sms and g.smem <= smem
+        assert g.br * g.hb <= g.threads * g.rep and g.threads <= 768
+    # all of h in one tile at the encoder's shape
+    assert FG.geometry(64, 512, sms, smem)[2] == 512
+    # G at the encoder's shape: 8 row groups x 16 unit groups, the whole
+    # operand row in one chunk of 512 columns at a time
+    assert tuple(FG.backward_geometry(64, 512, sms, smem)[:7]) == (
+        8, 16, 32, 8, 4, 256, 512)
+    # H=1024 at B=64, refused before, now fits in two row groups
+    assert FG.backward_geometry(64, 1024, sms, smem).row_groups == 2
     with pytest.raises(ValueError, match="pairs"):
-        FG.geometry(1024, 1024, sms, smem, backward=False)
-    with pytest.raises(ValueError, match="shared memory"):
-        FG.geometry(64, 2048, sms, smem, backward=True)
+        FG.geometry(1024, 1024, sms, smem)
+    # H=2048 at B=64: w_hh's rows read from global memory, two pairs per
+    # thread; H=8192 is refused
+    g = FG.backward_geometry(64, 2048, sms, smem)
+    assert not g.resident and g.rep == 2
+    with pytest.raises(ValueError, match="pairs per CTA"):
+        FG.backward_geometry(64, 8192, sms, smem)
+
+
+def test_training_step_refuses_a_shape_g_does_not_take_before_f_runs(
+        monkeypatch):
+    """With gradients wanted, `fused_gru` checks G's geometry before it
+    launches F, so a training step fails at its start and not in its
+    backward. The card's limits and the inputs' check are stood in for
+    (no card here); B=20000 at H=512 has no grid of G's loop."""
+    monkeypatch.setattr(FG, "_limits", lambda device: (132, 232448))
+    monkeypatch.setattr(TL, "check_inputs", lambda *a: (T, 20000, 512))
+
+    def no_f(*a):
+        raise AssertionError("F launched before G's geometry was checked")
+
+    monkeypatch.setattr(FG, "gru_forward_kernel", no_f)
+    xp = torch.zeros(T, B, 3 * H, requires_grad=True)
+    w = torch.zeros(H, 3 * H, requires_grad=True)
+    bounds = FG.make_bounds(B, T, None, False)
+    with pytest.raises(ValueError, match="pairs per CTA"):
+        FG.fused_gru(xp, w, torch.zeros(B, H), bounds, impl="kernel")
+    # without gradients only F runs, and G's geometry is not asked
+    with pytest.raises(AssertionError, match="F launched"):
+        FG.fused_gru(xp.detach(), w.detach(), torch.zeros(B, H), bounds,
+                     impl="kernel")
+
+
+def _three_phase_backward(x_proj, w_hh, h0, bounds, hs, dhs, dh_last):
+    """Kernel G's schedule (csrc/fused_gru.cu) written out in plain
+    PyTorch: (1) r, z, n and hn of every step at once from round_w(hprev)
+    @ w_hh; (2) the serial loop with only the carry's product in it,
+    which stores the operand dhp = [dgr, dgz, dgn * r] in w_hh's dtype;
+    (3) dW_hh = round_w(hprev)^T @ dhp over all T*B rows, split over the
+    rows as the kernel splits them and summed in order. Returns (dxp, dW,
+    dh0, dhp)."""
+    steps, b, g3 = x_proj.shape
+    h = g3 // 3
+    wd, w = w_hh.dtype, w_hh.float()
+    hprev_f = torch.cat([h0.float()[None], hs[:-1].float()])
+    hprev = TL.operand(hprev_f, wd)
+    hp = (hprev.reshape(-1, h) @ w).reshape(steps, b, g3)
+    xp = x_proj.float()
+    hn = hp[..., 2 * h:]
+    r = torch.sigmoid(xp[..., :h] + hp[..., :h])
+    z = torch.sigmoid(xp[..., h:2 * h] + hp[..., h:2 * h])
+    n = torch.tanh(xp[..., 2 * h:] + r * hn)
+    opnd = torch.empty((steps, b, g3), dtype=wd)
+    dxp = torch.empty_like(x_proj)
+    dh_c = dh_last.float()
+    for t in reversed(range(steps)):
+        dh = dhs[t].float() + dh_c
+        dz = dh * (hprev_f[t] - n[t])
+        dgn = dh * (1.0 - z[t]) * (1.0 - n[t] * n[t])
+        dgz = dz * z[t] * (1.0 - z[t])
+        dgr = dgn * hn[t] * r[t] * (1.0 - r[t])
+        m = TL.live(bounds, t)
+        d = torch.where(m, torch.cat([dgr, dgz, dgn], dim=-1), 0.0)
+        dxp[t] = d.to(dxp.dtype)
+        opnd[t] = torch.cat([d[:, :2 * h], d[:, 2 * h:] * r[t]],
+                            dim=-1).to(wd)
+        dh_c = torch.where(m, dh * z[t] + opnd[t].float() @ w.T, dh)
+    splits, chunk = TL.dw_splits(steps * b, h, 3, 132)
+    rows_h, rows_o = hprev.reshape(-1, h), opnd.reshape(-1, g3).float()
+    dw = torch.zeros(h, g3)
+    for q in range(splits):
+        sl = slice(q * chunk, (q + 1) * chunk)
+        dw = dw + rows_h[sl].T @ rows_o[sl]
+    return dxp, dw, dh_c, opnd
+
+
+_PHASE_CASES = {
+    "full": ("float32", "float32", "full", False),
+    "ragged": ("float32", "float32", "ragged", False),
+    "reversed": ("float32", "float32", "reversed", False),
+    "nonzero_h0": ("float32", "float32", "ragged", True),
+    "bf16_x_proj": ("bfloat16", "float32", "ragged", True),
+    "bf16_both": ("bfloat16", "bfloat16", "reversed", True),
+}
+
+
+def _phase_inputs(x_dtype, w_dtype, window, initial, seed=12):
+    """Seeded inputs of one backward call: numpy arrays, then the port's
+    tensors with the plain forward's hs."""
+    rs = np.random.RandomState(seed)
+    xp, w = np_f32(rs, T, B, 3 * H), np_f32(rs, H, 3 * H) * 0.3
+    h0 = np_f32(rs, B, H) * 0.5 if initial else np.zeros((B, H), np.float32)
+    dhs, dhl = np_f32(rs, T, B, H), np_f32(rs, B, H)
+    bounds = np.asarray(BOUNDS[window], np.int32)
+    xdt, wdt = getattr(torch, x_dtype), getattr(torch, w_dtype)
+    t_in = (to_torch(xp).to(xdt), to_torch(w).to(wdt), to_torch(h0),
+            to_torch(bounds))
+    hs = FG.gru_forward_reference(*t_in)
+    return ((xp, w, h0, bounds, dhs, dhl),
+            t_in + (hs, to_torch(dhs), to_torch(dhl)))
+
+
+@pytest.mark.parametrize("case", list(_PHASE_CASES))
+def test_three_phase_backward_matches_reference_and_pallas(case):
+    """Moving G's gate recomputation and dW_hh out of the serial loop keeps
+    the function: the three-phase schedule against the reverse loop of
+    `_bwd_kernel` written out (gru_backward_reference) and against the
+    Pallas kernels in interpret mode (the VJP of pallas_gru.fused_gru).
+    Tolerances: f32 1e-5 (absolute on dxp and dh0, relative to max |dW|
+    on dW_hh); with bf16 x_proj or w_hh 2e-2, bf16's tolerance: the
+    schedules round at the same points, but an f32 difference in the last
+    bit can move a bf16 rounding by one step."""
+    x_dtype, w_dtype, window, initial = _PHASE_CASES[case]
+    npin, targs = _phase_inputs(x_dtype, w_dtype, window, initial)
+    three = _three_phase_backward(*targs)
+    ref = FG.gru_backward_reference(*targs)
+    bf16 = x_dtype == "bfloat16" or w_dtype == "bfloat16"
+    tol = 2e-2 if bf16 else 1e-5
+    assert three[0].dtype == ref[0].dtype
+    for k in (0, 2):
+        _close(three[k].float(), ref[k].float(), tol)
+    _close_rel(three[1], ref[1], tol)
+
+    xp, w, h0, jb, dhs, dhl = npin
+    jx, jw = jnp.dtype(x_dtype), jnp.dtype(w_dtype)
+    jin = (to_jax(xp).astype(jx), to_jax(w).astype(jw), to_jax(h0))
+
+    @jax.jit
+    def vjp(a, b_, c, cot):
+        _, back = jax.vjp(lambda *z: JPG.fused_gru(*z, to_jax(jb)), a, b_, c)
+        return back(cot)
+
+    jgr = vjp(*jin, (to_jax(dhs), to_jax(dhl)))
+    mine = (three[0].float(), three[1].to(getattr(torch, w_dtype)).float(),
+            three[2])
+    for j, t in zip(jgr, mine):
+        _close_rel(t, _f32(j), tol)
+
+
+def test_three_phase_operand_n_column_is_dgn_times_r():
+    """dhp, the operand of the carry and of dW_hh, differs from dxp in its
+    n column: dgn * r, not dgn. The schedule matches the reference to
+    1e-5; a dW_hh taken from dxp's n column misses by more than 1e-2 of
+    its scale."""
+    _, targs = _phase_inputs("float32", "float32", "ragged", True)
+    dxp, dw, _, opnd = _three_phase_backward(*targs)
+    ref_dw = FG.gru_backward_reference(*targs)[1]
+    _close_rel(dw, ref_dw, 1e-5)
+    np.testing.assert_array_equal(opnd[..., :2 * H].numpy(),
+                                  dxp[..., :2 * H].numpy())
+    h0, hs = targs[2], targs[4]
+    hprev = torch.cat([h0.float()[None], hs[:-1].float()]).reshape(-1, H)
+    from_dxp = hprev.T @ dxp.float().reshape(-1, 3 * H)
+    scale = ref_dw.abs().max().item()
+    assert (from_dxp - ref_dw).abs().max().item() > 1e-2 * scale

@@ -21,6 +21,7 @@ from paddle_tpu_torch.nn import recurrent as TNR
 from paddle_tpu_torch.nn.module import ShapeSpec
 from paddle_tpu_torch.ops import fused_lstm as FL
 from paddle_tpu_torch.ops import rnn as TR
+from paddle_tpu_torch.ops import time_loop as TL
 from torch_parity import np_f32, to_jax, to_torch
 
 B, T, F, H = 4, 9, 12, 16
@@ -227,30 +228,204 @@ def test_dispatch_on_cpu_runs_plain_versions_and_counts_nothing():
 
 def test_kernel_geometry_and_limits():
     """The launch geometry on an H100 (132 SMs, 227 KB opt-in shared
-    memory) at bench_lstm's shapes, and the shapes it refuses."""
+    memory) at bench_lstm's shapes, and the shapes it refuses: D's (one
+    CTA per unit group) and E's serial loop (row groups x unit groups)."""
     sms, smem = 132, 232448
     # (B, H) -> hidden units per CTA, threads; every grid fits the SMs
     for (b, h), (hb, threads) in {(64, 256): (2, 128), (128, 256): (2, 256),
                                   (64, 512): (4, 256), (128, 512): (4, 512),
                                   (64, 1280): (10, 320)}.items():
-        for backward in (False, True):
-            g = FL.geometry(b, h, sms, smem, backward=backward)
-            assert g[:2] == (hb, threads)
-            assert h // g[0] <= sms and g[4] <= smem
-            assert g[1] * FL.MAX_PAIRS >= b * hb and g[1] % 32 == 0
-            assert g[3] in FL.TILE_WIDTHS
+        g = FL.geometry(b, h, sms, smem)
+        assert g[:2] == (hb, threads)
+        assert h // g[0] <= sms and g[4] <= smem
+        assert g[1] * FL.MAX_PAIRS >= b * hb and g[1] % 32 == 0
+        assert g[3] in FL.TILE_WIDTHS
     # D stages all of h in one tile at H=512
-    assert FL.geometry(64, 512, sms, smem, backward=False)[3] == 512
-    # the w_hh slices stay resident except E's three at H=1280
-    assert FL.geometry(64, 512, sms, smem, backward=True)[2]
-    assert FL.geometry(64, 1280, sms, smem, backward=False)[2]
-    assert not FL.geometry(64, 1280, sms, smem, backward=True)[2]
+    assert FL.geometry(64, 512, sms, smem)[3] == 512
+    # D keeps its w_hh slice resident at H=1280
+    assert FL.geometry(64, 1280, sms, smem)[2]
+    # E: (row groups, unit groups, hb, br, unit tile, threads, chunk) at
+    # the main shape, at H=256 B=128, and at H=1280 (one resident slice
+    # of 10 units, one row group, 2-unit tiles)
+    for (b, h), want in {(64, 512): (4, 32, 16, 16, 4, 256, 512),
+                         (128, 256): (16, 8, 32, 8, 4, 256, 512),
+                         (64, 1280): (1, 128, 10, 64, 2, 640, 32)}.items():
+        g = FL.backward_geometry(b, h, sms, smem)
+        assert tuple(g[:7]) == want
+        assert g.ctas <= sms and g.smem <= smem
     with pytest.raises(ValueError, match="multiple of 4"):
-        FL.geometry(64, 510, sms, smem, backward=False)
+        FL.geometry(64, 510, sms, smem)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        FL.backward_geometry(64, 510, sms, smem)
     with pytest.raises(ValueError, match="pairs"):
-        FL.geometry(1024, 1280, sms, smem, backward=False)
+        FL.geometry(1024, 1280, sms, smem)
     with pytest.raises(ValueError, match="shared"):
-        FL.geometry(1024, 8, sms, smem, backward=False)
+        FL.geometry(1024, 8, sms, smem)
+    # E at H=4096 (as D takes it): w_hh's rows read from global memory,
+    # four pairs per thread; twice the batch is refused
+    g = FL.backward_geometry(64, 4096, sms, smem)
+    assert not g.resident and g.rep == 4 and g.ctas <= sms
+    with pytest.raises(ValueError, match="pairs per CTA"):
+        FL.backward_geometry(128, 4096, sms, smem)
+
+
+def test_training_step_refuses_a_shape_e_does_not_take_before_d_runs(
+        monkeypatch):
+    """With gradients wanted, `fused_lstm` checks E's geometry before it
+    launches D, so a training step fails at its start and not in its
+    backward. The card's limits and the inputs' check are stood in for
+    (no card here); B=20000 at H=512 has no grid of E's loop."""
+    monkeypatch.setattr(FL, "device_limits", lambda device: (132, 232448))
+    monkeypatch.setattr(FL, "_check", lambda *a: (T, 20000, 512))
+
+    def no_d(*a):
+        raise AssertionError("D launched before E's geometry was checked")
+
+    monkeypatch.setattr(FL, "lstm_forward_kernel", no_d)
+    xp = torch.zeros(T, B, 4 * H, requires_grad=True)
+    w = torch.zeros(H, 4 * H, requires_grad=True)
+    z = torch.zeros(B, H)
+    bounds = FL.make_bounds(B, T, None, False)
+    with pytest.raises(ValueError, match="pairs per CTA"):
+        FL.fused_lstm(xp, w, z, z, bounds, impl="kernel")
+    # without gradients only D runs, and E's geometry is not asked
+    with pytest.raises(AssertionError, match="D launched"):
+        FL.fused_lstm(xp.detach(), w.detach(), z, z, bounds, impl="kernel")
+
+
+def _three_phase_backward(x_proj, w_hh, h0, c0, bounds, hs, cs, dhs,
+                          dh_last, dc_last):
+    """Kernel E's schedule (csrc/fused_lstm.cu) written out in plain
+    PyTorch: (1) the gates of every step at once from round_w(hprev) @
+    w_hh; (2) the serial loop with only the carry's product in it, which
+    stores the operand round_w(dgates) in w_hh's dtype; (3) dW_hh =
+    round_w(hprev)^T @ operand over all T*B rows, split over the rows as
+    the kernel splits them and summed in order. Returns (dxp, dW, dh0,
+    dc0, operand)."""
+    steps, b, g4 = x_proj.shape
+    h = g4 // 4
+    wd, w = w_hh.dtype, w_hh.float()
+    hprev = TL.operand(torch.cat([h0.float()[None], hs[:-1].float()]), wd)
+    pre = x_proj.float() + (hprev.reshape(-1, h) @ w).reshape(steps, b, g4)
+    i, f, o = (torch.sigmoid(pre[..., k * h:(k + 1) * h]) for k in (0, 1, 3))
+    g = torch.tanh(pre[..., 2 * h:3 * h])
+    cprev = torch.cat([c0.float()[None], cs[:-1]])
+    opnd = torch.empty((steps, b, g4), dtype=wd)
+    dxp = torch.empty_like(x_proj)
+    dh_c, dc_c = dh_last.float(), dc_last.float()
+    for t in reversed(range(steps)):
+        tc = torch.tanh(cs[t])
+        dh = dhs[t].float() + dh_c
+        do = dh * tc * o[t] * (1.0 - o[t])
+        dc = dc_c + dh * o[t] * (1.0 - tc * tc)
+        di = dc * g[t] * i[t] * (1.0 - i[t])
+        df = dc * cprev[t] * f[t] * (1.0 - f[t])
+        dg = dc * i[t] * (1.0 - g[t] * g[t])
+        m = TL.live(bounds, t)
+        dgates = torch.where(m, torch.cat([di, df, dg, do], dim=-1), 0.0)
+        dxp[t] = dgates.to(dxp.dtype)
+        opnd[t] = dgates.to(wd)
+        dh_c = torch.where(m, opnd[t].float() @ w.T, dh)
+        dc_c = torch.where(m, dc * f[t], dc_c)
+    splits, chunk = TL.dw_splits(steps * b, h, 4, 132)
+    rows_h, rows_o = hprev.reshape(-1, h), opnd.reshape(-1, g4).float()
+    dw = torch.zeros(h, g4)
+    for q in range(splits):
+        sl = slice(q * chunk, (q + 1) * chunk)
+        dw = dw + rows_h[sl].T @ rows_o[sl]
+    return dxp, dw, dh_c, dc_c, opnd
+
+
+_PHASE_CASES = {
+    "full": ("float32", "float32", [[0, 9]] * 4, False),
+    "ragged": ("float32", "float32", [[0, 9], [0, 4], [0, 1], [0, 7]], False),
+    "reversed": ("float32", "float32", [[0, 9], [5, 9], [8, 9], [2, 9]],
+                 False),
+    "nonzero_h0_c0": ("float32", "float32", [[0, 9], [0, 4], [5, 9], [2, 7]],
+                      True),
+    "bf16_x_proj": ("bfloat16", "float32", [[0, 9], [0, 4], [5, 9], [2, 7]],
+                    True),
+    "bf16_both": ("bfloat16", "bfloat16", [[0, 9], [0, 4], [5, 9], [2, 7]],
+                  True),
+}
+
+
+def _phase_inputs(x_dtype, w_dtype, bounds, initial, seed=11):
+    """Seeded inputs of one backward call: numpy arrays, then the port's
+    tensors with the plain forward's hs and cs."""
+    rs = np.random.RandomState(seed)
+    xp, w = np_f32(rs, T, B, 4 * H), np_f32(rs, H, 4 * H) * 0.3
+    zero = np.zeros((B, H), np.float32)
+    h0 = np_f32(rs, B, H) * 0.5 if initial else zero
+    c0 = np_f32(rs, B, H) * 0.5 if initial else zero
+    dhs, dhl, dcl = np_f32(rs, T, B, H), np_f32(rs, B, H), np_f32(rs, B, H)
+    bounds = np.asarray(bounds, np.int32)
+    xdt, wdt = getattr(torch, x_dtype), getattr(torch, w_dtype)
+    t_in = (to_torch(xp).to(xdt), to_torch(w).to(wdt), to_torch(h0),
+            to_torch(c0), to_torch(bounds))
+    hs, cs = FL.lstm_forward_reference(*t_in)
+    cot = (to_torch(dhs).to(xdt), to_torch(dhl).to(xdt), to_torch(dcl))
+    return (xp, w, h0, c0, bounds, dhs, dhl, dcl), t_in + (hs, cs) + cot
+
+
+@pytest.mark.parametrize("case", list(_PHASE_CASES))
+def test_three_phase_backward_matches_reference_and_pallas(case):
+    """Moving E's gate recomputation and dW_hh out of the serial loop keeps
+    the function: the three-phase schedule against the reverse loop of
+    `_bwd_kernel` written out (lstm_backward_reference) and against the
+    Pallas kernels in interpret mode (the VJP of pallas_lstm.fused_lstm).
+    Tolerances: f32 1e-5 (absolute on dxp, dh0, dc0, relative to max
+    |dW| on dW_hh, which sums T*B products); with bf16 x_proj or w_hh 2e-2,
+    bf16's tolerance: the schedules round at the same points, but an f32
+    difference in the last bit can move a bf16 rounding by one step."""
+    x_dtype, w_dtype, bounds, initial = _PHASE_CASES[case]
+    npin, targs = _phase_inputs(x_dtype, w_dtype, bounds, initial)
+    three = _three_phase_backward(*targs)
+    ref = FL.lstm_backward_reference(*targs)
+    bf16 = x_dtype == "bfloat16" or w_dtype == "bfloat16"
+    tol = 2e-2 if bf16 else 1e-5
+    assert three[0].dtype == ref[0].dtype
+    for k in (0, 2, 3):
+        _close(three[k].float(), ref[k].float(), tol)
+    _close_rel(three[1], ref[1], tol)
+
+    xp, w, h0, c0, jb, dhs, dhl, dcl = npin
+    jx, jw = jnp.dtype(x_dtype), jnp.dtype(w_dtype)
+    jin = (to_jax(xp).astype(jx), to_jax(w).astype(jw), to_jax(h0),
+           to_jax(c0))
+
+    @jax.jit
+    def vjp(a, b_, c, d, cot):
+        _, back = jax.vjp(lambda *z: JPL.fused_lstm(*z, to_jax(jb)),
+                          a, b_, c, d)
+        return back(cot)
+
+    jgr = vjp(*jin, (to_jax(dhs).astype(jx), to_jax(dhl).astype(jx),
+                     to_jax(dcl)))
+    f32 = lambda a: np.asarray(jnp.asarray(a, jnp.float32))
+    mine = (three[0].float(), three[1].to(getattr(torch, w_dtype)).float(),
+            three[2], three[3])
+    for j, t in zip(jgr, mine):
+        _close_rel(t, f32(j), tol)
+
+
+def test_three_phase_dw_needs_the_rounded_operand():
+    """With bf16 x_proj and f32 w_hh, dxp is rounded to bf16 but the
+    operand of the carry and of dW_hh is f32: dW_hh must come from the
+    operand the loop stores in w_hh's dtype, not from dxp. The schedule
+    matches the reference to f32's 1e-5; dW from dxp misses by more than
+    1e-4 of its scale."""
+    _, targs = _phase_inputs("bfloat16", "float32", _PHASE_CASES[
+        "bf16_x_proj"][2], True)
+    dxp, dw, _, _, opnd = _three_phase_backward(*targs)
+    ref_dw = FL.lstm_backward_reference(*targs)[1]
+    assert opnd.dtype == torch.float32 and dxp.dtype == torch.bfloat16
+    _close_rel(dw, ref_dw, 1e-5)
+    h0, hs = targs[2], targs[5]
+    hprev = torch.cat([h0.float()[None], hs[:-1].float()]).reshape(-1, H)
+    from_dxp = hprev.T @ dxp.float().reshape(-1, 4 * H)
+    scale = ref_dw.abs().max().item()
+    assert (from_dxp - ref_dw).abs().max().item() > 1e-4 * scale
 
 
 def test_lstm_step_matches_jax():
