@@ -22,14 +22,27 @@
 // H does 2 T B H H = 3.36 GFLOP (0.050 ms at the 67 TFLOP/s of the f32
 // CUDA cores) against ~27 MB; I two such products.
 //
-// Design: the GRU kernels' (fused_gru.cu) with one gate. CTA k owns hb
-// hidden units and their columns of w_hh ([H][hb], resident in shared
+// H's design: the GRU forward's (fused_gru.cu) with one gate. CTA k owns
+// hb hidden units and their columns of w_hh ([H][hb], resident in shared
 // memory); a thread carries up to kMaxPairs (row, unit) pairs and their
 // f32 carries in registers; h crosses CTAs through a ping-pong buffer [2,
-// B, H] with one grid barrier per step. I keeps its units' rows of w_hh
-// and their dW columns resident, and exchanges only dz [B, H] each step.
-// Tiles move through shared memory by cp.async, read at L2 only. A shape
-// whose slices do not fit is refused by the host.
+// B, H] with one grid barrier per step. Tiles move through shared memory
+// by cp.async, read at L2 only. A shape whose slices do not fit is
+// refused by the host.
+//
+// I's design: E's and G's (fused_lstm.cu, fused_gru.cu) without their
+// gates phase, since dz needs only the saved stream. Of I's two products
+// only dz @ w_hh^T feeds the recurrence, so it runs in two launches:
+//   1. rnn_bwd_loop, one cooperative launch of time_loop.cuh's
+//      backward_loop_kernel with I's cell (RnnCell below), over row groups
+//      x unit groups: each step a CTA computes its pairs' dz, writes it
+//      to dxp and, rounded to w_hh's dtype, to the operand scratch [T, B,
+//      H] (dxp itself when the dtypes agree), passes its row group's
+//      barrier, and multiplies its rows of the operand by its rows of w_hh
+//      (resident where they fit, else read through L2). Its barrier
+//      counters are zeroed by a memset on the stream just before it.
+//   2. rnn_bwd_dw: dW_hh = round_w(hprev)^T @ operand, split over the T*B
+//      rows, the parts summed in a fixed order (bitwise repeatable).
 
 #include "time_loop.cuh"
 
@@ -104,116 +117,56 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-template <typename T, typename TW>
-__global__ void __launch_bounds__(kMaxThreads)
-    rnn_bwd_kernel(const TW* __restrict__ w, const float* __restrict__ h0,
-                   const int* __restrict__ bounds,
-                   const float* __restrict__ hs,
-                   const float* __restrict__ dhs,
-                   const float* __restrict__ dh_last, T* __restrict__ dxp,
-                   float* __restrict__ dw, float* __restrict__ dh0,
-                   float* dzbuf, int Tn, int B, int H, int hb, int kt) {
-  extern __shared__ __align__(16) float smem[];
-  const int ld = kt + 4;                    // 16-byte tile rows
-  // resident: wr [hb][H] (rows j), dwacc [H][hb]; then tile [B][ld] and
-  // dzo [B][hb] (own dz)
-  float* wr = smem;
-  float* dwacc = wr + hb * H;
-  float* tile = dwacc + H * hb;
-  float* dzo = tile + B * ld;
-  const int j0 = blockIdx.x * hb;
-  for (int e = threadIdx.x; e < H * hb; e += blockDim.x) {
-    wr[e] = load_f(w + (size_t)(j0 + e / H) * H + e % H);
-    dwacc[e] = 0.f;
-  }
-  int pb[kMaxPairs], pu[kMaxPairs];
-  const int np = my_pairs(pb, pu, B, hb);
-  float dhc[kMaxPairs], dhk[kMaxPairs];
-  bool live[kMaxPairs];
-  int lo[kMaxPairs], hi[kMaxPairs];
-#pragma unroll
-  for (int n = 0; n < kMaxPairs; ++n) {
-    dhc[n] = n < np ? dh_last[pb[n] * H + j0 + pu[n]] : 0.f;
-    dhk[n] = 0.f;
-    live[n] = false;
-    lo[n] = bounds[2 * pb[n]];
-    hi[n] = bounds[2 * pb[n] + 1];
-  }
-  cg::grid_group grid = cg::this_grid();
-  const size_t plane = (size_t)B * H;
-  const TW* wtype = nullptr;
+// -- I: the serial loop (time_loop.cuh backward_loop_kernel) -----------------
 
-  for (int t = Tn - 1; t >= 0; --t) {
-    const float* hprev = t > 0 ? hs + (size_t)(t - 1) * plane : h0;
-    float* dzx = dzbuf + (size_t)(t & 1) * plane;
-    // 1. dz of this CTA's units: into dxp, the exchange buffer and dzo
-#pragma unroll
-    for (int n = 0; n < kMaxPairs; ++n) {
-      if (n >= np) break;
-      const int b = pb[n], u = pu[n], j = j0 + u;
-      const size_t o = ((size_t)t * B + b) * H + j;
-      const float ht = hs[o];
-      const float dh = dhs[o] + dhc[n];
-      live[n] = lo[n] <= t && t < hi[n];
-      const float dz = live[n] ? dh * (1.f - ht * ht) : 0.f;
-      store_f(dxp + o, dz);
-      const float dzc = round_as(dz, wtype);
-      __stcg(dzx + (size_t)b * H + j, dzc);
-      dzo[b * hb + u] = dzc;
-      dhk[n] = dh;
-    }
-    // 2. dW_hh[:, own columns] += round_w(hprev)^T @ dzo
-    for (int k0 = 0; k0 < H; k0 += kt) {
-      const int kw = min(kt, H - k0);
-      __syncthreads();
-      stage_tile(tile, ld, hprev, H, B, k0, kw);
-      __syncthreads();
-      for (int e = threadIdx.x; e < kw * hb; e += blockDim.x) {
-        const int k = e / hb, u = e % hb;
-        float a = 0.f;
-        for (int b = 0; b < B; ++b)
-          a = fmaf(round_as(tile[b * ld + k], wtype), dzo[b * hb + u], a);
-        dwacc[(k0 + k) * hb + u] += a;
-      }
-    }
-    grid.sync();
-    // 3. carry = dz @ w_hh^T for this CTA's units (live steps)
-    float back[kMaxPairs];
-#pragma unroll
-    for (int n = 0; n < kMaxPairs; ++n) back[n] = 0.f;
-    for (int c0 = 0; c0 < H; c0 += kt) {
-      const int cw = min(kt, H - c0);
-      __syncthreads();
-      stage_tile(tile, ld, dzx, H, B, c0, cw);
-      __syncthreads();
-      for (int cc = 0; cc < cw; cc += 4) {
-#pragma unroll
-        for (int n = 0; n < kMaxPairs; ++n) {
-          if (n >= np) break;
-          const float4 gv =
-              *reinterpret_cast<const float4*>(tile + pb[n] * ld + cc);
-          const float4 wv =
-              *reinterpret_cast<const float4*>(wr + pu[n] * H + c0 + cc);
-          back[n] = fmaf(gv.x, wv.x, back[n]);
-          back[n] = fmaf(gv.y, wv.y, back[n]);
-          back[n] = fmaf(gv.z, wv.z, back[n]);
-          back[n] = fmaf(gv.w, wv.w, back[n]);
-        }
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < kMaxPairs; ++n) dhc[n] = live[n] ? back[n] : dhk[n];
-  }
+// I's cell: the f32 carry dh of one (row, unit) pair. dz comes from the
+// saved f32 stream (no gates phase): dz = dh (1 - h^2).
+template <typename T, typename TWt>
+struct RnnCell {
+  using TW = TWt;
+  struct Step {       // the step's inputs, loaded a step ahead
+    float h, dh;      // hs[t], dhs[t]
+  };
+  struct Carry {
+    float dh;
+  };
+  const float* hs;         // [T*B][H]
+  const float* dhs;        // [T*B][H]
+  const float* dh_last;    // [B][H]
+  T* dxp;                  // [T*B][H]
+  float* dh0;
+  int B, H;
+  bool dxp_is_operand;     // dxp is the exchanged operand itself
 
-  __syncthreads();
-#pragma unroll
-  for (int n = 0; n < kMaxPairs; ++n) {
-    if (n >= np) break;
-    dh0[pb[n] * H + j0 + pu[n]] = dhc[n];
+  __device__ __forceinline__ Carry init(int b, int j) const {
+    return {dh_last[b * H + j]};
   }
-  for (int e = threadIdx.x; e < H * hb; e += blockDim.x)
-    dw[(size_t)(e / hb) * H + j0 + e % hb] = dwacc[e];
-}
+  __device__ __forceinline__ Step fetch(int t, int b, int j) const {
+    const size_t o = ((size_t)t * B + b) * H + j;
+    return {hs[o], dhs[o]};
+  }
+  // dz (zero at a masked step) into dxp, and rounded as the operand
+  __device__ __forceinline__ void step(const Step& s, Carry& c, bool live,
+                                       bool store, size_t row, int j,
+                                       TW* op) const {
+    const float dh = s.dh + c.dh;
+    if (store) {
+      const float dz = live ? dh * (1.f - s.h * s.h) : 0.f;
+      if (!dxp_is_operand) store_f(dxp + row * H + j, dz);
+      store_cg(op + j, round_as(dz, op));
+    }
+    c.dh = dh;
+  }
+  // a masked step passes dh through
+  __device__ __forceinline__ void carry(Carry& c, float back,
+                                        bool live) const {
+    if (live) c.dh = back;
+  }
+  __device__ __forceinline__ void finish(const Carry& c, int b,
+                                         int j) const {
+    dh0[b * H + j] = c.dh;
+  }
+};
 
 }  // namespace
 
@@ -242,30 +195,49 @@ extern "C" int rnn_fwd(int x_dtype, int w_dtype, const void* xp,
   });
 }
 
-// x_dtype selects dxp's type (x_proj's; the kernel reads no x_proj).
-extern "C" int rnn_bwd(int x_dtype, int w_dtype, const void* w,
-                       const void* h0, const void* bounds, const void* hs,
-                       const void* dhs, const void* dh_last, void* dxp,
-                       void* dw, void* dh0, void* dzbuf, int Tn, int B, int H,
-                       int hb, int kt, int threads, long long smem,
-                       void* stream) {
+// I in two phases on `stream`, each returning its cudaError_t. The loop
+// (a memset of its row groups' barrier counters, then one cooperative
+// launch) writes dxp and the operand round_w(dz) [T*B][ldo];
+// when `opnd` is `dxp` (x_proj's dtype is w_hh's and H % 8 == 0) the
+// operand is dxp itself. x_dtype selects dxp's type (the loop reads no
+// x_proj).
+extern "C" int rnn_bwd_loop(int x_dtype, int w_dtype, int ut, int rep,
+                            int resident, const void* hs, const void* dhs,
+                            const void* dh_last, const void* bounds,
+                            const void* w, void* dxp, void* opnd, int ldo,
+                            void* dh0, void* counters, int Tn, int B, int H,
+                            int hb, int br, int cw, int threads,
+                            long long smem, void* stream) {
+  cudaError_t err = cudaMemsetAsync(
+      counters, 0, sizeof(unsigned) * ((B + br - 1) / br),
+      static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
   return dispatch_dtypes(x_dtype, w_dtype, [&](auto* xt, auto* wt) {
     using T = std::remove_pointer_t<decltype(xt)>;
     using TW = std::remove_pointer_t<decltype(wt)>;
-    const TW* a_w = static_cast<const TW*>(w);
-    const float* a_h0 = static_cast<const float*>(h0);
-    const int* a_bounds = static_cast<const int*>(bounds);
-    const float* a_hs = static_cast<const float*>(hs);
-    const float* a_dhs = static_cast<const float*>(dhs);
-    const float* a_dhl = static_cast<const float*>(dh_last);
-    T* a_dxp = static_cast<T*>(dxp);
-    float* a_dw = static_cast<float*>(dw);
-    float* a_dh0 = static_cast<float*>(dh0);
-    float* a_dzbuf = static_cast<float*>(dzbuf);
-    void* args[] = {&a_w,   &a_h0, &a_bounds, &a_hs, &a_dhs, &a_dhl,
-                    &a_dxp, &a_dw, &a_dh0,    &a_dzbuf,
-                    &Tn,    &B,    &H,        &hb,   &kt};
-    return launch_coop(rnn_bwd_kernel<T, TW>, H / hb, threads, (size_t)smem,
-                       args, static_cast<cudaStream_t>(stream));
+    const RnnCell<T, TW> cell{
+        static_cast<const float*>(hs), static_cast<const float*>(dhs),
+        static_cast<const float*>(dh_last), static_cast<T*>(dxp),
+        static_cast<float*>(dh0), B, H, opnd == dxp};
+    const LoopArgs<TW> a{static_cast<const TW*>(w), static_cast<TW*>(opnd),
+                         static_cast<const int*>(bounds),
+                         static_cast<unsigned*>(counters),
+                         ldo, Tn, B, H, H, hb, br, cw};
+    return launch_loop(cell, a, ut, rep, resident, threads, (size_t)smem,
+                       static_cast<cudaStream_t>(stream));
+  });
+}
+
+// dW_hh = round_w(hprev)^T @ operand over the T*B rows, split and summed
+// in a fixed order (time_loop.cuh launch_dw)
+extern "C" int rnn_bwd_dw(int w_dtype, const void* hs, const void* h0,
+                          const void* opnd, int ldo, void* part, void* dw,
+                          int Tn, int B, int H, int splits, int kchunk,
+                          int* launched, void* stream) {
+  return dispatch_dtypes(0, w_dtype, [&](auto*, auto* wt) {
+    using TW = std::remove_pointer_t<decltype(wt)>;
+    return launch_dw<float, TW>(hs, h0, opnd, ldo, part, dw, Tn * B, B, H,
+                                H, splits, kchunk, launched,
+                                static_cast<cudaStream_t>(stream));
   });
 }

@@ -2,11 +2,11 @@
 // fused_rnn.cu): the cooperative launch with its co-residency check, the
 // (row, unit) pairs a thread carries, operand rounding to the weight's
 // dtype, the cp.async staging of f32 tiles that other CTAs write during
-// the launch, and, for the backward loops (E, G), the serial loop
+// the launch, and, for the backward loops (E, G, I), the serial loop
 // itself (`backward_loop_kernel`, over a cell that holds each one's step
 // arithmetic) with its group barrier and per-step carry product over
-// double-buffered chunks, the gates' and dW's operand loaders and dW's
-// split product.
+// double-buffered chunks, the gates' (E, G) and dW's operand loaders and
+// dW's split product.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -99,7 +99,7 @@ cudaError_t launch_coop(K kern, int grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-// -- the serial phase of the backward loops (E, G) ---------------------------
+// -- the serial phase of the backward loops (E, G, I) ------------------------
 //
 // CTA (row group g, unit group k) owns br batch rows and hb hidden units.
 // Its threads form tiles of kRowTile * kRep rows x kUT units, kRowTile *
@@ -269,7 +269,7 @@ __device__ __forceinline__ void carry_product(
   for (int p = 0; p < kRep; ++p) out[p] = reduce_scatter<kN>(acc[p], lane);
 }
 
-// What the serial loop of E and G shares, beside its cell
+// What the serial loop of E, G and I shares, beside its cell
 template <typename TW>
 struct LoopArgs {
   const TW* w;          // w_hh [H][G]
@@ -281,7 +281,7 @@ struct LoopArgs {
 
 // The serial reverse loop of a backward time loop, one cooperative launch
 // over (B / br row groups) x (H / hb unit groups) CTAs. The cell holds
-// what differs between E and G -- its carries, the step's inputs, the
+// what differs between E, G and I -- its carries, the step's inputs, the
 // step's arithmetic:
 //   Carry init(b, j)        the carries of pair (b, j) at t = T-1
 //   Step fetch(t, b, j)     the step's inputs, loaded a step ahead
@@ -291,7 +291,7 @@ struct LoopArgs {
 //                           when `store`; leaves in carry what `carry`
 //                           needs
 //   carry(carry, back, live)  the carry after the product `back`
-//   finish(carry, b, j)     store dh0 (and dc0)
+//   finish(carry, b, j)     store dh0 (and E's dc0)
 // Each step a CTA runs its pairs' cells, passes its row group's barrier,
 // and multiplies its rows of the operand by its rows of w_hh, resident
 // in shared memory ([hb][G + 4] f32) when kResident, else read from
@@ -396,7 +396,7 @@ cudaError_t launch_loop(Cell cell, LoopArgs<typename Cell::TW> a, int ut,
   return cudaErrorInvalidValue;
 }
 
-// -- the parallel phases of the backward loops (E, G) ------------------------
+// -- the parallel phases of the backward loops (E, G; I's dW) ---------------
 
 // A(k, i) of a product over hprev = [h0; hs[:-1]] ([T*B, H], row m = t*B
 // + b), rounded to w_hh's dtype as the TPU kernel feeds it to the MXU.

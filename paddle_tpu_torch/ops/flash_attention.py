@@ -4,9 +4,11 @@
   kernel computes -- f32 scores, the per-row `key_lens` bound, causal
   and sliding-`window` masks, p zeroed where a key is invalid (a row
   with no valid key returns 0), and the row log-sum-exp.
-- `flash_kernel`: the wrapper of `csrc/flash_attention.cu`. CUDA tensors
-  only; it raises on anything the kernel does not take (dtype, head_dim,
-  contiguity, shapes) and counts its launches in `launch_counts`.
+- `flash_kernel`: the wrapper of `csrc/flash_attention.cu` (tensor-core
+  products: bf16 `mma.sync`, f32 as 3xTF32). CUDA tensors only; it
+  raises on anything the kernel does not take (dtype, head_dim,
+  contiguity, alignment, shapes) and counts its launches in
+  `launch_counts`.
 - `flash_attention(q, k, v, *, causal, key_lens, window)`: the public
   function with the JAX checks. The kernel for CUDA tensors, the plain
   version for CPU tensors.
@@ -118,9 +120,9 @@ def _check(q, k, v, lens, window):
         raise ValueError(f"flash_kernel: window must be >= 1, got {window}")
     if tq < 1 or k.shape[1] < 1:
         raise ValueError("flash_kernel: empty sequence")
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("flash_kernel: k and v must start on a 16-byte "
-                         "boundary (the kernel loads 16-byte vectors)")
+    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("flash_kernel: q, k and v must start on a 16-byte "
+                         "boundary (the kernel copies 16-byte vectors)")
 
 
 def flash_kernel(q, k, v, lens, *, causal: bool,

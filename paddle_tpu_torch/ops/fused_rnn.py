@@ -6,9 +6,14 @@
   backward needs no recomputation: dz = dh (1 - h_t^2) comes from the
   saved f32 stream.
 - `rnn_forward_kernel`, `rnn_backward_kernel`: the wrappers of
-  `csrc/fused_rnn.cu` (kernels H and I), one cooperative launch each for
-  the whole sequence. CUDA tensors only; they raise on what the kernels
-  do not take and count their launches in `launch_counts`.
+  `csrc/fused_rnn.cu` (kernels H and I). H is one cooperative launch for
+  the whole sequence; I is two launches on the stream (the serial loop
+  as one cooperative launch, after a memset of its barrier counters;
+  dW_hh) plus one that sums dW's split parts.
+  CUDA tensors only; they raise on what the kernels do not take and
+  count one launch per call in `launch_counts` (I's device launches in
+  `device_launches`). Where gradients are wanted, `fused_simple_rnn`
+  checks I's geometry before H runs.
 - `fused_simple_rnn(x_proj, w_hh, h0, bounds, *, impl=None)`: the
   `custom_vjp` as a `torch.autograd.Function`, with `impl` as in
   `ops.fused_gru.fused_gru`.
@@ -34,6 +39,9 @@ from paddle_tpu_torch.ops.fused_lstm import make_bounds  # noqa: F401
 
 #: launches of kernel H ("fwd") and kernel I ("bwd")
 launch_counts = {"fwd": 0, "bwd": 0}
+#: device launches made by kernel I's calls: its two phases, and the sum
+#: of dW's split parts where dW is split (not the counters' memset)
+device_launches = {"bwd": 0}
 
 _WHAT = "fused_simple_rnn kernel"
 _P = ctypes.c_void_p
@@ -42,14 +50,17 @@ _SIGNATURES = {
     "rnn_device_limits": [_P],
     "rnn_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                 ctypes.c_longlong, _P],
-    "rnn_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                _I, _I, _I, ctypes.c_longlong, _P],
+    "rnn_bwd_loop": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                     _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_longlong,
+                     _P],
+    "rnn_bwd_dw": [_I, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P],
 }
 
 
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+    device_launches["bwd"] = 0
 
 
 # -- the plain versions --------------------------------------------------------
@@ -91,18 +102,19 @@ def rnn_backward_reference(x_proj, w_hh, h0, bounds, hs, dhs, dh_last):
 # -- the kernels ---------------------------------------------------------------
 
 
-def geometry(batch: int, hidden: int, sms: int, smem_optin: int, *,
-             backward: bool):
-    """(hb, threads, tile width, smem bytes) of one launch. H keeps its
-    units' columns of w_hh resident ([H][hb] f32); I their rows ([hb][H]),
-    their dW columns ([H][hb]) and its own dz ([B][hb]). Raises
-    ValueError on a shape the kernels do not take."""
+def geometry(batch: int, hidden: int, sms: int, smem_optin: int):
+    """H's (hb, threads, tile width, smem bytes): its units' columns of
+    w_hh resident ([H][hb] f32) beside one staged tile. Raises ValueError
+    on a shape the kernel does not take."""
     hb, threads = TL.units_and_threads(_WHAT, batch, hidden, sms)
-    resident = 4 * hidden * hb
-    if backward:
-        resident += 4 * hidden * hb + 4 * batch * hb
-    width, smem = TL.pick_tile(_WHAT, batch, hidden, resident, smem_optin)
+    width, smem = TL.pick_tile(_WHAT, batch, hidden, 4 * hidden * hb,
+                               smem_optin)
     return hb, threads, width, smem
+
+
+def backward_geometry(batch: int, hidden: int, sms: int, smem_optin: int):
+    """I's serial loop: `time_loop.backward_geometry` over H columns."""
+    return TL.backward_geometry(_WHAT, batch, hidden, 1, sms, smem_optin)
 
 
 def _limits(device):
@@ -114,8 +126,7 @@ def rnn_forward_kernel(x_proj, w_hh, h0, bounds):
     """Launch kernel H (csrc/fused_rnn.cu `rnn_fwd`) on the current
     stream. Same contract as rnn_forward_reference."""
     steps, b, hidden = TL.check_inputs(_WHAT, x_proj, w_hh, h0, bounds, 1)
-    hb, threads, width, smem = geometry(b, hidden, *_limits(x_proj.device),
-                                        backward=False)
+    hb, threads, width, smem = geometry(b, hidden, *_limits(x_proj.device))
     lib = _cuda.library("fused_rnn", _SIGNATURES)
     dev = x_proj.device
     x_proj, w_hh = x_proj.contiguous(), w_hh.contiguous()
@@ -132,32 +143,60 @@ def rnn_forward_kernel(x_proj, w_hh, h0, bounds):
     return hs
 
 
-def rnn_backward_kernel(x_proj, w_hh, h0, bounds, hs, dhs, dh_last):
-    """Launch kernel I (csrc/fused_rnn.cu `rnn_bwd`) on the current
-    stream. Same contract as rnn_backward_reference (x_proj only sets
-    dxp's dtype and shape; I reads the saved stream, not x_proj)."""
+def rnn_backward_kernel(x_proj, w_hh, h0, bounds, hs, dhs, dh_last, *,
+                        events=None):
+    """Launch kernel I (csrc/fused_rnn.cu `rnn_bwd_loop`, `rnn_bwd_dw`) on
+    the current stream. Same contract as rnn_backward_reference (x_proj
+    only sets dxp's dtype and shape; I reads the saved stream, not
+    x_proj). `events`, four timing CUDA events or None, are recorded as
+    E's and G's wrappers record them, with an empty first phase: I has
+    no gates phase."""
     steps, b, hidden = TL.check_inputs(_WHAT, x_proj, w_hh, h0, bounds, 1)
     for name, t in (("hs", hs), ("dhs", dhs)):
         if tuple(t.shape) != (steps, b, hidden):
             raise ValueError(f"{_WHAT}: {name} must be [T, B, H]")
-    hb, threads, width, smem = geometry(b, hidden, *_limits(x_proj.device),
-                                        backward=True)
+    sms, smem_optin = _limits(x_proj.device)
+    geo = backward_geometry(b, hidden, sms, smem_optin)
+    splits, kchunk = TL.dw_splits(steps * b, hidden, 1, sms)
     lib = _cuda.library("fused_rnn", _SIGNATURES)
     dev = x_proj.device
     f32 = torch.float32
     w_hh = w_hh.contiguous()
-    args = [t.contiguous() for t in (h0.float(), bounds, hs.float(),
-                                     dhs.float(), dh_last.float())]
+    h0f, bounds, hs, dhs, dhl = (t.contiguous() for t in (
+        h0.float(), bounds, hs.float(), dhs.float(), dh_last.float()))
+    codes = (TL.DTYPE_CODE[x_proj.dtype], TL.DTYPE_CODE[w_hh.dtype])
     dxp = torch.empty(x_proj.shape, dtype=x_proj.dtype, device=dev)
+    # dxp serves as the operand where it holds the same rounded values
+    if x_proj.dtype == w_hh.dtype and hidden % 8 == 0:
+        opnd, ldo = dxp, hidden
+    else:
+        ldo = TL.operand_ld(hidden)
+        opnd = torch.empty((steps, b, ldo), dtype=w_hh.dtype, device=dev)
     dw = torch.empty(w_hh.shape, dtype=f32, device=dev)
     dh0 = torch.empty((b, hidden), dtype=f32, device=dev)
-    dzbuf = torch.empty((2, b, hidden), dtype=f32, device=dev)
-    err = lib.rnn_bwd(
-        TL.DTYPE_CODE[x_proj.dtype], TL.DTYPE_CODE[w_hh.dtype],
-        w_hh.data_ptr(), *(a.data_ptr() for a in args), dxp.data_ptr(),
-        dw.data_ptr(), dh0.data_ptr(), dzbuf.data_ptr(), steps, b, hidden,
-        hb, width, threads, smem, torch.cuda.current_stream(dev).cuda_stream)
-    TL.launch_error(err, "rnn_bwd")
+    counters = torch.empty(geo.row_groups, dtype=torch.int32, device=dev)
+    part = torch.empty((splits, hidden, hidden) if splits > 1 else (1,),
+                       dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    launched = ctypes.c_int(0)
+    TL.record(events, 0)
+    TL.record(events, 1)
+    err = lib.rnn_bwd_loop(
+        *codes, geo.unit_tile, geo.rep, int(geo.resident), hs.data_ptr(),
+        dhs.data_ptr(), dhl.data_ptr(), bounds.data_ptr(), w_hh.data_ptr(),
+        dxp.data_ptr(), opnd.data_ptr(), ldo, dh0.data_ptr(),
+        counters.data_ptr(), steps, b, hidden, geo.hb, geo.br, geo.chunk,
+        geo.threads, geo.smem, stream)
+    TL.launch_error(err, "rnn_bwd_loop")
+    device_launches["bwd"] += 1
+    TL.record(events, 2)
+    err = lib.rnn_bwd_dw(codes[1], hs.data_ptr(), h0f.data_ptr(),
+                         opnd.data_ptr(), ldo, part.data_ptr(),
+                         dw.data_ptr(), steps, b, hidden, splits, kchunk,
+                         ctypes.addressof(launched), stream)
+    device_launches["bwd"] += launched.value
+    TL.launch_error(err, "rnn_bwd_dw")
+    TL.record(events, 3)
     launch_counts["bwd"] += 1
     return dxp, dw, dh0
 
@@ -171,6 +210,10 @@ class _FusedSimpleRNN(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x_proj, w_hh, h0, bounds, use_kernel):
+        if use_kernel and any(ctx.needs_input_grad[:3]):
+            # I and H take different shapes: refuse before the step starts
+            _, b, hidden = TL.check_inputs(_WHAT, x_proj, w_hh, h0, bounds, 1)
+            backward_geometry(b, hidden, *_limits(x_proj.device))
         fwd = rnn_forward_kernel if use_kernel else rnn_forward_reference
         hs = fwd(x_proj, w_hh, h0, bounds)
         ctx.save_for_backward(x_proj, w_hh, h0, bounds, hs)

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """The launches of one call of kernel E (csrc/fused_lstm.cu, the LSTM
-backward) and of kernel G (csrc/fused_gru.cu, the GRU backward) on the
-card, and the gaps between them, from a torch.profiler trace.
+backward), of kernel G (csrc/fused_gru.cu, the GRU backward) and of
+kernel I (csrc/fused_rnn.cu, the tanh-RNN backward) on the card, and the
+gaps between them, from a torch.profiler trace.
 
     python3 scripts/torch_bwd_gaps.py [--calls 10]
 
-E at bench_lstm's shape (T=100, B=64, H=512) and G at the seq2seq
+E and I at bench_lstm's shape (T=100, B=64, H=512) and G at the seq2seq
 encoder's (T=30, B=64, H=512), f32, full lengths, seeded random inputs.
 Before each call the L2 is flushed and the GPU spins while the host
 queues the whole call, so each gap (end of one launch to the start of
@@ -34,8 +35,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 from paddle_tpu_torch.ops import _cuda  # noqa: E402
 from paddle_tpu_torch.ops import fused_gru as FG  # noqa: E402
 from paddle_tpu_torch.ops import fused_lstm as FL  # noqa: E402
+from paddle_tpu_torch.ops import fused_rnn as FR  # noqa: E402
 
-# the names of E's and G's launches in a trace
+# the names of E's, G's and I's launches in a trace
 PHASES = ("bwd_gates", "backward_loop_kernel", "dw_kernel", "reduce_splits")
 SPIN_CYCLES = 10_000_000
 
@@ -58,7 +60,9 @@ def inputs(gates, t, b, h, seed=0):
         return args + FL.lstm_forward_reference(*args) + (
             f32(t, b, h), f32(b, h), f32(b, h))
     args = (xp, w, z, bounds)
-    return args + (FG.gru_forward_reference(*args), f32(t, b, h), f32(b, h))
+    fwd = FG.gru_forward_reference if gates == 3 else \
+        FR.rnn_forward_reference
+    return args + (fwd(*args), f32(t, b, h), f32(b, h))
 
 
 def measure(module, bwd, bargs, calls):
@@ -113,10 +117,11 @@ def main() -> int:
         print("torch_bwd_gaps: no CUDA device is available", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
-    _cuda.build_all(["fused_lstm", "fused_gru"])
+    _cuda.build_all(["fused_lstm", "fused_gru", "fused_rnn"])
     for kern, module, bwd, shape in (
             ("E", FL, FL.lstm_backward_kernel, (4, 100, 64, 512)),
-            ("G", FG, FG.gru_backward_kernel, (3, 30, 64, 512))):
+            ("G", FG, FG.gru_backward_kernel, (3, 30, 64, 512)),
+            ("I", FR, FR.rnn_backward_kernel, (1, 100, 64, 512))):
         out = measure(module, bwd, inputs(*shape), a.calls)
         print(json.dumps({"kernel": kern, "T": shape[1], "B": shape[2],
                           "H": shape[3], **out}), flush=True)

@@ -52,7 +52,7 @@ TIMED, PROFILED = 10, 3
 def kind(name: str) -> str:
     n = name.lower()
     if any(k in n for k in ("gru_fwd", "gru_bwd", "lstm_fwd", "lstm_bwd",
-                            "rnn_fwd", "rnn_bwd", "time_loop::dw_kernel",
+                            "rnn_fwd", "time_loop::dw_kernel",
                             "time_loop::backward_loop_kernel",
                             "reduce_splits")):
         return "fused time-loop kernel"

@@ -3,7 +3,10 @@ plain forward and backward of `paddle_tpu_torch.ops.fused_rnn` (what
 kernels H and I compute) against `paddle_tpu.ops.pallas_rnn
 .fused_simple_rnn`, which runs the Pallas kernels in interpret mode on
 the CPU, and `ops.rnn.simple_rnn` for every impl against JAX
-`simple_rnn(impl="pallas")` and `impl="xla"`.
+`simple_rnn(impl="pallas")` and `impl="xla"`. Kernel I's two-phase
+schedule (the serial loop storing the carry's operand, then dW_hh as one
+split product) is written out in PyTorch and held against both, and the
+launch geometry of H and of I's loop is checked at an H100's limits.
 
 Tolerances: f32 1e-5 on values, 1e-4 relative to the largest magnitude
 on gradients; bf16 2e-2 on both."""
@@ -19,6 +22,7 @@ from paddle_tpu.ops import rnn as JR
 from paddle_tpu_torch.models.weights import params_from_numpy
 from paddle_tpu_torch.ops import fused_rnn as FR
 from paddle_tpu_torch.ops import rnn as TR
+from paddle_tpu_torch.ops import time_loop as TL
 from torch_parity import np_f32, to_jax, to_torch
 
 B, T, F, H = 4, 9, 12, 16
@@ -177,17 +181,197 @@ def test_kernel_path_refuses_shapes_it_does_not_take():
 
 def test_kernel_geometry_and_limits():
     """The launch geometry on an H100 (132 SMs, 227 KB opt-in shared
-    memory) at the RNN benchmark's shape, and the shapes it refuses."""
+    memory) at the RNN benchmark's shape, and the shapes it refuses: H's
+    (`geometry`) and that of I's serial loop (`backward_geometry`)."""
     sms, smem = 132, 232448
-    for backward in (False, True):
-        hb, threads, width, used = FR.geometry(64, 512, sms, smem,
-                                               backward=backward)
-        assert (hb, threads, width) == (4, 256, 512) and used <= smem
-    assert FR.geometry(4, 16, sms, smem, backward=True)[:3] == (1, 32, 16)
+    hb, threads, width, used = FR.geometry(64, 512, sms, smem)
+    assert (hb, threads, width) == (4, 256, 512) and used <= smem
+    # I at the same shape: 16 row groups x 8 unit groups, 64 units and 4
+    # rows per CTA, one pair per thread, w_hh's rows resident, the whole
+    # operand row in one chunk of 512 columns
+    g = FR.backward_geometry(64, 512, sms, smem)
+    assert tuple(g[:7]) == (16, 8, 64, 4, 4, 256, 512)
+    assert g.resident and g.rep == 1 and g.smem <= smem
+    assert FR.geometry(4, 16, sms, smem)[:3] == (1, 32, 16)
+    assert tuple(FR.backward_geometry(4, 16, sms, smem)[:4]) == (1, 8, 2, 4)
     with pytest.raises(ValueError, match="pairs"):
-        FR.geometry(2048, 512, sms, smem, backward=False)
+        FR.geometry(2048, 512, sms, smem)
+    # H refuses H=4096 at B=64 (its resident columns do not fit); I's loop
+    # takes it, reading w_hh's rows through L2
     with pytest.raises(ValueError, match="shared memory"):
-        FR.geometry(64, 4096, sms, smem, backward=True)
+        FR.geometry(64, 4096, sms, smem)
+    assert not FR.backward_geometry(64, 4096, sms, smem).resident
+    # B=64, H=2048: H takes it, and so does I (the one-launch I refused it)
+    FR.geometry(64, 2048, sms, smem)
+    g = FR.backward_geometry(64, 2048, sms, smem)
+    assert g.ctas <= sms and g.rep == 2
+
+
+def test_backward_loop_takes_the_shapes_h_takes():
+    """Over a sweep of B and H, I's loop takes every shape H takes but one:
+    B=100, H=2560 (H at 2000 pairs per CTA; I's row groups round 100 rows
+    up to whole 16-row tiles, past 2048 pairs). A training step at that
+    shape is refused before H runs."""
+    sms, smem = 132, 232448
+    taken, refused = 0, []
+    for b in (1, 4, 7, 16, 37, 64, 100, 128, 256, 512, 1024):
+        for h in (8, 16, 96, 256, 512, 1024, 1536, 2048, 2560, 3072):
+            try:
+                FR.geometry(b, h, sms, smem)
+            except ValueError:
+                continue
+            taken += 1
+            try:
+                FR.backward_geometry(b, h, sms, smem)
+            except ValueError:
+                refused.append((b, h))
+    assert taken > 60 and refused == [(100, 2560)]
+
+
+def test_training_step_refuses_a_shape_i_does_not_take_before_h_runs(
+        monkeypatch):
+    """With gradients wanted, `fused_simple_rnn` checks I's geometry before
+    it launches H, so a training step fails at its start and not in its
+    backward. The card's limits and the inputs' check are stood in for
+    (no card here); B=100, H=2560 is a shape H takes and I's loop does
+    not."""
+    monkeypatch.setattr(FR, "_limits", lambda device: (132, 232448))
+    monkeypatch.setattr(TL, "check_inputs", lambda *a: (T, 100, 2560))
+
+    def no_h(*a):
+        raise AssertionError("H launched before I's geometry was checked")
+
+    monkeypatch.setattr(FR, "rnn_forward_kernel", no_h)
+    FR.geometry(100, 2560, 132, 232448)
+    xp = torch.zeros(T, B, H, requires_grad=True)
+    w = torch.zeros(H, H, requires_grad=True)
+    bounds = FR.make_bounds(B, T, None, False)
+    with pytest.raises(ValueError, match="no grid"):
+        FR.fused_simple_rnn(xp, w, torch.zeros(B, H), bounds, impl="kernel")
+    # without gradients only H runs, and I's geometry is not asked
+    with pytest.raises(AssertionError, match="H launched"):
+        FR.fused_simple_rnn(xp.detach(), w.detach(), torch.zeros(B, H),
+                            bounds, impl="kernel")
+
+
+def _two_phase_backward(x_proj, w_hh, h0, bounds, hs, dhs, dh_last):
+    """Kernel I's schedule (csrc/fused_rnn.cu) written out in plain
+    PyTorch: (1) the serial loop with only the carry's product in it,
+    which stores dz into dxp and round_w(dz) as the operand; (2) dW_hh =
+    round_w(hprev)^T @ operand over all T*B rows, split over the rows as
+    the kernel splits them and summed in order. Returns (dxp, dW, dh0,
+    operand)."""
+    steps, b, h = x_proj.shape
+    wd, w = w_hh.dtype, w_hh.float()
+    opnd = torch.empty((steps, b, h), dtype=wd)
+    dxp = torch.empty_like(x_proj)
+    dh_c = dh_last.float()
+    for t in reversed(range(steps)):
+        ht = hs[t].float()
+        dh = dhs[t].float() + dh_c
+        m = TL.live(bounds, t)
+        dz = torch.where(m, dh * (1.0 - ht * ht), 0.0)
+        dxp[t] = dz.to(dxp.dtype)
+        opnd[t] = dz.to(wd)
+        dh_c = torch.where(m, opnd[t].float() @ w.T, dh)
+    splits, chunk = TL.dw_splits(steps * b, h, 1, 132)
+    hprev = TL.operand(torch.cat([h0.float()[None], hs[:-1].float()]), wd)
+    rows_h, rows_o = hprev.reshape(-1, h), opnd.reshape(-1, h).float()
+    dw = torch.zeros(h, h)
+    for q in range(splits):
+        sl = slice(q * chunk, (q + 1) * chunk)
+        dw = dw + rows_h[sl].T @ rows_o[sl]
+    return dxp, dw, dh_c, opnd
+
+
+_PHASE_CASES = {
+    "full": ("float32", "float32", "full", False),
+    "ragged": ("float32", "float32", "ragged", False),
+    "reversed": ("float32", "float32", "reversed", False),
+    "nonzero_h0": ("float32", "float32", "ragged", True),
+    "bf16_x_proj": ("bfloat16", "float32", "ragged", True),
+    "bf16_w_hh": ("float32", "bfloat16", "reversed", False),
+    "bf16_both": ("bfloat16", "bfloat16", "reversed", True),
+}
+
+
+def _phase_inputs(x_dtype, w_dtype, window, initial, seed=12):
+    """Seeded inputs of one backward call: numpy arrays, then the port's
+    tensors with the plain forward's hs."""
+    rs = np.random.RandomState(seed)
+    xp, w = np_f32(rs, T, B, H), np_f32(rs, H, H) * 0.3
+    h0 = np_f32(rs, B, H) * 0.5 if initial else np.zeros((B, H), np.float32)
+    dhs, dhl = np_f32(rs, T, B, H), np_f32(rs, B, H)
+    bounds = np.asarray(BOUNDS[window], np.int32)
+    xdt, wdt = getattr(torch, x_dtype), getattr(torch, w_dtype)
+    t_in = (to_torch(xp).to(xdt), to_torch(w).to(wdt), to_torch(h0),
+            to_torch(bounds))
+    hs = FR.rnn_forward_reference(*t_in)
+    return ((xp, w, h0, bounds, dhs, dhl),
+            t_in + (hs, to_torch(dhs), to_torch(dhl)))
+
+
+@pytest.mark.parametrize("case", list(_PHASE_CASES))
+def test_two_phase_backward_matches_reference_and_pallas(case):
+    """Moving dW_hh out of I's serial loop keeps the function: the
+    two-phase schedule against the reverse loop of `_bwd_kernel` written
+    out (rnn_backward_reference) and against the Pallas kernels in
+    interpret mode (the VJP of pallas_rnn.fused_simple_rnn), on the same
+    seeded inputs. Tolerances: f32 1e-5 (absolute on dxp and dh0,
+    relative to max |dW| on dW_hh); with bf16 x_proj or w_hh 2e-2, bf16's
+    tolerance: the schedules round at the same points, but an f32
+    difference in the last bit can move a bf16 rounding by one step."""
+    x_dtype, w_dtype, window, initial = _PHASE_CASES[case]
+    npin, targs = _phase_inputs(x_dtype, w_dtype, window, initial)
+    two = _two_phase_backward(*targs)
+    ref = FR.rnn_backward_reference(*targs)
+    bf16 = x_dtype == "bfloat16" or w_dtype == "bfloat16"
+    tol = 2e-2 if bf16 else 1e-5
+    assert two[0].dtype == ref[0].dtype
+    for k in (0, 2):
+        _close(two[k].float(), ref[k].float(), tol)
+    _close_rel(two[1], ref[1], tol)
+
+    xp, w, h0, jb, dhs, dhl = npin
+    jx, jw = jnp.dtype(x_dtype), jnp.dtype(w_dtype)
+    jin = (to_jax(xp).astype(jx), to_jax(w).astype(jw), to_jax(h0))
+
+    @jax.jit
+    def vjp(a, b_, c, cot):
+        _, back = jax.vjp(
+            lambda *z: JPR.fused_simple_rnn(*z, to_jax(jb)), a, b_, c)
+        return back(cot)
+
+    jgr = vjp(*jin, (to_jax(dhs), to_jax(dhl)))
+    mine = (two[0].float(), two[1].to(getattr(torch, w_dtype)).float(),
+            two[2])
+    for j, t in zip(jgr, mine):
+        _close_rel(t, _f32(j), tol)
+
+
+@pytest.mark.parametrize("case", ["nonzero_h0", "bf16_both", "bf16_x_proj",
+                                  "bf16_w_hh"])
+def test_operand_is_dxp_only_where_the_dtypes_agree(case):
+    """The kernel lets dxp serve as the operand when x_proj's dtype is
+    w_hh's: both hold dz rounded to that one dtype, bit for bit. Where the
+    dtypes differ the two differ, and dW_hh must come from the operand:
+    with bf16 x_proj and f32 w_hh a dW_hh from dxp misses the reference by
+    more than 1e-4 of its scale."""
+    x_dtype, w_dtype, window, initial = _PHASE_CASES[case]
+    _, targs = _phase_inputs(x_dtype, w_dtype, window, initial)
+    dxp, dw, _, opnd = _two_phase_backward(*targs)
+    if x_dtype == w_dtype:
+        assert torch.equal(opnd, dxp)
+        return
+    assert not torch.equal(opnd.float(), dxp.float())
+    if x_dtype == "bfloat16":
+        h0, hs = targs[2], targs[4]
+        hprev = torch.cat([h0.float()[None], hs[:-1].float()]).reshape(-1, H)
+        from_dxp = hprev.T @ dxp.float().reshape(-1, H)
+        ref_dw = FR.rnn_backward_reference(*targs)[1]
+        _close_rel(dw, ref_dw, 1e-5)
+        scale = ref_dw.abs().max().item()
+        assert (from_dxp - ref_dw).abs().max().item() > 1e-4 * scale
 
 
 def test_init_rnn_params_shapes_and_scales():

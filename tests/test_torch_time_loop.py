@@ -1,4 +1,4 @@
-"""The launch geometry of the backward time loops E and G
+"""The launch geometry of the backward time loops E, G and I
 (`paddle_tpu_torch.ops.time_loop`), at an H100's limits: 132 SMs and
 232,448 bytes of opt-in shared memory per block. No card is needed: the
 geometry is host arithmetic, and the kernels take exactly what it
@@ -14,12 +14,20 @@ SMS, OPTIN = 132, 232448
 # G at the seq2seq encoder's and generation's widths, at H=1024 (refused
 # by the one-slice design before), and small and ragged batches; E and G
 # where w_hh's rows do not fit shared memory (H >= 1536) and where a
-# thread carries several pairs (wide H, B >= 128)
+# thread carries several pairs (wide H, B >= 128); I (one gate) at the
+# RNN benchmark's shape, at H=2048 (refused by the one-launch I) and
+# beyond, where its rows are read through L2
 SHAPES = [(64, 512, 4), (128, 256, 4), (64, 1280, 4), (64, 512, 3),
           (16, 512, 3), (64, 1024, 3), (64, 256, 3), (100, 512, 4),
           (4, 16, 4), (4, 16, 3), (1, 8, 4), (37, 96, 3), (64, 1536, 4),
           (64, 2048, 4), (64, 4096, 4), (256, 512, 4), (128, 1024, 4),
-          (200, 1024, 4), (64, 2048, 3), (128, 2048, 3)]
+          (200, 1024, 4), (64, 2048, 3), (128, 2048, 3), (64, 512, 1),
+          (4, 16, 1), (37, 96, 1), (16, 2048, 1), (64, 2048, 1),
+          (128, 2048, 1), (64, 2560, 1), (64, 3072, 1), (64, 4096, 1)]
+
+# the narrowest H at which no unit tile's rows of w_hh fit beside the
+# smallest staging, per gate count
+L2_FROM = {1: 2816, 3: 1536, 4: 1536}
 
 
 @pytest.mark.parametrize("b,h,gates", SHAPES)
@@ -47,8 +55,8 @@ def test_backward_geometry_fits_the_card(b, h, gates):
     assert g.smem == held + 2 * g.br * (g.chunk + 4) * 4
     assert g.smem <= OPTIN and g.chunk % 8 == 0
     # rows are resident whenever any grid can hold them: at least one
-    # unit tile's rows plus the smallest staging fit only below 1536
-    assert g.resident == (h < 1536)
+    # unit tile's rows plus the smallest staging fit only below L2_FROM
+    assert g.resident == (h < L2_FROM[gates])
 
 
 def test_backward_geometry_prefers_more_ctas_then_fewer_rows():
