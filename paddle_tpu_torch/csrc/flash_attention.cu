@@ -19,8 +19,9 @@
 // What bounds it on an H100: by the data, operations for long rows (4*D
 // flops per (query, key) pair, and one exp, against ~2*D*itemsize bytes
 // per key read once), bytes for short ones. As built, the K/V tile loads
-// from L2 and the softmax bound it, not the tensor cores (timed with
-// parts switched off by scripts/torch_flash_tiles.py): each CTA reads the
+// from L2 and the softmax bound it, not the tensor cores (timed by
+// scripts/torch_flash_tiles.py, which removes parts of the tile loop from
+// copies of this source): each CTA reads the
 // K/V prefix its rows need, so a long causal call moves T/64 times K and
 // V from L2 (4.3 GB at B=4, T=8192, H=8).
 //
@@ -56,11 +57,6 @@
 // ordered so that each SM's first CTAs pair a long causal query tile
 // with a short one.
 // Not here: `wgmma`, TMA and warp specialisation (FlashAttention-3).
-//
-// FLASH_KEYS / FLASH_STAGES (both or neither) override the tiling of
-// every instantiation, and FLASH_SKIP_{LOADS,SCORES,SOFTMAX,PV} switch a
-// part of the tile loop off (wrong results): the builds of
-// scripts/torch_flash_tiles.py, which times them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -91,12 +87,8 @@ struct Tiling<float, D> {
 
 template <typename T, int D>
 struct Traits {
-#ifdef FLASH_KEYS
-  static constexpr int kKeys = FLASH_KEYS, kStages = FLASH_STAGES;
-#else
   static constexpr int kKeys = Tiling<T, D>::kKeys;
   static constexpr int kStages = Tiling<T, D>::kStages;
-#endif
   static constexpr int kNB = kKeys / 8;                // S's n-blocks
   static constexpr int kLd = D + 16 / (int)sizeof(T);  // padded row
   // shared memory: Q [kRows][kLd], K and V [kStages][kKeys][kLd]
@@ -389,9 +381,6 @@ __global__ void __launch_bounds__(kThreads)
   if (causal) j_end = min(j_end, q_last / kKeys + 1);
   const int j_beg = win ? max(0, q0 - window + 1) / kKeys : 0;
   auto issue = [&](int j) {  // tile j into its stage, as one group
-#ifdef FLASH_SKIP_LOADS
-    j = j < j_beg + kStages - 1 ? j : j_end;
-#endif
     if (j < j_end) {
       const int st = (j - j_beg) % kStages;
       load_tile<T, D, kKeys, kLd>(ks + st * kTile, kbh, ld, Tk, j * kKeys);
@@ -429,11 +418,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int nb = 0; nb < kNB; ++nb)
       s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
-#ifndef FLASH_SKIP_SCORES
     fr.scores(s, qs, ks + st * kTile, warp, lane);
-#endif
 
-#ifndef FLASH_SKIP_SOFTMAX
     // element masks only where the tile crosses a boundary for some row;
     // a masked score is kMask, and exp2 of it against any row max is 0
     const int k0 = j * kKeys;
@@ -481,10 +467,7 @@ __global__ void __launch_bounds__(kThreads)
         l[e >> 1] += p;
         s[nb][e] = p;
       }
-#endif
-#ifndef FLASH_SKIP_PV
     fr.pv(acc, s, vs + st * kTile, lane);
-#endif
   }
 
 #pragma unroll

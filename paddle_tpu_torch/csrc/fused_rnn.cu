@@ -37,10 +37,11 @@
 //      backward_loop_kernel with I's cell (RnnCell below), over row groups
 //      x unit groups: each step a CTA computes its pairs' dz, writes it
 //      to dxp and, rounded to w_hh's dtype, to the operand scratch [T, B,
-//      H] (dxp itself when the dtypes agree), passes its row group's
-//      barrier, and multiplies its rows of the operand by its rows of w_hh
-//      (resident where they fit, else read through L2). Its barrier
-//      counters are zeroed by a memset on the stream just before it.
+//      H], passes its row group's barrier, and multiplies its rows of the
+//      operand by its rows of w_hh (resident where they fit, else read
+//      through L2). Its barrier counters are zeroed by a memset on the
+//      stream just before it (E and G zero theirs in their gates phase),
+//      a device operation of its own that the wrapper counts.
 //   2. rnn_bwd_dw: dW_hh = round_w(hprev)^T @ operand, split over the T*B
 //      rows, the parts summed in a fixed order (bitwise repeatable).
 
@@ -136,7 +137,6 @@ struct RnnCell {
   T* dxp;                  // [T*B][H]
   float* dh0;
   int B, H;
-  bool dxp_is_operand;     // dxp is the exchanged operand itself
 
   __device__ __forceinline__ Carry init(int b, int j) const {
     return {dh_last[b * H + j]};
@@ -152,7 +152,7 @@ struct RnnCell {
     const float dh = s.dh + c.dh;
     if (store) {
       const float dz = live ? dh * (1.f - s.h * s.h) : 0.f;
-      if (!dxp_is_operand) store_f(dxp + row * H + j, dz);
+      store_f(dxp + row * H + j, dz);
       store_cg(op + j, round_as(dz, op));
     }
     c.dh = dh;
@@ -197,10 +197,8 @@ extern "C" int rnn_fwd(int x_dtype, int w_dtype, const void* xp,
 
 // I in two phases on `stream`, each returning its cudaError_t. The loop
 // (a memset of its row groups' barrier counters, then one cooperative
-// launch) writes dxp and the operand round_w(dz) [T*B][ldo];
-// when `opnd` is `dxp` (x_proj's dtype is w_hh's and H % 8 == 0) the
-// operand is dxp itself. x_dtype selects dxp's type (the loop reads no
-// x_proj).
+// launch) writes dxp and the operand round_w(dz) [T*B][ldo]. x_dtype
+// selects dxp's type (the loop reads no x_proj).
 extern "C" int rnn_bwd_loop(int x_dtype, int w_dtype, int ut, int rep,
                             int resident, const void* hs, const void* dhs,
                             const void* dh_last, const void* bounds,
@@ -218,7 +216,7 @@ extern "C" int rnn_bwd_loop(int x_dtype, int w_dtype, int ut, int rep,
     const RnnCell<T, TW> cell{
         static_cast<const float*>(hs), static_cast<const float*>(dhs),
         static_cast<const float*>(dh_last), static_cast<T*>(dxp),
-        static_cast<float*>(dh0), B, H, opnd == dxp};
+        static_cast<float*>(dh0), B, H};
     const LoopArgs<TW> a{static_cast<const TW*>(w), static_cast<TW*>(opnd),
                          static_cast<const int*>(bounds),
                          static_cast<unsigned*>(counters),

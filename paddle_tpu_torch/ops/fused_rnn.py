@@ -7,8 +7,8 @@
   saved f32 stream.
 - `rnn_forward_kernel`, `rnn_backward_kernel`: the wrappers of
   `csrc/fused_rnn.cu` (kernels H and I). H is one cooperative launch for
-  the whole sequence; I is two launches on the stream (the serial loop
-  as one cooperative launch, after a memset of its barrier counters;
+  the whole sequence; I is a memset of its barrier counters and two
+  launches on the stream (the serial loop as one cooperative launch;
   dW_hh) plus one that sums dW's split parts.
   CUDA tensors only; they raise on what the kernels do not take and
   count one launch per call in `launch_counts` (I's device launches in
@@ -39,8 +39,9 @@ from paddle_tpu_torch.ops.fused_lstm import make_bounds  # noqa: F401
 
 #: launches of kernel H ("fwd") and kernel I ("bwd")
 launch_counts = {"fwd": 0, "bwd": 0}
-#: device launches made by kernel I's calls: its two phases, and the sum
-#: of dW's split parts where dW is split (not the counters' memset)
+#: device operations made by kernel I's calls: the memset of its barrier
+#: counters, its two phases, and the sum of dW's split parts where dW is
+#: split
 device_launches = {"bwd": 0}
 
 _WHAT = "fused_simple_rnn kernel"
@@ -166,12 +167,8 @@ def rnn_backward_kernel(x_proj, w_hh, h0, bounds, hs, dhs, dh_last, *,
         h0.float(), bounds, hs.float(), dhs.float(), dh_last.float()))
     codes = (TL.DTYPE_CODE[x_proj.dtype], TL.DTYPE_CODE[w_hh.dtype])
     dxp = torch.empty(x_proj.shape, dtype=x_proj.dtype, device=dev)
-    # dxp serves as the operand where it holds the same rounded values
-    if x_proj.dtype == w_hh.dtype and hidden % 8 == 0:
-        opnd, ldo = dxp, hidden
-    else:
-        ldo = TL.operand_ld(hidden)
-        opnd = torch.empty((steps, b, ldo), dtype=w_hh.dtype, device=dev)
+    ldo = TL.operand_ld(hidden)
+    opnd = torch.empty((steps, b, ldo), dtype=w_hh.dtype, device=dev)
     dw = torch.empty(w_hh.shape, dtype=f32, device=dev)
     dh0 = torch.empty((b, hidden), dtype=f32, device=dev)
     counters = torch.empty(geo.row_groups, dtype=torch.int32, device=dev)
@@ -188,7 +185,7 @@ def rnn_backward_kernel(x_proj, w_hh, h0, bounds, hs, dhs, dh_last, *,
         counters.data_ptr(), steps, b, hidden, geo.hb, geo.br, geo.chunk,
         geo.threads, geo.smem, stream)
     TL.launch_error(err, "rnn_bwd_loop")
-    device_launches["bwd"] += 1
+    device_launches["bwd"] += 2     # the counters' memset and the loop
     TL.record(events, 2)
     err = lib.rnn_bwd_dw(codes[1], hs.data_ptr(), h0f.data_ptr(),
                          opnd.data_ptr(), ldo, part.data_ptr(),

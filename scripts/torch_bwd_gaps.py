@@ -12,7 +12,10 @@ Before each call the L2 is flushed and the GPU spins while the host
 queues the whole call, so each gap (end of one launch to the start of
 the next, on the device's clock) is the card's own cost of a launch
 boundary, not host time. The launches of a call are counted by the
-wrapper (`device_launches`). Prints one JSON line per kernel: the mean
+wrapper (`device_launches`); I's include the memset that zeroes its
+loop's barrier counters (E and G zero theirs in their gates kernel), a
+device operation of the trace's own kind (`gpu_memset`), matched here
+beside the kernels. Prints one JSON line per kernel: the mean
 device ms of each launch, the mean gap after each but the last in
 microseconds, their sum, and the call's span from the first launch's
 start to the last one's end. Needs a CUDA device; exits 2 without one.
@@ -39,6 +42,8 @@ from paddle_tpu_torch.ops import fused_rnn as FR  # noqa: E402
 
 # the names of E's, G's and I's launches in a trace
 PHASES = ("bwd_gates", "backward_loop_kernel", "dw_kernel", "reduce_splits")
+# I's counters' memset: a memset far smaller than the L2 flush's buffer
+SMALL_MEMSET = 1 << 20
 SPIN_CYCLES = 10_000_000
 
 
@@ -65,6 +70,15 @@ def inputs(gates, t, b, h, seed=0):
     return args + (fwd(*args), f32(t, b, h), f32(b, h))
 
 
+def ours(e):
+    """Is trace event e a launch of E, G or I?"""
+    if e.get("ph") != "X":
+        return False
+    if e.get("cat") == "gpu_memset":
+        return e.get("args", {}).get("bytes", 0) < SMALL_MEMSET
+    return e.get("cat") == "kernel" and any(p in e["name"] for p in PHASES)
+
+
 def measure(module, bwd, bargs, calls):
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(3):
@@ -86,14 +100,11 @@ def measure(module, bwd, bargs, calls):
         prof.export_chrome_trace(path)
         with open(path) as f:
             trace = json.load(f)
-    ours = sorted((e for e in trace["traceEvents"]
-                   if e.get("ph") == "X" and e.get("cat") == "kernel"
-                   and any(p in e["name"] for p in PHASES)),
-                  key=lambda e: e["ts"])
-    if len(ours) != calls * per_call:
-        raise RuntimeError(f"{len(ours)} launches in the trace, want "
+    found = sorted(filter(ours, trace["traceEvents"]), key=lambda e: e["ts"])
+    if len(found) != calls * per_call:
+        raise RuntimeError(f"{len(found)} launches in the trace, want "
                            f"{calls} calls x {per_call}")
-    runs = [ours[i:i + per_call] for i in range(0, len(ours), per_call)]
+    runs = [found[i:i + per_call] for i in range(0, len(found), per_call)]
     dur = np.array([[e["dur"] for e in r] for r in runs], dtype=np.float64)
     gap = np.array([[b["ts"] - (a["ts"] + a["dur"])
                      for a, b in zip(r, r[1:])] for r in runs],

@@ -352,11 +352,13 @@ def test_two_phase_backward_matches_reference_and_pallas(case):
 @pytest.mark.parametrize("case", ["nonzero_h0", "bf16_both", "bf16_x_proj",
                                   "bf16_w_hh"])
 def test_operand_is_dxp_only_where_the_dtypes_agree(case):
-    """The kernel lets dxp serve as the operand when x_proj's dtype is
-    w_hh's: both hold dz rounded to that one dtype, bit for bit. Where the
-    dtypes differ the two differ, and dW_hh must come from the operand:
-    with bf16 x_proj and f32 w_hh a dW_hh from dxp misses the reference by
-    more than 1e-4 of its scale."""
+    """The loop stores the operand round_w(dz) apart from dxp. Where
+    x_proj's dtype is w_hh's the two hold dz rounded to that one dtype, bit
+    for bit (the kernel still writes both: sharing them saved no time that
+    the card could tell from its spread). Where the dtypes differ the two
+    differ, and dW_hh must come from the operand: with bf16 x_proj and f32
+    w_hh a dW_hh from dxp misses the reference by more than 1e-4 of its
+    scale."""
     x_dtype, w_dtype, window, initial = _PHASE_CASES[case]
     _, targs = _phase_inputs(x_dtype, w_dtype, window, initial)
     dxp, dw, _, opnd = _two_phase_backward(*targs)
