@@ -14,7 +14,12 @@ Phases, in order; any failure exits non-zero:
    for flash attention,
    `torch.nn.functional.scaled_dot_product_attention` as a yardstick.
    A: flash attention forward; B: the ragged walk over float arenas;
-   C: the walk over int8 (s8, scale) arenas, dequant fused.
+   C: the walk over int8 (s8, scale) arenas, dequant fused, split over
+   pages across blocks (its plan, `walk_plan`: splits, pages per split
+   and blocks, and its device launches per call -- the walk, and the
+   combine of the splits' partials where there are several -- are
+   printed per case; C's cases add rows that reach max_len (pos0 = 255)
+   and inactive rows whose mean of V spans every split).
    Tolerances: float32 1e-4, bfloat16 2e-2, on outputs of unit scale.
    A runs its products on the tensor cores (bf16 mma.sync; f32 as
    3xTF32): the count of HMMA instructions in each flash_fwd_kernel
@@ -43,7 +48,9 @@ Phases, in order; any failure exits non-zero:
    on a second call, and at the main shape the device time of each
    phase is printed (CUDA events the wrapper records between its
    launches).
-   F and G: the fused GRU time loop (csrc/fused_gru.cu), forward and
+   F and G: the fused GRU time loop (csrc/fused_gru.cu; F on the
+   forward loop of time_loop.cuh, a memset of its barrier counters and
+   one cooperative launch, repeating hs bit for bit), forward and
    backward, at the seq2seq encoder's shape (T=30, B=64, H=512) with
    full, ragged ([15, 30]) and reversed ragged lengths, nonzero h0, and
    bf16 x_proj and w_hh; H and I: the fused tanh-RNN time loop
@@ -53,11 +60,12 @@ Phases, in order; any failure exits non-zero:
    two (the serial loop on the shared backward loop after a memset of
    its barrier counters, dW_hh): their cases
    repeat bit for bit, and their main cases print the phase split.
-   E, G and I then run alone at their loop's other grids (`WIDE_CASES`:
-   w_hh's rows read through L2 at H >= 1536 (I from H=2816), 2 or 4
-   pairs per thread at wide H or B; I at B=64, H=2048, which its
-   one-launch design refused), ragged with nonzero initial state,
-   against their plain versions and bit for bit on a second call.
+   E, G, I and F then run alone at their loop's other grids
+   (`WIDE_CASES`: w_hh's rows read through L2 at H >= 1536 (I from
+   H=2816), 2, 4 or 8 pairs per thread at wide H or B; I at B=64,
+   H=2048 and F at B=64, H >= 1536, which their one-launch designs
+   refused), ragged with nonzero initial state, against their plain
+   versions and bit for bit on a second call.
    Yardsticks: cuDNN's
    torch.nn.GRU(256, 512) with b_hn zeroed (the port's n gate) and
    torch.nn.RNN(512, 512, tanh), their input projections timed beside
@@ -101,14 +109,16 @@ Phases, in order; any failure exits non-zero:
    with seeded random weights, 10 hand-rolled steps (gradients, then
    adam's update) over 4 seeded batches, launch counts set to 0 just
    before: exactly 2 F and 2 G launches per step (the bidirectional
-   encoder; at least three device launches per G call), no H or I. The same weights then train on the plain path
+   encoder; two device launches per F call, at least three per G
+   call), no H or I. The same weights then train on the plain path
    (impl="torch", none of F-I launches): first-step gradients agree to
    1e-4 relative (each leaf on its own scale, floored at 1e-6 of the
    largest gradient), every loss to 1e-3. Target tokens/s is
    sum(tgt_lens) over the steps / wall time, the bench's definition.
 6. generation -- generate(beam_size=4, max_len=30) and greedy_generate
    on 16 source rows with the trained weights, on the kernels (2 F
-   launches per call, no G) and on the plain path: tokens and lengths
+   launches per call, 4 device launches, no G) and on the plain path:
+   tokens and lengths
    equal, except at a near tie (greedy: the plain path's top-2 logit
    gap at the first differing step <= 1e-3; beam: the plain search's
    smallest gap among its K+1 best candidates or final scores <= 1e-3);
@@ -120,9 +130,11 @@ Phases, in order; any failure exits non-zero:
 8. report -- the launch counts of every path, the serve, train, seq2seq
    and generation numbers, the wide E/G cases, the card's name and
    power limit, a `kernels` JSON line (nine entries, A-I; A adds its
-   HMMA counts; E, G and I add their device launches in the main path's
-   run and per call, their phase split and whether they repeated bit
-   for bit), and last the device JSON line.
+   HMMA counts; C its device launches in the int8 serve and per call and
+   its split plan; F its device launches and whether it repeated bit
+   for bit; E, G and I their device launches in the main path's run and
+   per call, their phase split and whether they repeated bit for bit),
+   and last the device JSON line.
 
 One phase alone, on the card: `python3 -c "import chip_smoke as S;
 S.seq2seq_phase()"` (each phase builds what it launches at first use).
@@ -310,7 +322,9 @@ def ragged_case(name, *, r, tq, h, hkv, dh=64, dtype=torch.float32,
     args = (q, ka, va, torch.from_numpy(pt).to(dev),
             torch.from_numpy(pos0).to(dev), torch.from_numpy(active).to(dev))
     kw = dict(page_size=PAGE, max_len=MAX_LEN)
+    before = RPA.device_launches["int8"]
     got = RPA.ragged_kernel(*args, **kw)
+    per_call = RPA.device_launches["int8"] - before
     ref = RPA.ragged_reference(*args, **kw)
     torch.cuda.synchronize()
     err = (got.float() - ref.float()).abs().max().item()
@@ -330,13 +344,28 @@ def ragged_case(name, *, r, tq, h, hkv, dh=64, dtype=torch.float32,
     k_ms = time_ms(lambda: RPA.ragged_kernel(*args, **kw))
     p_ms = time_ms(lambda: RPA.ragged_reference(*args, **kw))
     ok = err <= TOL[dtype]
+    plan = ""
+    extra = {}
+    if int8:
+        # C's split plan, and its device launches in one call (the walk,
+        # and the combine where there are several splits)
+        wp = RPA.walk_plan(r, tq, h, hkv, MAX_LEN, PAGE,
+                           torch.cuda.get_device_properties(0)
+                           .multi_processor_count)
+        extra = dict(splits=wp.splits, span_pages=wp.span_pages,
+                     blocks=wp.blocks(r, hkv),
+                     device_launches_per_call=per_call)
+        plan = (f" splits {wp.splits} x {wp.span_pages} pages, "
+                f"{wp.blocks(r, hkv)} blocks, {per_call} device launches "
+                f"per call")
+        ok = ok and per_call == (1 if wp.splits == 1 else 2)
     log(f"  {'C' if int8 else 'B'} {name:<22} {str(dtype)[6:]:<8} err "
         f"{err:.2e} (tol {TOL[dtype]:.0e}) kernel_ms {k_ms:.4f} plain_ms "
-        f"{p_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}) "
+        f"{p_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}){plan} "
         f"{'ok' if ok else 'FAIL'}")
     return dict(name=name, err=err, ok=ok, ms=k_ms, plain_ms=p_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                tol=TOL[dtype])
+                tol=TOL[dtype], **extra)
 
 
 # -- kernel A: flash attention forward ---------------------------------------
@@ -536,6 +565,17 @@ def kernels_phase():
                                        int8=True)
     c["decode_bf16"] = ragged_case("decode_r8", r=8, tq=1, h=8, hkv=8,
                                    dtype=bf16, seed=1, int8=True)
+    # rows that reach max_len (every split holds live keys), and inactive
+    # rows whose uniform mean of V spans every split
+    for dt in (f32, bf16):
+        sfx = "_" + str(dt)[6:]
+        c["max_len" + sfx] = ragged_case("decode_pos0_255", r=8, tq=1, h=8,
+                                         hkv=8, dtype=dt, pos0=MAX_LEN - 1,
+                                         seed=6, int8=True)
+        c["inactive" + sfx] = ragged_case(
+            "decode_inactive_splits", r=8, tq=1, h=8, hkv=8, dtype=dt,
+            inactive=4, seed=7, pos0=[3, 17, 40, 255, 100, 130, 64, 200],
+            int8=True)
     c["chunk_bf16"] = ragged_case("prefix_chunk_tq100", r=1, tq=100, h=8,
                                   hkv=8, dtype=bf16, pos0=SHARED, int8=True)
     bad = [f"{n}:{k}" for n, d in (("A", a), ("B", b), ("C", c))
@@ -908,6 +948,8 @@ def time_loop_case(loop, names, name, *, t, b, h, dtype=torch.float32,
     grads_r = bwd_r(*bargs)
     torch.cuda.synchronize()
     same = bitwise_repeat(bwd_k, bargs, grads)
+    # the forward too (F, on the forward loop, must repeat)
+    fwd_same = bitwise_repeat(lambda *a: (fwd_k(*a),), args, (hs,))
     pairs = {names[0]: ((hs, hs_r),), names[1]: tuple(zip(grads, grads_r))}
     # the work this data needs: products only on live (row, step) pairs;
     # each input read once, each output written once
@@ -936,7 +978,8 @@ def time_loop_case(loop, names, name, *, t, b, h, dtype=torch.float32,
     out = {}
     for kern, lib_ms in zip(names, lib[:2]):
         err = max(rel_err(a, r) for a, r in pairs[kern])
-        ok = err <= tol and (kern == names[0] or same)
+        ok = err <= tol and (same if kern == names[1] else
+                             fwd_same or kern != "F")
         b_ms, by = bounds_ms[kern]
         lib_s = "-" if lib_ms is None else f"{lib_ms:.4f}"
         log(f"  {kern} {name:<24} {str(dtype)[6:]:<8} rel_err {err:.2e} "
@@ -949,8 +992,9 @@ def time_loop_case(loop, names, name, *, t, b, h, dtype=torch.float32,
                          plain_ms=plain[kern], bound_ms=b_ms, bound_by=by,
                          library_ms=lib_ms, tol=tol)
     out[names[1]].update(bitwise=same, phases_ms=phases)
-    log(f"    {names[1]}: a second call on the same inputs is bitwise "
-        f"equal (dxp, dW_hh, dh0): {same}")
+    out[names[0]].update(bitwise=fwd_same)
+    log(f"    {names[0]}: a second call on the same inputs is bitwise "
+        f"equal (hs): {fwd_same}; {names[1]}: (dxp, dW_hh, dh0): {same}")
     if phases:
         log_phases(names[1], phases, ms[names[1]], t)
     if library is not None:
@@ -1026,13 +1070,22 @@ WIDE_CASES = (
     ("I", "h2048_b64_2pairs", 20, 64, 2048, torch.float32),
     ("I", "h4096_b64_l2_rows_bf16_xproj", 10, 64, 4096, torch.bfloat16,
      torch.float32),
+    # F on the forward loop: gate columns read from w_hh^T through L2
+    # (H >= 1536, refused by the one-launch F at B=64), several pairs per
+    # thread, and the 32-row tiles of large batches
+    ("F", "h1536_b64_l2_rows", 20, 64, 1536, torch.float32),
+    ("F", "h2048_b64_l2_rows_4pairs", 20, 64, 2048, torch.float32),
+    ("F", "h2048_b16_bf16", 20, 16, 2048, torch.bfloat16),
+    ("F", "b128_h1024_bf16", 20, 128, 1024, torch.bfloat16),
+    ("F", "b256_h1024_8pairs", 20, 256, 1024, torch.float32),
 )
 
 
 def wide_case(kern, name, t, b, h, dtype, w_dtype=None, *, seed):
     """E, G or I alone against its plain version on the plain forward's
     outputs, with ragged lengths, nonzero initial state and random
-    cotangents; a second call must repeat every output bit for bit. Its
+    cotangents (F: the forward alone on the same inputs); a second call
+    must repeat every output bit for bit. Its
     device time (5 calls) is logged beside the grid it ran. x_proj (and
     w_hh, unless w_dtype is given) in `dtype`."""
     rs = np.random.RandomState(seed + 100)
@@ -1046,8 +1099,8 @@ def wide_case(kern, name, t, b, h, dtype, w_dtype=None, *, seed):
         bwd_k, bwd_r = FL.lstm_backward_kernel, FL.lstm_backward_reference
         geo = FL.backward_geometry(b, h, *FL.device_limits(args[0].device))
     else:
-        gates = 3 if kern == "G" else 1
-        mod = FG if kern == "G" else FR
+        gates = 3 if kern in "FG" else 1
+        mod = FG if kern in "FG" else FR
         gr = np.random.RandomState(seed)
         lim = 1.0 / np.sqrt(h)
         xp = torch.from_numpy(gr.standard_normal((t, b, gates * h)).astype(
@@ -1058,13 +1111,21 @@ def wide_case(kern, name, t, b, h, dtype, w_dtype=None, *, seed):
             np.float32)).cuda()
         lens = torch.from_numpy(gr.randint(t // 2, t + 1, b)).cuda()
         args = (xp, w, h0, FG.make_bounds(b, t, lens, False, device="cuda"))
-        fwd_r = (FG.gru_forward_reference if kern == "G"
+        fwd_r = (FG.gru_forward_reference if kern in "FG"
                  else FR.rnn_forward_reference)
-        bargs = args + (fwd_r(*args), cot(t, b, h), cot(b, h))
-        bwd_k, bwd_r = ((FG.gru_backward_kernel, FG.gru_backward_reference)
-                        if kern == "G" else
-                        (FR.rnn_backward_kernel, FR.rnn_backward_reference))
-        geo = mod.backward_geometry(b, h, *mod._limits(xp.device))
+        if kern == "F":
+            # the forward alone: its call and plain version take args
+            bargs = args
+            bwd_k, bwd_r = (lambda *a: (FG.gru_forward_kernel(*a),),
+                            lambda *a: (fwd_r(*a),))
+            geo = mod.geometry(b, h, *mod._limits(xp.device))
+        else:
+            bargs = args + (fwd_r(*args), cot(t, b, h), cot(b, h))
+            bwd_k, bwd_r = ((FG.gru_backward_kernel,
+                             FG.gru_backward_reference) if kern == "G" else
+                            (FR.rnn_backward_kernel,
+                             FR.rnn_backward_reference))
+            geo = mod.backward_geometry(b, h, *mod._limits(xp.device))
     got = bwd_k(*bargs)
     ref = bwd_r(*bargs)
     torch.cuda.synchronize()
@@ -1086,13 +1147,13 @@ def wide_case(kern, name, t, b, h, dtype, w_dtype=None, *, seed):
 
 
 def wide_phase():
-    log("phase kernels: E, G and I on their loop's other grids (w_hh's "
+    log("phase kernels: E, G, I and F on their loops' other grids (w_hh's "
         "rows read from L2, several pairs per thread), ragged, nonzero "
         "initial state")
     cases = [wide_case(*c, seed=20 + i) for i, c in enumerate(WIDE_CASES)]
     bad = [f"{c['kernel']}:{c['name']}" for c in cases if not c["ok"]]
     if bad:
-        raise Fail(f"E/G/I disagree with their plain versions: {bad}")
+        raise Fail(f"E/G/I/F disagree with their plain versions: {bad}")
     return cases
 
 
@@ -1147,7 +1208,8 @@ def s2s_grads(params, batch, impl):
 def s2s_train(params, batches, impl, steps):
     """`steps` hand-rolled steps (the bench's: gradients, then adam's
     update in place) from a copy of params: (params, losses, wall
-    seconds, launches of F-I in this run, G's device launches)."""
+    seconds, launches of F-I in this run, F's and G's device
+    launches)."""
     params = trainable(params)
     opt = OPT.adam(1e-3)
     opt_state = opt.init(params)
@@ -1164,7 +1226,7 @@ def s2s_train(params, batches, impl, steps):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return (params, [v.item() for v in losses], wall, time_loop_counts(),
-            FG.device_launches["bwd"])
+            {"F": FG.device_launches["fwd"], "G": FG.device_launches["bwd"]})
 
 
 def seq2seq_phase():
@@ -1211,10 +1273,10 @@ def seq2seq_phase():
                plain_ms_per_step=1e3 * p_wall / TRAIN_STEPS,
                plain_tgt_tok_s=tokens / p_wall, grad_rel_err=g_err,
                losses=k_loss, plain_losses=p_loss, launches=k_launch,
-               device_launches={"G": k_dev})
+               device_launches=k_dev)
     log(f"  kernel path: {out['kernel_ms_per_step']:.3f} ms/step = "
         f"{out['kernel_tgt_tok_s']:.1f} target tokens/s; launches "
-        f"{k_launch} (G: {k_dev} device launches); losses "
+        f"{k_launch} (device launches {k_dev}); losses "
         f"{['%.6f' % v for v in k_loss]}")
     log(f"  plain path:  {out['plain_ms_per_step']:.3f} ms/step = "
         f"{out['plain_tgt_tok_s']:.1f} target tokens/s; launches "
@@ -1223,12 +1285,15 @@ def seq2seq_phase():
     if k_launch != want:
         raise Fail(f"seq2seq: launched {k_launch}, want {want} (2 F and 2 G "
                    f"per step)")
-    if k_dev < 3 * k_launch["G"]:
-        raise Fail(f"seq2seq: {k_launch['G']} G calls made {k_dev} device "
-                   f"launches, fewer than their three phases")
-    if any(p_launch.values()) or p_dev:
+    if k_dev["G"] < 3 * k_launch["G"]:
+        raise Fail(f"seq2seq: {k_launch['G']} G calls made {k_dev['G']} "
+                   f"device launches, fewer than their three phases")
+    if k_dev["F"] != 2 * k_launch["F"]:
+        raise Fail(f"seq2seq: {k_launch['F']} F calls made {k_dev['F']} "
+                   f"device launches, not their counters' memset and loop")
+    if any(p_launch.values()) or any(p_dev.values()):
         raise Fail(f"seq2seq: the plain path launched kernels: {p_launch}, "
-                   f"{p_dev} device launches of G")
+                   f"device launches {p_dev}")
     rel = max(abs(a - b) / abs(b) for a, b in zip(k_loss, p_loss))
     out["loss_rel_err"] = rel
     log(f"  losses agree to {rel:.2e} relative (tol {LOSS_RTOL:.0e})")
@@ -1307,14 +1372,15 @@ def generation_phase(params, batch):
             torch.cuda.synchronize()
         walls[label] = time.perf_counter() - t0
         launches[label] = time_loop_counts()
+        launches[label]["F_device"] = FG.device_launches["fwd"]
         lengths = runs[label][-1]
         log(f"  {label}: {walls[label] * 1e3:.1f} ms, launches "
             f"{launches[label]}, mean length "
             f"{lengths.float().mean().item():.2f}")
     for label in ("beam", "greedy"):
-        if launches[label] != dict(F=2, G=0, H=0, I=0):
+        if launches[label] != dict(F=2, G=0, H=0, I=0, F_device=4):
             raise Fail(f"generation: {label} launched {launches[label]}, "
-                       f"want 2 F and no other")
+                       f"want 2 F (4 device launches) and no other")
         if any(launches[label + "_plain"].values()):
             raise Fail(f"generation: the plain path launched kernels: "
                        f"{launches[label + '_plain']}")
@@ -1456,7 +1522,8 @@ def counts():
             "ragged_tq1": RPA.launch_counts["tq1"],
             "ragged_tqn": RPA.launch_counts["tqn"],
             "int8_tq1": RPA.launch_counts["int8_tq1"],
-            "int8_tqn": RPA.launch_counts["int8_tqn"]}
+            "int8_tqn": RPA.launch_counts["int8_tqn"],
+            "int8_device": RPA.device_launches["int8"]}
 
 
 def timed_serve(eng, prompts, **kw):
@@ -1702,6 +1769,13 @@ def main() -> int:
                 "device_launches_per_call": device / calls,
                 "phases_ms": case["phases_ms"], "bitwise": case["bitwise"]}
 
+    def split_plan(case):
+        return {"device_launches_in_serve": launched["int8_kv"][
+                    "int8_device"],
+                "device_launches_per_call": case["device_launches_per_call"],
+                "splits": case["splits"], "span_pages": case["span_pages"],
+                "blocks": case["blocks"]}
+
     # launches: A and B from the float serve, C from the int8-KV serve,
     # each counted from 0 just before that run
     walk = "paddle_tpu_torch/csrc/ragged_paged_attention.cu"
@@ -1723,12 +1797,17 @@ def main() -> int:
         entry("ragged_paged_walk[tq>1]", walk,
               "paddle_tpu/ops/ragged_paged_attention.py:153",
               launched["float"]["ragged_tqn"], b["main_chunk"]),
+        # C: calls of the int8-KV serve's run; its device launches in
+        # that run (the split walk, and the combine where the plan has
+        # several splits), per call at the case's shape, and the plan
         entry("ragged_paged_walk_int8[tq=1]", walk,
               "paddle_tpu/ops/ragged_paged_attention.py:188",
-              launched["int8_kv"]["int8_tq1"], c["main_decode"]),
+              launched["int8_kv"]["int8_tq1"], c["main_decode"],
+              **split_plan(c["main_decode"])),
         entry("ragged_paged_walk_int8[tq>1]", walk,
               "paddle_tpu/ops/ragged_paged_attention.py:188",
-              launched["int8_kv"]["int8_tqn"], c["main_chunk"]),
+              launched["int8_kv"]["int8_tqn"], c["main_chunk"],
+              **split_plan(c["main_chunk"])),
         # D and E: launches of the train phase's run (2 of each per step)
         # (their tolerance holds rel_err, max abs error over max |plain|)
         entry("lstm_fwd", "paddle_tpu_torch/csrc/fused_lstm.cu",
@@ -1749,7 +1828,11 @@ def main() -> int:
               "paddle_tpu/ops/pallas_gru.py:37", s2s["launches"]["F"],
               gru["main"]["F"],
               launches_per_train_step=s2s["launches"]["F"] / TRAIN_STEPS,
-              rel_err=gru["main"]["F"]["rel_err"]),
+              rel_err=gru["main"]["F"]["rel_err"],
+              device_launches=s2s["device_launches"]["F"],
+              device_launches_per_call=(s2s["device_launches"]["F"]
+                                        / s2s["launches"]["F"]),
+              bitwise=gru["main"]["F"]["bitwise"]),
         entry("gru_bwd", "paddle_tpu_torch/csrc/fused_gru.cu",
               "paddle_tpu/ops/pallas_gru.py:59", s2s["launches"]["G"],
               gru["main"]["G"],

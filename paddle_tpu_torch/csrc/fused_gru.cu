@@ -27,14 +27,20 @@
 // B=64, H=512 in f32, F does 2 T B H 3H = 3.02 GFLOP (0.045 ms at the 67
 // TFLOP/s of the f32 CUDA cores) against ~18 MB; G three such products.
 //
-// F's design: the LSTM forward's (fused_lstm.cu). The time loop runs
-// inside one cooperative launch. CTA k owns hb hidden units j in [k*hb,
-// (k+1)*hb) and their gate columns j, H+j, 2H+j of w_hh, resident in
-// shared memory as [H][hb][4] (the fourth lane zero, so one 16-byte load
-// gives a unit's three gates). A thread carries up to kMaxPairs (row,
-// unit) pairs and their f32 carries in registers. Every CTA needs all of
-// h_{t-1}, so each step writes its units of h into a ping-pong buffer [2,
-// B, H] and ends with one grid barrier.
+// F's design: the serial forward loop of time_loop.cuh
+// (`forward_loop_kernel`) with F's cell (GruFwdCell below), one
+// cooperative launch over row groups x unit groups (the backward loops'
+// grid: batch rows never interact, so a CTA waits only for its own row
+// group each step). CTA (g, k) owns br rows and hb units; their three gate
+// columns of w_hh are resident in shared memory as rows [3][hb][H + 4],
+// transposed at load (read through L2 from a w_hh^T scratch where they do
+// not fit). Each step a CTA multiplies its rows of round_w(h_{t-1}) (an
+// operand plane in w_hh's dtype, exact, staged by cp.async with the next
+// chunk in flight) by those rows in thread tiles that reuse each weight
+// float4 across 4 rows, runs its pairs' cells, writes hs[t] and
+// round_w(h_t) into the other operand plane and passes its row group's
+// barrier. The barrier counters are zeroed by a memset on the stream just
+// before the launch, a device operation the wrapper counts.
 //
 // G's design: the LSTM backward's (E in fused_lstm.cu), in three launches.
 // Of G's three products only dhp @ w_hh^T feeds the recurrence.
@@ -55,105 +61,50 @@
 
 #include "time_loop.cuh"
 
-namespace cg = cooperative_groups;
 using namespace time_loop;
 
 namespace {
 
-// acc[n][g] += sum_k round_w(tile[b_n][k]) * ws[k0+k][u_n][g] over a
-// staged tile of kw columns, for the three gates g of unit u_n
-template <typename TW>
-__device__ __forceinline__ void gate_products(
-    float (&acc)[kMaxPairs][3], const float* tile, int ld, const float* ws,
-    const int (&pb)[kMaxPairs], const int (&pu)[kMaxPairs], int np, int k0,
-    int kw, int hb, const TW* wtype) {
-  for (int kk = 0; kk < kw; kk += 4) {
-#pragma unroll
-    for (int n = 0; n < kMaxPairs; ++n) {
-      if (n >= np) break;
-      const float4 hv =
-          *reinterpret_cast<const float4*>(tile + pb[n] * ld + kk);
-      const float hvs[4] = {round_as(hv.x, wtype), round_as(hv.y, wtype),
-                            round_as(hv.z, wtype), round_as(hv.w, wtype)};
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float4 wv = *reinterpret_cast<const float4*>(
-            ws + ((k0 + kk + q) * hb + pu[n]) * 4);
-        acc[n][0] = fmaf(hvs[q], wv.x, acc[n][0]);
-        acc[n][1] = fmaf(hvs[q], wv.y, acc[n][1]);
-        acc[n][2] = fmaf(hvs[q], wv.z, acc[n][2]);
-      }
-    }
-  }
-}
+// -- F: the serial forward loop (time_loop.cuh forward_loop_kernel) -------
 
-// ws[k][u][g] = w_hh[k, g*H + j0 + u] for g < 3, zero for g = 3
-template <typename TW>
-__device__ __forceinline__ void load_gate_columns(float* ws, const TW* w,
-                                                  int H, int hb, int j0) {
-  for (int e = threadIdx.x; e < 4 * H * hb; e += blockDim.x) {
-    const int k = e / (4 * hb), u = (e / 4) % hb, g = e % 4;
-    ws[e] = g < 3 ? load_f(w + (size_t)k * 3 * H + g * H + j0 + u) : 0.f;
-  }
-}
+// F's cell: the f32 carry h of one (row, unit) pair
+template <typename T, typename TWt>
+struct GruFwdCell {
+  using TW = TWt;
+  static constexpr int kOut = 3;
+  struct Step {       // x_proj's three gates, loaded a step ahead
+    float xr, xz, xn;
+  };
+  struct Carry {
+    float h;
+  };
+  const T* xp;        // [T*B][3H]
+  const float* h0;    // [B][H]
+  float* hs;          // [T*B][H]
+  int B, H;
 
-template <typename T, typename TW>
-__global__ void __launch_bounds__(kMaxThreads)
-    gru_fwd_kernel(const T* __restrict__ xp, const TW* __restrict__ w,
-                   const float* __restrict__ h0,
-                   const int* __restrict__ bounds, float* __restrict__ hs,
-                   float* hbuf, int Tn, int B, int H, int hb, int kt) {
-  extern __shared__ __align__(16) float smem[];
-  const int ld = kt + 4;                    // 16-byte tile rows
-  const int G = 3 * H;
-  float* ws = smem;                         // [H][hb][4]
-  float* tile = smem + 4 * H * hb;          // [B][ld]
-  const int j0 = blockIdx.x * hb;
-  load_gate_columns(ws, w, H, hb, j0);
-  int pb[kMaxPairs], pu[kMaxPairs];
-  const int np = my_pairs(pb, pu, B, hb);
-  float hc[kMaxPairs];
-  int lo[kMaxPairs], hi[kMaxPairs];
-#pragma unroll
-  for (int n = 0; n < kMaxPairs; ++n) {
-    hc[n] = n < np ? h0[pb[n] * H + j0 + pu[n]] : 0.f;
-    lo[n] = bounds[2 * pb[n]];
-    hi[n] = bounds[2 * pb[n] + 1];
+  __device__ __forceinline__ Carry init(int b, int j) const {
+    return {h0[b * H + j]};
   }
-  cg::grid_group grid = cg::this_grid();
-  const size_t plane = (size_t)B * H;
-  const TW* wtype = nullptr;
-
-  for (int t = 0; t < Tn; ++t) {
-    const float* hin = t == 0 ? h0 : hbuf + ((t - 1) & 1) * plane;
-    float* hout = hbuf + (t & 1) * plane;
-    float acc[kMaxPairs][3];
-#pragma unroll
-    for (int n = 0; n < kMaxPairs; ++n) acc[n][0] = acc[n][1] = acc[n][2] = 0.f;
-    for (int k0 = 0; k0 < H; k0 += kt) {
-      const int kw = min(kt, H - k0);
-      __syncthreads();
-      stage_tile(tile, ld, hin, H, B, k0, kw);
-      __syncthreads();
-      gate_products(acc, tile, ld, ws, pb, pu, np, k0, kw, hb, wtype);
-    }
-#pragma unroll
-    for (int n = 0; n < kMaxPairs; ++n) {
-      if (n >= np) break;
-      const int b = pb[n], j = j0 + pu[n];
-      const T* x = xp + ((size_t)t * B + b) * G + j;
-      const float r = sigmoidf(load_f(x) + acc[n][0]);
-      const float z = sigmoidf(load_f(x + H) + acc[n][1]);
-      const float nn = tanhf(load_f(x + 2 * H) + r * acc[n][2]);
-      const float h = (1.f - z) * nn + z * hc[n];
-      if (lo[n] <= t && t < hi[n]) hc[n] = h;
-      hs[((size_t)t * B + b) * H + j] = hc[n];
-      hout[b * H + j] = hc[n];
-    }
-    grid.sync();
+  __device__ __forceinline__ float operand(const Carry& c) const {
+    return c.h;
   }
-}
-
+  __device__ __forceinline__ Step fetch(int t, int b, int j) const {
+    const T* x = xp + ((size_t)t * B + b) * 3 * H + j;
+    return {load_f(x), load_f(x + H), load_f(x + 2 * H)};
+  }
+  // g = the three sums of round_w(h) @ w_hh for the pair's unit
+  __device__ __forceinline__ void step(const Step& s, const float (&g)[3],
+                                       Carry& c, bool live, bool store,
+                                       size_t row, int j) const {
+    const float r = sigmoidf(s.xr + g[0]);
+    const float z = sigmoidf(s.xz + g[1]);
+    const float n = tanhf(s.xn + r * g[2]);
+    const float h = (1.f - z) * n + z * c.h;
+    if (live) c.h = h;
+    if (store) hs[row * H + j] = c.h;
+  }
+};
 
 // -- G, phase 1: the gates of every step, in parallel ------------------------
 
@@ -268,29 +219,33 @@ struct GruCell {
 
 extern "C" int gru_device_limits(int* out) { return device_limits(out); }
 
-// x_dtype / w_dtype: 0 = float32, 1 = bfloat16. Grid H/hb CTAs of
-// `threads` threads and `smem` bytes of dynamic shared memory, tiles of
-// kt columns (kt % 4 == 0). Returns the launch's cudaError_t.
-extern "C" int gru_fwd(int x_dtype, int w_dtype, const void* xp,
-                       const void* w, const void* h0, const void* bounds,
-                       void* hs, void* hbuf, int Tn, int B, int H, int hb,
-                       int kt, int threads, long long smem, void* stream) {
-  return dispatch_dtypes(x_dtype, w_dtype, [&](auto* xt, auto* wt) {
+// F on `stream`: a memset of the barrier counters [row groups + 1], then
+// the forward loop over row groups x unit groups for the host's geometry
+// (ut, rep, resident, hb, br, cw, threads, smem); opnd [2][B][ldo] in
+// w_hh's dtype; wt [3H][H] in w_hh's dtype where the gate columns are not
+// resident (else unused). x_dtype / w_dtype: 0 = float32, 1 = bfloat16.
+// Returns the first cudaError_t.
+extern "C" int gru_fwd(int x_dtype, int w_dtype, int ut, int rep,
+                       int resident, const void* xp, const void* w, void* wt,
+                       const void* h0, const void* bounds, void* hs,
+                       void* opnd, int ldo, void* counters, int Tn, int B,
+                       int H, int hb, int br, int cw, int threads,
+                       long long smem, void* stream) {
+  return dispatch_dtypes(x_dtype, w_dtype, [&](auto* xt, auto* wtt) {
     using T = std::remove_pointer_t<decltype(xt)>;
-    using TW = std::remove_pointer_t<decltype(wt)>;
-    const T* a_xp = static_cast<const T*>(xp);
-    const TW* a_w = static_cast<const TW*>(w);
-    const float* a_h0 = static_cast<const float*>(h0);
-    const int* a_bounds = static_cast<const int*>(bounds);
-    float* a_hs = static_cast<float*>(hs);
-    float* a_hbuf = static_cast<float*>(hbuf);
-    void* args[] = {&a_xp, &a_w, &a_h0, &a_bounds, &a_hs, &a_hbuf,
-                    &Tn,   &B,   &H,    &hb,       &kt};
-    return launch_coop(gru_fwd_kernel<T, TW>, H / hb, threads, (size_t)smem,
-                       args, static_cast<cudaStream_t>(stream));
+    using TW = std::remove_pointer_t<decltype(wtt)>;
+    const GruFwdCell<T, TW> cell{static_cast<const T*>(xp),
+                                 static_cast<const float*>(h0),
+                                 static_cast<float*>(hs), B, H};
+    const ForwardArgs<TW> a{static_cast<const TW*>(w), static_cast<TW*>(wt),
+                            static_cast<TW*>(opnd),
+                            static_cast<const int*>(bounds),
+                            static_cast<unsigned*>(counters),
+                            ldo, Tn, B, H, hb, br, cw};
+    return launch_forward(cell, a, ut, rep, resident, threads, (size_t)smem,
+                          static_cast<cudaStream_t>(stream));
   });
 }
-
 
 // G in three launches on `stream`, each returning its cudaError_t; the
 // arguments as lstm_bwd_* (fused_lstm.cu) with 3H gate columns, hs f32

@@ -35,22 +35,28 @@
 // a thread's loads in flight before the first lands in shared memory.
 // For an active row the walk stops after the block's last query
 // position: later keys would add exp(-1e30 - m) = 0 exactly. Simple
-// first: no TMA, no tensor cores, no split-K over pages (one group of 8
-// lanes walks a decode row alone), which is where a later, faster
-// version starts.
+// first: no TMA, no tensor cores, no split over pages (one group of 8
+// lanes walks a decode row alone); kernel C's split walk below is where
+// its faster version starts.
 //
 // int8 arenas (kernel C). Replaces: paddle_tpu/ops/ragged_paged_attention.py
 // `_walk_kernel_int8`, which DMAs each page's s8 data block and its f32
 // scale plane into VMEM and dequantizes the block on scratch as it lands.
-// Here the same walk body runs with a different tile loader (the KV
-// template argument): the tile's 32 per-(key, head) scales are read once
-// into shared memory beside the key's source index -- both through the
-// same clipped page id, so real bytes never meet another page's scale --
-// and each 16-byte load carries 16 s8 values, dequantized as
-// `(float)s8 * scale`, rounded to q's dtype (kv_dequantize's element
-// sequence), into the same f32 tile. It moves (Dh + 4) bytes per key and
-// head where the f32 walk moves 4 * Dh, but it keeps the serial walk, so
-// at decode it is bound by the same latency, not by the bytes.
+// It computes the walk above over (s8 data [P, page, Hkv, Dh], f32 scale
+// [P, page, Hkv]) arenas, key kp dequantized as (float)s8 * scale rounded
+// to q's dtype (kv_dequantize's element sequence), its scale read through
+// the same clipped page id as its data. What bounds it: at decode, (Dh +
+// 4) bytes per key and head against ~0.5 us of bytes at 3.35 TB/s, so in
+// practice the latency of a few dependent DRAM round trips and the
+// launches. Its design (`split_walk_kernel` below, flash-decoding): the
+// walk is split over pages across blocks -- grid (R, Hkv, query tiles x
+// splits), the host choosing the splits so that a decode step fills the
+// card -- and the splits' f32 partials are merged in a fixed order by a
+// second small kernel; a block whose query tile leaves 8-lane query slots
+// idle gives them other keys of the same tile; each block reads its
+// page-table span and scales once, up front, and keeps the raw s8 tiles
+// of K and V in flight through a cp.async ring, dequantizing straight
+// from shared memory (a quarter of an f32 tile's bytes).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,52 +106,25 @@ __device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-// Dequantize one 16-byte vector of 16 s8 values into f32 at dst:
-// (float)s8 * scale, rounded to T -- kv_dequantize's element sequence.
-template <typename T>
-__device__ __forceinline__ void store_dequant(float* dst, const uint4& raw,
-                                              float scale) {
-  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    float f[4];
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int8_t v = static_cast<int8_t>((w[j] >> (8 * b)) & 0xffu);
-      f[b] = round_to(__fmul_rn(static_cast<float>(v), scale),
-                      static_cast<const T*>(nullptr));
-    }
-    *reinterpret_cast<float4*>(dst + 4 * j) =
-        make_float4(f[0], f[1], f[2], f[3]);
-  }
-}
-
-// KV is the arena's element type: T for a float arena (kernel B), int8_t
-// for an (s8 data, f32 scale) pair (kernel C; kscale/vscale are the
-// [P, page, Hkv] scale planes, unused for float arenas).
+// The serial walk (kernel B): KV, the arena's element type, is T.
 template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(kThreads)
     ragged_walk_kernel(const T* __restrict__ q, const KV* __restrict__ karena,
-                       const float* __restrict__ kscale,
                        const KV* __restrict__ varena,
-                       const float* __restrict__ vscale,
                        const int* __restrict__ page_table,
                        const int* __restrict__ pos0,
                        const uint8_t* __restrict__ active,
                        T* __restrict__ out, int TQ, int H, int Hkv, int P,
                        int page, int max_pages, int max_len,
                        int rows_per_block) {
-  constexpr bool kQuant = std::is_same<KV, int8_t>::value;
   constexpr int kDims = D / kLanes;  // head_dim slice of one lane
-  constexpr int kVec = Vec16<KV>::kN;  // 4 f32, 8 bf16 or 16 s8 values
+  constexpr int kVec = Vec16<KV>::kN;  // 4 f32 or 8 bf16 values
   constexpr int kVecsPerKey = D / kVec;
   constexpr int kLoads = kTileKeys * kVecsPerKey / kThreads;
   static_assert(kTileKeys * kVecsPerKey % kThreads == 0, "tile split");
-  constexpr int kScales = kQuant ? kTileKeys : 1;
   __shared__ __align__(16) float ks[kTileKeys][D];
   __shared__ __align__(16) float vs[kTileKeys][D];
   __shared__ long long tile_src[kTileKeys];
-  __shared__ float tile_kscale[kScales], tile_vscale[kScales];
 
   const int r = blockIdx.x;
   const int hk = blockIdx.y;
@@ -189,11 +168,6 @@ __global__ void __launch_bounds__(kThreads)
         src = ((long long)pg * page + kp % page) * Hkv + hk;
       }
       tile_src[tid] = src;
-      if constexpr (kQuant) {
-        // the scale of (key, head) sits at the data vector's index
-        tile_kscale[tid] = src >= 0 ? kscale[src] : 0.f;
-        tile_vscale[tid] = src >= 0 ? vscale[src] : 0.f;
-      }
     }
     __syncthreads();
     // every 16-byte load of the tile is in flight before the first store
@@ -212,13 +186,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int it = 0; it < kLoads; ++it) {
       const int e = tid + it * kThreads;
       const int kk = e / kVecsPerKey, c = (e % kVecsPerKey) * kVec;
-      if constexpr (kQuant) {
-        store_dequant<T>(&ks[kk][c], kraw[it], tile_kscale[kk]);
-        store_dequant<T>(&vs[kk][c], vraw[it], tile_vscale[kk]);
-      } else {
-        store_vec(&ks[kk][c], kraw[it], karena);
-        store_vec(&vs[kk][c], vraw[it], varena);
-      }
+      store_vec(&ks[kk][c], kraw[it], karena);
+      store_vec(&vs[kk][c], vraw[it], varena);
     }
     __syncthreads();
 
@@ -264,11 +233,338 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// -- the split walk (kernel C) -----------------------------------------------
+//
+// Grid (R rows, Hkv heads, query tiles x splits). Split sp of a query
+// tile walks keys [sp * span, (sp + 1) * span) of [0, kend) (span a run
+// of whole pages, kend as in the serial walk) and leaves f32 partials
+// (m, l, acc) per query vector; `combine_kernel` merges the splits in
+// order sp = 0, 1, ... (with one split the block writes the output
+// itself). A split past kend walks nothing and leaves l = 0, acc = 0:
+// it adds nothing. Every key a split does walk is scored with the finite
+// mask, so an inactive row's splits all keep m = -1e30 and merge to the
+// uniform mean of V.
+//
+// A block's 16 query slots of 8 lanes hold rows_per_block queries x G
+// heads (nqv vectors); where nqv < 16, kg = 16 / nqv groups of nqv
+// vectors take every kg-th key of a tile each, with their own (m, l,
+// acc), merged in shared memory in group order at the end.
+//
+// The block reads its span's page-table entries (clipped) and the
+// span's per-key scales once, up front; its raw arena tiles (32 keys of
+// K and V) then move through a kRing-deep cp.async ring, tile n + kRing -
+// 1 in flight while tile n computes, and the dot products dequantize
+// straight from the ring. The tile loader is the arena's (`TileRing`):
+// the int8 one here.
+
+constexpr int kMaxSpan = 512;  // keys one block walks at most
+constexpr int kRing = 3;       // tiles in the cp.async ring
+constexpr int kChunk = 4;      // keys a group scores between rescales
+
+template <typename KV, typename T, int D>
+struct TileRing;
+
+// (s8 data, f32 scale) arenas: the ring holds raw s8 rows; a lane reads
+// its D / 8 contiguous bytes of a key and dequantizes (float)s8 * scale
+// rounded to T, kv_dequantize's element sequence.
+template <typename T, int D>
+struct TileRing<int8_t, T, D> {
+  static constexpr int kDims = D / kLanes;
+  static constexpr int kVecs = D / 16;  // 16-byte copies per key row
+  struct Smem {
+    __align__(16) int8_t k[kRing][kTileKeys][D];
+    __align__(16) int8_t v[kRing][kTileKeys][D];
+    float ks[kMaxSpan], vs[kMaxSpan];
+  };
+
+  // the span's scales, through the same clipped page ids as the data
+  __device__ static void prepare(Smem& sm, const float* kscale,
+                                 const float* vscale, const long long* src,
+                                 int nkeys) {
+    for (int e = threadIdx.x; e < nkeys; e += kThreads) {
+      sm.ks[e] = kscale[src[e]];
+      sm.vs[e] = vscale[src[e]];
+    }
+  }
+  // start the copies of the span's tile n (keys e0 .. e0+31 of the span)
+  __device__ static void issue(Smem& sm, int slot, const int8_t* karena,
+                               const int8_t* varena, const long long* src,
+                               int e0, int nkeys) {
+    for (int e = threadIdx.x; e < kTileKeys * kVecs; e += kThreads) {
+      const int kk = e / kVecs, c = (e % kVecs) * 16;
+      if (e0 + kk >= nkeys) continue;
+      const long long off = src[e0 + kk] * D + c;
+      tile_io::cp_async16(&sm.k[slot][kk][c], karena + off);
+      tile_io::cp_async16(&sm.v[slot][kk][c], varena + off);
+    }
+  }
+  __device__ static void row(const int8_t* p, float scale,
+                             float (&x)[kDims]) {
+    unsigned w[kDims / 4];
+    if constexpr (kDims == 8) {
+      const uint2 raw = *reinterpret_cast<const uint2*>(p);
+      w[0] = raw.x;
+      w[1] = raw.y;
+    } else {
+      const uint4 raw = *reinterpret_cast<const uint4*>(p);
+      w[0] = raw.x;
+      w[1] = raw.y;
+      w[2] = raw.z;
+      w[3] = raw.w;
+    }
+#pragma unroll
+    for (int t = 0; t < kDims; ++t) {
+      const int8_t b = static_cast<int8_t>((w[t / 4] >> (8 * (t % 4))) & 0xffu);
+      x[t] = round_to(__fmul_rn(static_cast<float>(b), scale),
+                      static_cast<const T*>(nullptr));
+    }
+  }
+  // the lane's slice of key kk of slot (span key e), dequantized
+  __device__ static void key(const Smem& sm, int slot, int kk, int e,
+                             int lane, float (&x)[kDims]) {
+    row(&sm.k[slot][kk][lane * kDims], sm.ks[e], x);
+  }
+  __device__ static void value(const Smem& sm, int slot, int kk, int e,
+                               int lane, float (&x)[kDims]) {
+    row(&sm.v[slot][kk][lane * kDims], sm.vs[e], x);
+  }
+};
+
+template <typename T, typename KV, int D>
+__global__ void __launch_bounds__(kThreads)
+    split_walk_kernel(const T* __restrict__ q, const KV* __restrict__ karena,
+                      const float* __restrict__ kscale,
+                      const KV* __restrict__ varena,
+                      const float* __restrict__ vscale,
+                      const int* __restrict__ page_table,
+                      const int* __restrict__ pos0,
+                      const uint8_t* __restrict__ active,
+                      T* __restrict__ out, float* __restrict__ part, int TQ,
+                      int H, int Hkv, int P, int page, int max_pages,
+                      int max_len, int rows_per_block, int splits,
+                      int span_pages) {
+  using Ring = TileRing<KV, T, D>;
+  constexpr int kDims = D / kLanes;
+  __shared__ typename Ring::Smem sm;
+  __shared__ long long src[kMaxSpan];      // arena index of each span key
+  __shared__ __align__(16) float macc[kQueries][D];
+  __shared__ float mml[kQueries][2];
+
+  const int r = blockIdx.x, hk = blockIdx.y;
+  const int qt = blockIdx.z / splits, sp = blockIdx.z % splits;
+  const int i0 = qt * rows_per_block;
+  const int G = H / Hkv;
+  const int nqv = rows_per_block * G;
+  const int kg = kQueries / nqv;          // key groups
+  const int tid = threadIdx.x, qv = tid / kLanes, lane = tid % kLanes;
+  const int group = qv / nqv, qidx = qv % nqv;
+  const int h = hk * G + qidx % G;
+  const int i = i0 + qidx / G;
+  const bool q_ok = group < kg && i < TQ;
+
+  // up front, all in flight together: pos0 and active, the block's
+  // queries, and each span key's arena index (its page id read once per
+  // key and clipped: sentinels read the last page); then the first
+  // tiles' copies and the span's scales
+  const int p0 = pos0[r];
+  const bool act = active[r] != 0;
+  float qr[kDims], acc[kDims];
+  const T* qrow = q + ((long long)(r * TQ + (q_ok ? i : 0)) * H + h) * D;
+#pragma unroll
+  for (int t = 0; t < kDims; ++t) {
+    qr[t] = q_ok ? load_f(qrow + lane * kDims + t) : 0.f;
+    acc[t] = 0.f;
+  }
+  const int k_lo = sp * span_pages * page;
+  const int span_keys = max(0, min(span_pages * page, max_len - k_lo));
+  for (int e = tid; e < span_keys; e += kThreads) {
+    const int kp = k_lo + e;
+    int pg = page_table[(long long)r * max_pages + kp / page];
+    pg = min(max(pg, 0), P - 1);
+    src[e] = ((long long)pg * page + kp % page) * Hkv + hk;
+  }
+  __syncthreads();
+  const int last_i = min(i0 + rows_per_block, TQ) - 1;
+  const long long bound = (long long)p0 + last_i + 1;
+  const int kend = (act && bound > 0 && bound < max_len) ? (int)bound
+                                                          : max_len;
+  const int nkeys = max(0, min(k_lo + span_keys, kend) - k_lo);
+  const int n_tiles = (nkeys + kTileKeys - 1) / kTileKeys;
+#pragma unroll
+  for (int n = 0; n < kRing - 1; ++n) {
+    if (n < n_tiles)
+      Ring::issue(sm, n, karena, varena, src, n * kTileKeys, nkeys);
+    tile_io::cp_async_commit();
+  }
+  Ring::prepare(sm, kscale, vscale, src, nkeys);
+  const long long qpos = (long long)p0 + i;
+  const float sqrt_d = sqrtf((float)D);
+  float m = kMask, l = 0.f;
+
+  for (int n = 0; n < n_tiles; ++n) {
+    const int ahead = n + kRing - 1;
+    if (ahead < n_tiles)
+      Ring::issue(sm, ahead % kRing, karena, varena, src, ahead * kTileKeys,
+                  nkeys);
+    tile_io::cp_async_commit();
+    tile_io::cp_async_wait<kRing - 1>();  // tile n has landed
+    __syncthreads();
+    const int slot = n % kRing, e0 = n * kTileKeys;
+    const int nk = min(kTileKeys, nkeys - e0);
+    const int per_group = (nk + kg - 1) / kg;  // the most keys of a group
+    for (int u0 = 0; u0 < per_group; u0 += kChunk) {
+      // the group's keys kk = group + kg * u: scores (-inf past the
+      // tile or for an idle group, the finite mask where masked)
+      float s[kChunk];
+      float mcur = kMask;
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) {
+        const int kk = group + kg * (u0 + u);
+        const bool in = group < kg && kk < nk;
+        const int kc = in ? kk : 0;
+        float kx[kDims];
+        Ring::key(sm, slot, kc, e0 + kc, lane, kx);
+        float dot = 0.f;
+#pragma unroll
+        for (int t = 0; t < kDims; ++t) dot = fmaf(qr[t], kx[t], dot);
+        dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+        dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+        dot += __shfl_xor_sync(0xffffffffu, dot, 4);
+        const float sc = Score<T>::apply(dot, sqrt_d);
+        const bool valid = act && (long long)(k_lo + e0 + kk) <= qpos;
+        s[u] = in ? (valid ? sc : kMask) : -INFINITY;
+        mcur = fmaxf(mcur, s[u]);
+      }
+      const float m_new = fmaxf(m, mcur);
+      const float alpha = expf(m - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int t = 0; t < kDims; ++t) acc[t] *= alpha;
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) {
+        const float p = expf(s[u] - m_new);   // 0 for -inf
+        const int kk = group + kg * (u0 + u);
+        const int kc = (group < kg && kk < nk) ? kk : 0;
+        float vx[kDims];
+        Ring::value(sm, slot, kc, e0 + kc, lane, vx);
+        psum += p;
+#pragma unroll
+        for (int t = 0; t < kDims; ++t) acc[t] = fmaf(p, vx[t], acc[t]);
+      }
+      l = l * alpha + psum;
+      m = m_new;
+    }
+    __syncthreads();  // slot n % kRing is refilled next iteration
+  }
+
+  // merge the key groups in order (group 0 keeps the result)
+  if (kg > 1) {
+    if (group < kg) {
+#pragma unroll
+      for (int t = 0; t < kDims; ++t) macc[qv][lane * kDims + t] = acc[t];
+      if (lane == 0) {
+        mml[qv][0] = m;
+        mml[qv][1] = l;
+      }
+    }
+    __syncthreads();
+    if (group == 0) {
+      float mm = kMask;
+      for (int g = 0; g < kg; ++g) mm = fmaxf(mm, mml[g * nqv + qidx][0]);
+      l = 0.f;
+#pragma unroll
+      for (int t = 0; t < kDims; ++t) acc[t] = 0.f;
+      for (int g = 0; g < kg; ++g) {
+        const int v = g * nqv + qidx;
+        const float f = expf(mml[v][0] - mm);
+        l = fmaf(mml[v][1], f, l);
+#pragma unroll
+        for (int t = 0; t < kDims; ++t)
+          acc[t] = fmaf(macc[v][lane * kDims + t], f, acc[t]);
+      }
+      m = mm;
+    }
+  }
+  if (group != 0 || !q_ok) return;
+  const long long vec = (long long)(r * TQ + i) * H + h;
+  if (splits == 1) {
+    T* orow = out + vec * D;
+#pragma unroll
+    for (int t = 0; t < kDims; ++t)
+      store_f(orow + lane * kDims + t, acc[t] / l);
+    return;
+  }
+  // partials [splits][R*TQ*H][D + 4]: acc, then m and l
+  const long long nvec = (long long)gridDim.x * TQ * H;
+  float* prow = part + ((long long)sp * nvec + vec) * (D + 4);
+#pragma unroll
+  for (int t = 0; t < kDims; ++t) prow[lane * kDims + t] = acc[t];
+  if (lane == 0) {
+    prow[D] = m;
+    prow[D + 1] = l;
+  }
+}
+
+// out[v][d] = sum_s acc_s[d] e^(m_s - M) / sum_s l_s e^(m_s - M), M =
+// max_s m_s, over the splits in order: one thread per output element
+template <typename T, int D>
+__global__ void __launch_bounds__(256)
+    combine_kernel(const float* __restrict__ part, T* __restrict__ out,
+                   long long nvec, int splits) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= nvec * D) return;
+  const long long v = idx / D;
+  const int d = (int)(idx % D);
+  const long long stride = nvec * (D + 4);
+  const float* p = part + v * (D + 4);
+  float mm = kMask;
+  for (int s = 0; s < splits; ++s) mm = fmaxf(mm, p[s * stride + D]);
+  float l = 0.f, a = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    const float f = expf(p[s * stride + D] - mm);
+    l = fmaf(p[s * stride + D + 1], f, l);
+    a = fmaf(p[s * stride + d], f, a);
+  }
+  store_f(out + idx, a / l);
+}
+
 struct WalkArgs {
   const void *q, *k, *kscale, *v, *vscale, *pt, *pos0, *active;
   void* out;
   int R, TQ, H, Hkv, P, page, max_pages, max_len;
+  // the split walk's plan (kernel C): partials [splits][R*TQ*H][D + 4],
+  // query rows per block, splits per query tile, pages per split
+  void* part;
+  int rows_per_block, splits, span_pages;
+  int* launched;  // device launches made
 };
+
+// Kernel C: the split walk, then (with several splits) the combine.
+template <typename T, typename KV, int D>
+cudaError_t launch_split(const WalkArgs& a, cudaStream_t stream) {
+  *a.launched = 0;
+  const int q_tiles = (a.TQ + a.rows_per_block - 1) / a.rows_per_block;
+  const dim3 grid(a.R, a.Hkv, q_tiles * a.splits);
+  split_walk_kernel<T, KV, D><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const KV*>(a.k),
+      static_cast<const float*>(a.kscale), static_cast<const KV*>(a.v),
+      static_cast<const float*>(a.vscale), static_cast<const int*>(a.pt),
+      static_cast<const int*>(a.pos0), static_cast<const uint8_t*>(a.active),
+      static_cast<T*>(a.out), static_cast<float*>(a.part), a.TQ, a.H, a.Hkv,
+      a.P, a.page, a.max_pages, a.max_len, a.rows_per_block, a.splits,
+      a.span_pages);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  *a.launched = 1;
+  if (a.splits == 1) return err;
+  const long long nvec = (long long)a.R * a.TQ * a.H;
+  const long long blocks = (nvec * D + 255) / 256;
+  combine_kernel<T, D><<<(unsigned)blocks, 256, 0, stream>>>(
+      static_cast<const float*>(a.part), static_cast<T*>(a.out), nvec,
+      a.splits);
+  if ((err = cudaGetLastError()) == cudaSuccess) *a.launched = 2;
+  return err;
+}
 
 template <typename T, typename KV, int D>
 cudaError_t launch(const WalkArgs& a, cudaStream_t stream) {
@@ -277,8 +573,7 @@ cudaError_t launch(const WalkArgs& a, cudaStream_t stream) {
   const dim3 grid(a.R, a.Hkv, (a.TQ + rows - 1) / rows);
   ragged_walk_kernel<T, KV, D><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(a.q), static_cast<const KV*>(a.k),
-      static_cast<const float*>(a.kscale), static_cast<const KV*>(a.v),
-      static_cast<const float*>(a.vscale), static_cast<const int*>(a.pt),
+      static_cast<const KV*>(a.v), static_cast<const int*>(a.pt),
       static_cast<const int*>(a.pos0), static_cast<const uint8_t*>(a.active),
       static_cast<T*>(a.out), a.TQ, a.H, a.Hkv, a.P, a.page, a.max_pages,
       a.max_len, rows);
@@ -286,50 +581,77 @@ cudaError_t launch(const WalkArgs& a, cudaStream_t stream) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16 queries; KV32/KV16 are the arena
-// element types that go with them. Returns the launch's cudaError_t.
-// The walk reads key kp < max_len through table entry kp / page, so it
-// touches min(max_pages, ceil(max_len / page)) entries at most.
-template <typename KV32, typename KV16>
+// element types that go with them; kSplit selects the split walk (C)
+// over the serial one (B). Returns the first cudaError_t. The walk reads
+// key kp < max_len through table entry kp / page, so it touches
+// min(max_pages, ceil(max_len / page)) entries at most.
+template <typename KV32, typename KV16, bool kSplit>
 int dispatch(int dtype, int head_dim, const WalkArgs& a, void* stream) {
   if (a.Hkv < 1 || a.H % a.Hkv != 0 || a.H / a.Hkv > kQueries ||
       a.page < 1 || (long long)a.max_pages * a.page < a.max_len)
     return (int)cudaErrorInvalidValue;
+  if (kSplit && (a.rows_per_block < 1 ||
+                 a.rows_per_block * (a.H / a.Hkv) > kQueries ||
+                 a.splits < 1 || a.span_pages < 1 ||
+                 a.span_pages * a.page > kMaxSpan ||
+                 (long long)a.splits * a.span_pages * a.page < a.max_len))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64)
-    return (int)launch<float, KV32, 64>(a, s);
-  if (dtype == 0 && head_dim == 128)
-    return (int)launch<float, KV32, 128>(a, s);
-  if (dtype == 1 && head_dim == 64)
-    return (int)launch<__nv_bfloat16, KV16, 64>(a, s);
-  if (dtype == 1 && head_dim == 128)
-    return (int)launch<__nv_bfloat16, KV16, 128>(a, s);
+  auto go = [&](auto* tp, auto* kvp, auto d) -> cudaError_t {
+    using T = std::remove_pointer_t<decltype(tp)>;
+    using KV = std::remove_pointer_t<decltype(kvp)>;
+    constexpr int D = decltype(d)::value;
+    if constexpr (kSplit) return launch_split<T, KV, D>(a, s);
+    else return launch<T, KV, D>(a, s);
+  };
+  using D64 = std::integral_constant<int, 64>;
+  using D128 = std::integral_constant<int, 128>;
+  float* f32 = nullptr;
+  __nv_bfloat16* bf16 = nullptr;
+  KV32* kv32 = nullptr;
+  KV16* kv16 = nullptr;
+  if (dtype == 0 && head_dim == 64) return (int)go(f32, kv32, D64());
+  if (dtype == 0 && head_dim == 128) return (int)go(f32, kv32, D128());
+  if (dtype == 1 && head_dim == 64) return (int)go(bf16, kv16, D64());
+  if (dtype == 1 && head_dim == 128) return (int)go(bf16, kv16, D128());
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Kernel B: float arenas in q's dtype.
+// Kernel B: float arenas in q's dtype, the serial walk.
 extern "C" int ragged_walk(int dtype, int head_dim, const void* q,
                            const void* k, const void* v, const void* pt,
                            const void* pos0, const void* active, void* out,
                            int R, int TQ, int H, int Hkv, int P, int page,
                            int max_pages, int max_len, void* stream) {
-  const WalkArgs a{q,   k,  nullptr, v,   nullptr, pt,   pos0,      active,
-                   out, R,  TQ,      H,   Hkv,     P,    page,      max_pages,
-                   max_len};
-  return dispatch<float, __nv_bfloat16>(dtype, head_dim, a, stream);
+  int launched = 0;
+  const WalkArgs a{q,       k,         nullptr, v,      nullptr, pt,
+                   pos0,    active,    out,     R,      TQ,      H,
+                   Hkv,     P,         page,    max_pages, max_len,
+                   nullptr, 0,         0,       0,      &launched};
+  return dispatch<float, __nv_bfloat16, false>(dtype, head_dim, a, stream);
 }
 
-// Kernel C: (s8 data [P, page, Hkv, Dh], f32 scale [P, page, Hkv]) pairs.
+// Kernel C: (s8 data [P, page, Hkv, Dh], f32 scale [P, page, Hkv]) pairs,
+// the split walk for the host's plan (rows_per_block, splits, span_pages;
+// part [splits][R*TQ*H][Dh + 4] f32 when splits > 1). *launched counts
+// the device launches made (1, or 2 with the combine).
 extern "C" int ragged_walk_int8(int dtype, int head_dim, const void* q,
                                 const void* kd, const void* ks,
                                 const void* vd, const void* vs,
                                 const void* pt, const void* pos0,
-                                const void* active, void* out, int R, int TQ,
-                                int H, int Hkv, int P, int page,
-                                int max_pages, int max_len, void* stream) {
-  const WalkArgs a{q,   kd, ks, vd,  vs, pt,   pos0,      active,
-                   out, R,  TQ, H,   Hkv, P,   page,      max_pages,
-                   max_len};
-  return dispatch<int8_t, int8_t>(dtype, head_dim, a, stream);
+                                const void* active, void* out, void* part,
+                                int R, int TQ, int H, int Hkv, int P,
+                                int page, int max_pages, int max_len,
+                                int rows_per_block, int splits,
+                                int span_pages, int* launched,
+                                void* stream) {
+  *launched = 0;
+  const WalkArgs a{q,    kd,     ks,  vd,             vs,     pt,
+                   pos0, active, out, R,              TQ,     H,
+                   Hkv,  P,      page, max_pages,     max_len,
+                   part, rows_per_block, splits,      span_pages,
+                   launched};
+  return dispatch<int8_t, int8_t, true>(dtype, head_dim, a, stream);
 }

@@ -1,5 +1,5 @@
-// Element and tile movement shared by the port's attention kernels: f32
-// or bf16 in device memory, f32 in registers and shared memory.
+// Element and tile movement shared by the port's kernels: f32 or bf16 in
+// device memory, f32 in registers and shared memory, cp.async copies.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -43,6 +43,21 @@ __device__ __forceinline__ void store_vec(float* dst, const uint4& raw,
   }
   *reinterpret_cast<float4*>(dst) = make_float4(f[0], f[1], f[2], f[3]);
   *reinterpret_cast<float4*>(dst + 4) = make_float4(f[4], f[5], f[6], f[7]);
+}
+
+// cp.async of 16 bytes, read at L2 only (.cg), and its group fences
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d =
+      static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace tile_io

@@ -2,11 +2,11 @@
 // fused_rnn.cu): the cooperative launch with its co-residency check, the
 // (row, unit) pairs a thread carries, operand rounding to the weight's
 // dtype, the cp.async staging of f32 tiles that other CTAs write during
-// the launch, and, for the backward loops (E, G, I), the serial loop
-// itself (`backward_loop_kernel`, over a cell that holds each one's step
-// arithmetic) with its group barrier and per-step carry product over
-// double-buffered chunks, the gates' (E, G) and dW's operand loaders and
-// dW's split product.
+// the launch, and the serial loops themselves over a cell that holds each
+// kernel's step arithmetic: `backward_loop_kernel` (E, G, I) and
+// `forward_loop_kernel` (F), with their group barrier and per-step carry
+// products over double-buffered chunks; then the gates' (E, G) and dW's
+// operand loaders and dW's split product.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -20,6 +20,9 @@
 
 namespace time_loop {
 
+using tile_io::cp_async16;
+using tile_io::cp_async_commit;
+using tile_io::cp_async_wait;
 using tile_io::load_f;
 using tile_io::store_f;
 
@@ -113,19 +116,6 @@ cudaError_t launch_coop(K kern, int grid, int threads, size_t smem,
 
 constexpr int kRowTile = 4;
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d =
-      static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
   unsigned v;
@@ -197,26 +187,31 @@ __device__ __forceinline__ float reduce_scatter(float (&v)[kN], int lane) {
   return v[0];
 }
 
-// The carry product of one step for the thread's kRep pairs: out[q] = sum
-// over c < G of src[row_q][c] * ws[unit][c], src the exchanged operand
-// rows [B][ldo] (in w_hh's dtype, already rounded: exact), ws the CTA's
-// rows of w_hh [hb][ldw] (resident f32, or w_hh itself in global
-// memory). The CTA's br rows move through `stage` (two buffers of br x
-// lds elements) cw columns at a time by cp.async, the next chunk in
-// flight while the current one is multiplied. Rows past B are clamped
-// (their pairs are not stored).
-template <int kUT, int kRep, typename TW, typename TS>
-__device__ __forceinline__ void carry_product(
+// The carry products of one step for the thread's kRep pairs and kOut
+// outputs each: out[q][o] = sum over c < G of src[row_q][c] *
+// ws[o * wstride + unit * ldw + c], src the exchanged operand rows
+// [B][ldo] (in w_hh's dtype, already rounded: exact), ws the CTA's
+// weight rows (resident f32 in shared memory, or rows of w_hh or of its
+// transpose in global memory), kOut blocks of them wstride apart. The
+// CTA's br rows move through `stage` (two buffers of br x lds elements)
+// cw columns at a time by cp.async, the next chunk in flight while the
+// current one is multiplied. Each weight float4 a lane loads serves the
+// 4 * kRep rows of its tile. Rows past B are clamped (their pairs are not
+// stored).
+template <int kUT, int kRep, int kOut, typename TW, typename TS>
+__device__ __forceinline__ void carry_products(
     const TW* src, int ldo, int row0, int B, int br, int G, int cw,
-    const TS* ws, int ldw, TW* stage, int lds, int rb, int ub, int lane,
-    float (&out)[kRep]) {
+    const TS* ws, int ldw, size_t wstride, TW* stage, int lds, int rb,
+    int ub, int lane, float (&out)[kRep][kOut]) {
   constexpr int kN = kRowTile * kUT, kRows = kRowTile * kRep;
   constexpr int kVec = 16 / sizeof(TW);
-  float acc[kRep][kN];
+  float acc[kRep][kOut][kN];
 #pragma unroll
   for (int p = 0; p < kRep; ++p)
 #pragma unroll
-    for (int i = 0; i < kN; ++i) acc[p][i] = 0.f;
+    for (int o = 0; o < kOut; ++o)
+#pragma unroll
+      for (int i = 0; i < kN; ++i) acc[p][o][i] = 0.f;
   const int nq = (G + cw - 1) / cw;
   auto issue = [&](int q) {
     const int c0 = q * cw, nv = (min(cw, G - c0) + kVec - 1) / kVec;
@@ -242,9 +237,12 @@ __device__ __forceinline__ void carry_product(
     const TW* buf = stage + (q & 1) * br * lds + rb * kRows * lds;
     const TS* wrow = ws + ub * kUT * ldw + c0;
     for (int c = lane * 4; c < w; c += kN * 4) {
-      float4 wv[kUT];
+      float4 wv[kOut][kUT];
 #pragma unroll
-      for (int k = 0; k < kUT; ++k) wv[k] = load4(wrow + k * ldw + c);
+      for (int o = 0; o < kOut; ++o)
+#pragma unroll
+        for (int k = 0; k < kUT; ++k)
+          wv[o][k] = load4(wrow + o * wstride + k * ldw + c);
 #pragma unroll
       for (int p = 0; p < kRep; ++p) {
         float4 a[kRowTile];
@@ -252,21 +250,26 @@ __device__ __forceinline__ void carry_product(
         for (int r = 0; r < kRowTile; ++r)
           a[r] = load4(buf + (p * kRowTile + r) * lds + c);
 #pragma unroll
-        for (int r = 0; r < kRowTile; ++r)
+        for (int o = 0; o < kOut; ++o)
 #pragma unroll
-          for (int k = 0; k < kUT; ++k) {
-            float s = acc[p][r * kUT + k];
-            s = fmaf(a[r].x, wv[k].x, s);
-            s = fmaf(a[r].y, wv[k].y, s);
-            s = fmaf(a[r].z, wv[k].z, s);
-            acc[p][r * kUT + k] = fmaf(a[r].w, wv[k].w, s);
-          }
+          for (int r = 0; r < kRowTile; ++r)
+#pragma unroll
+            for (int k = 0; k < kUT; ++k) {
+              float s = acc[p][o][r * kUT + k];
+              s = fmaf(a[r].x, wv[o][k].x, s);
+              s = fmaf(a[r].y, wv[o][k].y, s);
+              s = fmaf(a[r].z, wv[o][k].z, s);
+              acc[p][o][r * kUT + k] = fmaf(a[r].w, wv[o][k].w, s);
+            }
       }
     }
     __syncthreads();
   }
 #pragma unroll
-  for (int p = 0; p < kRep; ++p) out[p] = reduce_scatter<kN>(acc[p], lane);
+  for (int p = 0; p < kRep; ++p)
+#pragma unroll
+    for (int o = 0; o < kOut; ++o)
+      out[p][o] = reduce_scatter<kN>(acc[p][o], lane);
 }
 
 // What the serial loop of E, G and I shares, beside its cell
@@ -355,12 +358,12 @@ __global__ void __launch_bounds__(kRep == 1 ? 768 : 512)
       for (int q = 0; q < kRep; ++q) cur[q] = cell.fetch(t - 1, b[q], j);
     }
     group_barrier(count, (unsigned)(s * n_units));
-    float back[kRep];
-    carry_product<kUT, kRep>(a.opnd + (size_t)t * B * a.ldo, a.ldo, row0, B,
-                             a.br, G, a.cw, ws, ldw, stage, lds, rb, ub, lane,
-                             back);
+    float back[kRep][1];
+    carry_products<kUT, kRep, 1>(a.opnd + (size_t)t * B * a.ldo, a.ldo, row0,
+                                 B, a.br, G, a.cw, ws, ldw, 0, stage, lds, rb,
+                                 ub, lane, back);
 #pragma unroll
-    for (int q = 0; q < kRep; ++q) cell.carry(carry[q], back[q], live[q]);
+    for (int q = 0; q < kRep; ++q) cell.carry(carry[q], back[q][0], live[q]);
   }
 #pragma unroll
   for (int q = 0; q < kRep; ++q)
@@ -393,6 +396,173 @@ cudaError_t launch_loop(Cell cell, LoopArgs<typename Cell::TW> a, int ut,
     return go(integral_constant<int, 2>(), integral_constant<int, 2>());
   if (ut == 2 && rep == 4)
     return go(integral_constant<int, 2>(), integral_constant<int, 4>());
+  return cudaErrorInvalidValue;
+}
+
+// -- the serial forward loop (F) ---------------------------------------------
+//
+// The forward twin of backward_loop_kernel, over the same grid of row
+// groups x unit groups and the same thread tiles. Each step multiplies
+// round_w(h_{t-1}) by the kOut gate columns of w_hh for the CTA's units,
+// so a pair gets kOut sums; the CTA holds those columns as rows ([kOut][hb]
+// [H + 4] f32, transposed as they are loaded) where they fit, else the
+// grid first writes w_hh^T ([kOut * H][H], w_hh's dtype) into scratch and
+// reads its rows through L2. The launch bound falls as a thread's
+// accumulators (kRep * kOut * 4 * kUT) grow; the host's FORWARD_TILES
+// match.
+template <int kUT, int kRep>
+constexpr int forward_bound() {
+  return kRep == 1 ? (kUT == 4 ? 384 : 512) : (kRep == 2 ? 384 : 256);
+}
+
+template <typename TW>
+struct ForwardArgs {
+  const TW* w;          // w_hh [H][kOut * H]
+  TW* wt;               // w_hh^T [kOut * H][H] (L2 mode only)
+  TW* opnd;             // two planes [2][B][ldo] of round_w(h)
+  const int* bounds;    // [B][2]: row b is live at start <= t < end
+  unsigned* counters;   // a counter per row group, then one for the grid
+  int ldo, Tn, B, H, hb, br, cw;
+};
+
+// The serial forward loop of a time loop, one cooperative launch over
+// (B / br row groups) x (H / hb unit groups) CTAs. The cell holds what
+// differs between the forward kernels:
+//   kOut                    gate columns per unit (3 for F)
+//   Carry init(b, j)        the carries of pair (b, j) before step 0
+//   float operand(carry)    the value the next step's product takes (h)
+//   Step fetch(t, b, j)     the step's inputs, loaded a step ahead
+//   step(in, g, carry, live, store, row, j)
+//                           the step's arithmetic from the kOut sums g;
+//                           updates carry (a masked step keeps it) and
+//                           stores the step's outputs at row when `store`
+// Before step 0 every CTA writes round_w(h0) of its pairs into operand
+// plane 1 and passes its row group's barrier; step t multiplies plane
+// (t - 1) & 1, runs the cells, writes plane t & 1 and passes the barrier
+// again (a CTA writes plane t & 1 only after its whole row group has
+// finished step t - 1, the last that read it).
+template <class Cell, int kUT, int kRep, bool kResident>
+__global__ void __launch_bounds__(forward_bound<kUT, kRep>())
+    forward_loop_kernel(const Cell cell,
+                        const ForwardArgs<typename Cell::TW> a) {
+  using TW = typename Cell::TW;
+  constexpr int kOut = Cell::kOut;
+  extern __shared__ __align__(16) float smem[];
+  constexpr int kN = kRowTile * kUT, kRows = kRowTile * kRep;
+  const int B = a.B, H = a.H, G = kOut * H;
+  const int ldw = kResident ? H + 4 : H, lds = a.cw + 16 / (int)sizeof(TW);
+  const int n_units = H / a.hb;
+  const int grp = blockIdx.x / n_units, unit0 = (blockIdx.x % n_units) * a.hb;
+  const int row0 = grp * a.br;
+  TW* stage = reinterpret_cast<TW*>(
+      smem + (kResident ? (size_t)kOut * a.hb * ldw : 0));  // [2][br][lds]
+  const std::conditional_t<kResident, float, TW>* ws;
+  size_t wstride;
+  if constexpr (kResident) {
+    // ws[o][u][c] = w_hh[c][o*H + unit0 + u]: neighbouring threads read
+    // neighbouring units
+    for (int e = threadIdx.x; e < kOut * a.hb * H; e += blockDim.x) {
+      const int o = e / (a.hb * H), rem = e % (a.hb * H);
+      const int c = rem / a.hb, u = rem % a.hb;
+      smem[(o * a.hb + u) * ldw + c] =
+          load_f(a.w + (size_t)c * G + o * H + unit0 + u);
+    }
+    ws = smem;
+    wstride = (size_t)a.hb * ldw;
+  } else {
+    // the grid writes w_hh^T, a slice per CTA, then waits for all of it
+    const size_t n = (size_t)G * H, per = (n + gridDim.x - 1) / gridDim.x;
+    size_t e1 = per * (blockIdx.x + 1);
+    if (e1 > n) e1 = n;
+    for (size_t e = per * blockIdx.x + threadIdx.x; e < e1; e += blockDim.x)
+      a.wt[(e % G) * H + e / G] = a.w[e];
+    group_barrier(a.counters + gridDim.x / n_units, gridDim.x);
+    ws = a.wt + (size_t)unit0 * H;
+    wstride = (size_t)H * H;
+  }
+  const int tile = threadIdx.x / kN, lane = threadIdx.x % kN;
+  const int n_ub = a.hb / kUT, n_tiles = (a.br / kRows) * n_ub;
+  const bool in_tile = tile < n_tiles;
+  const int rb = in_tile ? tile / n_ub : 0, ub = in_tile ? tile % n_ub : 0;
+  const int j = unit0 + ub * kUT + lane % kUT;
+  const size_t plane = (size_t)B * a.ldo;
+  int b[kRep], lo[kRep], hi[kRep];
+  bool valid[kRep];
+  typename Cell::Carry carry[kRep];
+  typename Cell::Step cur[kRep];
+#pragma unroll
+  for (int q = 0; q < kRep; ++q) {
+    b[q] = row0 + rb * kRows + q * kRowTile + lane / kUT;
+    valid[q] = in_tile && b[q] < B;
+    b[q] = min(b[q], B - 1);             // clamped: read, never stored
+    lo[q] = a.bounds[2 * b[q]];
+    hi[q] = a.bounds[2 * b[q] + 1];
+    carry[q] = cell.init(b[q], j);
+    cur[q] = cell.fetch(0, b[q], j);
+    if (valid[q])
+      store_cg(a.opnd + plane + (size_t)b[q] * a.ldo + j,
+               round_as(cell.operand(carry[q]), a.opnd));
+  }
+  unsigned* count = a.counters + grp;
+  group_barrier(count, (unsigned)n_units);
+
+  for (int t = 0, s = 2; t < a.Tn; ++t, ++s) {
+    float g[kRep][kOut];
+    carry_products<kUT, kRep, kOut>(a.opnd + ((t + 1) & 1) * plane, a.ldo,
+                                    row0, B, a.br, H, a.cw, ws, ldw, wstride,
+                                    stage, lds, rb, ub, lane, g);
+#pragma unroll
+    for (int q = 0; q < kRep; ++q) {
+      const bool live = lo[q] <= t && t < hi[q];
+      cell.step(cur[q], g[q], carry[q], live, valid[q],
+                (size_t)t * B + b[q], j);
+    }
+    if (t + 1 == a.Tn) break;
+#pragma unroll
+    for (int q = 0; q < kRep; ++q) {
+      cur[q] = cell.fetch(t + 1, b[q], j);
+      if (valid[q])
+        store_cg(a.opnd + (t & 1) * plane + (size_t)b[q] * a.ldo + j,
+                 round_as(cell.operand(carry[q]), a.opnd));
+    }
+    group_barrier(count, (unsigned)(s * n_units));
+  }
+}
+
+// Zero the loop's barrier counters (row groups + 1) on the stream, then
+// launch the forward loop of `cell` for the host's geometry: thread tiles
+// of ut units x 4 * rep rows ((4, 1), (2, 1), (2, 2), (2, 4) or (1, 8)),
+// the gate columns resident or read from w_hh^T in a.wt. Returns the
+// first error.
+template <class Cell>
+cudaError_t launch_forward(Cell cell, ForwardArgs<typename Cell::TW> a,
+                           int ut, int rep, int resident, int threads,
+                           size_t smem, cudaStream_t stream) {
+  const int groups = (a.B + a.br - 1) / a.br;
+  cudaError_t err = cudaMemsetAsync(a.counters, 0,
+                                    (groups + 1) * sizeof(unsigned), stream);
+  if (err != cudaSuccess) return err;
+  void* args[] = {&cell, &a};
+  const int grid = groups * (a.H / a.hb);
+  auto go = [&](auto kut, auto krep) -> cudaError_t {
+    constexpr int kUT = decltype(kut)::value, kRep = decltype(krep)::value;
+    if (resident)
+      return launch_coop(forward_loop_kernel<Cell, kUT, kRep, true>, grid,
+                         threads, smem, args, stream);
+    return launch_coop(forward_loop_kernel<Cell, kUT, kRep, false>, grid,
+                       threads, smem, args, stream);
+  };
+  using std::integral_constant;
+  if (ut == 4 && rep == 1)
+    return go(integral_constant<int, 4>(), integral_constant<int, 1>());
+  if (ut == 2 && rep == 1)
+    return go(integral_constant<int, 2>(), integral_constant<int, 1>());
+  if (ut == 2 && rep == 2)
+    return go(integral_constant<int, 2>(), integral_constant<int, 2>());
+  if (ut == 2 && rep == 4)
+    return go(integral_constant<int, 2>(), integral_constant<int, 4>());
+  if (ut == 1 && rep == 8)
+    return go(integral_constant<int, 1>(), integral_constant<int, 8>());
   return cudaErrorInvalidValue;
 }
 

@@ -10,13 +10,18 @@ TQ=K+1: one function, one kernel.
   page table (dequantizing an `(s8, scale)` pair), then
   `grouped_masked_attention`; the kernel's target.
 - `ragged_kernel`: the wrapper of `csrc/ragged_paged_attention.cu`:
-  float arenas go to its walk (kernel B), `(s8 data, f32 scale)` pairs
-  to its int8 walk with the dequant fused into the tile loads (kernel
-  C). It takes CUDA tensors only and raises on anything the kernels do
-  not take (dtype, head_dim, contiguity, shapes). It counts its
-  launches in `launch_counts`: "tq1"/"tqn" for float reads with TQ=1
-  (decode) and TQ>1 (chunks, verify windows), "int8_tq1"/"int8_tqn"
-  for the int8 walk.
+  float arenas go to its serial walk (kernel B), `(s8 data, f32 scale)`
+  pairs to its split walk (kernel C: the walk split over pages across
+  blocks by `walk_plan`, the dequant fused into the tile reads, the
+  splits' partials merged in a fixed order by a second launch). It takes
+  CUDA tensors only and raises on anything the kernels do not take
+  (dtype, head_dim, contiguity, shapes). It counts its calls in
+  `launch_counts`: "tq1"/"tqn" for float reads with TQ=1 (decode) and
+  TQ>1 (chunks, verify windows), "int8_tq1"/"int8_tqn" for the int8
+  walk; and C's device launches (1 or 2 per call) in
+  `device_launches["int8"]`.
+- `walk_plan`: C's launch plan -- query rows per block, query tiles,
+  splits and pages per split -- from the shapes and the SM count.
 - `ragged_attention(..., impl=None|"torch"|"kernel")`: None launches the
   kernel for CUDA tensors and runs the reference for CPU tensors;
   "kernel" on a CPU tensor raises.
@@ -27,6 +32,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from typing import NamedTuple
 
 from paddle_tpu_torch.ops import _cuda
 from paddle_tpu_torch.ops.paged_attention import (
@@ -61,13 +68,73 @@ _SIGNATURES = {
                          ctypes.c_void_p, ctypes.c_void_p,  # v data, scale
                          ctypes.c_void_p, ctypes.c_void_p,  # table, pos0
                          ctypes.c_void_p,                  # active
-                         ctypes.c_void_p] + _SIZES,        # out
+                         ctypes.c_void_p, ctypes.c_void_p,  # out, partials
+                         *_SIZES[:-1],                      # R .. max_len
+                         ctypes.c_int, ctypes.c_int,       # rows/block,
+                         ctypes.c_int,                     # splits, span
+                         ctypes.c_void_p, ctypes.c_void_p],  # launched;
+                                                            # stream
 }
+
+
+#: device launches of kernel C (the split walk, and the combine of its
+#: splits where there is more than one)
+device_launches = {"int8": 0}
 
 
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+    device_launches["int8"] = 0
+
+
+# -- kernel C's launch plan ------------------------------------------------
+
+#: keys a tile of the walk holds, and the most keys one block walks (its
+#: span's per-key indices and scales sit in shared memory)
+TILE_KEYS = 32
+MAX_SPAN_KEYS = 512
+
+
+class WalkPlan(NamedTuple):
+    rows_per_block: int   # query rows a block serves (x G heads <= 16)
+    q_tiles: int          # blocks over the TQ query rows
+    splits: int           # blocks over the walk's pages, per query tile
+    span_pages: int       # whole pages one split walks
+
+    def blocks(self, rows, kv_heads):
+        return rows * kv_heads * self.q_tiles * self.splits
+
+
+def walk_plan(rows, tq, heads, kv_heads, max_len, page, sms):
+    """Kernel C's grid: a block serves min(TQ, 16 / G) query rows of its
+    G = H / Hkv heads; the walk's ceil(max_len / page) pages are split
+    into runs of `span_pages` whole pages (whole 32-key tiles where a
+    tile spans whole pages, at most MAX_SPAN_KEYS keys) so that the
+    grid has about 2 * sms blocks or more (fewer only where every split
+    is one page already)."""
+    g = heads // kv_heads
+    rows_per_block = min(tq, _QUERIES_PER_BLOCK // g)
+    q_tiles = -(-tq // rows_per_block)
+    pages = -(-max_len // page)
+    want = -(-2 * sms // (rows * kv_heads * q_tiles))
+    tile_pages = max(1, TILE_KEYS // page)
+    span = max(1, pages // want)
+    if span >= tile_pages:
+        span -= span % tile_pages
+    span = max(1, min(span, MAX_SPAN_KEYS // page))
+    return WalkPlan(rows_per_block, q_tiles, -(-pages // span), span)
+
+
+_SMS = {}
+
+
+def _sm_count(device):
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
 
 
 # -- the plain version ---------------------------------------------------
@@ -160,6 +227,9 @@ def _check(q, k_arena, v_arena, page_table, pos0, active, page_size,
     if page != page_size:
         raise ValueError(f"ragged_kernel: arena page {page} != "
                          f"page_size {page_size}")
+    if quant and page > MAX_SPAN_KEYS:
+        raise ValueError(f"ragged_kernel: page {page} > {MAX_SPAN_KEYS}, "
+                         f"the most keys one block of the int8 walk takes")
     if h % hkv != 0 or h // hkv > _QUERIES_PER_BLOCK:
         raise ValueError(f"ragged_kernel: H={h}, Hkv={hkv}: need Hkv | H "
                          f"and H/Hkv <= {_QUERIES_PER_BLOCK}")
@@ -196,10 +266,19 @@ def ragged_kernel(q, k_arena, v_arena, page_table, pos0, active, *,
     tail = (page_table.data_ptr(), pos0.data_ptr(), active.data_ptr(),
             out.data_ptr()) + sizes
     if isinstance(k_arena, tuple):
+        plan = walk_plan(r, tq, h, hkv, max_len, page, _sm_count(q.device))
+        part = torch.empty((plan.splits, r * tq * h, dh + 4) if
+                           plan.splits > 1 else (1,), dtype=torch.float32,
+                           device=q.device)
+        launched = ctypes.c_int(0)
         err = lib.ragged_walk_int8(
             _DTYPE_CODE[q.dtype], dh, q.data_ptr(), k_arena[0].data_ptr(),
             k_arena[1].data_ptr(), v_arena[0].data_ptr(),
-            v_arena[1].data_ptr(), *tail)
+            v_arena[1].data_ptr(), page_table.data_ptr(), pos0.data_ptr(),
+            active.data_ptr(), out.data_ptr(), part.data_ptr(), *sizes[:-1],
+            plan.rows_per_block, plan.splits, plan.span_pages,
+            ctypes.addressof(launched), stream)
+        device_launches["int8"] += launched.value
         _cuda.check_launch(err, "ragged_walk_int8")
         launch_counts["int8_tq1" if tq == 1 else "int8_tqn"] += 1
     else:

@@ -3,22 +3,24 @@ used by `csrc/fused_lstm.cu`, `csrc/fused_gru.cu` and
 `csrc/fused_rnn.cu`): input checks, the launch geometry, the card's
 limits and launch errors.
 
-Forward geometry (and I's): CTA k owns hb hidden units (hb the smallest
+Forward geometry of D and H: CTA k owns hb hidden units (hb the smallest
 divisor of H with H / hb <= the SM count, so the grid is at most one CTA
 per SM and can be co-resident), a thread carries up to MAX_PAIRS (row,
 unit) pairs, and every CTA keeps its units' slices of w_hh resident in
 shared memory beside one staged tile of B rows, as wide as the room left
 allows.
 
-Backward geometry of E and G (`backward_geometry`): the serial loop's
-grid is row groups x unit groups; a CTA owns br rows and hb units in
-thread tiles of ROW_TILE * rep rows x unit_tile units (`LOOP_TILES`),
-`rep` (row, unit) pairs per thread, keeps its units' rows of w_hh
-resident ([hb][gates*H + 4] f32) where they fit (else the loop reads
-them from global memory, through L2) and stages its rows of the
-exchanged operand in two chunks of `chunk` columns. The parallel phases
-are tiled products of GEMM_TILE x GEMM_TILE outputs; dW_hh's is split
-over the T*B rows (`dw_splits`) to fill the card.
+Serial-loop geometry of E, G, I (`backward_geometry`) and F
+(`forward_geometry`): the loop's grid is row groups x unit groups; a CTA
+owns br rows and hb units in thread tiles of ROW_TILE * rep rows x
+unit_tile units (`LOOP_TILES`, `FORWARD_TILES`), `rep` (row, unit) pairs
+per thread, keeps its units' weight rows resident (the backward's rows
+of w_hh, [hb][gates*H + 4] f32; the forward's gate columns of w_hh as
+rows, [gates][hb][H + 4] f32) where they fit (else the loop reads them
+from global memory, through L2) and stages its rows of the exchanged
+operand in two chunks of `chunk` columns. The parallel phases are tiled
+products of GEMM_TILE x GEMM_TILE outputs; dW_hh's is split over the T*B
+rows (`dw_splits`) to fill the card.
 
 A shape the kernels do not take raises ValueError naming the limit;
 there is no fallback.
@@ -127,12 +129,18 @@ def pick_tile(what, batch, hidden, resident, smem_optin):
 #: the registers hold them. Then the operand chunk widths (a staged row
 #: is padded by 16 bytes) and the tiled products' tile.
 LOOP_TILES = ((4, 1, 768), (2, 1, 768), (2, 2, 512), (2, 4, 512))
+#: the forward loop's thread tiles: the same shapes, each lane keeping
+#: `gates` sums per pair, at the launch bounds of `time_loop.cuh
+#: forward_bound`; and 32 rows x 1 unit, 8 pairs a thread, for the
+#: largest batches (2048 pairs per CTA)
+FORWARD_TILES = ((4, 1, 384), (2, 1, 512), (2, 2, 384), (2, 4, 256),
+                 (1, 8, 256))
 ROW_TILE = 4
 CHUNK_WIDTHS = (512, 256, 128, 64, 32)
 GEMM_TILE = 128
 
 
-class BackwardGeometry(NamedTuple):
+class LoopGeometry(NamedTuple):
     row_groups: int
     unit_groups: int
     hb: int           # hidden units per CTA
@@ -142,35 +150,35 @@ class BackwardGeometry(NamedTuple):
     chunk: int        # operand columns per staged chunk
     smem: int         # dynamic shared memory bytes
     rep: int          # pairs per thread (thread tiles of 4 * rep rows)
-    resident: bool    # w_hh's rows held in shared memory
+    resident: bool    # the weight rows held in shared memory
 
     @property
     def ctas(self):
         return self.row_groups * self.unit_groups
 
 
-def backward_geometry(what, batch, hidden, gates, sms, smem_optin):
-    """The serial loop's grid for G = gates*H columns. Among the grids
-    whose staged chunks (and resident rows) fit `smem_optin` and whose
-    thread tiles fit their launch bound: w_hh's rows resident if any
-    grid holds them, then the most CTAs (<= sms, so the grid can be
-    co-resident), then the fewest rows read from L2 each step (operand
-    rows, and w_hh's rows once per row group when they are not
-    resident), then the fewest pairs per thread, the widest chunk and
-    the larger unit tile."""
+
+def _loop_grid(what, batch, hidden, sms, smem_optin, tiles, cols, per_unit):
+    """The serial loop's grid: a unit holds `per_unit` weight rows of
+    `cols` columns (the product's depth). Among the grids whose staged
+    chunks (and resident rows) fit `smem_optin` and whose thread tiles fit
+    their launch bound: the weight rows resident if any grid holds them,
+    then the most CTAs (<= sms, so the grid can be co-resident), then the
+    fewest rows read from L2 each step (operand rows, and the weight rows
+    once per row group when they are not resident), then the fewest
+    pairs per thread, the widest chunk and the larger unit tile."""
     if hidden % 4:
         raise ValueError(f"{what}: hidden {hidden} must be a multiple of 4 "
                          f"(16-byte tile rows)")
-    g = gates * hidden
     best = None
-    for ut, rep, bound in LOOP_TILES:
+    for ut, rep, bound in tiles:
         rows_tile = ROW_TILE * rep
         for hb in range(ut, hidden + 1, ut):
             units = hidden // hb
             if hidden % hb or units > sms:
                 continue
             for resident in (True, False):
-                held = hb * (g + 4) * 4 if resident else 0
+                held = per_unit * hb * (cols + 4) * 4 if resident else 0
                 for rows in range(1, sms // units + 1):
                     br = -(-(-(-batch // rows)) // rows_tile) * rows_tile
                     if -(-batch // br) != rows:     # no empty row group
@@ -180,20 +188,20 @@ def backward_geometry(what, batch, hidden, gates, sms, smem_optin):
                            if held + 2 * br * (w + 4) * 4 <= smem_optin]
                     if threads > bound or not fit:
                         continue
-                    width = min(fit[0], -(-g // 8) * 8)
-                    cand = BackwardGeometry(
+                    width = min(fit[0], -(-cols // 8) * 8)
+                    cand = LoopGeometry(
                         rows, units, hb, br, ut, threads, width,
                         held + 2 * br * (width + 4) * 4, rep, resident)
-                    # rows of operand (and of w_hh, when not resident)
+                    # rows of operand (and of weights, when not resident)
                     # that the CTAs read from L2 each step
                     trips = cand.ctas * br + (0 if resident else
-                                              rows * hidden)
+                                              rows * hidden * per_unit)
                     key = (not resident, -cand.ctas, trips, rep, -width,
                            -ut)
                     if best is None or key < best[0]:
                         best = (key, cand)
     if best is None:
-        most = max(bound * rep for _, rep, bound in LOOP_TILES)
+        most = max(bound * rep for _, rep, bound in tiles)
         raise ValueError(
             f"{what}: B={batch}, H={hidden}: no grid of row groups x unit "
             f"groups fits -- at most {sms} CTAs (one per SM), {most} "
@@ -201,6 +209,23 @@ def backward_geometry(what, batch, hidden, gates, sms, smem_optin):
             f"within the card's {smem_optin} bytes of shared memory per "
             f"block")
     return best[1]
+
+
+def backward_geometry(what, batch, hidden, gates, sms, smem_optin):
+    """The backward serial loop's grid (E, G, I): the carry's product
+    dgates @ w_hh^T, a unit's row of w_hh ([gates*H] columns) resident
+    as [hb][gates*H + 4] f32 where it fits."""
+    return _loop_grid(what, batch, hidden, sms, smem_optin, LOOP_TILES,
+                      gates * hidden, 1)
+
+
+def forward_geometry(what, batch, hidden, gates, sms, smem_optin):
+    """The forward serial loop's grid (F): the product round_w(h) @ w_hh,
+    a unit's `gates` columns of w_hh resident as rows [gates][hb][H + 4]
+    f32 where they fit (else read from w_hh^T through L2), the thread
+    tiles of FORWARD_TILES."""
+    return _loop_grid(what, batch, hidden, sms, smem_optin, FORWARD_TILES,
+                      hidden, gates)
 
 
 def dw_splits(rows, hidden, gates, sms):

@@ -44,7 +44,7 @@ SLOTS, MAX_LEN, PAGE, PROMPT, SHARED = 8, 256, 16, 128, 64
 
 def kind(name: str) -> str:
     n = name.lower()
-    if "ragged_walk" in n:
+    if any(k in n for k in ("ragged_walk", "split_walk", "combine_kernel")):
         return "ragged walk kernel"   # float and int8 arenas alike
     if "flash_fwd" in n:
         return "flash kernel"

@@ -54,6 +54,7 @@ def kind(name: str) -> str:
     if any(k in n for k in ("gru_fwd", "gru_bwd", "lstm_fwd", "lstm_bwd",
                             "rnn_fwd", "time_loop::dw_kernel",
                             "time_loop::backward_loop_kernel",
+                            "time_loop::forward_loop_kernel",
                             "reduce_splits")):
         return "fused time-loop kernel"
     if "gemm" in n or "gemv" in n or "cutlass" in n or "xmma" in n:

@@ -255,20 +255,21 @@ def test_kernel_path_refuses_shapes_it_does_not_take():
 def test_kernel_geometry_and_limits():
     """The launch geometry on an H100 (132 SMs, 227 KB opt-in shared
     memory) at the seq2seq encoder's and generation's shapes, and the
-    shapes it refuses: F's (one CTA per unit group) and G's serial loop
-    (row groups x unit groups)."""
+    shapes it refuses: F's and G's serial loops (row groups x unit
+    groups)."""
     sms, smem = 132, 232448
-    for (b, h), (hb, threads) in {(64, 512): (4, 256), (16, 512): (4, 64),
-                                  (64, 256): (2, 128), (128, 512): (4, 512),
-                                  (4, 16): (1, 32)}.items():
+    for (b, h), (rows, units) in {(64, 512): (8, 16), (16, 512): (4, 32),
+                                  (64, 256): (16, 8), (128, 512): (8, 16),
+                                  (4, 16): (1, 16)}.items():
         g = FG.geometry(b, h, sms, smem)
-        assert g[:2] == (hb, threads)
-        assert h // g[0] <= sms and g[3] <= smem and g[2] <= h
+        assert (g.row_groups, g.unit_groups) == (rows, units)
+        assert g.ctas <= sms and g.smem <= smem and g.chunk <= h
+        assert g.resident and g.br * g.hb <= g.threads * g.rep
         g = FG.backward_geometry(b, h, sms, smem)
         assert g.ctas <= sms and g.smem <= smem
         assert g.br * g.hb <= g.threads * g.rep and g.threads <= 768
-    # all of h in one tile at the encoder's shape
-    assert FG.geometry(64, 512, sms, smem)[2] == 512
+    # all of h in one chunk at the encoder's shape
+    assert FG.geometry(64, 512, sms, smem).chunk == 512
     # G at the encoder's shape: 8 row groups x 16 unit groups, the whole
     # operand row in one chunk of 512 columns at a time
     assert tuple(FG.backward_geometry(64, 512, sms, smem)[:7]) == (
@@ -277,10 +278,12 @@ def test_kernel_geometry_and_limits():
     assert FG.backward_geometry(64, 1024, sms, smem).row_groups == 2
     with pytest.raises(ValueError, match="pairs"):
         FG.geometry(1024, 1024, sms, smem)
-    # H=2048 at B=64: w_hh's rows read from global memory, two pairs per
-    # thread; H=8192 is refused
+    # H=2048 at B=64: w_hh read from global memory, two pairs per thread
+    # in G and four in F (refused by the one-launch F); H=8192 is refused
     g = FG.backward_geometry(64, 2048, sms, smem)
     assert not g.resident and g.rep == 2
+    g = FG.geometry(64, 2048, sms, smem)
+    assert not g.resident and g.rep == 4
     with pytest.raises(ValueError, match="pairs per CTA"):
         FG.backward_geometry(64, 8192, sms, smem)
 
@@ -431,3 +434,74 @@ def test_three_phase_operand_n_column_is_dgn_times_r():
     from_dxp = hprev.T @ dxp.float().reshape(-1, 3 * H)
     scale = ref_dw.abs().max().item()
     assert (from_dxp - ref_dw).abs().max().item() > 1e-2 * scale
+
+
+def _forward_loop_schedule(x_proj, w_hh, h0, bounds, geo):
+    """F's forward loop (`time_loop.cuh forward_loop_kernel` with
+    `GruFwdCell`) written out CTA by CTA for the geometry `geo`: operand
+    plane 1 starts as round_w(h0); step t gives CTA (g, k) its br rows of
+    plane (t - 1) & 1 times its units' three gate columns of w_hh (held as
+    rows, summed over the staged chunks in order), runs the cells and
+    writes hs[t] and round_w(h_t) into plane t & 1. Returns hs."""
+    steps, b, g3 = x_proj.shape
+    h = g3 // 3
+    wd, w = w_hh.dtype, w_hh.float()
+    planes = torch.empty((2, b, h), dtype=wd)
+    planes[1] = h0.float().to(wd)
+    carry = h0.float().clone()
+    hs = torch.empty((steps, b, h))
+    xp = x_proj.float()
+    for t in range(steps):
+        src = planes[(t + 1) & 1].float()
+        for g in range(geo.row_groups):
+            rows = slice(g * geo.br, min(b, (g + 1) * geo.br))
+            for k in range(geo.unit_groups):
+                units = slice(k * geo.hb, (k + 1) * geo.hb)
+                sums = []
+                for o in range(3):
+                    ws = w[:, o * h:(o + 1) * h][:, units].T   # [hb, H]
+                    acc = 0.0
+                    for c0 in range(0, h, geo.chunk):
+                        cs = slice(c0, c0 + geo.chunk)
+                        acc = acc + src[rows, cs] @ ws[:, cs].T
+                    sums.append(acc)
+                x = xp[t, rows]
+                r = torch.sigmoid(x[:, :h][:, units] + sums[0])
+                z = torch.sigmoid(x[:, h:2 * h][:, units] + sums[1])
+                n = torch.tanh(x[:, 2 * h:][:, units] + r * sums[2])
+                hc = carry[rows, units]
+                new = torch.where(TL.live(bounds[rows], t),
+                                  (1.0 - z) * n + z * hc, hc)
+                carry[rows, units] = new
+                hs[t, rows, units] = new
+                planes[t & 1, rows, units] = new.to(wd)
+    return hs
+
+
+@pytest.mark.parametrize("case", list(_PHASE_CASES))
+@pytest.mark.parametrize("card", [(132, 232448), (8, 1200)],
+                         ids=["h100", "small_card_l2_rows"])
+def test_forward_loop_schedule_matches_reference_and_pallas(case, card):
+    """F on the forward loop keeps the function: the CTA-by-CTA schedule
+    for `geometry`'s grid (on an H100, and on a small card whose shared
+    memory does not hold the gate columns, so the loop reads them from
+    w_hh^T) against `_fwd_kernel`'s step loop written out
+    (gru_forward_reference) and the Pallas forward in interpret mode.
+    Tolerances: f32 1e-5; with bf16 x_proj or w_hh 2e-2 (the operand is
+    rounded at the same point, an f32 difference in the last bit can move
+    a bf16 rounding by one step)."""
+    x_dtype, w_dtype, window, initial = _PHASE_CASES[case]
+    npin, targs = _phase_inputs(x_dtype, w_dtype, window, initial)
+    geo = FG.geometry(B, H, *card)
+    assert geo.resident == (card[0] == 132)
+    assert geo.ctas > 1
+    hs = _forward_loop_schedule(*targs[:4], geo)
+    ref = FG.gru_forward_reference(*targs[:4])
+    bf16 = x_dtype == "bfloat16" or w_dtype == "bfloat16"
+    tol = 2e-2 if bf16 else 1e-5
+    _close(hs, ref, tol)
+    xp, w, h0, jb = npin[:4]
+    jhs, _ = jax.jit(JPG.fused_gru)(
+        to_jax(xp).astype(jnp.dtype(x_dtype)),
+        to_jax(w).astype(jnp.dtype(w_dtype)), to_jax(h0), to_jax(jb))
+    _close(hs, _f32(jhs), tol)

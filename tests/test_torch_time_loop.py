@@ -112,3 +112,111 @@ def test_dw_splits_cover_the_rows(rows, h, gates, want):
                                        (12, 16), (20, 24)])
 def test_operand_rows_start_on_16_bytes(cols, want):
     assert TL.operand_ld(cols) == want
+
+
+# -- the forward loop (F) ----------------------------------------------------
+
+# (B, H): F at the seq2seq encoder's shape, generation's B=16, H=1024 and
+# H=256, small and ragged batches, a batch above the old one-launch
+# design's pairs, and widths whose gate columns no longer fit shared
+# memory (read from w_hh^T through L2)
+FORWARD_SHAPES = [(64, 512), (16, 512), (64, 1024), (64, 256), (4, 16),
+                  (1, 8), (37, 96), (100, 512), (128, 1024), (256, 512),
+                  (1, 1320), (2048, 4), (64, 1536), (64, 2048), (16, 2048),
+                  (48, 2048)]
+
+
+def _one_launch_f_takes(b, h):
+    """Does the one-launch F (gate columns [H][hb][4] resident beside a
+    staged tile of all B rows, one CTA per unit group) take (B, H)?"""
+    try:
+        hb, _ = TL.units_and_threads("t", b, h, SMS)
+        TL.pick_tile("t", b, h, 16 * h * hb, OPTIN)
+    except ValueError:
+        return False
+    return True
+
+
+@pytest.mark.parametrize("b,h", FORWARD_SHAPES)
+def test_forward_geometry_fits_the_card(b, h):
+    g = TL.forward_geometry("t", b, h, 3, SMS, OPTIN)
+    bound = {(ut, rep): n for ut, rep, n in TL.FORWARD_TILES}
+    assert (g.unit_tile, g.rep) in bound
+    # row groups x unit groups cover B and H in whole thread tiles
+    assert g.unit_groups * g.hb == h and g.hb % g.unit_tile == 0
+    assert g.br % (TL.ROW_TILE * g.rep) == 0
+    assert (g.row_groups - 1) * g.br < b <= g.row_groups * g.br
+    assert g.ctas <= SMS
+    pairs = g.br * g.hb // g.rep
+    assert pairs <= g.threads <= bound[g.unit_tile, g.rep]
+    assert g.threads % 32 == 0 and g.threads - pairs < 32
+    # three gate columns per unit as rows of H (+ 4) f32 where resident,
+    # beside two staged chunks of the operand, whose depth is H
+    held = 3 * g.hb * (h + 4) * 4 if g.resident else 0
+    assert g.smem == held + 2 * g.br * (g.chunk + 4) * 4 <= OPTIN
+    assert g.chunk % 8 == 0 and g.chunk <= -(-h // 8) * 8
+    # the columns are resident wherever the one-launch F ran, and from
+    # H=1536 they are not
+    assert g.resident == (h < 1536)
+
+
+@pytest.mark.parametrize("b", [1, 4, 16, 37, 64, 100, 128, 256, 1000])
+@pytest.mark.parametrize("h", [4, 8, 16, 96, 256, 512, 1024, 1280, 1320,
+                               1408, 1536])
+def test_forward_geometry_takes_every_shape_the_one_launch_f_took(b, h):
+    if _one_launch_f_takes(b, h):
+        g = TL.forward_geometry("t", b, h, 3, SMS, OPTIN)
+        assert g.resident and g.ctas <= SMS
+
+
+def test_forward_geometry_at_the_encoder_shape():
+    """F at T=30, B=64, H=512: 8 row groups x 16 unit groups, 8 rows x 32
+    units per CTA in 4 x 4 thread tiles (256 threads), its 96 rows of
+    w_hh's columns resident and the whole operand row in one chunk; B=64
+    H=2048 reads the columns from L2 with four pairs a thread."""
+    g = TL.forward_geometry("t", 64, 512, 3, SMS, OPTIN)
+    assert (g.row_groups, g.unit_groups, g.br, g.hb, g.unit_tile,
+            g.threads, g.chunk, g.rep, g.resident) == (
+        8, 16, 8, 32, 4, 256, 512, 1, True)
+    g = TL.forward_geometry("t", 64, 2048, 3, SMS, OPTIN)
+    assert not g.resident and g.rep == 4 and g.ctas == 128
+
+
+@pytest.mark.parametrize("b,h,match", [
+    (64, 510, "multiple of 4"),
+    (1024, 1024, "2048 \\(row, unit\\) pairs per CTA"),
+    (64, 8192, "pairs per CTA"),
+    (20000, 512, "132 CTAs"),
+])
+def test_forward_geometry_refuses_what_does_not_fit(b, h, match):
+    with pytest.raises(ValueError, match=match):
+        TL.forward_geometry("t", b, h, 3, SMS, OPTIN)
+
+
+@pytest.mark.parametrize("b,h", [(64, 512), (16, 512), (37, 96), (4, 16),
+                                 (100, 64), (1000, 16), (48, 256)])
+def test_forward_loop_threads_cover_each_pair_once(b, h):
+    """The forward loop's thread mapping (`forward_loop_kernel`: lane l of
+    tile (rb, ub) carries rows 4 * (rep * rb + q) + l / unit_tile and
+    unit unit_tile * ub + l % unit_tile), applied to every CTA of the
+    geometry, stores each (row, unit) pair exactly once."""
+    g = TL.forward_geometry("t", b, h, 3, SMS, OPTIN)
+    lanes, rows_tile = TL.ROW_TILE * g.unit_tile, TL.ROW_TILE * g.rep
+    n_ub = g.hb // g.unit_tile
+    n_tiles = (g.br // rows_tile) * n_ub
+    seen = []
+    for cta in range(g.ctas):
+        row0 = (cta // g.unit_groups) * g.br
+        unit0 = (cta % g.unit_groups) * g.hb
+        for tid in range(g.threads):
+            tile, lane = divmod(tid, lanes)
+            if tile >= n_tiles:
+                continue
+            rb, ub = divmod(tile, n_ub)
+            j = unit0 + ub * g.unit_tile + lane % g.unit_tile
+            for q in range(g.rep):
+                row = (row0 + rb * rows_tile + q * TL.ROW_TILE
+                       + lane // g.unit_tile)
+                if row < b:
+                    seen.append((row, j))
+    assert len(seen) == len(set(seen)) == b * h
