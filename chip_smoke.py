@@ -13,13 +13,17 @@ Phases, in order; any failure exits non-zero:
    cold), beside the least time the card could take (`bound_ms`) and,
    for flash attention,
    `torch.nn.functional.scaled_dot_product_attention` as a yardstick.
-   A: flash attention forward; B: the ragged walk over float arenas;
-   C: the walk over int8 (s8, scale) arenas, dequant fused, split over
-   pages across blocks (its plan, `walk_plan`: splits, pages per split
-   and blocks, and its device launches per call -- the walk, and the
-   combine of the splits' partials where there are several -- are
-   printed per case; C's cases add rows that reach max_len (pos0 = 255)
-   and inactive rows whose mean of V spans every split).
+   A: flash attention forward; B and C: the ragged walk over float
+   arenas (B) and over int8 (s8, scale) arenas, dequant fused (C), both
+   split over pages across blocks (the plan, `walk_plan`: splits, keys
+   per split and blocks, and the device launches per call -- the walk,
+   and the combine of the splits' partials where there are several,
+   which must be 1 or 2 -- are printed per case; each case must repeat
+   its output bit for bit on a second call; B's and C's cases add rows
+   that reach max_len (pos0 = 255) and inactive rows whose mean of V
+   spans every split). The build's step prints each walk
+   instantiation's shared memory, registers, spills and blocks resident
+   per SM, which must let 2 x SMs blocks of the plan be resident.
    Tolerances: float32 1e-4, bfloat16 2e-2, on outputs of unit scale.
    A runs its products on the tensor cores (bf16 mma.sync; f32 as
    3xTF32): the count of HMMA instructions in each flash_fwd_kernel
@@ -38,7 +42,10 @@ Phases, in order; any failure exits non-zero:
    bench_lstm's shape (T=100, B=64, H=512) with full, ragged ([50, 100])
    and reversed ragged lengths and nonzero h0/c0, at H=256 B=128 and
    H=1280 B=64, and with bf16 x_proj and w_hh; E gets random
-   cotangents. Error: max abs error over max |plain| (dW sums T*B
+   cotangents. D runs on the forward loop of time_loop.cuh (a memset of
+   its barrier counters and one cooperative launch: 2 device operations
+   per call, printed with its us per step) and must repeat hs and cs
+   bit for bit. Error: max abs error over max |plain| (dW sums T*B
    terms), same tolerances. cuDNN's torch.nn.LSTM is the yardstick,
    its input projection timed beside it. E runs in three phases (the
    gates of every step as one tiled product; the serial loop, one
@@ -60,12 +67,13 @@ Phases, in order; any failure exits non-zero:
    two (the serial loop on the shared backward loop after a memset of
    its barrier counters, dW_hh): their cases
    repeat bit for bit, and their main cases print the phase split.
-   E, G, I and F then run alone at their loop's other grids
+   E, G, I, F and D then run alone at their loop's other grids
    (`WIDE_CASES`: w_hh's rows read through L2 at H >= 1536 (I from
    H=2816), 2, 4 or 8 pairs per thread at wide H or B; I at B=64,
    H=2048 and F at B=64, H >= 1536, which their one-launch designs
-   refused), ragged with nonzero initial state, against their plain
-   versions and bit for bit on a second call.
+   refused; D at B=64, H=1536 and 2048 from L2, in f32 and bf16, and at
+   B=256, H=1024), ragged with nonzero initial state, against their
+   plain versions and bit for bit on a second call.
    Yardsticks: cuDNN's
    torch.nn.GRU(256, 512) with b_hn zeroed (the port's n gate) and
    torch.nn.RNN(512, 512, tanh), their input projections timed beside
@@ -95,9 +103,10 @@ Phases, in order; any failure exits non-zero:
    10000, embedding = hidden = 512, 2 x nn.LSTM, mean over time,
    Dense(2), adam 1e-3; B=64, T=100) with seeded random weights through
    the port's Trainer for 10 steps over 4 seeded batches, launch counts
-   set to 0 just before: exactly 2 D and 2 E launches per step, each E
-   call making at least three device launches (its phases, counted by
-   the wrapper as it launches them). The
+   set to 0 just before: exactly 2 D and 2 E launches per step, each D
+   call making 2 device operations and each E call at least three
+   device launches (its phases, counted by the wrapper as it launches
+   them). The
    same weights then train on the plain path (nn.LSTM(impl="torch")):
    first-step gradients agree to 1e-4 relative, every loss to 1e-3.
    Then text_lstm at the same width (max pool) on lengths uniform in
@@ -130,9 +139,10 @@ Phases, in order; any failure exits non-zero:
 8. report -- the launch counts of every path, the serve, train, seq2seq
    and generation numbers, the wide E/G cases, the card's name and
    power limit, a `kernels` JSON line (nine entries, A-I; A adds its
-   HMMA counts; C its device launches in the int8 serve and per call and
-   its split plan; F its device launches and whether it repeated bit
-   for bit; E, G and I their device launches in the main path's run and
+   HMMA counts; B and C their device launches in the float and int8
+   serves and per call and their split plan; D and F their device
+   launches and whether they repeated bit for bit; E, G and I their
+   device launches in the main path's run and
    per call, their phase split and whether they repeated bit for bit),
    and last the device JSON line.
 
@@ -322,12 +332,15 @@ def ragged_case(name, *, r, tq, h, hkv, dh=64, dtype=torch.float32,
     args = (q, ka, va, torch.from_numpy(pt).to(dev),
             torch.from_numpy(pos0).to(dev), torch.from_numpy(active).to(dev))
     kw = dict(page_size=PAGE, max_len=MAX_LEN)
-    before = RPA.device_launches["int8"]
+    kind = "int8" if int8 else "float"
+    before = RPA.device_launches[kind]
     got = RPA.ragged_kernel(*args, **kw)
-    per_call = RPA.device_launches["int8"] - before
+    per_call = RPA.device_launches[kind] - before
     ref = RPA.ragged_reference(*args, **kw)
     torch.cuda.synchronize()
     err = (got.float() - ref.float()).abs().max().item()
+    same = bitwise_repeat(lambda *a: (RPA.ragged_kernel(*a, **kw),), args,
+                          (got,))
     # the work this data needs: active rows attend keys <= pos0 + i, an
     # inactive row all max_len keys; a key is read once per KV head as
     # Dh values (s8 for C, with its f32 scale) for K and for V
@@ -343,29 +356,45 @@ def ragged_case(name, *, r, tq, h, hkv, dh=64, dtype=torch.float32,
     bound_ms, bound_by = bound(bytes_, flops, dtype)
     k_ms = time_ms(lambda: RPA.ragged_kernel(*args, **kw))
     p_ms = time_ms(lambda: RPA.ragged_reference(*args, **kw))
-    ok = err <= TOL[dtype]
-    plan = ""
-    extra = {}
-    if int8:
-        # C's split plan, and its device launches in one call (the walk,
-        # and the combine where there are several splits)
-        wp = RPA.walk_plan(r, tq, h, hkv, MAX_LEN, PAGE,
-                           torch.cuda.get_device_properties(0)
-                           .multi_processor_count)
-        extra = dict(splits=wp.splits, span_pages=wp.span_pages,
-                     blocks=wp.blocks(r, hkv),
-                     device_launches_per_call=per_call)
-        plan = (f" splits {wp.splits} x {wp.span_pages} pages, "
-                f"{wp.blocks(r, hkv)} blocks, {per_call} device launches "
-                f"per call")
-        ok = ok and per_call == (1 if wp.splits == 1 else 2)
+    # the split plan, and the device launches of one call (the walk, and
+    # the combine where there are several splits)
+    wp = RPA.walk_plan(r, tq, h, hkv, MAX_LEN, PAGE,
+                       torch.cuda.get_device_properties(0)
+                       .multi_processor_count)
+    ok = (err <= TOL[dtype] and same
+          and per_call == (1 if wp.splits == 1 else 2))
     log(f"  {'C' if int8 else 'B'} {name:<22} {str(dtype)[6:]:<8} err "
         f"{err:.2e} (tol {TOL[dtype]:.0e}) kernel_ms {k_ms:.4f} plain_ms "
-        f"{p_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}){plan} "
+        f"{p_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}) splits "
+        f"{wp.splits} x {wp.span} keys, {wp.blocks(r, hkv)} blocks, "
+        f"{per_call} device launches per call, bitwise {same} "
         f"{'ok' if ok else 'FAIL'}")
     return dict(name=name, err=err, ok=ok, ms=k_ms, plain_ms=p_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                tol=TOL[dtype], **extra)
+                tol=TOL[dtype], splits=wp.splits, span_keys=wp.span,
+                blocks=wp.blocks(r, hkv), device_launches_per_call=per_call,
+                bitwise=same)
+
+
+def walk_resources_check():
+    """Each instantiation of the split walk (B: float arenas, C: int8;
+    f32 and bf16 queries; head_dim 64 and 128): its dynamic shared
+    memory, registers, spills and blocks resident per SM, which must let
+    2 x SMs blocks -- the plan's aim -- be resident at once."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for (kind, dt, dh), (smem, regs, per_sm, spill) in \
+            RPA.walk_resources().items():
+        kern = "B" if kind == "float" else "C"
+        log(f"  {kern} split_walk_kernel {dt} head_dim {dh}: {smem} bytes "
+            f"of dynamic shared memory, {regs} registers, {spill} bytes "
+            f"of spill, {per_sm} blocks per SM ({per_sm * sms} resident)")
+        if per_sm < 2:
+            raise Fail(f"{kern} {dt} head_dim {dh}: {per_sm} blocks per SM,"
+                       f" fewer than the plan's 2 x {sms}")
+        out[f"{kern}_{dt}_{dh}"] = dict(smem=smem, registers=regs,
+                                        blocks_per_sm=per_sm, spill=spill)
+    return out
 
 
 # -- kernel A: flash attention forward ---------------------------------------
@@ -541,6 +570,14 @@ def kernels_phase():
                                                         170, 200, 250][:8])
         b["hd128" + sfx] = ragged_case("head_dim128", r=4, tq=2, h=4,
                                        hkv=2, dh=128, dtype=dt, seed=4)
+        # rows that reach max_len (every split holds live keys), and
+        # inactive rows whose uniform mean of V spans every split
+        b["max_len" + sfx] = ragged_case("decode_pos0_255", r=8, tq=1, h=8,
+                                         hkv=8, dtype=dt, pos0=MAX_LEN - 1,
+                                         seed=6)
+        b["inactive" + sfx] = ragged_case(
+            "decode_inactive_splits", r=8, tq=1, h=8, hkv=8, dtype=dt,
+            inactive=4, seed=7, pos0=[3, 17, 40, 255, 100, 130, 64, 200])
     log("phase kernels: ragged paged-attention walk, int8 arenas (C)")
     c = {
         "main_decode": ragged_case("main_decode_r8", r=8, tq=1, h=8, hkv=8,
@@ -657,13 +694,16 @@ def lstm_case(name, *, t=LSTM_T, b=LSTM_B, h=LSTM_H, dtype=torch.float32,
     cot = lambda *s: torch.from_numpy(
         rs.standard_normal(s).astype(np.float32)).cuda()
     dhs, dhl, dcl = cot(t, b, h).to(dtype), cot(b, h), cot(b, h)
+    before = FL.device_launches["fwd"]
     hs, cs = FL.lstm_forward_kernel(*args)
+    d_ops = FL.device_launches["fwd"] - before
     hs_r, cs_r = FL.lstm_forward_reference(*args)
     bargs = args + (hs_r, cs_r, dhs, dhl, dcl)
     grads = FL.lstm_backward_kernel(*bargs)
     grads_r = FL.lstm_backward_reference(*bargs)
     torch.cuda.synchronize()
     same = bitwise_repeat(FL.lstm_backward_kernel, bargs, grads)
+    d_same = bitwise_repeat(FL.lstm_forward_kernel, args, (hs, cs))
     d_pairs = ((hs, hs_r), (cs, cs_r))
     e_pairs = tuple(zip(grads, grads_r))
     d_err = max(rel_err(a, r) for a, r in d_pairs)
@@ -695,7 +735,8 @@ def lstm_case(name, *, t=LSTM_T, b=LSTM_B, h=LSTM_H, dtype=torch.float32,
     for kern, err, a_err, ms, p_ms, b_ms, by, lib_ms in (
             ("D", d_err, d_abs, d_ms, dp_ms, d_bound, d_by, lib[0]),
             ("E", e_err, e_abs, e_ms, ep_ms, e_bound, e_by, lib[1])):
-        ok = err <= tol and (kern == "D" or same)
+        ok = err <= tol and (same if kern == "E" else
+                             d_same and d_ops == 2)
         lib_s = "-" if lib_ms is None else f"{lib_ms:.4f}"
         log(f"  {kern} {name:<24} {str(dtype)[6:]:<8} rel_err {err:.2e} "
             f"(tol {tol:.0e}) kernel_ms {ms:.4f} plain_ms {p_ms:.4f} "
@@ -705,6 +746,11 @@ def lstm_case(name, *, t=LSTM_T, b=LSTM_B, h=LSTM_H, dtype=torch.float32,
                          plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
                          library_ms=lib_ms, tol=tol)
     out["E"].update(bitwise=same, phases_ms=phases)
+    out["D"].update(bitwise=d_same, device_launches_per_call=d_ops,
+                    us_per_step=d_ms / t * 1e3)
+    log(f"    D: {d_ms / t * 1e3:.2f} us per step, {d_ops} device "
+        f"operations per call (counters' memset, loop); a second call is "
+        f"bitwise equal (hs, cs): {d_same}")
     log(f"    E: a second call on the same inputs is bitwise equal "
         f"(dxp, dW_hh, dh0, dc0): {same}")
     if phases:
@@ -772,8 +818,8 @@ def grad_rel_err(ga, gb):
 
 def timed_train(trainer, state, batches):
     """TRAIN_STEPS steps through Trainer.train with the launch counts set
-    to 0 just before: (state, losses, wall seconds, (D, E) launches, E's
-    device launches)."""
+    to 0 just before: (state, losses, wall seconds, (D, E) launches, (D,
+    E) device launches)."""
     events = []
     torch.cuda.synchronize()
     FL.reset_launch_counts()
@@ -786,7 +832,8 @@ def timed_train(trainer, state, batches):
     wall = time.perf_counter() - t0
     launched = (FL.launch_counts["fwd"], FL.launch_counts["bwd"])
     losses = [e.cost for e in events if isinstance(e, EV.EndIteration)]
-    return state, losses, wall, launched, FL.device_launches["bwd"]
+    return state, losses, wall, launched, (FL.device_launches["fwd"],
+                                           FL.device_launches["bwd"])
 
 
 def train_phase():
@@ -831,11 +878,11 @@ def train_phase():
                plain_tok_s=tokens / p_wall, grad_rel_err=g_err,
                losses=k_loss, plain_losses=p_loss,
                launches={"D": k_launch[0], "E": k_launch[1]},
-               device_launches={"E": k_dev})
+               device_launches={"D": k_dev[0], "E": k_dev[1]})
     log(f"  kernel path: {out['kernel_ms_per_step']:.3f} ms/step = "
-        f"{out['kernel_tok_s']:.1f} tokens/s; launches D {k_launch[0]}, "
-        f"E {k_launch[1]} ({k_dev} device launches); losses "
-        f"{['%.6f' % v for v in k_loss]}")
+        f"{out['kernel_tok_s']:.1f} tokens/s; launches D {k_launch[0]} "
+        f"({k_dev[0]} device operations), E {k_launch[1]} ({k_dev[1]} "
+        f"device launches); losses {['%.6f' % v for v in k_loss]}")
     log(f"  plain path:  {out['plain_ms_per_step']:.3f} ms/step = "
         f"{out['plain_tok_s']:.1f} tokens/s; launches {p_launch}; losses "
         f"{['%.6f' % v for v in p_loss]}")
@@ -843,12 +890,15 @@ def train_phase():
     if k_launch != want:
         raise Fail(f"train: (D, E) launched {k_launch} times, want {want} "
                    f"(2 of each per step)")
-    if k_dev < 3 * k_launch[1]:
-        raise Fail(f"train: {k_launch[1]} E calls made {k_dev} device "
+    if k_dev[0] != 2 * k_launch[0]:
+        raise Fail(f"train: {k_launch[0]} D calls made {k_dev[0]} device "
+                   f"operations, not 2 each (memset, loop)")
+    if k_dev[1] < 3 * k_launch[1]:
+        raise Fail(f"train: {k_launch[1]} E calls made {k_dev[1]} device "
                    f"launches, fewer than their three phases")
-    if p_launch != (0, 0) or p_dev:
+    if p_launch != (0, 0) or any(p_dev):
         raise Fail(f"train: the plain path launched kernels: {p_launch}, "
-                   f"{p_dev} device launches of E")
+                   f"{p_dev} device launches of D and E")
     rel = max(abs(a - b) / abs(b) for a, b in zip(k_loss, p_loss))
     out["loss_rel_err"] = rel
     log(f"  losses agree to {rel:.2e} relative (tol {LOSS_RTOL:.0e})")
@@ -1078,26 +1128,40 @@ WIDE_CASES = (
     ("F", "h2048_b16_bf16", 20, 16, 2048, torch.bfloat16),
     ("F", "b128_h1024_bf16", 20, 128, 1024, torch.bfloat16),
     ("F", "b256_h1024_8pairs", 20, 256, 1024, torch.float32),
+    # D on the forward loop: its four gate columns read from w_hh^T
+    # through L2 (H >= 1536), in f32 and bf16, and the 32-row tiles of a
+    # large batch
+    ("D", "h1536_b64_l2_rows", 20, 64, 1536, torch.float32),
+    ("D", "h2048_b64_l2_rows_4pairs", 20, 64, 2048, torch.float32),
+    ("D", "h2048_b64_l2_rows_bf16", 20, 64, 2048, torch.bfloat16),
+    ("D", "b256_h1024_8pairs", 20, 256, 1024, torch.float32),
 )
 
 
 def wide_case(kern, name, t, b, h, dtype, w_dtype=None, *, seed):
     """E, G or I alone against its plain version on the plain forward's
     outputs, with ragged lengths, nonzero initial state and random
-    cotangents (F: the forward alone on the same inputs); a second call
-    must repeat every output bit for bit. Its
+    cotangents (D, F: the forward alone on the same inputs); a second
+    call must repeat every output bit for bit. Its
     device time (5 calls) is logged beside the grid it ran. x_proj (and
     w_hh, unless w_dtype is given) in `dtype`."""
     rs = np.random.RandomState(seed + 100)
     cot = lambda *sh: torch.from_numpy(
         rs.standard_normal(sh).astype(np.float32)).cuda()
-    if kern == "E":
+    if kern in "DE":
         args, _ = lstm_case_inputs(t=t, b=b, h=h, dtype=dtype, lengths=True,
                                    reverse=False, initial=True, seed=seed)
-        bargs = args + FL.lstm_forward_reference(*args) + (
-            cot(t, b, h).to(dtype), cot(b, h), cot(b, h))
-        bwd_k, bwd_r = FL.lstm_backward_kernel, FL.lstm_backward_reference
-        geo = FL.backward_geometry(b, h, *FL.device_limits(args[0].device))
+        limits = FL.device_limits(args[0].device)
+        if kern == "D":
+            bargs = args
+            bwd_k, bwd_r = FL.lstm_forward_kernel, FL.lstm_forward_reference
+            geo = FL.geometry(b, h, *limits)
+        else:
+            bargs = args + FL.lstm_forward_reference(*args) + (
+                cot(t, b, h).to(dtype), cot(b, h), cot(b, h))
+            bwd_k, bwd_r = (FL.lstm_backward_kernel,
+                            FL.lstm_backward_reference)
+            geo = FL.backward_geometry(b, h, *limits)
     else:
         gates = 3 if kern in "FG" else 1
         mod = FG if kern in "FG" else FR
@@ -1147,13 +1211,13 @@ def wide_case(kern, name, t, b, h, dtype, w_dtype=None, *, seed):
 
 
 def wide_phase():
-    log("phase kernels: E, G, I and F on their loops' other grids (w_hh's "
-        "rows read from L2, several pairs per thread), ragged, nonzero "
-        "initial state")
+    log("phase kernels: E, G, I, F and D on their loops' other grids "
+        "(w_hh's rows read from L2, several pairs per thread), ragged, "
+        "nonzero initial state")
     cases = [wide_case(*c, seed=20 + i) for i, c in enumerate(WIDE_CASES)]
     bad = [f"{c['kernel']}:{c['name']}" for c in cases if not c["ok"]]
     if bad:
-        raise Fail(f"E/G/I/F disagree with their plain versions: {bad}")
+        raise Fail(f"E/G/I/F/D disagree with their plain versions: {bad}")
     return cases
 
 
@@ -1523,6 +1587,7 @@ def counts():
             "ragged_tqn": RPA.launch_counts["tqn"],
             "int8_tq1": RPA.launch_counts["int8_tq1"],
             "int8_tqn": RPA.launch_counts["int8_tqn"],
+            "float_device": RPA.device_launches["float"],
             "int8_device": RPA.device_launches["int8"]}
 
 
@@ -1672,7 +1737,7 @@ def serve_phase():
     out, launches = {}, {}
     launches["float"], ptoks, out["float_kv"] = kernel_and_plain(
         "float KV", params, cfg, prompts,
-        ("flash_fwd", "ragged_tq1", "ragged_tqn"))
+        ("flash_fwd", "ragged_tq1", "ragged_tqn", "float_device"))
     # sampled requests draw from per-slot CUDA generators: the same
     # seeds must give the same tokens
     samp = [{"temperature": 0.8, "top_k": 50, "seed": i} for i in range(4)]
@@ -1693,10 +1758,10 @@ def serve_phase():
 
     launches["int8_kv"], _, out["int8_kv"] = kernel_and_plain(
         "int8 KV", params, cfg8, prompts,
-        ("flash_fwd", "int8_tq1", "int8_tqn"))
+        ("flash_fwd", "int8_tq1", "int8_tqn", "int8_device"))
     launches["int8_weights"], _, out["int8_weights"] = kernel_and_plain(
         "int8 weights", qparams, cfg, prompts[:N_WEIGHT_REQ],
-        ("flash_fwd", "ragged_tq1", "ragged_tqn"))
+        ("flash_fwd", "ragged_tq1", "ragged_tqn", "float_device"))
 
     spec_prompts = make_spec_prompts(N_SPEC_REQ)
     launches["spec_float"], out["spec_float_kv"] = \
@@ -1731,6 +1796,7 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     hmma = flash_hmma_counts()
+    walk_res = walk_resources_check()
     a, b, c = kernels_phase()
     lstm = lstm_kernels_phase()
     gru, rnn = gru_rnn_kernels_phase()
@@ -1769,12 +1835,16 @@ def main() -> int:
                 "device_launches_per_call": device / calls,
                 "phases_ms": case["phases_ms"], "bitwise": case["bitwise"]}
 
-    def split_plan(case):
-        return {"device_launches_in_serve": launched["int8_kv"][
-                    "int8_device"],
+    def split_plan(case, serve, kind):
+        # the walk's device launches in that serve's run, per call at the
+        # case's shape, its plan, and whether it repeated bit for bit
+        return {"device_launches_in_serve": launched[serve][kind],
                 "device_launches_per_call": case["device_launches_per_call"],
-                "splits": case["splits"], "span_pages": case["span_pages"],
-                "blocks": case["blocks"]}
+                "splits": case["splits"], "span_keys": case["span_keys"],
+                "blocks": case["blocks"], "bitwise": case["bitwise"],
+                "resources": {k: v for k, v in walk_res.items()
+                              if k.startswith("C" if kind == "int8_device"
+                                              else "B")}}
 
     # launches: A and B from the float serve, C from the int8-KV serve,
     # each counted from 0 just before that run
@@ -1791,30 +1861,38 @@ def main() -> int:
                   "causal_t2048_float32", "causal_t2048_bfloat16",
                   "causal_t8192_bf16", "hd128_float32", "hd128_bfloat16",
                   "scaled_scores_float32")}),
+        # B and C: calls of the float and int8-KV serves' runs; their
+        # device launches in those runs (the split walk, and the combine
+        # where the plan has several splits), per call at the case's
+        # shape, and the plan
         entry("ragged_paged_walk[tq=1]", walk,
               "paddle_tpu/ops/ragged_paged_attention.py:153",
-              launched["float"]["ragged_tq1"], b["main_decode"]),
+              launched["float"]["ragged_tq1"], b["main_decode"],
+              **split_plan(b["main_decode"], "float", "float_device")),
         entry("ragged_paged_walk[tq>1]", walk,
               "paddle_tpu/ops/ragged_paged_attention.py:153",
-              launched["float"]["ragged_tqn"], b["main_chunk"]),
-        # C: calls of the int8-KV serve's run; its device launches in
-        # that run (the split walk, and the combine where the plan has
-        # several splits), per call at the case's shape, and the plan
+              launched["float"]["ragged_tqn"], b["main_chunk"],
+              **split_plan(b["main_chunk"], "float", "float_device")),
         entry("ragged_paged_walk_int8[tq=1]", walk,
               "paddle_tpu/ops/ragged_paged_attention.py:188",
               launched["int8_kv"]["int8_tq1"], c["main_decode"],
-              **split_plan(c["main_decode"])),
+              **split_plan(c["main_decode"], "int8_kv", "int8_device")),
         entry("ragged_paged_walk_int8[tq>1]", walk,
               "paddle_tpu/ops/ragged_paged_attention.py:188",
               launched["int8_kv"]["int8_tqn"], c["main_chunk"],
-              **split_plan(c["main_chunk"])),
+              **split_plan(c["main_chunk"], "int8_kv", "int8_device")),
         # D and E: launches of the train phase's run (2 of each per step)
         # (their tolerance holds rel_err, max abs error over max |plain|)
         entry("lstm_fwd", "paddle_tpu_torch/csrc/fused_lstm.cu",
               "paddle_tpu/ops/pallas_lstm.py:58", train["launches"]["D"],
               lstm["main"]["D"],
               launches_per_train_step=train["launches"]["D"] / TRAIN_STEPS,
-              rel_err=lstm["main"]["D"]["rel_err"]),
+              rel_err=lstm["main"]["D"]["rel_err"],
+              device_launches=train["device_launches"]["D"],
+              device_launches_per_call=(train["device_launches"]["D"]
+                                        / train["launches"]["D"]),
+              us_per_step=lstm["main"]["D"]["us_per_step"],
+              bitwise=lstm["main"]["D"]["bitwise"]),
         entry("lstm_bwd", "paddle_tpu_torch/csrc/fused_lstm.cu",
               "paddle_tpu/ops/pallas_lstm.py:86", train["launches"]["E"],
               lstm["main"]["E"],

@@ -27,18 +27,22 @@
 // D does 13.4 GFLOP (0.20 ms at the 67 TFLOP/s of the f32 CUDA cores)
 // and moves ~82 MB (0.025 ms); E does three such products.
 //
-// D's design. The time loop runs inside one cooperative launch, as the
-// TPU kernel runs it inside one pallas_call. CTA k owns hb hidden units j
-// in [k*hb, (k+1)*hb), and with them the gate columns j, H+j, 2H+j, 3H+j
-// of w_hh, staged once into shared memory (interleaved [H][hb][4], so one
-// 16-byte load gives a unit's four gates) when the slice fits; otherwise
-// (H=1280) each step reads it from global memory through L1/L2. A thread
-// owns up to kMaxPairs (row b, unit j) pairs and the c carry of each in
-// registers: the cell update is elementwise in j, so c never leaves the
-// CTA. Only h crosses CTAs: every CTA needs all of h_{t-1} [B, H], so
-// each step writes its units of h (f32) into a ping-pong buffer [2, B, H]
-// and ends with one grid barrier. Tiles of h move through shared memory
-// by cp.async, read at L2 only (L1 is not coherent across SMs).
+// D's design: the serial forward loop of time_loop.cuh
+// (`forward_loop_kernel`) with D's cell (LstmFwdCell below), one
+// cooperative launch over row groups x unit groups, as F's (batch rows
+// never interact, so a CTA waits only for its own row group each step).
+// CTA (g, k) owns br rows and hb units; their four gate columns of w_hh
+// are resident in shared memory as rows [4][hb][H + 4] f32, transposed at
+// load, where they fit (at H=512: 16 units, 132 KB), else read through L2
+// from a w_hh^T scratch [4H][H] that the grid writes first. A thread
+// carries (h, c) of its pairs in registers: c never leaves the thread.
+// Each step a CTA multiplies its rows of round_w(h_{t-1}) (an operand
+// plane in w_hh's dtype, exact, staged by cp.async with the next chunk in
+// flight) by those rows in thread tiles that reuse each weight float4
+// across 4 rows, runs its pairs' cells, writes hs[t], cs[t] and
+// round_w(h_t) into the other operand plane and passes its row group's
+// barrier. The barrier counters are zeroed by a memset on the stream just
+// before the launch, a device operation the wrapper counts.
 //
 // E's design. On the TPU the grid runs in order, so the Pallas kernel
 // does all of a step's work in one grid step. Here a step is a serial
@@ -71,122 +75,60 @@
 
 #include "time_loop.cuh"
 
-namespace cg = cooperative_groups;
 using namespace time_loop;
 
 namespace {
 
-// The four gate weights (i, f, g, o) of unit u at row k of w_hh: from the
-// resident slice [H][hb][4], or from global memory.
-template <bool kSmem, typename TW>
-__device__ __forceinline__ float4 w_cols(const float* ws, const TW* w, int k,
-                                         int u, int hb, int H, int j0) {
-  if (kSmem) return *reinterpret_cast<const float4*>(ws + (k * hb + u) * 4);
-  const TW* r = w + (size_t)k * 4 * H + j0 + u;
-  return make_float4(load_f(r), load_f(r + H), load_f(r + 2 * H),
-                     load_f(r + 3 * H));
-}
+// -- D: the serial forward loop (time_loop.cuh forward_loop_kernel) -------
 
-// acc[n][g] += sum_k round_w(tile[b_n][k]) * w[k0+k][gate g of unit u_n],
-// over a staged tile of kw columns
-template <bool kSmem, typename TW>
-__device__ __forceinline__ void gate_products(
-    float (&acc)[kMaxPairs][4], const float* tile, int ld, const float* ws,
-    const TW* w, const int (&pb)[kMaxPairs], const int (&pu)[kMaxPairs],
-    int np, int k0, int kw, int hb, int H, int j0) {
-  for (int kk = 0; kk < kw; kk += 4) {
-#pragma unroll
-    for (int n = 0; n < kMaxPairs; ++n) {
-      if (n >= np) break;
-      const float4 hv =
-          *reinterpret_cast<const float4*>(tile + pb[n] * ld + kk);
-      const float hvs[4] = {round_as(hv.x, w), round_as(hv.y, w),
-                            round_as(hv.z, w), round_as(hv.w, w)};
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float4 wv = w_cols<kSmem>(ws, w, k0 + kk + q, pu[n], hb, H, j0);
-        acc[n][0] = fmaf(hvs[q], wv.x, acc[n][0]);
-        acc[n][1] = fmaf(hvs[q], wv.y, acc[n][1]);
-        acc[n][2] = fmaf(hvs[q], wv.z, acc[n][2]);
-        acc[n][3] = fmaf(hvs[q], wv.w, acc[n][3]);
-      }
+// D's cell: the f32 carries (h, c) of one (row, unit) pair
+template <typename T, typename TWt>
+struct LstmFwdCell {
+  using TW = TWt;
+  static constexpr int kOut = 4;
+  struct Step {       // x_proj's four gates, loaded a step ahead
+    float xi, xf, xg, xo;
+  };
+  struct Carry {
+    float h, c;
+  };
+  const T* xp;        // [T*B][4H]
+  const float* h0;    // [B][H]
+  const float* c0;
+  T* hs;              // [T*B][H]
+  float* cs;
+  int B, H;
+
+  __device__ __forceinline__ Carry init(int b, int j) const {
+    return {h0[b * H + j], c0[b * H + j]};
+  }
+  __device__ __forceinline__ float operand(const Carry& c) const {
+    return c.h;
+  }
+  __device__ __forceinline__ Step fetch(int t, int b, int j) const {
+    const T* x = xp + ((size_t)t * B + b) * 4 * H + j;
+    return {load_f(x), load_f(x + H), load_f(x + 2 * H), load_f(x + 3 * H)};
+  }
+  // g = the four sums of round_w(h) @ w_hh for the pair's unit
+  __device__ __forceinline__ void step(const Step& s, const float (&g)[4],
+                                       Carry& c, bool live, bool store,
+                                       size_t row, int j) const {
+    const float gi = sigmoidf(s.xi + g[0]);
+    const float gf = sigmoidf(s.xf + g[1]);
+    const float gg = tanhf(s.xg + g[2]);
+    const float go = sigmoidf(s.xo + g[3]);
+    const float cn = gf * c.c + gi * gg;
+    const float hn = go * tanhf(cn);
+    if (live) {
+      c.c = cn;
+      c.h = hn;
+    }
+    if (store) {
+      store_f(hs + row * H + j, c.h);
+      cs[row * H + j] = c.c;
     }
   }
-}
-
-
-template <typename T, typename TW, bool kSmem>
-__global__ void __launch_bounds__(kMaxThreads)
-    lstm_fwd_kernel(const T* __restrict__ xp, const TW* __restrict__ w,
-                    const float* __restrict__ h0, const float* __restrict__ c0,
-                    const int* __restrict__ bounds, T* __restrict__ hs,
-                    float* __restrict__ cs, float* hbuf, int Tn, int B, int H,
-                    int hb, int kt) {
-  extern __shared__ __align__(16) float smem[];
-  const int ld = kt + 4;                             // 16-byte tile rows
-  float* ws = smem;                                  // [H][hb][4]
-  float* tile = smem + (kSmem ? 4 * H * hb : 0);     // [B][ld]
-  const int j0 = blockIdx.x * hb;
-  if (kSmem) {
-    for (int e = threadIdx.x; e < 4 * H * hb; e += blockDim.x) {
-      const int k = e / (4 * hb), u = (e / 4) % hb, g = e % 4;
-      ws[e] = load_f(w + (size_t)k * 4 * H + g * H + j0 + u);
-    }
-  }
-  int pb[kMaxPairs], pu[kMaxPairs];
-  const int np = my_pairs(pb, pu, B, hb);
-  float hc[kMaxPairs], cc[kMaxPairs];
-  int lo[kMaxPairs], hi[kMaxPairs];
-#pragma unroll
-  for (int n = 0; n < kMaxPairs; ++n) {
-    const int o = pb[n] * H + j0 + pu[n];
-    hc[n] = n < np ? h0[o] : 0.f;
-    cc[n] = n < np ? c0[o] : 0.f;
-    lo[n] = bounds[2 * pb[n]];
-    hi[n] = bounds[2 * pb[n] + 1];
-  }
-  cg::grid_group grid = cg::this_grid();
-  const size_t plane = (size_t)B * H;
-
-  for (int t = 0; t < Tn; ++t) {
-    const float* hin = t == 0 ? h0 : hbuf + ((t - 1) & 1) * plane;
-    float* hout = hbuf + (t & 1) * plane;
-    float acc[kMaxPairs][4];
-#pragma unroll
-    for (int n = 0; n < kMaxPairs; ++n)
-      acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-    for (int k0 = 0; k0 < H; k0 += kt) {
-      const int kw = min(kt, H - k0);
-      __syncthreads();
-      stage_tile(tile, ld, hin, H, B, k0, kw);
-      __syncthreads();
-      gate_products<kSmem>(acc, tile, ld, ws, w, pb, pu, np, k0, kw, hb, H,
-                           j0);
-    }
-#pragma unroll
-    for (int n = 0; n < kMaxPairs; ++n) {
-      if (n >= np) break;
-      const int b = pb[n], j = j0 + pu[n];
-      const T* x = xp + ((size_t)t * B + b) * 4 * H + j;
-      const float gi = sigmoidf(load_f(x) + acc[n][0]);
-      const float gf = sigmoidf(load_f(x + H) + acc[n][1]);
-      const float gg = tanhf(load_f(x + 2 * H) + acc[n][2]);
-      const float go = sigmoidf(load_f(x + 3 * H) + acc[n][3]);
-      const float c = gf * cc[n] + gi * gg;
-      const float h = go * tanhf(c);
-      if (lo[n] <= t && t < hi[n]) {
-        cc[n] = c;
-        hc[n] = h;
-      }
-      const size_t o = ((size_t)t * B + b) * H + j;
-      store_f(hs + o, hc[n]);
-      cs[o] = cc[n];
-      hout[b * H + j] = hc[n];
-    }
-    grid.sync();
-  }
-}
-
+};
 
 // -- E, phase 1: the gates of every step, in parallel ------------------------
 
@@ -303,34 +245,33 @@ struct LstmCell {
 
 extern "C" int lstm_device_limits(int* out) { return device_limits(out); }
 
-// x_dtype / w_dtype: 0 = float32, 1 = bfloat16. Grid H/hb CTAs of
-// `threads` threads and `smem` bytes of dynamic shared memory, tiles of
-// kt columns (kt % 4 == 0); w_smem = 1 keeps the w_hh slice resident.
-// Returns the launch's cudaError_t.
-extern "C" int lstm_fwd(int x_dtype, int w_dtype, int w_smem, const void* xp,
-                        const void* w, const void* h0, const void* c0,
-                        const void* bounds, void* hs, void* cs, void* hbuf,
-                        int Tn, int B, int H, int hb, int kt, int threads,
-                        long long smem, void* stream) {
-  return dispatch_dtypes(x_dtype, w_dtype, [&](auto* xt, auto* wt) {
+// D on `stream`: a memset of the barrier counters [row groups + 1], then
+// the forward loop over row groups x unit groups for the host's geometry
+// (ut, rep, resident, hb, br, cw, threads, smem); opnd [2][B][ldo] in
+// w_hh's dtype; wt [4H][H] in w_hh's dtype where the gate columns are not
+// resident (else unused). x_dtype / w_dtype: 0 = float32, 1 = bfloat16.
+// Returns the first cudaError_t.
+extern "C" int lstm_fwd(int x_dtype, int w_dtype, int ut, int rep,
+                        int resident, const void* xp, const void* w, void* wt,
+                        const void* h0, const void* c0, const void* bounds,
+                        void* hs, void* cs, void* opnd, int ldo,
+                        void* counters, int Tn, int B, int H, int hb, int br,
+                        int cw, int threads, long long smem, void* stream) {
+  return dispatch_dtypes(x_dtype, w_dtype, [&](auto* xt, auto* wtt) {
     using T = std::remove_pointer_t<decltype(xt)>;
-    using TW = std::remove_pointer_t<decltype(wt)>;
-    const T* a_xp = static_cast<const T*>(xp);
-    const TW* a_w = static_cast<const TW*>(w);
-    const float* a_h0 = static_cast<const float*>(h0);
-    const float* a_c0 = static_cast<const float*>(c0);
-    const int* a_bounds = static_cast<const int*>(bounds);
-    T* a_hs = static_cast<T*>(hs);
-    float* a_cs = static_cast<float*>(cs);
-    float* a_hbuf = static_cast<float*>(hbuf);
-    void* args[] = {&a_xp, &a_w, &a_h0, &a_c0, &a_bounds, &a_hs,
-                    &a_cs, &a_hbuf, &Tn, &B, &H, &hb, &kt};
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (w_smem)
-      return launch_coop(lstm_fwd_kernel<T, TW, true>, H / hb, threads,
-                         (size_t)smem, args, s);
-    return launch_coop(lstm_fwd_kernel<T, TW, false>, H / hb, threads,
-                       (size_t)smem, args, s);
+    using TW = std::remove_pointer_t<decltype(wtt)>;
+    const LstmFwdCell<T, TW> cell{
+        static_cast<const T*>(xp),     static_cast<const float*>(h0),
+        static_cast<const float*>(c0), static_cast<T*>(hs),
+        static_cast<float*>(cs),       B,
+        H};
+    const ForwardArgs<TW> a{static_cast<const TW*>(w), static_cast<TW*>(wt),
+                            static_cast<TW*>(opnd),
+                            static_cast<const int*>(bounds),
+                            static_cast<unsigned*>(counters),
+                            ldo, Tn, B, H, hb, br, cw};
+    return launch_forward(cell, a, ut, rep, resident, threads, (size_t)smem,
+                          static_cast<cudaStream_t>(stream));
   });
 }
 

@@ -1,10 +1,10 @@
 // Plumbing shared by the time-loop kernels (fused_lstm.cu, fused_gru.cu,
-// fused_rnn.cu): the cooperative launch with its co-residency check, the
-// (row, unit) pairs a thread carries, operand rounding to the weight's
-// dtype, the cp.async staging of f32 tiles that other CTAs write during
-// the launch, and the serial loops themselves over a cell that holds each
+// fused_rnn.cu): the cooperative launch with its co-residency check,
+// operand rounding to the weight's dtype, H's (row, unit) pairs a thread
+// carries and its cp.async staging of f32 tiles that other CTAs write
+// during the launch, and the serial loops themselves over a cell that holds each
 // kernel's step arithmetic: `backward_loop_kernel` (E, G, I) and
-// `forward_loop_kernel` (F), with their group barrier and per-step carry
+// `forward_loop_kernel` (D, F), with their group barrier and per-step carry
 // products over double-buffered chunks; then the gates' (E, G) and dW's
 // operand loaders and dW's split product.
 #pragma once
@@ -399,7 +399,7 @@ cudaError_t launch_loop(Cell cell, LoopArgs<typename Cell::TW> a, int ut,
   return cudaErrorInvalidValue;
 }
 
-// -- the serial forward loop (F) ---------------------------------------------
+// -- the serial forward loop (D, F) ------------------------------------------
 //
 // The forward twin of backward_loop_kernel, over the same grid of row
 // groups x unit groups and the same thread tiles. Each step multiplies
@@ -408,11 +408,18 @@ cudaError_t launch_loop(Cell cell, LoopArgs<typename Cell::TW> a, int ut,
 // [H + 4] f32, transposed as they are loaded) where they fit, else the
 // grid first writes w_hh^T ([kOut * H][H], w_hh's dtype) into scratch and
 // reads its rows through L2. The launch bound falls as a thread's
-// accumulators (kRep * kOut * 4 * kUT) grow; the host's FORWARD_TILES
-// match.
-template <int kUT, int kRep>
+// accumulators (kRep * kOut * 4 * kUT) and weight vectors (kOut * kUT
+// float4) grow: one bound per tile for up to 3 gate columns (F), one for 4
+// (D: a quarter more of both; 65536 registers / bound is what a thread may
+// hold). The host's FORWARD_TILES match, line for line.
+template <int kUT, int kRep, int kOut>
 constexpr int forward_bound() {
-  return kRep == 1 ? (kUT == 4 ? 384 : 512) : (kRep == 2 ? 384 : 256);
+  if (kUT == 4 && kRep == 1) return kOut <= 3 ? 384 : 256;
+  if (kUT == 2 && kRep == 1) return kOut <= 3 ? 512 : 384;
+  if (kUT == 2 && kRep == 2) return kOut <= 3 ? 384 : 256;
+  if (kUT == 2 && kRep == 4) return kOut <= 3 ? 256 : 256;
+  if (kUT == 1 && kRep == 8) return kOut <= 3 ? 256 : 256;
+  return 0;
 }
 
 template <typename TW>
@@ -428,7 +435,7 @@ struct ForwardArgs {
 // The serial forward loop of a time loop, one cooperative launch over
 // (B / br row groups) x (H / hb unit groups) CTAs. The cell holds what
 // differs between the forward kernels:
-//   kOut                    gate columns per unit (3 for F)
+//   kOut                    gate columns per unit (4 for D, 3 for F)
 //   Carry init(b, j)        the carries of pair (b, j) before step 0
 //   float operand(carry)    the value the next step's product takes (h)
 //   Step fetch(t, b, j)     the step's inputs, loaded a step ahead
@@ -442,7 +449,7 @@ struct ForwardArgs {
 // again (a CTA writes plane t & 1 only after its whole row group has
 // finished step t - 1, the last that read it).
 template <class Cell, int kUT, int kRep, bool kResident>
-__global__ void __launch_bounds__(forward_bound<kUT, kRep>())
+__global__ void __launch_bounds__(forward_bound<kUT, kRep, Cell::kOut>())
     forward_loop_kernel(const Cell cell,
                         const ForwardArgs<typename Cell::TW> a) {
   using TW = typename Cell::TW;

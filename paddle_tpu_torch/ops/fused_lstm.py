@@ -7,13 +7,15 @@
   the TPU kernel does, so it differs slightly from autograd through the
   plain scan; that is the reference's behaviour.
 - `lstm_forward_kernel`, `lstm_backward_kernel`: the wrappers of
-  `csrc/fused_lstm.cu` (kernels D and E). D is one cooperative launch
-  for the whole sequence; E is three launches on the stream (the gates
-  of every step, the serial loop as one cooperative launch, dW_hh) plus
-  one that sums dW's split parts. CUDA tensors only; they raise on what
-  the kernels do not take and count one launch per call in
-  `launch_counts` (E's device launches in `device_launches`). Where
-  gradients are wanted, `fused_lstm` checks E's geometry before D runs.
+  `csrc/fused_lstm.cu` (kernels D and E). D is a memset of its barrier
+  counters and one cooperative launch of the forward time loop over row
+  groups x unit groups (`time_loop.forward_geometry`); E is three
+  launches on the stream (the gates of every step, the serial loop as
+  one cooperative launch, dW_hh) plus one that sums dW's split parts.
+  CUDA tensors only; they raise on what the kernels do not take and
+  count one launch per call in `launch_counts` (their device operations
+  in `device_launches`). Where gradients are wanted, `fused_lstm` checks
+  E's geometry before D runs.
 - `fused_lstm(x_proj, w_hh, h0, c0, bounds, *, impl=None)`: the
   `custom_vjp` as a `torch.autograd.Function`. impl None runs the
   kernels on CUDA tensors and the plain versions on CPU tensors;
@@ -39,15 +41,10 @@ from paddle_tpu_torch.ops import time_loop as TL
 
 #: launches of kernel D ("fwd") and kernel E ("bwd")
 launch_counts = {"fwd": 0, "bwd": 0}
-#: device launches made by kernel E's calls: its three phases, and the
-#: sum of dW's split parts where dW is split
-device_launches = {"bwd": 0}
-
-#: D's geometry (csrc/fused_lstm.cu): threads per CTA, (row, unit) pairs
-#: per thread, and the widths a staged tile may take (the widest that
-#: fits shared memory is used; a row is padded by 4 floats)
-MAX_THREADS, MAX_PAIRS, TILE_WIDTHS = (TL.MAX_THREADS, TL.MAX_PAIRS,
-                                      TL.TILE_WIDTHS)
+#: device operations made by the kernels' calls: D's counters' memset
+#: and its loop; E's three phases and the sum of dW's split parts where
+#: dW is split
+device_launches = {"fwd": 0, "bwd": 0}
 
 _WHAT = "fused_lstm kernel"
 
@@ -55,8 +52,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "lstm_device_limits": [_P],
-    "lstm_fwd": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                 _I, _I, _I, _I, _I, _I, ctypes.c_longlong, _P],
+    "lstm_fwd": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                 _I, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_longlong,
+                 _P],
     "lstm_bwd_gates": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "lstm_bwd_loop": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                       _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -69,7 +67,7 @@ _SIGNATURES = {
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
-    device_launches["bwd"] = 0
+        device_launches[k] = 0
 
 
 def make_bounds(b: int, t: int, lengths, reverse: bool, device=None):
@@ -162,27 +160,9 @@ def lstm_backward_reference(x_proj, w_hh, h0, c0, bounds, hs, cs, dhs,
 
 
 def geometry(batch: int, hidden: int, sms: int, smem_optin: int):
-    """D's (hb, threads, w_resident, tile width, smem bytes): the fewest
-    hidden units per CTA (hb, a divisor of H) with at most one CTA per
-    SM, (B x hb) pairs spread over at most MAX_THREADS threads, the w_hh
-    gate columns resident in shared memory when they fit beside a
-    64-column tile, and the widest tile that fits beside them. Raises
-    ValueError on a shape the kernel does not take."""
-    if hidden % 4:
-        raise ValueError(f"{_WHAT}: hidden {hidden} must be a multiple of 4 "
-                         f"(16-byte tile rows)")
-    hb, threads = TL.units_and_threads(_WHAT, batch, hidden, sms)
-    tile = lambda width: batch * (width + 4) * 4
-    resident = 4 * hidden * hb * 4
-    if tile(TILE_WIDTHS[-1]) > smem_optin:
-        raise ValueError(
-            f"{_WHAT}: B={batch} needs {tile(TILE_WIDTHS[-1])} "
-            f"bytes of shared memory for its tiles, the card allows "
-            f"{smem_optin}")
-    w_resident = resident + tile(TILE_WIDTHS[-1]) <= smem_optin
-    used = resident if w_resident else 0
-    width = next(w for w in TILE_WIDTHS if used + tile(w) <= smem_optin)
-    return hb, threads, w_resident, width, used + tile(width)
+    """D's forward loop: `time_loop.forward_geometry` over 4 gate columns
+    per unit. Raises ValueError on a shape the kernel does not take."""
+    return TL.forward_geometry(_WHAT, batch, hidden, 4, sms, smem_optin)
 
 
 def backward_geometry(batch: int, hidden: int, sms: int, smem_optin: int):
@@ -210,27 +190,34 @@ def _check(x_proj, w_hh, h0, c0, bounds):
 
 
 def lstm_forward_kernel(x_proj, w_hh, h0, c0, bounds):
-    """Launch kernel D (csrc/fused_lstm.cu `lstm_fwd`) on the current
-    stream. Same contract as lstm_forward_reference."""
+    """Launch kernel D (csrc/fused_lstm.cu `lstm_fwd`: a memset of the
+    barrier counters, then the forward loop) on the current stream. Same
+    contract as lstm_forward_reference."""
     steps, b, hidden = _check(x_proj, w_hh, h0, c0, bounds)
-    hb, threads, resident, width, smem = geometry(
-        b, hidden, *device_limits(x_proj.device))
+    geo = geometry(b, hidden, *device_limits(x_proj.device))
     lib = _cuda.library("fused_lstm", _SIGNATURES)
     dev = x_proj.device
     x_proj, w_hh = x_proj.contiguous(), w_hh.contiguous()
-    h0f = h0.float().contiguous()
-    c0f = c0.float().contiguous()
+    h0f, c0f = h0.float().contiguous(), c0.float().contiguous()
     bounds = bounds.contiguous()
+    ldo = TL.operand_ld(hidden)
     hs = torch.empty((steps, b, hidden), dtype=x_proj.dtype, device=dev)
     cs = torch.empty((steps, b, hidden), dtype=torch.float32, device=dev)
-    hbuf = torch.empty((2, b, hidden), dtype=torch.float32, device=dev)
+    opnd = torch.empty((2, b, ldo), dtype=w_hh.dtype, device=dev)
+    wt = torch.empty((1,) if geo.resident else (4 * hidden, hidden),
+                     dtype=w_hh.dtype, device=dev)
+    counters = torch.empty(geo.row_groups + 1, dtype=torch.int32,
+                           device=dev)
     err = lib.lstm_fwd(
-        TL.DTYPE_CODE[x_proj.dtype], TL.DTYPE_CODE[w_hh.dtype], int(resident),
-        x_proj.data_ptr(), w_hh.data_ptr(), h0f.data_ptr(), c0f.data_ptr(),
-        bounds.data_ptr(), hs.data_ptr(), cs.data_ptr(), hbuf.data_ptr(),
-        steps, b, hidden, hb, width, threads, smem,
+        TL.DTYPE_CODE[x_proj.dtype], TL.DTYPE_CODE[w_hh.dtype],
+        geo.unit_tile, geo.rep, int(geo.resident), x_proj.data_ptr(),
+        w_hh.data_ptr(), wt.data_ptr(), h0f.data_ptr(), c0f.data_ptr(),
+        bounds.data_ptr(), hs.data_ptr(), cs.data_ptr(), opnd.data_ptr(),
+        ldo, counters.data_ptr(), steps, b, hidden, geo.hb, geo.br,
+        geo.chunk, geo.threads, geo.smem,
         torch.cuda.current_stream(dev).cuda_stream)
     TL.launch_error(err, "lstm_fwd")
+    device_launches["fwd"] += 2     # the counters' memset and the loop
     launch_counts["fwd"] += 1
     return hs, cs
 

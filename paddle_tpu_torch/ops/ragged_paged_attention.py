@@ -9,19 +9,22 @@ TQ=K+1: one function, one kernel.
 - `ragged_reference`: the plain PyTorch version -- gather through the
   page table (dequantizing an `(s8, scale)` pair), then
   `grouped_masked_attention`; the kernel's target.
-- `ragged_kernel`: the wrapper of `csrc/ragged_paged_attention.cu`:
-  float arenas go to its serial walk (kernel B), `(s8 data, f32 scale)`
-  pairs to its split walk (kernel C: the walk split over pages across
-  blocks by `walk_plan`, the dequant fused into the tile reads, the
-  splits' partials merged in a fixed order by a second launch). It takes
-  CUDA tensors only and raises on anything the kernels do not take
-  (dtype, head_dim, contiguity, shapes). It counts its calls in
-  `launch_counts`: "tq1"/"tqn" for float reads with TQ=1 (decode) and
-  TQ>1 (chunks, verify windows), "int8_tq1"/"int8_tqn" for the int8
-  walk; and C's device launches (1 or 2 per call) in
-  `device_launches["int8"]`.
-- `walk_plan`: C's launch plan -- query rows per block, query tiles,
-  splits and pages per split -- from the shapes and the SM count.
+- `ragged_kernel`: the wrapper of `csrc/ragged_paged_attention.cu`'s
+  split walk: the walk split over runs of keys across blocks by
+  `walk_plan`, the tiles read through the arena's loader (raw float
+  tiles for float arenas, kernel B; `(s8 data, f32 scale)` pairs with
+  the dequant fused into the reads, kernel C), the splits' partials
+  merged in a fixed order by a second launch. It takes CUDA tensors only
+  and raises on anything the kernels do not take (dtype, head_dim,
+  contiguity, shapes). It counts its calls in `launch_counts`:
+  "tq1"/"tqn" for float reads with TQ=1 (decode) and TQ>1 (chunks,
+  verify windows), "int8_tq1"/"int8_tqn" for the int8 walk; and the
+  device launches (1 or 2 per call) in `device_launches["float"]` (B)
+  and `device_launches["int8"]` (C).
+- `walk_plan`: the walk's launch plan -- query rows per block, query
+  tiles, splits and keys per split -- from the shapes and the SM count.
+- `walk_resources`: what each instantiation of the walk takes on the
+  card (shared memory, registers, resident blocks per SM, spills).
 - `ragged_attention(..., impl=None|"torch"|"kernel")`: None launches the
   kernel for CUDA tensors and runs the reference for CPU tensors;
   "kernel" on a CPU tensor raises.
@@ -52,46 +55,41 @@ _QUERIES_PER_BLOCK = 16
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-_SIZES = [ctypes.c_int, ctypes.c_int, ctypes.c_int,        # R, TQ, H
-          ctypes.c_int, ctypes.c_int, ctypes.c_int,        # Hkv, P, page
-          ctypes.c_int, ctypes.c_int,                      # max_pages,
-          ctypes.c_void_p]                                 # max_len; stream
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_PLAN = [_I, _I, _I, _I, _I, _I,           # R, TQ, H, Hkv, P, page
+         _I, _I,                             # max_pages, max_len
+         _I, _I, _I,                         # rows per block, splits, span
+         _P, _P]                             # launched, stream
 _SIGNATURES = {
-    "ragged_walk": [ctypes.c_int, ctypes.c_int,            # dtype, head_dim
-                    ctypes.c_void_p, ctypes.c_void_p,      # q, k arena
-                    ctypes.c_void_p, ctypes.c_void_p,      # v arena, table
-                    ctypes.c_void_p, ctypes.c_void_p,      # pos0, active
-                    ctypes.c_void_p] + _SIZES,             # out
-    "ragged_walk_int8": [ctypes.c_int, ctypes.c_int,       # dtype, head_dim
-                         ctypes.c_void_p,                  # q
-                         ctypes.c_void_p, ctypes.c_void_p,  # k data, scale
-                         ctypes.c_void_p, ctypes.c_void_p,  # v data, scale
-                         ctypes.c_void_p, ctypes.c_void_p,  # table, pos0
-                         ctypes.c_void_p,                  # active
-                         ctypes.c_void_p, ctypes.c_void_p,  # out, partials
-                         *_SIZES[:-1],                      # R .. max_len
-                         ctypes.c_int, ctypes.c_int,       # rows/block,
-                         ctypes.c_int,                     # splits, span
-                         ctypes.c_void_p, ctypes.c_void_p],  # launched;
-                                                            # stream
+    "ragged_walk": [_I, _I,                  # dtype, head_dim
+                    _P, _P, _P,              # q, k arena, v arena
+                    _P, _P, _P,              # table, pos0, active
+                    _P, _P] + _PLAN,         # out, partials
+    "ragged_walk_int8": [_I, _I,             # dtype, head_dim
+                         _P,                 # q
+                         _P, _P, _P, _P,     # k data, scale, v data, scale
+                         _P, _P, _P,         # table, pos0, active
+                         _P, _P] + _PLAN,    # out, partials
+    "walk_resources": [_I, _I, _I, _P],      # int8, dtype, head_dim; out
 }
 
 
-#: device launches of kernel C (the split walk, and the combine of its
-#: splits where there is more than one)
-device_launches = {"int8": 0}
+#: device launches of the walk (the split walk, and the combine of its
+#: splits where there is more than one): kernel B over float arenas,
+#: kernel C over int8 ones
+device_launches = {"float": 0, "int8": 0}
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
-    device_launches["int8"] = 0
+    for counts in (launch_counts, device_launches):
+        for k in counts:
+            counts[k] = 0
 
 
-# -- kernel C's launch plan ------------------------------------------------
+# -- the walk's launch plan ------------------------------------------------
 
 #: keys a tile of the walk holds, and the most keys one block walks (its
-#: span's per-key indices and scales sit in shared memory)
+#: span's per-key indices, and C's scales, sit in shared memory)
 TILE_KEYS = 32
 MAX_SPAN_KEYS = 512
 
@@ -99,31 +97,33 @@ MAX_SPAN_KEYS = 512
 class WalkPlan(NamedTuple):
     rows_per_block: int   # query rows a block serves (x G heads <= 16)
     q_tiles: int          # blocks over the TQ query rows
-    splits: int           # blocks over the walk's pages, per query tile
-    span_pages: int       # whole pages one split walks
+    splits: int           # blocks over the walk's keys, per query tile
+    span: int             # keys one split walks
 
     def blocks(self, rows, kv_heads):
         return rows * kv_heads * self.q_tiles * self.splits
 
 
 def walk_plan(rows, tq, heads, kv_heads, max_len, page, sms):
-    """Kernel C's grid: a block serves min(TQ, 16 / G) query rows of its
-    G = H / Hkv heads; the walk's ceil(max_len / page) pages are split
-    into runs of `span_pages` whole pages (whole 32-key tiles where a
-    tile spans whole pages, at most MAX_SPAN_KEYS keys) so that the
-    grid has about 2 * sms blocks or more (fewer only where every split
-    is one page already)."""
+    """The walk's grid: a block serves min(TQ, 16 / G) query rows of its
+    G = H / Hkv heads; the walk's max_len keys are split into runs of
+    `span` keys -- whole pages (whole 32-key tiles where a tile spans
+    whole pages), or whole tiles where a page holds more than
+    MAX_SPAN_KEYS keys; at most MAX_SPAN_KEYS keys -- so that the grid
+    has about 2 * sms blocks or more (fewer only where every split is
+    one page, or one tile of a large page, already)."""
     g = heads // kv_heads
     rows_per_block = min(tq, _QUERIES_PER_BLOCK // g)
     q_tiles = -(-tq // rows_per_block)
-    pages = -(-max_len // page)
+    unit = page if page <= MAX_SPAN_KEYS else TILE_KEYS
+    units = -(-max_len // unit)
     want = -(-2 * sms // (rows * kv_heads * q_tiles))
-    tile_pages = max(1, TILE_KEYS // page)
-    span = max(1, pages // want)
-    if span >= tile_pages:
-        span -= span % tile_pages
-    span = max(1, min(span, MAX_SPAN_KEYS // page))
-    return WalkPlan(rows_per_block, q_tiles, -(-pages // span), span)
+    tile_units = max(1, TILE_KEYS // unit)
+    span = max(1, units // want)
+    if span >= tile_units:
+        span -= span % tile_units
+    span = max(1, min(span, MAX_SPAN_KEYS // unit))
+    return WalkPlan(rows_per_block, q_tiles, -(-units // span), span * unit)
 
 
 _SMS = {}
@@ -227,9 +227,6 @@ def _check(q, k_arena, v_arena, page_table, pos0, active, page_size,
     if page != page_size:
         raise ValueError(f"ragged_kernel: arena page {page} != "
                          f"page_size {page_size}")
-    if quant and page > MAX_SPAN_KEYS:
-        raise ValueError(f"ragged_kernel: page {page} > {MAX_SPAN_KEYS}, "
-                         f"the most keys one block of the int8 walk takes")
     if h % hkv != 0 or h // hkv > _QUERIES_PER_BLOCK:
         raise ValueError(f"ragged_kernel: H={h}, Hkv={hkv}: need Hkv | H "
                          f"and H/Hkv <= {_QUERIES_PER_BLOCK}")
@@ -254,39 +251,57 @@ def ragged_kernel(q, k_arena, v_arena, page_table, pos0, active, *,
                   page_size: int, max_len: int):
     """Launch the CUDA walk (csrc/ragged_paged_attention.cu) on the
     current stream: kernel B for float arenas, kernel C for (s8, scale)
-    pairs. CUDA tensors only; raises on anything the kernel does not
-    take."""
+    pairs, both the split walk for `walk_plan`'s grid. CUDA tensors
+    only; raises on anything the kernel does not take."""
     p, page, hkv, _ = _check(q, k_arena, v_arena, page_table, pos0, active,
                              page_size, max_len)
     lib = _cuda.library("ragged_paged_attention", _SIGNATURES)
     r, tq, h, dh = q.shape
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    sizes = (r, tq, h, hkv, p, page, page_table.shape[1], max_len, stream)
+    plan = walk_plan(r, tq, h, hkv, max_len, page, _sm_count(q.device))
+    part = torch.empty((plan.splits, r * tq * h, dh + 4) if
+                       plan.splits > 1 else (1,), dtype=torch.float32,
+                       device=q.device)
+    launched = ctypes.c_int(0)
     tail = (page_table.data_ptr(), pos0.data_ptr(), active.data_ptr(),
-            out.data_ptr()) + sizes
-    if isinstance(k_arena, tuple):
-        plan = walk_plan(r, tq, h, hkv, max_len, page, _sm_count(q.device))
-        part = torch.empty((plan.splits, r * tq * h, dh + 4) if
-                           plan.splits > 1 else (1,), dtype=torch.float32,
-                           device=q.device)
-        launched = ctypes.c_int(0)
+            out.data_ptr(), part.data_ptr(), r, tq, h, hkv, p, page,
+            page_table.shape[1], max_len, plan.rows_per_block, plan.splits,
+            plan.span, ctypes.addressof(launched),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    quant = isinstance(k_arena, tuple)
+    if quant:
+        fn, kind = "ragged_walk_int8", "int8"
         err = lib.ragged_walk_int8(
             _DTYPE_CODE[q.dtype], dh, q.data_ptr(), k_arena[0].data_ptr(),
             k_arena[1].data_ptr(), v_arena[0].data_ptr(),
-            v_arena[1].data_ptr(), page_table.data_ptr(), pos0.data_ptr(),
-            active.data_ptr(), out.data_ptr(), part.data_ptr(), *sizes[:-1],
-            plan.rows_per_block, plan.splits, plan.span_pages,
-            ctypes.addressof(launched), stream)
-        device_launches["int8"] += launched.value
-        _cuda.check_launch(err, "ragged_walk_int8")
-        launch_counts["int8_tq1" if tq == 1 else "int8_tqn"] += 1
+            v_arena[1].data_ptr(), *tail)
     else:
-        err = lib.ragged_walk(
-            _DTYPE_CODE[q.dtype], dh, q.data_ptr(), k_arena.data_ptr(),
-            v_arena.data_ptr(), *tail)
-        _cuda.check_launch(err, "ragged_walk")
-        launch_counts["tq1" if tq == 1 else "tqn"] += 1
+        fn, kind = "ragged_walk", "float"
+        err = lib.ragged_walk(_DTYPE_CODE[q.dtype], dh, q.data_ptr(),
+                              k_arena.data_ptr(), v_arena.data_ptr(), *tail)
+    device_launches[kind] += launched.value
+    _cuda.check_launch(err, fn)
+    launch_counts[("int8_" if quant else "") + ("tq1" if tq == 1
+                                                 else "tqn")] += 1
+    return out
+
+
+def walk_resources(device=None):
+    """{(arena, dtype, head_dim): (dynamic shared memory bytes, registers
+    per thread, blocks resident per SM, spill bytes per thread)} for
+    every instantiation of the split walk, arena "float" (B) or "int8"
+    (C), read from the card."""
+    lib = _cuda.library("ragged_paged_attention", _SIGNATURES)
+    out = {}
+    with torch.cuda.device(device):
+        for kind in ("float", "int8"):
+            for dtype, code in _DTYPE_CODE.items():
+                for dh in KERNEL_HEAD_DIMS:
+                    res = (ctypes.c_int * 4)()
+                    err = lib.walk_resources(int(kind == "int8"), code, dh,
+                                             ctypes.addressof(res))
+                    _cuda.check_launch(err, "walk_resources")
+                    out[kind, str(dtype)[6:], dh] = tuple(res)
     return out
 
 

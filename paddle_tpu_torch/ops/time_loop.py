@@ -3,22 +3,22 @@ used by `csrc/fused_lstm.cu`, `csrc/fused_gru.cu` and
 `csrc/fused_rnn.cu`): input checks, the launch geometry, the card's
 limits and launch errors.
 
-Forward geometry of D and H: CTA k owns hb hidden units (hb the smallest
-divisor of H with H / hb <= the SM count, so the grid is at most one CTA
-per SM and can be co-resident), a thread carries up to MAX_PAIRS (row,
-unit) pairs, and every CTA keeps its units' slices of w_hh resident in
-shared memory beside one staged tile of B rows, as wide as the room left
-allows.
+Forward geometry of H (`units_and_threads`, `pick_tile`): CTA k owns hb
+hidden units (hb the smallest divisor of H with H / hb <= the SM count,
+so the grid is at most one CTA per SM and can be co-resident), a thread
+carries up to MAX_PAIRS (row, unit) pairs, and every CTA keeps its
+units' slices of w_hh resident in shared memory beside one staged tile
+of B rows, as wide as the room left allows.
 
-Serial-loop geometry of E, G, I (`backward_geometry`) and F
+Serial-loop geometry of E, G, I (`backward_geometry`) and D, F
 (`forward_geometry`): the loop's grid is row groups x unit groups; a CTA
 owns br rows and hb units in thread tiles of ROW_TILE * rep rows x
-unit_tile units (`LOOP_TILES`, `FORWARD_TILES`), `rep` (row, unit) pairs
-per thread, keeps its units' weight rows resident (the backward's rows
-of w_hh, [hb][gates*H + 4] f32; the forward's gate columns of w_hh as
-rows, [gates][hb][H + 4] f32) where they fit (else the loop reads them
-from global memory, through L2) and stages its rows of the exchanged
-operand in two chunks of `chunk` columns. The parallel phases are tiled
+unit_tile units (`LOOP_TILES`, `forward_tiles(gates)`), `rep` (row,
+unit) pairs per thread, keeps its units' weight rows resident (the
+backward's rows of w_hh, [hb][gates*H + 4] f32; the forward's gate
+columns of w_hh as rows, [gates][hb][H + 4] f32) where they fit (else
+the loop reads them from global memory, through L2) and stages its rows
+of the exchanged operand in two chunks of `chunk` columns. The parallel phases are tiled
 products of GEMM_TILE x GEMM_TILE outputs; dW_hh's is split over the T*B
 rows (`dw_splits`) to fill the card.
 
@@ -29,6 +29,7 @@ there is no fallback.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -130,11 +131,12 @@ def pick_tile(what, batch, hidden, resident, smem_optin):
 #: is padded by 16 bytes) and the tiled products' tile.
 LOOP_TILES = ((4, 1, 768), (2, 1, 768), (2, 2, 512), (2, 4, 512))
 #: the forward loop's thread tiles: the same shapes, each lane keeping
-#: `gates` sums per pair, at the launch bounds of `time_loop.cuh
-#: forward_bound`; and 32 rows x 1 unit, 8 pairs a thread, for the
-#: largest batches (2048 pairs per CTA)
-FORWARD_TILES = ((4, 1, 384), (2, 1, 512), (2, 2, 384), (2, 4, 256),
-                 (1, 8, 256))
+#: `gates` sums per pair, and 32 rows x 1 unit, 8 pairs a thread, for
+#: the largest batches (2048 pairs per CTA); (unit_tile, rep, launch
+#: bound with up to 3 gate columns (F), with 4 (D)), as `time_loop.cuh
+#: forward_bound` declares them
+FORWARD_TILES = ((4, 1, 384, 256), (2, 1, 512, 384), (2, 2, 384, 256),
+                 (2, 4, 256, 256), (1, 8, 256, 256))
 ROW_TILE = 4
 CHUNK_WIDTHS = (512, 256, 128, 64, 32)
 GEMM_TILE = 128
@@ -158,6 +160,9 @@ class LoopGeometry(NamedTuple):
 
 
 
+# a search over ~10^4 candidate grids (~1 ms of host time), asked at every
+# call of a time-loop kernel: remembered per shape
+@functools.lru_cache(maxsize=256)
 def _loop_grid(what, batch, hidden, sms, smem_optin, tiles, cols, per_unit):
     """The serial loop's grid: a unit holds `per_unit` weight rows of
     `cols` columns (the product's depth). Among the grids whose staged
@@ -219,13 +224,20 @@ def backward_geometry(what, batch, hidden, gates, sms, smem_optin):
                       gates * hidden, 1)
 
 
+def forward_tiles(gates):
+    """The forward loop's (unit_tile, rep, launch bound) for a cell of
+    `gates` gate columns per unit."""
+    return tuple((ut, rep, few if gates <= 3 else four)
+                 for ut, rep, few, four in FORWARD_TILES)
+
+
 def forward_geometry(what, batch, hidden, gates, sms, smem_optin):
-    """The forward serial loop's grid (F): the product round_w(h) @ w_hh,
-    a unit's `gates` columns of w_hh resident as rows [gates][hb][H + 4]
-    f32 where they fit (else read from w_hh^T through L2), the thread
-    tiles of FORWARD_TILES."""
-    return _loop_grid(what, batch, hidden, sms, smem_optin, FORWARD_TILES,
-                      hidden, gates)
+    """The forward serial loop's grid (D, F): the product round_w(h) @
+    w_hh, a unit's `gates` columns of w_hh resident as rows [gates][hb]
+    [H + 4] f32 where they fit (else read from w_hh^T through L2), the
+    thread tiles of `forward_tiles(gates)`."""
+    return _loop_grid(what, batch, hidden, sms, smem_optin,
+                      forward_tiles(gates), hidden, gates)
 
 
 def dw_splits(rows, hidden, gates, sms):

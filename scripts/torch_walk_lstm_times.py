@@ -1,0 +1,84 @@
+#!/usr/bin/env python3
+"""Device and host times of kernels B and C (the ragged walk over float
+and int8 arenas) and D (the LSTM forward time loop) at their main
+shapes, for comparing two checkouts on one card.
+
+    cd <checkout> && python3 <this checkout>/scripts/torch_walk_lstm_times.py
+
+It imports `chip_smoke` and `paddle_tpu_torch` from the working
+directory, so the same script times any checkout's kernels: run it from
+the parent's and from the change's root in turns (parent, change,
+change, parent) within one call. It prints the chip smoke's lines for
+B and C at decode (R=8, TQ=1, H=Hkv=8, Dh=64, f32) and at the TQ=64
+prefix chunk, and for D and E at bench_lstm's T=100, B=64, H=512 beside
+cuDNN's LSTM; then the host time of one call, enqueued without a sync:
+B at decode (2000 calls; the card keeps pace) and D (20 calls, far from
+the launch queue's depth). The last line is one JSON object. Needs a
+CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.getcwd())
+
+import chip_smoke as S  # noqa: E402
+from paddle_tpu_torch.ops import fused_lstm as FL  # noqa: E402
+from paddle_tpu_torch.ops import ragged_paged_attention as RPA  # noqa: E402
+
+
+def host_us(fn, calls):
+    """Host microseconds per call of fn, enqueued back to back."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"card": torch.cuda.get_device_name(0)}
+    for k, kw in (("decode", dict(r=8, tq=1, h=8, hkv=8)),
+                  ("chunk", dict(r=1, tq=64, h=8, hkv=8, pos0=S.SHARED))):
+        out["B_" + k] = S.ragged_case("main_" + k, **kw)["ms"]
+        out["C_" + k] = S.ragged_case("main_" + k, int8=True, **kw)["ms"]
+    d = S.lstm_case("main_full_f32", library=True)
+    out.update(D=d["D"]["ms"], cudnn_fwd=d["D"]["library_ms"],
+               E=d["E"]["ms"])
+
+    rs = np.random.RandomState(0)
+    mk = lambda *s: torch.from_numpy(
+        rs.standard_normal(s).astype(np.float32)).cuda()
+    q, ka, va = mk(8, 1, 8, 64), mk(128, 16, 8, 64), mk(128, 16, 8, 64)
+    pt = torch.from_numpy(np.stack([rs.permutation(128)[:16]
+                                    for _ in range(8)]).astype(np.int32))
+    pos0 = torch.full((8,), 200, dtype=torch.int32, device="cuda")
+    act = torch.ones(8, dtype=torch.bool, device="cuda")
+    walk = (q, ka, va, pt.cuda(), pos0, act)
+    out["B_decode_host_us"] = host_us(
+        lambda: RPA.ragged_kernel(*walk, page_size=16, max_len=256), 2000)
+    args, _ = S.lstm_case_inputs(t=100, b=64, h=512, dtype=torch.float32,
+                                 lengths=False, reverse=False,
+                                 initial=False, seed=0)
+    out["D_host_us"] = host_us(lambda: FL.lstm_forward_kernel(*args), 20)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

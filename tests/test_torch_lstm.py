@@ -228,22 +228,29 @@ def test_dispatch_on_cpu_runs_plain_versions_and_counts_nothing():
 
 def test_kernel_geometry_and_limits():
     """The launch geometry on an H100 (132 SMs, 227 KB opt-in shared
-    memory) at bench_lstm's shapes, and the shapes it refuses: D's (one
-    CTA per unit group) and E's serial loop (row groups x unit groups)."""
+    memory) at bench_lstm's shapes, and the shapes it refuses: D's and
+    E's serial loops (row groups x unit groups; D's forward loop holds
+    its units' four gate columns, E's its rows of w_hh)."""
     sms, smem = 132, 232448
-    # (B, H) -> hidden units per CTA, threads; every grid fits the SMs
-    for (b, h), (hb, threads) in {(64, 256): (2, 128), (128, 256): (2, 256),
-                                  (64, 512): (4, 256), (128, 512): (4, 512),
-                                  (64, 1280): (10, 320)}.items():
+    # D: (B, H) -> (row groups, unit groups, hb, br, unit tile, threads,
+    # pairs per thread); every grid fits the SMs and its threads cover
+    # the CTA's pairs in whole warps
+    for (b, h), want in {(64, 256): (16, 8, 32, 4, 4, 128, 1),
+                         (128, 256): (16, 8, 32, 8, 4, 256, 1),
+                         (64, 512): (4, 32, 16, 16, 4, 256, 1),
+                         (128, 512): (4, 32, 16, 32, 2, 256, 2),
+                         (64, 1280): (1, 128, 10, 64, 2, 160, 4)}.items():
         g = FL.geometry(b, h, sms, smem)
-        assert g[:2] == (hb, threads)
-        assert h // g[0] <= sms and g[4] <= smem
-        assert g[1] * FL.MAX_PAIRS >= b * hb and g[1] % 32 == 0
-        assert g[3] in FL.TILE_WIDTHS
-    # D stages all of h in one tile at H=512
-    assert FL.geometry(64, 512, sms, smem)[3] == 512
-    # D keeps its w_hh slice resident at H=1280
-    assert FL.geometry(64, 1280, sms, smem)[2]
+        assert (g.row_groups, g.unit_groups, g.hb, g.br, g.unit_tile,
+                g.threads, g.rep) == want
+        assert g.ctas <= sms and g.smem <= smem
+        assert g.threads * g.rep >= g.br * g.hb and g.threads % 32 == 0
+        assert g.resident
+    # D multiplies the whole operand row of 512 columns in one chunk
+    assert FL.geometry(64, 512, sms, smem).chunk == 512
+    # D keeps its units' gate columns resident at H=1280 (10 units, 201
+    # KB), in 32-column chunks beside them
+    assert FL.geometry(64, 1280, sms, smem).chunk == 32
     # E: (row groups, unit groups, hb, br, unit tile, threads, chunk) at
     # the main shape, at H=256 B=128, and at H=1280 (one resident slice
     # of 10 units, one row group, 2-unit tiles)
@@ -257,14 +264,18 @@ def test_kernel_geometry_and_limits():
         FL.geometry(64, 510, sms, smem)
     with pytest.raises(ValueError, match="multiple of 4"):
         FL.backward_geometry(64, 510, sms, smem)
-    with pytest.raises(ValueError, match="pairs"):
+    with pytest.raises(ValueError, match="pairs per CTA"):
         FL.geometry(1024, 1280, sms, smem)
-    with pytest.raises(ValueError, match="shared"):
-        FL.geometry(1024, 8, sms, smem)
+    # the one-launch D staged all B rows in one tile and refused B=1024
+    # at H=8; the loop's row groups take it
+    assert FL.geometry(1024, 8, sms, smem).row_groups > 1
+    with pytest.raises(ValueError, match="132 CTAs"):
+        FL.geometry(20000, 512, sms, smem)
     # E at H=4096 (as D takes it): w_hh's rows read from global memory,
     # four pairs per thread; twice the batch is refused
     g = FL.backward_geometry(64, 4096, sms, smem)
     assert not g.resident and g.rep == 4 and g.ctas <= sms
+    assert not FL.geometry(64, 4096, sms, smem).resident
     with pytest.raises(ValueError, match="pairs per CTA"):
         FL.backward_geometry(128, 4096, sms, smem)
 
@@ -466,3 +477,83 @@ def test_lstm_under_bf16_policy_matches_jax(param_dtype):
     for j, t in ((jo, to), (jst.h, tst.h), (jst.c, tst.c)):
         assert str(t.dtype).split(".")[-1] == str(j.dtype)
         _close(t.float(), np.asarray(j, np.float32), 2e-2)
+
+
+def _forward_loop_schedule(x_proj, w_hh, h0, c0, bounds, geo):
+    """D's forward loop (`time_loop.cuh forward_loop_kernel` with
+    `LstmFwdCell`) written out CTA by CTA for the geometry `geo`: operand
+    plane 1 starts as round_w(h0); step t gives CTA (g, k) its br rows of
+    plane (t - 1) & 1 times its units' four gate columns of w_hh (held as
+    rows, summed over the staged chunks in order), runs the cells (c never
+    leaves the pair) and writes hs[t], cs[t] and round_w(h_t) into plane
+    t & 1. Returns (hs in x_proj's dtype, cs f32)."""
+    steps, b, g4 = x_proj.shape
+    h = g4 // 4
+    wd, w = w_hh.dtype, w_hh.float()
+    planes = torch.empty((2, b, h), dtype=wd)
+    planes[1] = h0.float().to(wd)
+    hc, cc = h0.float().clone(), c0.float().clone()
+    hs = torch.empty((steps, b, h), dtype=x_proj.dtype)
+    cs = torch.empty((steps, b, h))
+    xp = x_proj.float()
+    for t in range(steps):
+        src = planes[(t + 1) & 1].float()
+        for g in range(geo.row_groups):
+            rows = slice(g * geo.br, min(b, (g + 1) * geo.br))
+            for k in range(geo.unit_groups):
+                units = slice(k * geo.hb, (k + 1) * geo.hb)
+                sums = []
+                for o in range(4):
+                    ws = w[:, o * h:(o + 1) * h][:, units].T   # [hb, H]
+                    acc = 0.0
+                    for k0 in range(0, h, geo.chunk):
+                        ks = slice(k0, k0 + geo.chunk)
+                        acc = acc + src[rows, ks] @ ws[:, ks].T
+                    sums.append(acc)
+                x = xp[t, rows]
+                gi, gf, go = (torch.sigmoid(x[:, o * h:(o + 1) * h][:, units]
+                                            + sums[o]) for o in (0, 1, 3))
+                gg = torch.tanh(x[:, 2 * h:3 * h][:, units] + sums[2])
+                c_new = gf * cc[rows, units] + gi * gg
+                h_new = go * torch.tanh(c_new)
+                live = TL.live(bounds[rows], t)
+                cc[rows, units] = torch.where(live, c_new, cc[rows, units])
+                hc[rows, units] = torch.where(live, h_new, hc[rows, units])
+                hs[t, rows, units] = hc[rows, units].to(x_proj.dtype)
+                cs[t, rows, units] = cc[rows, units]
+                planes[t & 1, rows, units] = hc[rows, units].to(wd)
+    return hs, cs
+
+
+@pytest.mark.parametrize("case", list(_PHASE_CASES))
+@pytest.mark.parametrize("card", [(132, 232448), (8, 1200)],
+                         ids=["h100", "small_card_l2_rows"])
+def test_forward_loop_schedule_matches_reference_and_pallas(case, card):
+    """D on the forward loop keeps the function: the CTA-by-CTA schedule
+    for `geometry`'s grid (on an H100, and on a small card whose shared
+    memory does not hold the gate columns, so the loop reads them from
+    w_hh^T) against `_fwd_kernel`'s step loop written out
+    (lstm_forward_reference) and the Pallas forward in interpret mode.
+    Tolerances: f32 1e-5; with bf16 x_proj or w_hh 2e-2 (the operand is
+    rounded at the same point, an f32 difference in the last bit can move
+    a bf16 rounding by one step)."""
+    x_dtype, w_dtype, window, initial = _PHASE_CASES[case]
+    npin, targs = _phase_inputs(x_dtype, w_dtype, window, initial)
+    geo = FL.geometry(B, H, *card)
+    assert geo.resident == (card[0] == 132)
+    assert geo.ctas > 1
+    hs, cs = _forward_loop_schedule(*targs[:5], geo)
+    ref_hs, ref_cs = FL.lstm_forward_reference(*targs[:5])
+    bf16 = x_dtype == "bfloat16" or w_dtype == "bfloat16"
+    tol = 2e-2 if bf16 else 1e-5
+    assert hs.dtype == ref_hs.dtype
+    _close(hs.float(), ref_hs.float(), tol)
+    _close(cs, ref_cs, tol)
+    xp, w, h0, c0, jb = npin[:5]
+    jhs, _, jc = jax.jit(JPL.fused_lstm)(
+        to_jax(xp).astype(jnp.dtype(x_dtype)),
+        to_jax(w).astype(jnp.dtype(w_dtype)), to_jax(h0), to_jax(c0),
+        to_jax(jb))
+    f32 = lambda a: np.asarray(jnp.asarray(a, jnp.float32))
+    _close(hs.float(), f32(jhs), tol)
+    _close(cs[-1], f32(jc), tol)

@@ -1,8 +1,11 @@
-"""The launch geometry of the backward time loops E, G and I
-(`paddle_tpu_torch.ops.time_loop`), at an H100's limits: 132 SMs and
-232,448 bytes of opt-in shared memory per block. No card is needed: the
-geometry is host arithmetic, and the kernels take exactly what it
-returns."""
+"""The launch geometry of the backward time loops E, G and I and of the
+forward loop of D and F (`paddle_tpu_torch.ops.time_loop`), at an H100's
+limits: 132 SMs and 232,448 bytes of opt-in shared memory per block. No
+card is needed: the geometry is host arithmetic, and the kernels take
+exactly what it returns."""
+
+import re
+from pathlib import Path
 
 import pytest
 
@@ -114,7 +117,7 @@ def test_operand_rows_start_on_16_bytes(cols, want):
     assert TL.operand_ld(cols) == want
 
 
-# -- the forward loop (F) ----------------------------------------------------
+# -- the forward loop (D, F) -------------------------------------------------
 
 # (B, H): F at the seq2seq encoder's shape, generation's B=16, H=1024 and
 # H=256, small and ragged batches, a batch above the old one-launch
@@ -124,6 +127,13 @@ FORWARD_SHAPES = [(64, 512), (16, 512), (64, 1024), (64, 256), (4, 16),
                   (1, 8), (37, 96), (100, 512), (128, 1024), (256, 512),
                   (1, 1320), (2048, 4), (64, 1536), (64, 2048), (16, 2048),
                   (48, 2048)]
+
+
+def _forward_cases(shapes):
+    """(B, H, gates) for F (3 gate columns, ids "B-H") and D (4, ids
+    "B-H-lstm") at each shape."""
+    return ([pytest.param(b, h, 3, id=f"{b}-{h}") for b, h in shapes]
+            + [pytest.param(b, h, 4, id=f"{b}-{h}-lstm") for b, h in shapes])
 
 
 def _one_launch_f_takes(b, h):
@@ -137,10 +147,10 @@ def _one_launch_f_takes(b, h):
     return True
 
 
-@pytest.mark.parametrize("b,h", FORWARD_SHAPES)
-def test_forward_geometry_fits_the_card(b, h):
-    g = TL.forward_geometry("t", b, h, 3, SMS, OPTIN)
-    bound = {(ut, rep): n for ut, rep, n in TL.FORWARD_TILES}
+@pytest.mark.parametrize("b,h,gates", _forward_cases(FORWARD_SHAPES))
+def test_forward_geometry_fits_the_card(b, h, gates):
+    g = TL.forward_geometry("t", b, h, gates, SMS, OPTIN)
+    bound = {(ut, rep): n for ut, rep, n in TL.forward_tiles(gates)}
     assert (g.unit_tile, g.rep) in bound
     # row groups x unit groups cover B and H in whole thread tiles
     assert g.unit_groups * g.hb == h and g.hb % g.unit_tile == 0
@@ -150,13 +160,13 @@ def test_forward_geometry_fits_the_card(b, h):
     pairs = g.br * g.hb // g.rep
     assert pairs <= g.threads <= bound[g.unit_tile, g.rep]
     assert g.threads % 32 == 0 and g.threads - pairs < 32
-    # three gate columns per unit as rows of H (+ 4) f32 where resident,
-    # beside two staged chunks of the operand, whose depth is H
-    held = 3 * g.hb * (h + 4) * 4 if g.resident else 0
+    # `gates` gate columns per unit as rows of H (+ 4) f32 where
+    # resident, beside two staged chunks of the operand, whose depth is H
+    held = gates * g.hb * (h + 4) * 4 if g.resident else 0
     assert g.smem == held + 2 * g.br * (g.chunk + 4) * 4 <= OPTIN
     assert g.chunk % 8 == 0 and g.chunk <= -(-h // 8) * 8
-    # the columns are resident wherever the one-launch F ran, and from
-    # H=1536 they are not
+    # the columns are resident wherever the one-launch F ran (D: at these
+    # shapes too), and from H=1536 they are not
     assert g.resident == (h < 1536)
 
 
@@ -167,6 +177,50 @@ def test_forward_geometry_takes_every_shape_the_one_launch_f_took(b, h):
     if _one_launch_f_takes(b, h):
         g = TL.forward_geometry("t", b, h, 3, SMS, OPTIN)
         assert g.resident and g.ctas <= SMS
+
+
+def _one_launch_d_takes(b, h):
+    """Did the one-launch D (one CTA per unit group, all B rows of h
+    staged in one tile of at least 64 columns; its gate columns resident
+    beside the tile where they fit, else read from w_hh) take (B, H)?"""
+    try:
+        TL.units_and_threads("t", b, h, SMS)
+    except ValueError:
+        return False
+    return b * (64 + 4) * 4 <= OPTIN
+
+
+@pytest.mark.parametrize("b", [1, 4, 16, 37, 64, 100, 128, 256, 854, 1000])
+@pytest.mark.parametrize("h", [4, 8, 16, 96, 256, 512, 1024, 1280, 1320,
+                               1408, 1536, 2048, 4096])
+def test_forward_geometry_takes_every_shape_the_one_launch_d_took(b, h):
+    if _one_launch_d_takes(b, h):
+        g = TL.forward_geometry("t", b, h, 4, SMS, OPTIN)
+        assert g.ctas <= SMS and g.smem <= OPTIN
+        # up to bench_lstm's batch the columns stay resident wherever the
+        # one-launch D held its slice
+        if b <= 64 and h <= 1280:
+            assert g.resident
+
+
+def test_forward_bounds_match_the_kernel():
+    """Each forward tile's launch bound, for up to 3 gate columns (F) and
+    for 4 (D), is what `time_loop.cuh forward_bound` declares: the host
+    never asks a tile for more threads than its kernel was built for."""
+    src = (Path(TL.__file__).resolve().parent.parent / "csrc" /
+           "time_loop.cuh").read_text()
+    declared = {(int(ut), int(rep)): (int(few), int(four)) for ut, rep, few,
+                four in re.findall(
+                    r"if \(kUT == (\d+) && kRep == (\d+)\) return kOut <= 3 "
+                    r"\? (\d+) : (\d+);", src)}
+    assert declared == {(ut, rep): (few, four)
+                        for ut, rep, few, four in TL.FORWARD_TILES}
+    for gates, col in ((1, 0), (3, 0), (4, 1)):
+        assert {(ut, rep): n for ut, rep, n in TL.forward_tiles(gates)} == \
+            {k: v[col] for k, v in declared.items()}
+    # a fourth gate column adds a quarter to a lane's sums: no tile's
+    # bound rises with it
+    assert all(four <= few for _, _, few, four in TL.FORWARD_TILES)
 
 
 def test_forward_geometry_at_the_encoder_shape():
@@ -182,6 +236,22 @@ def test_forward_geometry_at_the_encoder_shape():
     assert not g.resident and g.rep == 4 and g.ctas == 128
 
 
+def test_forward_geometry_at_bench_lstm_shape():
+    """D at T=100, B=64, H=512: four gate columns of 32 units would take
+    264 KB, so the grid differs from F's: 4 row groups x 32 unit groups,
+    16 rows x 16 units per CTA in 4 x 4 thread tiles (256 threads, the
+    tile's bound with four columns), its 64 rows of w_hh's columns
+    resident (132 KB) and the whole operand row in one chunk -- E's
+    grid. B=64 H=2048 reads the columns from L2, four pairs a thread."""
+    g = TL.forward_geometry("t", 64, 512, 4, SMS, OPTIN)
+    assert (g.row_groups, g.unit_groups, g.br, g.hb, g.unit_tile,
+            g.threads, g.chunk, g.rep, g.resident) == (
+        4, 32, 16, 16, 4, 256, 512, 1, True)
+    assert g.smem == 4 * 16 * 516 * 4 + 2 * 16 * 516 * 4
+    g = TL.forward_geometry("t", 64, 2048, 4, SMS, OPTIN)
+    assert not g.resident and g.rep == 4 and g.ctas == 128
+
+
 @pytest.mark.parametrize("b,h,match", [
     (64, 510, "multiple of 4"),
     (1024, 1024, "2048 \\(row, unit\\) pairs per CTA"),
@@ -193,14 +263,15 @@ def test_forward_geometry_refuses_what_does_not_fit(b, h, match):
         TL.forward_geometry("t", b, h, 3, SMS, OPTIN)
 
 
-@pytest.mark.parametrize("b,h", [(64, 512), (16, 512), (37, 96), (4, 16),
-                                 (100, 64), (1000, 16), (48, 256)])
-def test_forward_loop_threads_cover_each_pair_once(b, h):
+@pytest.mark.parametrize("b,h,gates", _forward_cases(
+    [(64, 512), (16, 512), (37, 96), (4, 16), (100, 64), (1000, 16),
+     (48, 256)]))
+def test_forward_loop_threads_cover_each_pair_once(b, h, gates):
     """The forward loop's thread mapping (`forward_loop_kernel`: lane l of
     tile (rb, ub) carries rows 4 * (rep * rb + q) + l / unit_tile and
     unit unit_tile * ub + l % unit_tile), applied to every CTA of the
     geometry, stores each (row, unit) pair exactly once."""
-    g = TL.forward_geometry("t", b, h, 3, SMS, OPTIN)
+    g = TL.forward_geometry("t", b, h, gates, SMS, OPTIN)
     lanes, rows_tile = TL.ROW_TILE * g.unit_tile, TL.ROW_TILE * g.rep
     n_ub = g.hb // g.unit_tile
     n_tiles = (g.br // rows_tile) * n_ub
