@@ -61,18 +61,24 @@ Phases, in order; any failure exits non-zero:
    backward, at the seq2seq encoder's shape (T=30, B=64, H=512) with
    full, ragged ([15, 30]) and reversed ragged lengths, nonzero h0, and
    bf16 x_proj and w_hh; H and I: the fused tanh-RNN time loop
-   (csrc/fused_rnn.cu) at T=100, B=64, H=512, full, ragged ([50, 100]),
-   reversed and bf16. The backward kernels get random cotangents; the
+   (csrc/fused_rnn.cu; H on the same forward loop with a one-gate cell,
+   a memset and one cooperative launch, repeating hs bit for bit) at
+   T=100, B=64, H=512, full, ragged ([50, 100]), reversed, nonzero h0
+   and bf16 with nonzero h0. F and H must make 2 device operations per
+   call and print their us per step. The backward kernels get random
+   cotangents; the
    error measure and tolerances are D/E's. G has E's three phases and I
    two (the serial loop on the shared backward loop after a memset of
    its barrier counters, dW_hh): their cases
    repeat bit for bit, and their main cases print the phase split.
-   E, G, I, F and D then run alone at their loop's other grids
-   (`WIDE_CASES`: w_hh's rows read through L2 at H >= 1536 (I from
-   H=2816), 2, 4 or 8 pairs per thread at wide H or B; I at B=64,
-   H=2048 and F at B=64, H >= 1536, which their one-launch designs
-   refused; D at B=64, H=1536 and 2048 from L2, in f32 and bf16, and at
-   B=256, H=1024), ragged with nonzero initial state, against their
+   E, G, I, F, D and H then run alone at their loop's other grids
+   (`WIDE_CASES`: w_hh's rows read through L2 at H >= 1536 (I and H
+   from H=2816), 2, 4 or 8 pairs per thread at wide H or B; I at B=64,
+   H=2048, F at B=64, H >= 1536 and H at B=64, H >= 2816, which their
+   one-launch designs refused; D at B=64, H=1536 and 2048 from L2, in
+   f32 and bf16, and at B=256, H=1024; H at B=64 H=2048 (f32, bf16),
+   B=256 H=1024 and B=100 H=2560, the shape only H's one-gate tile
+   bounds take), ragged with nonzero initial state, against their
    plain versions and bit for bit on a second call.
    Yardsticks: cuDNN's
    torch.nn.GRU(256, 512) with b_hn zeroed (the port's n gate) and
@@ -134,14 +140,15 @@ Phases, in order; any failure exits non-zero:
    beam scores within 1e-4 relative.
 7. simple_rnn -- ops.rnn.simple_rnn at T=100, B=64, H=512 on lengths
    uniform in [50, 100]: one forward and backward launches H and I once
-   each (I at least two device launches), and its gradients agree with
-   the plain path's to 1e-4 relative.
+   each (H 2 device launches, I at least three), and its gradients
+   agree with the plain path's to 1e-4 relative.
 8. report -- the launch counts of every path, the serve, train, seq2seq
-   and generation numbers, the wide E/G cases, the card's name and
+   and generation numbers, the wide cases, the card's name and
    power limit, a `kernels` JSON line (nine entries, A-I; A adds its
    HMMA counts; B and C their device launches in the float and int8
-   serves and per call and their split plan; D and F their device
-   launches and whether they repeated bit for bit; E, G and I their
+   serves and per call and their split plan; D, F and H their device
+   launches and whether they repeated bit for bit (D and H also their
+   us per step); E, G and I their
    device launches in the main path's run and
    per call, their phase split and whether they repeated bit for bit),
    and last the device JSON line.
@@ -952,13 +959,13 @@ def ragged_phase():
 
 # (forward, plain forward, backward, plain backward, gates, products per
 # live step in the backward, does the backward read x_proj, the
-# backward's phases)
+# backward's phases, the wrappers' device-operation counts)
 GRU_LOOP = (FG.gru_forward_kernel, FG.gru_forward_reference,
             FG.gru_backward_kernel, FG.gru_backward_reference, 3, 3, True,
-            PHASES)
+            PHASES, FG.device_launches)
 RNN_LOOP = (FR.rnn_forward_kernel, FR.rnn_forward_reference,
             FR.rnn_backward_kernel, FR.rnn_backward_reference, 1, 2, False,
-            ("loop", "dw"))
+            ("loop", "dw"), FR.device_launches)
 
 
 def time_loop_case(loop, names, name, *, t, b, h, dtype=torch.float32,
@@ -971,8 +978,11 @@ def time_loop_case(loop, names, name, *, t, b, h, dtype=torch.float32,
     uniform in [T/2, T] (or full). `library` is (cuDNN module, its input
     width), timed with cudnn_ms. The phased backward (G: three phases,
     I: two) must also repeat its outputs bit for bit, and its phases are
-    timed beside cuDNN."""
-    fwd_k, fwd_r, bwd_k, bwd_r, gates, bwd_products, bwd_xp, phase_set = loop
+    timed beside cuDNN. The forward (F, H: the forward loop of
+    time_loop.cuh) must repeat hs bit for bit and make 2 device
+    operations per call (its counters' memset, the loop)."""
+    (fwd_k, fwd_r, bwd_k, bwd_r, gates, bwd_products, bwd_xp, phase_set,
+     device) = loop
     rs = np.random.RandomState(seed)
     dev = "cuda"
     xp = torch.from_numpy(rs.standard_normal((t, b, gates * h)).astype(
@@ -991,14 +1001,16 @@ def time_loop_case(loop, names, name, *, t, b, h, dtype=torch.float32,
         np.float32)).to(dev)
     dhl = torch.from_numpy(cot.standard_normal((b, h)).astype(
         np.float32)).to(dev)
+    before = device["fwd"]
     hs = fwd_k(*args)
+    d_ops = device["fwd"] - before
     hs_r = fwd_r(*args)
     bargs = args + (hs_r, dhs, dhl)
     grads = bwd_k(*bargs)
     grads_r = bwd_r(*bargs)
     torch.cuda.synchronize()
     same = bitwise_repeat(bwd_k, bargs, grads)
-    # the forward too (F, on the forward loop, must repeat)
+    # the forward too (F and H, on the forward loop, must repeat)
     fwd_same = bitwise_repeat(lambda *a: (fwd_k(*a),), args, (hs,))
     pairs = {names[0]: ((hs, hs_r),), names[1]: tuple(zip(grads, grads_r))}
     # the work this data needs: products only on live (row, step) pairs;
@@ -1029,7 +1041,7 @@ def time_loop_case(loop, names, name, *, t, b, h, dtype=torch.float32,
     for kern, lib_ms in zip(names, lib[:2]):
         err = max(rel_err(a, r) for a, r in pairs[kern])
         ok = err <= tol and (same if kern == names[1] else
-                             fwd_same or kern != "F")
+                             fwd_same and d_ops == 2)
         b_ms, by = bounds_ms[kern]
         lib_s = "-" if lib_ms is None else f"{lib_ms:.4f}"
         log(f"  {kern} {name:<24} {str(dtype)[6:]:<8} rel_err {err:.2e} "
@@ -1042,9 +1054,12 @@ def time_loop_case(loop, names, name, *, t, b, h, dtype=torch.float32,
                          plain_ms=plain[kern], bound_ms=b_ms, bound_by=by,
                          library_ms=lib_ms, tol=tol)
     out[names[1]].update(bitwise=same, phases_ms=phases)
-    out[names[0]].update(bitwise=fwd_same)
-    log(f"    {names[0]}: a second call on the same inputs is bitwise "
-        f"equal (hs): {fwd_same}; {names[1]}: (dxp, dW_hh, dh0): {same}")
+    out[names[0]].update(bitwise=fwd_same, device_launches_per_call=d_ops,
+                         us_per_step=ms[names[0]] / t * 1e3)
+    log(f"    {names[0]}: {ms[names[0]] / t * 1e3:.2f} us per step, {d_ops} "
+        f"device operations per call (counters' memset, loop); a second "
+        f"call on the same inputs is bitwise equal (hs): {fwd_same}; "
+        f"{names[1]}: (dxp, dW_hh, dh0): {same}")
     if phases:
         log_phases(names[1], phases, ms[names[1]], t)
     if library is not None:
@@ -1093,6 +1108,8 @@ def gru_rnn_kernels_phase():
                                  lengths=True, seed=5, **kw),
         "reverse": time_loop_case(RNN_LOOP, "HI", "reverse_ragged",
                                   lengths=True, reverse=True, seed=6, **kw),
+        "initial": time_loop_case(RNN_LOOP, "HI", "nonzero_h0", initial=True,
+                                  seed=8, **kw),
         "bf16": time_loop_case(RNN_LOOP, "HI", "bf16_xproj_whh_ragged",
                                dtype=bf16, lengths=True, initial=True,
                                seed=7, **kw),
@@ -1135,13 +1152,24 @@ WIDE_CASES = (
     ("D", "h2048_b64_l2_rows_4pairs", 20, 64, 2048, torch.float32),
     ("D", "h2048_b64_l2_rows_bf16", 20, 64, 2048, torch.bfloat16),
     ("D", "b256_h1024_8pairs", 20, 256, 1024, torch.float32),
+    # H on the forward loop, one gate column: 4 pairs per thread,
+    # w_hh's columns read from w_hh^T through L2 from H=2816 (B=64; the
+    # one-launch H refused H >= 2816 there), and B=100, H=2560, which
+    # only the one-gate bounds of the 2 x 4 and 1 x 8 tiles take (8
+    # pairs a thread, from L2)
+    ("H", "h2048_b64_4pairs", 20, 64, 2048, torch.float32),
+    ("H", "h4096_b64_l2_rows_4pairs", 10, 64, 4096, torch.float32),
+    ("H", "h2816_b64_l2_rows", 20, 64, 2816, torch.float32),
+    ("H", "h2048_b64_bf16", 20, 64, 2048, torch.bfloat16),
+    ("H", "b256_h1024_4pairs", 20, 256, 1024, torch.float32),
+    ("H", "b100_h2560_one_gate_bound", 20, 100, 2560, torch.float32),
 )
 
 
 def wide_case(kern, name, t, b, h, dtype, w_dtype=None, *, seed):
     """E, G or I alone against its plain version on the plain forward's
     outputs, with ragged lengths, nonzero initial state and random
-    cotangents (D, F: the forward alone on the same inputs); a second
+    cotangents (D, F, H: the forward alone on the same inputs); a second
     call must repeat every output bit for bit. Its
     device time (5 calls) is logged beside the grid it ran. x_proj (and
     w_hh, unless w_dtype is given) in `dtype`."""
@@ -1165,6 +1193,8 @@ def wide_case(kern, name, t, b, h, dtype, w_dtype=None, *, seed):
     else:
         gates = 3 if kern in "FG" else 1
         mod = FG if kern in "FG" else FR
+        fwd_k = (FG.gru_forward_kernel if kern in "FG"
+                 else FR.rnn_forward_kernel)
         gr = np.random.RandomState(seed)
         lim = 1.0 / np.sqrt(h)
         xp = torch.from_numpy(gr.standard_normal((t, b, gates * h)).astype(
@@ -1177,10 +1207,10 @@ def wide_case(kern, name, t, b, h, dtype, w_dtype=None, *, seed):
         args = (xp, w, h0, FG.make_bounds(b, t, lens, False, device="cuda"))
         fwd_r = (FG.gru_forward_reference if kern in "FG"
                  else FR.rnn_forward_reference)
-        if kern == "F":
+        if kern in "FH":
             # the forward alone: its call and plain version take args
             bargs = args
-            bwd_k, bwd_r = (lambda *a: (FG.gru_forward_kernel(*a),),
+            bwd_k, bwd_r = (lambda *a: (fwd_k(*a),),
                             lambda *a: (fwd_r(*a),))
             geo = mod.geometry(b, h, *mod._limits(xp.device))
         else:
@@ -1211,13 +1241,14 @@ def wide_case(kern, name, t, b, h, dtype, w_dtype=None, *, seed):
 
 
 def wide_phase():
-    log("phase kernels: E, G, I, F and D on their loops' other grids "
+    log("phase kernels: E, G, I, F, D and H on their loops' other grids "
         "(w_hh's rows read from L2, several pairs per thread), ragged, "
         "nonzero initial state")
     cases = [wide_case(*c, seed=20 + i) for i, c in enumerate(WIDE_CASES)]
     bad = [f"{c['kernel']}:{c['name']}" for c in cases if not c["ok"]]
     if bad:
-        raise Fail(f"E/G/I/F/D disagree with their plain versions: {bad}")
+        raise Fail(f"E/G/I/F/D/H disagree with their plain versions: "
+                   f"{bad}")
     return cases
 
 
@@ -1522,26 +1553,29 @@ def simple_rnn_phase():
     reset_time_loop_counts()
     k_loss, gk = grads(None)
     launched = time_loop_counts()
-    device = FR.device_launches["bwd"]
+    device = dict(FR.device_launches)
     p_loss, gp = grads("torch")
     plain_launched = time_loop_counts()
     err = max(rel_err(a, b) for a, b in zip(gk, gp))
     log(f"  loss kernel {k_loss:.6f} plain {p_loss:.6f}; gradients max rel "
-        f"err {err:.2e} (tol {GRAD_RTOL:.0e}); launches {launched} (I: "
-        f"{device} device launches)")
+        f"err {err:.2e} (tol {GRAD_RTOL:.0e}); launches {launched} (device "
+        f"launches: H {device['fwd']}, I {device['bwd']})")
     if launched != dict(F=0, G=0, H=1, I=1):
         raise Fail(f"simple_rnn: launched {launched}, want one H and one I")
-    if device < 3:
-        raise Fail(f"simple_rnn: I made {device} device launches, want its "
-                   f"counters' memset, serial loop and dW_hh")
-    if plain_launched != launched or FR.device_launches["bwd"] != device:
+    if device["fwd"] != 2:
+        raise Fail(f"simple_rnn: H made {device['fwd']} device launches, "
+                   f"want its counters' memset and the forward loop")
+    if device["bwd"] < 3:
+        raise Fail(f"simple_rnn: I made {device['bwd']} device launches, "
+                   f"want its counters' memset, serial loop and dW_hh")
+    if plain_launched != launched or FR.device_launches != device:
         raise Fail("simple_rnn: the plain path launched kernels")
     if err > GRAD_RTOL or abs(k_loss - p_loss) > LOSS_RTOL * abs(p_loss):
         raise Fail(f"simple_rnn: kernel and plain paths differ: grads "
                    f"{err:.2e}")
     return dict(loss=k_loss, plain_loss=p_loss, grad_rel_err=err,
                 launches={"H": launched["H"], "I": launched["I"]},
-                device_launches={"I": device})
+                device_launches={"H": device["fwd"], "I": device["bwd"]})
 
 
 # -- the serving path ---------------------------------------------------------
@@ -1921,7 +1955,12 @@ def main() -> int:
         entry("rnn_fwd", "paddle_tpu_torch/csrc/fused_rnn.cu",
               "paddle_tpu/ops/pallas_rnn.py:26", srnn["launches"]["H"],
               rnn["main"]["H"], launches_per_train_step=srnn["launches"]["H"],
-              rel_err=rnn["main"]["H"]["rel_err"]),
+              rel_err=rnn["main"]["H"]["rel_err"],
+              device_launches=srnn["device_launches"]["H"],
+              device_launches_per_call=(srnn["device_launches"]["H"]
+                                        / srnn["launches"]["H"]),
+              us_per_step=rnn["main"]["H"]["us_per_step"],
+              bitwise=rnn["main"]["H"]["bitwise"]),
         entry("rnn_bwd", "paddle_tpu_torch/csrc/fused_rnn.cu",
               "paddle_tpu/ops/pallas_rnn.py:44", srnn["launches"]["I"],
               rnn["main"]["I"], launches_per_train_step=srnn["launches"]["I"],

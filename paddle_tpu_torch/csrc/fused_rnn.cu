@@ -22,13 +22,21 @@
 // H does 2 T B H H = 3.36 GFLOP (0.050 ms at the 67 TFLOP/s of the f32
 // CUDA cores) against ~27 MB; I two such products.
 //
-// H's design: the GRU forward's (fused_gru.cu) with one gate. CTA k owns
-// hb hidden units and their columns of w_hh ([H][hb], resident in shared
-// memory); a thread carries up to kMaxPairs (row, unit) pairs and their
-// f32 carries in registers; h crosses CTAs through a ping-pong buffer [2,
-// B, H] with one grid barrier per step. Tiles move through shared memory
-// by cp.async, read at L2 only. A shape whose slices do not fit is
-// refused by the host.
+// H's design: the serial forward loop of time_loop.cuh
+// (`forward_loop_kernel`) with H's cell (RnnFwdCell below, one gate
+// column), one cooperative launch over row groups x unit groups, as F and
+// D run. CTA (g, k) owns br rows and hb units; its units' columns of w_hh
+// are resident in shared memory as rows [hb][H + 4] f32, transposed at
+// load (read through L2 from a w_hh^T scratch where they do not fit, from
+// H=2816 at B=64). Each step a CTA multiplies its rows of round_w(h_{t-1})
+// (an operand plane in w_hh's dtype, staged by cp.async with the next
+// chunk in flight) by those rows in thread tiles that reuse each weight
+// float4 across 4 rows, runs its pairs' cells, writes hs[t] and
+// round_w(h_t) into the other plane and passes its row group's barrier:
+// batch rows never interact, so no CTA waits for the whole grid. At T=100,
+// B=64, H=512 that is I's grid: 16 row groups x 8 unit groups, 4 rows x 64
+// units per CTA. The barrier counters are zeroed by a memset on the stream
+// just before the launch, a device operation the wrapper counts.
 //
 // I's design: E's and G's (fused_lstm.cu, fused_gru.cu) without their
 // gates phase, since dz needs only the saved stream. Of I's two products
@@ -47,76 +55,46 @@
 
 #include "time_loop.cuh"
 
-namespace cg = cooperative_groups;
 using namespace time_loop;
 
 namespace {
 
-template <typename T, typename TW>
-__global__ void __launch_bounds__(kMaxThreads)
-    rnn_fwd_kernel(const T* __restrict__ xp, const TW* __restrict__ w,
-                   const float* __restrict__ h0,
-                   const int* __restrict__ bounds, float* __restrict__ hs,
-                   float* hbuf, int Tn, int B, int H, int hb, int kt) {
-  extern __shared__ __align__(16) float smem[];
-  const int ld = kt + 4;                    // 16-byte tile rows
-  float* ws = smem;                         // [H][hb]
-  float* tile = smem + H * hb;              // [B][ld]
-  const int j0 = blockIdx.x * hb;
-  for (int e = threadIdx.x; e < H * hb; e += blockDim.x)
-    ws[e] = load_f(w + (size_t)(e / hb) * H + j0 + e % hb);
-  int pb[kMaxPairs], pu[kMaxPairs];
-  const int np = my_pairs(pb, pu, B, hb);
-  float hc[kMaxPairs];
-  int lo[kMaxPairs], hi[kMaxPairs];
-#pragma unroll
-  for (int n = 0; n < kMaxPairs; ++n) {
-    hc[n] = n < np ? h0[pb[n] * H + j0 + pu[n]] : 0.f;
-    lo[n] = bounds[2 * pb[n]];
-    hi[n] = bounds[2 * pb[n] + 1];
-  }
-  cg::grid_group grid = cg::this_grid();
-  const size_t plane = (size_t)B * H;
-  const TW* wtype = nullptr;
+// -- H: the serial forward loop (time_loop.cuh forward_loop_kernel) -------
 
-  for (int t = 0; t < Tn; ++t) {
-    const float* hin = t == 0 ? h0 : hbuf + ((t - 1) & 1) * plane;
-    float* hout = hbuf + (t & 1) * plane;
-    float acc[kMaxPairs];
-#pragma unroll
-    for (int n = 0; n < kMaxPairs; ++n) acc[n] = 0.f;
-    for (int k0 = 0; k0 < H; k0 += kt) {
-      const int kw = min(kt, H - k0);
-      __syncthreads();
-      stage_tile(tile, ld, hin, H, B, k0, kw);
-      __syncthreads();
-      for (int kk = 0; kk < kw; kk += 4) {
-#pragma unroll
-        for (int n = 0; n < kMaxPairs; ++n) {
-          if (n >= np) break;
-          const float4 hv =
-              *reinterpret_cast<const float4*>(tile + pb[n] * ld + kk);
-          const float* wc = ws + (k0 + kk) * hb + pu[n];
-          acc[n] = fmaf(round_as(hv.x, wtype), wc[0], acc[n]);
-          acc[n] = fmaf(round_as(hv.y, wtype), wc[hb], acc[n]);
-          acc[n] = fmaf(round_as(hv.z, wtype), wc[2 * hb], acc[n]);
-          acc[n] = fmaf(round_as(hv.w, wtype), wc[3 * hb], acc[n]);
-        }
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < kMaxPairs; ++n) {
-      if (n >= np) break;
-      const int b = pb[n], j = j0 + pu[n];
-      const size_t o = ((size_t)t * B + b) * H + j;
-      const float h = tanhf(load_f(xp + o) + acc[n]);
-      if (lo[n] <= t && t < hi[n]) hc[n] = h;
-      hs[o] = hc[n];
-      hout[b * H + j] = hc[n];
-    }
-    grid.sync();
+// H's cell: the f32 carry h of one (row, unit) pair
+template <typename T, typename TWt>
+struct RnnFwdCell {
+  using TW = TWt;
+  static constexpr int kOut = 1;
+  struct Step {       // x_proj, loaded a step ahead
+    float x;
+  };
+  struct Carry {
+    float h;
+  };
+  const T* xp;        // [T*B][H]
+  const float* h0;    // [B][H]
+  float* hs;          // [T*B][H]
+  int B, H;
+
+  __device__ __forceinline__ Carry init(int b, int j) const {
+    return {h0[b * H + j]};
   }
-}
+  __device__ __forceinline__ float operand(const Carry& c) const {
+    return c.h;
+  }
+  __device__ __forceinline__ Step fetch(int t, int b, int j) const {
+    return {load_f(xp + ((size_t)t * B + b) * H + j)};
+  }
+  // g = the sum of round_w(h) @ w_hh for the pair's unit
+  __device__ __forceinline__ void step(const Step& s, const float (&g)[1],
+                                       Carry& c, bool live, bool store,
+                                       size_t row, int j) const {
+    const float h = tanhf(s.x + g[0]);
+    if (live) c.h = h;
+    if (store) hs[row * H + j] = c.h;
+  }
+};
 
 // -- I: the serial loop (time_loop.cuh backward_loop_kernel) -----------------
 
@@ -172,26 +150,31 @@ struct RnnCell {
 
 extern "C" int rnn_device_limits(int* out) { return device_limits(out); }
 
-// x_dtype / w_dtype: 0 = float32, 1 = bfloat16. Grid H/hb CTAs of
-// `threads` threads and `smem` bytes of dynamic shared memory, tiles of
-// kt columns (kt % 4 == 0). Returns the launch's cudaError_t.
-extern "C" int rnn_fwd(int x_dtype, int w_dtype, const void* xp,
-                       const void* w, const void* h0, const void* bounds,
-                       void* hs, void* hbuf, int Tn, int B, int H, int hb,
-                       int kt, int threads, long long smem, void* stream) {
-  return dispatch_dtypes(x_dtype, w_dtype, [&](auto* xt, auto* wt) {
+// H on `stream`: a memset of the barrier counters [row groups + 1], then
+// the forward loop over row groups x unit groups for the host's geometry
+// (ut, rep, resident, hb, br, cw, threads, smem); opnd [2][B][ldo] in
+// w_hh's dtype; wt [H][H] in w_hh's dtype where the columns are not
+// resident (else unused). x_dtype / w_dtype: 0 = float32, 1 = bfloat16.
+// Returns the first cudaError_t.
+extern "C" int rnn_fwd(int x_dtype, int w_dtype, int ut, int rep,
+                       int resident, const void* xp, const void* w, void* wt,
+                       const void* h0, const void* bounds, void* hs,
+                       void* opnd, int ldo, void* counters, int Tn, int B,
+                       int H, int hb, int br, int cw, int threads,
+                       long long smem, void* stream) {
+  return dispatch_dtypes(x_dtype, w_dtype, [&](auto* xt, auto* wtt) {
     using T = std::remove_pointer_t<decltype(xt)>;
-    using TW = std::remove_pointer_t<decltype(wt)>;
-    const T* a_xp = static_cast<const T*>(xp);
-    const TW* a_w = static_cast<const TW*>(w);
-    const float* a_h0 = static_cast<const float*>(h0);
-    const int* a_bounds = static_cast<const int*>(bounds);
-    float* a_hs = static_cast<float*>(hs);
-    float* a_hbuf = static_cast<float*>(hbuf);
-    void* args[] = {&a_xp, &a_w, &a_h0, &a_bounds, &a_hs, &a_hbuf,
-                    &Tn,   &B,   &H,    &hb,       &kt};
-    return launch_coop(rnn_fwd_kernel<T, TW>, H / hb, threads, (size_t)smem,
-                       args, static_cast<cudaStream_t>(stream));
+    using TW = std::remove_pointer_t<decltype(wtt)>;
+    const RnnFwdCell<T, TW> cell{static_cast<const T*>(xp),
+                                 static_cast<const float*>(h0),
+                                 static_cast<float*>(hs), B, H};
+    const ForwardArgs<TW> a{static_cast<const TW*>(w), static_cast<TW*>(wt),
+                            static_cast<TW*>(opnd),
+                            static_cast<const int*>(bounds),
+                            static_cast<unsigned*>(counters),
+                            ldo, Tn, B, H, hb, br, cw};
+    return launch_forward(cell, a, ut, rep, resident, threads, (size_t)smem,
+                          static_cast<cudaStream_t>(stream));
   });
 }
 

@@ -1,15 +1,13 @@
 // Plumbing shared by the time-loop kernels (fused_lstm.cu, fused_gru.cu,
 // fused_rnn.cu): the cooperative launch with its co-residency check,
-// operand rounding to the weight's dtype, H's (row, unit) pairs a thread
-// carries and its cp.async staging of f32 tiles that other CTAs write
-// during the launch, and the serial loops themselves over a cell that holds each
-// kernel's step arithmetic: `backward_loop_kernel` (E, G, I) and
-// `forward_loop_kernel` (D, F), with their group barrier and per-step carry
-// products over double-buffered chunks; then the gates' (E, G) and dW's
-// operand loaders and dW's split product.
+// operand rounding to the weight's dtype, and the serial loops themselves
+// over a cell that holds each kernel's step arithmetic:
+// `backward_loop_kernel` (E, G, I) and `forward_loop_kernel` (D, F, H),
+// with their group barrier and per-step carry products over
+// double-buffered chunks; then the gates' (E, G) and dW's operand loaders
+// and dW's split product.
 #pragma once
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -26,9 +24,6 @@ using tile_io::cp_async_wait;
 using tile_io::load_f;
 using tile_io::store_f;
 
-constexpr int kMaxPairs = 4;  // (row, unit) pairs one thread carries
-constexpr int kMaxThreads = 512;
-
 __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
 }
@@ -38,44 +33,6 @@ __device__ __forceinline__ float sigmoidf(float x) {
 __device__ __forceinline__ float round_as(float x, const float*) { return x; }
 __device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(x));
-}
-
-// Stage columns [k0, k0+kw) of the f32 array src [B, ld_src] (kw, k0 and
-// ld_src multiples of 4) into tile [B][ld]: 16 bytes a copy, read at L2
-// only (.cg: L1 is not coherent across SMs, and other CTAs write these
-// buffers during the launch), every copy of the thread in flight at
-// once. The caller synchronises the block after it.
-__device__ __forceinline__ void stage_tile(float* tile, int ld,
-                                           const float* src, int ld_src,
-                                           int B, int k0, int kw) {
-  const int q = kw / 4;
-  for (int e = threadIdx.x; e < B * q; e += blockDim.x) {
-    const int b = e / q, c = (e % q) * 4;
-    const unsigned dst =
-        static_cast<unsigned>(__cvta_generic_to_shared(tile + b * ld + c));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-                 "l"(src + (size_t)b * ld_src + k0 + c));
-  }
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// this thread's (row, unit) pairs: pair p = tid + n * blockDim; returns
-// how many it has
-__device__ __forceinline__ int my_pairs(int (&pb)[kMaxPairs],
-                                        int (&pu)[kMaxPairs], int B, int hb) {
-  int np = 0;
-#pragma unroll
-  for (int n = 0; n < kMaxPairs; ++n) {
-    const int p = threadIdx.x + n * blockDim.x;
-    pb[n] = 0;
-    pu[n] = 0;
-    if (p < B * hb) {
-      pb[n] = p / hb;
-      pu[n] = p % hb;
-      np = n + 1;
-    }
-  }
-  return np;
 }
 
 // Launch kern over `grid` CTAs as one cooperative launch, after checking
@@ -399,7 +356,7 @@ cudaError_t launch_loop(Cell cell, LoopArgs<typename Cell::TW> a, int ut,
   return cudaErrorInvalidValue;
 }
 
-// -- the serial forward loop (D, F) ------------------------------------------
+// -- the serial forward loop (D, F, H) ---------------------------------------
 //
 // The forward twin of backward_loop_kernel, over the same grid of row
 // groups x unit groups and the same thread tiles. Each step multiplies
@@ -409,16 +366,21 @@ cudaError_t launch_loop(Cell cell, LoopArgs<typename Cell::TW> a, int ut,
 // grid first writes w_hh^T ([kOut * H][H], w_hh's dtype) into scratch and
 // reads its rows through L2. The launch bound falls as a thread's
 // accumulators (kRep * kOut * 4 * kUT) and weight vectors (kOut * kUT
-// float4) grow: one bound per tile for up to 3 gate columns (F), one for 4
-// (D: a quarter more of both; 65536 registers / bound is what a thread may
+// float4) grow: one bound per tile for one gate column (H: a third of
+// F's sums and weight vectors; the 4 x 4 and 2 x 1 tiles above F's bound
+// and the 2 x 2 tile at it, where -Xptxas -v shows no spill; the 2 x 4
+// and 1 x 8 tiles at 512 threads, 2048 and 4096 pairs a CTA, which
+// B=100, H=2560 needs; the 1 x 8 tile spills 20-32 bytes with f32 w_hh,
+// as F's and D's 1 x 8 tiles do), one for up to 3 (F), one for 4 (D: a
+// quarter more of both; 65536 registers / bound is what a thread may
 // hold). The host's FORWARD_TILES match, line for line.
 template <int kUT, int kRep, int kOut>
 constexpr int forward_bound() {
-  if (kUT == 4 && kRep == 1) return kOut <= 3 ? 384 : 256;
-  if (kUT == 2 && kRep == 1) return kOut <= 3 ? 512 : 384;
-  if (kUT == 2 && kRep == 2) return kOut <= 3 ? 384 : 256;
-  if (kUT == 2 && kRep == 4) return kOut <= 3 ? 256 : 256;
-  if (kUT == 1 && kRep == 8) return kOut <= 3 ? 256 : 256;
+  if (kUT == 4 && kRep == 1) return kOut == 1 ? 768 : kOut <= 3 ? 384 : 256;
+  if (kUT == 2 && kRep == 1) return kOut == 1 ? 640 : kOut <= 3 ? 512 : 384;
+  if (kUT == 2 && kRep == 2) return kOut == 1 ? 384 : kOut <= 3 ? 384 : 256;
+  if (kUT == 2 && kRep == 4) return kOut == 1 ? 512 : kOut <= 3 ? 256 : 256;
+  if (kUT == 1 && kRep == 8) return kOut == 1 ? 512 : kOut <= 3 ? 256 : 256;
   return 0;
 }
 
@@ -435,7 +397,8 @@ struct ForwardArgs {
 // The serial forward loop of a time loop, one cooperative launch over
 // (B / br row groups) x (H / hb unit groups) CTAs. The cell holds what
 // differs between the forward kernels:
-//   kOut                    gate columns per unit (4 for D, 3 for F)
+//   kOut                    gate columns per unit (4 for D, 3 for F,
+//                           1 for H)
 //   Carry init(b, j)        the carries of pair (b, j) before step 0
 //   float operand(carry)    the value the next step's product takes (h)
 //   Step fetch(t, b, j)     the step's inputs, loaded a step ahead

@@ -6,13 +6,15 @@
   backward needs no recomputation: dz = dh (1 - h_t^2) comes from the
   saved f32 stream.
 - `rnn_forward_kernel`, `rnn_backward_kernel`: the wrappers of
-  `csrc/fused_rnn.cu` (kernels H and I). H is one cooperative launch for
-  the whole sequence; I is a memset of its barrier counters and two
-  launches on the stream (the serial loop as one cooperative launch;
-  dW_hh) plus one that sums dW's split parts.
+  `csrc/fused_rnn.cu` (kernels H and I). H is a memset of its barrier
+  counters and one cooperative launch of the forward time loop over row
+  groups x unit groups (`time_loop.forward_geometry` with one gate
+  column); I is a memset of its barrier counters and two launches on
+  the stream (the serial loop as one cooperative launch; dW_hh) plus one
+  that sums dW's split parts.
   CUDA tensors only; they raise on what the kernels do not take and
-  count one launch per call in `launch_counts` (I's device launches in
-  `device_launches`). Where gradients are wanted, `fused_simple_rnn`
+  count one launch per call in `launch_counts` (their device operations
+  in `device_launches`). Where gradients are wanted, `fused_simple_rnn`
   checks I's geometry before H runs.
 - `fused_simple_rnn(x_proj, w_hh, h0, bounds, *, impl=None)`: the
   `custom_vjp` as a `torch.autograd.Function`, with `impl` as in
@@ -39,18 +41,18 @@ from paddle_tpu_torch.ops.fused_lstm import make_bounds  # noqa: F401
 
 #: launches of kernel H ("fwd") and kernel I ("bwd")
 launch_counts = {"fwd": 0, "bwd": 0}
-#: device operations made by kernel I's calls: the memset of its barrier
-#: counters, its two phases, and the sum of dW's split parts where dW is
-#: split
-device_launches = {"bwd": 0}
+#: device operations made by the kernels' calls: H's counters' memset
+#: and its loop; I's counters' memset, its two phases, and the sum of
+#: dW's split parts where dW is split
+device_launches = {"fwd": 0, "bwd": 0}
 
 _WHAT = "fused_simple_rnn kernel"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "rnn_device_limits": [_P],
-    "rnn_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                ctypes.c_longlong, _P],
+    "rnn_fwd": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P,
+                _I, _I, _I, _I, _I, _I, _I, ctypes.c_longlong, _P],
     "rnn_bwd_loop": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                      _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_longlong,
                      _P],
@@ -61,7 +63,7 @@ _SIGNATURES = {
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
-    device_launches["bwd"] = 0
+        device_launches[k] = 0
 
 
 # -- the plain versions --------------------------------------------------------
@@ -104,13 +106,10 @@ def rnn_backward_reference(x_proj, w_hh, h0, bounds, hs, dhs, dh_last):
 
 
 def geometry(batch: int, hidden: int, sms: int, smem_optin: int):
-    """H's (hb, threads, tile width, smem bytes): its units' columns of
-    w_hh resident ([H][hb] f32) beside one staged tile. Raises ValueError
-    on a shape the kernel does not take."""
-    hb, threads = TL.units_and_threads(_WHAT, batch, hidden, sms)
-    width, smem = TL.pick_tile(_WHAT, batch, hidden, 4 * hidden * hb,
-                               smem_optin)
-    return hb, threads, width, smem
+    """H's forward loop: `time_loop.forward_geometry` over one gate
+    column per unit. Raises ValueError on a shape the kernel does not
+    take."""
+    return TL.forward_geometry(_WHAT, batch, hidden, 1, sms, smem_optin)
 
 
 def backward_geometry(batch: int, hidden: int, sms: int, smem_optin: int):
@@ -124,22 +123,31 @@ def _limits(device):
 
 
 def rnn_forward_kernel(x_proj, w_hh, h0, bounds):
-    """Launch kernel H (csrc/fused_rnn.cu `rnn_fwd`) on the current
-    stream. Same contract as rnn_forward_reference."""
+    """Launch kernel H (csrc/fused_rnn.cu `rnn_fwd`: a memset of the
+    barrier counters, then the forward loop) on the current stream. Same
+    contract as rnn_forward_reference."""
     steps, b, hidden = TL.check_inputs(_WHAT, x_proj, w_hh, h0, bounds, 1)
-    hb, threads, width, smem = geometry(b, hidden, *_limits(x_proj.device))
+    geo = geometry(b, hidden, *_limits(x_proj.device))
     lib = _cuda.library("fused_rnn", _SIGNATURES)
     dev = x_proj.device
     x_proj, w_hh = x_proj.contiguous(), w_hh.contiguous()
     h0f, bounds = h0.float().contiguous(), bounds.contiguous()
+    ldo = TL.operand_ld(hidden)
     hs = torch.empty((steps, b, hidden), dtype=torch.float32, device=dev)
-    hbuf = torch.empty((2, b, hidden), dtype=torch.float32, device=dev)
+    opnd = torch.empty((2, b, ldo), dtype=w_hh.dtype, device=dev)
+    wt = torch.empty((1,) if geo.resident else (hidden, hidden),
+                     dtype=w_hh.dtype, device=dev)
+    counters = torch.empty(geo.row_groups + 1, dtype=torch.int32,
+                           device=dev)
     err = lib.rnn_fwd(
         TL.DTYPE_CODE[x_proj.dtype], TL.DTYPE_CODE[w_hh.dtype],
-        x_proj.data_ptr(), w_hh.data_ptr(), h0f.data_ptr(),
-        bounds.data_ptr(), hs.data_ptr(), hbuf.data_ptr(), steps, b, hidden,
-        hb, width, threads, smem, torch.cuda.current_stream(dev).cuda_stream)
+        geo.unit_tile, geo.rep, int(geo.resident), x_proj.data_ptr(),
+        w_hh.data_ptr(), wt.data_ptr(), h0f.data_ptr(), bounds.data_ptr(),
+        hs.data_ptr(), opnd.data_ptr(), ldo, counters.data_ptr(), steps, b,
+        hidden, geo.hb, geo.br, geo.chunk, geo.threads, geo.smem,
+        torch.cuda.current_stream(dev).cuda_stream)
     TL.launch_error(err, "rnn_fwd")
+    device_launches["fwd"] += 2     # the counters' memset and the loop
     launch_counts["fwd"] += 1
     return hs
 

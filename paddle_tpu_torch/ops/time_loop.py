@@ -3,14 +3,7 @@ used by `csrc/fused_lstm.cu`, `csrc/fused_gru.cu` and
 `csrc/fused_rnn.cu`): input checks, the launch geometry, the card's
 limits and launch errors.
 
-Forward geometry of H (`units_and_threads`, `pick_tile`): CTA k owns hb
-hidden units (hb the smallest divisor of H with H / hb <= the SM count,
-so the grid is at most one CTA per SM and can be co-resident), a thread
-carries up to MAX_PAIRS (row, unit) pairs, and every CTA keeps its
-units' slices of w_hh resident in shared memory beside one staged tile
-of B rows, as wide as the room left allows.
-
-Serial-loop geometry of E, G, I (`backward_geometry`) and D, F
+Serial-loop geometry of E, G, I (`backward_geometry`) and D, F, H
 (`forward_geometry`): the loop's grid is row groups x unit groups; a CTA
 owns br rows and hb units in thread tiles of ROW_TILE * rep rows x
 unit_tile units (`LOOP_TILES`, `forward_tiles(gates)`), `rep` (row,
@@ -35,12 +28,6 @@ from typing import NamedTuple
 import torch
 
 from paddle_tpu_torch.ops import _cuda
-
-#: threads per CTA, (row, unit) pairs per thread, and the widths a staged
-#: tile may take (a row is padded by 4 floats)
-MAX_THREADS = 512
-MAX_PAIRS = 4
-TILE_WIDTHS = (512, 256, 128, 64)
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _COOP_TOO_LARGE = 720   # cudaErrorCooperativeLaunchTooLarge
@@ -92,38 +79,6 @@ def check_inputs(what, x_proj, w_hh, h0, bounds, gates):
     return steps, b, hidden
 
 
-def units_and_threads(what, batch, hidden, sms):
-    """(hb, threads): the fewest hidden units per CTA with at most one CTA
-    per SM, and the (B x hb) pairs over at most MAX_THREADS threads."""
-    hb = next(d for d in range(1, hidden + 1)
-              if hidden % d == 0 and hidden // d <= sms)
-    pairs = batch * hb
-    if pairs > MAX_THREADS * MAX_PAIRS:
-        raise ValueError(
-            f"{what}: B={batch} x {hb} units per CTA = {pairs} (row, unit) "
-            f"pairs exceeds {MAX_THREADS * MAX_PAIRS} ({MAX_THREADS} threads "
-            f"x {MAX_PAIRS} pairs)")
-    per_thread = -(-pairs // MAX_THREADS)
-    threads = -(-pairs // per_thread)
-    return hb, -(-threads // 32) * 32
-
-
-def pick_tile(what, batch, hidden, resident, smem_optin):
-    """(tile width, shared-memory bytes): the widest tile (no wider than
-    H) that fits beside `resident` bytes; raises when even the narrowest
-    does not."""
-    tile = lambda width: batch * (width + 4) * 4
-    widths = sorted({min(w, hidden) for w in TILE_WIDTHS}, reverse=True)
-    if resident + tile(widths[-1]) > smem_optin:
-        raise ValueError(
-            f"{what}: B={batch}, H={hidden} needs {resident} bytes of "
-            f"resident slices and {tile(widths[-1])} for a tile of "
-            f"{widths[-1]} columns; the card allows {smem_optin} bytes of "
-            f"shared memory per block")
-    width = next(w for w in widths if resident + tile(w) <= smem_optin)
-    return width, resident + tile(width)
-
-
 #: the backward loop's thread tiles, (unit_tile, rep, launch bound): a
 #: tile of ROW_TILE * rep rows x unit_tile units, 4 * unit_tile lanes each
 #: carrying rep pairs; more pairs per thread at a lower bound, so that
@@ -132,11 +87,12 @@ def pick_tile(what, batch, hidden, resident, smem_optin):
 LOOP_TILES = ((4, 1, 768), (2, 1, 768), (2, 2, 512), (2, 4, 512))
 #: the forward loop's thread tiles: the same shapes, each lane keeping
 #: `gates` sums per pair, and 32 rows x 1 unit, 8 pairs a thread, for
-#: the largest batches (2048 pairs per CTA); (unit_tile, rep, launch
-#: bound with up to 3 gate columns (F), with 4 (D)), as `time_loop.cuh
+#: the largest batches; (unit_tile, rep, launch bound with one gate
+#: column (H), with up to 3 (F), with 4 (D)), as `time_loop.cuh
 #: forward_bound` declares them
-FORWARD_TILES = ((4, 1, 384, 256), (2, 1, 512, 384), (2, 2, 384, 256),
-                 (2, 4, 256, 256), (1, 8, 256, 256))
+FORWARD_TILES = ((4, 1, 768, 384, 256), (2, 1, 640, 512, 384),
+                 (2, 2, 384, 384, 256), (2, 4, 512, 256, 256),
+                 (1, 8, 512, 256, 256))
 ROW_TILE = 4
 CHUNK_WIDTHS = (512, 256, 128, 64, 32)
 GEMM_TILE = 128
@@ -227,12 +183,12 @@ def backward_geometry(what, batch, hidden, gates, sms, smem_optin):
 def forward_tiles(gates):
     """The forward loop's (unit_tile, rep, launch bound) for a cell of
     `gates` gate columns per unit."""
-    return tuple((ut, rep, few if gates <= 3 else four)
-                 for ut, rep, few, four in FORWARD_TILES)
+    col = 2 if gates == 1 else 3 if gates <= 3 else 4
+    return tuple((tile[0], tile[1], tile[col]) for tile in FORWARD_TILES)
 
 
 def forward_geometry(what, batch, hidden, gates, sms, smem_optin):
-    """The forward serial loop's grid (D, F): the product round_w(h) @
+    """The forward serial loop's grid (D, F, H): the product round_w(h) @
     w_hh, a unit's `gates` columns of w_hh resident as rows [gates][hb]
     [H + 4] f32 where they fit (else read from w_hh^T through L2), the
     thread tiles of `forward_tiles(gates)`."""

@@ -6,7 +6,8 @@ the CPU, and `ops.rnn.simple_rnn` for every impl against JAX
 `simple_rnn(impl="pallas")` and `impl="xla"`. Kernel I's two-phase
 schedule (the serial loop storing the carry's operand, then dW_hh as one
 split product) is written out in PyTorch and held against both, and the
-launch geometry of H and of I's loop is checked at an H100's limits.
+launch geometry of H and of I's loop is checked at an H100's limits; H's
+forward loop is written out CTA by CTA and held against both as well.
 
 Tolerances: f32 1e-5 on values, 1e-4 relative to the largest magnitude
 on gradients; bf16 2e-2 on both."""
@@ -182,42 +183,48 @@ def test_kernel_path_refuses_shapes_it_does_not_take():
 def test_kernel_geometry_and_limits():
     """The launch geometry on an H100 (132 SMs, 227 KB opt-in shared
     memory) at the RNN benchmark's shape, and the shapes it refuses: H's
-    (`geometry`) and that of I's serial loop (`backward_geometry`)."""
+    forward loop (`geometry`) and I's serial loop (`backward_geometry`)."""
     sms, smem = 132, 232448
-    hb, threads, width, used = FR.geometry(64, 512, sms, smem)
-    assert (hb, threads, width) == (4, 256, 512) and used <= smem
-    # I at the same shape: 16 row groups x 8 unit groups, 64 units and 4
-    # rows per CTA, one pair per thread, w_hh's rows resident, the whole
-    # operand row in one chunk of 512 columns
-    g = FR.backward_geometry(64, 512, sms, smem)
+    # H and I at the same shape share one grid: 16 row groups x 8 unit
+    # groups, 64 units and 4 rows per CTA, one pair per thread, w_hh's
+    # columns (H) and rows (I) resident, the whole operand row in one
+    # chunk of 512 columns
+    g = FR.geometry(64, 512, sms, smem)
     assert tuple(g[:7]) == (16, 8, 64, 4, 4, 256, 512)
     assert g.resident and g.rep == 1 and g.smem <= smem
-    assert FR.geometry(4, 16, sms, smem)[:3] == (1, 32, 16)
+    assert FR.backward_geometry(64, 512, sms, smem) == g
+    # B=4, H=16: one unit per CTA over 16 CTAs, in the 1 x 8 tile
+    assert tuple(FR.geometry(4, 16, sms, smem)[:4]) == (1, 16, 1, 32)
     assert tuple(FR.backward_geometry(4, 16, sms, smem)[:4]) == (1, 8, 2, 4)
     with pytest.raises(ValueError, match="pairs"):
         FR.geometry(2048, 512, sms, smem)
-    # H refuses H=4096 at B=64 (its resident columns do not fit); I's loop
-    # takes it, reading w_hh's rows through L2
-    with pytest.raises(ValueError, match="shared memory"):
-        FR.geometry(64, 4096, sms, smem)
+    # H=4096 at B=64: H takes it (the one-launch H refused it: its
+    # resident columns did not fit), reading w_hh's columns through L2,
+    # and so does I, reading w_hh's rows through L2
+    g = FR.geometry(64, 4096, sms, smem)
+    assert not g.resident and g.ctas <= sms
     assert not FR.backward_geometry(64, 4096, sms, smem).resident
     # B=64, H=2048: H takes it, and so does I (the one-launch I refused it)
-    FR.geometry(64, 2048, sms, smem)
+    assert FR.geometry(64, 2048, sms, smem).resident
     g = FR.backward_geometry(64, 2048, sms, smem)
     assert g.ctas <= sms and g.rep == 2
 
 
 def test_backward_loop_takes_the_shapes_h_takes():
-    """Over a sweep of B and H, I's loop takes every shape H takes but one:
-    B=100, H=2560 (H at 2000 pairs per CTA; I's row groups round 100 rows
-    up to whole 16-row tiles, past 2048 pairs). A training step at that
-    shape is refused before H runs."""
+    """Over a sweep of B and H, I's loop takes every shape H takes with at
+    most 2048 (row, unit) pairs per CTA, the most I's tiles carry (512
+    threads x 4). H's one-gate 1 x 8 tile carries up to 4096, so H also
+    takes the shapes below, which I refuses -- among them B=100, H=2560,
+    which the one-launch H took too (2000 pairs per CTA there; I's row
+    groups round 100 rows up to whole 16-row tiles, past 2048 pairs). A
+    training step at such a shape is refused before H runs."""
     sms, smem = 132, 232448
+    most = max(bound * rep for _, rep, bound in TL.LOOP_TILES)
     taken, refused = 0, []
     for b in (1, 4, 7, 16, 37, 64, 100, 128, 256, 512, 1024):
         for h in (8, 16, 96, 256, 512, 1024, 1536, 2048, 2560, 3072):
             try:
-                FR.geometry(b, h, sms, smem)
+                g = FR.geometry(b, h, sms, smem)
             except ValueError:
                 continue
             taken += 1
@@ -225,7 +232,10 @@ def test_backward_loop_takes_the_shapes_h_takes():
                 FR.backward_geometry(b, h, sms, smem)
             except ValueError:
                 refused.append((b, h))
-    assert taken > 60 and refused == [(100, 2560)]
+                assert g.br * g.hb > most == 2048
+    assert taken > 60 and refused == [
+        (100, 2560), (100, 3072), (128, 2560), (128, 3072), (256, 1536),
+        (256, 2048), (512, 1024), (1024, 512)]
 
 
 def test_training_step_refuses_a_shape_i_does_not_take_before_h_runs(
@@ -374,6 +384,73 @@ def test_operand_is_dxp_only_where_the_dtypes_agree(case):
         _close_rel(dw, ref_dw, 1e-5)
         scale = ref_dw.abs().max().item()
         assert (from_dxp - ref_dw).abs().max().item() > 1e-4 * scale
+
+
+def _forward_loop_schedule(x_proj, w_hh, h0, bounds, geo):
+    """H's forward loop (`time_loop.cuh forward_loop_kernel` with
+    `RnnFwdCell`) written out CTA by CTA for the geometry `geo`: operand
+    plane 1 starts as round_w(h0); step t gives CTA (g, k) its br rows of
+    plane (t - 1) & 1 times its units' column of w_hh (held as rows,
+    summed over the staged chunks in order), runs the cells and writes
+    hs[t] and round_w(h_t) into plane t & 1. Returns hs."""
+    steps, b, h = x_proj.shape
+    wd, w = w_hh.dtype, w_hh.float()
+    planes = torch.empty((2, b, h), dtype=wd)
+    planes[1] = h0.float().to(wd)
+    carry = h0.float().clone()
+    hs = torch.empty((steps, b, h))
+    xp = x_proj.float()
+    for t in range(steps):
+        src = planes[(t + 1) & 1].float()
+        for g in range(geo.row_groups):
+            rows = slice(g * geo.br, min(b, (g + 1) * geo.br))
+            for k in range(geo.unit_groups):
+                units = slice(k * geo.hb, (k + 1) * geo.hb)
+                ws = w[:, units].T                           # [hb, H]
+                acc = 0.0
+                for c0 in range(0, h, geo.chunk):
+                    cs = slice(c0, c0 + geo.chunk)
+                    acc = acc + src[rows, cs] @ ws[:, cs].T
+                hc = carry[rows, units]
+                new = torch.where(TL.live(bounds[rows], t),
+                                  torch.tanh(xp[t, rows][:, units] + acc),
+                                  hc)
+                carry[rows, units] = new
+                hs[t, rows, units] = new
+                planes[t & 1, rows, units] = new.to(wd)
+    return hs
+
+
+@pytest.mark.parametrize("case", list(_PHASE_CASES))
+@pytest.mark.parametrize("card", [(132, 232448), (8, 1200)],
+                         ids=["h100", "small_card_l2_rows"])
+def test_forward_loop_schedule_matches_reference_and_pallas(case, card):
+    """H on the forward loop keeps the function: the CTA-by-CTA schedule
+    for `geometry`'s grid (on an H100, and on a small card whose shared
+    memory does not hold w_hh's columns, so the loop reads them from
+    w_hh^T) against `_fwd_kernel`'s step loop written out
+    (rnn_forward_reference) and the Pallas forward in interpret mode.
+    Operand plane 1 holds round_w(h0) before step 0, where the one-launch
+    H rounded each staged value of h0 at use: the bf16-w_hh cases with
+    nonzero h0 hold the two to the same result. Tolerances: f32 1e-5;
+    with bf16 x_proj or w_hh 2e-2 (the operand is rounded at the same
+    point, an f32 difference in the last bit can move a bf16 rounding by
+    one step)."""
+    x_dtype, w_dtype, window, initial = _PHASE_CASES[case]
+    npin, targs = _phase_inputs(x_dtype, w_dtype, window, initial)
+    geo = FR.geometry(B, H, *card)
+    assert geo.resident == (card[0] == 132)
+    assert geo.ctas > 1
+    hs = _forward_loop_schedule(*targs[:4], geo)
+    ref = FR.rnn_forward_reference(*targs[:4])
+    bf16 = x_dtype == "bfloat16" or w_dtype == "bfloat16"
+    tol = 2e-2 if bf16 else 1e-5
+    _close(hs, ref, tol)
+    xp, w, h0, jb = npin[:4]
+    jhs, _ = jax.jit(JPR.fused_simple_rnn)(
+        to_jax(xp).astype(jnp.dtype(x_dtype)),
+        to_jax(w).astype(jnp.dtype(w_dtype)), to_jax(h0), to_jax(jb))
+    _close(hs, _f32(jhs), tol)
 
 
 def test_init_rnn_params_shapes_and_scales():

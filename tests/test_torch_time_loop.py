@@ -1,5 +1,5 @@
 """The launch geometry of the backward time loops E, G and I and of the
-forward loop of D and F (`paddle_tpu_torch.ops.time_loop`), at an H100's
+forward loop of D, F and H (`paddle_tpu_torch.ops.time_loop`), at an H100's
 limits: 132 SMs and 232,448 bytes of opt-in shared memory per block. No
 card is needed: the geometry is host arithmetic, and the kernels take
 exactly what it returns."""
@@ -28,8 +28,9 @@ SHAPES = [(64, 512, 4), (128, 256, 4), (64, 1280, 4), (64, 512, 3),
           (4, 16, 1), (37, 96, 1), (16, 2048, 1), (64, 2048, 1),
           (128, 2048, 1), (64, 2560, 1), (64, 3072, 1), (64, 4096, 1)]
 
-# the narrowest H at which no unit tile's rows of w_hh fit beside the
-# smallest staging, per gate count
+# the narrowest H at which no unit tile's rows of w_hh (backward) or
+# gate columns (forward, at FORWARD_SHAPES) fit beside the smallest
+# staging, per gate count
 L2_FROM = {1: 2816, 3: 1536, 4: 1536}
 
 
@@ -117,7 +118,7 @@ def test_operand_rows_start_on_16_bytes(cols, want):
     assert TL.operand_ld(cols) == want
 
 
-# -- the forward loop (D, F) -------------------------------------------------
+# -- the forward loop (D, F, H) ----------------------------------------------
 
 # (B, H): F at the seq2seq encoder's shape, generation's B=16, H=1024 and
 # H=256, small and ragged batches, a batch above the old one-launch
@@ -130,21 +131,40 @@ FORWARD_SHAPES = [(64, 512), (16, 512), (64, 1024), (64, 256), (4, 16),
 
 
 def _forward_cases(shapes):
-    """(B, H, gates) for F (3 gate columns, ids "B-H") and D (4, ids
-    "B-H-lstm") at each shape."""
+    """(B, H, gates) for F (3 gate columns, ids "B-H"), D (4, ids
+    "B-H-lstm") and H (1, ids "B-H-rnn") at each shape."""
     return ([pytest.param(b, h, 3, id=f"{b}-{h}") for b, h in shapes]
-            + [pytest.param(b, h, 4, id=f"{b}-{h}-lstm") for b, h in shapes])
+            + [pytest.param(b, h, 4, id=f"{b}-{h}-lstm") for b, h in shapes]
+            + [pytest.param(b, h, 1, id=f"{b}-{h}-rnn") for b, h in shapes])
+
+
+# The old one-launch forward designs of D, F and H: CTA k owned hb
+# hidden units, hb the smallest divisor of H with H / hb <= the SM count
+# (one CTA per SM); a thread carried up to 4 (row, unit) pairs over at
+# most 512 threads; and every CTA staged all B rows of h in one tile, as
+# wide as the room beside its resident slices of w_hh left, of at least
+# min(64, H) columns (a row padded by 4 floats).
+_ONE_LAUNCH_PAIRS = 512 * 4
+
+
+def _one_launch_units(b, h):
+    """The one-launch designs' units per CTA at (B, H), or None where B x
+    hb exceeded the pairs a CTA carried."""
+    hb = next(d for d in range(1, h + 1) if h % d == 0 and h // d <= SMS)
+    return hb if b * hb <= _ONE_LAUNCH_PAIRS else None
+
+
+def _one_launch_tile_fits(b, h, resident):
+    """Did `resident` bytes of w_hh slices fit beside the narrowest staged
+    tile of all B rows?"""
+    return resident + b * (min(64, h) + 4) * 4 <= OPTIN
 
 
 def _one_launch_f_takes(b, h):
     """Does the one-launch F (gate columns [H][hb][4] resident beside a
     staged tile of all B rows, one CTA per unit group) take (B, H)?"""
-    try:
-        hb, _ = TL.units_and_threads("t", b, h, SMS)
-        TL.pick_tile("t", b, h, 16 * h * hb, OPTIN)
-    except ValueError:
-        return False
-    return True
+    hb = _one_launch_units(b, h)
+    return hb is not None and _one_launch_tile_fits(b, h, 16 * h * hb)
 
 
 @pytest.mark.parametrize("b,h,gates", _forward_cases(FORWARD_SHAPES))
@@ -165,9 +185,9 @@ def test_forward_geometry_fits_the_card(b, h, gates):
     held = gates * g.hb * (h + 4) * 4 if g.resident else 0
     assert g.smem == held + 2 * g.br * (g.chunk + 4) * 4 <= OPTIN
     assert g.chunk % 8 == 0 and g.chunk <= -(-h // 8) * 8
-    # the columns are resident wherever the one-launch F ran (D: at these
-    # shapes too), and from H=1536 they are not
-    assert g.resident == (h < 1536)
+    # the columns are resident wherever the one-launch F ran (D and H: at
+    # these shapes too), and from H=1536 (H: 2816) they are not
+    assert g.resident == (h < L2_FROM[gates])
 
 
 @pytest.mark.parametrize("b", [1, 4, 16, 37, 64, 100, 128, 256, 1000])
@@ -183,11 +203,8 @@ def _one_launch_d_takes(b, h):
     """Did the one-launch D (one CTA per unit group, all B rows of h
     staged in one tile of at least 64 columns; its gate columns resident
     beside the tile where they fit, else read from w_hh) take (B, H)?"""
-    try:
-        TL.units_and_threads("t", b, h, SMS)
-    except ValueError:
-        return False
-    return b * (64 + 4) * 4 <= OPTIN
+    return (_one_launch_units(b, h) is not None
+            and b * (64 + 4) * 4 <= OPTIN)
 
 
 @pytest.mark.parametrize("b", [1, 4, 16, 37, 64, 100, 128, 256, 854, 1000])
@@ -203,24 +220,71 @@ def test_forward_geometry_takes_every_shape_the_one_launch_d_took(b, h):
             assert g.resident
 
 
-def test_forward_bounds_match_the_kernel():
-    """Each forward tile's launch bound, for up to 3 gate columns (F) and
-    for 4 (D), is what `time_loop.cuh forward_bound` declares: the host
-    never asks a tile for more threads than its kernel was built for."""
+def _one_launch_h_takes(b, h):
+    """Did the one-launch H (its units' columns of w_hh, [H][hb] f32,
+    resident beside a staged tile of all B rows) take (B, H)?"""
+    hb = _one_launch_units(b, h)
+    return hb is not None and _one_launch_tile_fits(b, h, 4 * h * hb)
+
+
+@pytest.mark.parametrize("b", [1, 4, 7, 16, 37, 64, 100, 128, 256, 512,
+                               1000, 2048])
+@pytest.mark.parametrize("h", [4, 8, 16, 96, 256, 512, 1024, 1320, 1536,
+                               2048, 2560, 2816, 3072, 4096])
+def test_forward_geometry_takes_every_shape_the_one_launch_h_took(b, h):
+    """H on the forward loop, one gate column, takes every shape the
+    one-launch H took -- B=100, H=2560 (2000 pairs per CTA there) only
+    through the one-gate bounds of the 2 x 4 and 1 x 8 tiles -- and
+    keeps the columns resident wherever that H held them but there: 20
+    units' rows (205,120 bytes) leave no room for two staged chunks of
+    100 rows, where the one-launch H staged one tile, so the loop reads
+    them from w_hh^T through L2."""
+    if _one_launch_h_takes(b, h):
+        g = TL.forward_geometry("t", b, h, 1, SMS, OPTIN)
+        assert g.ctas <= SMS and g.smem <= OPTIN
+        assert g.resident == ((b, h) != (100, 2560))
+
+
+def _declared_forward_bounds():
+    """{(unit_tile, rep): (one gate, up to 3, 4)} as `time_loop.cuh
+    forward_bound` declares them."""
     src = (Path(TL.__file__).resolve().parent.parent / "csrc" /
            "time_loop.cuh").read_text()
-    declared = {(int(ut), int(rep)): (int(few), int(four)) for ut, rep, few,
-                four in re.findall(
-                    r"if \(kUT == (\d+) && kRep == (\d+)\) return kOut <= 3 "
-                    r"\? (\d+) : (\d+);", src)}
-    assert declared == {(ut, rep): (few, four)
-                        for ut, rep, few, four in TL.FORWARD_TILES}
-    for gates, col in ((1, 0), (3, 0), (4, 1)):
+    return {(int(ut), int(rep)): (int(one), int(few), int(four))
+            for ut, rep, one, few, four in re.findall(
+                r"if \(kUT == (\d+) && kRep == (\d+)\) return kOut == 1 "
+                r"\? (\d+) : kOut <= 3 \? (\d+) : (\d+);", src)}
+
+
+def test_forward_bounds_match_the_kernel():
+    """Each forward tile's launch bound, for one gate column (H), up to 3
+    (F) and 4 (D), is what `time_loop.cuh forward_bound` declares: the
+    host never asks a tile for more threads than its kernel was built
+    for."""
+    declared = _declared_forward_bounds()
+    assert declared == {(ut, rep): (one, few, four)
+                        for ut, rep, one, few, four in TL.FORWARD_TILES}
+    for gates, col in ((1, 0), (2, 1), (3, 1), (4, 2)):
         assert {(ut, rep): n for ut, rep, n in TL.forward_tiles(gates)} == \
             {k: v[col] for k, v in declared.items()}
     # a fourth gate column adds a quarter to a lane's sums: no tile's
     # bound rises with it
-    assert all(four <= few for _, _, few, four in TL.FORWARD_TILES)
+    assert all(four <= few for _, _, _, few, four in TL.FORWARD_TILES)
+
+
+def test_one_gate_bounds_hold_the_one_launch_h_pairs():
+    """A one-gate lane keeps a third of F's sums and weight vectors: no
+    tile's bound falls from F's, the 4 x 4 tile takes the backward loop's
+    768 threads (the same product), and the 2 x 4 and 1 x 8 tiles reach
+    512 threads, 2048 and 4096 pairs per CTA: at least the 2048 the
+    one-launch H carried."""
+    declared = _declared_forward_bounds()
+    assert all(one >= few for one, few, _ in declared.values())
+    backward = {(ut, rep): n for ut, rep, n in TL.LOOP_TILES}
+    assert declared[4, 1][0] == backward[4, 1] == 768
+    assert declared[2, 4][0] == declared[1, 8][0] == 512
+    assert max(one * rep for (_, rep), (one, _, _) in declared.items()) \
+        >= _ONE_LAUNCH_PAIRS
 
 
 def test_forward_geometry_at_the_encoder_shape():
@@ -250,6 +314,23 @@ def test_forward_geometry_at_bench_lstm_shape():
     assert g.smem == 4 * 16 * 516 * 4 + 2 * 16 * 516 * 4
     g = TL.forward_geometry("t", 64, 2048, 4, SMS, OPTIN)
     assert not g.resident and g.rep == 4 and g.ctas == 128
+
+
+def test_forward_geometry_at_the_rnn_shape():
+    """H at T=100, B=64, H=512: one gate column gives the grid of I's
+    backward loop at the same shape -- 16 row groups x 8 unit groups, 4
+    rows x 64 units per CTA in 4 x 4 thread tiles (256 threads), w_hh's
+    64 columns resident as rows and the whole operand row in one chunk
+    (148,608 bytes of shared memory). B=64 H=2816 reads the columns from
+    w_hh^T through L2."""
+    g = TL.forward_geometry("t", 64, 512, 1, SMS, OPTIN)
+    assert (g.row_groups, g.unit_groups, g.br, g.hb, g.unit_tile,
+            g.threads, g.chunk, g.rep, g.resident) == (
+        16, 8, 4, 64, 4, 256, 512, 1, True)
+    assert g.smem == 64 * 516 * 4 + 2 * 4 * 516 * 4 == 148608
+    assert g == TL.backward_geometry("t", 64, 512, 1, SMS, OPTIN)
+    assert TL.forward_geometry("t", 64, 2560, 1, SMS, OPTIN).resident
+    assert not TL.forward_geometry("t", 64, 2816, 1, SMS, OPTIN).resident
 
 
 @pytest.mark.parametrize("b,h,match", [
