@@ -30,11 +30,13 @@ Phases, in order; any failure exits non-zero:
    instantiation, read from `cuobjdump --dump-sass` of the built library,
    must be above 0. A's cases: the main prefill, key_lens, causal T=2048,
    a sliding window, head_dim 128 and rows with no valid key, in f32 and
-   bf16; causal T=8192, B=4, H=8 in bf16 (bench_transformer_lm's shape,
-   held against the plain version one batch row at a time: its scores
-   take 2 GB a row; its output's tolerance holds each row's max abs
-   error over that row's max |plain|, since a long row's |o| falls to
-   bf16's absolute tolerance); and f32 scores of std 3 (q scaled by 3)
+   bf16; causal T=8192, B=4, H=8 in bf16 and f32 (bench_transformer_lm's
+   shape; the LM train phase feeds it f32, its f32 biases promoting the
+   activations; held against the plain version one batch row at a time:
+   its scores take 2 GB a row; the bf16 output's tolerance holds each
+   row's max abs error over that row's max |plain|, since a long row's
+   |o| falls to bf16's absolute tolerance, the f32 one its max abs
+   error); and f32 scores of std 3 (q scaled by 3)
    at f32's tolerance. A's f32 bound counts its products at the 3xTF32
    rate (495 / 3 TFLOP/s); the time loops' f32 bounds at the CUDA
    cores' 67 TFLOP/s.
@@ -142,10 +144,38 @@ Phases, in order; any failure exits non-zero:
    uniform in [50, 100]: one forward and backward launches H and I once
    each (H 2 device launches, I at least three), and its gradients
    agree with the plain path's to 1e-4 relative.
-8. report -- the launch counts of every path, the serve, train, seq2seq
-   and generation numbers, the wide cases, the card's name and
+8. lm_train -- the transformer LM's training path at
+   bench_transformer_lm's width (benchmarks/suite.py:331: vocab 32000,
+   dim 512, 8 layers, 8 heads, remat, bf16 policy, B=4, T=8192, adam
+   1e-3, seeded weights, the same batch every step). First the flash
+   backward's cases: flash_attention's gradients on the card (kernel A
+   forward, the ported blockwise backward) against torch.autograd
+   through the plain version, random cotangents, causal T=2048 in f32
+   and bf16, key_lens, a window of 256 at T=2048, head_dim 128, and
+   causal T=8192 B=4 bf16 (held one batch row at a time); max abs error
+   over max |plain| per gradient within f32 1e-4 / bf16 2e-2. The
+   backward alone at T=8192 B=4 is timed beside SDPA's backward and its
+   bound (2.5 x the forward's products). Then three variants (full
+   causal, attn_window 1024, fused_ce_chunk 2048), a warm-up step and 5
+   timed steps each: ms/step, tokens/s (B x T over the step), the
+   step's analytic FLOP count and its share of 989 TFLOP/s (mfu_pct);
+   A's launches counted from 0 before the warm-up must be 16 a step (a
+   forward and a remat recompute per layer), no dense attention or flash
+   plain version may run, every loss finite and the last below the
+   first, and the fused CE's first loss within 1e-3 of the unfused one.
+   Then parity with the plain path (the flash Function's forward on the
+   plain version, which must not launch A) from the same weights at T
+   cut to 2048, 3 steps, f32 (first-step gradients per leaf 1e-4, floored
+   as seq2seq's, losses 1e-3) and bf16 (2e-2, 1e-2); and a checkpoint
+   round trip: CheckpointManager(max_to_keep=2) over 3 steps keeps 2 and
+   3, restores them into a fresh template leaf for leaf, one more step
+   from both gives the same loss bit for bit, and the parameters tar
+   round-trips the params exactly.
+9. report -- the launch counts of every path, the serve, train, seq2seq,
+   generation and LM train numbers, the wide cases, the card's name and
    power limit, a `kernels` JSON line (nine entries, A-I; A adds its
-   HMMA counts; B and C their device launches in the float and int8
+   HMMA counts and its launches in the LM train phase; B and C their
+   device launches in the float and int8
    serves and per call and their split plan; D, F and H their device
    launches and whether they repeated bit for bit (D and H also their
    us per step); E, G and I their
@@ -167,11 +197,13 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from paddle_tpu_torch.core import dtypes as TD
 from paddle_tpu_torch.core.pytree import (tree_leaves, tree_map,
                                           tree_map_with_name)
 from paddle_tpu_torch.models import seq2seq_attn as TS
@@ -192,6 +224,7 @@ from paddle_tpu_torch.ops import rnn as RNN
 from paddle_tpu_torch.serve import quant as Q
 from paddle_tpu_torch.optim import optimizers as OPT
 from paddle_tpu_torch.serve.engine import DecodeEngine
+from paddle_tpu_torch.train import checkpoint as CK
 from paddle_tpu_torch.train import events as EV
 from paddle_tpu_torch.train.state import TrainState
 from paddle_tpu_torch.train.trainer import Trainer, loss_and_grads
@@ -223,6 +256,17 @@ GEN_ROWS, GEN_BEAM, GEN_MAX_LEN = 16, 4, 30
 SCORE_RTOL = 1e-4
 # the tanh RNN at the reference RNN benchmark's shape (bench_lstm's)
 RNN_T, RNN_B, RNN_H = 100, 64, 512
+# bench_transformer_lm(seq_len=8192, batch=4, dim=512, n_layers=8,
+# n_heads=8, vocab=32000) with remat, bf16 policy (benchmarks/suite.py:331,
+# sizes at :819-833, policy at :759), also with window 1024 and the fused
+# CE over 2048-position chunks (:856-866)
+LM_CFG = dict(vocab=32000, dim=512, n_layers=8, n_heads=8, remat=True)
+LM_B, LM_T, LM_SEED = 4, 8192, 0
+LM_WINDOW, LM_CE_CHUNK, LM_STEPS = 1024, 2048, 5
+# parity with the plain path: the sequence cut to 2048, 3 steps;
+# (first-step gradient, loss) tolerances per compute dtype
+LM_PARITY_T, LM_PARITY_STEPS = 2048, 3
+LM_PARITY_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 1e-2)}
 
 
 def log(*a):
@@ -555,6 +599,15 @@ def kernels_phase():
     # policy at :759), and f32 scores of std 3 at f32's tolerance
     a["causal_t8192_bf16"] = flash_case("causal_t8192_b4", b=4, t=8192,
                                         h=8, dtype=bf16, row_relative=True)
+    # the same shape in f32, as the LM train path feeds A under the bf16
+    # policy (the dense layers' f32 biases promote their outputs), full
+    # causal and in the LM's window of 1024 keys (tiles skipped before
+    # the band); held row by row, as the bf16 case, at f32's tolerance
+    a["causal_t8192_f32"] = flash_case("causal_t8192_b4", b=4, t=8192,
+                                       h=8, dtype=f32, row_relative=True)
+    a["window1024_t8192_f32"] = flash_case(
+        "window1024_t8192_b4", b=4, t=8192, h=8, dtype=f32, window=1024,
+        row_relative=True)
     a["scaled_scores_float32"] = flash_case("scores_std3_t512", b=2, t=512,
                                             h=8, q_scale=3.0, seed=1)
     log("phase kernels: ragged paged-attention walk (B)")
@@ -1578,6 +1631,376 @@ def simple_rnn_phase():
                 device_launches={"H": device["fwd"], "I": device["bwd"]})
 
 
+# -- the transformer LM's training path ----------------------------------------
+
+
+def flash_bwd_case(name, *, b, t, h, d=64, dtype=torch.float32, causal=True,
+                   lens=None, window=None, seed=0):
+    """flash_attention's gradients on the card (kernel A forward, the
+    ported backward) against torch.autograd through the plain version on
+    the same tensors, with random cotangents; max abs error over max
+    |plain| per gradient. Above ROW_BY_ROW_BYTES of f32 scores the plain
+    gradients are taken one batch row at a time."""
+    rs = np.random.RandomState(seed)
+    mk = lambda: torch.from_numpy(rs.standard_normal(
+        (b, t, h, d)).astype(np.float32)).to("cuda", dtype)
+    q, k, v, g = mk(), mk(), mk(), mk()
+    lens_t = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                    device="cuda")
+    kw = dict(causal=causal, window=window)
+    qkv = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    FA.reset_launch_counts()
+    got = torch.autograd.grad(FA.flash_attention(*qkv, key_lens=lens_t, **kw),
+                              qkv, g)
+    launched = FA.launch_counts["fwd"]
+    if lens_t is None:
+        lens_t = torch.full((b,), t, dtype=torch.int32, device="cuda")
+    rows = ([slice(i, i + 1) for i in range(b)]
+            if b * h * t * t * 4 > ROW_BY_ROW_BYTES else [slice(0, b)])
+    err, scale = [0.0] * 3, [0.0] * 3
+    for r in rows:
+        ref_in = [x[r].clone().requires_grad_(True) for x in (q, k, v)]
+        o_ref, _ = FA.flash_attention_reference(*ref_in, lens_t[r], **kw)
+        ref = torch.autograd.grad(o_ref, ref_in, g[r])
+        for i in range(3):
+            err[i] = max(err[i], abs_err(got[i][r], ref[i]))
+            scale[i] = max(scale[i], ref[i].float().abs().max().item())
+        del o_ref, ref, ref_in
+    rels = [e / max(s, 1e-30) for e, s in zip(err, scale)]
+    tol = TOL[dtype]
+    ok = max(rels) <= tol and launched == 1
+    log(f"  flash backward {name:<18} {str(dtype)[6:]:<8} rel err dq/dk/dv "
+        f"{'/'.join('%.2e' % x for x in rels)} (tol {tol:.0e}; A launched "
+        f"{launched}) {'ok' if ok else 'FAIL'}")
+    return dict(name=name, dtype=str(dtype)[6:], rel_err=max(rels), ok=ok)
+
+
+def flash_bwd_timing(dtype):
+    """Device ms of the ported backward alone at bench_transformer_lm's
+    attention (causal T=8192, B=4, H=8, D=64) beside SDPA's backward on
+    the same tensors (its forward run once, its backward timed alone),
+    and the backward's bound: 2.5 x the forward's products over valid
+    pairs at the bf16 peak, or its bytes (q, k, v, o, g and lse read, dq,
+    dk, dv written). The LM path under the bf16 policy feeds attention
+    f32 (f32 biases promote the products' bf16 outputs, as in the JAX
+    package), so both dtypes are timed."""
+    b, t, h = LM_B, LM_T, LM_CFG["n_heads"]
+    d = LM_CFG["dim"] // h
+    rs = np.random.RandomState(9)
+    mk = lambda: torch.from_numpy(rs.standard_normal(
+        (b, t, h, d)).astype(np.float32)).to("cuda", dtype)
+    q, k, v, g = mk(), mk(), mk(), mk()
+    lens = torch.full((b,), t, dtype=torch.int32, device="cuda")
+    o, lse = FA.flash_kernel(q, k, v, lens, causal=True)
+    ms = time_ms(lambda: FA.flash_backward(q, k, v, lens, o, lse, g,
+                                           causal=True), iters=5, warmup=1)
+    heads = lambda x: x.transpose(1, 2).contiguous().requires_grad_(True)
+    qh, kh, vh = heads(q), heads(k), heads(v)
+    out = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh,
+                                                           is_causal=True)
+    gh = g.transpose(1, 2).contiguous()
+    sdpa_ms = time_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), gh,
+                                                  retain_graph=True))
+    pairs = b * h * t * (t + 1) // 2
+    bytes_ = 8 * q.numel() * q.element_size() + lse.numel() * 4
+    bound_ms, bound_by = bound(bytes_, 2.5 * 4 * d * pairs, torch.bfloat16)
+    log(f"  flash backward alone, causal T={t} B={b} H={h} "
+        f"{str(dtype)[6:]}: {ms:.4f} ms (device, L2 flushed, mean of 5) vs "
+        f"SDPA backward {sdpa_ms:.4f} ms; bound {bound_ms:.4f} ms "
+        f"({bound_by}: 2.5 x the forward's products at 989 TFLOP/s)")
+    return dict(backward_ms=ms, sdpa_backward_ms=sdpa_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def lm_step_flops(cfg, b, t):
+    """Operations one training step of TT.loss executes on tokens [b, t]
+    (n = b x (t-1) positions), by part: the blocks' products (forward,
+    the remat recompute, the backward's two), the LM head's (forward,
+    backward's two, the fused CE's recompute), A's over valid (query,
+    key) pairs (forward and recompute), and the flash backward's five
+    f32 products over every query each key block visits."""
+    tq, d, dh, h = t - 1, cfg.dim, cfg.head_dim, cfg.n_heads
+    n = b * tq
+    per_layer = d * (h + 2 * cfg.kv_heads) * dh + d * d + 2 * d * (
+        cfg.mlp_ratio * d)
+    qpos, kpos = np.arange(tq)[:, None], np.arange(tq)[None, :]
+    band = qpos >= kpos
+    if cfg.attn_window is not None:
+        band = band & (qpos - kpos < cfg.attn_window)
+    bk = FA.DEFAULT_BLOCK_K
+    rows = tq if cfg.attn_window is None else bk + min(cfg.attn_window,
+                                                       tq) - 1
+    parts = dict(
+        blocks=2 * n * per_layer * cfg.n_layers * 4,
+        lm_head=2 * n * d * cfg.vocab * (4 if cfg.fused_ce_chunk else 3),
+        attention_fwd=2 * 4 * dh * int(band.sum()) * b * h * cfg.n_layers,
+        attention_bwd=(5 * 2 * dh * rows * bk * -(-tq // bk) * b * h
+                       * cfg.n_layers))
+    return sum(parts.values()), parts
+
+
+def lm_step(params, cfg, tokens, opt, opt_state, step):
+    """The bench's hand-rolled step: loss and gradients, then adam's
+    update in place. Returns the loss (a tensor)."""
+    loss = TT.loss(params, cfg, tokens)
+    it = iter(torch.autograd.grad(loss, tree_leaves(params)))
+    opt.update(tree_map(lambda _: next(it), params), opt_state, params,
+               step)
+    return loss.detach()
+
+
+def lm_train(params, cfg, tokens, steps, opt_state=None):
+    """`steps` steps on one batch from params (updated in place): (losses
+    as tensors, the adam state)."""
+    opt = OPT.adam(1e-3)
+    opt_state = opt.init(params) if opt_state is None else opt_state
+    losses = [lm_step(params, cfg, tokens, opt, opt_state,
+                      torch.tensor(i, dtype=torch.int32, device="cuda"))
+              for i in range(steps)]
+    return losses, opt_state
+
+
+class attention_spy:
+    """Counts the calls of the dense attention and of the flash plain
+    version while entered (neither may run on the kernel path). With
+    plain=True the flash Function's forward takes the plain version on
+    CUDA tensors too (the plain path), so kernel A must not launch."""
+
+    def __init__(self, plain=False):
+        self.plain, self.calls = plain, {"dense": 0, "flash_plain": 0}
+
+    def __enter__(self):
+        self.saved = (TT._dense_attention, FA.flash_attention_reference,
+                      FA.flash_kernel)
+
+        def count(key, fn):
+            def counted(*a, **kw):
+                self.calls[key] += 1
+                return fn(*a, **kw)
+            return counted
+
+        TT._dense_attention = count("dense", self.saved[0])
+        FA.flash_attention_reference = count("flash_plain", self.saved[1])
+        if self.plain:
+            FA.flash_kernel = FA.flash_attention_reference
+        return self
+
+    def __exit__(self, *exc):
+        (TT._dense_attention, FA.flash_attention_reference,
+         FA.flash_kernel) = self.saved
+
+
+def lm_variant(name, params0, tokens, **cfg_kw):
+    """One full-width variant under the bf16 policy, from a copy of
+    params0: a warm-up step, then LM_STEPS timed steps ending in a sync;
+    A's launches counted from 0 before the warm-up."""
+    cfg = TT.TransformerConfig(**LM_CFG, **cfg_kw)
+    params = trainable(params0)
+    torch.cuda.synchronize()
+    FA.reset_launch_counts()
+    with attention_spy() as spy:
+        first, opt_state = lm_train(params, cfg, tokens, 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rest, _ = lm_train(params, cfg, tokens, LM_STEPS, opt_state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launched = FA.launch_counts["fwd"]
+    losses = [x.item() for x in first + rest]
+    step_s = wall / LM_STEPS
+    flops, parts = lm_step_flops(cfg, LM_B, LM_T)
+    out = dict(variant=name, ms_per_step=1e3 * step_s,
+               tokens_per_s=LM_B * LM_T / step_s, step_flops=flops,
+               step_flops_by_part=parts,
+               mfu_pct=100 * flops / step_s / PEAK_FLOPS[torch.bfloat16],
+               a_launches=launched, a_launches_per_step=launched / (
+                   1 + LM_STEPS), losses=losses, attention_calls=spy.calls)
+    log(f"  {name:<14} {out['ms_per_step']:.1f} ms/step = "
+        f"{out['tokens_per_s']:.0f} tokens/s; {flops / 1e12:.2f} TFLOP a "
+        f"step, mfu_pct {out['mfu_pct']:.2f}; A {launched} launches "
+        f"({out['a_launches_per_step']:g} per step); dense / flash plain "
+        f"calls {spy.calls}; losses {['%.5f' % x for x in losses]}")
+    want = 2 * LM_CFG["n_layers"] * (1 + LM_STEPS)
+    if launched != want:
+        raise Fail(f"lm_train {name}: A launched {launched} times, want "
+                   f"{want} (a forward and a remat recompute per layer per "
+                   f"step)")
+    if any(spy.calls.values()):
+        raise Fail(f"lm_train {name}: attention ran off kernel A: "
+                   f"{spy.calls}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise Fail(f"lm_train {name}: losses not finite, or not falling on "
+                   f"the memorized batch: {losses}")
+    return out
+
+
+def lm_parity(params0, tokens, dtype, **cfg_kw):
+    """LM_PARITY_STEPS steps on kernel A and on the plain path from the
+    same weights (remat on, the current policy, cfg_kw such as
+    attn_window on both): first-step gradients per leaf and every loss,
+    A's launches on each path."""
+    grad_tol, loss_tol = LM_PARITY_TOL[dtype]
+    cfg = TT.TransformerConfig(**LM_CFG, **cfg_kw, attn_impl="flash")
+    runs = {}
+    for path in ("kernel", "plain"):
+        params = trainable(params0)
+        FA.reset_launch_counts()
+        with attention_spy(plain=path == "plain") as spy:
+            loss = TT.loss(params, cfg, tokens)
+            grads = torch.autograd.grad(loss, tree_leaves(params))
+            losses, _ = lm_train(params, cfg, tokens, LM_PARITY_STEPS)
+        runs[path] = dict(grads=grads, losses=[x.item() for x in losses],
+                          launched=FA.launch_counts["fwd"], calls=spy.calls)
+        del params
+    k, p = runs["kernel"], runs["plain"]
+    g_err, _ = leaf_rel_errs(params0, k["grads"], p["grads"])
+    l_err = max(abs(a - b) / abs(b) for a, b in zip(k["losses"],
+                                                    p["losses"]))
+    name = str(dtype)[6:] + "".join(f" {k}={v}" for k, v in cfg_kw.items())
+    log(f"  parity {name:<8} T={tokens.shape[1]}: first-step gradients max "
+        f"rel err {g_err:.2e} (tol {grad_tol:.0e}), losses {l_err:.2e} (tol "
+        f"{loss_tol:.0e}); A launches: kernel path {k['launched']}, plain "
+        f"path {p['launched']} ({p['calls']['flash_plain']} plain calls); "
+        f"losses {['%.6f' % x for x in k['losses']]} vs "
+        f"{['%.6f' % x for x in p['losses']]}")
+    want = 2 * LM_CFG["n_layers"] * (1 + LM_PARITY_STEPS)
+    if k["launched"] != want or any(k["calls"].values()):
+        raise Fail(f"lm_train parity {name}: the kernel path launched A "
+                   f"{k['launched']} times (want {want}); attention calls "
+                   f"off A {k['calls']}")
+    if p["launched"] or p["calls"]["dense"] or not p["calls"]["flash_plain"]:
+        raise Fail(f"lm_train parity {name}: the plain path launched A "
+                   f"{p['launched']} times; attention calls {p['calls']}")
+    if g_err > grad_tol or l_err > loss_tol:
+        raise Fail(f"lm_train parity {name}: kernel and plain paths "
+                   f"differ: gradients {g_err:.2e}, losses {l_err:.2e}")
+    return dict(grad_rel_err=g_err, loss_rel_err=l_err, losses=k["losses"],
+                plain_losses=p["losses"])
+
+
+def same_tree(a, b):
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def lm_checkpoint_round_trip(params0, tokens):
+    """CheckpointManager(max_to_keep=2) saves 3 kernel-path steps (the
+    current policy): steps 2 and 3 remain, the state restored into a
+    fresh template equals the live one leaf for leaf, one more step from
+    each gives the same loss bit for bit, and the parameters tar
+    round-trips the params exactly."""
+    cfg = TT.TransformerConfig(**LM_CFG, attn_impl="flash")
+    opt = OPT.adam(1e-3)
+    state = TrainState.create(trainable(params0), {}, opt)
+    template = TrainState.create(
+        trainable(TT.init_params(LM_SEED + 1, cfg, device="cuda")), {}, opt)
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CK.CheckpointManager(os.path.join(tmp, "ckpt"), max_to_keep=2)
+        for _ in range(3):
+            lm_step(state.params, cfg, tokens, opt, state.opt_state,
+                    state.step)
+            state = state._replace(step=state.step + 1)
+            mgr.save(state)
+        kept = mgr.all_steps()
+        restored = mgr.restore(template)
+        equal = all(same_tree(getattr(restored, f), getattr(state, f))
+                    for f in ("params", "opt_state", "step"))
+        restored = restored._replace(params=trainable(restored.params))
+        live = lm_step(state.params, cfg, tokens, opt, state.opt_state,
+                       state.step)
+        again = lm_step(restored.params, cfg, tokens, opt,
+                        restored.opt_state, restored.step)
+        tar = os.path.join(tmp, "params.tar")
+        CK.save_parameters_tar(state.params, tar)
+        tar_exact = same_tree(
+            CK.load_parameters_tar(template.params, tar), state.params)
+        mgr.close()
+    bitwise = bool(torch.equal(live, again))
+    log(f"  checkpoints: steps kept {kept} (max_to_keep 2); restored state "
+        f"equal {equal}; one more step: loss {live.item():.7f} live, "
+        f"{again.item():.7f} restored, bitwise {bitwise}; parameters tar "
+        f"round trip exact {tar_exact}")
+    if kept != [2, 3] or not (equal and bitwise and tar_exact):
+        raise Fail(f"lm_train checkpoints: steps {kept}, restored equal "
+                   f"{equal}, losses bitwise {bitwise}, tar exact "
+                   f"{tar_exact}")
+    return dict(steps_kept=kept, restored_equal=equal, loss_bitwise=bitwise,
+                tar_exact=tar_exact)
+
+
+def lm_train_phase():
+    """The transformer LM's training path at bench_transformer_lm's width:
+    the flash backward's cases and its time beside SDPA's, three
+    full-width variants (bf16 policy, remat), parity with the plain path
+    at T=LM_PARITY_T (f32, f32 in the window of LM_WINDOW keys, then
+    bf16) and a checkpoint round trip."""
+    log(f"phase lm_train: transformer LM {LM_CFG}, B={LM_B} T={LM_T}, adam "
+        f"1e-3, the same batch every step")
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [flash_bwd_case("causal_t2048", b=1, t=2048, h=8, dtype=dt)
+             for dt in (f32, bf16)]
+    cases += [
+        flash_bwd_case("key_lens", b=4, t=512, h=8, lens=[512, 300, 37, 1],
+                       seed=1),
+        flash_bwd_case("window256_t2048", b=2, t=2048, h=8, window=256,
+                       lens=[2048, 1500], seed=2),
+        flash_bwd_case("head_dim128", b=1, t=256, h=4, d=128, seed=3),
+        flash_bwd_case("head_dim128", b=1, t=256, h=4, d=128, dtype=bf16,
+                       seed=3),
+        flash_bwd_case("causal_t8192_b4", b=LM_B, t=LM_T, h=8, dtype=bf16,
+                       seed=4),
+    ]
+    bad = [f"{c['name']}[{c['dtype']}]" for c in cases if not c["ok"]]
+    if bad:
+        raise Fail(f"lm_train: flash gradients disagree with the plain "
+                   f"version: {bad}")
+    timing = {str(dt)[6:]: flash_bwd_timing(dt) for dt in (bf16, f32)}
+    torch.cuda.empty_cache()
+
+    rs = np.random.RandomState(0)
+    tokens = torch.from_numpy(rs.randint(0, LM_CFG["vocab"], (LM_B, LM_T))
+                              .astype(np.int32)).cuda()
+    params0 = TT.init_params(LM_SEED, TT.TransformerConfig(**LM_CFG),
+                             device="cuda")
+    prev = TD.default_policy()
+    TD.set_default_policy(TD.bf16_compute_policy())
+    try:
+        variants = [lm_variant("full_causal", params0, tokens),
+                    lm_variant("window_1024", params0, tokens,
+                               attn_window=LM_WINDOW),
+                    lm_variant("fused_ce_2048", params0, tokens,
+                               fused_ce_chunk=LM_CE_CHUNK)]
+    finally:
+        TD.set_default_policy(prev)
+    torch.cuda.empty_cache()
+    first = [v["losses"][0] for v in variants]
+    ce_rel = abs(first[2] - first[0]) / abs(first[0])
+    log(f"  fused CE's first loss {first[2]:.6f} vs unfused {first[0]:.6f}: "
+        f"{ce_rel:.2e} relative (tol {LOSS_RTOL:.0e})")
+    if ce_rel > LOSS_RTOL:
+        raise Fail(f"lm_train: the fused CE's first loss differs: "
+                   f"{ce_rel:.2e}")
+
+    short = tokens[:, :LM_PARITY_T].contiguous()
+    parity = {"float32": lm_parity(params0, short, f32),
+              "float32_window_1024": lm_parity(params0, short, f32,
+                                               attn_window=LM_WINDOW)}
+    ckpt = lm_checkpoint_round_trip(params0, short)
+    TD.set_default_policy(TD.bf16_compute_policy())
+    try:
+        parity["bfloat16"] = lm_parity(params0, short, bf16)
+    finally:
+        TD.set_default_policy(prev)
+    del params0, tokens, short
+    torch.cuda.empty_cache()
+    return dict(flash_backward_cases=cases, flash_backward_timing=timing,
+                variants=variants, fused_ce_first_loss_rel=ce_rel,
+                parity=parity, checkpoint=ckpt,
+                a_launches=sum(v["a_launches"] for v in variants),
+                a_launches_per_step=variants[0]["a_launches_per_step"])
+
+
 # -- the serving path ---------------------------------------------------------
 
 
@@ -1841,6 +2264,7 @@ def main() -> int:
     s2s, trained, batch0 = seq2seq_phase()
     gen = generation_phase(trained, batch0)
     srnn = simple_rnn_phase()
+    lm = lm_train_phase()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1889,11 +2313,18 @@ def main() -> int:
               "paddle_tpu/ops/flash_attention.py:45",
               launched["float"]["flash_fwd"], a["main_prefill_t128"],
               hmma_per_instantiation=hmma,
+              # the LM train phase's three full-width variants, counted
+              # from 0 before each (a forward and a remat recompute per
+              # layer per step)
+              lm_train_launches=lm["a_launches"],
+              lm_train_launches_per_step=lm["a_launches_per_step"],
               other_shapes={k: {f: a[k][f] for f in (
                   "ms", "library_ms", "bound_ms", "err", "row_rel_err")
                   if f in a[k]} for k in (
                   "causal_t2048_float32", "causal_t2048_bfloat16",
-                  "causal_t8192_bf16", "hd128_float32", "hd128_bfloat16",
+                  "causal_t8192_bf16", "causal_t8192_f32",
+                  "window1024_t8192_f32", "hd128_float32",
+                  "hd128_bfloat16",
                   "scaled_scores_float32")}),
         # B and C: calls of the float and int8-KV serves' runs; their
         # device launches in those runs (the split walk, and the combine
@@ -1974,6 +2405,7 @@ def main() -> int:
     log(json.dumps({"seq2seq": s2s, "generation": gen,
                     "simple_rnn": srnn}))
     log(json.dumps({"wide_cases": wide}))
+    log(json.dumps({"lm_train": lm, "card": smi.stdout.strip()}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -42,7 +42,8 @@
 //   f32: 3xTF32 m16n8k8 products: each operand x splits into hi =
 //     tf32(x) and lo = tf32(x - hi), and a b = a_hi b_hi + a_hi b_lo +
 //     a_lo b_hi, for S and for PV. Single-pass TF32 keeps ~11 bits, an
-//     error of ~1e-3 on unit-scale scores, ten times f32's 1e-4. Q's
+//     error of ~1e-3 on unit-scale scores, ten times f32's 1e-4. Each
+//     key tile's PV sum starts from zero and is added to O in f32. Q's
 //     fragments are read from shared memory at each k-step, which leaves
 //     the registers to S, O and the split operands. P's fragment pairs
 //     keys (2i, 2i+1) where the m16n8k8 A layout wants (i, i+4): PV's k
@@ -322,25 +323,39 @@ struct Frag<float, D> {
   }
 
   // acc += P V, 3xTF32. The k index of n-block nb is permuted: A column c
-  // (c + 4) is key 8 nb + 2c (2c + 1), where S's accumulators hold P.
+  // (c + 4) is key 8 nb + 2c (2c + 1), where S's accumulators hold P. The
+  // tile's products accumulate from zero and reach acc by f32 adds: the
+  // tensor core truncates its f32 accumulator, and fed O itself over a
+  // row of 8192 keys it shrank |o| by up to 1.2e-4 of the row's max. Two
+  // passes over the head dim keep half the tile's sums live at a time,
+  // which ran faster than one pass (PERF.md).
   __device__ __forceinline__ void pv(float (&acc)[D / 8][4],
                                      const float (&s)[kNB][4], const T* vt,
                                      int lane) const {
     const int g = lane >> 2, c = lane & 3;
     const T* p = vt + 2 * c * kLd + g;  // B(key 2c, dim g)
+    constexpr int kDG = D / 16;          // column blocks a pass
 #pragma unroll
-    for (int nb = 0; nb < kNB; ++nb) {
-      const float x[4] = {s[nb][0], s[nb][2], s[nb][1], s[nb][3]};
-      unsigned ah[4], al[4];
-      split_tf32(x, ah, al);
+    for (int d0 = 0; d0 < D / 8; d0 += kDG) {
+      float t[kDG][4] = {};
 #pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        const float b[2] = {p[nb * 8 * kLd + dn * 8],
-                            p[(nb * 8 + 1) * kLd + dn * 8]};
-        unsigned bh[2], bl[2];
-        split_tf32(b, bh, bl);
-        mma_3xtf32(acc[dn], ah, al, bh, bl);
+      for (int nb = 0; nb < kNB; ++nb) {
+        const float x[4] = {s[nb][0], s[nb][2], s[nb][1], s[nb][3]};
+        unsigned ah[4], al[4];
+        split_tf32(x, ah, al);
+#pragma unroll
+        for (int dn = 0; dn < kDG; ++dn) {
+          const float b[2] = {p[nb * 8 * kLd + (d0 + dn) * 8],
+                              p[(nb * 8 + 1) * kLd + (d0 + dn) * 8]};
+          unsigned bh[2], bl[2];
+          split_tf32(b, bh, bl);
+          mma_3xtf32(t[dn], ah, al, bh, bl);
+        }
       }
+#pragma unroll
+      for (int dn = 0; dn < kDG; ++dn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[d0 + dn][e] += t[dn][e];
     }
   }
 };

@@ -10,8 +10,9 @@ for teacher-forced training and driven by `ops.beam_search` for
 generation; its attention, GRU step and output projection are torch ops
 and `torch.matmul`, as the JAX package leaves them to XLA.
 
-`loss(fused_ce_chunk=...)` is not ported (the chunked LM-head loss comes
-with the LM's training path) and raises NotImplementedError.
+`loss(fused_ce_chunk=...)` applies the hoisted output projection in
+chunks of that many positions (`ops.losses.chunked_lm_head_nll`, with
+the output bias), so the [B, T, V] logits never exist whole.
 """
 
 from __future__ import annotations
@@ -173,19 +174,22 @@ def teacher_forced_logits(params, src_tokens, src_lengths, tgt_in, *,
 
 def loss(params, src_tokens, src_lengths, tgt_tokens, tgt_lengths, *,
          bos_id: int = 1, fused_ce_chunk=None, impl=None):
-    """Mean per-token CE with teacher forcing."""
-    if fused_ce_chunk:
-        raise NotImplementedError(
-            "seq2seq_attn.loss(fused_ce_chunk=...) is not ported: the "
-            "chunked LM-head loss comes with the LM's training path "
-            "(ROADMAP queue 1)")
+    """Mean per-token CE with teacher forcing. fused_ce_chunk: fold the
+    output projection into chunks of that many positions."""
     b, t = tgt_tokens.shape
     bos = torch.full((b, 1), bos_id, dtype=tgt_tokens.dtype,
                      device=tgt_tokens.device)
     tgt_in = torch.cat([bos, tgt_tokens[:, :-1]], dim=1)
-    logits = teacher_forced_logits(params, src_tokens, src_lengths, tgt_in,
+    if fused_ce_chunk:
+        hs = teacher_forced_hidden(params, src_tokens, src_lengths, tgt_in,
                                    impl=impl)
-    ce = losses.softmax_cross_entropy(logits, tgt_tokens)          # [B, T]
+        ce = losses.chunked_lm_head_nll(
+            hs, params["out"]["kernel"], tgt_tokens, chunk=fused_ce_chunk,
+            bias=params["out"]["bias"])
+    else:
+        logits = teacher_forced_logits(params, src_tokens, src_lengths,
+                                       tgt_in, impl=impl)
+        ce = losses.softmax_cross_entropy(logits, tgt_tokens)      # [B, T]
     mask = (torch.arange(t, device=ce.device)[None, :]
             < tgt_lengths.to(ce.device)[:, None]).to(ce.dtype)
     return torch.sum(ce * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -7,15 +7,20 @@ package's tree and layouts (dense kernels `[in, out]`, applied as
 
 Attention: `attn_impl="auto"` is the flash kernel for CUDA tensors and
 the dense path for CPU tensors; "flash" on a CPU tensor runs the flash
-plain version; "dense" is the materialized-scores path everywhere.
+plain version; "dense" is the materialized-scores path everywhere. The
+flash path is differentiable (`ops.flash_attention`: kernel A forward,
+a blockwise PyTorch backward).
 
 Ported here: the config, `init_params`, `_rope` (linear/NTK scaling),
 `_dense_attention`, `_expand_kv`, `_attention`, the dense `_ffn`,
-`_block_parts`/`_forward`/`apply`, `_head`, `_cached_attention` and
+`_block_parts`/`_block`/`_forward` (with `remat`: each block under
+`torch.utils.checkpoint`)/`apply`, the training surface `loss` and
+`score` (plain or `fused_ce_chunk` through
+`ops.losses.chunked_lm_head_nll`), `_head`, `_cached_attention` and
 greedy `generate` (full attention; compute-dtype or int8 KV caches;
 float or weight-only int8 params, `_int8_step_params`). MoE blocks and
 rolling sliding-window decode raise NotImplementedError until their
-slices.
+slices; so `loss` has no MoE aux term.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from paddle_tpu_torch.core.devices import resolve_device
 from paddle_tpu_torch.core.dtypes import (at_least_f32, default_policy,
@@ -33,6 +39,7 @@ from paddle_tpu_torch.core.dtypes import (at_least_f32, default_policy,
 from paddle_tpu_torch.core.pytree import tree_map
 from paddle_tpu_torch.nn import initializers
 from paddle_tpu_torch.ops import linalg
+from paddle_tpu_torch.ops import losses as losses_ops
 from paddle_tpu_torch.ops import norm as norm_ops
 from paddle_tpu_torch.ops.flash_attention import flash_attention
 from paddle_tpu_torch.ops.paged_attention import (grouped_masked_attention,
@@ -43,9 +50,10 @@ from paddle_tpu_torch.serve import quant as _quant
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """The JAX package's config, field for field, so one set of keyword
-    arguments builds both. Fields of paths not ported yet (`remat`,
-    `fused_ce_chunk`, the `moe_*` family) are carried but raise or do
-    nothing until their slices."""
+    arguments builds both. `remat` checkpoints each block in training;
+    `fused_ce_chunk` makes `loss` and `score` apply the LM head in chunks
+    of that many positions. The `moe_*` family is carried but raises
+    until its slice."""
 
     vocab: int
     dim: int = 256
@@ -234,17 +242,39 @@ def _embed(params, tokens):
     return x.to(default_policy().compute_dtype)
 
 
-def _forward(params, cfg: TransformerConfig, tokens, positions=None):
-    """tokens [B,T] int -> logits [B,T,V]."""
+def _block(cfg: TransformerConfig, p, x, positions, attn_fn):
+    return _block_parts(cfg, p, x, positions, attn_fn)[0]
+
+
+def _forward(params, cfg: TransformerConfig, tokens, positions=None,
+             token_mask=None, attn_fn=None, return_hidden=False):
+    """tokens [B,T] int -> logits [B,T,V], or with return_hidden the final
+    post-norm hidden [B,T,D] (the losses apply the head themselves).
+    attn_fn(q, k, v) overrides the config's attention (K/V expanded to
+    q's heads at its door). token_mask is MoE capacity accounting, taken
+    for the JAX signature (MoE blocks raise). Under cfg.remat each block
+    runs inside torch.utils.checkpoint (non-reentrant) while gradients
+    are recorded: only its input is kept, and the backward runs it
+    again."""
     x = _embed(params, tokens)
     if positions is None:
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=x.device).expand(tokens.shape)
-    attn = lambda q, k, v: _attention(cfg, q, k, v, causal=True)
+    if attn_fn is None:
+        attn = lambda q, k, v: _attention(cfg, q, k, v, causal=True)
+    else:
+        attn = lambda q, k, v: attn_fn(q, *_expand_kv(q, k, v))
+    remat = cfg.remat and torch.is_grad_enabled()
     for p in params["blocks"]:
-        x, _, _ = _block_parts(cfg, p, x, positions, attn)
+        if remat:
+            x = checkpoint(_block, cfg, p, x, positions, attn,
+                           use_reentrant=False)
+        else:
+            x = _block(cfg, p, x, positions, attn)
     x = norm_ops.layer_norm(x, params["ln_f"]["scale"],
                             params["ln_f"]["offset"])
+    if return_hidden:
+        return x
     return linalg.matmul(x, params["lm_head"]["kernel"])
 
 
@@ -252,6 +282,54 @@ def apply(params, cfg: TransformerConfig, tokens, positions=None):
     """tokens [B,T] int -> logits [B,T,V]."""
     with torch.no_grad():
         return _forward(params, cfg, tokens, positions)
+
+
+def _target_mask(tokens, lengths):
+    """[B, T-1] bool: target position i (token i+1) lies inside the row's
+    length; None when lengths is None."""
+    if lengths is None:
+        return None
+    return (torch.arange(1, tokens.shape[1], device=tokens.device)[None, :]
+            < lengths.to(tokens.device)[:, None])
+
+
+def _nll(params, cfg: TransformerConfig, hidden, targets):
+    """Per-position next-token nll [B, T] f32 from the final hidden:
+    through chunked_lm_head_nll under cfg.fused_ce_chunk, else logits in
+    at least f32, logsumexp minus the gold logit."""
+    kernel = params["lm_head"]["kernel"]
+    if cfg.fused_ce_chunk:
+        return losses_ops.chunked_lm_head_nll(hidden, kernel, targets,
+                                              chunk=cfg.fused_ce_chunk)
+    logits = at_least_f32(linalg.matmul(hidden, kernel))
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return torch.logsumexp(logits, dim=-1) - gold
+
+
+def loss(params, cfg: TransformerConfig, tokens, lengths=None,
+         attn_fn=None):
+    """Next-token cross entropy, the mean over positions < lengths (all
+    positions when lengths is None)."""
+    hid = _forward(params, cfg, tokens[:, :-1], attn_fn=attn_fn,
+                   return_hidden=True)
+    nll = _nll(params, cfg, hid, tokens[:, 1:])
+    mask = _target_mask(tokens, lengths)
+    if mask is None:
+        return torch.mean(nll)
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
+
+
+def score(params, cfg: TransformerConfig, tokens, lengths=None):
+    """Per-token next-token log-probabilities [B, T-1] (0 past each row's
+    length) and per-sequence mean NLL [B]."""
+    hid = _forward(params, cfg, tokens[:, :-1], return_hidden=True)
+    gold = -_nll(params, cfg, hid, tokens[:, 1:])
+    mask = _target_mask(tokens, lengths)
+    if mask is None:
+        mask = torch.ones_like(gold, dtype=torch.bool)
+    gold = torch.where(mask, gold, 0.0)
+    n = torch.clamp(torch.sum(mask, dim=1), min=1)
+    return gold, -torch.sum(gold, dim=1) / n
 
 
 def _int8_step_params(params):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a training step's time goes in the PyTorch/CUDA port, on one card.
 
-    python3 scripts/torch_train_profile.py [--model seq2seq|lstm]
+    python3 scripts/torch_train_profile.py [--model seq2seq|lstm|lm]
 
 seq2seq (default): seq2seq_attn at bench_seq2seq's width
 (benchmarks/suite.py:188: vocab 30000, embed 256, hidden 512, B=64,
@@ -10,12 +10,23 @@ the bench's hand-rolled step (gradients, then adam's update), encoder
 on kernels F and G. lstm: the bench_lstm classifier (suite.py:144:
 vocab 10000, embedding = hidden = 512, 2 x LSTM, mean over time,
 Dense(2), adam 1e-3, B=64, T=100) through `make_train_step`, on kernels
-D and E. Seeded random weights and data, f32, TF32 off. Then:
+D and E. lm: the transformer LM at bench_transformer_lm's width
+(suite.py:331: vocab 32000, dim 512, 8 layers, 8 heads, remat, bf16
+policy, B=4, T=8192, full causal, adam 1e-3, the same batch every
+step), the bench's hand-rolled step, attention on kernel A and the
+flash backward. Seeded random weights and data, f32 (lm: bf16 compute),
+TF32 off. Then:
 
-- times 10 steps on the host clock, ending in a sync: ms per step;
+- times 10 steps (lm: 5) on the host clock, ending in a sync: ms per
+  step;
 - profiles 3 steps with torch.profiler (CPU + CUDA activity): the
   device-busy share of the window (union of kernel intervals over wall
-  time), kernels per step, and device time by kind and by kernel.
+  time), kernels per step, and device time by kind and by kernel. For
+  lm also by part: kernel A, the flash backward's products and its
+  other kernels (the kernels its autograd node launches), the LM head
+  with its CE (the kernels of the ops under a `record_function` around
+  `transformer._nll` and of their backward nodes, matched by sequence
+  number), and the rest.
 
 Prints one JSON line last. Needs a CUDA device; exits 2 without one.
 """
@@ -35,8 +46,10 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
+from paddle_tpu_torch.core import dtypes as TD  # noqa: E402
 from paddle_tpu_torch.core.pytree import tree_leaves, tree_map  # noqa: E402
 from paddle_tpu_torch.models import seq2seq_attn as TS  # noqa: E402
+from paddle_tpu_torch.models import transformer as TT  # noqa: E402
 from paddle_tpu_torch.nn import layers as NL  # noqa: E402
 from paddle_tpu_torch.nn import module as NM  # noqa: E402
 from paddle_tpu_torch.nn import recurrent as NR  # noqa: E402
@@ -46,18 +59,24 @@ from paddle_tpu_torch.train.trainer import Trainer, make_train_step  # noqa
 
 S2S_VOCAB, S2S_EMBED, S2S_H, S2S_B, S2S_LEN = 30000, 256, 512, 64, 30
 LSTM_VOCAB, LSTM_H, LSTM_B, LSTM_T = 10000, 512, 64, 100
+LM_CFG = dict(vocab=32000, dim=512, n_layers=8, n_heads=8, remat=True)
+LM_B, LM_T = 4, 8192
 TIMED, PROFILED = 10, 3
+HEAD_SPAN = "lm_head_ce"
+FLASH_BWD_NODE = "_FlashAttentionBackward"
 
 
 def kind(name: str) -> str:
     n = name.lower()
+    if "flash_fwd" in n:
+        return "flash forward (A)"
     if any(k in n for k in ("gru_fwd", "gru_bwd", "lstm_fwd", "lstm_bwd",
                             "rnn_fwd", "time_loop::dw_kernel",
                             "time_loop::backward_loop_kernel",
                             "time_loop::forward_loop_kernel",
                             "reduce_splits")):
         return "fused time-loop kernel"
-    if "gemm" in n or "gemv" in n or "cutlass" in n or "xmma" in n:
+    if any(k in n for k in ("gemm", "gemv", "cutlass", "xmma", "nvjet")):
         return "matmul"
     if "index" in n or "scatter" in n or "gather" in n or "embedding" in n:
         return "index/scatter"
@@ -134,9 +153,78 @@ def lstm_step_fn():
     return step, LSTM_B * LSTM_T
 
 
+def lm_step_fn():
+    """(step(i), tokens per step): the bench's hand-rolled LM step under
+    the bf16 policy (left set: the script runs one model), the LM head
+    and its CE inside record_function(HEAD_SPAN)."""
+    TD.set_default_policy(TD.bf16_compute_policy())
+    cfg = TT.TransformerConfig(**LM_CFG)
+    params = tree_map(lambda t: t.requires_grad_(True),
+                      TT.init_params(0, cfg, device="cuda"))
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, LM_CFG["vocab"], (LM_B, LM_T)).astype(np.int32)).cuda()
+    nll = TT._nll
+
+    def spanned_nll(*a, **kw):
+        with torch.profiler.record_function(HEAD_SPAN):
+            return nll(*a, **kw)
+
+    TT._nll = spanned_nll
+    opt = OPT.adam(1e-3)
+    opt_state = opt.init(params)
+    leaves = tree_leaves(params)
+
+    def step(i):
+        loss = TT.loss(params, cfg, tokens)
+        it = iter(torch.autograd.grad(loss, leaves))
+        opt.update(tree_map(lambda _: next(it), params), opt_state, params,
+                   torch.tensor(i, dtype=torch.int32, device="cuda"))
+
+    return step, LM_B * LM_T
+
+
+def subtree_kernels(ev):
+    """(name, device us) of every kernel launched under CPU event ev."""
+    out = [(k.name, k.duration) for k in ev.kernels]
+    for c in ev.cpu_children:
+        out += subtree_kernels(c)
+    return out
+
+
+def lm_parts(events):
+    """Device us of the LM step's parts over the profiled window, from the
+    CPU ops that launched each kernel: {part: us}, or None when the
+    profiler tied no kernel to a CPU op (then not measured)."""
+    cpu = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CPU]
+    flash, head = [], []
+    head_seq = set()
+    for e in cpu:
+        if e.name == HEAD_SPAN:
+            stack = [e]
+            while stack:
+                x = stack.pop()
+                if x.sequence_nr >= 0:
+                    head_seq.add(x.sequence_nr)
+                stack += x.cpu_children
+            head += subtree_kernels(e)
+    for e in cpu:
+        if e.name == FLASH_BWD_NODE:
+            flash += subtree_kernels(e)
+        elif ("Backward" in e.name and not e.name.startswith("autograd::")
+              and e.sequence_nr in head_seq):
+            head += subtree_kernels(e)
+    if not flash and not head:
+        return None
+    mm = lambda n: kind(n) == "matmul"
+    return {"flash backward: products": sum(d for n, d in flash if mm(n)),
+            "flash backward: other": sum(d for n, d in flash if not mm(n)),
+            "LM head + CE (fwd and bwd)": sum(d for _, d in head)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", choices=("seq2seq", "lstm"),
+    ap.add_argument("--model", choices=("seq2seq", "lstm", "lm"),
                     default="seq2seq")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -144,17 +232,18 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    step, tokens = (seq2seq_step_fn if args.model == "seq2seq"
-                    else lstm_step_fn)()
+    step, tokens = dict(seq2seq=seq2seq_step_fn, lstm=lstm_step_fn,
+                        lm=lm_step_fn)[args.model]()
+    timed = 5 if args.model == "lm" else TIMED
     for i in range(2):
         step(i)
     torch.cuda.synchronize()
 
     t0 = time.perf_counter()
-    for i in range(TIMED):
+    for i in range(timed):
         step(i)
     torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / TIMED * 1e3
+    step_ms = (time.perf_counter() - t0) / timed * 1e3
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -165,8 +254,13 @@ def main() -> int:
             step(i)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.events()
+    # device events, less the device-side spans of record_function
+    # ranges (user annotations): they overlap kernels already counted
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and e.name != HEAD_SPAN]
     by_name, by_kind = defaultdict(lambda: [0.0, 0]), defaultdict(float)
     for e in kernels:
         dur = e.time_range.end - e.time_range.start
@@ -175,8 +269,17 @@ def main() -> int:
         by_kind[kind(e.name)] += dur
     busy_us = union_us([(e.time_range.start, e.time_range.end)
                         for e in kernels])
+    parts = None
+    if args.model == "lm" and kernels:
+        parts = lm_parts(events)
+        if parts is not None:
+            total = sum(e.time_range.end - e.time_range.start
+                        for e in kernels)
+            parts = {"flash forward (A)": by_kind["flash forward (A)"],
+                     **parts}
+            parts["rest"] = total - sum(parts.values())
     print(f"card: {torch.cuda.get_device_name(0)}, model {args.model}")
-    print(f"train step (unprofiled, {TIMED} steps): {step_ms:.3f} ms = "
+    print(f"train step (unprofiled, {timed} steps): {step_ms:.3f} ms = "
           f"{tokens / step_ms * 1e3:.1f} tokens/s")
     if kernels:
         print(f"profiled {PROFILED} steps: wall {wall_us / 1e3:.3f} ms, "
@@ -185,6 +288,12 @@ def main() -> int:
               f"{len(kernels) / PROFILED:.0f} kernels per step")
         for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1]):
             print(f"  {k:<24} {v / PROFILED / 1e3:9.3f} ms/step")
+        if args.model == "lm":
+            if parts is None:
+                print("  by part: not measured (the profiler tied no "
+                      "kernel to a CPU op)")
+            for k, v in (parts or {}).items():
+                print(f"  part {k:<28} {v / PROFILED / 1e3:9.3f} ms/step")
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
         for name, (t, n) in top:
             print(f"  {t / PROFILED / 1e3:9.3f} ms/step  x{n / PROFILED:6.1f}"
@@ -200,6 +309,9 @@ def main() -> int:
            "kernels_per_step": len(kernels) / PROFILED,
            "device_ms_per_step_by_kind": {k: v / PROFILED / 1e3
                                           for k, v in by_kind.items()}}
+    if args.model == "lm":
+        out["device_ms_per_step_by_part"] = None if parts is None else {
+            k: v / PROFILED / 1e3 for k, v in parts.items()}
     print(json.dumps(out))
     return 0
 

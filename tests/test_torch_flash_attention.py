@@ -85,8 +85,12 @@ def test_flash_attention_checks():
         FA.flash_attention(q, k, v, causal=False, window=3)
     with pytest.raises(ValueError, match="key_lens must be"):
         FA.flash_attention(q, k, v, key_lens=torch.tensor([3]))
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        FA.flash_attention(q.requires_grad_(), k, v)
+    # differentiable: gradients reach q, k and v
+    q.requires_grad_()
+    dq, dk = torch.autograd.grad(
+        FA.flash_attention(q, k.requires_grad_(), v).sum(), (q, k))
+    assert dq.shape == q.shape and dk.shape == k.shape
+    assert torch.isfinite(dq).all() and dq.abs().max() > 0
 
 
 def test_flash_kernel_takes_cuda_tensors_only():
