@@ -171,9 +171,33 @@ Phases, in order; any failure exits non-zero:
    3, restores them into a fresh template leaf for leaf, one more step
    from both gives the same loss bit for bit, and the parameters tar
    round-trips the params exactly.
-9. report -- the launch counts of every path, the serve, train, seq2seq,
-   generation and LM train numbers, the wide cases, the card's name and
-   power limit, a `kernels` JSON line (nine entries, A-I; A adds its
+9. image -- the image models (no kernel of their own: cuDNN convs, torch
+   pools, BN as a torch-ops autograd Function). Parity with the port's
+   CPU path from the same weights: resnet50 (B=4), googlenet, alexnet,
+   vgg19 (B=2, 224x224) and smallnet (32x32): f32 eval logits 1e-4,
+   loss 1e-3; f64 on both devices (logits, loss, every gradient and BN
+   state) 1e-4; the f32 step op by op (`OpReplay`: every op the card
+   runs against the same op on the CPU on the card's inputs, 1e-4,
+   max-pool indices equal); its gradients and BN state leaf by leaf at
+   1e-4 where the CPU's own one-ulp spread stays under 1e-5 (AlexNet,
+   SmallNet; elsewhere an ulp decides near ties or BN batch statistics,
+   and the errors are printed); resnet50 also under the bf16 policy
+   (eval logits 2e-2, loss 1e-2, op by op 2e-2) and 3 momentum steps
+   (f64: losses 1e-3, BN state 1e-4; f32 and bf16 printed). Then
+   bench_image's configs (benchmarks/suite.py:112, :765-775; bf16,
+   momentum(0.01, mu=0.9) --
+   the bench's lr 0.1 diverges on one repeated batch, in JAX as in the
+   port --, softmax CE, make_train_step(donate=True), cuDNN benchmark
+   mode): resnet50 B=64 and 256, its s2d and both remat variants at 256,
+   alexnet 128, googlenet 128, vgg19 64, smallnet 512: 1 + 5 timed steps
+   (ms_per_batch, imgs_per_sec, mfu_pct, peak memory; every loss finite,
+   the last below the first, BN running stats moved). bench_trainer_loop
+   (resnet50 B=64 through Trainer.train) beside the raw step, alexnet
+   with its dropout through Trainer.train (the masks drawn on the card),
+   and graft_entry.entry() (finite [16, 1000] logits).
+10. report -- the launch counts of every path, the serve, train, seq2seq,
+   generation, LM train and image numbers, the wide cases, the card's
+   name and power limit, a `kernels` JSON line (nine entries, A-I; A adds its
    HMMA counts and its launches in the LM train phase; B and C their
    device launches in the float and int8
    serves and per call and their split plan; D, F and H their device
@@ -202,13 +226,21 @@ import time
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
 
+from paddle_tpu_torch import graft_entry as GRAFT
 from paddle_tpu_torch.core import dtypes as TD
 from paddle_tpu_torch.core.pytree import (tree_leaves, tree_map,
                                           tree_map_with_name)
+from paddle_tpu_torch.models import alexnet as IM_ALEXNET
+from paddle_tpu_torch.models import googlenet as IM_GOOGLENET
+from paddle_tpu_torch.models import resnet as IM_RESNET
 from paddle_tpu_torch.models import seq2seq_attn as TS
+from paddle_tpu_torch.models import smallnet as IM_SMALLNET
 from paddle_tpu_torch.models import text_lstm as TTL
 from paddle_tpu_torch.models import transformer as TT
+from paddle_tpu_torch.models import vgg as IM_VGG
 from paddle_tpu_torch.nn import layers as NL
 from paddle_tpu_torch.nn import module as NM
 from paddle_tpu_torch.nn import recurrent as NR
@@ -227,7 +259,8 @@ from paddle_tpu_torch.serve.engine import DecodeEngine
 from paddle_tpu_torch.train import checkpoint as CK
 from paddle_tpu_torch.train import events as EV
 from paddle_tpu_torch.train.state import TrainState
-from paddle_tpu_torch.train.trainer import Trainer, loss_and_grads
+from paddle_tpu_torch.train.trainer import (Trainer, loss_and_grads,
+                                            make_train_step)
 
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM
 PEAK_FLOPS = {torch.float32: 67e12,           # f32, CUDA cores
@@ -2001,6 +2034,539 @@ def lm_train_phase():
                 a_launches_per_step=variants[0]["a_launches_per_step"])
 
 
+# -- the image models: training at bench_image's width -------------------------
+
+# bench_image (benchmarks/suite.py:112-141: momentum(0.1, mu=0.9), softmax
+# CE, make_train_step(donate=True), bf16 policy, inputs RandomState(0).rand,
+# labels RandomState(1)) at the configs of :765-775; resnet50 also at 64
+IMAGE_HW, IMAGE_STEPS = 224, 5
+IMAGE_CONFIGS = (("resnet50", 64), ("resnet50", 256), ("resnet50_s2d", 256),
+                 ("resnet50_remat", 256), ("resnet50_remat_full", 256),
+                 ("alexnet", 128), ("googlenet", 128), ("vgg19", 64),
+                 ("smallnet", 512))
+# analytic forward GFLOPs per image at 224x224 (2 x MACs), a copy of
+# paddle_tpu/core/hw.py FWD_GFLOPS; mfu_pct = 3 x this x batch over the
+# step time over the card's bf16 peak, as benchmarks/suite.py:799-800
+FWD_GFLOPS = {"resnet50": 8.2, "resnet50_s2d": 8.2, "resnet50_remat": 8.2,
+              "resnet50_remat_full": 8.2, "vgg19": 39.0, "alexnet": 1.4,
+              "googlenet": 3.0}
+# CUDA against the port's CPU path: (model, batch, side) at f32; resnet50
+# also under the bf16 policy and for 3 momentum steps
+IMAGE_PARITY = (("resnet50", 4, IMAGE_HW), ("googlenet", 2, IMAGE_HW),
+                ("alexnet", 2, IMAGE_HW), ("vgg19", 2, IMAGE_HW),
+                ("smallnet", 2, 32))
+# (logits and gradients, losses) per compute dtype
+IMAGE_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 1e-2)}
+TRAINER_LOOP_B = 64
+# the timed runs' learning rate (momentum 0.9): the bench's 0.1 diverges on
+# one repeated batch, in the JAX package as in the port
+# (tests/test_torch_image_models.py,
+# test_bench_recipe_diverges_alike_in_jax_and_the_port)
+IMAGE_LR = 0.01
+F64 = TD.Policy(torch.float64, torch.float64, torch.float64)
+
+
+def image_model(name, dropout=True):
+    """suite.py:84 _image_model; dropout=False zeroes the dropout rates
+    (parity runs: torch's draws never match the plain path's)."""
+    drop = {} if dropout else {"dropout": 0.0}
+    if name == "alexnet":
+        return IM_ALEXNET.alexnet(num_classes=1000, **drop)
+    if name == "googlenet":
+        return IM_GOOGLENET.googlenet(num_classes=1000, **drop)
+    if name == "vgg19":
+        return IM_VGG.vgg(19, num_classes=1000, **drop)
+    if name == "smallnet":
+        return IM_SMALLNET.smallnet(num_classes=10)
+    kw = {"resnet50_s2d": dict(s2d_stem=True),
+          "resnet50_remat": dict(remat="conv_out"),
+          "resnet50_remat_full": dict(remat="full")}.get(name, {})
+    return IM_RESNET.resnet(50, num_classes=1000, **kw)
+
+
+def image_batch(batch, hw, classes, device, seed=0):
+    x = np.random.RandomState(seed).rand(batch, hw, hw, 3).astype(np.float32)
+    y = np.random.RandomState(seed + 1).randint(0, classes, batch)
+    return (torch.from_numpy(x).to(device), torch.from_numpy(y).to(device))
+
+
+def with_policy(policy, fn, *a, **kw):
+    prev = TD.default_policy()
+    TD.set_default_policy(policy)
+    try:
+        return fn(*a, **kw)
+    finally:
+        TD.set_default_policy(prev)
+
+
+def tree_to(tree, device, dtype=None):
+    return tree_map(lambda t: t.detach().to(device=device, dtype=dtype
+                                            or t.dtype).clone(), tree)
+
+
+def rel64(got, ref):
+    """max |got - ref| over max |ref|, in float64 (the image phase's
+    results are f64 host tensors)."""
+    return ((got.double().cpu() - ref.double().cpu()).abs().max().item()
+            / max(ref.double().abs().max().item(), 1e-30))
+
+
+def leaf_errs(got, want):
+    """{leaf name: error}: each leaf's max abs error over its max |want|,
+    floored at LEAF_FLOOR x the largest |want| of any leaf."""
+    names = []
+    tree_map_with_name(lambda n, _: names.append(n), want)
+    ga, gb = tree_leaves(got), tree_leaves(want)
+    top = max((b.abs().max().item() for b in gb), default=0.0)
+    return {n: (a.double().cpu() - b.double().cpu()).abs().max().item()
+            / max(b.abs().max().item(), LEAF_FLOOR * top, 1e-30)
+            for n, a, b in zip(names, ga, gb)}
+
+
+def tree_err(got, want):
+    """(worst leaf, its error) of `leaf_errs`."""
+    errs = leaf_errs(got, want)
+    if not errs:
+        return None, 0.0
+    worst = max(errs, key=errs.get)
+    return worst, errs[worst]
+
+
+def replay_gate(replay, tol, label):
+    """The gate of an OpReplay: every op's error within `tol` and its
+    integer or bool outputs equal to the CPU's. Logs the largest errors;
+    returns the failing op names and a summary."""
+    fails = [n for n, r in replay.ops.items()
+             if r["err"] > tol or r["int_diffs"]]
+    top = sorted(replay.ops.items(), key=lambda kv: -kv[1]["err"])
+    calls = sum(r["calls"] for r in replay.ops.values())
+    log(f"    {label}: {calls} op calls of {len(replay.ops)} kinds replayed "
+        f"on the CPU (tol {tol:.0e}, integer outputs equal); largest "
+        + ", ".join(f"{n} x{r['calls']} {r['err']:.1e}" for n, r in top[:5])
+        + f"; failing {fails}")
+    return fails, dict(calls=calls, kinds=len(replay.ops), ops=replay.ops)
+
+
+def ulp_nudge(x):
+    """x with half its elements, picked from a seed, moved up by one ulp:
+    the same batch as far as its dtype can tell, rounded another way."""
+    pick = torch.from_numpy(np.random.RandomState(3).rand(*x.shape) < 0.5)
+    return torch.where(pick.to(x.device), torch.nextafter(
+        x, torch.full_like(x, float("inf"))), x)
+
+
+class OpReplay(TorchDispatchMode):
+    """Holds every op a step runs on the card against the same op run on
+    the CPU on copies of the card's inputs: no error is amplified on the
+    way, so each op is held on its own conditioning. Per op name it
+    keeps the calls, the largest error of a floating output (max abs
+    error over max |CPU|) and the integer or bool outputs (max-pool
+    indices) that differ. Views, allocations and scalar reads are not
+    replayed."""
+
+    SKIP = ("empty", "new_empty", "empty_like", "empty_strided",
+            "_local_scalar_dense", "copy_", "detach", "lift_fresh")
+
+    def __init__(self):
+        super().__init__()
+        self.ops = {}
+
+    @staticmethod
+    def _host(a):
+        if isinstance(a, torch.Tensor):
+            # NCHW-contiguous on the CPU (see ops/conv.py)
+            return a.detach().to("cpu").contiguous()
+        if isinstance(a, torch.device):
+            return torch.device("cpu")
+        return a
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = func.overloadpacket.__name__
+        view = any(r.alias_info is not None and not r.alias_info.is_write
+                   for r in func._schema.returns)
+        if view or name in self.SKIP or not any(
+                isinstance(a, torch.Tensor)
+                for a in pytree.tree_leaves((args, kwargs))):
+            return func(*args, **kwargs)
+        # the inputs are copied before the op runs: it may write one
+        host_args, host_kwargs = pytree.tree_map(self._host, (args, kwargs))
+        out = func(*args, **kwargs)
+        ref = func(*host_args, **host_kwargs)
+        rec = self.ops.setdefault(name, dict(calls=0, err=0.0, int_diffs=0))
+        rec["calls"] += 1
+        for o, r in zip(pytree.tree_leaves(out), pytree.tree_leaves(ref)):
+            if not isinstance(o, torch.Tensor) or not o.numel():
+                continue
+            o = o.detach().cpu()
+            if o.is_floating_point():
+                r = r.double()
+                rec["err"] = max(rec["err"], (o.double() - r).abs().max()
+                                 .item() / max(r.abs().max().item(), 1e-30))
+            else:
+                rec["int_diffs"] += int((o != r).sum().item())
+        return out
+
+
+def image_run(model, params, mstate, x, y, policy, mode=None):
+    """Eval logits and one training forward and backward under `policy`
+    (the weights and inputs in its param dtype), inside `mode` (an
+    OpReplay) if given: dict of eval logits, loss, train logits, grads
+    and the new model state, all on the CPU in float64."""
+    dt = policy.param_dtype
+    p, s = tree_to(params, x.device, dt), tree_to(mstate, x.device, dt)
+    xd = x.to(dt)
+
+    def run():
+        with torch.no_grad():
+            logits, _ = model.apply(p, s, xd, training=False)
+        loss, new_state, grads, met = loss_and_grads(
+            model, ce_loss, p, s, None, (xd,), (y,),
+            metrics_fn=lambda out, _: {"logits": out})
+        return logits, loss, met["logits"], grads, new_state
+
+    if mode is None:
+        logits, loss, tlogits, grads, new_state = with_policy(policy, run)
+    else:
+        with mode:
+            logits, loss, tlogits, grads, new_state = with_policy(policy, run)
+    host = lambda t: tree_map(lambda a: a.detach().double().cpu(), t)
+    return dict(logits=host(logits), loss=loss.item(),
+                train_logits=host(tlogits), grads=host(grads),
+                state=host(NM.merge_state(s, new_state)))
+
+
+def image_parity_case(name, batch, hw):
+    """The model on the card and on the port's CPU path from the same
+    weights (drawn in f32) and batch. Held: f32 eval logits and loss
+    directly (well conditioned); f64 on both devices (the semantics:
+    every logit, the loss, each gradient and BN state leaf); the f32
+    step op by op (OpReplay: each op the card runs, against the same op
+    on the CPU on its own inputs); and the f32 step's gradients and BN
+    state leaf by leaf at 1e-4 where the model is well conditioned in f32
+    there: where moving half the inputs by one ulp moves no CPU leaf by
+    more than tol/10. Elsewhere -- a BN net's batch statistics at these
+    batches, or GoogLeNet's max pools and ReLUs, where an ulp decides a
+    near tie -- the f32 leaves' errors against the CPU f64 run are
+    printed for both devices beside the CPU's own one-ulp spread."""
+    classes = 10 if name == "smallnet" else 1000
+    model = image_model(name, dropout=False)
+    params, mstate = model.init(0, NM.ShapeSpec((batch, hw, hw, 3)),
+                                device="cpu")
+    x, y = image_batch(batch, hw, classes, "cpu", seed=2)
+    f32 = TD.Policy()
+    t0 = time.perf_counter()
+    cpu = {"f32": image_run(model, params, mstate, x, y, f32),
+           "nudged": image_run(model, params, mstate, ulp_nudge(x), y, f32),
+           "f64": image_run(model, params, mstate, x, y, F64)}
+    cpu_s = time.perf_counter() - t0
+    xc, yc = x.cuda(), y.cuda()
+    replay = OpReplay()
+    t0 = time.perf_counter()
+    gpu = {"f32": image_run(model, params, mstate, xc, yc, f32, replay)}
+    replay_s = time.perf_counter() - t0
+    gpu["f64"] = image_run(model, params, mstate, xc, yc, F64)
+    tol, loss_tol = IMAGE_TOL[torch.float32]
+    truth = cpu["f64"]
+    out = dict(model=name, batch=batch, hw=hw, cpu_seconds=cpu_s,
+               replay_seconds=replay_s)
+    g, c = gpu["f32"], cpu["f32"]
+    errs = {
+        "f32_eval_logits": rel64(g["logits"], c["logits"]),
+        "f32_loss": abs(g["loss"] - c["loss"]) / abs(c["loss"]),
+        "f64_eval_logits": rel64(gpu["f64"]["logits"], truth["logits"]),
+        "f64_train_logits": rel64(gpu["f64"]["train_logits"],
+                                    truth["train_logits"]),
+        "f64_loss": abs(gpu["f64"]["loss"] - truth["loss"]) / abs(
+            truth["loss"]),
+        "f64_grads": tree_err(gpu["f64"]["grads"], truth["grads"]),
+        "f64_state": tree_err(gpu["f64"]["state"], truth["state"]),
+    }
+    bad = [k for k in ("f32_eval_logits", "f64_eval_logits",
+                       "f64_train_logits", "f64_loss") if errs[k] > tol]
+    bad += ["f32_loss"] if errs["f32_loss"] > loss_tol else []
+    bad += [k for k in ("f64_grads", "f64_state") if errs[k][1] > tol]
+    log(f"  parity {name} B={batch} {hw}x{hw} (CPU side {cpu_s:.1f} s, the "
+        f"card's f32 step with its op replay {replay_s:.1f} s): f32 eval "
+        f"logits {errs['f32_eval_logits']:.2e}, loss {errs['f32_loss']:.2e}; "
+        f"f64 eval {errs['f64_eval_logits']:.2e}, train logits "
+        f"{errs['f64_train_logits']:.2e}, loss {errs['f64_loss']:.2e}, "
+        f"grads {errs['f64_grads'][1]:.2e} ({errs['f64_grads'][0]}), state "
+        f"{errs['f64_state'][1]:.2e} (tol {tol:.0e} / {loss_tol:.0e})")
+    fails, out["op_replay"] = replay_gate(replay, tol, "f32 step op by op")
+    bad += [f"f32_op:{n}" for n in fails]
+    # the f32 step leaf by leaf: the CPU's own one-ulp spread decides
+    # whether a direct gate can hold
+    trees = ("train_logits", "grads", "state")
+    meas = lambda w, a, b: (("logits", rel64(a[w], b[w])) if w ==
+                            "train_logits" else tree_err(a[w], b[w]))
+    spread = {w: meas(w, cpu["nudged"], c) for w in trees}
+    direct = {w: meas(w, g, c) for w in trees}
+    vs_f64 = {w: {"cuda": meas(w, g, truth), "cpu": meas(w, c, truth)}
+              for w in trees}
+    held = all(v[1] <= tol / 10 for v in spread.values())
+    if held:
+        bad += [f"f32_{w}_direct" for w, v in direct.items() if v[1] > tol]
+    out.update(errs=errs, f32_leaves=dict(
+        one_ulp_spread=spread, direct=direct, vs_f64=vs_f64,
+        direct_gate=held))
+    log(f"    f32 step leaf by leaf: the CPU's own one-ulp spread "
+        + ", ".join(f"{w} {v[1]:.2e} ({v[0]})" for w, v in spread.items())
+        + (f" -> held directly at {tol:.0e}: " if held else
+           " -> no direct gate can hold; printed: ")
+        + ", ".join(f"{w} {v[1]:.2e} ({v[0]})" for w, v in direct.items()))
+    log("      against the CPU f64 run, card / CPU: " + ", ".join(
+        f"{w} {v['cuda'][1]:.2e} / {v['cpu'][1]:.2e}"
+        for w, v in vs_f64.items()))
+    if name == "resnet50":
+        out.update(image_resnet50_extra(model, params, mstate, x, y, truth))
+        bad += out.pop("bad")
+    out["failing"] = bad
+    return out
+
+
+def image_resnet50_extra(model, params, mstate, x, y, truth):
+    """resnet50's bf16-policy step (CUDA vs CPU: eval logits and loss
+    directly, the step op by op; the gradients against the CPU f64 run
+    printed for both devices) and 3 momentum steps on both devices: f64
+    gated (losses 1e-3, BN state 1e-4), f32 and bf16 printed."""
+    bf16 = TD.bf16_compute_policy()
+    tol, loss_tol = IMAGE_TOL[torch.bfloat16]
+    xc, yc = x.cuda(), y.cuda()
+    cpu_b = image_run(model, params, mstate, x, y, bf16)
+    replay = OpReplay()
+    gpu_b = image_run(model, params, mstate, xc, yc, bf16, replay)
+    eval_err = rel64(gpu_b["logits"], cpu_b["logits"])
+    loss_err = abs(gpu_b["loss"] - cpu_b["loss"]) / abs(cpu_b["loss"])
+    grad_err = {d: tree_err(r["grads"], truth["grads"])
+                for d, r in (("cuda", gpu_b), ("cpu", cpu_b))}
+    bad = ["bf16_eval_logits"] if eval_err > tol else []
+    bad += ["bf16_loss"] if loss_err > loss_tol else []
+    log(f"    bf16 policy: eval logits CUDA vs CPU {eval_err:.2e}, loss "
+        f"{loss_err:.2e} (tol {tol:.0e} / {loss_tol:.0e}); gradients against "
+        f"the CPU f64 run (printed): card {grad_err['cuda'][1]:.2e} "
+        f"({grad_err['cuda'][0]}), CPU {grad_err['cpu'][1]:.2e} "
+        f"({grad_err['cpu'][0]})")
+    fails, op_replay = replay_gate(replay, tol, "bf16 step op by op")
+    bad += [f"bf16_op:{n}" for n in fails]
+    steps = {}
+    for label, policy in (("f64", F64), ("f32", TD.Policy()),
+                          ("bf16", bf16)):
+        runs = {}
+        for dev, xx, yy in (("cuda", xc, yc), ("cpu", x, y)):
+            state, losses, _ = image_steps(model, params, mstate, xx, yy,
+                                           policy=policy)
+            runs[dev] = ([v.item() for v in losses], tree_map(
+                lambda a: a.double().cpu(), state.model_state))
+        g, c = runs["cuda"], runs["cpu"]
+        l_err = max(abs(a - b) / abs(b) for a, b in zip(g[0], c[0]))
+        s_err = tree_err(g[1], c[1])
+        steps[label] = dict(cuda_losses=g[0], cpu_losses=c[0],
+                            loss_rel_err=l_err, state_err=s_err)
+        gated = label == "f64"
+        log(f"    3 momentum steps, {label}{'' if gated else ' (printed)'}: "
+            f"losses {['%.6f' % v for v in g[0]]} vs "
+            f"{['%.6f' % v for v in c[0]]}: {l_err:.2e}; BN state "
+            f"{s_err[1]:.2e} ({s_err[0]})")
+        if gated and (l_err > IMAGE_TOL[torch.float32][1]
+                      or s_err[1] > IMAGE_TOL[torch.float32][0]):
+            bad.append("f64_three_steps")
+    return dict(bad=bad, bf16=dict(eval_logits=eval_err, loss=loss_err,
+                                   grads_vs_f64=grad_err, op_replay=op_replay),
+                three_steps=steps)
+
+
+def bn_means(state):
+    """The first BN's running mean (None for a model without BN)."""
+    means = []
+    tree_map_with_name(lambda n, t: means.append(t) if n.endswith("mean")
+                       else None, state)
+    return means[0].clone() if means else None
+
+
+def image_steps(model, params, mstate, x, y, *, policy=None, gen=None,
+                steps=2):
+    """1 + `steps` steps of momentum(IMAGE_LR, mu=0.9) through
+    make_train_step(donate=True) under `policy` (None: bf16), from copies of params and
+    mstate on x's device in the policy's param dtype (dropout masks from
+    `gen`, seeded 0 before every step, as the bench's fixed key): (state,
+    loss tensors, seconds of the last `steps` steps, ending in a sync)."""
+    policy = policy or TD.bf16_compute_policy()
+    dt = policy.param_dtype
+    opt = OPT.momentum(IMAGE_LR, mu=0.9)
+    state = TrainState.create(tree_to(params, x.device, dt),
+                              tree_to(mstate, x.device, dt), opt)
+    step = make_train_step(model, ce_loss, opt, donate=True)
+    xd, losses = x.to(dt), []
+    for i in range(1 + steps):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        if gen is not None:
+            gen.manual_seed(0)
+        state, loss, _ = with_policy(policy, step, state, gen, (xd,), (y,))
+        losses.append(loss)
+    torch.cuda.synchronize()
+    return state, losses, time.perf_counter() - t0
+
+
+def image_train(name, batch):
+    """bench_image's step at its width: 1 warm-up step and IMAGE_STEPS
+    timed ones on one batch with momentum(IMAGE_LR, mu=0.9) (the bench's
+    lr 0.1 diverges on one repeated batch; a step's time does not depend
+    on the lr). Every loss finite, the last below the first (the batch
+    is memorized) and the BN running stats moved."""
+    hw = 32 if name == "smallnet" else IMAGE_HW
+    classes = 10 if name == "smallnet" else 1000
+    model = image_model(name)
+    params, mstate = model.init(0, NM.ShapeSpec((batch, hw, hw, 3)),
+                                device="cuda")
+    x, y = image_batch(batch, hw, classes, "cuda")
+    gen = torch.Generator(device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, losses, secs = image_steps(model, params, mstate, x, y, gen=gen,
+                                      steps=IMAGE_STEPS)
+    step_s = secs / IMAGE_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    losses = [v.item() for v in losses]
+    mean0, mean1 = bn_means(mstate), bn_means(state.model_state)
+    moved = None if mean0 is None else bool(
+        (mean1 - mean0).abs().max().item() > 0)
+    rec = dict(bench=name, batch=batch, hw=hw, ms_per_batch=1e3 * step_s,
+               imgs_per_sec=batch / step_s, peak_memory_bytes=peak,
+               lr=IMAGE_LR, losses=losses, bn_stats_moved=moved)
+    if name in FWD_GFLOPS:
+        rec["mfu_pct"] = 100 * 3 * FWD_GFLOPS[name] * 1e9 * batch / step_s \
+            / PEAK_FLOPS[torch.bfloat16]
+    log(f"  {name:<20} B={batch:<4} {rec['ms_per_batch']:9.2f} ms/batch "
+        f"{rec['imgs_per_sec']:9.1f} imgs/s mfu_pct "
+        f"{rec.get('mfu_pct', float('nan')):6.2f} peak "
+        f"{peak / 2**30:6.2f} GiB; losses at lr {IMAGE_LR} "
+        f"{['%.4f' % v for v in losses]}; BN stats moved {moved}")
+    del state, params, mstate, x, y
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise Fail(f"image {name} B={batch}: the losses are not finite or "
+                   f"the last is not below the first: {losses}")
+    if moved is False:
+        raise Fail(f"image {name} B={batch}: BN running stats did not move")
+    return rec
+
+
+def image_trainer_loop():
+    """bench_trainer_loop (suite.py:404): resnet50 through Trainer.train
+    with a lazy EndIteration handler: 2 warm-up batches, then
+    IMAGE_STEPS timed, ending in a sync; the raw step's ms beside it."""
+    model = image_model("resnet50")
+    opt = OPT.momentum(IMAGE_LR, mu=0.9)
+    trainer = Trainer(model, ce_loss, opt)
+    state = trainer.init_state(NM.ShapeSpec((TRAINER_LOOP_B, IMAGE_HW,
+                                             IMAGE_HW, 3)))
+    x, y = image_batch(TRAINER_LOOP_B, IMAGE_HW, 1000, "cuda")
+    last = []
+
+    def handler(ev):
+        if isinstance(ev, EV.EndIteration) and ev.batch_id == IMAGE_STEPS - 1:
+            last.append(ev.cost)
+
+    batches = lambda n: (lambda: ((x, y) for _ in range(n)))
+    state = with_policy(TD.bf16_compute_policy(), trainer.train, state,
+                        batches(2), event_handler=handler)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = with_policy(TD.bf16_compute_policy(), trainer.train, state,
+                        batches(IMAGE_STEPS), event_handler=handler)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / IMAGE_STEPS
+    cost = float(last[-1])
+    del state
+    torch.cuda.empty_cache()
+    if not np.isfinite(cost):
+        raise Fail(f"image trainer loop: cost {cost}")
+    return dict(batch=TRAINER_LOOP_B, ms_per_batch=ms, last_cost=cost)
+
+
+def image_trainer_dropout(steps=3):
+    """AlexNet (its two Dropout(0.5) layers on) at bench_image's batch
+    through Trainer.train: the trainer's step generator is on the card,
+    so the masks are drawn there (Dropout raises for a generator on
+    another device); every cost finite."""
+    batch = dict(IMAGE_CONFIGS)["alexnet"]
+    trainer = Trainer(image_model("alexnet"), ce_loss,
+                      OPT.momentum(IMAGE_LR, mu=0.9))
+    state = trainer.init_state(NM.ShapeSpec((batch, IMAGE_HW, IMAGE_HW, 3)))
+    x, y = image_batch(batch, IMAGE_HW, 1000, "cuda")
+    costs = []
+    state = with_policy(
+        TD.bf16_compute_policy(), trainer.train, state,
+        lambda: ((x, y) for _ in range(steps)),
+        event_handler=lambda ev: costs.append(float(ev.cost))
+        if isinstance(ev, EV.EndIteration) else None)
+    gen_device = str(trainer._rng.device)
+    del state
+    torch.cuda.empty_cache()
+    log(f"  Trainer.train alexnet (dropout 0.5) B={batch}: step generator on "
+        f"{gen_device}, costs {['%.4f' % c for c in costs]}")
+    if not gen_device.startswith("cuda") or len(costs) != steps or not all(
+            np.isfinite(costs)):
+        raise Fail(f"image trainer dropout: generator on {gen_device}, "
+                   f"costs {costs}")
+    return dict(model="alexnet", batch=batch, generator=gen_device,
+                costs=costs)
+
+
+def image_graft_entry():
+    """paddle_tpu_torch.graft_entry.entry(): one ResNet-50 bf16 eval
+    forward at batch 16, 224x224; finite [16, 1000] logits."""
+    prev = TD.default_policy()
+    try:
+        fn, args = GRAFT.entry()
+        out = fn(*args)
+        torch.cuda.synchronize()
+    finally:
+        TD.set_default_policy(prev)
+    ok = tuple(out.shape) == (16, 1000) and bool(torch.isfinite(out).all())
+    log(f"  graft_entry.entry(): logits {tuple(out.shape)} {out.dtype}, "
+        f"finite {ok}")
+    if not ok:
+        raise Fail(f"graft_entry: logits {tuple(out.shape)}, finite {ok}")
+    return dict(shape=list(out.shape), finite=ok)
+
+
+def image_phase():
+    """The image models: CUDA-vs-CPU parity (IMAGE_PARITY), bench_image's
+    configs (IMAGE_CONFIGS) under the bf16 policy, bench_trainer_loop and
+    graft_entry.entry()."""
+    log("phase image: parity with the port's CPU path, then bench_image's "
+        f"configs (bf16 policy, momentum {IMAGE_LR}/0.9, softmax CE, "
+        "make_train_step(donate=True))")
+    parity = [image_parity_case(*c) for c in IMAGE_PARITY]
+    torch.cuda.empty_cache()
+    prev = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    log("  torch.backends.cudnn.benchmark = True for the training runs")
+    try:
+        train = [image_train(*c) for c in IMAGE_CONFIGS]
+        loop = image_trainer_loop()
+        raw = next(r for r in train if r["bench"] == "resnet50"
+                   and r["batch"] == TRAINER_LOOP_B)
+        log(f"  bench_trainer_loop resnet50 B={TRAINER_LOOP_B}: "
+            f"{loop['ms_per_batch']:.2f} ms/batch through Trainer.train vs "
+            f"{raw['ms_per_batch']:.2f} raw step")
+        dropout = image_trainer_dropout()
+        entry = image_graft_entry()
+    finally:
+        torch.backends.cudnn.benchmark = prev
+    torch.cuda.empty_cache()
+    # the parity gates are read last, so that one run reads every model
+    bad = {p["model"]: p["failing"] for p in parity if p["failing"]}
+    if bad:
+        raise Fail(f"image parity: {bad}")
+    return dict(parity=parity, train=train, trainer_loop=loop,
+                trainer_dropout=dropout, graft_entry=entry)
+
+
 # -- the serving path ---------------------------------------------------------
 
 
@@ -2265,6 +2831,7 @@ def main() -> int:
     gen = generation_phase(trained, batch0)
     srnn = simple_rnn_phase()
     lm = lm_train_phase()
+    image = image_phase()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2406,6 +2973,7 @@ def main() -> int:
                     "simple_rnn": srnn}))
     log(json.dumps({"wide_cases": wide}))
     log(json.dumps({"lm_train": lm, "card": smi.stdout.strip()}))
+    log(json.dumps({"image": image, "card": smi.stdout.strip()}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 """Weight initializers (mirror of the `paddle_tpu.nn.initializers`
-schemes the ported layers use, with the same distributions).
+schemes, with the same fans and distributions).
 
 An initializer is called as `init(rng, shape)` where `rng` is a numpy
 `RandomState` or a CPU `torch.Generator`; it returns a float32 CPU
@@ -57,11 +57,53 @@ def constant(value: float = 0.0):
 
 
 zeros = constant(0.0)
+ones = constant(1.0)
+
+
+def uniform(scale: float = 1.0):
+    def init(rng, shape):
+        return uniform_between(rng, tuple(shape), -scale, scale)
+
+    return init
 
 
 def normal(std: float = 0.01, mean: float = 0.0):
     def init(rng, shape):
         return mean + std * _standard_normal(rng, tuple(shape))
+
+    return init
+
+
+def xavier_uniform():
+    """Glorot uniform: uniform(+-sqrt(6 / (fan_in + fan_out)))."""
+
+    def init(rng, shape):
+        fan_in, fan_out = _fans(tuple(shape))
+        limit = math.sqrt(6.0 / (fan_in + fan_out))
+        return uniform_between(rng, tuple(shape), -limit, limit)
+
+    return init
+
+
+def xavier_normal():
+    """Glorot normal: std sqrt(2 / (fan_in + fan_out))."""
+
+    def init(rng, shape):
+        fan_in, fan_out = _fans(tuple(shape))
+        std = math.sqrt(2.0 / (fan_in + fan_out))
+        return std * _standard_normal(rng, tuple(shape))
+
+    return init
+
+
+def msra():
+    """He/Kaiming normal: std sqrt(2 / fan_in) (fan_in of a conv kernel
+    [kh, kw, in, out] is kh * kw * in)."""
+
+    def init(rng, shape):
+        fan_in, _ = _fans(tuple(shape))
+        std = math.sqrt(2.0 / fan_in)
+        return std * _standard_normal(rng, tuple(shape))
 
     return init
 
@@ -78,14 +120,19 @@ def smart_uniform():
 
 
 def get(name_or_fn):
-    """An initializer by name (the ported subset of the JAX table), or a
-    callable as it is."""
+    """An initializer by name (the JAX package's table), or a callable as
+    it is."""
     if callable(name_or_fn):
         return name_or_fn
     table = {
         "zeros": zeros,
+        "ones": ones,
+        "xavier": xavier_uniform(),
+        "xavier_normal": xavier_normal(),
+        "msra": msra(),
         "smart": smart_uniform(),
         "normal": normal(),
+        "uniform": uniform(),
     }
     try:
         return table[name_or_fn]

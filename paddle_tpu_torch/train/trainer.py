@@ -61,12 +61,17 @@ def loss_and_grads(model: Layer, loss_fn: LossFn, params, model_state, rng,
 
 def make_train_step(model: Layer, loss_fn: LossFn, optimizer: Optimizer, *,
                     metrics_fn: Optional[Callable] = None,
+                    donate: bool = True,
                     remat: bool = False, accum_steps: int = 1,
                     constrain_state_fn: Optional[Callable] = None,
                     aux_loss_weight: float = 0.0):
     """Build the train step: (state, rng, inputs, labels) -> (new_state,
-    loss, metrics). loss_fn(outputs, *labels) -> scalar loss. The update
-    is in place, where the JAX step donates its state."""
+    loss, metrics). loss_fn(outputs, *labels) -> scalar loss.
+
+    `donate` is accepted for the JAX signature and has no effect: the
+    optimizer updates the parameters and its state in place, so the step
+    never holds a second copy of them, which is what the JAX step's
+    donation buys. The state passed in is updated too, either way."""
     for what, on in (("remat", remat), ("accum_steps > 1", accum_steps != 1),
                      ("constrain_state_fn", constrain_state_fn is not None),
                      ("aux_loss_weight", bool(aux_loss_weight))):
@@ -110,8 +115,10 @@ class Trainer:
     Batches are tuples: the first `num_inputs` entries are model inputs,
     the rest go to the loss. Numpy arrays or tensors; each is moved to
     the trainer's device (None -> cuda, which raises without a card).
-    `seed` seeds the trainer's `torch.Generator`, from which
-    `init_state` draws the parameters and each step's `rng` comes."""
+    `seed` seeds two `torch.Generator`s: a CPU one from which
+    `init_state` draws the parameters, and one on the trainer's device
+    that each step gets as its `rng` (a Dropout's masks are drawn
+    there)."""
 
     def __init__(self, model: Layer, loss_fn: LossFn, optimizer: Optimizer,
                  *, metrics_fn: Optional[Callable] = None,
@@ -122,14 +129,15 @@ class Trainer:
         self.metrics_fn = metrics_fn
         self.num_inputs = num_inputs
         self.device = resolve_device(device)
-        self._rng = torch.Generator().manual_seed(seed)
+        self._init_rng = torch.Generator().manual_seed(seed)
+        self._rng = torch.Generator(device=self.device).manual_seed(seed)
         self._train_step = make_train_step(model, loss_fn, optimizer,
                                            metrics_fn=metrics_fn)
         self._eval_step = make_eval_step(model, loss_fn,
                                          metrics_fn=metrics_fn)
 
     def init_state(self, *input_specs) -> TrainState:
-        params, mstate = self.model.init(self._rng, *input_specs,
+        params, mstate = self.model.init(self._init_rng, *input_specs,
                                          device=self.device)
         return TrainState.create(params, mstate, self.optimizer)
 

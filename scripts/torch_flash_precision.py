@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where kernel A's f32 error comes from on long causal rows.
 
-    python3 scripts/torch_flash_precision.py
+    python3 scripts/torch_flash_precision.py [--long T]
 
 Kernel A (csrc/flash_attention.cu) in f32 at bench_transformer_lm's
 attention (causal T=8192, B=4, H=8, D=64, the inputs of chip_smoke.py's
@@ -35,10 +35,17 @@ spills per instantiation (ptxas), and the SASS instructions of its f32
 D=64 kernel by opcode (`cuobjdump --dump-sass`). Prints one JSON line
 per case, one for the times and one per build's resources, then the
 card's name and power limit. Needs a CUDA device; exits 2 without one.
+
+--long T: only the committed kernel (as the package builds it), causal
+f32 at B=1 and T keys, H=8, D=64 (seed 0), against the float64 plain
+version and the f32 plain version one head at a time (a head's float64
+scores take 8 T^2 bytes), on the same measures; one JSON line and the
+card's name and power limit.
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import ctypes
 import json
@@ -342,12 +349,51 @@ def case(libs, window):
                 kernel_vs_plain_f32={n: s.out() for n, s in vs32.items()})
 
 
+def long_case(t):
+    """The committed kernel at causal B=1, T=t, f32, held one head at a
+    time against the float64 and the f32 plain versions."""
+    rs = np.random.RandomState(0)
+    q, k, v = (torch.from_numpy(rs.standard_normal((1, t, H, D)).astype(
+        np.float32)).cuda() for _ in range(3))
+    lens = torch.full((1,), t, dtype=torch.int32, device="cuda")
+    o = FA.flash_kernel(q, k, v, lens, causal=True)[0]
+    vs64, vs32, p32_vs64 = Stats(), Stats(), Stats()
+    for h in range(H):
+        r = slice(h, h + 1)
+        qh, kh, vh = (x[:, :, r].contiguous() for x in (q, k, v))
+        ref = plain_f64(qh, kh, vh, lens, None)
+        p32 = FA.flash_attention_reference(qh, kh, vh, lens,
+                                           causal=True)[0]
+        vs64.add(o[:, :, r], ref)
+        vs32.add(o[:, :, r], p32)
+        p32_vs64.add(p32, ref)
+        del ref, p32
+        torch.cuda.empty_cache()
+    return dict(case=f"causal_t{t}_b1_f32", kernel_vs_float64=vs64.out(),
+                kernel_vs_plain_f32=vs32.out(),
+                plain_f32_vs_float64=p32_vs64.out())
+
+
+def card():
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return smi.stdout.strip()
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--long", type=int, default=None, metavar="T")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_flash_precision: no CUDA device is available",
               file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.long:
+        print(json.dumps(long_case(args.long)), flush=True)
+        print(card(), flush=True)
+        return 0
     built, res = build_all()
     libs = {n: lib for n, lib in built.items() if not isinstance(lib, str)}
     for n, r in res.items():
@@ -369,10 +415,7 @@ def main() -> int:
                 ms.setdefault(n, []).append(S.time_ms(
                     lambda: kernel_fwd(lib, q, k, v, lens, None)))
     print(json.dumps({"ms_causal_f32": times}), flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    print(smi.stdout.strip(), flush=True)
+    print(card(), flush=True)
     return 0
 
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where a training step's time goes in the PyTorch/CUDA port, on one card.
 
-    python3 scripts/torch_train_profile.py [--model seq2seq|lstm|lm]
+    python3 scripts/torch_train_profile.py [--model seq2seq|lstm|lm|resnet50]
+                                           [--batch B]
 
 seq2seq (default): seq2seq_attn at bench_seq2seq's width
 (benchmarks/suite.py:188: vocab 30000, embed 256, hidden 512, B=64,
@@ -14,8 +15,11 @@ D and E. lm: the transformer LM at bench_transformer_lm's width
 (suite.py:331: vocab 32000, dim 512, 8 layers, 8 heads, remat, bf16
 policy, B=4, T=8192, full causal, adam 1e-3, the same batch every
 step), the bench's hand-rolled step, attention on kernel A and the
-flash backward. Seeded random weights and data, f32 (lm: bf16 compute),
-TF32 off. Then:
+flash backward. resnet50: bench_image's step (suite.py:112: ResNet-50,
+224x224, bf16 policy, momentum(0.1, mu=0.9), softmax CE,
+make_train_step(donate=True), one batch from RandomState(0/1)) at
+--batch (default 256), cuDNN benchmark mode on. Seeded random weights
+and data, f32 (lm, resnet50: bf16 compute), TF32 off. Then:
 
 - times 10 steps (lm: 5) on the host clock, ending in a sync: ms per
   step;
@@ -26,7 +30,15 @@ TF32 off. Then:
   other kernels (the kernels its autograd node launches), the LM head
   with its CE (the kernels of the ops under a `record_function` around
   `transformer._nll` and of their backward nodes, matched by sequence
-  number), and the rest.
+  number), and the rest. For resnet50 by part, from the CPU op (or
+  autograd node, or the optimizer's record_function) that launched each
+  kernel, the outermost one that names a part: convolutions split into
+  fprop (the forward op's kernels), dgrad and wgrad (the backward's, by
+  kernel name) and the layout transforms cuDNN runs inside them; batch
+  norm (`_BatchNormTrain`, forward and backward); ReLU; max pools; the
+  pads of asymmetric SAME padding; copies and
+  casts (`copy_`, `_to_copy`, `contiguous`, `clone`); the optimizer;
+  the rest. And the peak device memory of a step.
 
 Prints one JSON line last. Needs a CUDA device; exits 2 without one.
 """
@@ -48,6 +60,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 from paddle_tpu_torch.core import dtypes as TD  # noqa: E402
 from paddle_tpu_torch.core.pytree import tree_leaves, tree_map  # noqa: E402
+from paddle_tpu_torch.models import resnet as TR  # noqa: E402
 from paddle_tpu_torch.models import seq2seq_attn as TS  # noqa: E402
 from paddle_tpu_torch.models import transformer as TT  # noqa: E402
 from paddle_tpu_torch.nn import layers as NL  # noqa: E402
@@ -55,13 +68,16 @@ from paddle_tpu_torch.nn import module as NM  # noqa: E402
 from paddle_tpu_torch.nn import recurrent as NR  # noqa: E402
 from paddle_tpu_torch.ops import losses as LS  # noqa: E402
 from paddle_tpu_torch.optim import optimizers as OPT  # noqa: E402
+from paddle_tpu_torch.train.state import TrainState  # noqa: E402
 from paddle_tpu_torch.train.trainer import Trainer, make_train_step  # noqa
 
 S2S_VOCAB, S2S_EMBED, S2S_H, S2S_B, S2S_LEN = 30000, 256, 512, 64, 30
 LSTM_VOCAB, LSTM_H, LSTM_B, LSTM_T = 10000, 512, 64, 100
 LM_CFG = dict(vocab=32000, dim=512, n_layers=8, n_heads=8, remat=True)
 LM_B, LM_T = 4, 8192
+IMAGE_HW = 224
 TIMED, PROFILED = 10, 3
+OPTIMIZER_SPAN = "optimizer"
 HEAD_SPAN = "lm_head_ce"
 FLASH_BWD_NODE = "_FlashAttentionBackward"
 
@@ -183,6 +199,97 @@ def lm_step_fn():
     return step, LM_B * LM_T
 
 
+def resnet50_step_fn(batch):
+    """(step(i), images per step): bench_image's step under the bf16
+    policy (left set: the script runs one model), the optimizer's update
+    inside record_function(OPTIMIZER_SPAN)."""
+    TD.set_default_policy(TD.bf16_compute_policy())
+    torch.backends.cudnn.benchmark = True
+    model = TR.resnet(50, num_classes=1000)
+    params, mstate = model.init(0, NM.ShapeSpec((batch, IMAGE_HW, IMAGE_HW,
+                                                 3)), device="cuda")
+    opt = OPT.momentum(0.1, mu=0.9)
+
+    def update(*a):
+        with torch.profiler.record_function(OPTIMIZER_SPAN):
+            return opt.update(*a)
+
+    spanned = OPT.Optimizer(opt.init, update)
+    box = [TrainState.create(params, mstate, spanned)]
+    ce = lambda logits, labels: torch.mean(
+        LS.softmax_cross_entropy(logits, labels))
+    train_step = make_train_step(model, ce, spanned, donate=True)
+    x = torch.from_numpy(np.random.RandomState(0).rand(
+        batch, IMAGE_HW, IMAGE_HW, 3).astype(np.float32)).cuda()
+    y = torch.from_numpy(np.random.RandomState(1).randint(0, 1000,
+                                                          batch)).cuda()
+
+    def step(i):
+        box[0], _, _ = train_step(box[0], None, (x,), (y,))
+
+    return step, batch
+
+
+# resnet50's parts, matched in the outermost CPU op, autograd node or
+# record_function that names one (lower case)
+IMAGE_PARTS = (
+    ("optimizer", (OPTIMIZER_SPAN,)),
+    ("batch norm", ("_batchnormtrain",)),
+    ("conv", ("convolution",)),
+    ("relu", ("relu", "threshold_backward")),
+    ("max pools", ("max_pool2d", "maxpool2d")),
+    ("pads (asymmetric SAME)", ("constant_pad_nd", "constantpadnd")),
+    ("copies and casts", ("copy", "contiguous", "clone")),
+)
+
+
+def image_part(name):
+    n = name.lower()
+    for part, keys in IMAGE_PARTS:
+        if any(k in n for k in keys):
+            return part
+    return None
+
+
+def conv_kind(kernel, in_backward):
+    n = kernel.lower()
+    if any(k in n for k in ("nchwtonhwc", "nhwctonchw", "transpose")):
+        return "conv: layout transforms"
+    if not in_backward:
+        return "conv: fprop"
+    if "wgrad" in n:
+        return "conv: wgrad"
+    if "dgrad" in n:
+        return "conv: dgrad"
+    return "conv: backward, other kernels"
+
+
+def image_parts(events):
+    """Device us of the ResNet step's parts over the profiled window:
+    {part: us}, or None when the profiler tied no kernel to a CPU op."""
+    cpu = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CPU]
+    parts = defaultdict(float)
+    tied = [False]
+
+    def walk(ev, part, backward):
+        part = part or image_part(ev.name)
+        backward = backward or "backward" in ev.name.lower()
+        for k in ev.kernels:
+            tied[0] = True
+            label = part or "rest"
+            if part == "conv":
+                label = conv_kind(k.name, backward)
+            parts[label] += k.duration
+        for c in ev.cpu_children:
+            walk(c, part, backward)
+
+    for e in cpu:
+        if e.cpu_parent is None:
+            walk(e, None, False)
+    return dict(parts) if tied[0] else None
+
+
 def subtree_kernels(ev):
     """(name, device us) of every kernel launched under CPU event ev."""
     out = [(k.name, k.duration) for k in ev.kernels]
@@ -224,20 +331,30 @@ def lm_parts(events):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", choices=("seq2seq", "lstm", "lm"),
-                    default="seq2seq")
+    ap.add_argument("--model", choices=("seq2seq", "lstm", "lm",
+                                        "resnet50"), default="seq2seq")
+    ap.add_argument("--batch", type=int, default=256,
+                    help="resnet50's batch")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    image = args.model == "resnet50"
     step, tokens = dict(seq2seq=seq2seq_step_fn, lstm=lstm_step_fn,
-                        lm=lm_step_fn)[args.model]()
-    timed = 5 if args.model == "lm" else TIMED
+                        lm=lm_step_fn,
+                        resnet50=lambda: resnet50_step_fn(args.batch))[
+                            args.model]()
+    unit = "images" if image else "tokens"
+    timed = 5 if args.model in ("lm", "resnet50") else TIMED
     for i in range(2):
         step(i)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(2)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
 
     t0 = time.perf_counter()
     for i in range(timed):
@@ -260,7 +377,7 @@ def main() -> int:
     kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)
-               and e.name != HEAD_SPAN]
+               and e.name not in (HEAD_SPAN, OPTIMIZER_SPAN)]
     by_name, by_kind = defaultdict(lambda: [0.0, 0]), defaultdict(float)
     for e in kernels:
         dur = e.time_range.end - e.time_range.start
@@ -278,9 +395,12 @@ def main() -> int:
             parts = {"flash forward (A)": by_kind["flash forward (A)"],
                      **parts}
             parts["rest"] = total - sum(parts.values())
+    if image and kernels:
+        parts = image_parts(events)
     print(f"card: {torch.cuda.get_device_name(0)}, model {args.model}")
     print(f"train step (unprofiled, {timed} steps): {step_ms:.3f} ms = "
-          f"{tokens / step_ms * 1e3:.1f} tokens/s")
+          f"{tokens / step_ms * 1e3:.1f} {unit}/s; peak memory "
+          f"{peak / 2**30:.2f} GiB")
     if kernels:
         print(f"profiled {PROFILED} steps: wall {wall_us / 1e3:.3f} ms, "
               f"device busy {busy_us / 1e3:.3f} ms "
@@ -288,7 +408,7 @@ def main() -> int:
               f"{len(kernels) / PROFILED:.0f} kernels per step")
         for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1]):
             print(f"  {k:<24} {v / PROFILED / 1e3:9.3f} ms/step")
-        if args.model == "lm":
+        if args.model in ("lm", "resnet50"):
             if parts is None:
                 print("  by part: not measured (the profiler tied no "
                       "kernel to a CPU op)")
@@ -302,14 +422,15 @@ def main() -> int:
         print("profiler recorded no device activity: device busy share "
               "not measured")
     out = {"card": torch.cuda.get_device_name(0), "model": args.model,
-           "step_ms": step_ms, "tokens_per_step": float(tokens),
-           "tokens_per_s": tokens / step_ms * 1e3,
+           "step_ms": step_ms, f"{unit}_per_step": float(tokens),
+           f"{unit}_per_s": tokens / step_ms * 1e3,
+           "peak_memory_bytes": peak,
            "profiled_wall_ms_per_step": wall_us / PROFILED / 1e3,
            "device_busy_share": (busy_us / wall_us if kernels else None),
            "kernels_per_step": len(kernels) / PROFILED,
            "device_ms_per_step_by_kind": {k: v / PROFILED / 1e3
                                           for k, v in by_kind.items()}}
-    if args.model == "lm":
+    if args.model in ("lm", "resnet50"):
         out["device_ms_per_step_by_part"] = None if parts is None else {
             k: v / PROFILED / 1e3 for k, v in parts.items()}
     print(json.dumps(out))

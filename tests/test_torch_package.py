@@ -10,8 +10,10 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch import graft_entry
+from paddle_tpu_torch.core import dtypes as TD
 from paddle_tpu_torch.core.devices import resolve_device
-from paddle_tpu_torch.models import seq2seq_attn, text_lstm
+from paddle_tpu_torch.models import resnet, seq2seq_attn, text_lstm
 from paddle_tpu_torch.models import transformer as TT
 from paddle_tpu_torch.models.weights import params_from_numpy
 from paddle_tpu_torch.ops import _cuda
@@ -43,7 +45,12 @@ MODULES = [
     "paddle_tpu_torch.models.text_lstm", "paddle_tpu_torch.ops.time_loop",
     "paddle_tpu_torch.ops.fused_gru", "paddle_tpu_torch.ops.fused_rnn",
     "paddle_tpu_torch.ops.beam_search", "paddle_tpu_torch.nn.recurrent_group",
-    "paddle_tpu_torch.models.seq2seq_attn",
+    "paddle_tpu_torch.models.seq2seq_attn", "paddle_tpu_torch.ops.conv",
+    "paddle_tpu_torch.ops.activations", "paddle_tpu_torch.nn.composite",
+    "paddle_tpu_torch.models.lenet", "paddle_tpu_torch.models.smallnet",
+    "paddle_tpu_torch.models.alexnet", "paddle_tpu_torch.models.vgg",
+    "paddle_tpu_torch.models.googlenet", "paddle_tpu_torch.models.resnet",
+    "paddle_tpu_torch.graft_entry",
 ]
 
 
@@ -107,6 +114,25 @@ def test_training_entry_points_need_the_card_unless_asked_for_cpu(
     params, _ = layer.init(0, spec, device="cpu")
     assert params["w_hh"].device == torch.device("cpu")
     Trainer(layer, lambda out: out.sum(), sgd(), device="cpu")
+
+
+def test_image_entry_points_need_the_card_unless_asked_for_cpu(
+        monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    prev = TD.default_policy()
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            graft_entry.entry()
+    finally:
+        TD.set_default_policy(prev)
+    model = resnet.resnet(18, width=4, num_classes=3)
+    spec = ShapeSpec((1, 16, 16, 3))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init(0, spec)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(model, lambda out: out.sum(), sgd())
+    params, state = model.init(0, spec, device="cpu")
+    assert state["stem_bn"]["mean"].device == torch.device("cpu")
 
 
 def test_kernel_libraries_are_keyed_by_source_hash(tmp_path, monkeypatch):
