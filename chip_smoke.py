@@ -30,8 +30,10 @@ Phases, in order; any failure exits non-zero:
    instantiation, read from `cuobjdump --dump-sass` of the built library,
    must be above 0. A's cases: the main prefill, key_lens, causal T=2048,
    a sliding window, head_dim 128 and rows with no valid key, in f32 and
-   bf16; causal T=8192, B=4, H=8 in bf16 and f32 (bench_transformer_lm's
-   shape; the LM train phase feeds it f32, its f32 biases promoting the
+   bf16; causal T=8192, B=4, H=8 in bf16 and f32, and in a window of
+   1024 keys in f32 and bf16 beside SDPA with a boolean band mask, whose
+   output must agree with A's at the dtype's tolerance
+   (bench_transformer_lm's shape; the LM train phase feeds it f32, its f32 biases promoting the
    activations; held against the plain version one batch row at a time:
    its scores take 2 GB a row; the bf16 output's tolerance holds each
    row's max abs error over that row's max |plain|, since a long row's
@@ -120,6 +122,34 @@ Phases, in order; any failure exits non-zero:
    Then text_lstm at the same width (max pool) on lengths uniform in
    [50, 100]: one forward and backward launches D and E twice each, and
    its gradients agree with the plain path's to 1e-4 relative.
+4b. resilient -- the same classifier as a config script (the synthetic
+   text classification reader over vocab 10000, padded to 100, an f32
+   weight of 1.0 per sample, loss mean(w * CE)) through `python -m
+   paddle_tpu_torch train --checkpoint-dir ... --checkpoint-every 8
+   --save-dir ...` over 32 batches, in child processes that print their
+   D and E launches as they exit (2 of each per step): uninterrupted;
+   then SIGTERM once the child has logged batch 13 (drain save, exit
+   143) and a rerun that resumes from the drain save: its params.tar
+   must be byte-identical to the uninterrupted one's. In process on the
+   card, over 12 batches: NaN at batch 5 under bad_step_policy "skip"
+   (bit for bit a clean run without batch 5, at the same step indices)
+   and "rollback" with lr_backoff 0.5 (recorded, every parameter
+   finite); a checkpoint write error on the 2nd save lands in
+   save_errors and training goes on. On one batch: accum_steps=4
+   against 1 (loss within 1e-5 relative, each gradient leaf within 1e-4,
+   floored as seq2seq's), remat's gradients bit for bit the plain ones;
+   each of the 12 optimizers, chain (clips and decay) and with_pruning:
+   two updates on the card against the same on CPU copies (1e-5; 1e-4
+   for L-BFGS, OWL-QN and chain's global-norm clip), each update timed;
+   evaluate() with ClassificationError, Auc and PrecisionRecall on 512
+   held-out rows from the uninterrupted run's params.tar, kernels
+   against impl="torch" (predictions equal but at a logit gap <= 1e-3,
+   AUC within 1e-3); check_gradients in float64 on impl="scan" (the
+   path that computes in float64; D and E and their plain versions run
+   f32) at most 1e-5, and the kernel path refusing float64. Times,
+   1 + 10 steps ending in a sync: Trainer.train, ResilientTrainer.run
+   (its guard reads every loss), accum_steps=4, remat, with D and E
+   launches per step.
 5. seq2seq -- seq2seq_attn at bench_seq2seq's width
    (benchmarks/suite.py:188: vocab 30000, embed 256, hidden 512, B=64,
    source and target length 30, lengths uniform in [15, 30], adam 1e-3)
@@ -204,8 +234,10 @@ Phases, in order; any failure exits non-zero:
    launches and whether they repeated bit for bit (D and H also their
    us per step); E, G and I their
    device launches in the main path's run and
-   per call, their phase split and whether they repeated bit for bit),
-   and last the device JSON line.
+   per call, their phase split and whether they repeated bit for bit;
+   D and E also their launches in each resilient CLI child and in the
+   in-process ResilientTrainer run), the resilient phase's numbers, and
+   last the device JSON line.
 
 One phase alone, on the card: `python3 -c "import chip_smoke as S;
 S.seq2seq_phase()"` (each phase builds what it launches at first use).
@@ -219,6 +251,8 @@ import dataclasses
 import json
 import os
 import re
+import runpy
+import signal
 import subprocess
 import sys
 import tempfile
@@ -229,7 +263,9 @@ import torch
 from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from paddle_tpu_torch import data as TDATA
 from paddle_tpu_torch import graft_entry as GRAFT
+from paddle_tpu_torch import metrics as MET
 from paddle_tpu_torch.core import dtypes as TD
 from paddle_tpu_torch.core.pytree import (tree_leaves, tree_map,
                                           tree_map_with_name)
@@ -254,10 +290,13 @@ from paddle_tpu_torch.ops import paged_attention as PA
 from paddle_tpu_torch.ops import ragged_paged_attention as RPA
 from paddle_tpu_torch.ops import rnn as RNN
 from paddle_tpu_torch.serve import quant as Q
+from paddle_tpu_torch.optim import hooks as HOOKS
 from paddle_tpu_torch.optim import optimizers as OPT
+from paddle_tpu_torch.testing.faults import FaultPlan
 from paddle_tpu_torch.serve.engine import DecodeEngine
 from paddle_tpu_torch.train import checkpoint as CK
 from paddle_tpu_torch.train import events as EV
+from paddle_tpu_torch.train import resilience as RS
 from paddle_tpu_torch.train.state import TrainState
 from paddle_tpu_torch.train.trainer import (Trainer, loss_and_grads,
                                             make_train_step)
@@ -553,17 +592,35 @@ def flash_case(name, *, b, t, h, d=64, dtype=torch.float32, causal=True,
     r = rows[0]
     p_ms = time_ms(lambda: FA.flash_attention_reference(
         q[r], k[r], v[r], lens_t[r], **kw), iters=5 if row_by_row else 20)
-    lib_ms = None
-    if causal and window is None and (lens_np == t).all():
+    lib_ms = lib_err = None
+    tol = TOL[dtype]
+    if causal and (lens_np == t).all():
         qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib_ms = time_ms(lambda: sdpa(qh, kh, vh, is_causal=True))
-    tol = TOL[dtype]
+        if window is None:
+            lib_ms = time_ms(lambda: sdpa(qh, kh, vh, is_causal=True))
+        else:
+            # the same function: a boolean band mask (causal, `window`
+            # keys), checked against A's output so like is timed with like
+            pos = torch.arange(t, device="cuda")
+            band = (pos[None, :] <= pos[:, None]) & (
+                pos[:, None] - pos[None, :] < window)
+            lib_out = sdpa(qh, kh, vh, attn_mask=band).transpose(1, 2)
+            diff = (lib_out.float() - o.float()).abs()
+            if row_relative:
+                scale = o.float().abs().amax(dim=-1, keepdim=True)
+                diff = diff / scale.clamp_min(1e-30)
+            lib_err = diff.max().item()
+            del lib_out, diff
+            lib_ms = time_ms(lambda: sdpa(qh, kh, vh, attn_mask=band))
     # lse is f32 in both versions: hold it to f32's tolerance, relative
     # to its own scale (log-sum-exps grow with the scores)
     held = row_err if row_relative else err
-    ok = held <= tol and lse_err <= 1e-4 * lse_scale
+    ok = held <= tol and lse_err <= 1e-4 * lse_scale and (
+        lib_err is None or lib_err <= tol)
     lib = "-" if lib_ms is None else f"{lib_ms:.4f}"
+    if lib_err is not None:
+        lib += f" (band-mask SDPA vs A: err {lib_err:.2e})"
     plain = f"{p_ms:.4f}" + (f" (1 of {b} rows)" if row_by_row else "")
     rel = f" row_rel_err {row_err:.2e}" if row_relative else ""
     log(f"  A {name:<22} {str(dtype)[6:]:<8} err {err:.2e}{rel} lse_err "
@@ -575,6 +632,8 @@ def flash_case(name, *, b, t, h, d=64, dtype=torch.float32, causal=True,
                tol=tol, lse_err=lse_err)
     if row_relative:
         out["row_rel_err"] = row_err
+    if lib_err is not None:
+        out["library_err"] = lib_err
     return out
 
 
@@ -640,6 +699,9 @@ def kernels_phase():
                                        h=8, dtype=f32, row_relative=True)
     a["window1024_t8192_f32"] = flash_case(
         "window1024_t8192_b4", b=4, t=8192, h=8, dtype=f32, window=1024,
+        row_relative=True)
+    a["window1024_t8192_bf16"] = flash_case(
+        "window1024_t8192_b4", b=4, t=8192, h=8, dtype=bf16, window=1024,
         row_relative=True)
     a["scaled_scores_float32"] = flash_case("scores_std3_t512", b=2, t=512,
                                             h=8, q_scale=3.0, seed=1)
@@ -998,6 +1060,578 @@ def train_phase():
     if len(k_loss) != TRAIN_STEPS or not all(np.isfinite(k_loss)) or \
             rel > LOSS_RTOL:
         raise Fail(f"train: kernel and plain losses differ: {rel:.2e}")
+    return out
+
+
+# -- the fault-tolerant train entry point at bench_lstm's width ----------------
+
+# bench_lstm's network and width (benchmarks/suite.py:144-186) fed by the
+# synthetic text classification reader over its vocabulary, padded to 100;
+# each sample carries an f32 weight of 1.0 and the loss is mean(w * CE),
+# bench_lstm's loss, so a NaN-poisoned batch (testing.faults poisons
+# float columns) carries a real NaN through D's forward and E's backward
+RES_BATCHES, RES_CKPT_EVERY, RES_PREEMPT_AFTER = 32, 8, 13
+RES_FAULT_BATCHES, RES_NAN_AT, RES_TIMED = 12, 5, 10
+RES_EVAL_BATCHES, RES_CLI_TIMEOUT = 8, 600
+ACCUM_LOSS_RTOL, ACCUM_GRAD_RTOL, CHECKGRAD_TOL, AUC_TOL = 1e-5, 1e-4, 1e-5, \
+    1e-3
+
+RES_CONFIG = '''
+"""bench_lstm's classifier for `python -m paddle_tpu_torch train`: vocab
+{vocab}, embedding = hidden = {hidden}, 2 x LSTM, mean over time, Dense(2),
+adam 1e-3; synthetic text classification padded to {t} with an f32 weight
+of 1.0 per sample and the loss mean(w * CE)."""
+
+import atexit
+
+import numpy as np
+import torch
+
+from paddle_tpu_torch.data import datasets
+from paddle_tpu_torch.nn import layers, module, recurrent
+from paddle_tpu_torch.ops import fused_lstm, losses
+from paddle_tpu_torch.optim import optimizers
+
+VOCAB, HIDDEN, T, B, BATCHES = {vocab}, {hidden}, {t}, {b}, {batches}
+
+
+def reader(n=B * BATCHES, seed=0):
+    text = datasets.synthetic_text_classification(
+        vocab_size=VOCAB, max_len=T, n=n, seed=seed)
+
+    def samples():
+        for tokens, label in text():
+            padded = np.zeros(T, np.int32)
+            padded[:len(tokens)] = tokens
+            yield padded, np.int64(label), np.float32(1.0)
+
+    return samples
+
+
+def weighted_ce(logits, labels, weights):
+    return torch.mean(weights * losses.softmax_cross_entropy(logits, labels))
+
+
+def model(impl=None):
+    return module.Sequential([
+        layers.Embedding(VOCAB, HIDDEN, name="emb"),
+        recurrent.LSTM(HIDDEN, name="lstm1", impl=impl),
+        recurrent.LSTM(HIDDEN, name="lstm2", impl=impl),
+        layers.Lambda(lambda x: x.mean(dim=1), name="pool",
+                      out_spec_fn=lambda s: module.ShapeSpec(
+                          (s.shape[0], s.shape[2]), s.dtype)),
+        layers.Dense(2, name="fc"),
+    ])
+
+
+def _report_launches():
+    print("kernel launches: D %d E %d" % (fused_lstm.launch_counts["fwd"],
+                                         fused_lstm.launch_counts["bwd"]),
+          flush=True)
+
+
+def get_config():
+    # the process's launches of D and E, printed as it exits
+    atexit.register(_report_launches)
+    return {{"model": model(), "input_spec": module.ShapeSpec((B, T),
+                                                              torch.int32),
+             "loss_fn": weighted_ce, "optimizer": optimizers.adam(1e-3),
+             "reader": reader(), "num_passes": 1}}
+'''
+
+
+def res_launches(stdout):
+    """(D, E) launches a CLI child printed as it exited."""
+    m = re.search(r"kernel launches: D (\d+) E (\d+)", stdout)
+    if m is None:
+        raise Fail(f"resilient: the CLI child printed no launch counts:\n"
+                   f"{stdout[-2000:]}")
+    return int(m.group(1)), int(m.group(2))
+
+
+def res_cli_run(argv, what, want_rc=0, preempt_after=None):
+    """Run one `python -m paddle_tpu_torch train` child: (stdout, wall s).
+    With preempt_after, SIGTERM it once it has logged that batch."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    with tempfile.TemporaryFile("w+") as err:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(argv, cwd=root, env=env, text=True,
+                                stdout=subprocess.PIPE, stderr=err)
+        try:
+            lines = []
+            if preempt_after is not None:
+                for line in proc.stdout:
+                    lines.append(line)
+                    if line.startswith(f"pass 0 batch {preempt_after} "):
+                        proc.send_signal(signal.SIGTERM)
+                        break
+            rest, _ = proc.communicate(timeout=RES_CLI_TIMEOUT)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        wall = time.perf_counter() - t0
+        out = "".join(lines) + rest
+        if proc.returncode != want_rc:
+            err.seek(0)
+            raise Fail(f"resilient: {what} exited {proc.returncode}, want "
+                       f"{want_rc}:\n{out[-2000:]}\n{err.read()[-3000:]}")
+    log(f"  {what}: exit {proc.returncode} in {wall:.1f} s")
+    return out, wall
+
+
+class _Cols(MET.Evaluator):
+    """An evaluator over (logits, labels, weights): fn(logits) and the
+    labels go to the wrapped one (the weights are the loss's)."""
+
+    def __init__(self, inner, fn=lambda o: o):
+        self.inner, self.fn, self.name = inner, fn, inner.name
+
+    def reset(self):
+        self.inner.reset()
+
+    def update(self, logits, labels, weights):
+        self.inner.update(self.fn(logits), labels)
+
+    def result(self):
+        return self.inner.result()
+
+
+class _Keep(MET.Evaluator):
+    name = "outputs"
+
+    def reset(self):
+        self.rows = []
+
+    def update(self, logits, labels, weights):
+        self.rows.append((logits, labels))
+
+    def result(self):
+        return len(self.rows)
+
+
+def _p1(logits):
+    z = logits - logits.max(-1, keepdims=True)
+    e = np.exp(z.astype(np.float64))
+    return e[:, 1] / e.sum(-1)
+
+
+def res_evaluate(cfg, params):
+    """evaluate() with ClassificationError, Auc and PrecisionRecall on a
+    held-out reader, on the kernels and on impl="torch" from the same
+    params."""
+    feeder = TDATA.DataFeeder(device="cuda")
+    held = cfg["reader"](n=LSTM_B * RES_EVAL_BATCHES, seed=1)
+    out = {}
+    for impl in (None, "torch"):
+        tr = Trainer(cfg["model"](impl), cfg["weighted_ce"], OPT.adam(1e-3),
+                     device="cuda")
+        keep = _Keep()
+        evs = [_Cols(MET.ClassificationErrorEvaluator()),
+               _Cols(MET.AucEvaluator(), _p1),
+               _Cols(MET.PrecisionRecallEvaluator(2)), keep]
+        st = TrainState.create(params, {}, tr.optimizer)
+        res = tr.evaluate(st, lambda: feeder(TDATA.batch_reader(held,
+                                                                LSTM_B)),
+                          evaluators=evs)
+        out[impl or "kernel"] = (res, np.concatenate([r[0] for r in
+                                                      keep.rows]),
+                                 np.concatenate([r[1] for r in keep.rows]))
+    (rk, lk, y), (rp, lp, _) = out["kernel"], out["torch"]
+    gap = np.abs(lp[:, 1] - lp[:, 0])
+    differ = lk.argmax(-1) != lp.argmax(-1)
+    bad = int((differ & (gap > GAP_LIMIT)).sum())
+    wrong_k, wrong_p = int((lk.argmax(-1) != y).sum()), int(
+        (lp.argmax(-1) != y).sum())
+    auc_k, auc_p = rk.metrics["auc"], rp.metrics["auc"]
+    r = dict(rows=int(y.size), wrong_kernel=wrong_k, wrong_plain=wrong_p,
+             rows_differing=int(differ.sum()), near_ties=int(
+                 (gap <= GAP_LIMIT).sum()), auc_kernel=auc_k,
+             auc_plain=auc_p, cost_kernel=rk.cost, cost_plain=rp.cost,
+             metrics_kernel=rk.metrics, metrics_plain=rp.metrics)
+    log(f"  evaluate on {y.size} held-out rows: errors kernel {wrong_k} "
+        f"plain {wrong_p} (rows whose argmax differs {int(differ.sum())}, "
+        f"of them past a gap of {GAP_LIMIT:.0e}: {bad}); auc {auc_k:.6f} vs "
+        f"{auc_p:.6f}; precision_recall/f1 "
+        f"{rk.metrics['precision_recall/f1']:.6f} vs "
+        f"{rp.metrics['precision_recall/f1']:.6f}; classification_error "
+        f"{rk.metrics['classification_error']:.6f} vs "
+        f"{rp.metrics['classification_error']:.6f}")
+    if bad or abs(wrong_k - wrong_p) > int(differ.sum()) or \
+            abs(auc_k - auc_p) > AUC_TOL:
+        raise Fail(f"resilient: evaluate on the kernels and the plain path "
+                   f"disagree: {r}")
+    return r
+
+
+def res_capture():
+    """An optimizer that applies nothing and keeps each step's gradients
+    (the step returns none)."""
+    got = []
+
+    def update(grads, opt_state, params, step):
+        got.append(grads)
+        return params, opt_state
+
+    return OPT.Optimizer(lambda p: (), update), got
+
+
+def res_options(cfg, state0, batch):
+    """accum_steps=4 against 1 and remat against plain on one batch."""
+    x, y, w = batch
+    out = {}
+    grads, losses = {}, {}
+    for name, kw in (("plain", {}), ("accum4", dict(accum_steps=4)),
+                     ("remat", dict(remat=True))):
+        opt, got = res_capture()
+        step = make_train_step(cfg["model"](), cfg["weighted_ce"], opt,
+                               donate=False, **kw)
+        _, loss, _ = step(state0, None, (x,), (y, w))
+        grads[name] = tree_leaves(got[0])
+        losses[name] = float(loss)
+    loss_rel = abs(losses["accum4"] - losses["plain"]) / abs(losses["plain"])
+    g_rel, lines = leaf_rel_errs(state0.params, grads["accum4"],
+                                 grads["plain"])
+    log(f"  accum_steps=4 vs 1 on one batch: loss {losses['accum4']:.7f} vs "
+        f"{losses['plain']:.7f} (rel {loss_rel:.2e}, tol "
+        f"{ACCUM_LOSS_RTOL:.0e}); gradients max leaf rel {g_rel:.2e} (tol "
+        f"{ACCUM_GRAD_RTOL:.0e})")
+    for line in lines:
+        log(line)
+    names = []
+    tree_map_with_name(lambda n, _: names.append(n), state0.params)
+    remat_diff = [(n, abs_err(a, b)) for n, a, b in zip(
+        names, grads["remat"], grads["plain"]) if not torch.equal(a, b)]
+    log(f"  remat vs plain gradients: "
+        f"{'bit for bit equal' if not remat_diff else remat_diff}; loss "
+        f"{losses['remat']:.7f} vs {losses['plain']:.7f}")
+    out.update(accum_loss_rel_err=loss_rel, accum_grad_rel_err=g_rel,
+               remat_bitwise=not remat_diff, remat_leaves_differing=
+               remat_diff, losses=losses)
+    if loss_rel > ACCUM_LOSS_RTOL or g_rel > ACCUM_GRAD_RTOL:
+        raise Fail(f"resilient: accum_steps=4 disagrees with one step: loss "
+                   f"{loss_rel:.2e}, gradients {g_rel:.2e}")
+    if remat_diff or losses["remat"] != losses["plain"]:
+        raise Fail(f"resilient: remat's gradients differ from the plain "
+                   f"step's: {remat_diff}")
+    return out
+
+
+def res_optimizers(params, grads):
+    """Each optimizer, chain (clip + decay) and with_pruning: two updates
+    (gradients g, then g/2) on the card against the same updates on CPU
+    copies; the update's device ms."""
+    masks = HOOKS.magnitude_masks(params, 0.5)
+    cpu = lambda tree: tree_map(lambda t: t.detach().cpu(), tree)
+    decay = lambda name: name.endswith("kernel") or name.endswith("w_hh")
+    cases = [
+        ("sgd", lambda m: OPT.sgd(1e-2), 1e-5),
+        ("momentum", lambda m: OPT.momentum(1e-2, mu=0.9), 1e-5),
+        ("adagrad", lambda m: OPT.adagrad(1e-2), 1e-5),
+        ("decayed_adagrad", lambda m: OPT.decayed_adagrad(1e-2), 1e-5),
+        ("adadelta", lambda m: OPT.adadelta(), 1e-5),
+        ("rmsprop", lambda m: OPT.rmsprop(1e-3, momentum_mu=0.9), 1e-5),
+        ("adam", lambda m: OPT.adam(1e-3), 1e-5),
+        ("adamax", lambda m: OPT.adamax(2e-3), 1e-5),
+        ("ftrl", lambda m: OPT.ftrl(1e-2, l1=1e-4, l2=1e-4), 1e-5),
+        ("lbfgs", lambda m: OPT.lbfgs(1e-2), 1e-4),
+        ("owlqn", lambda m: OPT.owlqn(1e-2, l1=1e-4), 1e-4),
+        ("proximal_gd", lambda m: OPT.proximal_gd(1e-2, l1=1e-4, l2=1e-4),
+         1e-5),
+        ("chain(clip+decay)", lambda m: OPT.chain(
+            OPT.adam(1e-3), weight_decay=1e-4, clip_global_norm=1.0,
+            clip_value=1e-2, decay_mask=decay), 1e-4),
+        ("with_pruning", lambda m: HOOKS.with_pruning(
+            OPT.momentum(1e-2), m), 1e-5),
+    ]
+    half = tree_map(lambda g: 0.5 * g, grads)
+    out = {}
+    for name, make, tol in cases:
+        p_card = tree_map(lambda t: t.detach().clone(), params)
+        p_cpu = cpu(params)
+        o_card, o_cpu = make(masks), make(cpu(masks))
+        s_card, s_cpu = o_card.init(p_card), o_cpu.init(p_cpu)
+        for k, (g_card, g_cpu) in enumerate(((grads, cpu(grads)),
+                                             (half, cpu(half)))):
+            o_card.update(g_card, s_card, p_card,
+                          torch.tensor(k, dtype=torch.int32, device="cuda"))
+            o_cpu.update(g_cpu, s_cpu, p_cpu, torch.tensor(k,
+                                                           dtype=torch.int32))
+        err = max(rel_err(a.cpu(), b) for a, b in zip(tree_leaves(p_card),
+                                                       tree_leaves(p_cpu)))
+        step2 = torch.tensor(2, dtype=torch.int32, device="cuda")
+        ms = time_ms(lambda: o_card.update(half, s_card, p_card, step2),
+                     iters=10, warmup=2)
+        out[name] = dict(rel_err=err, tol=tol, update_ms=ms)
+        log(f"  {name:<18} two updates, card vs CPU: max rel err {err:.2e} "
+            f"(tol {tol:.0e}); update {ms:.4f} ms")
+        del s_card, s_cpu, p_card, p_cpu
+        if not err <= tol:
+            raise Fail(f"resilient: {name}'s update on the card disagrees "
+                       f"with the CPU's: {err:.2e}")
+    return out
+
+
+def res_fault_runs(cfg, tmp, state0, factory):
+    """NaN under skip and rollback + LR backoff; a checkpoint write error
+    on the 2nd save."""
+    out = {}
+    spec = NM.ShapeSpec((LSTM_B, LSTM_T), torch.int32)
+    for policy, kw in (("skip", {}), ("rollback", dict(
+            lr_backoff=0.5, checkpoint_every_n_batches=4))):
+        tr = Trainer(cfg["model"](), cfg["weighted_ce"], OPT.adam(1e-3),
+                     seed=0, device="cuda")
+        plan = FaultPlan(nan_batch_at=RES_NAN_AT)
+        rt = RS.ResilientTrainer(tr, os.path.join(tmp, policy), max_to_keep=2,
+                                 bad_step_policy=policy, **kw)
+        t0 = time.perf_counter()
+        end = rt.run(clone_state(state0), plan.wrap_batches(factory))
+        torch.cuda.synchronize()
+        bad = [(b.step, b.action, b.reason) for b in rt.bad_steps]
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in tree_leaves(end.params))
+        log(f"  NaN at batch {RES_NAN_AT}, {policy}"
+            f"{' + lr_backoff 0.5' if kw else ''}: bad steps {bad}, final "
+            f"step {int(end.step)}, params finite {finite}, lr scale "
+            f"{rt.counters()['lr_scale']} ({time.perf_counter() - t0:.1f} s)")
+        if bad != [(RES_NAN_AT, policy, "non-finite loss")] or not finite \
+                or int(end.step) != RES_FAULT_BATCHES:
+            raise Fail(f"resilient: the {policy} run went wrong: {bad}, "
+                       f"finite {finite}, step {int(end.step)}")
+        out[policy] = dict(bad_steps=bad, finite=finite,
+                           lr_scale=rt.counters()["lr_scale"])
+        if policy == "skip":
+            # the clean run: the same steps over the batches without batch
+            # k, each at the step index the skip run gave it
+            st = clone_state(state0)
+            gen = torch.Generator(device="cuda")
+            for gidx, batch in enumerate(factory()):
+                if gidx == RES_NAN_AT:
+                    st = st._replace(step=st.step + 1)
+                    continue
+                gen.manual_seed(RS.step_seed(tr.seed, gidx))
+                st, _, _ = tr._train_step(st, gen, *tr._split_batch(batch))
+            same = all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(end.params) + tree_leaves(end.opt_state),
+                tree_leaves(st.params) + tree_leaves(st.opt_state)))
+            log(f"  skip run vs a clean run without batch {RES_NAN_AT}: "
+                f"{'bit for bit equal' if same else 'DIFFER'}")
+            out["skip"]["bitwise_clean_run"] = same
+            if not same:
+                raise Fail("resilient: the skip run differs from a clean run "
+                           "without the poisoned batch")
+    tr = Trainer(cfg["model"](), cfg["weighted_ce"], OPT.adam(1e-3), seed=0,
+                 device="cuda")
+    plan = FaultPlan(checkpoint_error_at=1)
+    mgr = plan.wrap_checkpoint_manager(
+        CK.CheckpointManager(os.path.join(tmp, "flaky"), max_to_keep=2))
+    rt = RS.ResilientTrainer(tr, os.path.join(tmp, "flaky"),
+                             checkpoint_every_n_batches=4,
+                             checkpoint_manager=mgr)
+    end = rt.run(clone_state(state0), factory)
+    log(f"  checkpoint write error on save #1: save_errors "
+        f"{rt.save_errors}, final step {int(end.step)}, latest checkpoint "
+        f"{mgr.latest_step()}")
+    if len(rt.save_errors) != 1 or int(end.step) != RES_FAULT_BATCHES or \
+            mgr.latest_step() != RES_FAULT_BATCHES:
+        raise Fail(f"resilient: the checkpoint write error was not absorbed:"
+                   f" {rt.save_errors}, step {int(end.step)}")
+    out["save_errors"] = list(rt.save_errors)
+    return out
+
+
+def res_times(cfg, tmp, state0, batches):
+    """ms/step over 1 + RES_TIMED steps ending in a sync: Trainer.train,
+    ResilientTrainer.run (its guard reads the loss every step), the step
+    with accum_steps=4 and with remat; D and E launches per step."""
+    out = {}
+
+    def timed(name, run, steps):
+        torch.cuda.synchronize()
+        FL.reset_launch_counts()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / steps
+        d, e = FL.launch_counts["fwd"], FL.launch_counts["bwd"]
+        out[name] = dict(ms_per_step=ms, d_per_step=d / steps,
+                         e_per_step=e / steps)
+        log(f"  {name:<22} {ms:.3f} ms/step; per step D {d / steps:g}, "
+            f"E {e / steps:g}")
+
+    tr = Trainer(cfg["model"](), cfg["weighted_ce"], OPT.adam(1e-3), seed=0,
+                 device="cuda")
+    warm = tr.train(clone_state(state0), lambda: batches[:1])
+    timed("Trainer.train", lambda: tr.train(warm, lambda: batches[1:]),
+          RES_TIMED)
+
+    # the resilient run's steps, from the end of its first step (the
+    # checkpoint of step 0 is written before it) to the end of its last
+    # (the pass-end save comes after): its guard syncs every step
+    rt = RS.ResilientTrainer(tr, os.path.join(tmp, "timed"), max_to_keep=1)
+    marks = []
+
+    def mark(ev):
+        if isinstance(ev, EV.EndIteration):
+            torch.cuda.synchronize()
+            marks.append((time.perf_counter(), FL.launch_counts["fwd"],
+                          FL.launch_counts["bwd"]))
+
+    FL.reset_launch_counts()
+    rt.run(clone_state(state0), lambda: iter(batches), event_handler=mark)
+    (t0, d0, e0), (t1, d1, e1) = marks[0], marks[-1]
+    steps = len(marks) - 1
+    out["ResilientTrainer.run"] = dict(
+        ms_per_step=1e3 * (t1 - t0) / steps, d_per_step=(d1 - d0) / steps,
+        e_per_step=(e1 - e0) / steps, launches_in_run=dict(D=d1, E=e1),
+        steps=len(marks))
+    log(f"  {'ResilientTrainer.run':<22} "
+        f"{out['ResilientTrainer.run']['ms_per_step']:.3f} ms/step; per "
+        f"step D {(d1 - d0) / steps:g}, E {(e1 - e0) / steps:g}; the run "
+        f"launched D {d1} and E {e1} times in {len(marks)} steps")
+
+    for name, kw in (("accum_steps=4", dict(accum_steps=4)),
+                     ("remat", dict(remat=True))):
+        step = make_train_step(cfg["model"](), cfg["weighted_ce"],
+                               OPT.adam(1e-3), **kw)
+        s = clone_state(state0)
+        x, y, w = batches[0]
+        s, _, _ = step(s, None, (x,), (y, w))
+        holder = [s]
+
+        def run(step=step, holder=holder):
+            for x, y, w in batches[1:]:
+                holder[0], _, _ = step(holder[0], None, (x,), (y, w))
+
+        timed(name, run, RES_TIMED)
+    return out
+
+
+def resilient_phase():
+    """The training stack's options and the fault-tolerant `train` entry
+    point at bench_lstm's width, on kernels D and E."""
+    log(f"phase resilient: bench_lstm classifier (vocab {LSTM_VOCAB}, "
+        f"hidden {LSTM_H}, 2 x LSTM, B={LSTM_B} T={LSTM_T}, adam 1e-3) "
+        f"through `python -m paddle_tpu_torch train`, ResilientTrainer, "
+        f"the step's options, the optimizers and the evaluators")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path = os.path.join(tmp, "cfg.py")
+        with open(cfg_path, "w") as f:
+            f.write(RES_CONFIG.format(vocab=LSTM_VOCAB, hidden=LSTM_H,
+                                      t=LSTM_T, b=LSTM_B,
+                                      batches=RES_BATCHES))
+        cfg = runpy.run_path(cfg_path)
+
+        def cli(name):
+            return [sys.executable, "-u", "-m", "paddle_tpu_torch", "train",
+                    "--config", cfg_path, "--batch-size", str(LSTM_B),
+                    "--checkpoint-dir", os.path.join(tmp, name),
+                    "--checkpoint-every", str(RES_CKPT_EVERY), "--save-dir",
+                    os.path.join(tmp, "save_" + name), "--log-period", "1"]
+
+        # 1. uninterrupted; 2. SIGTERM after batch 13, drain, exit 143;
+        # the rerun resumes from the drain save
+        ref_out, ref_wall = res_cli_run(cli("A"), f"uninterrupted CLI run "
+                                        f"({RES_BATCHES} batches)")
+        pre_out, pre_wall = res_cli_run(
+            cli("B"), f"CLI run, SIGTERM after batch {RES_PREEMPT_AFTER}",
+            want_rc=143, preempt_after=RES_PREEMPT_AFTER)
+        m = re.search(r"checkpoint saved at step (\d+)", pre_out)
+        if m is None:
+            raise Fail(f"resilient: the preempted child did not report its "
+                       f"drain save:\n{pre_out[-2000:]}")
+        drained = int(m.group(1))
+        res_out, res_wall = res_cli_run(cli("B"), f"resumed CLI run (from "
+                                        f"step {drained})")
+        launches = {"uninterrupted": res_launches(ref_out),
+                    "preempted": res_launches(pre_out),
+                    "resumed": res_launches(res_out)}
+        want = {"uninterrupted": 2 * RES_BATCHES, "preempted": 2 * drained,
+                "resumed": 2 * (RES_BATCHES - drained)}
+        log(f"  drained at step {drained}; (D, E) launches per child "
+            f"{launches}, want 2 of each per step {want}")
+        for k, (d, e) in launches.items():
+            if d != want[k] or e != want[k]:
+                raise Fail(f"resilient: the {k} CLI child launched D {d}, E "
+                           f"{e} times, want {want[k]} of each")
+        with open(os.path.join(tmp, "save_A", "params.tar"), "rb") as f:
+            tar_a = f.read()
+        with open(os.path.join(tmp, "save_B", "params.tar"), "rb") as f:
+            tar_b = f.read()
+        same = tar_a == tar_b
+        spec = NM.ShapeSpec((LSTM_B, LSTM_T), torch.int32)
+        template = cfg["model"]().init(0, spec, device="cuda")[0]
+        trained = CK.load_parameters_tar(template, os.path.join(
+            tmp, "save_A", "params.tar"))
+        log(f"  params.tar of the preempted and resumed run vs the "
+            f"uninterrupted one: {len(tar_b)} vs {len(tar_a)} bytes, "
+            f"{'byte-identical' if same else 'DIFFERENT'}")
+        if not same:
+            other = CK.load_parameters_tar(template, os.path.join(
+                tmp, "save_B", "params.tar"))
+            names = []
+            tree_map_with_name(lambda n, _: names.append(n), trained)
+            for n, a, b in zip(names, tree_leaves(trained),
+                               tree_leaves(other)):
+                log(f"    {n:<16} max abs diff {abs_err(a, b):.3e}")
+            raise Fail("resilient: the resumed run's params.tar differs "
+                       "from the uninterrupted run's")
+        out["cli"] = dict(drained_step=drained, byte_identical=same,
+                          tar_bytes=len(tar_a), launches=launches,
+                          wall_s=dict(uninterrupted=ref_wall,
+                                      preempted=pre_wall, resumed=res_wall))
+
+        # 3. faults in process, on the card
+        feeder = TDATA.DataFeeder(device="cuda")
+        fault_reader = cfg["reader"](n=LSTM_B * RES_FAULT_BATCHES)
+        device_batches = list(feeder(TDATA.batch_reader(fault_reader,
+                                                        LSTM_B)))
+        factory = lambda: iter(device_batches)
+        tr0 = Trainer(cfg["model"](), cfg["weighted_ce"], OPT.adam(1e-3),
+                      seed=0, device="cuda")
+        state0 = tr0.init_state(spec)
+        out["faults"] = res_fault_runs(cfg, tmp, state0, factory)
+
+        # 4. the options, the optimizers, evaluate, check_gradients
+        x, y, w = device_batches[0]
+        out["options"] = res_options(cfg, state0, (x, y, w))
+        _, _, grads, _ = loss_and_grads(tr0.model, cfg["weighted_ce"],
+                                        state0.params, {}, None, (x,),
+                                        (y, w))
+        out["optimizers"] = res_optimizers(state0.params, grads)
+        del grads
+        out["evaluate"] = res_evaluate(cfg, trained)
+        gc_state = TrainState.create(trained, {}, tr0.optimizer)
+        batch = tuple(t.cpu().numpy() for t in device_batches[0])
+        worst = Trainer(cfg["model"]("scan"), cfg["weighted_ce"],
+                        OPT.sgd(), device="cuda").check_gradients(gc_state,
+                                                                  batch)
+        try:
+            Trainer(cfg["model"](), cfg["weighted_ce"], OPT.sgd(),
+                    device="cuda").check_gradients(gc_state, batch)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        log(f"  check_gradients in float64 (impl='scan', the f64-capable "
+            f"path): worst rel err {worst:.3e} (tol {CHECKGRAD_TOL:.0e}); "
+            f"on the kernels (impl None): {refused}")
+        out["check_gradients"] = dict(worst_rel_err=worst,
+                                      kernel_path_refused=refused)
+        if not worst <= CHECKGRAD_TOL or refused is None or \
+                "float32 or bfloat16" not in refused:
+            raise Fail(f"resilient: check_gradients: {worst:.3e}, kernel "
+                       f"path: {refused}")
+
+        # 5. times
+        out["times"] = res_times(cfg, tmp, state0, device_batches[
+            :RES_TIMED + 1])
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    out["card"] = card
     return out
 
 
@@ -2826,6 +3460,7 @@ def main() -> int:
     wide = wide_phase()
     launched, serve = serve_phase()
     train = train_phase()
+    resilient = resilient_phase()
     ragged = ragged_phase()
     s2s, trained, batch0 = seq2seq_phase()
     gen = generation_phase(trained, batch0)
@@ -2860,6 +3495,16 @@ def main() -> int:
                 "device_launches_per_call": device / calls,
                 "phases_ms": case["phases_ms"], "bitwise": case["bitwise"]}
 
+    def resilient_launches(res, kern):
+        # D and E in the resilient phase: the launches of each CLI child
+        # (printed as it exits) and of the in-process ResilientTrainer run,
+        # each counted from 0 in its process or before the run
+        i = 0 if kern == "D" else 1
+        run = res["times"]["ResilientTrainer.run"]
+        return {"resilient_cli_launches": {k: v[i] for k, v in
+                                           res["cli"]["launches"].items()},
+                "resilient_run_launches": run["launches_in_run"][kern]}
+
     def split_plan(case, serve, kind):
         # the walk's device launches in that serve's run, per call at the
         # case's shape, its plan, and whether it repeated bit for bit
@@ -2886,11 +3531,12 @@ def main() -> int:
               lm_train_launches=lm["a_launches"],
               lm_train_launches_per_step=lm["a_launches_per_step"],
               other_shapes={k: {f: a[k][f] for f in (
-                  "ms", "library_ms", "bound_ms", "err", "row_rel_err")
-                  if f in a[k]} for k in (
+                  "ms", "library_ms", "bound_ms", "err", "row_rel_err",
+                  "library_err") if f in a[k]} for k in (
                   "causal_t2048_float32", "causal_t2048_bfloat16",
                   "causal_t8192_bf16", "causal_t8192_f32",
-                  "window1024_t8192_f32", "hd128_float32",
+                  "window1024_t8192_f32", "window1024_t8192_bf16",
+                  "hd128_float32",
                   "hd128_bfloat16",
                   "scaled_scores_float32")}),
         # B and C: calls of the float and int8-KV serves' runs; their
@@ -2924,14 +3570,16 @@ def main() -> int:
               device_launches_per_call=(train["device_launches"]["D"]
                                         / train["launches"]["D"]),
               us_per_step=lstm["main"]["D"]["us_per_step"],
-              bitwise=lstm["main"]["D"]["bitwise"]),
+              bitwise=lstm["main"]["D"]["bitwise"],
+              **resilient_launches(resilient, "D")),
         entry("lstm_bwd", "paddle_tpu_torch/csrc/fused_lstm.cu",
               "paddle_tpu/ops/pallas_lstm.py:86", train["launches"]["E"],
               lstm["main"]["E"],
               launches_per_train_step=train["launches"]["E"] / TRAIN_STEPS,
               rel_err=lstm["main"]["E"]["rel_err"],
               **redesigned(lstm["main"]["E"], train["launches"]["E"],
-                           train["device_launches"]["E"])),
+                           train["device_launches"]["E"]),
+              **resilient_launches(resilient, "E")),
         # F and G: launches of the seq2seq phase's run (2 of each per
         # step); H and I: of the simple_rnn phase's forward and backward
         entry("gru_fwd", "paddle_tpu_torch/csrc/fused_gru.cu",
@@ -2969,6 +3617,7 @@ def main() -> int:
     log(json.dumps({"launches": launched}))
     log(json.dumps({"serve": serve}))
     log(json.dumps({"train": train, "ragged": ragged}))
+    log(json.dumps({"resilient": resilient}))
     log(json.dumps({"seq2seq": s2s, "generation": gen,
                     "simple_rnn": srnn}))
     log(json.dumps({"wide_cases": wide}))

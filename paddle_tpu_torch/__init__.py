@@ -10,6 +10,11 @@ On a CPU tensor every kernel wrapper runs its plain PyTorch version; on
 a CUDA tensor it launches the kernel or raises.
 
 Importing this package imports neither JAX nor `paddle_tpu`.
+`python -m paddle_tpu_torch train --config CFG` trains a config script
+(see `cli`).
 """
 
-__all__ = ["core", "models", "nn", "ops", "optim", "serve", "train"]
+__version__ = "0.1.0"
+
+__all__ = ["cli", "core", "data", "metrics", "models", "nn", "ops", "optim",
+           "serve", "testing", "train"]

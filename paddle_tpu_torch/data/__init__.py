@@ -1,0 +1,17 @@
+"""Data pipeline (port of `paddle_tpu.data`): readers, batching and
+datasets (copies of the JAX package's framework-free modules) and the
+torch device feeder. `dataset_zoo` and `image` are not ported yet
+(ROADMAP queue 1 item 3)."""
+
+from paddle_tpu_torch.data import reader
+from paddle_tpu_torch.data import batch
+from paddle_tpu_torch.data import datasets
+from paddle_tpu_torch.data.batch import (
+    batch as batch_reader,
+    SequenceBatch,
+    pack_sequences,
+    pad_sequences,
+    bucket_by_length,
+    stack_columns,
+)
+from paddle_tpu_torch.data.feeder import DataFeeder, prefetch_to_device

@@ -64,16 +64,48 @@ def params_to_numpy(tree):
     return tree_map(leaf, tree)
 
 
+def _keep_containers(fn, tree):
+    """fn over the leaves; dicts, lists and tuples (an optimizer's empty
+    `()` state above all) keep their types, as JAX's tree does."""
+    if isinstance(tree, dict):
+        return {k: _keep_containers(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not _is_quantized(tree):
+        return type(tree)(_keep_containers(fn, v) for v in tree)
+    return fn(tree)
+
+
+def opt_state_from_numpy(opt_state, *, device=None):
+    """An optimizer state with numpy leaves (the JAX optimizer's
+    `opt_state` after `jax.device_get`) -> the port's optimizer's state on
+    `device` (None -> cuda), in the same tree: every optimizer of
+    `optim.optimizers` keeps JAX's layout (momentum's `velocity`, adam's
+    `m`/`v`, adamax's `m`/`u`, ftrl's `n`/`z`, the L-BFGS flat `s`, `y`,
+    `rho`, `prev_x`, `prev_g`, `gamma` and int32 `count`; `()` for sgd
+    and proximal_gd). Float leaves become f32, integer leaves keep their
+    type."""
+    dev = resolve_device(device)
+    return _keep_containers(
+        lambda a: params_from_numpy(a, device=dev), opt_state)
+
+
+def opt_state_to_numpy(opt_state):
+    """The port's optimizer state -> the same tree of numpy arrays, the
+    JAX optimizer's `opt_state` layout (tuples stay tuples)."""
+    return _keep_containers(params_to_numpy, opt_state)
+
+
 def train_state_from_numpy(state, *, device=None):
     """A training state with numpy leaves -- the JAX package's TrainState
     after `jax.device_get`, or any object with its four fields -> the
     port's `train.state.TrainState` on `device` (None -> cuda): params,
     model_state and opt_state (adam's `m`/`v`, momentum's `velocity`)
-    through params_from_numpy, step as an int32 0-d tensor."""
+    through params_from_numpy (opt_state through opt_state_from_numpy, so
+    every optimizer's state crosses), step as an int32 0-d tensor."""
     conv = lambda tree: params_from_numpy(tree, device=device)
     return TrainState(params=conv(state.params),
                       model_state=conv(state.model_state),
-                      opt_state=conv(state.opt_state),
+                      opt_state=opt_state_from_numpy(state.opt_state,
+                                                     device=device),
                       step=conv(np.asarray(state.step, np.int32)))
 
 
@@ -83,5 +115,5 @@ def train_state_to_numpy(state):
     from the fields)."""
     return type(state)(params=params_to_numpy(state.params),
                        model_state=params_to_numpy(state.model_state),
-                       opt_state=params_to_numpy(state.opt_state),
+                       opt_state=opt_state_to_numpy(state.opt_state),
                        step=params_to_numpy(state.step))

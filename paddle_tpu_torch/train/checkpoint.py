@@ -20,75 +20,30 @@
   The tar helpers (`_tar_member`, `_tar_manifest`) are this module's own
   copy, with the same error messages for a torn or mismatched tar.
 
+- `ManifestMismatchError` and `param_tree_hash` (the structure hash, the
+  same as JAX's for a matching tree).
+
 The elastic (ZeRO) manager and the inference artifact are not ported yet.
 """
 
 from __future__ import annotations
 
+import hashlib
 import io
 import json
 import os
 import shutil
 import tarfile
-from typing import Any, List, Optional, Tuple
+from typing import Any, List, Optional
 
 import numpy as np
 import torch
 
+from paddle_tpu_torch.core.pytree import flatten_with_keys as _flatten_with_keys
+from paddle_tpu_torch.core.pytree import unflatten_like as _unflatten_like
 from paddle_tpu_torch.train.state import TrainState
 
 _STATE_FILE = "state.pt"
-
-
-# ---- trees in JAX's flatten order, named as jax.tree_util.keystr ----------
-
-
-def _is_namedtuple(x) -> bool:
-    return isinstance(x, tuple) and hasattr(x, "_fields")
-
-
-def _flatten_with_keys(tree, prefix: str = "") -> List[Tuple[str, Any]]:
-    """[(keystr, leaf)] in JAX's flatten order: dict keys sorted (DictKey
-    `['k']`), list and tuple positions (SequenceKey `[i]`), namedtuple
-    fields in order (GetAttrKey `.f`); None holds no leaf."""
-    if tree is None:
-        return []
-    if isinstance(tree, dict):
-        out = []
-        for k in sorted(tree):
-            out += _flatten_with_keys(tree[k], f"{prefix}[{k!r}]")
-        return out
-    if _is_namedtuple(tree):
-        out = []
-        for f in tree._fields:
-            out += _flatten_with_keys(getattr(tree, f), f"{prefix}.{f}")
-        return out
-    if isinstance(tree, (list, tuple)):
-        out = []
-        for i, v in enumerate(tree):
-            out += _flatten_with_keys(v, f"{prefix}[{i}]")
-        return out
-    return [(prefix, tree)]
-
-
-def _unflatten_like(template, leaves):
-    """template's structure (dicts keep their own key order) with its
-    leaves replaced, in _flatten_with_keys order, from `leaves`."""
-    it = iter(leaves)
-
-    def go(t):
-        if t is None:
-            return None
-        if isinstance(t, dict):
-            new = {k: go(t[k]) for k in sorted(t)}
-            return {k: new[k] for k in t}
-        if _is_namedtuple(t):
-            return type(t)(*[go(getattr(t, f)) for f in t._fields])
-        if isinstance(t, (list, tuple)):
-            return type(t)(go(v) for v in t)
-        return next(it)
-
-    return go(template)
 
 
 def _to_numpy(leaf: torch.Tensor) -> np.ndarray:
@@ -192,6 +147,28 @@ class CheckpointManager:
 
     def close(self) -> None:
         """Nothing is held open between calls."""
+
+
+# ---- the structure hash a reshard must agree on -----------------------------
+
+
+class ManifestMismatchError(ValueError):
+    """The checkpoint's manifest does not describe THIS model: the saved
+    param-tree hash (or optimizer-state layout) disagrees with the restore
+    template. Unlike ordinary corruption this is not walk-back-able:
+    every older step of the same run mismatches the same way, so
+    `train.resilience.restore_with_fallback` re-raises it."""
+
+
+def param_tree_hash(params) -> str:
+    """Structure hash of a parameter tree: names, shapes, dtypes. The
+    item list is the JAX package's -- the `keystr` name, the shape and
+    the numpy dtype name of each leaf in JAX's flatten order -- so a port
+    tree that matches a JAX tree hashes equal. Values are excluded."""
+    items = [(name, tuple(int(n) for n in leaf.shape),
+              str(leaf.dtype).replace("torch.", ""))
+             for name, leaf in _flatten_with_keys(params)]
+    return hashlib.sha256(repr(items).encode()).hexdigest()[:16]
 
 
 # ---- v2 Parameters tar parity (reference: v2/parameters.py:328,358) ----

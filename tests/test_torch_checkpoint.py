@@ -208,3 +208,23 @@ def test_corrupt_tars_raise_like_jax(tmp_path, fault):
     with pytest.raises(ValueError, match=match) as jax_err:
         JC.load_parameters_tar(template_j, bad)
     assert str(port_err.value) == str(jax_err.value)
+
+
+def test_param_tree_hash_equals_jax_for_a_matching_tree():
+    """The structure hash hashes JAX's item list (keystr name, shape,
+    numpy dtype name, in JAX's flatten order): the port's tree of a
+    model, built in its own insertion order, hashes as the JAX tree."""
+    jcfg, _, jp, tp = make_models(seed=0, **CFG)
+    assert TC.param_tree_hash(tp) == JC.param_tree_hash(jp)
+    # bf16 and int leaves name their dtypes as numpy does
+    mixed = {"z": torch.zeros(2, dtype=torch.bfloat16),
+             "a": [torch.zeros((1, 3), dtype=torch.int32)]}
+    jmixed = {"z": jax.numpy.zeros(2, jax.numpy.bfloat16),
+              "a": [jax.numpy.zeros((1, 3), jax.numpy.int32)]}
+    assert TC.param_tree_hash(mixed) == JC.param_tree_hash(jmixed)
+    # names, shapes and dtypes count; values do not
+    assert TC.param_tree_hash(tree_map(torch.ones_like, tp)) == \
+        TC.param_tree_hash(tp)
+    wider = dict(tp, extra=torch.zeros(1))
+    assert TC.param_tree_hash(wider) != TC.param_tree_hash(tp)
+    assert issubclass(TC.ManifestMismatchError, ValueError)

@@ -50,7 +50,16 @@ MODULES = [
     "paddle_tpu_torch.models.lenet", "paddle_tpu_torch.models.smallnet",
     "paddle_tpu_torch.models.alexnet", "paddle_tpu_torch.models.vgg",
     "paddle_tpu_torch.models.googlenet", "paddle_tpu_torch.models.resnet",
-    "paddle_tpu_torch.graft_entry",
+    "paddle_tpu_torch.graft_entry", "paddle_tpu_torch.train.checkpoint",
+    "paddle_tpu_torch.optim.average", "paddle_tpu_torch.optim.hooks",
+    "paddle_tpu_torch.metrics", "paddle_tpu_torch.metrics.base",
+    "paddle_tpu_torch.metrics.chunk", "paddle_tpu_torch.metrics.classify",
+    "paddle_tpu_torch.metrics.editdist", "paddle_tpu_torch.metrics.printer",
+    "paddle_tpu_torch.data", "paddle_tpu_torch.data.reader",
+    "paddle_tpu_torch.data.batch", "paddle_tpu_torch.data.datasets",
+    "paddle_tpu_torch.data.feeder", "paddle_tpu_torch.testing",
+    "paddle_tpu_torch.testing.faults", "paddle_tpu_torch.train.resilience",
+    "paddle_tpu_torch.cli",
 ]
 
 

@@ -193,11 +193,42 @@ def test_trainer_init_state():
 @pytest.mark.parametrize("what", ["remat", "accum_steps",
                                   "constrain_state_fn", "aux_loss_weight"])
 def test_train_step_options_not_ported_raise(what):
+    """The four options of make_train_step raised NotImplementedError
+    until they were ported; now each is taken. On this model (no dropout,
+    no aux_loss leaf) a step with the option gives the plain step's loss
+    and parameters: remat and aux_loss_weight exactly, accum_steps=2 (the
+    mean of two microbatch means) within f32 rounding; constrain_state_fn
+    sees and replaces the new state. A batch accum_steps does not divide
+    raises ValueError, as in JAX (tests/test_torch_trainer_options.py
+    holds each option against JAX)."""
+    seen = []
     kw = {"remat": dict(remat=True), "accum_steps": dict(accum_steps=2),
-          "constrain_state_fn": dict(constrain_state_fn=lambda s: s),
+          "constrain_state_fn": dict(
+              constrain_state_fn=lambda s: seen.append(s) or s),
           "aux_loss_weight": dict(aux_loss_weight=0.1)}[what]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        TT.make_train_step(_torch_model(), _tloss, TO.sgd(), **kw)
+    jp, _ = _jax_params(_jax_model())
+    (x, y), = _batches(1, seed=7)
+    runs = []
+    for options in ({}, kw):
+        state = TS.TrainState.create(
+            params_from_numpy(jax.device_get(jp), device="cpu"), {},
+            TO.sgd(0.1))
+        step = TT.make_train_step(_torch_model(), _tloss, TO.sgd(0.1),
+                                  **options)
+        state, loss, _ = step(state, None, (to_torch(x),), (to_torch(y),))
+        runs.append((state, float(loss)))
+    (plain, plain_loss), (opt, opt_loss) = runs
+    tol = 1e-6 if what == "accum_steps" else 0.0
+    assert abs(opt_loss - plain_loss) <= tol
+    for a, b in zip(tree_leaves(opt.params), tree_leaves(plain.params)):
+        assert float((a - b).abs().max()) <= tol
+    if what == "constrain_state_fn":
+        assert len(seen) == 1 and seen[0] is opt
+    if what == "accum_steps":
+        step = TT.make_train_step(_torch_model(), _tloss, TO.sgd(),
+                                  accum_steps=3)
+        with pytest.raises(ValueError, match="not divisible"):
+            step(opt, None, (to_torch(x),), (to_torch(y),))
 
 
 def test_text_lstm_ragged_max_pool_matches_jax(jax_rnn_impl):
