@@ -174,6 +174,40 @@ Phases, in order; any failure exits non-zero:
    uniform in [50, 100]: one forward and backward launches H and I once
    each (H 2 device launches, I at least three), and its gradients
    agree with the plain path's to 1e-4 relative.
+7b. rnn_family -- the rest of the RNN family. SRL's depth-8 db-LSTM +
+   CRF at the label_semantic_roles book chapter's widths (word_dim 32,
+   mark_dim 5, LSTM state 128, the CoNLL-05 dictionaries' sizes 44068 /
+   3162 / 59, B=10 rows of the conll05 surrogate's own lengths 5-29),
+   the quick_start bidi_lstm and db_lstm (depth 8; embed = hidden = 128,
+   B=128 imdb surrogate rows of lengths 8-119, vocab 2000): for each, the
+   first step's loss (1e-3) and gradients (1e-4 per leaf, floored as
+   seq2seq's, and, as the image phase does, only where the model is
+   well conditioned in f32: where the CPU's f32 gradient lies within
+   1e-5 of a float64 run of the step on the CPU; the rest are printed
+   beside their float64 errors: db_lstm's levels 0-5 at random init) on
+   the card against the same step on CPU tensors through the plain
+   versions; then 1 + 5 adam(1e-3) steps on D and E, counts
+   set to 0 just before: one D and one E launch per LSTM layer and step
+   (SRL and db_lstm 8, half over time-flipped inputs; bidi_lstm 2), each
+   D call 2 device operations and each E call at least three; the same
+   steps on their plain versions (impl="torch") launch none and their
+   losses agree to 1e-3; ms per step on both. SRL then Viterbi-decodes a
+   held-out batch with the trained weights: its tags equal the plain
+   path's on the CPU, or a differing row's path scores within 1e-3 of
+   the best. D and E alone at the first SRL batch's shape (T=its
+   longest, B=10, H=128) and the first quick_start batch's (B=128,
+   H=128), reversed, with those batches' lengths, beside cuDNN's
+   nn.LSTM(128, 128) and their bound; an SRL step under torch.profiler
+   (wall, device busy, kernels, D's and E's share) beside the CRF's
+   forward and backward alone. The
+   kernel-free parts card against CPU: text_cnn (context 3, hidden 512)
+   and bow_lr (count vectors and token rows) at B=128, BiLSTM-CRF (embed
+   32, hidden 64; Viterbi tags as SRL's, scores 1e-5), md_lstm on a [8,
+   16, 16, 32] grid, hidden 64, from each corner (in float64 on both
+   devices: its f32 state sums every lattice path, and f32 runs land
+   ~1e-4 from float64; their errors are printed), and
+   cross_entropy_over_beam (E=8, B=128, K=4, gold pruned in a third of
+   the rows): outputs 1e-5 relative, losses and gradients 1e-4.
 8. lm_train -- the transformer LM's training path at
    bench_transformer_lm's width (benchmarks/suite.py:331: vocab 32000,
    dim 512, 8 layers, 8 heads, remat, bf16 policy, B=4, T=8192, adam
@@ -236,7 +270,9 @@ Phases, in order; any failure exits non-zero:
    device launches in the main path's run and
    per call, their phase split and whether they repeated bit for bit;
    D and E also their launches in each resilient CLI child and in the
-   in-process ResilientTrainer run), the resilient phase's numbers, and
+   in-process ResilientTrainer run, and in the rnn_family phase's SRL,
+   db_lstm and bidi_lstm runs with their cases at the SRL and
+   quick_start shapes), the resilient and rnn_family phases' numbers, and
    last the device JSON line.
 
 One phase alone, on the card: `python3 -c "import chip_smoke as S;
@@ -270,10 +306,13 @@ from paddle_tpu_torch.core import dtypes as TD
 from paddle_tpu_torch.core.pytree import (tree_leaves, tree_map,
                                           tree_map_with_name)
 from paddle_tpu_torch.models import alexnet as IM_ALEXNET
+from paddle_tpu_torch.models import bilstm_crf as TBC
 from paddle_tpu_torch.models import googlenet as IM_GOOGLENET
 from paddle_tpu_torch.models import resnet as IM_RESNET
 from paddle_tpu_torch.models import seq2seq_attn as TS
+from paddle_tpu_torch.models import quick_start as TQ
 from paddle_tpu_torch.models import smallnet as IM_SMALLNET
+from paddle_tpu_torch.models import srl as TSRL
 from paddle_tpu_torch.models import text_lstm as TTL
 from paddle_tpu_torch.models import transformer as TT
 from paddle_tpu_torch.models import vgg as IM_VGG
@@ -281,6 +320,8 @@ from paddle_tpu_torch.nn import layers as NL
 from paddle_tpu_torch.nn import module as NM
 from paddle_tpu_torch.nn import recurrent as NR
 from paddle_tpu_torch.ops import _cuda
+from paddle_tpu_torch.ops import beam_search as BS
+from paddle_tpu_torch.ops import crf as CRF
 from paddle_tpu_torch.ops import flash_attention as FA
 from paddle_tpu_torch.ops import fused_gru as FG
 from paddle_tpu_torch.ops import fused_lstm as FL
@@ -793,7 +834,8 @@ def rel_err(got, ref):
 def lstm_case_inputs(*, t, b, h, dtype, lengths, reverse, initial, seed):
     """x_proj [T, B, 4H] N(0, 1), w_hh [H, 4H] uniform(+-1/sqrt(H)) (the
     initializer's), both in `dtype`; h0/c0 zero or N(0, 0.25); bounds
-    from lengths uniform in [T/2, T] (or full)."""
+    from lengths uniform in [T/2, T] (or full, or `lengths` itself where
+    it is an array: a batch's own lengths)."""
     rs = np.random.RandomState(seed)
     dev = "cuda"
     xp = torch.from_numpy(rs.standard_normal((t, b, 4 * h)).astype(
@@ -805,8 +847,12 @@ def lstm_case_inputs(*, t, b, h, dtype, lengths, reverse, initial, seed):
         (0.5 * rs.standard_normal((b, h))).astype(np.float32)).to(dev)
     h0, c0 = (st(), st()) if initial else (
         torch.zeros(b, h, device=dev), torch.zeros(b, h, device=dev))
-    lens = rs.randint(t // 2, t + 1, b) if lengths else np.full(b, t)
-    bounds = FL.make_bounds(b, t, torch.from_numpy(lens).to(dev) if lengths
+    if isinstance(lengths, np.ndarray):        # a batch's own lengths
+        lens = lengths
+    else:
+        lens = rs.randint(t // 2, t + 1, b) if lengths else np.full(b, t)
+    ragged = isinstance(lengths, np.ndarray) or lengths
+    bounds = FL.make_bounds(b, t, torch.from_numpy(lens).to(dev) if ragged
                             else None, reverse, device=dev)
     return (xp, w, h0, c0, bounds), lens
 
@@ -2298,6 +2344,508 @@ def simple_rnn_phase():
                 device_launches={"H": device["fwd"], "I": device["bwd"]})
 
 
+# -- the rest of the RNN family: SRL, quick_start, BiLSTM-CRF, MD-LSTM ---------
+
+# SRL at the fluid book chapter label_semantic_roles's widths: word_dim 32,
+# mark_dim 5, depth 8; its hidden_dim 512 is dynamic_lstm's size, which
+# counts four gates, so the LSTM state is 128 wide; the CoNLL-05
+# dictionaries' sizes as the chapter prints them (44068 words, 3162
+# predicates, 59 labels); its batch of 10 rows, each of the surrogate's own
+# length (5-29), padded to its batch's longest
+SRL_CFG = dict(word_vocab=44068, pred_vocab=3162, num_labels=59, word_dim=32,
+               mark_dim=5, hidden=128, depth=8)
+SRL_B = 10
+# the quick_start demos (trainer_config.{bidi-lstm,db-lstm,cnn,lr}.py):
+# embed 128, hidden 128, db_lstm 8 levels, settings(batch_size=128); the
+# imdb surrogate at its default vocabulary of 2000; text_cnn context 3,
+# hidden 512
+QS_B, QS_VOCAB, QS_EMBED, QS_H, QS_DEPTH = 128, 2000, 128, 128, 8
+QS_CNN_H, QS_CTX = 512, 3
+# BiLSTM-CRF at the JAX package's defaults over the SRL batch's words and
+# labels; MD-LSTM on a [B, 16, 16, 32] grid, hidden 64; the beam cross
+# entropy over E expansions of K beams
+BC_EMBED, BC_H = 32, 64
+MD_SHAPE, MD_H = (8, 16, 16, 32), 64
+BEAM_E, BEAM_B, BEAM_K = 8, 128, 4
+FAMILY_STEPS = 5                      # timed, after one warm-up step
+# the kernel-free parts, card against CPU: the tests' tolerances (values
+# 1e-5 relative, losses and gradients 1e-4)
+VALUE_RTOL, FREE_LOSS_RTOL = 1e-5, 1e-4
+
+
+def srl_batches(n, seed=0):
+    """n SRL batches (CPU tensors: word windows [B, T, 6], predicate,
+    mark, labels [B, T], lengths [B]) from the conll05 surrogate at the
+    chapter's dictionary sizes. Each batch is padded to its longest row;
+    the 6 word-window columns are shifted copies of the word row (the
+    chapter's ctx_n2 .. ctx_p2, as tests/test_book_models.py builds
+    them)."""
+    rows = list(TDATA.dataset_zoo.conll05(
+        n=n * SRL_B, word_vocab=SRL_CFG["word_vocab"],
+        verb_vocab=SRL_CFG["pred_vocab"], label_vocab=SRL_CFG["num_labels"],
+        seed=seed)())
+    out = []
+    for i in range(n):
+        chunk = rows[i * SRL_B:(i + 1) * SRL_B]
+        w, lens = TDATA.pad_sequences([r[0] for r in chunk])
+        mark, _ = TDATA.pad_sequences([r[2] for r in chunk])
+        labels, _ = TDATA.pad_sequences([r[3] for r in chunk])
+        win = np.stack([np.roll(w, s, axis=1) for s in (0, 2, 1, 0, -1, -2)],
+                       axis=-1)
+        pred = np.broadcast_to(np.asarray([r[1] for r in chunk])[:, None],
+                               w.shape)
+        out.append(tuple(torch.from_numpy(np.ascontiguousarray(a, np.int32))
+                         for a in (win, pred, mark, labels, lens)))
+    return out
+
+
+def imdb_batches(n, seed=0):
+    """n quick_start batches (CPU tensors: tokens [B, T], lengths [B],
+    labels [B]) of QS_B rows from the imdb surrogate (lengths 8-119), each
+    padded to its longest row."""
+    rows = list(TDATA.dataset_zoo.imdb_train(n=n * QS_B, seed=seed)())
+    out = []
+    for i in range(n):
+        chunk = rows[i * QS_B:(i + 1) * QS_B]
+        tokens, lens = TDATA.pad_sequences([r[0] for r in chunk])
+        labels = np.asarray([r[1] for r in chunk])
+        out.append(tuple(torch.from_numpy(np.ascontiguousarray(a, np.int32))
+                         for a in (tokens, lens, labels)))
+    return out
+
+
+def qs_loss(model):
+    """A quick_start model -> loss(params, tokens, lens, labels, impl):
+    the mean softmax cross entropy of its logits."""
+    def loss(params, tokens, lens, labels, impl=None):
+        kw = {} if impl is None else {"impl": impl}
+        return ce_loss(model(params, tokens, lens, **kw), labels.long())
+    return loss
+
+
+def family_grads(loss_fn, params, batch, **kw):
+    loss = loss_fn(params, *batch, **kw)
+    return loss, torch.autograd.grad(loss, tree_leaves(params))
+
+
+def family_parity(name, loss_fn, params_cpu, batch, loss_rtol, grad_rtol,
+                  output_fn=None, f64_kw=None):
+    """One loss and its gradients on the card (impl None: the kernels where
+    the model has any) against the same on CPU tensors (the plain
+    versions), from the same weights and batch; gradients leaf by leaf,
+    floored as the seq2seq phase's. With output_fn(params, *batch), its
+    outputs too, at VALUE_RTOL. With `f64_kw` (the loss's keywords for a
+    float64 run, {"impl": "scan"} where it has LSTMs), the step also runs
+    in float64 on the CPU, and a leaf is gated only where the model is
+    well conditioned in f32 there, as the image phase decides it: where
+    the CPU's f32 gradient is within grad_rtol / 10 of the float64 one.
+    Elsewhere -- deep ReLU stacks at random init, where an ulp decides
+    which units pass and a flipped unit moves a small, cancelling
+    gradient by 1e-4 or more -- the card's and the CPU's f32 errors
+    against float64 are printed. Returns the errors; raises on a miss."""
+    pk = trainable(tree_to(params_cpu, "cuda"))
+    pp = trainable(params_cpu)
+    lk, gk = family_grads(loss_fn, pk, [b.cuda() for b in batch])
+    lp, gp = family_grads(loss_fn, pp, batch)
+    names = []
+    tree_map_with_name(lambda n, _: names.append(n), pp)
+    named = lambda g: dict(zip(names, g))
+    errs = leaf_errs(named(gk), named(gp))
+    vs_f64 = {}
+    if f64_kw is not None:
+        p64 = trainable(tree_to(params_cpu, "cpu", torch.float64))
+        _, g64 = with_policy(F64, family_grads, loss_fn, p64, batch,
+                             **f64_kw)
+        vs_f64 = {"cuda": leaf_errs(named(gk), named(g64)),
+                  "cpu": leaf_errs(named(gp), named(g64))}
+    gated = [n for n in names
+             if not vs_f64 or vs_f64["cpu"][n] <= grad_rtol / 10]
+    g_err = max(errs[n] for n in gated) if gated else float("inf")
+    l_err = abs(lk.item() - lp.item()) / abs(lp.item())
+    out = dict(loss=lk.item(), plain_loss=lp.item(), loss_rel_err=l_err,
+               grad_rel_err=g_err, leaves_gated=len(gated),
+               leaves=len(names))
+    if vs_f64:
+        out["vs_f64"] = {k: max(v.values()) for k, v in vs_f64.items()}
+        out["not_gated"] = {n: {"err": errs[n], "cuda_vs_f64":
+                                vs_f64["cuda"][n], "cpu_vs_f64":
+                                vs_f64["cpu"][n]}
+                            for n in names if n not in gated}
+    if output_fn is not None:
+        with torch.no_grad():
+            out["output_rel_err"] = rel_err(
+                output_fn(pk, *[b.cuda() for b in batch]).cpu(),
+                output_fn(pp, *batch))
+    log(f"  {name}: card vs CPU, loss {lk.item():.6f} / {lp.item():.6f} "
+        f"(rel {l_err:.2e}, tol {loss_rtol:.0e}); gradients max rel err "
+        f"{g_err:.2e} over {len(gated)} of {len(names)} leaves (tol "
+        f"{grad_rtol:.0e})" + (
+            f"; against float64 on the CPU: card {out['vs_f64']['cuda']:.2e}"
+            f", CPU {out['vs_f64']['cpu']:.2e}" if vs_f64 else "") + (
+            f"; outputs rel err {out['output_rel_err']:.2e} (tol "
+            f"{VALUE_RTOL:.0e})" if output_fn else ""))
+    if len(gated) < len(names):
+        log(f"    not gated (the CPU's f32 over {grad_rtol / 10:.0e} from "
+            f"float64), card vs CPU / card vs f64 / CPU vs f64: " + ", ".join(
+                f"{n} {v['err']:.1e}/{v['cuda_vs_f64']:.1e}/"
+                f"{v['cpu_vs_f64']:.1e}" for n, v in out["not_gated"].items()))
+    if g_err > grad_rtol:
+        log("    " + ", ".join(f"{n} {errs[n]:.2e}" for n in gated))
+    if (l_err > loss_rtol or g_err > grad_rtol
+            or out.get("output_rel_err", 0.0) > VALUE_RTOL):
+        raise Fail(f"rnn_family: {name} differs between the card and the "
+                   f"CPU: {out}")
+    return out
+
+
+def family_train(loss_fn, params_cpu, batches, impl):
+    """1 + FAMILY_STEPS hand-rolled adam(1e-3) steps on the card (the
+    seq2seq phase's step) from a copy of the weights, D's and E's counts
+    set to 0 just before: (losses, ms per timed step ending in a sync,
+    launches {D, E}, device launches {D, E}, trained params)."""
+    params = trainable(tree_to(params_cpu, "cuda"))
+    opt = OPT.adam(1e-3)
+    opt_state = opt.init(params)
+    batches = [[b.cuda() for b in batch] for batch in batches]
+    losses = []
+
+    def step(i):
+        loss, grads = family_grads(loss_fn, params, batches[i], impl=impl)
+        it = iter(grads)
+        opt.update(tree_map(lambda _: next(it), params), opt_state, params,
+                   torch.tensor(i, dtype=torch.int32, device="cuda"))
+        losses.append(loss.detach())
+
+    torch.cuda.synchronize()
+    FL.reset_launch_counts()
+    step(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1, FAMILY_STEPS + 1):
+        step(i)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / FAMILY_STEPS
+    return ([v.item() for v in losses], ms,
+            {"D": FL.launch_counts["fwd"], "E": FL.launch_counts["bwd"]},
+            {"D": FL.device_launches["fwd"], "E": FL.device_launches["bwd"]},
+            params)
+
+
+def family_run(name, loss_fn, params_cpu, batches, layers):
+    """A model's parity gate, then its training run on the kernels and on
+    their plain versions (impl="torch") on the card: `layers` LSTM layers
+    make `layers` D and E launches a step."""
+    out = family_parity(name, loss_fn, params_cpu, batches[0], LOSS_RTOL,
+                        GRAD_RTOL, f64_kw={"impl": "scan"})
+    k_loss, k_ms, launched, device, trained = family_train(
+        loss_fn, params_cpu, batches, None)
+    p_loss, p_ms, p_launched, _, _ = family_train(loss_fn, params_cpu,
+                                                  batches, "torch")
+    steps = FAMILY_STEPS + 1
+    rel = max(abs(a - b) / abs(b) for a, b in zip(k_loss, p_loss))
+    log(f"  {name}: {k_ms:.3f} ms/step on D and E ({launched['D']} D, "
+        f"{launched['E']} E launches in {steps} steps; {device['D']} and "
+        f"{device['E']} device operations), {p_ms:.3f} ms/step on their "
+        f"plain versions; losses {['%.6f' % v for v in k_loss]}, plain "
+        f"{['%.6f' % v for v in p_loss]} (max rel {rel:.2e})")
+    want = {"D": layers * steps, "E": layers * steps}
+    if launched != want:
+        raise Fail(f"rnn_family: {name} launched {launched}, want {want} "
+                   f"({layers} of each a step)")
+    if device["D"] != 2 * launched["D"] or device["E"] < 3 * launched["E"]:
+        raise Fail(f"rnn_family: {name}'s D and E calls made {device} "
+                   f"device operations")
+    if p_launched != {"D": 0, "E": 0}:
+        raise Fail(f"rnn_family: {name}'s plain path launched {p_launched}")
+    if not all(np.isfinite(k_loss)) or rel > LOSS_RTOL:
+        raise Fail(f"rnn_family: {name}'s kernel and plain losses differ: "
+                   f"{rel:.2e}")
+    out.update(ms_per_step=k_ms, plain_ms_per_step=p_ms, losses=k_loss,
+               plain_losses=p_loss, loss_trace_rel_err=rel,
+               launches=launched, device_launches=device,
+               launches_per_step={k: v / steps for k, v in launched.items()})
+    return out, trained
+
+
+def viterbi_gate(name, tags_k, emit_cpu, crf_cpu, lens):
+    """The card's tags against the plain path's Viterbi on the CPU's
+    emissions: equal, or each differing row's card path scores within
+    GAP_LIMIT of the best (a near tie). Returns (rows that differ, largest
+    gap)."""
+    tags_p, best = CRF.crf_decode(crf_cpu, emit_cpu, lens)
+    differ = [r for r in range(tags_p.shape[0])
+              if not torch.equal(tags_k[r].cpu(), tags_p[r])]
+    gap = 0.0
+    for r in differ:
+        path = CRF.crf_sequence_score(crf_cpu, emit_cpu[r:r + 1],
+                                      tags_k[r:r + 1].cpu(), lens[r:r + 1])
+        gap = max(gap, (best[r] - path[0]).item())
+    log(f"  {name} Viterbi: {len(differ)} of {tags_p.shape[0]} rows differ "
+        f"from the plain path's; largest score gap {gap:.2e} (limit "
+        f"{GAP_LIMIT:.0e})")
+    if gap > GAP_LIMIT:
+        raise Fail(f"rnn_family: {name} decodes other tags than the plain "
+                   f"path (gap {gap:.2e})")
+    return len(differ), gap
+
+
+#: kernels D and E launch (csrc/fused_lstm.cu, time_loop.cuh, tile_gemm.cuh)
+DE_KERNELS = ("forward_loop_kernel", "lstm_bwd_gates_kernel",
+              "backward_loop_kernel", "dw_kernel", "reduce_splits")
+
+
+def profile_device(fn, reps=3):
+    """fn() under torch.profiler, `reps` calls after a warm one: (wall ms
+    per call ending in a sync, device-busy ms per call -- the union of
+    its kernels' intervals --, kernels per call, busy ms per call of the
+    kernels whose names hold one of DE_KERNELS); None where the profiler
+    saw no device activity."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    if not kernels:
+        return None
+    spans = lambda ks: sorted((e.time_range.start, e.time_range.end)
+                              for e in ks)
+
+    def union_ms(intervals):
+        total, end = 0.0, None
+        for a, b in intervals:
+            if end is None or a > end:
+                total, end = total + b - a, b
+            elif b > end:
+                total, end = total + b - end, b
+        return total / 1e3 / reps
+
+    de = [e for e in kernels if any(k in e.name for k in DE_KERNELS)]
+    return wall, union_ms(spans(kernels)), len(kernels) / reps, \
+        union_ms(spans(de))
+
+
+def srl_split(params_cpu, batch):
+    """One SRL step (gradients and adam's update) under torch.profiler:
+    wall ms, device-busy ms and share, kernels per step and D's and E's
+    busy ms; the CRF alone (the log-likelihood's forward and backward on
+    fixed emissions) likewise, for its share of the step's device
+    time."""
+    params = trainable(tree_to(params_cpu, "cuda"))
+    opt = OPT.adam(1e-3)
+    opt_state = opt.init(params)
+    batch = [b.cuda() for b in batch]
+    zero = torch.zeros((), dtype=torch.int32, device="cuda")
+
+    def step():
+        _, grads = family_grads(TSRL.loss, params, batch)
+        it = iter(grads)
+        opt.update(tree_map(lambda _: next(it), params), opt_state, params,
+                   zero)
+
+    win, pred, mark, labels, lens = batch
+    with torch.no_grad():
+        emit = TSRL.emissions(params, win, pred, mark, lens)
+    emit.requires_grad_(True)
+    crf = CRF.CRFParams(**params["crf"])
+
+    def crf_step():
+        ll = CRF.crf_log_likelihood(crf, emit, labels, lens)
+        torch.autograd.grad(-torch.mean(ll), [emit, *crf])
+
+    prof_step, prof_crf = profile_device(step), profile_device(crf_step)
+    if prof_step is None or prof_crf is None:
+        log("  SRL step split: the profiler recorded no device activity "
+            "(not measured)")
+        return dict(measured=False)
+    wall, busy, kernels, de = prof_step
+    _, c_busy, c_kernels, _ = prof_crf
+    out = dict(measured=True, step_wall_ms=wall, step_busy_ms=busy,
+               busy_share=busy / wall, kernels_per_step=kernels,
+               d_e_busy_ms=de, d_e_share=de / busy, crf_busy_ms=c_busy,
+               crf_kernels=c_kernels, crf_share=c_busy / busy,
+               rest_busy_ms=busy - de - c_busy)
+    log(f"  SRL step under torch.profiler (mean of 3): wall {wall:.3f} ms, "
+        f"device busy {busy:.3f} ms ({100 * busy / wall:.1f}%), "
+        f"{kernels:.0f} kernels; D and E {de:.3f} ms "
+        f"({100 * de / busy:.1f}% of busy), the CRF's forward and backward "
+        f"alone {c_busy:.3f} ms in {c_kernels:.0f} kernels "
+        f"({100 * out['crf_share']:.1f}%), the rest "
+        f"{out['rest_busy_ms']:.3f}")
+    return out
+
+
+def kernel_free_phase(srl_batch):
+    """text_cnn, bow_lr, BiLSTM-CRF, md_lstm and cross_entropy_over_beam
+    on the card against the same on CPU tensors (no kernel: torch ops on
+    both)."""
+    rs = np.random.RandomState(21)
+    out = {}
+    tokens, lens, labels = imdb_batches(1, seed=5)[0]
+    cnn = TQ.init_text_cnn(rs, QS_VOCAB, embed_dim=QS_EMBED,
+                           context_len=QS_CTX, hidden=QS_CNN_H, device="cpu")
+    out["text_cnn"] = family_parity(
+        "text_cnn", qs_loss(TQ.text_cnn), cnn, (tokens, lens, labels),
+        FREE_LOSS_RTOL, GRAD_RTOL,
+        output_fn=lambda p, t, n, _: TQ.text_cnn(p, t, n), f64_kw={})
+    bow = TQ.init_bow_lr(rs, QS_VOCAB, device="cpu")
+    mask = torch.arange(tokens.shape[1])[None, :] < lens[:, None].long()
+    counts = torch.zeros(QS_B, QS_VOCAB).index_put_(
+        (torch.arange(QS_B)[:, None].expand_as(tokens)[mask],
+         tokens.long()[mask]), torch.ones(int(mask.sum())), accumulate=True)
+    out["bow_lr"] = family_parity(
+        "bow_lr", lambda p, c, y: ce_loss(TQ.bow_lr(p, c), y.long()), bow,
+        (counts, labels), FREE_LOSS_RTOL, GRAD_RTOL,
+        output_fn=lambda p, c, _: TQ.bow_lr(p, c))
+    out["bow_lr_from_tokens"] = family_parity(
+        "bow_lr_from_tokens", qs_loss(TQ.bow_lr_from_tokens), bow,
+        (tokens, lens, labels), FREE_LOSS_RTOL, GRAD_RTOL)
+
+    win, _, _, tags, slens = srl_batch
+    words = win[..., 0]
+    bc = TBC.init_params(rs, SRL_CFG["word_vocab"], SRL_CFG["num_labels"],
+                         embed_dim=BC_EMBED, hidden=BC_H, device="cpu")
+    out["bilstm_crf"] = family_parity(
+        "bilstm_crf", TBC.loss, bc, (words, tags, slens), FREE_LOSS_RTOL,
+        GRAD_RTOL, f64_kw={})
+    with torch.no_grad():
+        tags_k, score_k = TBC.decode(tree_to(bc, "cuda"), words.cuda(),
+                                     slens.cuda())
+        emit = TBC.emissions(bc, words, slens)
+        crf = CRF.CRFParams(**bc["crf"])
+        _, score_p = CRF.crf_decode(crf, emit, slens)
+    rows, gap = viterbi_gate("bilstm_crf", tags_k, emit, crf, slens)
+    s_err = rel_err(score_k.cpu(), score_p)
+    out["bilstm_crf"].update(viterbi_rows_differ=rows, viterbi_gap=gap,
+                             score_rel_err=s_err)
+    if s_err > VALUE_RTOL:
+        raise Fail(f"rnn_family: bilstm_crf's Viterbi scores differ: "
+                   f"{s_err:.2e}")
+
+    # md_lstm's state sums every lattice path into a cell: with both
+    # forget gates near sigmoid(1) it grows ~1.46x a diagonal at random
+    # init, so at 16 x 16 its f32 outputs cancel large terms (the CPU's and
+    # the card's f32 agree to ~2e-4, each against float64 likewise). Its
+    # semantics are held in float64 on both devices at the tests'
+    # tolerances, as the image phase holds BN nets'; the f32 errors are
+    # printed.
+    md = RNN.init_md_lstm_params(rs, MD_SHAPE[-1], MD_H, device="cpu")
+    grid = torch.from_numpy(rs.standard_normal(MD_SHAPE).astype(np.float32))
+    w = torch.from_numpy(rs.standard_normal(MD_SHAPE[:3] + (MD_H,)).astype(
+        np.float32))
+    md64 = tree_to(md, "cpu", torch.float64)
+    out["md_lstm"] = {}
+    for rows, cols in ((False, False), (True, False), (False, True),
+                       (True, True)):
+        corner = f"rows{'-' if rows else '+'}cols{'-' if cols else '+'}"
+        run = lambda p, x, rows=rows, cols=cols: RNN.md_lstm(
+            p, x, reverse_rows=rows, reverse_cols=cols)
+        case = with_policy(
+            F64, family_parity, f"md_lstm {corner} float64",
+            lambda p, x, w_, run=run: torch.sum(run(p, x) * w_), md64,
+            (grid.double(), w.double()), FREE_LOSS_RTOL, GRAD_RTOL,
+            output_fn=lambda p, x, _, run=run: run(p, x))
+        with torch.no_grad():
+            f32 = {"cuda": run(tree_to(md, "cuda"), grid.cuda()).cpu(),
+                   "cpu": run(md, grid)}
+            truth = with_policy(F64, run, md64, grid.double())
+        case["f32_output_rel_err"] = {
+            "cuda_vs_cpu": rel_err(f32["cuda"], f32["cpu"]),
+            "cuda_vs_f64": rel_err(f32["cuda"], truth),
+            "cpu_vs_f64": rel_err(f32["cpu"], truth)}
+        log(f"    f32 outputs: card vs CPU / card vs f64 / CPU vs f64: "
+            + " / ".join(f"{v:.2e}" for v in
+                         case["f32_output_rel_err"].values()))
+        out["md_lstm"][corner] = case
+
+    scores = torch.from_numpy(rs.standard_normal(
+        (BEAM_E, BEAM_B, BEAM_K)).astype(np.float32))
+    parents = torch.from_numpy(rs.randint(0, BEAM_K, (BEAM_E, BEAM_B,
+                                                      BEAM_K)))
+    gold = torch.from_numpy(rs.randint(0, BEAM_K, (BEAM_E, BEAM_B)))
+    # the gold path falls off the beam in a third of the rows
+    drop = rs.randint(1, BEAM_E, BEAM_B)
+    for r in range(0, BEAM_B, 3):
+        gold[drop[r]:, r] = -1
+    xent = lambda p, par, g: BS.cross_entropy_over_beam(p["s"], par, g)
+    out["cross_entropy_over_beam"] = family_parity(
+        "cross_entropy_over_beam",
+        lambda p, par, g: torch.sum(xent(p, par, g)), {"s": scores},
+        (parents, gold), FREE_LOSS_RTOL, VALUE_RTOL, output_fn=xent)
+    return out
+
+
+def rnn_family_phase():
+    """SRL, bidi_lstm and db_lstm trained on kernels D and E (both scan
+    directions) against the plain path; SRL's Viterbi decode; D and E
+    timed at the SRL and quick_start shapes beside cuDNN; the SRL step's
+    split; the kernel-free models card against CPU."""
+    log(f"phase rnn_family: SRL {SRL_CFG} B={SRL_B}; quick_start bidi_lstm "
+        f"and db_lstm (depth {QS_DEPTH}) embed {QS_EMBED} hidden {QS_H} "
+        f"B={QS_B} vocab {QS_VOCAB}; adam 1e-3, 1 + {FAMILY_STEPS} steps")
+    t0 = time.perf_counter()
+    rs = np.random.RandomState(13)
+    srl_b = srl_batches(FAMILY_STEPS + 2, seed=0)
+    qs_b = imdb_batches(FAMILY_STEPS + 1, seed=0)
+    log(f"  batches' T: SRL {[int(b[0].shape[1]) for b in srl_b]}, "
+        f"quick_start {[int(b[0].shape[1]) for b in qs_b]}")
+    srl_p = TSRL.init_params(rs, device="cpu", **SRL_CFG)
+    out = {}
+    out["srl"], trained = family_run("srl", TSRL.loss, srl_p,
+                                     srl_b[:FAMILY_STEPS + 1],
+                                     SRL_CFG["depth"])
+    win, pred, mark, _, lens = srl_b[-1]
+    with torch.no_grad():
+        tags_k = TSRL.decode(trained, *[b.cuda() for b in (win, pred, mark,
+                                                           lens)])
+        p_cpu = tree_to(trained, "cpu")
+        emit = TSRL.emissions(p_cpu, win, pred, mark, lens)
+    rows, gap = viterbi_gate("srl", tags_k, emit,
+                             CRF.CRFParams(**p_cpu["crf"]), lens)
+    out["srl"].update(viterbi_rows_differ=rows, viterbi_gap=gap)
+
+    bidi = TQ.init_bidi_lstm(rs, QS_VOCAB, embed_dim=QS_EMBED, hidden=QS_H,
+                             device="cpu")
+    out["bidi_lstm"], _ = family_run("bidi_lstm", qs_loss(TQ.bidi_lstm),
+                                     bidi, qs_b, 2)
+    db = TQ.init_db_lstm(rs, QS_VOCAB, embed_dim=QS_EMBED, hidden=QS_H,
+                         depth=QS_DEPTH, device="cpu")
+    out["db_lstm"], _ = family_run("db_lstm", qs_loss(TQ.db_lstm), db, qs_b,
+                                   QS_DEPTH)
+
+    # D and E at the first batches' shapes and lengths, time-flipped as
+    # the odd layers run them
+    s_t, q_t = int(srl_b[0][0].shape[1]), int(qs_b[0][0].shape[1])
+    cases = {
+        "srl": lstm_case(f"srl_t{s_t}_b{SRL_B}_h{SRL_CFG['hidden']}",
+                         t=s_t, b=SRL_B, h=SRL_CFG["hidden"],
+                         lengths=srl_b[0][4].numpy(), reverse=True, seed=11,
+                         library=True),
+        "quick_start": lstm_case(
+            f"quick_start_t{q_t}_b{QS_B}_h{QS_H}", t=q_t, b=QS_B, h=QS_H,
+            lengths=qs_b[0][1].numpy(), reverse=True, seed=12,
+            library=True),
+    }
+    bad = [f"{k}:{c}" for c, d in cases.items() for k, v in d.items()
+           if not v["ok"]]
+    if bad:
+        raise Fail(f"rnn_family: D or E disagrees with its plain version: "
+                   f"{bad}")
+    out["cases"] = cases
+    out["srl_split"] = srl_split(srl_p, srl_b[0])
+    out["kernel_free"] = kernel_free_phase(srl_b[0])
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  rnn_family phase took {out['seconds']:.1f} s")
+    return out
+
+
 # -- the transformer LM's training path ----------------------------------------
 
 
@@ -3465,6 +4013,7 @@ def main() -> int:
     s2s, trained, batch0 = seq2seq_phase()
     gen = generation_phase(trained, batch0)
     srnn = simple_rnn_phase()
+    family = rnn_family_phase()
     lm = lm_train_phase()
     image = image_phase()
 
@@ -3504,6 +4053,22 @@ def main() -> int:
         return {"resilient_cli_launches": {k: v[i] for k, v in
                                            res["cli"]["launches"].items()},
                 "resilient_run_launches": run["launches_in_run"][kern]}
+
+    def family_launches(kern):
+        # D and E in the rnn_family phase: each model's launches in its
+        # training run (1 + FAMILY_STEPS steps, counted from 0 before it),
+        # per step, and the kernel's case at the SRL and quick_start
+        # shapes beside cuDNN
+        case = lambda c: {f: c[kern][f] for f in (
+            "name", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "rel_err")}
+        return {**{f"{m}_launches": family[m]["launches"][kern]
+                   for m in ("srl", "db_lstm", "bidi_lstm")},
+                **{f"{m}_launches_per_step":
+                   family[m]["launches_per_step"][kern]
+                   for m in ("srl", "db_lstm", "bidi_lstm")},
+                "srl_shape": case(family["cases"]["srl"]),
+                "quick_start_shape": case(family["cases"]["quick_start"])}
 
     def split_plan(case, serve, kind):
         # the walk's device launches in that serve's run, per call at the
@@ -3571,7 +4136,7 @@ def main() -> int:
                                         / train["launches"]["D"]),
               us_per_step=lstm["main"]["D"]["us_per_step"],
               bitwise=lstm["main"]["D"]["bitwise"],
-              **resilient_launches(resilient, "D")),
+              **resilient_launches(resilient, "D"), **family_launches("D")),
         entry("lstm_bwd", "paddle_tpu_torch/csrc/fused_lstm.cu",
               "paddle_tpu/ops/pallas_lstm.py:86", train["launches"]["E"],
               lstm["main"]["E"],
@@ -3579,7 +4144,7 @@ def main() -> int:
               rel_err=lstm["main"]["E"]["rel_err"],
               **redesigned(lstm["main"]["E"], train["launches"]["E"],
                            train["device_launches"]["E"]),
-              **resilient_launches(resilient, "E")),
+              **resilient_launches(resilient, "E"), **family_launches("E")),
         # F and G: launches of the seq2seq phase's run (2 of each per
         # step); H and I: of the simple_rnn phase's forward and backward
         entry("gru_fwd", "paddle_tpu_torch/csrc/fused_gru.cu",
@@ -3621,6 +4186,7 @@ def main() -> int:
     log(json.dumps({"seq2seq": s2s, "generation": gen,
                     "simple_rnn": srnn}))
     log(json.dumps({"wide_cases": wide}))
+    log(json.dumps({"rnn_family": family, "card": smi.stdout.strip()}))
     log(json.dumps({"lm_train": lm, "card": smi.stdout.strip()}))
     log(json.dumps({"image": image, "card": smi.stdout.strip()}))
     log(json.dumps({"kernels": kernels}))

@@ -1,6 +1,6 @@
-"""Recurrent layers over the module system (port of the LSTM and GRU
-layers of `paddle_tpu.nn.recurrent`). Inputs are dense padded [B, T, F]
-plus optional lengths [B].
+"""Recurrent layers over the module system (port of
+`paddle_tpu.nn.recurrent`). Inputs are dense padded [B, T, F] plus
+optional lengths [B]; `MDLSTM`'s are grids [B, H, W, F].
 
 `impl` selects the time loop (`ops.rnn.lstm`, `ops.rnn.gru`): None runs
 the fused kernels (D and E, or F and G) on CUDA tensors and their plain
@@ -71,6 +71,33 @@ class GRU(Layer):
                rng):
         out, _ = rnn_ops.gru(params, x, lengths, reverse=self.reverse,
                              impl=self.impl)
+        return out, {}
+
+
+class MDLSTM(Layer):
+    """2-D multi-dimensional LSTM over a [B, H, W, F] grid
+    (`ops.rnn.md_lstm`); reverse_rows / reverse_cols scan from any of the
+    four corners. No kernel: torch ops under autograd."""
+
+    def __init__(self, hidden: int, *, reverse_rows: bool = False,
+                 reverse_cols: bool = False, name: Optional[str] = None):
+        self.hidden = hidden
+        self.reverse_rows = reverse_rows
+        self.reverse_cols = reverse_cols
+        self.name = name
+
+    def _init(self, rng, spec: ShapeSpec, _abstract=False):
+        b, h, w, f = spec.shape
+        out = ShapeSpec((b, h, w, self.hidden), spec.dtype)
+        if _abstract:
+            return {}, {}, out
+        # drawn on the CPU; Layer.init moves the tree to its device
+        return rnn_ops.init_md_lstm_params(rng, f, self.hidden,
+                                           device="cpu"), {}, out
+
+    def _apply(self, params, state, x, *, training: bool, rng):
+        out = rnn_ops.md_lstm(params, x, reverse_rows=self.reverse_rows,
+                              reverse_cols=self.reverse_cols)
         return out, {}
 
 

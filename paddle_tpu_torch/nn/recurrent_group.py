@@ -1,7 +1,6 @@
 """The recurrent-group engine: user-defined step networks with named
 memories, unrolled over time for training and plugged into beam search
-for generation (port of `Memory`, `FnStep`, `RecurrentGroup`,
-`lstm_group` and `gru_group` of `paddle_tpu.nn.recurrent_group`).
+for generation (port of `paddle_tpu.nn.recurrent_group`).
 
 The step is a function plus a parameter tree. `run` unrolls it in a
 Python loop over time under autograd (the JAX package's `lax.scan`),
@@ -17,8 +16,10 @@ state so beam search tiles and re-gathers them with the memories.
 - statics   -- non-sequence inputs visible at every step (encoder outputs
   for attention).
 
-`scan_subsequences` and `RecurrentGroupLayer` are not ported yet, nor
-the JAX `unroll` option (a `lax.scan` knob with no meaning here).
+`scan_subsequences` runs a group within every sub-sequence of a
+2-level nested batch; `RecurrentGroupLayer` puts a group in a
+`Sequential` stack. The JAX `unroll` option (a `lax.scan` knob) has no
+meaning here and is not ported.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch
 
 from paddle_tpu_torch.core.dtypes import default_policy
 from paddle_tpu_torch.core.pytree import tree_leaves, tree_map
-from paddle_tpu_torch.nn.module import ShapeSpec, spec_of
+from paddle_tpu_torch.nn.module import Layer, ShapeSpec, spec_of
 from paddle_tpu_torch.ops import beam_search as bs
 from paddle_tpu_torch.ops import rnn as rnn_ops
 
@@ -259,6 +260,58 @@ class RecurrentGroup:
             max_len=max_len, bos_id=bos_id, eos_id=eos_id,
             vocab_size=vocab_size, length_penalty=length_penalty,
             modify_logits_fn=modify_logits_fn)
+
+
+def scan_subsequences(group: RecurrentGroup, params, x, inner_lengths, *,
+                      boots=None, statics=()):
+    """Run a group over each sub-sequence of a 2-level nested batch.
+
+    x: [B, S_out, S_in, ...] -- outer sequences of inner sequences;
+    inner_lengths: [B, S_out]. Returns (outputs [B, S_out, S_in, ...],
+    final_mems [B, S_out, ...]): the step applied independently within
+    every sub-sequence, booted per sub-sequence from `boots` [B, S_out,
+    ...] where given."""
+    b, so = x.shape[0], x.shape[1]
+    flat = x.reshape((b * so,) + tuple(x.shape[2:]))
+    flat_len = inner_lengths.reshape(b * so)
+    flat_boots = None
+    if boots:
+        flat_boots = {k: v.reshape((b * so,) + tuple(v.shape[2:]))
+                      for k, v in boots.items()}
+    outs, finals = group.run(params, flat, flat_len, boots=flat_boots,
+                             statics=statics)
+    unflat = lambda o: o.reshape((b, so) + tuple(o.shape[1:]))
+    return tree_map(unflat, outs), tree_map(unflat, finals)
+
+
+class RecurrentGroupLayer(Layer):
+    """A RecurrentGroup as a Layer over (x [B, T, F], lengths?), so
+    groups compose inside Sequential stacks. The output width is
+    `out_features`, or the first declared memory's."""
+
+    def __init__(self, step, memories: Dict[str, Memory], *,
+                 out_features: Optional[int] = None, reverse: bool = False,
+                 name: Optional[str] = None):
+        self.group = RecurrentGroup(step, memories, reverse=reverse)
+        self.out_features = out_features
+        self.name = name
+
+    def _init(self, rng, spec: ShapeSpec, lengths_spec=None,
+              _abstract: bool = False):
+        b, t, f = spec.shape
+        out_f = self.out_features
+        if out_f is None:
+            out_f = next(iter(self.group.memories.values())).shape[-1]
+        out = ShapeSpec((b, t, out_f), spec.dtype)
+        if _abstract:
+            return {}, {}, out
+        params = self.group.init(rng, ShapeSpec((b, f), spec.dtype), batch=b)
+        return params, {}, out
+
+    def _apply(self, params, state, x, lengths=None, *, training: bool,
+               rng):
+        out, _ = self.group.run(params, x, lengths)
+        return out, {}
 
 
 def lstm_group(in_features: int,

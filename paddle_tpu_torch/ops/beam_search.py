@@ -1,5 +1,5 @@
-"""Beam search and greedy decoding in fixed shapes (port of `NEG_INF`,
-`BeamState`, `beam_search` and `greedy_search` of
+"""Beam search and greedy decoding in fixed shapes, and the globally
+normalized cross entropy over beam paths (port of
 `paddle_tpu.ops.beam_search`).
 
 Every step scores B*K*V candidates, takes the top K (`torch.topk` over
@@ -170,3 +170,49 @@ def greedy_search(
     any_eos = torch.any(tokens == eos_id, dim=-1)
     lengths = torch.clamp(lengths + any_eos.to(i32), max=max_len)
     return tokens, lengths
+
+
+def cross_entropy_over_beam(step_scores, parents, gold_pos):
+    """Globally normalized cross entropy over beam-search paths: a
+    softmax over every candidate path of the final expansion, with the
+    gold path appended as an extra candidate where pruning dropped it.
+
+      step_scores: [E, B, K] per-step candidate scores (NEG_INF pads
+        invalid slots);
+      parents:     [E, B, K] int index of each candidate's parent in the
+        previous step's beam (step 0's are ignored);
+      gold_pos:    [E, B] int position of the gold candidate in each
+        step's beam, or -1 from the step where it fell off.
+
+    A path's score is the sum of its per-step scores up its ancestry.
+    Returns the per-sequence loss [B] = logsumexp(paths, gold extra) -
+    the gold path's score."""
+    e, b, k = step_scores.shape
+    dev = step_scores.device
+    barange = torch.arange(b, device=dev)
+    parents = parents.long()
+    gold_pos = gold_pos.long()
+
+    # final-step paths: accumulate the scores up each ancestry chain
+    acc = step_scores[-1]
+    par = parents[-1]
+    for step in range(e - 2, -1, -1):
+        acc = acc + torch.gather(step_scores[step], 1, par)
+        par = torch.gather(parents[step], 1, par)
+
+    # the gold path's score: its per-step scores while it survives
+    in_beam = gold_pos >= 0                                     # [E, B]
+    safe_pos = torch.clamp(gold_pos, min=0)
+    gold_step = step_scores[torch.arange(e, device=dev)[:, None],
+                            barange[None, :], safe_pos]         # [E, B]
+    gold_score = torch.sum(torch.where(in_beam, gold_step, 0.0), dim=0)
+
+    survived = in_beam[-1]                                      # [B]
+    # the extra column: the gold total where it was pruned, else a pad
+    extra = torch.where(survived, NEG_INF, gold_score)[:, None]
+    all_scores = torch.cat([acc, extra], dim=1)                 # [B, K+1]
+    gold_idx = torch.where(survived, safe_pos[-1], k)
+    lse = torch.logsumexp(all_scores, dim=1)
+    gold_total = torch.where(survived, all_scores[barange, gold_idx],
+                             gold_score)
+    return lse - gold_total

@@ -13,8 +13,11 @@ the kernels on CUDA tensors, their plain versions on CPU tensors -- or,
 with impl="scan", through the masked scan of the step function
 differentiated by autograd (the JAX package's `impl="xla"` path). The
 JAX `PADDLE_TPU_RNN_IMPL` override is the `impl` argument here (and of
-`nn.LSTM`/`nn.GRU`); there is no environment variable. MD-LSTM is not
-ported yet.
+`nn.LSTM`/`nn.GRU`); there is no environment variable.
+
+`md_lstm`, the 2-D multi-dimensional LSTM, has no kernel in either
+package: a Python loop over the grid's anti-diagonals of torch ops
+under autograd (the JAX package's `lax.scan`).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from paddle_tpu_torch.core.devices import resolve_device
 from paddle_tpu_torch.core.dtypes import default_policy
 from paddle_tpu_torch.nn.initializers import as_rng, uniform_between
 from paddle_tpu_torch.ops import fused_gru as FG
@@ -313,3 +317,102 @@ def init_rnn_params(rng, in_features: int, hidden: int,
     """{w_ih [F, H], w_hh [H, H] uniform(+-1/sqrt(fan)), b [H] zero}, as
     CPU tensors; rng as in init_lstm_params."""
     return _init_gated(rng, in_features, hidden, 1, dtype)
+
+
+def init_md_lstm_params(rng, in_features: int, hidden: int,
+                        dtype=torch.float32, *, device=None):
+    """2-D MD-LSTM parameters, 5 gate chunks (g, i, f_row, f_col, o):
+    {w_ih [F, 5H], w_row [H, 5H], w_col [H, 5H] uniform(+-1/sqrt(fan)),
+    b [5H] zero with both forget-gate blocks at 1.0}. rng as in
+    init_lstm_params; device None -> cuda (raises without one)."""
+    dev = resolve_device(device)
+    rng = as_rng(rng)
+    scale = 1.0 / float(in_features) ** 0.5
+    hscale = 1.0 / float(hidden) ** 0.5
+    b = torch.zeros(5 * hidden, dtype=dtype)
+    b[2 * hidden:4 * hidden] = 1.0
+    params = {
+        "w_ih": uniform_between(rng, (in_features, 5 * hidden), -scale,
+                                scale).to(dtype),
+        "w_row": uniform_between(rng, (hidden, 5 * hidden), -hscale,
+                                 hscale).to(dtype),
+        "w_col": uniform_between(rng, (hidden, 5 * hidden), -hscale,
+                                 hscale).to(dtype),
+        "b": b,
+    }
+    return {k: v.to(dev) for k, v in params.items()}
+
+
+def md_lstm_cell(z, c_up, c_left):
+    """One MD-LSTM cell from summed pre-activations z [..., 5H]:
+
+        c = sigmoid(i) tanh(g) + sigmoid(f_row) c_up + sigmoid(f_col) c_left
+        h = sigmoid(o) tanh(c)
+
+    one forget gate per grid dimension, no peepholes."""
+    g, i, f_r, f_c, o = torch.chunk(z, 5, dim=-1)
+    c = (torch.sigmoid(i) * torch.tanh(g) + torch.sigmoid(f_r) * c_up
+         + torch.sigmoid(f_c) * c_left)
+    h = torch.sigmoid(o) * torch.tanh(c)
+    return h, c
+
+
+def md_lstm(params, x, *, reverse_rows: bool = False,
+            reverse_cols: bool = False):
+    """2-D MD-LSTM over a grid x [B, H, W, F] -> [B, H, W, hidden]: cell
+    (i, j) recurs on (i-1, j) and (i, j-1), with zero states beyond the
+    boundary; reverse_rows / reverse_cols scan from another corner.
+
+    Cells on an anti-diagonal are independent, so the loop runs over the
+    H+W-1 diagonals with the input projection hoisted out of it. The grid
+    is skewed (`torch.gather`): slot i of diagonal d holds cell (i, d-i),
+    so the row neighbour is slot i-1 and the column neighbour slot i of
+    the previous diagonal. Off-grid slots carry zero states: they are
+    the boundary of the next diagonal's edge cells."""
+    if reverse_rows:
+        x = torch.flip(x, dims=(1,))
+    if reverse_cols:
+        x = torch.flip(x, dims=(2,))
+    b, h, w, _ = x.shape
+    dev = x.device
+    hdim = params["w_row"].shape[0]
+    dt = _carry_dtype()
+    xp = (linalg.matmul(x, params["w_ih"]) + params["b"]).to(dt)
+    nd = h + w - 1
+
+    rows = torch.arange(h, device=dev)[:, None]
+    cols = torch.arange(nd, device=dev)[None, :] - rows        # j = d - i
+    on_grid = (cols >= 0) & (cols < w)                          # [H, ND]
+    # skewed[:, i, d] = xp[:, i, d - i] (zero off-grid)
+    idx = torch.clamp(cols, 0, w - 1)[None, :, :, None].expand(
+        b, h, nd, xp.shape[-1])
+    skewed = torch.gather(xp, 2, idx)
+    skewed = torch.where(on_grid[None, :, :, None], skewed, 0.0)
+
+    h_prev = torch.zeros((b, h, hdim), dtype=dt, device=dev)
+    c_prev = torch.zeros((b, h, hdim), dtype=dt, device=dev)
+    pad = torch.zeros((b, 1, hdim), dtype=dt, device=dev)
+    ys = []
+    for d in range(nd):
+        # row neighbour (i-1, j): slot i-1; column neighbour (i, j-1):
+        # slot i of the previous diagonal
+        h_up = torch.cat([pad, h_prev[:, :-1]], dim=1)
+        c_up = torch.cat([pad, c_prev[:, :-1]], dim=1)
+        z = (skewed[:, :, d] + linalg.matmul(h_up, params["w_row"])
+             + linalg.matmul(h_prev, params["w_col"]))
+        h_new, c_new = md_lstm_cell(z, c_up, c_prev)
+        m = on_grid[None, :, d, None]
+        h_prev = torch.where(m, h_new, 0.0).to(dt)
+        c_prev = torch.where(m, c_new, 0.0).to(dt)
+        ys.append(h_prev)
+
+    # unskew: out[:, i, j] = ys[i + j][:, i]
+    stacked = torch.stack(ys, dim=2)                            # [B, H, ND, hd]
+    diag_of = (rows + torch.arange(w, device=dev)[None, :])     # [H, W]
+    out = torch.gather(stacked, 2, diag_of[None, :, :, None].expand(
+        b, h, w, hdim))
+    if reverse_cols:
+        out = torch.flip(out, dims=(2,))
+    if reverse_rows:
+        out = torch.flip(out, dims=(1,))
+    return out

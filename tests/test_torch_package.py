@@ -59,7 +59,10 @@ MODULES = [
     "paddle_tpu_torch.data.batch", "paddle_tpu_torch.data.datasets",
     "paddle_tpu_torch.data.feeder", "paddle_tpu_torch.testing",
     "paddle_tpu_torch.testing.faults", "paddle_tpu_torch.train.resilience",
-    "paddle_tpu_torch.cli",
+    "paddle_tpu_torch.cli", "paddle_tpu_torch.ops.crf",
+    "paddle_tpu_torch.models.srl", "paddle_tpu_torch.models.quick_start",
+    "paddle_tpu_torch.models.bilstm_crf",
+    "paddle_tpu_torch.data.dataset_zoo", "paddle_tpu_torch.data.image",
 ]
 
 
