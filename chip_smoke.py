@@ -30,7 +30,8 @@ Phases, in order; any failure exits non-zero:
    instantiation, read from `cuobjdump --dump-sass` of the built library,
    must be above 0. A's cases: the main prefill, key_lens, causal T=2048,
    a sliding window, head_dim 128 and rows with no valid key, in f32 and
-   bf16; causal T=8192, B=4, H=8 in bf16 and f32, and in a window of
+   bf16; a window of 128 keys with key_lens in [1, 128) at T=256 (the
+   ring pool's prefill), f32 and bf16; causal T=8192, B=4, H=8 in bf16 and f32, and in a window of
    1024 keys in f32 and bf16 beside SDPA with a boolean band mask, whose
    output must agree with A's at the dtype's tolerance
    (bench_transformer_lm's shape; the LM train phase feeds it f32, its f32 biases promoting the
@@ -109,6 +110,47 @@ Phases, in order; any failure exits non-zero:
      16-token motif; tokens agree with the same engine's one-token
      decode, and every verify round read the cache through B or C with
      TQ=5 (at least rounds x layers TQ>1 launches).
+3b. server -- the serving stack over the same weights and requests
+   (each run with every launch count set to 0 just before it; tokens
+   against the plain path's by the gap rule above):
+   - ServingServer over the kernel engine, float KV then int8 KV, the 32
+     requests with max_queue 64, buckets (128,), a ManualClock one decode
+     step advances by 1 ms, a FaultPlan with a prefill fault (the 4th
+     call) and a decode fault (the 21st step), and two requests whose
+     60 ms deadline expires mid-decode: reconcile() holds, those two
+     expire with partial tokens, the rest complete, 9 requeues, A and B
+     (A and C for int8) launched. Float KV then runs the first 16
+     requests clean, timed in turns against the bare engine's serve()
+     on the same engine (bare, server, server, bare); int8 prints its
+     faulted run's tokens/s beside serve_phase's bare run; the
+     server's counters are printed.
+   - ServingRouter over two replicas (8 slots each, on the one card):
+     the prefix-affinity hit rate and tokens/s against one replica;
+     replica 0 killed at its 41st decode step (every request ends once,
+     the dead replica's redistributed); replica 0 retired at its 10th
+     step (its queue moves, its 8 in-flight requests finish in place,
+     32 prefills for 32 requests).
+   - Disaggregation: one role="prefill" replica, two role="decode",
+     every request routed to the prefill tier and in waves the decode
+     tier can take: float and int8 KV, inline and over a ShmArena data
+     plane (the float inline run 32 requests, the others the first
+     16). Every request crosses by export_request/
+     import_request; its tokens equal the unified replica's (else the
+     gap rule); the decode tier's TQ=1 walk launches equal its steps x
+     layers (it reads the imported pages); no data-plane fallback; in
+     the float inline run the first import into decode replica 1 dies
+     (router_kill_import_at) and the same payload lands on replica 2.
+     ms per migrated slot (export + import, synchronized) and the bytes
+     exported are printed.
+   - The ring pool at bench_decode's swa row (window 128, 8 prompts, 512
+     new tokens, cut from 1024): A launches once per layer per request,
+     each with the window and the key bound, no B or C; tokens against
+     the plain rolling generate() by the gap rule; tokens/s against the
+     paged pool's.
+   - `python -m paddle_tpu_torch serve --replicas 2 --max-queue 64
+     --metrics-out` in a child process at this width: its lines equal
+     the in-process router's tokens (else the gap rule), every request
+     completed, the metrics file parses.
 4. train  -- the bench_lstm classifier (benchmarks/suite.py:144: vocab
    10000, embedding = hidden = 512, 2 x nn.LSTM, mean over time,
    Dense(2), adam 1e-3; B=64, T=100) with seeded random weights through
@@ -259,7 +301,8 @@ Phases, in order; any failure exits non-zero:
    (resnet50 B=64 through Trainer.train) beside the raw step, alexnet
    with its dropout through Trainer.train (the masks drawn on the card),
    and graft_entry.entry() (finite [16, 1000] logits).
-10. report -- the launch counts of every path, the serve, train, seq2seq,
+10. report -- the launch counts of every path (A, B and C also per run of
+   the server phase), the serve, server, train, seq2seq,
    generation, LM train and image numbers, the wide cases, the card's
    name and power limit, a `kernels` JSON line (nine entries, A-I; A adds its
    HMMA counts and its launches in the LM train phase; B and C their
@@ -355,6 +398,19 @@ SERVE_CFG = dict(vocab=32000, dim=512, n_layers=8, n_heads=8)
 SLOTS, MAX_LEN, PAGE = 8, 256, 16
 N_REQ, PROMPT, SHARED, MAX_NEW = 32, 128, 64, 128
 N_WEIGHT_REQ, N_SPEC_REQ = 8, 16
+# the server phase: a prefill fault and a decode fault (0-based calls of
+# the wrapped engine), two requests whose deadline (ms on a ManualClock
+# that one decode step advances by STEP_MS) expires mid-decode
+SERVER_PREFILL_FAULT, SERVER_DECODE_FAULT = 3, 20
+SERVER_DEADLINE_REQS, SERVER_DEADLINE_MS, STEP_MS = (1, 6), 60.0, 1.0
+ROUTER_KILL_AT, ROUTER_RETIRE_AT, IMPORT_KILL_AT = 40, 10, 0
+TIMED_REQ = 16          # the clean server-vs-bare turns: two waves
+# bench_decode's swa row (benchmarks/suite.py:500, :601-624): batch 8,
+# 128-token prompts, window max(steps, 16) = 128, steps * 8 = 1024 new
+# tokens, cut to 512 to keep the server phase short (the ring wraps four
+# times either way)
+RING_WINDOW, RING_REQ, RING_NEW = 128, 8, 512   # the row's 1024, cut
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
 
 # bench_lstm(hidden=512, batch=64, seq_len=100, vocab=10000)
 # (benchmarks/suite.py:144, sizes at :778-781)
@@ -746,6 +802,13 @@ def kernels_phase():
         row_relative=True)
     a["scaled_scores_float32"] = flash_case("scores_std3_t512", b=2, t=512,
                                             h=8, q_scale=3.0, seed=1)
+    # the ring pool's one-shot prefill: a window and a per-row key bound
+    # in one launch (bench_decode's swa window), queries past the bound
+    # reading the keys of their band below it
+    for dt in (f32, bf16):
+        a["window128_lens_" + str(dt)[6:]] = flash_case(
+            "window128_key_lens", b=4, t=256, h=8, dtype=dt,
+            window=RING_WINDOW, lens=[127, 100, 37, 1], seed=2)
     log("phase kernels: ragged paged-attention walk (B)")
     b = {
         "main_decode": ragged_case("main_decode_r8", r=8, tq=1, h=8, hkv=8),
@@ -3788,6 +3851,7 @@ def reset_counts():
 
 def counts():
     return {"flash_fwd": FA.launch_counts["fwd"],
+            "flash_fwd_window": FA.launch_counts["fwd_window"],
             "ragged_tq1": RPA.launch_counts["tq1"],
             "ragged_tqn": RPA.launch_counts["tqn"],
             "int8_tq1": RPA.launch_counts["int8_tq1"],
@@ -3852,6 +3916,11 @@ def check_greedy(label, toks, ref, prompts, params, plain_cfg):
     return same
 
 
+#: label -> the kernel and plain paths' tokens of a serve_phase run and the
+#: kernel path's wall time: the server phase's references
+SERVE_REFS = {}
+
+
 def kernel_and_plain(label, params, cfg, prompts, need):
     """Serve `prompts` on the kernel path and on the plain path (dense
     attention, the walk's plain version); every kernel in `need` must
@@ -3880,6 +3949,8 @@ def kernel_and_plain(label, params, cfg, prompts, need):
     log(f"  {label} plain path:  {n_tok} tokens in {pwall:.3f} s = "
         f"{n_tok / pwall:.1f} generated tokens/s")
     same = check_greedy(label, toks, ptoks, prompts, params, plain_cfg)
+    SERVE_REFS[label] = dict(kernel=toks, plain=ptoks, wall=wall,
+                             n_prompts=len(prompts))
     return launched, ptoks, dict(
         requests=len(prompts), tokens=n_tok, wall_s=wall,
         tok_s=n_tok / wall, plain_wall_s=pwall, plain_tok_s=n_tok / pwall,
@@ -3978,6 +4049,537 @@ def serve_phase():
     return launches, out
 
 
+# -- the serving stack: ServingServer, ServingRouter, ring pools, the CLI -----
+
+
+def serve_refs(label, params, cfg, prompts):
+    """The kernel and plain paths' greedy tokens of `prompts` and the
+    kernel path's wall time: serve_phase's run where it ran in this
+    process, else served here."""
+    ref = SERVE_REFS.get(label)
+    if ref is None or ref["n_prompts"] != len(prompts):
+        need = (("flash_fwd", "int8_tq1") if cfg.kv_cache_dtype == "int8"
+                else ("flash_fwd", "ragged_tq1"))
+        kernel_and_plain(label, params, cfg, prompts, need)
+        ref = SERVE_REFS[label]
+    return ref
+
+
+def gap_rule(label, toks, ref, prompts, params, plain_cfg):
+    """check_greedy over requests that may have stopped early (an
+    expired request's partial tokens against the reference's prefix)."""
+    return check_greedy(label, toks, [r[:len(t)] for t, r in zip(toks, ref)],
+                        prompts, params, plain_cfg)
+
+
+def need_launched(launched, cfg, label):
+    need = (("flash_fwd", "int8_tq1") if cfg.kv_cache_dtype == "int8"
+            else ("flash_fwd", "ragged_tq1"))
+    missing = [k for k in need if launched[k] == 0]
+    if missing:
+        raise Fail(f"{label}: kernels never launched: {missing}")
+
+
+def server_run(label, params, cfg, prompts, geom, ref, turns):
+    """ServingServer over the kernel engine under a FaultPlan (one
+    prefill fault, one decode fault) with two requests whose deadline
+    expires mid-decode; then clean runs of the first TIMED_REQ requests
+    timed against the bare engine's serve() on the same engine, in
+    `turns` (bare, server, server, bare), or, with no turns, the
+    faulted run's tokens/s beside serve_phase's bare run."""
+    from paddle_tpu_torch.serve.server import ServingServer
+    from paddle_tpu_torch.testing.faults import ManualClock
+
+    plain_cfg = dataclasses.replace(cfg, attn_impl="dense")
+    eng = DecodeEngine(params, cfg, **geom)
+    clk = ManualClock()
+    plan = FaultPlan(serve_prefill_error_at=SERVER_PREFILL_FAULT,
+                     serve_decode_error_at=SERVER_DECODE_FAULT)
+    srv = ServingServer(plan.wrap_engine(eng), max_queue=64,
+                        buckets=(PROMPT,), clock=clk, max_retries=2)
+    srv.on_step.append(lambda _s, _i: clk.advance(STEP_MS / 1000.0))
+    ids = [srv.submit(p, max_new=MAX_NEW,
+                      deadline_ms=(SERVER_DEADLINE_MS
+                                   if i in SERVER_DEADLINE_REQS else None))
+           for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    srv.reconcile()
+    need_launched(launched, cfg, label)
+    outcomes = [res[r].outcome for r in ids]
+    want = ["expired" if i in SERVER_DEADLINE_REQS else "completed"
+            for i in range(len(prompts))]
+    fired = list(plan.fired)
+    if outcomes != want or fired != [f"sprefill@{SERVER_PREFILL_FAULT}",
+                                     f"sdecode@{SERVER_DECODE_FAULT}"]:
+        raise Fail(f"{label} server: outcomes {outcomes}, fired {fired}")
+    for i in SERVER_DEADLINE_REQS:
+        n = len(res[ids[i]].tokens)
+        if not 0 < n < MAX_NEW or "mid-generation" not in res[ids[i]].error:
+            raise Fail(f"{label} server: request {i} expired with {n} "
+                       f"tokens: {res[ids[i]].error}")
+    c = srv.counters()
+    if c["retried"] != 1 + SLOTS:
+        raise Fail(f"{label} server: retried {c['retried']}, the plan "
+                   f"forces 1 prefill + {SLOTS} in-flight requeues")
+    toks = [res[r].tokens for r in ids]
+    same = gap_rule(f"{label} server", toks, ref["plain"], prompts, params,
+                    plain_cfg)
+    n_tok = sum(len(t) for t in toks)
+    log(f"  {label} server under faults: {n_tok} tokens in {wall:.3f} s, "
+        f"fired {fired}, launches {launched}")
+    log(f"  {label} server counters: {json.dumps(c)}")
+    out = dict(faulted_wall_s=wall, faulted_tokens=n_tok, fired=fired,
+               outcomes={o: outcomes.count(o) for o in set(outcomes)},
+               same=same, counters=c,
+               faulted_tok_s=n_tok / wall,
+               bare_run_tok_s=sum(map(len, ref["kernel"])) / ref["wall"])
+    if not turns:
+        log(f"  {label} server under faults {n_tok / wall:.1f} generated "
+            f"tokens/s (recomputing {c['retried']} requeues); the bare "
+            f"serve() of the {len(prompts)} requests "
+            f"{out['bare_run_tok_s']:.1f}")
+        return launched, out
+    # the first TIMED_REQ requests without faults or deadlines, timed in
+    # turns against the bare engine's serve() on the same engine
+    prompts = prompts[:TIMED_REQ]
+    kref, pref = ref["kernel"][:TIMED_REQ], ref["plain"][:TIMED_REQ]
+    walls = {"bare": [], "server": []}
+    equal = True
+    for arm in turns:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if arm == "bare":
+            ctoks = eng.serve(prompts, max_new=MAX_NEW, buckets=(PROMPT,))
+        else:
+            clean = ServingServer(eng, max_queue=64, buckets=(PROMPT,),
+                                  clock=ManualClock())
+            cids = [clean.submit(p, max_new=MAX_NEW) for p in prompts]
+            cres = clean.run()
+            ctoks = [cres[r].tokens for r in cids]
+        torch.cuda.synchronize()
+        walls[arm].append(time.perf_counter() - t0)
+        if arm == "server":
+            clean.reconcile()
+        if ctoks != kref:
+            equal = False
+            gap_rule(f"{label} clean {arm}", ctoks, pref, prompts, params,
+                     plain_cfg)
+    n_clean = sum(len(t) for t in kref)
+    tok_s = {a: [n_clean / w for w in ws] for a, ws in walls.items()}
+    log(f"  {label} clean runs in turns {list(turns)}: server "
+        f"{[round(x, 1) for x in tok_s['server']]} generated tokens/s, "
+        f"bare serve() {[round(x, 1) for x in tok_s['bare']]}; server / "
+        f"bare {np.mean(tok_s['server']) / np.mean(tok_s['bare']):.3f}")
+    return launched, dict(
+        out, timed_requests=TIMED_REQ, tok_s=tok_s["server"],
+        bare_tok_s=tok_s["bare"], turns=list(turns),
+        server_over_bare=float(np.mean(tok_s["server"])
+                               / np.mean(tok_s["bare"])),
+        clean_equal_kernel_ref=equal)
+
+
+def make_router(params, cfg, n, *, roles=None, wrap=None, data_plane=None,
+                policy=None):
+    from paddle_tpu_torch.serve.router import ServingRouter
+    from paddle_tpu_torch.serve.server import ServingServer
+    from paddle_tpu_torch.testing.faults import ManualClock
+
+    clk = ManualClock()
+    roles = roles or ["unified"] * n
+    servers = []
+    for i, role in enumerate(roles):
+        eng = DecodeEngine(params, cfg, slots=SLOTS, max_len=MAX_LEN,
+                           page_size=PAGE)
+        if wrap and wrap.get(i) is not None:
+            eng = wrap[i](eng)
+        servers.append(ServingServer(eng, role=role, max_queue=64,
+                                     clock=clk, data_plane=data_plane))
+    return ServingRouter(servers, clock=clk, policy=policy)
+
+
+def prefill_first_policy():
+    """A routing policy for the migration runs: every request goes to the
+    prefill tier (the default routes a prompt whose prefix a migration
+    seeded straight to that decode replica, which then serves it
+    without crossing)."""
+    from paddle_tpu_torch.serve.policy import SchedulerPolicy
+
+    class PrefillFirst(SchedulerPolicy):
+        def route_tiered(self, chain, affinity, prefill_cands,
+                         decode_cands):
+            return self.spill(prefill_cands or decode_cands)
+
+    return PrefillFirst()
+
+
+def router_run(router, prompts, label, wave=None):
+    """Submit `prompts` (in waves of `wave`, each run to idle) and run;
+    every request must complete. Returns (ids, results, tokens, wall
+    seconds, launch counts of the run)."""
+    wave = wave or len(prompts)
+    ids = []
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for i in range(0, len(prompts), wave):
+        ids += [router.submit(p, max_new=MAX_NEW)
+                for p in prompts[i:i + wave]]
+        res = router.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    router.reconcile()
+    bad = [r for r in ids if res[r].outcome != "completed"]
+    if bad:
+        raise Fail(f"{label}: requests not completed: "
+                   f"{[(r, res[r].outcome, res[r].error) for r in bad]}")
+    toks = [res[r].tokens for r in ids]
+    return ids, res, toks, wall, launched
+
+
+def timed_calls(server, name, acc):
+    """Wrap server.<name> to add its wall time (synchronized) to acc."""
+    fn = getattr(server, name)
+
+    def wrapped(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            torch.cuda.synchronize()
+            acc.append(time.perf_counter() - t0)
+
+    setattr(server, name, wrapped)
+
+
+def page_bytes(cfg):
+    """Bytes of one page of every layer's K and V arenas."""
+    hkv, dh = cfg.kv_heads, cfg.head_dim
+    per = (PAGE * hkv * dh + PAGE * hkv * 4 if cfg.kv_cache_dtype == "int8"
+           else PAGE * hkv * dh * 4)
+    return cfg.n_layers * 2 * per
+
+
+def disagg_run(label, params, cfg, prompts, ref, *, shm, kill):
+    """One prefill replica and two decode replicas: every request crosses
+    by export_request/import_request (inline, or through a ShmArena data
+    plane), optionally with the first import into decode replica 1
+    killed mid-transfer. Requests go in waves the decode tier's free
+    slots can take (16, or 8 once a decode replica is dead): a parked
+    request that no decode replica can take is decoded where it was
+    prefilled, and would not cross."""
+    from paddle_tpu_torch.serve.shm_arena import ShmArena
+
+    plain_cfg = dataclasses.replace(cfg, attn_impl="dense")
+    plan = FaultPlan(router_kill_import_at=IMPORT_KILL_AT) if kill else None
+    # one request's pages at a time (the export's ticket is freed on the
+    # destination's ACK): 9 pages of 512 KiB in f32
+    arena = ShmArena(seg_size=1 << 20, n_segs=12) if shm else None
+    try:
+        router = make_router(
+            params, cfg, 3, roles=["prefill", "decode", "decode"],
+            data_plane=arena, policy=prefill_first_policy(),
+            wrap={1: plan.wrap_replica_engine} if kill else None)
+        ex, im, pages = [], [], []
+        src = router.replicas[0].server
+        timed_calls(src, "export_request", ex)
+        export = src.export_request
+
+        def counted(req_id):
+            payload = export(req_id)
+            pages.append(payload["n_pages"])
+            return payload
+
+        src.export_request = counted
+        for rep in router.replicas[1:]:
+            timed_calls(rep.server, "import_request", im)
+        ids, res, toks, wall, launched = router_run(
+            router, prompts, label, wave=SLOTS if kill else 2 * SLOTS)
+        c = router.counters()
+        decode_steps = sum(r.server.stats.steps
+                           for r in router.replicas[1:])
+    finally:
+        if arena is not None:
+            arena.close(destroy=True)
+    tq1 = "int8_tq1" if cfg.kv_cache_dtype == "int8" else "ragged_tq1"
+    if c["migrations"] != len(prompts) or c["migration_failed"]:
+        raise Fail(f"{label}: {c['migrations']} migrations of "
+                   f"{len(prompts)}, {c['migration_failed']} failed")
+    if c["fleet_data_plane_fallbacks"]:
+        raise Fail(f"{label}: {c['fleet_data_plane_fallbacks']} data-plane "
+                   f"fallbacks")
+    if kill and (plan.fired != [f"importkill@{IMPORT_KILL_AT}"]
+                 or c["migration_retargets"] != 1
+                 or c["replicas_lost"] != 1):
+        raise Fail(f"{label}: import kill: fired {plan.fired}, retargets "
+                   f"{c['migration_retargets']}, lost {c['replicas_lost']}")
+    if src.stats.steps:
+        raise Fail(f"{label}: the prefill replica decoded")
+    # every decode step of the decode tier reads its imported pages
+    # through the walk, one TQ=1 call per layer
+    if launched[tq1] != decode_steps * cfg.n_layers:
+        raise Fail(f"{label}: {launched[tq1]} {tq1} launches, the decode "
+                   f"tier stepped {decode_steps} x {cfg.n_layers} layers")
+    if any(res[r].replica == 0 for r in ids):
+        raise Fail(f"{label}: a request finished on the prefill tier")
+    equal = sum(t == k for t, k in zip(toks, ref["kernel"]))
+    if equal != len(prompts):
+        check_greedy(f"{label} vs unified", toks, ref["kernel"], prompts,
+                     params, plain_cfg)
+    moved = len(ex)
+    ms_slot = 1000.0 * (sum(ex) + sum(im)) / moved
+    bytes_out = sum(pages) * page_bytes(cfg)
+    n_tok = sum(len(t) for t in toks)
+    log(f"  {label}: {len(prompts)} migrations, {equal}/{len(prompts)} "
+        f"requests bit for bit the unified replica's; "
+        f"{ms_slot:.3f} ms per migrated slot (export "
+        f"{1000 * sum(ex) / moved:.3f} + import {1000 * sum(im) / moved:.3f}"
+        f" over {len(im)} imports), {bytes_out} bytes exported "
+        f"({sum(pages)} pages); {n_tok / wall:.1f} tokens/s; launches "
+        f"{launched}")
+    return launched, dict(
+        migrations=c["migrations"], retargets=c["migration_retargets"],
+        replicas_lost=c["replicas_lost"], equal_to_unified=equal,
+        ms_per_migrated_slot=ms_slot, export_ms=1000 * sum(ex) / moved,
+        import_ms=1000 * sum(im) / moved, imports=len(im),
+        bytes_exported=bytes_out, pages_exported=sum(pages),
+        tok_s=n_tok / wall, decode_steps=decode_steps,
+        fired=list(plan.fired) if plan else [])
+
+
+def ring_run(params, cfg, prompts):
+    """The ring pool at bench_decode's swa row: A launched with the
+    window and the key bound (one prefill per request, a launch per
+    layer), B and C not; greedy tokens against the plain rolling
+    generate(), by the gap rule."""
+    wcfg = dataclasses.replace(cfg, attn_window=RING_WINDOW)
+    plain = dataclasses.replace(wcfg, attn_impl="dense")
+    eng = DecodeEngine(params, wcfg, slots=SLOTS, max_len=MAX_LEN)
+    eng.serve(prompts[:1], max_new=4, buckets=(PROMPT,))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    toks = eng.serve(prompts, max_new=RING_NEW, buckets=(PROMPT,))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    window_launches = launched["flash_fwd_window"]
+    want = len(prompts) * cfg.n_layers
+    if (launched["flash_fwd"] != want or window_launches != want
+            or launched["ragged_tq1"] or launched["ragged_tqn"]
+            or launched["int8_tq1"] or launched["int8_tqn"]):
+        raise Fail(f"ring pool: launches {launched}, A with a window "
+                   f"{window_launches}; want {want} windowed A, no B or C")
+    if any(len(t) != RING_NEW for t in toks):
+        raise Fail("ring pool: a request did not emit max_new tokens")
+    t1 = time.perf_counter()
+    ref = TT.generate(params, plain, torch.from_numpy(
+        np.stack(prompts)).cuda(), RING_NEW)[:, PROMPT:].tolist()
+    torch.cuda.synchronize()
+    ref_wall = time.perf_counter() - t1
+    same = check_greedy("ring pool", toks, ref, prompts, params, plain)
+    n_tok = sum(len(t) for t in toks)
+    log(f"  ring pool (window {RING_WINDOW}, {len(prompts)} x {RING_NEW} "
+        f"new): {n_tok / wall:.1f} generated tokens/s ({wall:.3f} s; plain "
+        f"rolling generate() {n_tok / ref_wall:.1f}), launches {launched}, "
+        f"A with a window {window_launches}")
+    return launched, dict(
+        tok_s=n_tok / wall, wall_s=wall, plain_generate_tok_s=n_tok
+        / ref_wall, same=same, steps=eng.last_stats.steps)
+
+
+SERVE_CONFIG = """
+import numpy as np
+
+from paddle_tpu_torch.models import transformer as TT
+
+
+def get_serve_config():
+    cfg = TT.TransformerConfig(**{cfg!r})
+    return {{"cfg": cfg,
+            "params": TT.init_params(np.random.RandomState(0), cfg,
+                                     device="cuda"),
+            "slots": {slots}, "max_len": {max_len}}}
+"""
+
+
+def cli_run(prompts, router_toks, params, plain_cfg):
+    """`python -m paddle_tpu_torch serve --replicas 2 --max-queue 64
+    --metrics-out` in a child process at this width: its token lines
+    equal the in-process router's (the gap rule where they do not), its
+    trailer counts every request completed, its metrics file parses."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path = os.path.join(tmp, "serve_cfg.py")
+        with open(cfg_path, "w") as f:
+            f.write(SERVE_CONFIG.format(cfg=SERVE_CFG, slots=SLOTS,
+                                        max_len=MAX_LEN))
+        p_path = os.path.join(tmp, "prompts.txt")
+        with open(p_path, "w") as f:
+            for p in prompts:
+                f.write(" ".join(str(int(t)) for t in p) + "\n")
+        out_path = os.path.join(tmp, "out.txt")
+        m_path = os.path.join(tmp, "metrics.jsonl")
+        argv = [sys.executable, "-m", "paddle_tpu_torch", "serve",
+                "--config", cfg_path, "--prompts", p_path, "--replicas",
+                "2", "--max-queue", "64", "--max-new", str(MAX_NEW),
+                "--metrics-out", m_path, "--output", out_path]
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, cwd=REPO_DIR, capture_output=True,
+                              text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise Fail(f"cli serve: exit {proc.returncode}: "
+                       f"{proc.stderr[-2000:]}")
+        with open(out_path) as f:
+            lines = f.read().splitlines()
+        with open(m_path) as f:
+            metrics = [json.loads(l) for l in f if l.strip()]
+    toks = [[int(t) for t in l.split()] for l in lines[:-1]]
+    trailer = lines[-1]
+    if len(toks) != len(prompts) or not trailer.startswith("# outcomes "):
+        raise Fail(f"cli serve: {len(lines)} output lines")
+    if f"completed={len(prompts)}" not in trailer.split():
+        raise Fail(f"cli serve: {trailer}")
+    series = {m["name"]: m["value"] for m in metrics if "name" in m}
+    if series.get("fleet_completed") != len(prompts):
+        raise Fail(f"cli serve: metrics fleet_completed "
+                   f"{series.get('fleet_completed')}")
+    equal = sum(a == b for a, b in zip(toks, router_toks))
+    if equal != len(prompts):
+        check_greedy("cli serve vs in-process router", toks, router_toks,
+                     prompts, params, plain_cfg)
+    log(f"  cli serve --replicas 2: {equal}/{len(prompts)} lines equal the "
+        f"in-process router's tokens; {len(metrics)} metrics lines; child "
+        f"wall {wall:.1f} s")
+    return dict(equal=equal, wall_s=wall, metrics_lines=len(metrics))
+
+
+def server_phase():
+    """ServingServer (float and int8 KV), ServingRouter (two replicas:
+    affinity, a replica killed mid-burst, retirement; three replicas:
+    prefill to decode by KV migration, float and int8, inline and over
+    a ShmArena, an import killed mid-way), the ring pool at bench_decode's
+    swa row, and `python -m paddle_tpu_torch serve` in a child."""
+    t_phase = time.perf_counter()
+    cfg = TT.TransformerConfig(**SERVE_CFG)
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    plain_cfg = dataclasses.replace(cfg, attn_impl="dense")
+    log(f"phase server: {SERVE_CFG}, f32, {SLOTS} slots per replica, "
+        f"max_len={MAX_LEN}, page={PAGE}, {N_REQ} requests x {PROMPT}-token "
+        f"prompts, max_new={MAX_NEW}")
+    params = TT.init_params(np.random.RandomState(0), cfg, device="cuda")
+    prompts = make_prompts()
+    geom = dict(slots=SLOTS, max_len=MAX_LEN, page_size=PAGE)
+    ref = serve_refs("float KV", params, cfg, prompts)
+    ref8 = serve_refs("int8 KV", params, cfg8, prompts)
+    launches, out = {}, {}
+    launches["server_float"], out["server_float"] = server_run(
+        "float KV", params, cfg, prompts, geom, ref,
+        ("bare", "server", "server", "bare"))
+    launches["server_int8"], out["server_int8"] = server_run(
+        "int8 KV", params, cfg8, prompts, geom, ref8, ())
+
+    # two replicas on the card, clean: affinity, throughput
+    router = make_router(params, cfg, 2)
+    _, res, rtoks, wall, launches["router"] = router_run(
+        router, prompts, "router")
+    need_launched(launches["router"], cfg, "router")
+    gap_rule("router", rtoks, ref["plain"], prompts, params, plain_cfg)
+    n_tok = sum(len(t) for t in rtoks)
+    one = out["server_float"]["bare_run_tok_s"]
+    out["router"] = dict(
+        tok_s=n_tok / wall, one_replica_tok_s=one,
+        prefix_hit_rate=router.prefix_hit_rate(),
+        replicas_used=sorted({r.replica for r in res.values()}),
+        equal_to_unified=sum(a == b for a, b in zip(rtoks, ref["kernel"])))
+    log(f"  router, 2 replicas: {n_tok / wall:.1f} generated tokens/s "
+        f"against one replica's {one:.1f} (the bare serve() of the same "
+        f"requests); "
+        f"prefix-affinity "
+        f"hit rate {router.prefix_hit_rate():.3f}; counters "
+        f"{json.dumps(router.counters())}")
+
+    # (a) replica 0 dies at its ROUTER_KILL_AT-th decode step
+    plan = FaultPlan(router_kill_decode_at=ROUTER_KILL_AT)
+    router = make_router(params, cfg, 2, wrap={0: plan.wrap_replica_engine})
+    ids, res, ktoks, _, _ = router_run(router, prompts, "router kill")
+    c = router.counters()
+    moved = sum(res[r].redistributions > 0 for r in ids)
+    if (plan.fired != [f"replicakill@{ROUTER_KILL_AT}"]
+            or c["replicas_lost"] != 1 or not moved
+            or len(router.results) != len(prompts)):
+        raise Fail(f"router kill: fired {plan.fired}, counters {c}")
+    gap_rule("router kill", ktoks, ref["plain"], prompts, params, plain_cfg)
+    out["router_kill"] = dict(redistributed=c["redistributed"],
+                              moved=moved, replicas_lost=c["replicas_lost"])
+    log(f"  router, replica 0 killed at decode step {ROUTER_KILL_AT}: "
+        f"{moved} requests redistributed, every one completed once")
+
+    # (b) replica 0 retired mid-burst: its queue moves, its slots finish
+    router = make_router(params, cfg, 2)
+    state = {}
+
+    def retire(srv, step):
+        if step == ROUTER_RETIRE_AT and not state:
+            state["inflight"] = [r.req_id for r in srv._slot_req
+                                 if r is not None]
+            state["rr"] = [router.replicas[0].pending[q]
+                           for q in state["inflight"]]
+            state["queued"] = len(srv.queue)
+            router.retire_replica(0, reason="maintenance")
+
+    router.replicas[0].server.on_step.append(retire)
+    ids, res, btoks, _, _ = router_run(router, prompts, "router retire")
+    c = router.counters()
+    stayed = [rr for rr in state.get("rr", []) if res[rr].replica == 0
+              and res[rr].redistributions == 0]
+    queued = state.get("queued", 0)
+    if (len(stayed) != SLOTS or c["fleet_admitted"] != len(prompts)
+            or not queued or c["redistributed"] != queued):
+        raise Fail(f"router retire: in-flight finished in place "
+                   f"{len(stayed)}/{SLOTS}, admitted {c['fleet_admitted']} "
+                   f"for {len(prompts)} requests, redistributed "
+                   f"{c['redistributed']} of {queued} queued")
+    gap_rule("router retire", btoks, ref["plain"], prompts, params,
+             plain_cfg)
+    out["router_retire"] = dict(redistributed=c["redistributed"],
+                                finished_in_place=len(stayed),
+                                admitted=c["fleet_admitted"])
+    log(f"  router, replica 0 retired at its step {ROUTER_RETIRE_AT}: "
+        f"{c['redistributed']} queued requests moved, {len(stayed)} "
+        f"in-flight finished in place, {c['fleet_admitted']} prefills for "
+        f"{len(prompts)} requests (nothing recomputed)")
+
+    # (c) disaggregation: one prefill replica, two decode replicas; the
+    # float inline run (with the import kill) takes all the requests,
+    # the others the first wave of 16
+    for kv, c_, r_ in (("float", cfg, ref), ("int8", cfg8, ref8)):
+        for shm in (False, True):
+            key = f"disagg_{kv}_{'shm' if shm else 'inline'}"
+            n = len(prompts) if kv == "float" and not shm else 2 * SLOTS
+            launches[key], out[key] = disagg_run(
+                key, params, c_, prompts[:n],
+                dict(r_, kernel=r_["kernel"][:n], plain=r_["plain"][:n]),
+                shm=shm, kill=(kv == "float" and not shm))
+
+    launches["ring"], out["ring"] = ring_run(params, cfg,
+                                             prompts[:RING_REQ])
+    paged_tok_s = out["server_float"]["bare_run_tok_s"]
+    log(f"  ring pool {out['ring']['tok_s']:.1f} against the paged pool's "
+        f"{paged_tok_s:.1f} generated tokens/s")
+    out["cli"] = cli_run(prompts, rtoks, params, plain_cfg)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"  server phase: {out['wall_s']:.1f} s")
+    return launches, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4007,6 +4609,7 @@ def main() -> int:
     gru, rnn = gru_rnn_kernels_phase()
     wide = wide_phase()
     launched, serve = serve_phase()
+    server_launched, server = server_phase()
     train = train_phase()
     resilient = resilient_phase()
     ragged = ragged_phase()
@@ -4070,6 +4673,13 @@ def main() -> int:
                 "srl_shape": case(family["cases"]["srl"]),
                 "quick_start_shape": case(family["cases"]["quick_start"])}
 
+    def server_launches(*keys):
+        # launches of each run of the server phase, counted from 0
+        # before it
+        return {"server_phase_launches": {
+            run: {k: n[k] for k in keys} for run, n in
+            server_launched.items()}}
+
     def split_plan(case, serve, kind):
         # the walk's device launches in that serve's run, per call at the
         # case's shape, its plan, and whether it repeated bit for bit
@@ -4090,6 +4700,7 @@ def main() -> int:
               "paddle_tpu/ops/flash_attention.py:45",
               launched["float"]["flash_fwd"], a["main_prefill_t128"],
               hmma_per_instantiation=hmma,
+              **server_launches("flash_fwd", "flash_fwd_window"),
               # the LM train phase's three full-width variants, counted
               # from 0 before each (a forward and a remat recompute per
               # layer per step)
@@ -4103,7 +4714,8 @@ def main() -> int:
                   "window1024_t8192_f32", "window1024_t8192_bf16",
                   "hd128_float32",
                   "hd128_bfloat16",
-                  "scaled_scores_float32")}),
+                  "scaled_scores_float32", "window128_lens_float32",
+                  "window128_lens_bfloat16")}),
         # B and C: calls of the float and int8-KV serves' runs; their
         # device launches in those runs (the split walk, and the combine
         # where the plan has several splits), per call at the case's
@@ -4111,7 +4723,9 @@ def main() -> int:
         entry("ragged_paged_walk[tq=1]", walk,
               "paddle_tpu/ops/ragged_paged_attention.py:153",
               launched["float"]["ragged_tq1"], b["main_decode"],
-              **split_plan(b["main_decode"], "float", "float_device")),
+              **split_plan(b["main_decode"], "float", "float_device"),
+              **server_launches("ragged_tq1", "ragged_tqn",
+                                "float_device")),
         entry("ragged_paged_walk[tq>1]", walk,
               "paddle_tpu/ops/ragged_paged_attention.py:153",
               launched["float"]["ragged_tqn"], b["main_chunk"],
@@ -4119,7 +4733,8 @@ def main() -> int:
         entry("ragged_paged_walk_int8[tq=1]", walk,
               "paddle_tpu/ops/ragged_paged_attention.py:188",
               launched["int8_kv"]["int8_tq1"], c["main_decode"],
-              **split_plan(c["main_decode"], "int8_kv", "int8_device")),
+              **split_plan(c["main_decode"], "int8_kv", "int8_device"),
+              **server_launches("int8_tq1", "int8_tqn", "int8_device")),
         entry("ragged_paged_walk_int8[tq>1]", walk,
               "paddle_tpu/ops/ragged_paged_attention.py:188",
               launched["int8_kv"]["int8_tqn"], c["main_chunk"],
@@ -4181,6 +4796,8 @@ def main() -> int:
     ]
     log(json.dumps({"launches": launched}))
     log(json.dumps({"serve": serve}))
+    log(json.dumps({"server": server, "server_launches": server_launched,
+                    "card": smi.stdout.strip()}))
     log(json.dumps({"train": train, "ragged": ragged}))
     log(json.dumps({"resilient": resilient}))
     log(json.dumps({"seq2seq": s2s, "generation": gen,

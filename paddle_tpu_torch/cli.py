@@ -1,7 +1,8 @@
-"""Command-line driver of the port (port of `paddle_tpu.cli`'s `train`
-and `version` verbs):
+"""Command-line entry of the port (port of `paddle_tpu.cli`'s `train`,
+`serve` and `version` verbs):
 
     python -m paddle_tpu_torch train --config CFG [--device cuda|cpu] ...
+    python -m paddle_tpu_torch serve --config CFG --prompts FILE ...
     python -m paddle_tpu_torch version
 
 A config script is a Python file defining `get_config()`, which returns
@@ -29,6 +30,20 @@ yet and fail with the ROADMAP item that brings them: `--zero`,
 `--elastic` (and its gang flags), `--coordinator` (and its process
 flags), `--transfer-guard`, `--metrics-out`, `--compile-cache`,
 `--no-compile-cache`.
+
+`serve` takes a config script defining `get_serve_config()`, which
+returns a dict: `cfg` (the port's TransformerConfig) and `params` (its
+parameter tree, on --device), optional `eos_id`, `slots`, `max_len`.
+Prompts come one whitespace-separated token-id sequence per line and
+completions leave the same way. Bare, it runs `DecodeEngine.serve`;
+`--max-queue`, `--default-deadline-ms`, `--metrics-out` or
+`--flight-dir` route through `ServingServer` (one ordered line per
+request plus a `# outcomes` counters trailer), and `--replicas N`
+through `ServingRouter` over N engines. `--http` and its flags,
+`--fleet-procs`/`--fleet-max` (ROADMAP queue 1 item 6),
+`--engine-artifact` (item 4), and `--compile-cache`,
+`--no-compile-cache`, `--transfer-guard` (no counterpart on the card,
+item 6) fail naming their item.
 """
 
 from __future__ import annotations
@@ -41,7 +56,7 @@ import time
 from typing import Optional
 
 _DISTRIBUTED = "ROADMAP queue 1 item 5 (distributed training)"
-_OBS = "ROADMAP queue 1 item 6 (the obs layer)"
+_OBS = "ROADMAP queue 1 item 6 (the train verb's metrics export)"
 _NO_COUNTERPART = ("there is no XLA compile cache to keep on the card; the "
                    "JAX package's compilation_cache has no counterpart "
                    "(ROADMAP queue 1 item 6)")
@@ -64,13 +79,47 @@ DEFERRED_FLAGS = {
 }
 
 
+_FLEET = "ROADMAP queue 1 item 6 (the HTTP edge and the process fleet)"
+_SERVE_NO_COUNTERPART = ("it has no counterpart on the card: the JAX "
+                         "package's compile cache and transfer guard "
+                         "are XLA's (ROADMAP queue 1 item 6)")
+
+#: the serve verb's deferred flags, as DEFERRED_FLAGS
+SERVE_DEFERRED_FLAGS = {
+    "--http": (True, _FLEET),
+    "--http-host": (True, _FLEET),
+    "--http-addr-file": (True, _FLEET),
+    "--http-max-requests": (True, _FLEET),
+    "--fleet-procs": (True, _FLEET),
+    "--fleet-max": (True, _FLEET),
+    "--engine-artifact": (True, "ROADMAP queue 1 item 4 (the serving "
+                                "artifacts)"),
+    "--compile-cache": (True, _SERVE_NO_COUNTERPART),
+    "--no-compile-cache": (False, _SERVE_NO_COUNTERPART),
+    "--transfer-guard": (False, _SERVE_NO_COUNTERPART),
+}
+
+
 class _Deferred(argparse.Action):
     """A JAX flag the port does not take yet: a clear error naming what
     brings it, rather than argparse's 'unrecognized arguments'."""
 
+    table = DEFERRED_FLAGS
+
     def __call__(self, parser, namespace, values, option_string=None):
         parser.error(f"{option_string} is not ported yet: "
-                     f"{DEFERRED_FLAGS[option_string][1]}")
+                     f"{self.table[option_string][1]}")
+
+
+class _ServeDeferred(_Deferred):
+    table = SERVE_DEFERRED_FLAGS
+
+
+def _add_deferred(parser, table, action) -> None:
+    for flag, (takes_value, why) in table.items():
+        parser.add_argument(flag, action=action,
+                            nargs=None if takes_value else 0,
+                            help=f"not ported yet: {why}")
 
 
 def _load_config(path: str) -> dict:
@@ -175,6 +224,240 @@ def cmd_train(args) -> int:
     return 0
 
 
+# -- serve -------------------------------------------------------------------
+
+
+def _obs_stack(metrics_out=None, flight_dir=None):
+    """The (registry, tracer, flight) triple for an instrumented run, or
+    (None, None, None) when neither flag asked for it."""
+    if metrics_out is None and flight_dir is None:
+        return None, None, None
+    from paddle_tpu_torch.obs import (FlightRecorder, MetricsRegistry,
+                                      Tracer, set_default)
+
+    if flight_dir:
+        # FlightRecorder.dump treats a missing directory as a file path
+        os.makedirs(flight_dir, exist_ok=True)
+    registry = MetricsRegistry() if metrics_out else None
+    flight = FlightRecorder()
+    set_default(flight)
+    return registry, Tracer(sink=flight.note_span), flight
+
+
+def _write_metrics(registry, path) -> None:
+    """A registry snapshot: .json/.jsonl gets JSON lines, anything else
+    Prometheus text."""
+    if registry is None or not path:
+        return
+    text = (registry.to_jsonl() if path.endswith((".json", ".jsonl"))
+            else registry.to_prometheus())
+    with open(path, "w") as f:
+        f.write(text)
+
+
+def cmd_serve(args) -> int:
+    """Continuous-batching LM serving from the command line (see the
+    module docstring for the config contract)."""
+    import numpy as np
+
+    from paddle_tpu_torch.serve.engine import DecodeEngine
+
+    ns = runpy.run_path(args.config)
+    if "get_serve_config" not in ns:
+        raise SystemExit(
+            f"{args.config} must define get_serve_config() -> dict "
+            "with keys: cfg (TransformerConfig), params; optional: "
+            "eos_id, slots, max_len")
+    sc = ns["get_serve_config"]()
+    missing = {"cfg", "params"} - set(sc)
+    if missing:
+        raise SystemExit(f"get_serve_config() is missing {sorted(missing)}")
+
+    def make_engine():
+        return DecodeEngine(
+            sc["params"], sc["cfg"],
+            slots=(sc.get("slots", 8) if args.slots is None
+                   else args.slots),
+            max_len=(sc.get("max_len", 2048) if args.max_len is None
+                     else args.max_len),
+            eos_id=sc.get("eos_id"), seed=args.seed, device=args.device)
+
+    buckets = (tuple(int(b) for b in args.buckets.split(","))
+               if args.buckets else None)
+    with open(args.prompts) as f:
+        prompts = [np.asarray([int(t) for t in line.split()], np.int32)
+                   for line in f if line.strip()]
+    # `is not None`: explicit zeros must reach the sampler validation
+    one = {k: v for k, v in (("temperature", args.temperature),
+                             ("top_k", args.top_k),
+                             ("top_p", args.top_p)) if v is not None}
+    sampling = [dict(one) for _ in prompts] if one else None
+    # open the sink before the run: an unwritable --output fails fast
+    sink = open(args.output, "w") if args.output else sys.stdout
+    reliable = (args.max_queue is not None
+                or args.default_deadline_ms is not None
+                or args.metrics_out is not None
+                or args.flight_dir is not None)
+    try:
+        if args.replicas is not None and args.replicas > 1:
+            engines = [make_engine() for _ in range(args.replicas)]
+            return _serve_fleet(args, engines, prompts, sampling, buckets,
+                                sink)
+        eng = make_engine()
+        if reliable:
+            return _serve_reliable(args, eng, prompts, sampling, buckets,
+                                   sink)
+        out = eng.serve(prompts, max_new=args.max_new, buckets=buckets,
+                        sampling=sampling, return_logprobs=args.logprobs)
+        toks, lps = out if args.logprobs else (out, None)
+        for i, g in enumerate(toks):
+            print(" ".join(str(t) for t in g), file=sink)
+            if lps is not None:
+                print("# logprobs " + " ".join(f"{x:.4f}" for x in lps[i]),
+                      file=sink)
+    finally:
+        if sink is not sys.stdout:
+            sink.close()
+    return 0
+
+
+def _serve_reliable(args, eng, prompts, sampling, buckets, sink):
+    """`serve` through ServingServer: bounded queue with shedding,
+    deadlines, retry, SIGTERM drain. The batch is fed as the queue
+    drains (a batch larger than --max-queue is not shed while the pool
+    idles); one output line per request in order, then the counters."""
+    from paddle_tpu_torch.serve.server import QueueFullError, ServingServer
+
+    registry, tracer, flight = _obs_stack(args.metrics_out, args.flight_dir)
+    server = ServingServer(
+        eng,
+        max_queue=args.max_queue if args.max_queue is not None else 64,
+        default_deadline_ms=args.default_deadline_ms,
+        max_retries=args.max_retries, buckets=buckets,
+        drain_grace_s=args.drain_grace,
+        drain_report_path=args.drain_report,
+        install_signal_handlers=True, tracer=tracer, flight=flight)
+    if registry is not None:
+        server.bind_metrics(registry)
+    ids = {}
+    cursor = [0]
+
+    def feed(_srv=None, _step=None):
+        while (cursor[0] < len(prompts) and server.queue_space > 0
+               and not server.draining):
+            i = cursor[0]
+            cursor[0] += 1
+            try:
+                ids[i] = server.submit(
+                    prompts[i], max_new=args.max_new,
+                    sampling=(sampling[i] if sampling else None))
+            except (ValueError, QueueFullError) as e:
+                ids[i] = e.req_id       # ledgered under its id
+
+    server.on_step.append(feed)
+    feed()
+    results = server.run()
+    while cursor[0] < len(prompts) and not server.draining:
+        feed()
+        results = server.run()
+    _render_serve_results(args, sink, prompts, ids, results,
+                          server.counters())
+    _write_metrics(registry, args.metrics_out)
+    return 0
+
+
+def _render_serve_results(args, sink, prompts, ids, results, counters):
+    """The ordered transcript: completed requests print their token ids
+    (and logprobs), everything else `# req <i> <outcome>: <reason>`,
+    then one `# outcomes` counters trailer."""
+    for i in range(len(prompts)):
+        if i not in ids:
+            print(f"# req {i} shed: not submitted (draining)", file=sink)
+            continue
+        res = results[ids[i]]
+        if res.outcome == "completed":
+            print(" ".join(str(t) for t in res.tokens), file=sink)
+            if args.logprobs:
+                print("# logprobs " + " ".join(
+                    f"{x:.4f}" for x in res.logprobs), file=sink)
+        else:
+            print(f"# req {i} {res.outcome}: {res.error}", file=sink)
+    print("# outcomes " + " ".join(f"{k}={v}" for k, v in counters.items()),
+          file=sink)
+    return 0
+
+
+def _serve_fleet(args, engines, prompts, sampling, buckets, sink):
+    """`serve --replicas N`: N ServingServer replicas behind the
+    prefix-affinity ServingRouter, fed as their queues drain, drained
+    as a fleet on SIGTERM/SIGINT; the transcript as _serve_reliable's
+    with the fleet counters."""
+    import json
+    import signal
+
+    from paddle_tpu_torch.serve.router import QueueFullError, ServingRouter
+    from paddle_tpu_torch.serve.server import ServingServer
+
+    registry, tracer, flight = _obs_stack(args.metrics_out, args.flight_dir)
+    servers = [
+        ServingServer(
+            e,
+            max_queue=args.max_queue if args.max_queue is not None else 64,
+            default_deadline_ms=args.default_deadline_ms,
+            max_retries=args.max_retries, buckets=buckets,
+            drain_grace_s=args.drain_grace, tracer=tracer, flight=flight)
+        for e in engines]
+    router = ServingRouter(servers, tracer=tracer, flight=flight,
+                           flight_dir=args.flight_dir)
+    if registry is not None:
+        router.bind_metrics(registry)
+
+    def handler(signum, frame):
+        router.drain(reason=f"signal {signum}")
+
+    prev = {s: signal.signal(s, handler)
+            for s in (signal.SIGTERM, signal.SIGINT)}
+    ids = {}
+    cursor = [0]
+
+    def feed():
+        while cursor[0] < len(prompts) and not router.draining:
+            if (router.queue_space() <= 0
+                    and any(r.routable() for r in router.replicas)):
+                break       # full but healthy: run() drains the queues
+            i = cursor[0]
+            cursor[0] += 1
+            try:
+                ids[i] = router.submit(
+                    prompts[i], max_new=args.max_new,
+                    sampling=(sampling[i] if sampling else None))
+            except (ValueError, QueueFullError) as e:
+                ids[i] = e.rr_id
+
+    for srv in servers:
+        srv.on_step.append(lambda _s, _step: feed())
+    try:
+        feed()
+        results = router.run()
+        while cursor[0] < len(prompts) and not router.draining:
+            feed()
+            results = router.run()
+    finally:
+        for s, h in prev.items():
+            signal.signal(s, h)
+    router.reconcile()
+    counters = router.counters()
+    _render_serve_results(args, sink, prompts, ids, results, counters)
+    _write_metrics(registry, args.metrics_out)
+    if args.drain_report and router.draining:
+        tmp = f"{args.drain_report}.tmp"
+        with open(tmp, "w") as f:
+            json.dump({"reason": "fleet drain", "counters": counters,
+                       "per_replica": router.per_replica()}, f, indent=1)
+        os.replace(tmp, args.drain_report)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="paddle_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -208,11 +491,56 @@ def build_parser() -> argparse.ArgumentParser:
                    help="abort (exit 75) if no step completes for this "
                         "many seconds")
     t.add_argument("--seed", type=int, default=0)
-    for flag, (takes_value, why) in DEFERRED_FLAGS.items():
-        t.add_argument(flag, action=_Deferred,
-                       nargs=None if takes_value else 0,
-                       help=f"not ported yet: {why}")
+    _add_deferred(t, DEFERRED_FLAGS, _Deferred)
     t.set_defaults(fn=cmd_train)
+
+    sv = sub.add_parser("serve", help="continuous-batching LM serving "
+                        "(token ids in, token ids out; see cmd_serve)")
+    sv.add_argument("--config", required=True,
+                    help="script defining get_serve_config()")
+    sv.add_argument("--prompts", required=True,
+                    help="file: one whitespace-separated id sequence "
+                         "per line")
+    sv.add_argument("--device", default="cuda",
+                    help="torch device to serve on (default cuda; raises "
+                         "without a card)")
+    sv.add_argument("--max-new", type=int, default=128)
+    sv.add_argument("--replicas", type=int, default=None,
+                    help="serve through N replicas behind the "
+                         "prefix-affinity router (serve.router)")
+    sv.add_argument("--slots", type=int, default=None)
+    sv.add_argument("--max-len", type=int, default=None)
+    sv.add_argument("--buckets", default=None,
+                    help="comma-separated prompt-length buckets")
+    sv.add_argument("--temperature", type=float, default=None)
+    sv.add_argument("--top-k", type=int, default=None)
+    sv.add_argument("--top-p", type=float, default=None)
+    sv.add_argument("--seed", type=int, default=0)
+    sv.add_argument("--logprobs", action="store_true")
+    sv.add_argument("--output", default=None)
+    sv.add_argument("--max-queue", type=int, default=None,
+                    help="bound the admission queue; overflow sheds the "
+                         "cheapest-to-retry request (enables the "
+                         "reliability layer)")
+    sv.add_argument("--default-deadline-ms", type=float, default=None,
+                    help="per-request deadline (enables the reliability "
+                         "layer)")
+    sv.add_argument("--drain-grace", type=float, default=30.0,
+                    help="seconds a SIGTERM drain waits for in-flight "
+                         "requests before expiring them")
+    sv.add_argument("--max-retries", type=int, default=1,
+                    help="transient-fault requeue budget per request")
+    sv.add_argument("--drain-report", default=None,
+                    help="write the drain report JSON here on a graceful "
+                         "shutdown")
+    sv.add_argument("--metrics-out", default=None,
+                    help="write an obs metrics snapshot here at exit "
+                         "(.json/.jsonl -> JSON lines, else Prometheus "
+                         "text); enables request tracing")
+    sv.add_argument("--flight-dir", default=None,
+                    help="flight-recorder dump directory")
+    _add_deferred(sv, SERVE_DEFERRED_FLAGS, _ServeDeferred)
+    sv.set_defaults(fn=cmd_serve)
     return p
 
 

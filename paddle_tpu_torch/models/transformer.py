@@ -17,10 +17,12 @@ Ported here: the config, `init_params`, `_rope` (linear/NTK scaling),
 `torch.utils.checkpoint`)/`apply`, the training surface `loss` and
 `score` (plain or `fused_ce_chunk` through
 `ops.losses.chunked_lm_head_nll`), `_head`, `_cached_attention` and
-greedy `generate` (full attention; compute-dtype or int8 KV caches;
-float or weight-only int8 params, `_int8_step_params`). MoE blocks and
-rolling sliding-window decode raise NotImplementedError until their
-slices; so `loss` has no MoE aux term.
+greedy `generate` (full attention or a rolling sliding-window cache;
+compute-dtype or int8 KV caches; float or weight-only int8 params,
+`_int8_step_params`), and the ring-cache convention the serving
+engine's ring pools share (`_band_valid`, `_ring_slot_valid`,
+`_cached_attention` with a per-row slot vector). MoE blocks raise
+NotImplementedError until their slice; so `loss` has no MoE aux term.
 """
 
 from __future__ import annotations
@@ -350,24 +352,72 @@ def _head(params, x_last):
     return linalg.matmul(x_last, params["lm_head"]["kernel"])
 
 
-def _cached_attention(q, k, v, k_buf, v_buf, t: int, valid):
+def _band_valid(slots, t, window):
+    """The sliding-window band over cache slot indices: slot in
+    (t - window, t]. One definition for every decode path (uniform
+    prompts only -- slot == position there)."""
+    return (slots <= t) & (slots > t - window)
+
+
+def _ring_slot_valid(pos, window: int):
+    """The ring-cache convention, shared by generate()'s rolling loop
+    and the serving engine's per-row ring pool: position p lives at
+    slot p mod window; after the write at `pos`, ring slot s holds
+    absolute position pos - ((pos - s) mod window), valid iff it
+    exists. pos is a python int (lockstep loop) or an [S] tensor (the
+    per-row pool). Returns (write_slot like pos, valid [..., window])."""
+    if isinstance(pos, torch.Tensor):
+        p = pos.long()
+        arw = torch.arange(window, device=pos.device)
+        held = p[..., None] - torch.remainder(p[..., None] - arw, window)
+        return torch.remainder(p, window), held >= 0
+    arw = torch.arange(window)
+    held = pos - torch.remainder(pos - arw, window)
+    return pos % window, held >= 0
+
+
+def _cached_attention(q, k, v, k_buf, v_buf, t, valid):
     """The decode attention over a dense [B, total, Hkv, Dh] cache:
     write this step's K/V at slots t..t+Tq-1 (in place), attend over
     `valid` keys ([..., total] bool broadcastable over [B, H, Tq,
     total]). k_buf/v_buf may be (s8 data, scale) pairs: the new K/V are
     quantized before the write and the whole buffer is dequantized to
-    q's dtype for the read. Returns (out, k_buf, v_buf)."""
+    q's dtype for the read. Returns (out, k_buf, v_buf).
+
+    t is a python int (every row writes the same slot: generate's
+    lockstep loop) or a [B] tensor of per-row slots (the serving
+    engine's ring pool, whose rows are not in lockstep; Tq must be 1).
+    A per-row slot outside [0, total) -- the engine's inactive-row
+    sentinel -- drops that row's write: torch has no drop-mode scatter,
+    so the row rewrites its clipped cell with the value already there,
+    and nothing is read back to the host."""
     tq = q.shape[1]
+    if isinstance(t, torch.Tensor):
+        assert tq == 1, "per-row slot writes need a single-position q"
+        total = (k_buf[0] if isinstance(k_buf, tuple) else k_buf).shape[1]
+        rows = torch.arange(q.shape[0], device=q.device)
+        ts = t.long()
+        keep = (ts >= 0) & (ts < total)
+        tc = ts.clamp(0, total - 1)
+
+        def write(buf, new):
+            new = new[:, 0].to(buf.dtype)
+            keep_b = keep.view((-1,) + (1,) * (new.ndim - 1))
+            buf[rows, tc] = torch.where(keep_b, new, buf[rows, tc])
+    else:
+        def write(buf, new):
+            buf[:, t:t + tq] = new.to(buf.dtype)
+
     if isinstance(k_buf, tuple):
         for buf, new in ((k_buf, k), (v_buf, v)):
             nd, nsc = kv_quantize(new)
-            buf[0][:, t:t + tq] = nd
-            buf[1][:, t:t + tq] = nsc
+            write(buf[0], nd)
+            write(buf[1], nsc)
         k_read = kv_dequantize(*k_buf, q.dtype)
         v_read = kv_dequantize(*v_buf, q.dtype)
     else:
-        k_buf[:, t:t + tq] = k.to(k_buf.dtype)
-        v_buf[:, t:t + tq] = v.to(v_buf.dtype)
+        write(k_buf, k)
+        write(v_buf, v)
         k_read, v_read = k_buf, v_buf
     return grouped_masked_attention(q, k_read, v_read, valid), k_buf, v_buf
 
@@ -378,18 +428,23 @@ def generate(params, cfg: TransformerConfig, prompt, steps: int, *,
     """Greedy decode with a dense KV cache. prompt [B,T0] int ->
     [B, T0+steps]. eos_id: once a row emits it, later positions are
     pad_id (default eos_id). prompt_lens [B]: right-padded prompts.
-    kv_cache_dtype "int8" quantizes the prefilled caches once and each
-    step's K/V as it is written. Weight-only int8 params (serve.quant)
-    prefill from their dequantized tree and dequantize again per step."""
+    cfg.attn_window below T0+steps decodes over a rolling cache of
+    `window` slots (the ring convention). kv_cache_dtype "int8"
+    quantizes the prefilled caches once and each step's K/V as it is
+    written. Weight-only int8 params (serve.quant) prefill from their
+    dequantized tree and dequantize again per step."""
     b, t0 = prompt.shape
     if cfg.kv_cache_dtype not in ("compute", "int8"):
         raise ValueError(f"kv_cache_dtype must be compute|int8, got "
                          f"{cfg.kv_cache_dtype!r}")
     total = t0 + steps
     window = cfg.attn_window
-    if window is not None and window < total:
-        raise NotImplementedError(
-            "rolling sliding-window decode is not ported yet")
+    # sliding-window decode keeps a ROLLING cache of `window` slots,
+    # written at t mod window (the ring convention, _ring_slot_valid):
+    # per-step cache reads are O(window), not O(t0 + steps); attention
+    # order over slots does not matter and rope rode in with K
+    rolling = window is not None and window < total
+    cache_len = window if rolling else total
     if window is not None and prompt_lens is not None:
         raise ValueError("attn_window with variable-length prompts is "
                          "unsupported")
@@ -407,11 +462,19 @@ def generate(params, cfg: TransformerConfig, prompt, steps: int, *,
         caches = []
         for p in params["blocks"]:
             x, k, v = _block_parts(cfg, p, x, pos, prefill)
-            k_buf = torch.zeros((b, total) + tuple(k.shape[2:]),
+            k_buf = torch.zeros((b, cache_len) + tuple(k.shape[2:]),
                                 dtype=k.dtype, device=dev)
             v_buf = torch.zeros_like(k_buf)
-            k_buf[:, :t0] = k
-            v_buf[:, :t0] = v
+            if rolling:
+                # the last `window` prompt positions, each at its ring
+                # slot p mod window
+                lo = max(0, t0 - cache_len)
+                ring = torch.arange(lo, t0, device=dev) % cache_len
+                k_buf[:, ring] = k[:, lo:t0]
+                v_buf[:, ring] = v[:, lo:t0]
+            else:
+                k_buf[:, :t0] = k
+                v_buf[:, :t0] = v
             if cfg.kv_cache_dtype == "int8":
                 # the whole buffer once (zero slots quantize to 0)
                 k_buf, v_buf = kv_quantize(k_buf), kv_quantize(v_buf)
@@ -431,11 +494,18 @@ def generate(params, cfg: TransformerConfig, prompt, steps: int, *,
                 break
             p_full = step_params()
             x = _embed(p_full, tok[:, None])
+            slot = t
             if prompt_lens is None:
                 pos = torch.full((b, 1), t, dtype=torch.int32, device=dev)
-                valid = ar <= t
-                if window is not None:
-                    valid = valid & (ar > t - window)
+                if rolling:
+                    # the band holds by construction: valid is "the
+                    # position exists"
+                    slot, ring_ok = _ring_slot_valid(t, cache_len)
+                    valid = ring_ok.to(dev)
+                else:
+                    valid = ar <= t
+                    if window is not None:
+                        valid = _band_valid(ar, t, window)
                 valid = valid[None, None, None, :]
             else:
                 pos = (prompt_lens.to(torch.int32) + s)[:, None]
@@ -444,7 +514,7 @@ def generate(params, cfg: TransformerConfig, prompt, steps: int, *,
                 valid = valid[:, None, None, :]
             for p, (k_buf, v_buf) in zip(p_full["blocks"], caches):
                 attn = lambda q, k, v, kb=k_buf, vb=v_buf: _cached_attention(
-                    q, k, v, kb, vb, t, valid)[0]
+                    q, k, v, kb, vb, slot, valid)[0]
                 x, _, _ = _block_parts(cfg, p, x, pos, attn)
             nxt = torch.argmax(at_least_f32(_head(p_full, x[:, -1])), dim=-1)
             if eos_id is not None:

@@ -36,8 +36,9 @@ NEG_INF = -1e30
 DEFAULT_BLOCK_Q = 256
 DEFAULT_BLOCK_K = 512
 
-#: launches of the flash forward kernel (reset with reset_launch_counts)
-launch_counts = {"fwd": 0}
+#: launches of the flash forward kernel (reset with reset_launch_counts);
+#: "fwd_window" counts the launches among them that had a window
+launch_counts = {"fwd": 0, "fwd_window": 0}
 
 #: head_dims the kernel is compiled for
 KERNEL_HEAD_DIMS = (64, 128)
@@ -150,6 +151,7 @@ def flash_kernel(q, k, v, lens, *, causal: bool,
         stream)
     _cuda.check_launch(err, "flash_fwd")
     launch_counts["fwd"] += 1
+    launch_counts["fwd_window"] += window is not None
     return o, lse
 
 

@@ -52,15 +52,29 @@ whether its prefix came from the cache and whether its prefill was
 chunked. Sampled requests draw from a per-slot `torch.Generator` seeded
 from (engine seed, request identity); those draws are not JAX's.
 
-Not ported yet (raise NotImplementedError): sliding-window ring pools
-(`attn_window`), KV migration and serving artifacts. Also not yet here:
-the JAX engine's pool-wide `select_fn`, custom scheduler `policy` and
-prefix-cache knobs (the defaults are used).
+Sliding-window configs (`attn_window`) hold [S, window] RING pools
+instead of paged arenas: position p of a row lives at ring slot p mod
+window (`transformer._ring_slot_valid`), a prompt prefills in one shot
+(kernel A on CUDA, with the window and the row's key bound together)
+and each decode step is the plain `transformer._cached_attention` with
+a per-row slot vector. A ring row retires on eos or its token budget
+only: the ring never fills.
+
+KV-block migration (disaggregated prefill/decode): `pause_slot` parks
+a row and snapshots its decode state (`DecodeSeed`, the slot's
+generator state included), `export_slot_kv` copies its pages to the
+host verbatim, `import_slot_kv` writes them into another engine's
+arena (pages shared through that pool's prefix cache are skipped) and
+`resume_slot` brings the row live there: a greedy request's next token
+is the one the source would have emitted.
+
+Serving artifacts (`bind_artifact`) are not ported yet: they raise
+NotImplementedError naming ROADMAP queue 1 item 4.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
@@ -106,9 +120,12 @@ class PoolStats:
     """Host-side accounting for one serve() run: steps = decode_step
     calls (or verify rounds), tokens = emitted tokens, retried =
     preemption requeues; the page-pool counters at the end of the run.
-    Speculative rounds: draft_proposed/draft_accepted count DRAFT tokens
-    (the carry token of a round is not a draft), spec_reserved/
-    spec_rolled_back the pool's page reserve/rollback ledger."""
+    The outcome counters are the serving server's per-request ledger:
+    every submitted request lands in exactly one of completed/expired/
+    shed/failed. Speculative rounds: draft_proposed/draft_accepted
+    count DRAFT tokens (the carry token of a round is not a draft),
+    spec_reserved/spec_rolled_back the pool's page reserve/rollback
+    ledger."""
 
     steps: int = 0
     tokens: int = 0
@@ -116,6 +133,9 @@ class PoolStats:
     requests: int = 0
     admitted: int = 0
     completed: int = 0
+    expired: int = 0
+    shed: int = 0
+    failed: int = 0
     retried: int = 0
     pages_in_use: int = 0
     pages_free: int = 0
@@ -128,6 +148,10 @@ class PoolStats:
     draft_accepted: int = 0
     spec_reserved: int = 0
     spec_rolled_back: int = 0
+
+    def acceptance_rate(self) -> float:
+        """Accepted / proposed draft tokens."""
+        return self.draft_accepted / max(self.draft_proposed, 1)
 
 
 def pad_to_bucket(prompt, buckets):
@@ -157,6 +181,33 @@ class PrefillTicket:
     top_p: float
     req_tag: int
     req_seed: int
+    windowed: bool = False      # ring pool: one-shot prefill
+
+
+@dataclass
+class DecodeSeed:
+    """Host-side snapshot of one slot's per-row decode state, taken by
+    `pause_slot` and replayed by `resume_slot` on the migration
+    destination: everything the step reads per row except the KV
+    blocks (those ride the page export). Carrying last_tok/last_lp
+    makes the destination's first step emit exactly the token the
+    source's would have. rng_key_data holds the slot generator's
+    `get_state()` bytes (empty for a greedy slot, which has none), so a
+    sampled request continues its own stream after the move."""
+
+    pos: int
+    last_tok: int
+    last_lp: float
+    temp: float
+    top_k: int
+    top_p: float
+    rng_key_data: np.ndarray = field(
+        default_factory=lambda: np.zeros((0,), np.uint8))
+
+
+_ARTIFACTS = ("serving artifacts are not ported yet (ROADMAP queue 1 "
+              "item 4: the artifacts capture kernels loaded through "
+              "ctypes, a design of their own)")
 
 
 class DecodeEngine:
@@ -164,17 +215,31 @@ class DecodeEngine:
     pool geometry); drive with `init_state` / `prefill` (or
     `prefill_begin`/`prefill_advance`) / `decode_step` /
     `ensure_decode_page` / `release_slot`, or just call `serve()`.
+    Scheduling decisions inside `serve()` (admission order, preemption
+    victim, prefill interleave) route through `policy`.
 
     device None -> cuda (raises without one); the params must already
     live on that device (`models.weights.params_from_numpy` or
     `transformer.init_params(..., device=...)`). Weight-only int8 params
-    (`serve.quant.quantize_params`) are served as they are."""
+    (`serve.quant.quantize_params`) are served as they are.
+
+    select_fn(logits [B, V], generator) -> [B] overrides token selection
+    pool-wide (exclusive with per-request sampling). Where JAX passes
+    slot 0's key, the port passes slot 0's `torch.Generator`: under a
+    select_fn every request gets its own generator at admission, and a
+    step whose slot 0 is empty passes the pool's own generator (seeded
+    from `seed`). A first token is selected with the request's own
+    generator. `prefix_cache`/`prefix_cache_blocks` configure the page
+    pool's shared-prefix cache."""
 
     def __init__(self, params, cfg: T.TransformerConfig, *, slots: int,
                  max_len: int, eos_id: Optional[int] = None,
-                 seed: int = 0, page_size: int = 16,
+                 select_fn=None, seed: int = 0, page_size: int = 16,
                  num_pages: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
+                 prefix_cache: bool = True,
+                 prefix_cache_blocks: int = 512,
+                 policy: Optional[SchedulerPolicy] = None,
                  ragged_impl: Optional[str] = None,
                  device=None):
         if ragged_impl not in (None, "torch", "kernel"):
@@ -185,10 +250,6 @@ class DecodeEngine:
             raise ValueError(
                 f"kv_cache_dtype must be compute|int8, got "
                 f"{cfg.kv_cache_dtype!r}")
-        if cfg.attn_window is not None:
-            raise NotImplementedError(
-                "sliding-window ring pools (attn_window) are not ported "
-                "yet")
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
         if prefill_chunk is not None and prefill_chunk < 1:
@@ -200,12 +261,14 @@ class DecodeEngine:
         # same tree object for float params)
         self.params, self._step_params = T._int8_step_params(params)
         self.cfg = cfg
-        self.policy = SchedulerPolicy()
+        self.policy = policy if policy is not None else SchedulerPolicy()
         self.slots = slots
         self.max_len = max_len
         self.eos_id = eos_id
+        self.select_fn = select_fn
         self.seed = seed
         self.ragged_impl = ragged_impl
+        self.paged = cfg.attn_window is None
         self.page_size = page_size
         self.max_pages_per_slot = -(-max_len // page_size)
         self.num_pages = (num_pages if num_pages is not None
@@ -214,15 +277,43 @@ class DecodeEngine:
             raise ValueError(f"num_pages must be >= 1, got "
                              f"{self.num_pages}")
         self.prefill_chunk = prefill_chunk
+        self.prefix_cache = prefix_cache
+        self.prefix_cache_blocks = prefix_cache_blocks
         self.pool: Optional[PagePool] = None  # built by init_state()
         self._admissions = 0
+        self._pool_gen = None   # select_fn's stand-in for an empty slot 0
+
+    def ping(self) -> None:
+        """The health-probe surface: a host-side liveness touch (no
+        device work). The real engine always answers; a dead-replica
+        proxy (testing.faults) raises here as a lost device would."""
+        return None
+
+    def bind_artifact(self, programs, manifest):
+        raise NotImplementedError(
+            f"DecodeEngine.bind_artifact: {_ARTIFACTS}")
 
     # -- state ------------------------------------------------------------
 
     def init_state(self) -> EngineState:
         cfg, s, dev = self.cfg, self.slots, self.device
         policy = default_policy()
-        shape = (self.num_pages, self.page_size, cfg.kv_heads, cfg.head_dim)
+        hkv, dh = cfg.kv_heads, cfg.head_dim
+        if self.paged:
+            # block-paged arenas addressed through the page table
+            shape = (self.num_pages, self.page_size, hkv, dh)
+            self.pool = PagePool(
+                num_pages=self.num_pages, page_size=self.page_size,
+                slots=s, max_pages_per_slot=self.max_pages_per_slot,
+                prefix_cache=self.prefix_cache,
+                prefix_cache_blocks=self.prefix_cache_blocks)
+            table = torch.full((s, self.max_pages_per_slot), self.num_pages,
+                               dtype=torch.int32, device=dev)
+        else:
+            # sliding-window configs: one [window] ring per slot
+            shape = (s, cfg.attn_window, hkv, dh)
+            self.pool = None
+            table = torch.zeros((s, 1), dtype=torch.int32, device=dev)
 
         def arena():
             if cfg.kv_cache_dtype == "int8":
@@ -232,15 +323,14 @@ class DecodeEngine:
                                    dtype=torch.float32, device=dev))
             return torch.zeros(shape, dtype=policy.compute_dtype, device=dev)
 
-        self.pool = PagePool(
-            num_pages=self.num_pages, page_size=self.page_size,
-            slots=s, max_pages_per_slot=self.max_pages_per_slot)
         self._admissions = 0
+        self._pool_gen = None
+        if self.select_fn is not None:
+            self._pool_gen = torch.Generator(device=dev)
+            self._pool_gen.manual_seed(int(self.seed))
         return EngineState(
             caches=[(arena(), arena()) for _ in self.params["blocks"]],
-            page_table=torch.full((s, self.max_pages_per_slot),
-                                  self.num_pages, dtype=torch.int32,
-                                  device=dev),
+            page_table=table,
             pos=torch.full((s,), self.max_len, dtype=torch.int32,
                            device=dev),
             active=torch.zeros(s, dtype=torch.bool, device=dev),
@@ -264,9 +354,14 @@ class DecodeEngine:
         return g
 
     def _select(self, logits, temp, top_k, top_p, generators):
-        """Next tokens [N] for logits [N, V]: argmax where every row is
+        """Next tokens [N] for logits [N, V]: the pool-wide select_fn
+        (given the first row's generator), argmax where every row is
         greedy (generator None), else per-row sampling; the host knows
         which, so the greedy step reads nothing back from the device."""
+        if self.select_fn is not None:
+            gen = generators[0] if generators[0] is not None \
+                else self._pool_gen
+            return self.select_fn(logits, gen).long()
         if all(g is None for g in generators):
             return torch.argmax(at_least_f32(logits), dim=-1)
         gens = [g if g is not None else torch.Generator(logits.device)
@@ -311,12 +406,19 @@ class DecodeEngine:
                         impl=self.ragged_impl)[0]
 
                 x, _, _ = T._block_parts(cfg, p, x, pos, cached)
-        if not final:
-            return
-        x_last = x[0, true_len - 1 - start]
-        logits = T._head(params, x_last[None])
+        if final:
+            self._activate(state, ticket, x[0, true_len - 1 - start])
+
+    def _activate(self, state: EngineState, ticket: PrefillTicket,
+                  x_last) -> None:
+        """Select the request's first token (and its full-softmax
+        logprob) from the last real prompt position's activation and
+        bring the slot live -- one definition for the ring prefill and
+        every paged final chunk."""
+        slot, true_len = ticket.slot, ticket.true_len
+        logits = T._head(self.params, x_last[None])
         gen = (self._request_generator(ticket.req_tag, ticket.req_seed)
-               if ticket.temp > 0 else None)
+               if ticket.temp > 0 or self.select_fn is not None else None)
         state.temp[slot] = ticket.temp
         state.top_k[slot] = ticket.top_k
         state.top_p[slot] = ticket.top_p
@@ -331,6 +433,45 @@ class DecodeEngine:
         state.last_tok[slot] = first[0]
         state.last_lp[slot] = first_lp
 
+    # -- ring (sliding-window) prefill -------------------------------------
+
+    def _ring_prefill(self, state: EngineState, ticket: PrefillTicket):
+        """One-shot ring-pool prefill: the bucket-padded prompt [t0]
+        runs causal attention under the config's window with the real
+        length as the key bound (kernel A on CUDA), and the slot's ring
+        keeps the last min(true_len, W) real positions, each at slot p
+        mod W: ring slot s holds p(s) = (true_len-1) - ((true_len-1 - s)
+        mod W). A short prompt's negative p(s) reads a clipped row that
+        the decode mask keeps invalid until it is overwritten; padded
+        positions never enter the ring."""
+        cfg, params, dev = self.cfg, self.params, self.device
+        slot, true_len = ticket.slot, ticket.true_len
+        t0 = int(ticket.prompt.shape[-1])
+        x = T._embed(params, torch.as_tensor(ticket.prompt,
+                                             device=dev)[None, :])
+        pos = torch.arange(t0, dtype=torch.int32, device=dev)[None, :]
+        lens = torch.tensor([true_len], dtype=torch.int32, device=dev)
+        attn = lambda q, k, v: T._attention(cfg, q, k, v, causal=True,
+                                            key_lens=lens)
+        w = cfg.attn_window
+        last = true_len - 1
+        p_slot = last - np.mod(last - np.arange(w), w)
+        ring_idx = torch.as_tensor(np.clip(p_slot, 0, t0 - 1), device=dev)
+
+        def write_slot(buf, new):
+            if isinstance(buf, tuple):
+                nd, nsc = pa.kv_quantize(new)
+                buf[0][slot] = nd
+                buf[1][slot] = nsc.to(buf[1].dtype)
+            else:
+                buf[slot] = new.to(buf.dtype)
+
+        for p, (k_buf, v_buf) in zip(params["blocks"], state.caches):
+            x, k, v = T._block_parts(cfg, p, x, pos, attn)
+            write_slot(k_buf, k[0, ring_idx])
+            write_slot(v_buf, v[0, ring_idx])
+        self._activate(state, ticket, x[0, last])
+
     # -- admission (begin/advance; prefill() drives both) ------------------
 
     def _validate_admission(self, prompt, true_len, sampling):
@@ -339,20 +480,27 @@ class DecodeEngine:
             true_len = t0
         elif not (1 <= true_len <= t0):
             raise ValueError(f"true_len {true_len} not in [1, {t0}]")
-        if t0 > self.max_len:
-            raise ValueError(
-                f"padded prompt len {t0} exceeds cache max_len "
-                f"{self.max_len}")
-        if true_len >= self.max_len:
-            raise ValueError(
-                f"prompt true_len {true_len} >= max_len "
-                f"{self.max_len}: no room for a generated token")
-        need = blocks_for(true_len, self.page_size)
-        if need > self.num_pages:
-            raise ValueError(
-                f"prompt true_len {true_len} needs {need} pages "
-                f"> page pool num_pages {self.num_pages}")
+        if self.cfg.attn_window is None:
+            # physical bounds of the full-length pool only: the ring
+            # holds any prompt (it keeps the last W positions)
+            if t0 > self.max_len:
+                raise ValueError(
+                    f"padded prompt len {t0} exceeds cache max_len "
+                    f"{self.max_len}")
+            if true_len >= self.max_len:
+                raise ValueError(
+                    f"prompt true_len {true_len} >= max_len "
+                    f"{self.max_len}: no room for a generated token")
+            need = blocks_for(true_len, self.page_size)
+            if need > self.num_pages:
+                raise ValueError(
+                    f"prompt true_len {true_len} needs {need} pages "
+                    f"> page pool num_pages {self.num_pages}")
         sampling = sampling or {}
+        if sampling and self.select_fn is not None:
+            raise ValueError(
+                "per-request sampling and a pool-wide select_fn are "
+                "mutually exclusive -- drop one")
         unknown = set(sampling) - {"temperature", "top_k", "top_p", "seed"}
         if unknown:
             raise ValueError(f"unknown sampling keys {sorted(unknown)}")
@@ -375,6 +523,15 @@ class DecodeEngine:
             req_tag, req_seed = 0, self._admissions
         else:
             req_tag = 1
+        if not self.paged:
+            self._admissions += 1
+            return state, PrefillTicket(
+                slot=slot, prompt=np.asarray(prompt, np.int32),
+                true_len=true_len, chunk=None, next_start=0,
+                temp=float(temp),
+                top_k=int(self.cfg.vocab if top_k is None else top_k),
+                top_p=float(1.0 if top_p is None else top_p),
+                req_tag=req_tag, req_seed=int(req_seed), windowed=True)
         if self.pool is None:
             raise RuntimeError(
                 "no page pool -- call init_state() before prefill")
@@ -395,7 +552,12 @@ class DecodeEngine:
     def prefill_advance(self, state: EngineState, ticket: PrefillTicket):
         """Run ONE prefill chunk for the ticket; returns (state, done).
         The final chunk activates the slot and registers the prompt's
-        full blocks in the prefix cache."""
+        full blocks in the prefix cache. A ring-pool ticket prefills in
+        one call."""
+        if ticket.windowed:
+            with torch.no_grad():
+                self._ring_prefill(state, ticket)
+            return state, True
         start = ticket.next_start
         t0 = int(ticket.prompt.shape[-1])
         width = ticket.chunk if ticket.chunk else (t0 - start)
@@ -437,12 +599,27 @@ class DecodeEngine:
             params = self._step_params()
             x = T._embed(params, state.last_tok[:, None])
             pos = state.pos[:, None]
+            if not self.paged:
+                # the rolling ring pool, per row: each row writes its
+                # own slot (the sentinel W on inactive rows drops the
+                # write) and reads the ring positions that exist
+                w = cfg.attn_window
+                slots_raw, ring_ok = T._ring_slot_valid(state.pos, w)
+                write_slots = torch.where(state.active, slots_raw,
+                                          torch.full_like(slots_raw, w))
+                valid4 = (ring_ok & state.active[:, None])[:, None, None, :]
             for p, (k_buf, v_buf) in zip(params["blocks"], state.caches):
-                def attn(q, k, v, k_buf=k_buf, v_buf=v_buf):
-                    return pa.paged_decode_attention(
-                        q, k, v, k_buf, v_buf, state.page_table, state.pos,
-                        state.active, page_size=self.page_size, max_len=L,
-                        impl=self.ragged_impl)[0]
+                if self.paged:
+                    def attn(q, k, v, k_buf=k_buf, v_buf=v_buf):
+                        return pa.paged_decode_attention(
+                            q, k, v, k_buf, v_buf, state.page_table,
+                            state.pos, state.active,
+                            page_size=self.page_size, max_len=L,
+                            impl=self.ragged_impl)[0]
+                else:
+                    def attn(q, k, v, k_buf=k_buf, v_buf=v_buf):
+                        return T._cached_attention(q, k, v, k_buf, v_buf,
+                                                   write_slots, valid4)[0]
 
                 x, _, _ = T._block_parts(cfg, p, x, pos, attn)
             logits = T._head(params, x[:, -1])
@@ -457,7 +634,11 @@ class DecodeEngine:
             fin = torch.zeros_like(was_active)
             if self.eos_id is not None:
                 fin = was_active & (emitted == self.eos_id)
-            fin = fin | (was_active & (state.pos + 1 >= L))
+            if self.paged:
+                # capacity retirement bounds the full-length pool only:
+                # the ring reuses its slots, so a windowed request ends
+                # on eos or the caller's max_new alone
+                fin = fin | (was_active & (state.pos + 1 >= L))
             cont = was_active & ~fin
             state.pos.copy_(torch.where(cont, state.pos + 1,
                                         torch.full_like(state.pos, L)))
@@ -471,7 +652,9 @@ class DecodeEngine:
         """Advance the host page bookkeeping for one continuing slot:
         map the next write position's block when it crosses into an
         unmapped one. Raises PoolExhaustedError (position not advanced)
-        when no page is available."""
+        when no page is available. A ring pool has nothing to map."""
+        if not self.paged:
+            return state
         res = self.pool.extend(slot)
         if res is not None:
             blk, page = res
@@ -482,7 +665,7 @@ class DecodeEngine:
         """Retire one slot: deactivate the row, park its pos on the
         out-of-range sentinel, free its pages (refcounted) and reset its
         page-table row to the drop sentinel."""
-        if self.pool is not None:
+        if self.paged and self.pool is not None:
             self.pool.release(slot)
             state.page_table[slot] = self.num_pages
         state.active[slot] = False
@@ -594,22 +777,127 @@ class DecodeEngine:
             state.page_table[slot, blk] = self.num_pages
         return state
 
-    # -- not ported yet ------------------------------------------------------
+    # -- KV-block migration (disaggregated prefill/decode) -----------------
 
-    def pause_slot(self, state, slot):
-        raise NotImplementedError("KV-block migration is not ported yet")
+    def pause_slot(self, state: EngineState, slot: int):
+        """Pause one active slot at the prefill-complete seam: snapshot
+        its per-row decode state to the host (one copy) and park the
+        row (inactive, pos on the drop sentinel), leaving its pages
+        mapped and the page table untouched. Returns (state,
+        DecodeSeed); `resume_slot` continues the row exactly where it
+        stopped, here or on the migration destination. Paged engines
+        only."""
+        vals = torch.stack([
+            state.pos[slot].double(), state.last_tok[slot].double(),
+            state.last_lp[slot].double(), state.temp[slot].double(),
+            state.top_k[slot].double(), state.top_p[slot].double()]).cpu()
+        pos, tok, lp, temp, top_k, top_p = vals.tolist()
+        gen = state.generators[slot]
+        key = (np.zeros((0,), np.uint8) if gen is None
+               else gen.get_state().numpy().copy())
+        state.active[slot] = False
+        state.pos[slot] = self.max_len
+        seed = DecodeSeed(pos=int(pos), last_tok=int(tok),
+                          last_lp=float(np.float32(lp)),
+                          temp=float(np.float32(temp)), top_k=int(top_k),
+                          top_p=float(np.float32(top_p)), rng_key_data=key)
+        return state, seed
 
-    def export_slot_kv(self, state, pages):
-        raise NotImplementedError("KV-block migration is not ported yet")
+    def export_slot_kv(self, state: EngineState, pages) -> list:
+        """Copy the arena contents of `pages` (one slot's mapped blocks,
+        in block order) to the host: per layer (k, v), each an ndarray
+        [n_pages, page_size, Hkv, Dh], or an (int8 data, f32 scale)
+        pair under kv_cache_dtype="int8", exported verbatim. The caller
+        holds the pages (slot mapping or a pool export pin) meanwhile."""
+        idx = torch.as_tensor(np.asarray(pages, np.int64),
+                              device=self.device)
 
-    def import_slot_kv(self, state, slot, pages, *args, **kwargs):
-        raise NotImplementedError("KV-block migration is not ported yet")
+        def host(buf):
+            if isinstance(buf, tuple):
+                return tuple(b.index_select(0, idx).cpu().numpy()
+                             for b in buf)
+            return buf.index_select(0, idx).cpu().numpy()
 
-    def resume_slot(self, state, slot, seed):
-        raise NotImplementedError("KV-block migration is not ported yet")
+        return [(host(k), host(v)) for k, v in state.caches]
 
-    def bind_artifact(self, programs, manifest):
-        raise NotImplementedError("serving artifacts are not ported yet")
+    def import_slot_kv(self, state: EngineState, slot: int, pages,
+                       start_block: int, kv) -> EngineState:
+        """Write exported block contents into this pool's arenas for a
+        freshly `import_blocks`-mapped slot and set the slot's page
+        table row. Blocks before `start_block` were satisfied by this
+        pool's own prefix cache (shared, read-only pages) and are not
+        written: where the JAX engine scatters a padded page vector with
+        a drop sentinel, this writes exactly the pages past start_block
+        (an out-of-range index on CUDA is a device assert, not a no-op).
+        `kv` is `export_slot_kv`'s output; its geometry must match."""
+        if len(kv) != len(state.caches):
+            raise ValueError(
+                f"migrated KV has {len(kv)} layers, engine has "
+                f"{len(state.caches)}")
+        want = (self.page_size, self.cfg.kv_heads, self.cfg.head_dim)
+        for k, _ in kv:
+            first = k[0] if isinstance(k, tuple) else k
+            if tuple(first.shape[1:]) != want:
+                raise ValueError(
+                    f"migrated KV block shape {tuple(first.shape[1:])} "
+                    f"does not match arena {want}")
+        pages = [int(p) for p in pages]
+        dev = self.device
+        idx = torch.as_tensor(pages[start_block:], dtype=torch.long,
+                              device=dev)
+
+        def put(buf, new):
+            new = np.asarray(new)[start_block:len(pages)]
+            buf[idx] = torch.as_tensor(new, device=dev).to(buf.dtype)
+
+        if idx.numel():
+            for (k_buf, v_buf), (k, v) in zip(state.caches, kv):
+                for buf, new in ((k_buf, k), (v_buf, v)):
+                    if isinstance(buf, tuple):
+                        put(buf[0], new[0])
+                        put(buf[1], new[1])
+                    else:
+                        put(buf, new)
+        row = np.full((self.max_pages_per_slot,), self.num_pages, np.int32)
+        row[:len(pages)] = pages
+        state.page_table[slot] = torch.from_numpy(row).to(dev)
+        return state
+
+    def resume_slot(self, state: EngineState, slot: int,
+                    seed: DecodeSeed) -> EngineState:
+        """Bring a slot live from a DecodeSeed: on the migration
+        destination after `import_slot_kv`, or locally after a
+        cancelled handoff. The row's next decode step emits exactly the
+        token the paused source row would have, and a sampled row's
+        generator continues from the exported state."""
+        state.pos[slot] = seed.pos
+        state.active[slot] = True
+        state.last_tok[slot] = seed.last_tok
+        state.last_lp[slot] = seed.last_lp
+        state.temp[slot] = seed.temp
+        state.top_k[slot] = seed.top_k
+        state.top_p[slot] = seed.top_p
+        key = np.asarray(seed.rng_key_data, np.uint8)
+        gen = None
+        if key.size:
+            gen = torch.Generator(device=self.device)
+            gen.set_state(torch.from_numpy(key.copy()))
+        state.generators[slot] = gen
+        return state
+
+    def kv_geometry(self) -> dict:
+        """The fields two engines must agree on for a KV-block migration
+        between them to be meaningful (the server's import gate): arena
+        geometry, cache dtype and the paging convention."""
+        return {
+            "page_size": int(self.page_size),
+            "max_pages_per_slot": int(self.max_pages_per_slot),
+            "kv_heads": int(self.cfg.kv_heads),
+            "head_dim": int(self.cfg.head_dim),
+            "kv_cache_dtype": self.cfg.kv_cache_dtype,
+            "vocab": int(self.cfg.vocab),
+            "max_len": int(self.max_len),
+        }
 
     # -- the host loop -----------------------------------------------------
 
@@ -669,7 +957,7 @@ class DecodeEngine:
             raise ValueError(
                 f"sampling has {len(sampling)} entries for "
                 f"{len(prompts)} prompts")
-        if buckets is not None:
+        if buckets is not None and self.paged:
             too_big = [b for b in buckets if b > self.max_len]
             if too_big:
                 raise ValueError(
@@ -684,6 +972,8 @@ class DecodeEngine:
                 raise ValueError(
                     f"prompt {i} len {t0} exceeds largest bucket "
                     f"{max(buckets)}")
+            if not self.paged:
+                continue            # the ring holds any prompt
             if t0 >= self.max_len:
                 raise ValueError(
                     f"prompt {i} true_len {t0} >= max_len {self.max_len}: "
@@ -696,6 +986,15 @@ class DecodeEngine:
 
         prompt_hist: list = []
         if speculative:
+            if not self.paged:
+                raise ValueError(
+                    "speculative serving needs the paged engine "
+                    "(sliding-window configs decode plain)")
+            if self.select_fn is not None:
+                raise ValueError(
+                    "speculative serving composes with per-request "
+                    "sampling only: a pool-wide select_fn overrides "
+                    "the distribution the acceptance rule preserves")
             if int(self.policy.spec_draft_max) < 1:
                 raise ValueError(
                     f"policy.spec_draft_max must be >= 1, got "
@@ -841,11 +1140,12 @@ class DecodeEngine:
             if freed or queue:
                 admit()
         toks_out = [emitted[i] for i in range(len(prompts))]
-        pc = self.pool.counters()
-        for k in ("pages_in_use", "pages_free", "peak_pages_in_use",
-                  "prefix_hits", "prefix_misses", "prefill_chunks",
-                  "spec_reserved", "spec_rolled_back"):
-            setattr(stats, k, pc[k])
+        if self.pool is not None:
+            pc = self.pool.counters()
+            for k in ("pages_in_use", "pages_free", "peak_pages_in_use",
+                      "prefix_hits", "prefix_misses", "prefill_chunks",
+                      "spec_reserved", "spec_rolled_back"):
+                setattr(stats, k, pc[k])
         self.last_stats = stats
         if return_logprobs:
             return toks_out, [lps[i] for i in range(len(prompts))]

@@ -1,5 +1,6 @@
-"""Deterministic, seed-driven fault injection for training (port of the
-training part of `paddle_tpu.testing.faults`).
+"""Deterministic, seed-driven fault injection for training and serving
+(port of the training, serving, router and data-plane parts of
+`paddle_tpu.testing.faults`).
 
 `FaultPlan` is one switchboard: a test declares WHERE faults strike
 (sample index, global batch index, nth checkpoint save) and wraps the
@@ -15,11 +16,19 @@ ran, not that the fault missed. The faults:
   backward into the loss AND the gradients;
 - a preemption: `preempt_signal` (SIGTERM) sent to this process right
   before batch k is consumed (`wrap_batches`);
-- an OSError on the nth checkpoint save (`wrap_checkpoint_manager`).
+- an OSError on the nth checkpoint save (`wrap_checkpoint_manager`);
+- serving faults on an engine (`wrap_engine`: the nth prefill or decode
+  step raises, a burst of the first N calls raises, a decode step
+  stalls a `ManualClock`) and on its page pool (`wrap_page_pool`: an
+  allocation reports exhaustion, a prefix-cache hit is corrupted);
+- router faults (`wrap_replica_engine`: a replica dies at its nth decode
+  step or mid KV import, or every decode skews the clock; `wrap_probe`:
+  blackholed health probes) and data-plane faults (`wrap_arena`).
 
-The serving, router, fleet, cluster, pserver, data-plane and master
-faults of the JAX package wait for the layers they wrap (ROADMAP queue 1
-items 4-6).
+The fleet, cluster, gang, pserver, master and online fields of the JAX
+plan wait for the layers they wrap (ROADMAP queue 1 items 5-6): passing
+one is a TypeError naming it. `build_chaos_replica` needs the process
+fleet and raises naming its item.
 """
 
 from __future__ import annotations
@@ -52,6 +61,23 @@ class FaultPlan:
     preempt_at: Optional[int] = None          # global batch index
     preempt_signal: int = signal.SIGTERM
     checkpoint_error_at: Optional[int] = None  # nth save() call
+    # -- serving faults (serve.server, via wrap_engine) --
+    serve_prefill_error_at: Optional[int] = None  # nth prefill call
+    serve_decode_error_at: Optional[int] = None   # nth decode_step call
+    serve_error_first_n: Optional[int] = None     # first N engine calls
+    serve_stall_at: Optional[int] = None          # nth decode_step
+    serve_stall_s: float = 0.0                    # clock burned per stall
+    serve_page_alloc_error_at: Optional[int] = None  # nth page alloc
+    serve_prefix_corrupt_at: Optional[int] = None    # nth cache lookup
+    # -- router faults (serve.router, via wrap_replica_engine) --
+    router_kill_decode_at: Optional[int] = None   # nth decode on wrapped
+    router_kill_import_at: Optional[int] = None   # nth KV-block import
+    router_probe_drop_first_n: Optional[int] = None  # blackholed probes
+    router_slow_decode_s: float = 0.0             # clock skew per decode
+    # -- data-plane faults (serve.shm_arena, via wrap_arena) --
+    arena_kill_scatter_at: Optional[int] = None   # nth segment written
+    arena_kill_adopt_at: Optional[int] = None     # nth segment adopted
+    arena_error_at: Optional[int] = None          # nth scatter() call
     once: bool = True
     fired: List[str] = dataclasses.field(default_factory=list)
 
@@ -59,6 +85,17 @@ class FaultPlan:
         self._rng = random.Random(self.seed)
         self._batch_counter = 0
         self._save_counter = 0
+        self._serve_prefill_counter = 0
+        self._serve_decode_counter = 0
+        self._serve_call_counter = 0
+        self._page_alloc_counter = 0
+        self._prefix_lookup_counter = 0
+        self._router_decode_counter = 0
+        self._router_import_counter = 0
+        self._router_probe_counter = 0
+        self._arena_scatter_counter = 0
+        self._arena_adopt_counter = 0
+        self._arena_begin_counter = 0
 
     # -- bookkeeping ------------------------------------------------------
 
@@ -125,6 +162,269 @@ class FaultPlan:
     def wrap_checkpoint_manager(self, manager) -> "_FlakyCheckpoints":
         return _FlakyCheckpoints(manager, self)
 
+    # -- serving faults (engine-level) ------------------------------------
+
+    def wrap_engine(self, engine, clock: Optional["ManualClock"] = None):
+        """Wrap a serve.DecodeEngine (or anything with prefill /
+        decode_step) so serving faults fire deterministically:
+
+        - `serve_prefill_error_at` / `serve_decode_error_at`: the nth
+          prefill / decode_step call raises FaultError BEFORE touching
+          the engine — a transient device/native fault at a precise
+          point in the schedule (the state the caller holds stays
+          valid, which is exactly the contract a retry path must rely
+          on);
+        - `serve_error_first_n`: the first N calls (prefill and decode
+          combined) ALL raise — the repeated-failure shape that must
+          trip a circuit breaker, after which the engine is healthy
+          again so recovery is provable;
+        - `serve_stall_at` (+ `serve_stall_s`): the nth decode step
+          advances `clock` by `serve_stall_s` before running — a slot
+          stall that burns request deadlines with no wall-clock sleep
+          (pass the same ManualClock the server schedules with).
+
+        Everything else delegates, so a wrapped engine is otherwise
+        bit-identical to the real one."""
+        return _FaultyEngine(engine, self, clock)
+
+    def wrap_page_pool(self, pool):
+        """Install this plan on a `serve.paged.PagePool` via its
+        `fault_hook` seam. Fault points:
+
+        - "alloc": the `serve_page_alloc_error_at`-th allocation call
+          (admissions AND mid-decode extends, plan-global) reports
+          exhaustion — the pool raises PoolExhaustedError exactly as
+          if the arena were full, so the server's shed/requeue and the
+          engine's preempt paths run against a provably healthy pool;
+        - "lookup": the `serve_prefix_corrupt_at`-th prefix-cache hit
+          has its stored block tokens FLIPPED before the pool
+          re-verifies them — the corruption-defense path (treat as
+          miss, evict, count prefix_rejected) must fire and greedy
+          parity must survive."""
+        plan = self
+
+        def hook(event: str, ctx=None):
+            if event == "alloc":
+                idx = plan._page_alloc_counter
+                plan._page_alloc_counter += 1
+                if (idx == plan.serve_page_alloc_error_at
+                        and not plan._spent("pagealloc")):
+                    plan._note("pagealloc", idx)
+                    return True        # pool raises PoolExhaustedError
+            elif event == "lookup":
+                idx = plan._prefix_lookup_counter
+                plan._prefix_lookup_counter += 1
+                if (idx == plan.serve_prefix_corrupt_at
+                        and not plan._spent("prefixcorrupt")):
+                    plan._note("prefixcorrupt", idx)
+                    # flip the stored tokens in place: verification
+                    # against the real prompt block must now fail
+                    ctx.tokens = tuple(t ^ 1 for t in ctx.tokens)
+            return None
+
+        pool.fault_hook = hook
+        return pool
+
+    # -- router / fleet faults --------------------------------------------
+
+    def wrap_replica_engine(self, engine,
+                            clock: Optional["ManualClock"] = None):
+        """Wrap one replica's DecodeEngine with fleet-level faults:
+
+        - `router_kill_decode_at`: the nth decode_step across ALL
+          engines wrapped by this plan (wrap one engine for an exact
+          per-replica index) raises `serve.router.ReplicaDeadError` —
+          and the wrapper is DEAD from then on: every later prefill/
+          decode/init raises too, exactly like a lost device. The
+          fault is the replica-fatal shape `ServingServer.step()`
+          re-raises with its host ledger intact, so the router's
+          harvest-and-redistribute path runs against the real
+          contract;
+        - `router_slow_decode_s` (+ ManualClock): EVERY decode step on
+          this replica advances `clock` first — a persistently slow
+          replica skews deadlines for its own requests without one
+          wall-clock sleep;
+        - `router_kill_import_at`: the nth `import_slot_kv` call (a
+          KV-block migration landing on this replica) raises
+          ReplicaDeadError MID-TRANSFER and the replica stays dead —
+          the shape the disaggregated fleet's refcount discipline
+          must survive without losing or double-serving the request.
+
+        Everything else delegates, so an unkilled wrapped replica is
+        bit-identical to the real engine."""
+        return _DoomedReplicaEngine(engine, self, clock)
+
+    def wrap_probe(self, replica):
+        """Blackhole the replica's health checks: the first
+        `router_probe_drop_first_n` probe calls (plan-global counter)
+        raise FaultError while the replica itself keeps serving —
+        the router's breaker must open on consecutive probe failures
+        (routing stops) and the first clean probe must close it
+        (routing resumes)."""
+        plan = self
+
+        def hook(rep):
+            idx = plan._router_probe_counter
+            plan._router_probe_counter += 1
+            if (plan.router_probe_drop_first_n is not None
+                    and idx < plan.router_probe_drop_first_n):
+                plan._note("probedrop", idx)
+                raise FaultError(
+                    f"injected health-probe blackhole #{idx}")
+
+        replica.probe_hook = hook
+        return replica
+
+    def wrap_arena(self, arena):
+        """Install data-plane faults on a `serve.shm_arena.ShmArena`
+        through its `fault_hook` seam (same idiom as the page pool's
+        hook). Three schedules, all 0-based:
+
+        - `arena_kill_scatter_at`: SIGKILL THIS process right after
+          the nth segment's bytes are written (and before the ticket
+          exists anywhere) — the source dying mid-scatter. The
+          segments are left SCATTER-state with a dead owner pid: only
+          the orphan-reclaim sweep can free them.
+        - `arena_kill_adopt_at`: SIGKILL right before the nth
+          adoption stamp — the destination dying mid-adopt, AFTER the
+          bytes were gathered. The source still owns the segments.
+        - `arena_error_at`: the nth `scatter()` call raises
+          FaultError-shaped `ArenaError` BEFORE claiming anything —
+          the deterministic trigger for the pickle-fallback parity
+          tests (never a half-claimed ticket)."""
+        from paddle_tpu_torch.serve.shm_arena import ArenaError
+        plan = self
+
+        def hook(event: str, ctx: dict) -> None:
+            if event == "scatter_begin":
+                idx = plan._arena_begin_counter
+                plan._arena_begin_counter += 1
+                if (idx == plan.arena_error_at
+                        and not plan._spent("arenaerr")):
+                    plan._note("arenaerr", idx)
+                    raise ArenaError(
+                        f"injected arena fault at scatter {idx}")
+            elif event == "scatter":
+                idx = plan._arena_scatter_counter
+                plan._arena_scatter_counter += 1
+                if (idx == plan.arena_kill_scatter_at
+                        and not plan._spent("arenakillsc")):
+                    plan._note("arenakillsc", idx)
+                    os.kill(os.getpid(), signal.SIGKILL)
+            elif event == "adopt":
+                idx = plan._arena_adopt_counter
+                plan._arena_adopt_counter += 1
+                if (idx == plan.arena_kill_adopt_at
+                        and not plan._spent("arenakillad")):
+                    plan._note("arenakillad", idx)
+                    os.kill(os.getpid(), signal.SIGKILL)
+
+        arena.fault_hook = hook
+        return arena
+
+    def wrap_cluster(self, supervisor, agents, *, clock, service,
+                     settle_timeout_s: float = 30.0):
+        """Install a REAL host death on a membership-mode
+        `FleetSupervisor`: right before the `cluster_sigkill_at`-th
+        sweep, the agent of host `cluster_sigkill_host` (from
+        `agents`, a host_id -> AgentProcess map) gets SIGKILL — its
+        replica grandchildren die with it on the watchdog chain, and
+        nothing deregisters. The membership service's injected
+        `ManualClock` then advances in TWO half-TTL steps: on a
+        frozen clock every renewal re-arms to the same deadline, so
+        one jump past the TTL would strand the SURVIVORS too (a
+        renewal at or past the deadline is refused by design — ties
+        break toward eviction). Instead the wrap jumps half a TTL,
+        BLOCKS (bounded, real time) until every surviving host has
+        renewed past that jump (its `service.lease_margins()` entry
+        exceeds the remaining half — the agents' renew loops run on
+        wall clock), then jumps the rest: only the victim's deadline
+        is now behind the clock. The sweep that follows therefore
+        evicts EXACTLY the victim: one lease expiry, one epoch bump,
+        one view change — the supervisor must learn of the death
+        from the VIEW, fence the dead endpoints before any socket
+        error, and redistribute with exactly-once outcomes. Needs
+        `ttl_s > 2` so survivors keep positive margin after the
+        second jump."""
+        plan = self
+
+        inner_sweep = supervisor.sweep
+
+        def sweep():
+            idx = plan._cluster_sweep_counter
+            plan._cluster_sweep_counter += 1
+            if (idx == plan.cluster_sigkill_at
+                    and not plan._spent("agentkill")):
+                victim = agents[plan.cluster_sigkill_host]
+                ttl = victim.spec.ttl_s
+                half = ttl / 2.0
+                plan._note("agentkill", idx)
+                victim.kill()
+                victim.proc.join(10.0)
+                clock.advance(half)
+                survivors = [h for h in agents
+                             if h != plan.cluster_sigkill_host]
+                deadline = time.monotonic() + settle_timeout_s
+                while True:
+                    margins = service.lease_margins()
+                    # a pre-jump lease has at most `ttl - half` left;
+                    # more proves a renewal AFTER the jump
+                    if all(margins.get(h, -1.0) > ttl - half
+                           for h in survivors):
+                        break
+                    if time.monotonic() > deadline:
+                        raise FaultError(
+                            f"surviving agents never renewed past "
+                            f"the clock jump: {margins}")
+                    time.sleep(0.02)
+                clock.advance(half + 1.0)
+            return inner_sweep()
+
+        supervisor.sweep = sweep
+        return supervisor
+
+    def wrap_gang(self, supervisor):
+        """Install REAL process faults on a `parallel.launch`
+        GangSupervisor: once the victim rank's heartbeat file reports
+        step >= `gang_kill_step_at`, the member gets SIGKILL mid-burst
+        — its address space, its gloo connections, and any
+        half-written checkpoint die with it, and the SURVIVORS are
+        left blocked inside a collective that can never complete
+        (`proc.wait` after the kill makes the corpse visible before
+        the supervisor's classification runs, so the fault is
+        deterministic rather than racing the scheduler).
+        `gang_wedge_step_at` is the wedged-NOT-dead variant: SIGSTOP —
+        the process stays alive, stops heartbeating, and the
+        supervisor must fence it with its own SIGKILL before the gang
+        can reform."""
+        plan = self
+
+        inner_tick = supervisor._tick
+
+        def tick():
+            for step_attr, rank_attr, sig, kind in (
+                    ("gang_kill_step_at", "gang_kill_rank",
+                     signal.SIGKILL, "gangkill"),
+                    ("gang_wedge_step_at", "gang_wedge_rank",
+                     signal.SIGSTOP, "gangwedge")):
+                at = getattr(plan, step_attr)
+                if at is None or plan._spent(kind):
+                    continue
+                rank = getattr(plan, rank_attr)
+                proc = supervisor.procs.get(rank)
+                if proc is None or proc.poll() is not None:
+                    continue
+                hb = supervisor.member_heartbeat(rank)
+                if hb is not None and hb.get("step", -1) >= at:
+                    plan._note(kind, hb.get("step"))
+                    os.kill(proc.pid, sig)
+                    if sig == signal.SIGKILL:
+                        proc.wait(timeout=10)
+            return inner_tick()
+
+        supervisor._tick = tick
+        return supervisor
+
 
 def _poison_batch(batch):
     """Replace every float column of the batch (numpy array or tensor,
@@ -143,6 +443,241 @@ def _poison_batch(batch):
     if isinstance(batch, tuple):
         return tuple(poison(x) for x in batch)
     return poison(batch)
+
+
+class ManualClock:
+    """Deterministic monotonic clock for serving chaos tests: pass it
+    as the server's `clock` and advance it explicitly (or let
+    `wrap_engine`'s stall faults advance it) — deadline storms without
+    real sleeps, so the chaos suite stays fast and exact."""
+
+    def __init__(self, start: float = 0.0):
+        self._t = float(start)
+
+    def __call__(self) -> float:
+        return self._t
+
+    def advance(self, dt: float) -> None:
+        if dt < 0:
+            raise ValueError(f"clock cannot run backwards ({dt})")
+        self._t += float(dt)
+
+
+class _FaultyEngine:
+    """DecodeEngine proxy with FaultPlan-scheduled serving faults.
+    Faults raise BEFORE delegating, so the caller's EngineState is
+    never half-mutated (prefill/decode_step are pure functions of it —
+    the property every requeue path leans on)."""
+
+    def __init__(self, engine, plan: "FaultPlan",
+                 clock: Optional[ManualClock]):
+        self._engine = engine
+        self._plan = plan
+        self._clock = clock
+
+    def _burst(self) -> bool:
+        plan = self._plan
+        idx = plan._serve_call_counter
+        plan._serve_call_counter += 1
+        if (plan.serve_error_first_n is not None
+                and idx < plan.serve_error_first_n):
+            plan._note("nativeburst", idx)
+            return True
+        return False
+
+    def _prefill_fault(self):
+        plan = self._plan
+        burst = self._burst()
+        idx = plan._serve_prefill_counter
+        plan._serve_prefill_counter += 1
+        if burst:
+            raise FaultError(f"injected native fault (burst) on "
+                             f"prefill #{idx}")
+        if (idx == plan.serve_prefill_error_at
+                and not plan._spent("sprefill")):
+            plan._note("sprefill", idx)
+            raise FaultError(f"injected prefill fault #{idx}")
+
+    def init_state(self, *args, **kwargs):
+        """Delegate, then install the plan on the freshly built page
+        pool — wrap_engine alone is enough for paged faults even
+        though the server rebuilds pools on reset/backend switch."""
+        state = self._engine.init_state(*args, **kwargs)
+        pool = getattr(self._engine, "pool", None)
+        if pool is not None:
+            self._plan.wrap_page_pool(pool)
+        return state
+
+    def prefill(self, *args, **kwargs):
+        self._prefill_fault()
+        return self._engine.prefill(*args, **kwargs)
+
+    def prefill_begin(self, *args, **kwargs):
+        # host-side bookkeeping only — faults strike the chunks (the
+        # forward work), mirroring "raises BEFORE touching the engine"
+        return self._engine.prefill_begin(*args, **kwargs)
+
+    def prefill_advance(self, state, ticket):
+        """Each chunk counts as one prefill call for the fault
+        schedule: serve_prefill_error_at can strike any chunk of a
+        chunked prefill, and the burst counter keeps ticking."""
+        self._prefill_fault()
+        return self._engine.prefill_advance(state, ticket)
+
+    def _decode_fault(self):
+        plan = self._plan
+        burst = self._burst()
+        idx = plan._serve_decode_counter
+        plan._serve_decode_counter += 1
+        if burst:
+            raise FaultError(f"injected native fault (burst) on "
+                             f"decode step #{idx}")
+        if idx == plan.serve_stall_at and not plan._spent("stall"):
+            plan._note("stall", idx)
+            if self._clock is not None:
+                self._clock.advance(plan.serve_stall_s)
+        if (idx == plan.serve_decode_error_at
+                and not plan._spent("sdecode")):
+            plan._note("sdecode", idx)
+            raise FaultError(f"injected decode fault #{idx}")
+
+    def decode_step(self, state):
+        self._decode_fault()
+        return self._engine.decode_step(state)
+
+    def spec_step(self, state, drafts, draft_len):
+        # a speculative verify round rides the SAME decode fault
+        # schedule (one round = one decode call), so
+        # serve_decode_error_at / bursts strike speculative serving
+        # at the same points as plain decoding
+        self._decode_fault()
+        return self._engine.spec_step(state, drafts, draft_len)
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+
+class _DoomedReplicaEngine:
+    """DecodeEngine proxy for fleet chaos: healthy (bit-identical
+    delegation) until `router_kill_decode_at` fires, then PERMANENTLY
+    dead — every engine call raises the replica-fatal
+    ReplicaDeadError, like a device that fell off the bus. Optional
+    persistent slow-decode clock skew rides the same wrapper."""
+
+    def __init__(self, engine, plan: "FaultPlan",
+                 clock: Optional["ManualClock"]):
+        self._engine = engine
+        self._plan = plan
+        self._clock = clock
+        self.dead = False
+
+    def _dead_error(self):
+        from paddle_tpu_torch.serve.router import ReplicaDeadError
+
+        return ReplicaDeadError(
+            "injected replica death (fault plan)")
+
+    def _check_dead(self):
+        if self.dead:
+            raise self._dead_error()
+
+    def ping(self):
+        self._check_dead()
+        return self._engine.ping()
+
+    def init_state(self, *args, **kwargs):
+        self._check_dead()
+        return self._engine.init_state(*args, **kwargs)
+
+    def prefill(self, *args, **kwargs):
+        self._check_dead()
+        return self._engine.prefill(*args, **kwargs)
+
+    def prefill_begin(self, *args, **kwargs):
+        self._check_dead()
+        return self._engine.prefill_begin(*args, **kwargs)
+
+    def prefill_advance(self, *args, **kwargs):
+        self._check_dead()
+        return self._engine.prefill_advance(*args, **kwargs)
+
+    def ensure_decode_page(self, *args, **kwargs):
+        self._check_dead()
+        return self._engine.ensure_decode_page(*args, **kwargs)
+
+    def _decode_tick(self):
+        self._check_dead()
+        plan = self._plan
+        idx = plan._router_decode_counter
+        plan._router_decode_counter += 1
+        if plan.router_slow_decode_s > 0 and self._clock is not None:
+            self._clock.advance(plan.router_slow_decode_s)
+        if (idx == plan.router_kill_decode_at
+                and not plan._spent("replicakill")):
+            plan._note("replicakill", idx)
+            self.dead = True
+            raise self._dead_error()
+
+    def decode_step(self, state):
+        self._decode_tick()
+        return self._engine.decode_step(state)
+
+    def spec_step(self, state, drafts, draft_len):
+        # verify rounds tick the same kill schedule as plain steps:
+        # router_kill_decode_at can strike MID-BURST during
+        # speculative serving (the counter-reconciliation chaos case)
+        self._decode_tick()
+        return self._engine.spec_step(state, drafts, draft_len)
+
+    # -- disaggregation migration surface (dead-stays-dead too) --------
+
+    def pause_slot(self, *args, **kwargs):
+        self._check_dead()
+        return self._engine.pause_slot(*args, **kwargs)
+
+    def export_slot_kv(self, *args, **kwargs):
+        self._check_dead()
+        return self._engine.export_slot_kv(*args, **kwargs)
+
+    def resume_slot(self, *args, **kwargs):
+        self._check_dead()
+        return self._engine.resume_slot(*args, **kwargs)
+
+    def import_slot_kv(self, *args, **kwargs):
+        """The migration-destination kill point: the
+        `router_kill_import_at`-th import across engines wrapped by
+        this plan dies MID-TRANSFER — after the destination pool
+        mapped pages, before the arena write lands — and the replica
+        is dead from then on, exactly like a device lost with the DMA
+        in flight."""
+        self._check_dead()
+        plan = self._plan
+        idx = plan._router_import_counter
+        plan._router_import_counter += 1
+        if (idx == plan.router_kill_import_at
+                and not plan._spent("importkill")):
+            plan._note("importkill", idx)
+            self.dead = True
+            raise self._dead_error()
+        return self._engine.import_slot_kv(*args, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+
+def garbage_prompts(vocab: int, max_prompt_len: int) -> dict:
+    """Canonical malformed serving inputs, keyed by failure mode. The
+    admission validator (serve.server / engine.serve entry checks)
+    must reject every one with a clear ValueError — none may reach
+    prefill or crash the pool."""
+    return {
+        "empty": np.zeros((0,), np.int32),
+        "oversized": np.zeros((max_prompt_len + 1,), np.int32),
+        "out_of_vocab": np.asarray([0, vocab + 7, 1], np.int32),
+        "negative_id": np.asarray([3, -1, 2], np.int32),
+        "float_dtype": np.asarray([0.5, 1.5], np.float32),
+        "not_1d": np.zeros((2, 3), np.int32),
+    }
 
 
 class _FlakyCheckpoints:
@@ -166,3 +701,12 @@ class _FlakyCheckpoints:
 
     def __getattr__(self, name):
         return getattr(self._manager, name)
+
+
+def build_chaos_replica(fault_plan: Optional[dict] = None, **kwargs):
+    """The JAX package's spawn-importable replica factory for
+    data-plane chaos runs `serve.fleet.build_server_from_config` in a
+    child process; the process fleet is not ported yet."""
+    raise NotImplementedError(
+        "build_chaos_replica needs the process fleet (serve.fleet), "
+        "which is not ported yet (ROADMAP queue 1 item 6)")

@@ -23,8 +23,12 @@ seed and the global batch index, so a replayed or resumed step draws
 exactly what the uninterrupted run drew; a generator advanced step after
 step, as `Trainer.train`'s, would not.
 
-Seams of layers the port does not have yet raise NotImplementedError
-when given: `tracer`, `flight` and `bind_metrics` (the obs layer) and
+The obs seams are JAX's: `tracer` opens one span per executed step
+attempt, `flight` records bad steps and the preemption drain and dumps
+its ring to `flight_dir` (default the checkpoint directory) on a
+divergence rollback, an exhausted budget and the drain, and
+`bind_metrics` registers the outcome ledger. Seams of layers the port
+does not have yet raise NotImplementedError when given:
 `pserver_client` (ROADMAP queue 1 item 6), `step_builder` (the ZeRO and
 elastic steps, queue 1 item 5).
 """
@@ -53,10 +57,7 @@ from paddle_tpu_torch.train.trainer import Trainer, make_train_step
 
 log = logging.getLogger(__name__)
 
-_OBS = "the obs layer is not ported yet (ROADMAP queue 1 item 6)"
 _UNPORTED_SEAMS = {
-    "tracer": _OBS,
-    "flight": _OBS,
     "pserver_client": ("the pserver client is not ported yet (ROADMAP "
                        "queue 1 item 6)"),
     "step_builder": ("the ZeRO and elastic train steps are not ported yet "
@@ -296,8 +297,7 @@ class ResilientTrainer:
                  pserver_client: Optional[Any] = None,
                  step_builder: Optional[Callable] = None,
                  gang_epoch: int = 0):
-        given = dict(tracer=tracer, flight=flight,
-                     pserver_client=pserver_client,
+        given = dict(pserver_client=pserver_client,
                      step_builder=step_builder)
         for name, value in given.items():
             if value is not None:
@@ -323,7 +323,12 @@ class ResilientTrainer:
         self.watchdog_timeout_s = watchdog_timeout_s
         self.watchdog_on_timeout = watchdog_on_timeout
         self.install_signal_handlers = install_signal_handlers
-        # flight_dir only places a flight recorder's dumps (not ported)
+        # observability (paddle_tpu_torch.obs), host-side only, both
+        # default off: one span per executed step attempt, the flight
+        # ring dumped next to the checkpoints on the fault paths
+        self.tracer = tracer
+        self.flight = flight
+        self.flight_dir = flight_dir or checkpoint_dir
         self.gang_epoch = int(gang_epoch)
         self.bad_steps: List[BadStep] = []
         self.save_errors: List[str] = []
@@ -363,7 +368,22 @@ class ResilientTrainer:
 
     def bind_metrics(self, registry, *, prefix: str = "train",
                      labels: Optional[dict] = None) -> None:
-        raise NotImplementedError(f"ResilientTrainer.bind_metrics: {_OBS}")
+        """Attach the outcome ledger (and the tracer's and flight
+        recorder's own counts) to an `obs.MetricsRegistry`."""
+        registry.register_source(prefix, self.counters, labels=labels)
+        if self.tracer is not None:
+            registry.register_source(f"{prefix}_trace",
+                                     self.tracer.counters, labels=labels)
+        if self.flight is not None:
+            registry.register_source(f"{prefix}_flight",
+                                     self.flight.counters, labels=labels)
+
+    def _flight_dump(self, reason: str, /, **extra) -> None:
+        # positional-only: the fault paths carry their own `reason=` tag
+        if self.flight is None or not self.flight_dir:
+            return
+        self.flight.dump(self.flight_dir, reason,
+                         extra={**extra, "counters": self.counters()})
 
     def _build_step(self) -> None:
         tr = self.trainer
@@ -442,7 +462,13 @@ class ResilientTrainer:
         log.warning("preemption signal %d received; draining one final "
                     "checkpoint at step boundary %d", self._preempt_signum,
                     int(state.step))
+        if self.flight is not None:
+            self.flight.record("signal", "preemption-drain",
+                               signum=self._preempt_signum,
+                               step=int(state.step))
         self._save(state, drain=True)
+        self._flight_dump(f"sigterm-{self._preempt_signum}",
+                          step=int(state.step))
         raise Preempted(int(state.step), self._preempt_signum)
 
     # -- divergence guard -------------------------------------------------
@@ -468,8 +494,16 @@ class ResilientTrainer:
             batch_id=batch_id, reason=reason, action=action, loss=loss))
         self._bad_used += 1
         self._progress_since_bad = 0
+        if self.flight is not None:
+            self.flight.record("fault", "bad-step",
+                               step=int(prev_state.step),
+                               pass_id=pass_id, batch_id=batch_id,
+                               reason=reason, action=action,
+                               loss=loss, bad_used=self._bad_used)
         if self._bad_used > self.max_bad_steps:
             self.bad_steps[-1].action = "fail"
+            self._flight_dump("divergence-budget-exhausted",
+                              reason=reason)
             raise DivergenceError(self.bad_steps)
         log.warning("bad step %d (pass %d batch %d): %s -> %s "
                     "(%d/%d recoveries used)", int(prev_state.step),
@@ -492,8 +526,12 @@ class ResilientTrainer:
                                                bad_steps=bad)
         self._corrupt_steps.update(bad)
         if step is None:
+            self._flight_dump("divergence-no-restore-target",
+                              reason=reason)
             raise DivergenceError(self.bad_steps)
         self._pet()
+        self._flight_dump("divergence-rollback", reason=reason,
+                          restored_step=step)
         raise _Rollback(restored)
 
     # -- the drive loop ---------------------------------------------------
@@ -569,6 +607,13 @@ class ResilientTrainer:
                     began = True
                 self._maybe_drain(state)
                 handler(E.BeginIteration(pass_id, batch_id))
+                span = None
+                if self.tracer is not None:
+                    # one span per executed attempt: a rollback replay
+                    # of the same gidx opens a fresh span under its id
+                    span = self.tracer.start(
+                        f"step{gidx}", "train.step", pass_id=pass_id,
+                        batch_id=batch_id, gang_epoch=self.gang_epoch)
                 inputs, labels = self.trainer._split_batch(batch)
                 step_rng.manual_seed(step_seed(self.trainer.seed, gidx))
                 prev_state = state
@@ -585,10 +630,17 @@ class ResilientTrainer:
                         state = self._handle_bad_step(
                             prev_state, pass_id, batch_id, lossf, reason)
                     except (_Rollback, DivergenceError):
+                        if span is not None:
+                            self.tracer.end(
+                                span, self.bad_steps[-1].action,
+                                reason=reason, loss=lossf)
                         handler(E.EndIteration(
                             pass_id, batch_id, cost=loss,
                             outcome=self.bad_steps[-1].action))
                         raise
+                    if span is not None:
+                        self.tracer.end(span, "skip", reason=reason,
+                                        loss=lossf)
                     handler(E.EndIteration(pass_id, batch_id, cost=loss,
                                            outcome="skip"))
                     gidx += 1
@@ -607,6 +659,8 @@ class ResilientTrainer:
                                  "one: recovery budget reset",
                                  self._progress_since_bad)
                         self._bad_used = 0
+                if span is not None:
+                    self.tracer.end(span, "ok", loss=lossf)
                 handler(E.EndIteration(pass_id, batch_id, cost=loss,
                                        metrics=metrics))
                 gidx += 1

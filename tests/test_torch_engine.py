@@ -146,13 +146,18 @@ def test_sampled_requests_are_seed_deterministic(models):
 
 
 def test_unported_paths_raise(models):
+    """Only the serving artifacts are left unported (they raise naming
+    their ROADMAP item); ring pools, migration, int8 KV pools and
+    speculative rounds run (their parity: tests/test_torch_serve_*)."""
     import dataclasses
 
     _, tcfg, _, tp = models
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        DecodeEngine(tp, dataclasses.replace(tcfg, attn_window=4), slots=1,
-                     max_len=16, device="cpu")
-    # int8 KV pools and speculative rounds are ported: they run
+    ring = DecodeEngine(tp, dataclasses.replace(tcfg, attn_window=4),
+                        slots=1, max_len=16, device="cpu")
+    assert not ring.paged
+    assert len(ring.serve([np.arange(3)], max_new=20)[0]) == 20
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        ring.bind_artifact({}, {})
     eng8 = DecodeEngine(tp, dataclasses.replace(tcfg, kv_cache_dtype="int8"),
                         slots=1, max_len=16, page_size=PAGE, device="cpu")
     assert len(eng8.serve([np.arange(3)], max_new=4)[0]) == 4
@@ -160,8 +165,9 @@ def test_unported_paths_raise(models):
     eng = DecodeEngine(tp, tcfg, slots=1, max_len=16, device="cpu")
     out = eng.serve([np.arange(3)], max_new=4, speculative=True)
     assert len(out[0]) == 4 and eng.last_stats.spec_rounds > 0
-    with pytest.raises(NotImplementedError, match="migration"):
-        eng.pause_slot(eng.init_state(), 0)
+    st = eng.prefill(eng.init_state(), 0, np.arange(3))
+    st, seed = eng.pause_slot(st, 0)
+    assert seed.pos == 3 and not bool(st.active[0])
     with pytest.raises(ValueError, match="ragged_impl"):
         DecodeEngine(tp, tcfg, slots=1, max_len=16, device="cpu",
                      ragged_impl="pallas")

@@ -63,6 +63,10 @@ MODULES = [
     "paddle_tpu_torch.models.srl", "paddle_tpu_torch.models.quick_start",
     "paddle_tpu_torch.models.bilstm_crf",
     "paddle_tpu_torch.data.dataset_zoo", "paddle_tpu_torch.data.image",
+    "paddle_tpu_torch.obs", "paddle_tpu_torch.obs.trace",
+    "paddle_tpu_torch.obs.flight", "paddle_tpu_torch.obs.registry",
+    "paddle_tpu_torch.serve", "paddle_tpu_torch.serve.shm_arena",
+    "paddle_tpu_torch.serve.server", "paddle_tpu_torch.serve.router",
 ]
 
 

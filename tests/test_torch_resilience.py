@@ -17,8 +17,10 @@ tests/test_resilience.py:
 - a checkpoint write error absorbed, the drain save retried;
 - the watchdog firing its custom action;
 - the same fault plans give JAX's ResilientTrainer and the port's the
-  same sequence of event types and outcomes."""
+  same sequence of event types and outcomes, and, with the obs seams
+  on, the same step spans, flight events, dumps and metric values."""
 
+import json
 import os
 import time
 
@@ -276,10 +278,23 @@ def test_bad_policy_and_backoff_are_checked(tmp_path):
 @pytest.mark.parametrize("seam", ["tracer", "flight", "pserver_client",
                                   "step_builder"])
 def test_unported_seams_raise(tmp_path, seam):
+    """pserver_client and step_builder still raise naming their item;
+    the obs seams (tracer, flight) are ported and bind to a registry
+    (their parity with JAX: test_obs_seams_match_jax)."""
+    from paddle_tpu_torch.obs import FlightRecorder, MetricsRegistry, Tracer
+
+    if seam in ("tracer", "flight"):
+        obj = Tracer() if seam == "tracer" else FlightRecorder()
+        rt = ResilientTrainer(_trainer(), str(tmp_path), **{seam: obj})
+        reg = MetricsRegistry()
+        rt.bind_metrics(reg)
+        names = {r["name"] for r in reg.snapshot()["series"]}
+        part = "trace" if seam == "tracer" else "flight"
+        assert "train_bad_steps" in names
+        assert any(n.startswith(f"train_{part}_") for n in names)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         ResilientTrainer(_trainer(), str(tmp_path), **{seam: object()})
-    with pytest.raises(NotImplementedError, match="obs layer"):
-        ResilientTrainer(_trainer(), str(tmp_path)).bind_metrics(object())
 
 
 # -- checkpoints -------------------------------------------------------------
@@ -505,3 +520,68 @@ def test_the_same_fault_plan_gives_jax_events_and_outcomes(tmp_path,
                          for b in rt.bad_steps],
                         rt.restored_step, rt.counters()["save_errors"]))
     assert results[0] == results[1]
+
+
+@pytest.mark.parametrize("scenario", [
+    dict(plan=dict(nan_batch_at=3),
+         kw=dict(bad_step_policy="rollback", lr_backoff=0.5,
+                 checkpoint_every_n_batches=2)),
+    dict(plan=dict(nan_batch_at=1, once=False),
+         kw=dict(bad_step_policy="skip", max_bad_steps=1)),
+    dict(plan=dict(preempt_at=4), kw=dict(checkpoint_every_n_batches=2)),
+], ids=["rollback_backoff", "budget_spent", "preempt"])
+def test_obs_seams_match_jax(tmp_path, scenario, jax_ready):
+    """One scripted fault run per scenario on both trainers with a
+    tracer, a flight recorder (dumping to its own directory) and a
+    metrics registry: equal span ids and outcomes, flight events, dump
+    reasons and metric values."""
+    from paddle_tpu import obs as jobs
+    from paddle_tpu_torch import obs as tobs
+
+    batches = _batches()
+    results = []
+    for side in ("jax", "torch"):
+        obs = jobs if side == "jax" else tobs
+        clk = lambda: 7.0
+        flight = obs.FlightRecorder(clock=clk)
+        tracer = obs.Tracer(clock=clk, sink=flight.note_span)
+        registry = obs.MetricsRegistry(clock=clk)
+        fdir = tmp_path / f"flight_{side}"
+        fdir.mkdir()
+        obs_kw = dict(tracer=tracer, flight=flight, flight_dir=str(fdir))
+        if side == "jax":
+            plan = JFaultPlan(**scenario["plan"])
+            tr = JTrainer(_jax_model(), _jloss, joptim.adam(0.1), seed=0,
+                          num_inputs=1)
+            state = tr.init_state(jnn.ShapeSpec((B, T), jnp.int32))
+            rt = JR.ResilientTrainer(tr, str(tmp_path / side),
+                                     **scenario["kw"], **obs_kw)
+            errors = (JR.Preempted, JR.DivergenceError)
+        else:
+            plan = FaultPlan(**scenario["plan"])
+            tr = _trainer()
+            state = tr.init_state(TNM.ShapeSpec((B, T), torch.int32))
+            rt = ResilientTrainer(tr, str(tmp_path / side),
+                                  **scenario["kw"], **obs_kw)
+            errors = (Preempted, DivergenceError)
+        rt.bind_metrics(registry)
+        try:
+            rt.run(state, plan.wrap_batches(lambda: iter(batches)),
+                   num_passes=2)
+        except errors:
+            pass
+        dumps = sorted(os.listdir(fdir))
+        reasons = []
+        for d in dumps:
+            with open(fdir / d) as f:
+                reasons.append(json.load(f)["reason"])
+        series = {r["name"]: r["value"]
+                  for r in registry.snapshot()["series"]}
+        results.append(dict(
+            spans=[(sp.trace_id, sp.outcome) for sp in tracer.finished],
+            trace=tracer.counters(),
+            events=[(e["kind"], e.get("name"), e.get("step"),
+                     e.get("action")) for e in flight.events()],
+            reasons=reasons, series=series))
+    assert results[1] == results[0]
+    assert results[1]["spans"] and results[1]["events"]
