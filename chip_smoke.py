@@ -133,8 +133,8 @@ Phases, in order; any failure exits non-zero:
    - Disaggregation: one role="prefill" replica, two role="decode",
      every request routed to the prefill tier and in waves the decode
      tier can take: float and int8 KV, inline and over a ShmArena data
-     plane (the float inline run 32 requests, the others the first
-     16). Every request crosses by export_request/
+     plane (each run the first 16 requests: two waves). Every request
+     crosses by export_request/
      import_request; its tokens equal the unified replica's (else the
      gap rule); the decode tier's TQ=1 walk launches equal its steps x
      layers (it reads the imported pages); no data-plane fallback; in
@@ -142,7 +142,7 @@ Phases, in order; any failure exits non-zero:
      (router_kill_import_at) and the same payload lands on replica 2.
      ms per migrated slot (export + import, synchronized) and the bytes
      exported are printed.
-   - The ring pool at bench_decode's swa row (window 128, 8 prompts, 512
+   - The ring pool at bench_decode's swa row (window 128, 8 prompts, 256
      new tokens, cut from 1024): A launches once per layer per request,
      each with the window and the key bound, no B or C; tokens against
      the plain rolling generate() by the gap rule; tokens/s against the
@@ -277,6 +277,44 @@ Phases, in order; any failure exits non-zero:
    3, restores them into a fresh template leaf for leaf, one more step
    from both gives the same loss bit for bit, and the parameters tar
    round-trips the params exactly.
+8b. decode -- the LM's decoders at bench_decode's width
+   (benchmarks/suite.py:500-668: vocab 32000, dim 512, 8 layers, 8
+   heads, f32, seeded weights, B=8 prompts of 128 tokens from
+   RandomState(0), 128 new tokens), attn_impl "auto" so that kernel A
+   runs every prefill: greedy generate, sample (temperature 0.8, top_p
+   0.95, Gumbel draws from a seeded card generator injected, so both
+   paths draw the same), beam_decode (beam 4), speculative_generate
+   (k=4) with draft = target and with the bench's small draft (dim 128,
+   2 layers, seed 7, dense attention), speculative_sample with that
+   draft at top_k=1 and at the bench's temperature/top_p. Each mode's
+   kernel-path call counts A's launches from 0 (8 a prefill, 16 with
+   draft = target) and prints new tokens/s; the same calls on the plain
+   path (attn_impl "dense") launch no A. Gates: greedy, sample, beam and
+   both speculative_generate runs equal the plain path's tokens, and the
+   speculative runs and speculative_sample at top_k=1 equal greedy
+   generate's, each row or differing first at a step whose plain-path
+   margin (top-2 logit gap, teacher-forced; for sample the top-2 gap of
+   filtered logits plus the step's draw, or the nucleus boundary's
+   distance from top_p) is <= 1e-3; beam rows equal, or the plain
+   search's smallest candidate gap <= 1e-3, scores within 1e-4; draft =
+   target takes at most ceil(128 / 5) + 2 rounds a row.
+8c. moe -- the mixture-of-experts LM at bench_moe_lm's width
+   (benchmarks/suite.py:452: vocab 32000, dim 512, 8 layers, 8 heads,
+   every other block 8 experts, top-2, capacity 1.25, remat, adam 1e-3,
+   f32, B=8, T=2048, seeded weights and tokens; the scatter dispatch).
+   The first step on kernel A and on the plain path from the same
+   weights: the routing decisions (expert, slot, keep) of every routed
+   call are compared first; where all agree the gradients are held leaf
+   by leaf at 1e-4 (floored as seq2seq's), else every token whose
+   experts moved must sit at a router-logit gap <= 1e-3 and the leaf
+   errors are printed; the loss within 1e-3 either way. Then 1 + 5
+   top-k steps and 1 + 2 expert-choice steps (ms/step, tokens/s, peak
+   memory, each MoE block's dropped fraction and aux loss in the first
+   step; A 16 launches a step, losses finite and falling). Then
+   DecodeEngine over an MoE model at bench_engine's width (moe_experts
+   8) on float and int8 KV, the first 16 of serve_phase's requests,
+   against the plain path by the gap rule (A and B, or A and C,
+   launched).
 9. image -- the image models (no kernel of their own: cuDNN convs, torch
    pools, BN as a torch-ops autograd Function). Parity with the port's
    CPU path from the same weights: resnet50 (B=4), googlenet, alexnet,
@@ -302,8 +340,9 @@ Phases, in order; any failure exits non-zero:
    with its dropout through Trainer.train (the masks drawn on the card),
    and graft_entry.entry() (finite [16, 1000] logits).
 10. report -- the launch counts of every path (A, B and C also per run of
-   the server phase), the serve, server, train, seq2seq,
-   generation, LM train and image numbers, the wide cases, the card's
+   the server phase and of the MoE serves, A per decoder and per MoE
+   step), the serve, server, train, seq2seq,
+   generation, LM train, decode, MoE and image numbers, the wide cases, the card's
    name and power limit, a `kernels` JSON line (nine entries, A-I; A adds its
    HMMA counts and its launches in the LM train phase; B and C their
    device launches in the float and int8
@@ -373,6 +412,8 @@ from paddle_tpu_torch.ops import losses as LS
 from paddle_tpu_torch.ops import paged_attention as PA
 from paddle_tpu_torch.ops import ragged_paged_attention as RPA
 from paddle_tpu_torch.ops import rnn as RNN
+from paddle_tpu_torch.ops import sampling as SAMP
+from paddle_tpu_torch.parallel import moe as PMOE
 from paddle_tpu_torch.serve import quant as Q
 from paddle_tpu_torch.optim import hooks as HOOKS
 from paddle_tpu_torch.optim import optimizers as OPT
@@ -407,9 +448,9 @@ ROUTER_KILL_AT, ROUTER_RETIRE_AT, IMPORT_KILL_AT = 40, 10, 0
 TIMED_REQ = 16          # the clean server-vs-bare turns: two waves
 # bench_decode's swa row (benchmarks/suite.py:500, :601-624): batch 8,
 # 128-token prompts, window max(steps, 16) = 128, steps * 8 = 1024 new
-# tokens, cut to 512 to keep the server phase short (the ring wraps four
+# tokens, cut to 256 to keep the smoke near 700 s (the ring wraps three
 # times either way)
-RING_WINDOW, RING_REQ, RING_NEW = 128, 8, 512   # the row's 1024, cut
+RING_WINDOW, RING_REQ, RING_NEW = 128, 8, 256   # the row's 1024, cut
 REPO_DIR = os.path.dirname(os.path.abspath(__file__))
 
 # bench_lstm(hidden=512, batch=64, seq_len=100, vocab=10000)
@@ -3279,6 +3320,463 @@ def lm_train_phase():
                 a_launches_per_step=variants[0]["a_launches_per_step"])
 
 
+# -- the LM's decoders at bench_decode's width ---------------------------------
+
+# bench_decode(batch=8, prompt_len=128, steps=128, dim=512, n_layers=8,
+# n_heads=8, vocab=32000) (benchmarks/suite.py:500-668): prompts
+# RandomState(0), the target's weights seed 0; its small draft (dim
+# max(512 // 4, 16) = 128, 2 layers, seed 7, dense attention: head_dim
+# 16, which kernel A is not built for); draft_k 4; sampling at
+# temperature 0.8, top_p 0.95; beam 4. The target runs attn_impl "auto"
+# (kernel A in every prefill; the bench's "dense" would run no kernel)
+DEC_B, DEC_PROMPT, DEC_STEPS, DEC_K, DEC_BEAM = 8, 128, 128, 4, 4
+DEC_DRAFT = dict(vocab=32000, dim=128, n_layers=2, n_heads=8,
+                 attn_impl="dense")
+DEC_DRAFT_SEED, DEC_TEMP, DEC_TOP_P = 7, 0.8, 0.95
+
+
+def teacher_logits(params, plain_cfg, seqs, t0):
+    """The plain path's logits [B, steps, V] at each generated position
+    of seqs [B, t0 + steps] (one dense forward over the whole rows)."""
+    with torch.no_grad():
+        return TT.apply(params, plain_cfg, seqs)[:, t0 - 1:-1].float()
+
+
+def sample_score_gap(logits, noise):
+    """The sampled decode's margin at one step: the top-2 gap of the
+    filtered logits plus the step's Gumbel draw, and the nucleus
+    boundary's (the least distance of a sorted position's preceding mass
+    from top_p, where an ulp may move a token in or out)."""
+    filt = TT._filter_logits(logits[None], DEC_TEMP, None, DEC_TOP_P)[0]
+    top2 = torch.topk(filt + noise, 2).values
+    desc = torch.sort(logits / DEC_TEMP, descending=True).values
+    probs = torch.softmax(desc, dim=-1)
+    before = torch.cumsum(probs, dim=-1) - probs
+    return min((top2[0] - top2[1]).item(),
+               (before - DEC_TOP_P).abs().min().item())
+
+
+def decode_gap_rule(label, toks, ref, t0, gaps_of):
+    """Rows of toks [B, t0+steps] equal to ref's, or differing first at a
+    step whose plain-path margin gaps_of(row, step) is <= GAP_LIMIT."""
+    same, worst = 0, 0.0
+    for i in range(toks.shape[0]):
+        d = (toks[i, t0:] != ref[i, t0:]).nonzero()
+        if not len(d):
+            same += 1
+            continue
+        d = int(d[0])
+        gap = gaps_of(i, d)
+        worst = max(worst, gap)
+        log(f"  {label}: row {i}: first differing step {d}: "
+            f"{int(toks[i, t0 + d])} vs {int(ref[i, t0 + d])}, plain "
+            f"margin {gap:.3e}")
+    log(f"  {label}: tokens equal on {same}/{toks.shape[0]} rows")
+    if worst > GAP_LIMIT:
+        raise Fail(f"decode {label}: tokens differ at a margin {worst:.3e} "
+                   f"> {GAP_LIMIT}")
+    return same
+
+
+def lm_beam_gaps(params, plain_cfg, prompt, steps):
+    """Per row, the smallest score gap among the K+1 best candidates of
+    any step of the plain path's beam search, and among its final scores:
+    where it is <= GAP_LIMIT the kernel path may keep another beam."""
+    b, k = prompt.shape[0], DEC_BEAM
+    gaps = torch.full((b,), float("inf"), device=prompt.device)
+
+    def record(step, logits, st):
+        log_p = torch.log_softmax(logits.float(), -1).reshape(b, k, -1)
+        top = torch.topk((st.scores[:, :, None] + log_p).reshape(b, -1),
+                         k + 1).values
+        live = top[:, :-1] > -1e29
+        gap = torch.where(live, top[:, :-1] - top[:, 1:], float("inf"))
+        gaps.copy_(torch.minimum(gaps, gap.min(dim=1).values))
+        return logits
+
+    search = BS.beam_search
+    BS.beam_search = lambda *a, **kw: search(*a, modify_logits_fn=record,
+                                             **kw)
+    try:
+        _, scores = TT.beam_decode(params, plain_cfg, prompt, steps, k)
+    finally:
+        BS.beam_search = search
+    return torch.minimum(gaps, (scores[:, :-1] - scores[:, 1:]).min(
+        dim=1).values).tolist()
+
+
+def decode_run(label, fn, want_a):
+    """One decoder call with A's launch count set to 0 just before; the
+    count must be want_a (0 on the plain path). Returns (output, wall s,
+    A launches)."""
+    torch.cuda.synchronize()
+    FA.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = FA.launch_counts["fwd"]
+    if launched != want_a:
+        raise Fail(f"decode {label}: A launched {launched} times, want "
+                   f"{want_a}")
+    return out, wall, launched
+
+
+def decode_phase():
+    """The LM's decoders at bench_decode's width on kernel A's prefills:
+    greedy, sampled (injected Gumbel draws), beam 4, speculative with
+    draft = target and with the bench's small draft, and sampled
+    speculative; each on the kernel path and the plain path (attention
+    dense, no kernel), held by the gap rule."""
+    cfg = TT.TransformerConfig(**SERVE_CFG)
+    plain_cfg = dataclasses.replace(cfg, attn_impl="dense")
+    dcfg = TT.TransformerConfig(**DEC_DRAFT)
+    log(f"phase decode: {SERVE_CFG} f32, B={DEC_B} prompt {DEC_PROMPT}, "
+        f"{DEC_STEPS} new tokens; draft {DEC_DRAFT} seed {DEC_DRAFT_SEED}, "
+        f"k={DEC_K}")
+    t_phase = time.perf_counter()
+    params = TT.init_params(0, cfg, device="cuda")
+    dparams = TT.init_params(DEC_DRAFT_SEED, dcfg, device="cuda")
+    prompt = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, (DEC_B, DEC_PROMPT)).astype(np.int32)).cuda()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    noise = SAMP.gumbel_noise((DEC_STEPS, DEC_B, cfg.vocab), generator=gen,
+                              device="cuda")
+
+    def noise_feed():
+        it = iter(noise)
+        return lambda shape: next(it)
+
+    n_l, t0, steps = cfg.n_layers, DEC_PROMPT, DEC_STEPS
+    modes = {
+        # (kernel-path call, A launches: one per layer per prefill)
+        "greedy": (lambda c: TT.generate(params, c, prompt, steps), n_l),
+        "sample": (lambda c: TT.sample(params, c, prompt, steps,
+                                       temperature=DEC_TEMP,
+                                       top_p=DEC_TOP_P, noise=noise_feed()),
+                   n_l),
+        "beam": (lambda c: TT.beam_decode(params, c, prompt, steps,
+                                          DEC_BEAM), n_l),
+        "spec_perfect": (lambda c: TT.speculative_generate(
+            params, c, params, c, prompt, steps, draft_k=DEC_K,
+            return_stats=True), 2 * n_l),
+        "spec_small_draft": (lambda c: TT.speculative_generate(
+            params, c, dparams, dcfg, prompt, steps, draft_k=DEC_K,
+            return_stats=True), n_l),
+        "spec_sample_top_k1": (lambda c: TT.speculative_sample(
+            params, c, dparams, dcfg, prompt, steps,
+            torch.Generator(device="cuda").manual_seed(11), draft_k=DEC_K,
+            top_k=1, return_stats=True), n_l),
+        "spec_sample": (lambda c: TT.speculative_sample(
+            params, c, dparams, dcfg, prompt, steps,
+            torch.Generator(device="cuda").manual_seed(11), draft_k=DEC_K,
+            temperature=DEC_TEMP, top_p=DEC_TOP_P, return_stats=True),
+            n_l),
+    }
+    # warm the decoders, the allocator and cuBLAS outside the timed calls
+    with torch.no_grad():
+        TT.generate(params, cfg, prompt, 2)
+        TT.beam_decode(params, cfg, prompt, 2, DEC_BEAM)
+        TT.speculative_generate(params, cfg, dparams, dcfg, prompt, 2,
+                                draft_k=DEC_K)
+    runs, plain, out = {}, {}, {}
+    for name, (call, want_a) in modes.items():
+        runs[name], wall, a = decode_run(name, lambda: call(cfg), want_a)
+        rate = DEC_B * steps / wall
+        out[name] = dict(wall_s=wall, new_tokens_per_s=rate, a_launches=a)
+        extra = ""
+        if name.startswith("spec"):
+            rounds = runs[name][1]
+            out[name]["rounds"] = rounds.tolist()
+            extra = (f", rounds per row {rounds.tolist()} (a perfect draft: "
+                     f"{-(-steps // (DEC_K + 1))})")
+        log(f"  {name:<18} {wall * 1e3:8.1f} ms = {rate:8.1f} new tokens/s; "
+            f"A {a} launches{extra}")
+        if name in ("greedy", "sample", "beam", "spec_perfect",
+                    "spec_small_draft"):
+            plain[name], _, _ = decode_run(name + " plain",
+                                           lambda: call(plain_cfg), 0)
+    seqs = {k: (v[0] if isinstance(v, tuple) else v)
+            for k, v in runs.items()}
+    for k in ("greedy", "sample", "beam", "spec_perfect", "spec_small_draft",
+              "spec_sample_top_k1", "spec_sample"):
+        s = seqs[k]
+        if not bool(((s >= 0) & (s < cfg.vocab)).all()):
+            raise Fail(f"decode {k}: token out of the vocabulary")
+    ref = plain["greedy"]
+    logits = teacher_logits(params, plain_cfg, ref, t0)
+    top2 = lambda i, d: (lambda v: (v[0] - v[1]).item())(
+        torch.topk(logits[i, d], 2).values)
+    out["greedy"]["rows_equal_plain"] = decode_gap_rule(
+        "greedy vs plain", seqs["greedy"], ref, t0, top2)
+    for k in ("spec_perfect", "spec_small_draft"):
+        out[k]["rows_equal_plain"] = decode_gap_rule(
+            f"{k} vs plain", seqs[k], plain[k][0], t0, top2)
+        out[k]["rows_equal_generate"] = decode_gap_rule(
+            f"{k} vs generate", seqs[k], seqs["greedy"], t0, top2)
+        if plain[k][1].tolist() != runs[k][1].tolist():
+            log(f"  {k}: rounds {runs[k][1].tolist()}, plain path "
+                f"{plain[k][1].tolist()}")
+    out["spec_sample_top_k1"]["rows_equal_greedy"] = decode_gap_rule(
+        "spec_sample top_k=1 vs greedy", seqs["spec_sample_top_k1"],
+        seqs["greedy"], t0, top2)
+    if runs["spec_perfect"][1].max().item() > -(-steps // (DEC_K + 1)) + 2:
+        raise Fail(f"decode: the perfect draft took "
+                   f"{runs['spec_perfect'][1].tolist()} rounds")
+    slog = teacher_logits(params, plain_cfg, plain["sample"], t0)
+    out["sample"]["rows_equal_plain"] = decode_gap_rule(
+        "sample vs plain", seqs["sample"], plain["sample"], t0,
+        lambda i, d: sample_score_gap(slog[i, d], noise[d, i]))
+    if torch.equal(seqs["sample"], ref):
+        raise Fail("decode: sampling gave the greedy tokens")
+    (bs, bsc), (pbs, pbsc) = runs["beam"], plain["beam"]
+    same = (bs == pbs).flatten(1).all(dim=1)
+    diff = [i for i in range(DEC_B) if not bool(same[i])]
+    if diff:
+        gaps = lm_beam_gaps(params, plain_cfg, prompt, steps)
+        for i in diff:
+            log(f"  beam: row {i} differs; the plain search's smallest "
+                f"candidate gap {gaps[i]:.3e}")
+            if gaps[i] > GAP_LIMIT:
+                raise Fail(f"decode: beam row {i} differs away from a near "
+                           f"tie (gap {gaps[i]:.3e} > {GAP_LIMIT})")
+    keep = same[:, None].expand_as(bsc)
+    s_err = ((bsc - pbsc).abs() / pbsc.abs().clamp(min=1.0))[keep]
+    s_err = s_err.max().item() if s_err.numel() else 0.0
+    log(f"  beam: rows equal {DEC_B - len(diff)}/{DEC_B}, scores agree to "
+        f"{s_err:.2e} relative (tol {SCORE_RTOL:.0e})")
+    if s_err > SCORE_RTOL or not bool(torch.isfinite(bsc).all()):
+        raise Fail(f"decode: beam scores differ: {s_err:.2e}")
+    out["beam"].update(rows_equal_plain=DEC_B - len(diff),
+                       score_rel_err=s_err)
+    del params, dparams, noise
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"  decode phase: {out['wall_s']:.1f} s")
+    return out
+
+
+# -- mixture-of-experts: the LM trained at bench_moe_lm's width and served ----
+
+# bench_moe_lm(seq_len=2048, batch=8, dim=512, n_layers=8, n_heads=8,
+# vocab=32000, experts=8) (benchmarks/suite.py:452): every other block 8
+# experts, top-2, capacity 1.25, remat, adam 1e-3, f32, tokens
+# RandomState(0), weights seed 0; 1 + 5 steps (the bench times 10), and
+# the expert-choice router 1 + 2
+MOE_CFG = dict(vocab=32000, dim=512, n_layers=8, n_heads=8, remat=True,
+               moe_experts=8)
+MOE_B, MOE_T, MOE_STEPS, MOE_EC_STEPS = 8, 2048, 5, 2
+#: the MoE engine: bench_engine's width and requests (serve_phase's), cut
+#: from 32 to the first 16 (8 share the prefix) to keep the phase short:
+#: a 32-request serve takes ~18-24 s on each path (H100 80GB HBM3, 700 W)
+MOE_SERVE_REQ = 16
+
+
+class routing_spy:
+    """Records every top-k routing's router logits and decisions (and its
+    aux loss and dropped fraction) while entered."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        self.saved = PMOE.top_k_routing
+
+        def spy(logits, *a, **kw):
+            r = self.saved(logits, *a, **kw)
+            self.calls.append(dict(
+                logits=logits.detach(), expert=r.expert, slot=r.slot,
+                keep=r.keep, aux=r.aux_loss.detach(),
+                dropped=r.dropped.detach()))
+            return r
+
+        PMOE.top_k_routing = spy
+        return self
+
+    def __exit__(self, *exc):
+        PMOE.top_k_routing = self.saved
+
+
+def routing_diff(kernel, plain, k):
+    """Compare the routing decisions of two runs call by call: counts of
+    differing expert / slot / keep entries and, for each token whose set
+    of chosen experts differs, the plain router's logit gap between its
+    k-th and (k+1)-th expert -- the near tie that decided it."""
+    n_exp = n_slot = n_keep = 0
+    gaps = []
+    for a, b in zip(kernel, plain):
+        n_exp += int((a["expert"] != b["expert"]).sum())
+        n_slot += int((a["slot"] != b["slot"]).sum())
+        n_keep += int((a["keep"] != b["keep"]).sum())
+        moved = (torch.sort(a["expert"], dim=0).values
+                 != torch.sort(b["expert"], dim=0).values).any(dim=0)
+        if bool(moved.any()):
+            top = torch.topk(b["logits"][moved].float(), k + 1).values
+            gaps += (top[:, k - 1] - top[:, k]).tolist()
+    return dict(expert=n_exp, slot=n_slot, keep=n_keep,
+                tokens_moved=len(gaps),
+                largest_deciding_gap=max(gaps) if gaps else None,
+                smallest_deciding_gap=min(gaps) if gaps else None)
+
+
+def moe_parity(params0, tokens):
+    """The first step's loss and gradients on kernel A and on the plain
+    path (the flash Function's forward on its plain version) from the
+    same weights. The routing decisions are compared first; the leaf
+    gate (1e-4, floored as seq2seq's) holds only where every decision
+    agrees, else each differing token's deciding router-logit gap must
+    be a near tie (<= GAP_LIMIT) and the leaf errors are printed."""
+    cfg = TT.TransformerConfig(**MOE_CFG, attn_impl="flash")
+    runs = {}
+    for path in ("kernel", "plain"):
+        params = trainable(params0)
+        FA.reset_launch_counts()
+        with attention_spy(plain=path == "plain"), routing_spy() as rs:
+            loss = TT.loss(params, cfg, tokens)
+            grads = torch.autograd.grad(loss, tree_leaves(params))
+        runs[path] = dict(loss=loss.item(), grads=grads, routing=rs.calls,
+                          launched=FA.launch_counts["fwd"])
+        del params
+    k, p = runs["kernel"], runs["plain"]
+    diff = routing_diff(k["routing"], p["routing"], cfg.moe_k)
+    l_err = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+    g_err, lines = leaf_rel_errs(params0, k["grads"], p["grads"])
+    log(f"  parity: routing over {len(k['routing'])} calls (forward and "
+        f"remat recompute): differing expert {diff['expert']}, slot "
+        f"{diff['slot']}, keep {diff['keep']}; tokens whose experts moved "
+        f"{diff['tokens_moved']} (deciding logit gaps "
+        f"{diff['smallest_deciding_gap']} .. {diff['largest_deciding_gap']})")
+    log(f"  parity: loss {k['loss']:.7f} vs {p['loss']:.7f} ({l_err:.2e}, "
+        f"tol {LOSS_RTOL:.0e}); gradients max rel err {g_err:.2e} (tol "
+        f"{GRAD_RTOL:.0e}); A launches kernel {k['launched']}, plain "
+        f"{p['launched']}")
+    if k["launched"] != 2 * cfg.n_layers or p["launched"]:
+        raise Fail(f"moe parity: A launched {k['launched']} (kernel path, "
+                   f"want {2 * cfg.n_layers}) and {p['launched']} (plain)")
+    if l_err > LOSS_RTOL:
+        raise Fail(f"moe parity: losses differ: {l_err:.2e}")
+    routed_same = diff["expert"] == diff["slot"] == diff["keep"] == 0
+    if routed_same:
+        if g_err > GRAD_RTOL:
+            for line in lines:
+                log(line)
+            raise Fail(f"moe parity: gradients differ: {g_err:.2e}")
+    else:
+        for line in lines:
+            log(line)
+        if diff["tokens_moved"] == 0 or \
+                diff["largest_deciding_gap"] > GAP_LIMIT:
+            raise Fail(f"moe parity: routing differs away from a near tie: "
+                       f"{diff}")
+    return dict(loss_rel_err=l_err, grad_rel_err=g_err, routing=diff,
+                leaf_gate_applied=routed_same)
+
+
+def moe_train(params0, tokens, steps, **cfg_kw):
+    """1 + steps adam steps from a copy of params0; A's launches counted
+    from 0 before the warm-up; routing statistics from the warm-up step.
+    Returns the run's numbers."""
+    cfg = TT.TransformerConfig(**MOE_CFG, **cfg_kw)
+    params = trainable(params0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_launch_counts()
+    with attention_spy() as spy:
+        with routing_spy() as rs:
+            first, opt_state = lm_train(params, cfg, tokens, 1)
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rest, _ = lm_train(params, cfg, tokens, steps, opt_state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launched = FA.launch_counts["fwd"]
+    losses = [x.item() for x in first + rest]
+    step_s = wall / steps
+    n_moe = sum(cfg.is_moe_block(i) for i in range(cfg.n_layers))
+    fwd = rs.calls[:n_moe]
+    out = dict(ms_per_step=1e3 * step_s,
+               tokens_per_s=MOE_B * MOE_T / step_s,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               a_launches=launched,
+               a_launches_per_step=launched / (1 + steps), losses=losses,
+               attention_calls=spy.calls,
+               dropped=[c["dropped"].item() for c in fwd],
+               aux=[c["aux"].item() for c in fwd])
+    name = cfg_kw.get("moe_router", "topk")
+    log(f"  {name:<13} {out['ms_per_step']:.1f} ms/step = "
+        f"{out['tokens_per_s']:.0f} tokens/s, peak {out['peak_gib']:.2f} "
+        f"GiB; A {launched} launches ({out['a_launches_per_step']:g} per "
+        f"step); losses {['%.5f' % x for x in losses]}")
+    if fwd:
+        log(f"    first step, per MoE block: dropped {['%.4f' % x for x in out['dropped']]}, "
+            f"aux {['%.4f' % x for x in out['aux']]}")
+    want = 2 * cfg.n_layers * (1 + steps)
+    if launched != want or any(spy.calls.values()):
+        raise Fail(f"moe_train {name}: A launched {launched} times (want "
+                   f"{want}); attention off A: {spy.calls}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise Fail(f"moe_train {name}: losses not finite or not falling: "
+                   f"{losses}")
+    del params, opt_state
+    return out
+
+
+def moe_phase():
+    """The MoE LM: parity of the first step (routing compared first),
+    1 + MOE_STEPS top-k steps and 1 + MOE_EC_STEPS expert-choice steps at
+    bench_moe_lm's width; then DecodeEngine over an MoE model at
+    bench_engine's width, float and int8 KV, against the plain path."""
+    cfg = TT.TransformerConfig(**MOE_CFG)
+    t_phase = time.perf_counter()
+    log(f"phase moe: {MOE_CFG}, top-{cfg.moe_k} capacity "
+        f"{cfg.moe_capacity_factor}, B={MOE_B} T={MOE_T}, adam 1e-3, f32")
+    params0 = TT.init_params(0, cfg, device="cuda")
+    n_params = sum(p.numel() for p in tree_leaves(params0))
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, (MOE_B, MOE_T)).astype(np.int32)).cuda()
+    t_tok = MOE_B * (MOE_T - 1)
+    cap = PMOE.capacity_for(t_tok, cfg.moe_experts, cfg.moe_capacity_factor,
+                            cfg.moe_k)
+    log(f"  {n_params / 1e6:.1f} M parameters; {t_tok} tokens a step, "
+        f"capacity {cap} an expert, dispatch "
+        f"{'scatter' if PMOE._use_scatter('auto', t_tok, cfg.moe_experts, cap) else 'einsum'}")
+    out = dict(n_params=n_params, capacity=cap,
+               parity=moe_parity(params0, tokens))
+    torch.cuda.empty_cache()
+    out["topk"] = moe_train(params0, tokens, MOE_STEPS)
+    torch.cuda.empty_cache()
+    out["expert_choice"] = moe_train(params0, tokens, MOE_EC_STEPS,
+                                     moe_router="expert_choice")
+    del params0, tokens
+    torch.cuda.empty_cache()
+
+    # serving: the engine's prefill, decode and verify bodies pass the
+    # bucket-pad, inactive-slot and draft-padding masks to the router
+    scfg = TT.TransformerConfig(**SERVE_CFG, moe_experts=8)
+    log(f"  serve: {SERVE_CFG} moe_experts=8, slots={SLOTS} max_len="
+        f"{MAX_LEN} page={PAGE}, {MOE_SERVE_REQ} requests")
+    sparams = TT.init_params(np.random.RandomState(0), scfg, device="cuda")
+    prompts = make_prompts()[:MOE_SERVE_REQ]
+    geom = dict(slots=SLOTS, max_len=MAX_LEN, page_size=PAGE)
+    serve, launches = {}, {}
+    for label, c, need in (
+            ("float KV", scfg, ("flash_fwd", "ragged_tq1", "ragged_tqn",
+                                "float_device")),
+            ("int8 KV", dataclasses.replace(scfg, kv_cache_dtype="int8"),
+             ("flash_fwd", "int8_tq1", "int8_tqn", "int8_device"))):
+        DecodeEngine(sparams, c, **geom).serve(prompts[:2], max_new=4)
+        launches[label], _, serve[label] = kernel_and_plain(
+            f"moe {label}", sparams, c, prompts, need)
+    out.update(serve=serve, serve_launches=launches)
+    del sparams
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"  moe phase: {out['wall_s']:.1f} s")
+    return out
+
+
 # -- the image models: training at bench_image's width -------------------------
 
 # bench_image (benchmarks/suite.py:112-141: momentum(0.1, mu=0.9), softmax
@@ -4557,13 +5055,13 @@ def server_phase():
         f"in-flight finished in place, {c['fleet_admitted']} prefills for "
         f"{len(prompts)} requests (nothing recomputed)")
 
-    # (c) disaggregation: one prefill replica, two decode replicas; the
-    # float inline run (with the import kill) takes all the requests,
-    # the others the first wave of 16
+    # (c) disaggregation: one prefill replica, two decode replicas; each
+    # run (the float inline one with the import kill) takes the first two
+    # waves, 16 requests (all 32 before the smoke passed 700 s)
     for kv, c_, r_ in (("float", cfg, ref), ("int8", cfg8, ref8)):
         for shm in (False, True):
             key = f"disagg_{kv}_{'shm' if shm else 'inline'}"
-            n = len(prompts) if kv == "float" and not shm else 2 * SLOTS
+            n = 2 * SLOTS
             launches[key], out[key] = disagg_run(
                 key, params, c_, prompts[:n],
                 dict(r_, kernel=r_["kernel"][:n], plain=r_["plain"][:n]),
@@ -4618,6 +5116,8 @@ def main() -> int:
     srnn = simple_rnn_phase()
     family = rnn_family_phase()
     lm = lm_train_phase()
+    dec = decode_phase()
+    moe_out = moe_phase()
     image = image_phase()
 
     smi = subprocess.run(
@@ -4706,6 +5206,17 @@ def main() -> int:
               # layer per step)
               lm_train_launches=lm["a_launches"],
               lm_train_launches_per_step=lm["a_launches_per_step"],
+              # the decode phase's prefills (each mode counted from 0
+              # before its kernel-path call) and the MoE LM's steps and
+              # serves
+              decode_launches={k: v["a_launches"] for k, v in dec.items()
+                               if k != "wall_s"},
+              moe_train_launches={k: moe_out[k]["a_launches"]
+                                  for k in ("topk", "expert_choice")},
+              moe_train_launches_per_step=moe_out["topk"][
+                  "a_launches_per_step"],
+              moe_serve_launches={k: v["flash_fwd"] for k, v in
+                                  moe_out["serve_launches"].items()},
               other_shapes={k: {f: a[k][f] for f in (
                   "ms", "library_ms", "bound_ms", "err", "row_rel_err",
                   "library_err") if f in a[k]} for k in (
@@ -4725,7 +5236,10 @@ def main() -> int:
               launched["float"]["ragged_tq1"], b["main_decode"],
               **split_plan(b["main_decode"], "float", "float_device"),
               **server_launches("ragged_tq1", "ragged_tqn",
-                                "float_device")),
+                                "float_device"),
+              moe_serve_launches={k: moe_out["serve_launches"]["float KV"][k]
+                                  for k in ("ragged_tq1", "ragged_tqn",
+                                            "float_device")}),
         entry("ragged_paged_walk[tq>1]", walk,
               "paddle_tpu/ops/ragged_paged_attention.py:153",
               launched["float"]["ragged_tqn"], b["main_chunk"],
@@ -4734,7 +5248,10 @@ def main() -> int:
               "paddle_tpu/ops/ragged_paged_attention.py:188",
               launched["int8_kv"]["int8_tq1"], c["main_decode"],
               **split_plan(c["main_decode"], "int8_kv", "int8_device"),
-              **server_launches("int8_tq1", "int8_tqn", "int8_device")),
+              **server_launches("int8_tq1", "int8_tqn", "int8_device"),
+              moe_serve_launches={k: moe_out["serve_launches"]["int8 KV"][k]
+                                  for k in ("int8_tq1", "int8_tqn",
+                                            "int8_device")}),
         entry("ragged_paged_walk_int8[tq>1]", walk,
               "paddle_tpu/ops/ragged_paged_attention.py:188",
               launched["int8_kv"]["int8_tqn"], c["main_chunk"],
@@ -4805,6 +5322,8 @@ def main() -> int:
     log(json.dumps({"wide_cases": wide}))
     log(json.dumps({"rnn_family": family, "card": smi.stdout.strip()}))
     log(json.dumps({"lm_train": lm, "card": smi.stdout.strip()}))
+    log(json.dumps({"decode": dec, "moe": moe_out,
+                    "card": smi.stdout.strip()}))
     log(json.dumps({"image": image, "card": smi.stdout.strip()}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -17,4 +17,4 @@ Importing this package imports neither JAX nor `paddle_tpu`.
 __version__ = "0.1.0"
 
 __all__ = ["cli", "core", "data", "metrics", "models", "nn", "ops", "optim",
-           "serve", "testing", "train"]
+           "parallel", "serve", "testing", "train"]

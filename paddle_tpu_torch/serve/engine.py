@@ -52,6 +52,15 @@ whether its prefix came from the cache and whether its prefill was
 chunked. Sampled requests draw from a per-slot `torch.Generator` seeded
 from (engine seed, request identity); those draws are not JAX's.
 
+Mixture-of-experts configs ride the same `_block_parts` body. Expert
+capacity is a function of a call's token count, so every call passes
+the router a token mask: a prefill chunk's bucket pads and padded tail,
+a decode step's inactive slots and a verify window's positions past a
+row's draft_len claim no capacity (without it they would evict real
+tokens under a tight `moe_capacity_factor`). A pool step routes its
+live rows together, so a pathologically imbalanced step can drop a
+token that a solo `generate` would not, as in the JAX engine.
+
 Sliding-window configs (`attn_window`) hold [S, window] RING pools
 instead of paged arenas: position p of a row lives at ring slot p mod
 window (`transformer._ring_slot_valid`), a prompt prefills in one shot
@@ -387,6 +396,8 @@ class DecodeEngine:
         x = T._embed(params, torch.as_tensor(toks, device=dev)[None, :])
         ap = start + torch.arange(chunk_w, dtype=torch.int32, device=dev)
         pos = ap[None, :]
+        # bucket pads and the padded tail claim no MoE expert capacity
+        tok_mask = (ap < true_len)[None, :]
         pages_row = state.page_table[slot]
         if from_zero:
             lens = torch.tensor([true_len], dtype=torch.int32, device=dev)
@@ -396,7 +407,7 @@ class DecodeEngine:
                                         page_size=self.page_size)
         for p, (k_buf, v_buf) in zip(params["blocks"], state.caches):
             if from_zero:
-                x, k, v = T._block_parts(cfg, p, x, pos, within)
+                x, k, v, _ = T._block_parts(cfg, p, x, pos, within, tok_mask)
                 pa.write_kv_pair(k_buf, v_buf, k[0], v[0], pg, off)
             else:
                 def cached(q, k, v, k_buf=k_buf, v_buf=v_buf):
@@ -405,7 +416,8 @@ class DecodeEngine:
                         page_size=self.page_size, max_len=self.max_len,
                         impl=self.ragged_impl)[0]
 
-                x, _, _ = T._block_parts(cfg, p, x, pos, cached)
+                x, _, _, _ = T._block_parts(cfg, p, x, pos, cached,
+                                            tok_mask)
         if final:
             self._activate(state, ticket, x[0, true_len - 1 - start])
 
@@ -453,6 +465,7 @@ class DecodeEngine:
         lens = torch.tensor([true_len], dtype=torch.int32, device=dev)
         attn = lambda q, k, v: T._attention(cfg, q, k, v, causal=True,
                                             key_lens=lens)
+        tok_mask = pos < true_len       # bucket pads claim no MoE capacity
         w = cfg.attn_window
         last = true_len - 1
         p_slot = last - np.mod(last - np.arange(w), w)
@@ -467,7 +480,7 @@ class DecodeEngine:
                 buf[slot] = new.to(buf.dtype)
 
         for p, (k_buf, v_buf) in zip(params["blocks"], state.caches):
-            x, k, v = T._block_parts(cfg, p, x, pos, attn)
+            x, k, v, _ = T._block_parts(cfg, p, x, pos, attn, tok_mask)
             write_slot(k_buf, k[0, ring_idx])
             write_slot(v_buf, v[0, ring_idx])
         self._activate(state, ticket, x[0, last])
@@ -621,7 +634,9 @@ class DecodeEngine:
                         return T._cached_attention(q, k, v, k_buf, v_buf,
                                                    write_slots, valid4)[0]
 
-                x, _, _ = T._block_parts(cfg, p, x, pos, attn)
+                # inactive slots are dead compute: no MoE capacity either
+                x, _, _, _ = T._block_parts(cfg, p, x, pos, attn,
+                                            state.active[:, None])
             logits = T._head(params, x[:, -1])
             nxt = self._select(logits, state.temp, state.top_k,
                                state.top_p, state.generators)
@@ -698,6 +713,10 @@ class DecodeEngine:
             x = T._embed(params, window)
             pos = state.pos[:, None] + torch.arange(
                 k + 1, dtype=torch.int32, device=dev)[None, :]
+            # positions past a row's draft_len are padding: dead compute
+            # that must not claim MoE capacity, as inactive rows
+            tok_mask = state.active[:, None] & (
+                torch.arange(k + 1, device=dev)[None, :] <= dl[:, None])
             for p, (k_buf, v_buf) in zip(params["blocks"], state.caches):
                 # write the whole window's K/V through the table, then
                 # the ragged read at per-row offsets; rejected positions
@@ -709,7 +728,7 @@ class DecodeEngine:
                         state.pos, state.active, page_size=self.page_size,
                         max_len=L, impl=self.ragged_impl)[0]
 
-                x, _, _ = T._block_parts(cfg, p, x, pos, attn)
+                x, _, _, _ = T._block_parts(cfg, p, x, pos, attn, tok_mask)
             logits = T._head(params, x)                     # [S, K+1, V]
             # an all-greedy pool takes the sort-free argmax rule, as the
             # plain step takes argmax; the host knows which

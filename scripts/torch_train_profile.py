@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where a training step's time goes in the PyTorch/CUDA port, on one card.
 
-    python3 scripts/torch_train_profile.py [--model seq2seq|lstm|lm|resnet50]
-                                           [--batch B]
+    python3 scripts/torch_train_profile.py [--model seq2seq|lstm|lm|moe_lm|
+                                            resnet50] [--batch B]
 
 seq2seq (default): seq2seq_attn at bench_seq2seq's width
 (benchmarks/suite.py:188: vocab 30000, embed 256, hidden 512, B=64,
@@ -15,7 +15,11 @@ D and E. lm: the transformer LM at bench_transformer_lm's width
 (suite.py:331: vocab 32000, dim 512, 8 layers, 8 heads, remat, bf16
 policy, B=4, T=8192, full causal, adam 1e-3, the same batch every
 step), the bench's hand-rolled step, attention on kernel A and the
-flash backward. resnet50: bench_image's step (suite.py:112: ResNet-50,
+flash backward. moe_lm: the mixture-of-experts LM at bench_moe_lm's
+width (suite.py:452: vocab 32000, dim 512, 8 layers, 8 heads, every
+other block 8 experts, top-2, capacity 1.25, remat, B=8, T=2048, adam
+1e-3, f32, the same batch every step), the bench's step; attention on
+kernel A and the flash backward. resnet50: bench_image's step (suite.py:112: ResNet-50,
 224x224, bf16 policy, momentum(0.1, mu=0.9), softmax CE,
 make_train_step(donate=True), one batch from RandomState(0/1)) at
 --batch (default 256), cuDNN benchmark mode on. Seeded random weights
@@ -30,7 +34,14 @@ and data, f32 (lm, resnet50: bf16 compute), TF32 off. Then:
   other kernels (the kernels its autograd node launches), the LM head
   with its CE (the kernels of the ops under a `record_function` around
   `transformer._nll` and of their backward nodes, matched by sequence
-  number), and the rest. For resnet50 by part, from the CPU op (or
+  number), and the rest. For moe_lm by part, each kernel attributed to
+  the innermost CPU event that names a part (a block is one: the remat
+  recompute runs inside the backward node that first needs it): kernel
+  A, the flash backward, the routing and dispatch (`top_k_routing`,
+  the dispatch into [E, C, D] and the combine, under a
+  `record_function`, and their backward nodes by sequence number), the
+  expert FFN (its products and the rest), the LM head with its CE, and
+  the rest. For resnet50 by part, from the CPU op (or
   autograd node, or the optimizer's record_function) that launched each
   kernel, the outermost one that names a part: convolutions split into
   fprop (the forward op's kernels), dgrad and wgrad (the backward's, by
@@ -68,6 +79,7 @@ from paddle_tpu_torch.nn import module as NM  # noqa: E402
 from paddle_tpu_torch.nn import recurrent as NR  # noqa: E402
 from paddle_tpu_torch.ops import losses as LS  # noqa: E402
 from paddle_tpu_torch.optim import optimizers as OPT  # noqa: E402
+from paddle_tpu_torch.parallel import moe as PMOE  # noqa: E402
 from paddle_tpu_torch.train.state import TrainState  # noqa: E402
 from paddle_tpu_torch.train.trainer import Trainer, make_train_step  # noqa
 
@@ -75,11 +87,17 @@ S2S_VOCAB, S2S_EMBED, S2S_H, S2S_B, S2S_LEN = 30000, 256, 512, 64, 30
 LSTM_VOCAB, LSTM_H, LSTM_B, LSTM_T = 10000, 512, 64, 100
 LM_CFG = dict(vocab=32000, dim=512, n_layers=8, n_heads=8, remat=True)
 LM_B, LM_T = 4, 8192
+MOE_CFG = dict(vocab=32000, dim=512, n_layers=8, n_heads=8, remat=True,
+               moe_experts=8)
+MOE_B, MOE_T = 8, 2048
 IMAGE_HW = 224
 TIMED, PROFILED = 10, 3
 OPTIMIZER_SPAN = "optimizer"
 HEAD_SPAN = "lm_head_ce"
 FLASH_BWD_NODE = "_FlashAttentionBackward"
+BLOCK_SPAN = "transformer_block"
+ROUTING_SPAN = "moe_routing_dispatch"
+EXPERT_SPAN = "moe_expert_ffn"
 
 
 def kind(name: str) -> str:
@@ -197,6 +215,40 @@ def lm_step_fn():
                    torch.tensor(i, dtype=torch.int32, device="cuda"))
 
     return step, LM_B * LM_T
+
+
+def spanned(fn, span):
+    def run(*a, **kw):
+        with torch.profiler.record_function(span):
+            return fn(*a, **kw)
+    return run
+
+
+def moe_lm_step_fn():
+    """(step(i), tokens per step): bench_moe_lm's step (f32), with each
+    block, the routing and dispatch, the expert FFN and the LM head with
+    its CE inside record_function spans."""
+    cfg = TT.TransformerConfig(**MOE_CFG)
+    params = tree_map(lambda t: t.requires_grad_(True),
+                      TT.init_params(0, cfg, device="cuda"))
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, MOE_CFG["vocab"], (MOE_B, MOE_T)).astype(np.int32)).cuda()
+    TT._nll = spanned(TT._nll, HEAD_SPAN)
+    TT._block = spanned(TT._block, BLOCK_SPAN)
+    for name in ("top_k_routing", "_dispatch_expert_in", "_combine_out"):
+        setattr(PMOE, name, spanned(getattr(PMOE, name), ROUTING_SPAN))
+    PMOE._expert_ffn = spanned(PMOE._expert_ffn, EXPERT_SPAN)
+    opt = OPT.adam(1e-3)
+    opt_state = opt.init(params)
+    leaves = tree_leaves(params)
+
+    def step(i):
+        loss = TT.loss(params, cfg, tokens)
+        it = iter(torch.autograd.grad(loss, leaves))
+        opt.update(tree_map(lambda _: next(it), params), opt_state, params,
+                   torch.tensor(i, dtype=torch.int32, device="cuda"))
+
+    return step, MOE_B * MOE_T
 
 
 def resnet50_step_fn(batch):
@@ -329,9 +381,59 @@ def lm_parts(events):
             "LM head + CE (fwd and bwd)": sum(d for _, d in head)}
 
 
+def moe_parts(events):
+    """Device us of the MoE LM step's parts over the profiled window, each
+    kernel under the innermost CPU event that names a part ({part: us}),
+    or None when the profiler tied no kernel to a CPU op."""
+    cpu = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CPU]
+    span_part = {ROUTING_SPAN: "routing and dispatch",
+                 EXPERT_SPAN: "expert FFN", HEAD_SPAN: "LM head + CE",
+                 BLOCK_SPAN: "rest", FLASH_BWD_NODE: "flash backward"}
+    seq_part = {}
+    for e in cpu:
+        if e.name in (ROUTING_SPAN, EXPERT_SPAN, HEAD_SPAN):
+            stack = list(e.cpu_children)
+            while stack:
+                x = stack.pop()
+                if x.sequence_nr >= 0:
+                    seq_part[x.sequence_nr] = span_part[e.name]
+                stack += x.cpu_children
+
+    def label(e):
+        if e.name in span_part:
+            return span_part[e.name]
+        if ("Backward" in e.name and not e.name.startswith("autograd::")
+                and e.sequence_nr in seq_part):
+            return seq_part[e.sequence_nr]
+        return None
+
+    parts = defaultdict(float)
+    tied = [False]
+
+    def walk(e, part):
+        part = label(e) or part
+        for k in e.kernels:
+            tied[0] = True
+            if kind(k.name) == "flash forward (A)":
+                parts["flash forward (A)"] += k.duration
+            elif part in ("expert FFN", "flash backward"):
+                sub = "products" if kind(k.name) == "matmul" else "other"
+                parts[f"{part}: {sub}"] += k.duration
+            else:
+                parts[part or "rest"] += k.duration
+        for c in e.cpu_children:
+            walk(c, part)
+
+    for e in cpu:
+        if e.cpu_parent is None:
+            walk(e, None)
+    return dict(parts) if tied[0] else None
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", choices=("seq2seq", "lstm", "lm",
+    ap.add_argument("--model", choices=("seq2seq", "lstm", "lm", "moe_lm",
                                         "resnet50"), default="seq2seq")
     ap.add_argument("--batch", type=int, default=256,
                     help="resnet50's batch")
@@ -343,11 +445,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     image = args.model == "resnet50"
     step, tokens = dict(seq2seq=seq2seq_step_fn, lstm=lstm_step_fn,
-                        lm=lm_step_fn,
+                        lm=lm_step_fn, moe_lm=moe_lm_step_fn,
                         resnet50=lambda: resnet50_step_fn(args.batch))[
                             args.model]()
     unit = "images" if image else "tokens"
-    timed = 5 if args.model in ("lm", "resnet50") else TIMED
+    timed = 5 if args.model in ("lm", "moe_lm", "resnet50") else TIMED
     for i in range(2):
         step(i)
     torch.cuda.synchronize()
@@ -395,6 +497,8 @@ def main() -> int:
             parts = {"flash forward (A)": by_kind["flash forward (A)"],
                      **parts}
             parts["rest"] = total - sum(parts.values())
+    if args.model == "moe_lm" and kernels:
+        parts = moe_parts(events)
     if image and kernels:
         parts = image_parts(events)
     print(f"card: {torch.cuda.get_device_name(0)}, model {args.model}")
@@ -408,7 +512,7 @@ def main() -> int:
               f"{len(kernels) / PROFILED:.0f} kernels per step")
         for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1]):
             print(f"  {k:<24} {v / PROFILED / 1e3:9.3f} ms/step")
-        if args.model in ("lm", "resnet50"):
+        if args.model in ("lm", "moe_lm", "resnet50"):
             if parts is None:
                 print("  by part: not measured (the profiler tied no "
                       "kernel to a CPU op)")
@@ -430,7 +534,7 @@ def main() -> int:
            "kernels_per_step": len(kernels) / PROFILED,
            "device_ms_per_step_by_kind": {k: v / PROFILED / 1e3
                                           for k, v in by_kind.items()}}
-    if args.model in ("lm", "resnet50"):
+    if args.model in ("lm", "moe_lm", "resnet50"):
         out["device_ms_per_step_by_part"] = None if parts is None else {
             k: v / PROFILED / 1e3 for k, v in parts.items()}
     print(json.dumps(out))

@@ -33,6 +33,7 @@ MODULES = [
     "paddle_tpu_torch.ops.ragged_paged_attention",
     "paddle_tpu_torch.ops.flash_attention",
     "paddle_tpu_torch.models.transformer", "paddle_tpu_torch.models.weights",
+    "paddle_tpu_torch.parallel", "paddle_tpu_torch.parallel.moe",
     "paddle_tpu_torch.serve.paged", "paddle_tpu_torch.serve.policy",
     "paddle_tpu_torch.serve.speculative", "paddle_tpu_torch.serve.engine",
     "paddle_tpu_torch.core.pytree", "paddle_tpu_torch.serve.quant",

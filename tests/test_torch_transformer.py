@@ -123,6 +123,26 @@ def test_unported_options_raise():
     # tests/test_torch_serve_ring.py)
     out = TT.generate(tp, dataclasses.replace(tcfg, attn_window=2), prompt, 3)
     assert out.shape == (1, 7)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TT.init_params(0, dataclasses.replace(tcfg, moe_experts=2),
-                       device="cpu")
+    # MoE blocks are ported: generate runs on them (their parity with
+    # JAX: tests/test_torch_moe_lm.py)
+    moe_cfg = dataclasses.replace(tcfg, moe_experts=2)
+    out = TT.generate(TT.init_params(0, moe_cfg, device="cpu"), moe_cfg,
+                      prompt, 3)
+    assert out.shape == (1, 7)
+
+
+@pytest.mark.parametrize("router", ["topk", "expert_choice"])
+def test_moe_init_params_tree_matches_jax(router):
+    cfg_kw = dict(CONFIGS["mha"], moe_experts=4, moe_every=1,
+                  moe_router=router)
+    jcfg, tcfg = JT.TransformerConfig(**cfg_kw), TT.TransformerConfig(
+        **cfg_kw)
+    jp = jax.device_get(JT.init_params(jax.random.key(0), jcfg))
+    tp = params_to_numpy(TT.init_params(np.random.RandomState(0), tcfg,
+                                        device="cpu"))
+    j_leaves = jax.tree_util.tree_leaves_with_path(jp)
+    t_leaves = jax.tree_util.tree_leaves_with_path(tp)
+    assert [p for p, _ in j_leaves] == [p for p, _ in t_leaves]
+    for (path, a), (_, b) in zip(j_leaves, t_leaves):
+        assert a.shape == b.shape, path
+    assert tp["blocks"][1]["moe"]["w1"].shape == (4, 32, 128)
