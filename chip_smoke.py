@@ -151,6 +151,35 @@ Phases, in order; any failure exits non-zero:
      --metrics-out` in a child process at this width: its lines equal
      the in-process router's tokens (else the gap rule), every request
      completed, the metrics file parses.
+3c. artifact -- the serving artifacts (serve.artifact, torch.export),
+   A, B and C running as registered operators inside the exported
+   programs. The exports (both bundles, the decoder, merge-model) trace
+   on the host and launch no kernel, so a child process
+   (`export_artifacts`) writes them while the serving phases run, and
+   the phase waits for it, then loads and checks them:
+   - an engine bundle (buckets (128,), sampled=False; no speculative
+     width, so no verify programs) of the float-KV engine and of the
+     int8-KV engine,
+     saved, loaded into a fresh engine and bound: the
+     32 requests of serve_phase must come out bit for bit equal to that
+     phase's eager serve, with artifact_fallbacks 0, one "step" program
+     call per decode step, the 128-wide from-zero chunk program serving
+     the prefills (a prefix hit's 64-wide remainder is an expected miss,
+     served eagerly), and A, B and C launched exactly as often as in the
+     eager serve (A 136, B or C 4096 + 120 calls, 8432 device
+     launches). Cold start (an engine from its weights, the bundle
+     loaded and bound, one prefill, its first token on the host) and
+     tokens/s are printed beside the eager engine's.
+   - a bundle whose manifest names another PyTorch version: refused at
+     ServingServer boot with the field named, counted once with a
+     flight event, and the 8 requests served after it (16 new tokens
+     each) equal the eager tokens.
+   - export_decoder at bench_decode's width (B=8, a 128-token prompt,
+     4 steps unrolled: the bench's 128 cut for export time): its tokens
+     equal generate()'s, A launched once per layer in its prefill.
+   - `merge-model` over a parameters tar and `infer` of ResNet-50 at
+     bench_image's width, batch 64, f32 eval: within 1e-4 of the eager
+     forward.
 4. train  -- the bench_lstm classifier (benchmarks/suite.py:144: vocab
    10000, embedding = hidden = 512, 2 x nn.LSTM, mean over time,
    Dense(2), adam 1e-3; B=64, T=100) with seeded random weights through
@@ -4448,7 +4477,7 @@ def kernel_and_plain(label, params, cfg, prompts, need):
         f"{n_tok / pwall:.1f} generated tokens/s")
     same = check_greedy(label, toks, ptoks, prompts, params, plain_cfg)
     SERVE_REFS[label] = dict(kernel=toks, plain=ptoks, wall=wall,
-                             n_prompts=len(prompts))
+                             n_prompts=len(prompts), launched=launched)
     return launched, ptoks, dict(
         requests=len(prompts), tokens=n_tok, wall_s=wall,
         tok_s=n_tok / wall, plain_wall_s=pwall, plain_tok_s=n_tok / pwall,
@@ -5078,6 +5107,370 @@ def server_phase():
     return launches, out
 
 
+# -- serving artifacts: engine bundles, a decoder, merge-model / infer --------
+
+# bench_image's ResNet-50 at batch 64, f32 eval, through merge-model/infer
+ART_IMAGE_B = 64
+# the exported decoder: bench_decode's batch and prompt; its 128 steps cut
+# to 4 (the export unrolls every step: 32 took 184.5 s to export and save
+# and 42.4 s to load on the card, 8 took 55.1 s and 10.0 s; PR 16)
+ART_DEC_STEPS = 4
+# the tampered-manifest server's eager serve after the refusal: SLOTS
+# requests, their first ART_TAMPER_NEW tokens (cut from MAX_NEW)
+ART_TAMPER_NEW = 16
+ART_TOL = 1e-4
+
+
+class counting_programs(dict):
+    """An engine's bound programs, each call counted by name."""
+
+    def __init__(self, programs):
+        super().__init__()
+        self.calls = {k: 0 for k in programs}
+        for k, fn in programs.items():
+            def counted(*a, _k=k, _fn=fn):
+                self.calls[_k] += 1
+                return _fn(*a)
+            self[k] = counted
+
+
+def no_verify_policy():
+    """The bundle engines' policy: no speculative width, so the bundle
+    holds no verify programs (this phase serves greedy one-token decode,
+    and saves its bundles with sampled=False; the CPU tests serve the
+    verify and sampled programs)."""
+    from paddle_tpu_torch.serve.policy import SchedulerPolicy
+
+    pol = SchedulerPolicy()
+    pol.spec_draft_max = 0
+    return pol
+
+
+def bundle_path(tmp, cfg):
+    return os.path.join(tmp, f"engine_{cfg.kv_cache_dtype}.tar")
+
+
+def bundle_run(label, params, cfg, prompts, geom, ref, tmp, saved):
+    """Load the bundle export_artifacts saved for this engine into a
+    fresh engine and serve the requests through it: tokens bit for bit
+    the eager serve's, no fallback, the eager serve's launches of A, B
+    and C; cold start (load to first token) and tokens/s beside the
+    eager engine's."""
+    from paddle_tpu_torch.serve import artifact as ART
+
+    path = bundle_path(tmp, cfg)
+    mk = lambda: DecodeEngine(params, cfg, policy=no_verify_policy(), **geom)
+    log(f"  {label} bundle: {len(saved['programs'])} programs "
+        f"{saved['programs']}, {saved['bytes']} bytes, exported and saved in "
+        f"{saved['save_s']:.1f} s (per program: "
+        f"{ {k: round(v, 2) for k, v in saved['export_s'].items()} })")
+
+    def first_token(eng, bind):
+        # cold start: an engine from its weights, the bundle loaded and
+        # bound (or not), one request's prefill, its first token on the
+        # host
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        e = eng()
+        if bind:
+            progs, m = ART.load_engine_artifact(e, path,
+                                                expect_buckets=(PROMPT,))
+            e.bind_artifact(progs, m)
+        st = e.prefill(e.init_state(), 0, prompts[0])
+        tok = int(st.last_tok[0])
+        return time.perf_counter() - t, tok, e
+
+    eager_cold, eager_tok, _ = first_token(mk, False)
+    cold, tok, eng = first_token(mk, True)
+    if tok != eager_tok or tok != ref["kernel"][0][0]:
+        raise Fail(f"{label} bundle: first token {tok}, eager {eager_tok}")
+    eng._artifact = progs = counting_programs(eng._artifact)
+    toks, wall, launched = timed_serve(eng, prompts, buckets=(PROMPT,))
+    st = eng.last_stats
+    n_tok = sum(len(t) for t in toks)
+    same = sum(a == b for a, b in zip(toks, ref["kernel"]))
+    log(f"  {label} bundle: {n_tok} tokens in {wall:.3f} s = "
+        f"{n_tok / wall:.1f} generated tokens/s (eager {n_tok / ref['wall']:.1f}"
+        f"); cold start {cold:.3f} s (eager engine {eager_cold:.3f} s); "
+        f"program calls {progs.calls}; launches {launched} (eager "
+        f"{ref['launched']}); tokens equal on {same}/{len(toks)}")
+    if same != len(toks):
+        raise Fail(f"{label} bundle: tokens differ from the eager serve's "
+                   f"on {len(toks) - same} requests")
+    if eng.artifact_fallbacks or eng.artifact_loads != 1:
+        raise Fail(f"{label} bundle: loads {eng.artifact_loads}, fallbacks "
+                   f"{eng.artifact_fallbacks}")
+    if progs.calls["step"] != st.steps or progs.calls[
+            f"chunk_w{PROMPT}_z1_f1"] == 0:
+        raise Fail(f"{label} bundle: program calls {progs.calls}, "
+                   f"{st.steps} steps")
+    diff = {k: (launched[k], ref["launched"][k]) for k in launched
+            if launched[k] != ref["launched"][k]}
+    if diff:
+        raise Fail(f"{label} bundle: launches differ from the eager "
+                   f"serve's: {diff}")
+    return launched, dict(
+        programs=saved["programs"], bundle_bytes=saved["bytes"],
+        save_s=saved["save_s"], export_s=saved["export_s"],
+        cold_start_s=cold, eager_cold_start_s=eager_cold, wall_s=wall,
+        tok_s=n_tok / wall, eager_tok_s=n_tok / ref["wall"],
+        program_calls=dict(progs.calls), steps=st.steps, same=same)
+
+
+def tampered_run(params, cfg, prompts, geom, path, ref, tmp):
+    """A bundle whose manifest names another PyTorch version: refused at
+    boot with the field named, counted once with a flight event, and the
+    server then serves the eager engine's tokens."""
+    import io
+    import tarfile
+
+    from paddle_tpu_torch.obs.flight import FlightRecorder
+    from paddle_tpu_torch.serve.server import ServingServer
+
+    bad = os.path.join(tmp, "tampered.tar")
+    with tarfile.open(path) as src, tarfile.open(bad, "w") as dst:
+        for m in src.getmembers():
+            data = src.extractfile(m).read()
+            if m.name == "manifest.json":
+                man = json.loads(data)
+                man["torch_version"] = "0.0.0-other"
+                data = json.dumps(man).encode()
+            info = tarfile.TarInfo(m.name)
+            info.size = len(data)
+            dst.addfile(info, io.BytesIO(data))
+    flight = FlightRecorder()
+    eng = DecodeEngine(params, cfg, policy=no_verify_policy(), **geom)
+    srv = ServingServer(eng, max_queue=64, buckets=(PROMPT,), flight=flight,
+                        artifact_path=bad)
+    evs = [e for e in flight.events()
+           if e["kind"] == "artifact" and e["name"] == "fallback"]
+    c = srv.counters()
+    ids = [srv.submit(p, max_new=ART_TAMPER_NEW) for p in prompts[:SLOTS]]
+    res = srv.run()
+    toks = [res[i].tokens for i in ids]
+    log(f"  tampered manifest: artifact_loads {c['artifact_loads']}, "
+        f"artifact_fallbacks {c['artifact_fallbacks']}, flight events "
+        f"{len(evs)} ({evs[0]['error'][:90] if evs else None}); "
+        f"{len(toks)} requests served eagerly")
+    if (c["artifact_fallbacks"] != 1 or c["artifact_loads"] != 0
+            or len(evs) != 1 or "torch_version" not in evs[0]["error"]):
+        raise Fail(f"tampered manifest: counters {c}, events {evs}")
+    if toks != [t[:ART_TAMPER_NEW] for t in ref["kernel"][:SLOTS]]:
+        raise Fail("tampered manifest: the eager serve after the refusal "
+                   "differs from the eager serve's tokens")
+    return dict(fallbacks=c["artifact_fallbacks"],
+                error=evs[0]["error"][:200])
+
+
+def decoder_prompt():
+    return torch.from_numpy(np.random.RandomState(0).randint(
+        0, SERVE_CFG["vocab"], (DEC_B, DEC_PROMPT)).astype(np.int64)).cuda()
+
+
+def decoder_run(tmp, saved):
+    """The decoder export_artifacts saved (bench_decode's width, B=8, a
+    128-token prompt, ART_DEC_STEPS steps unrolled): the loaded program's
+    tokens equal the eager generate()'s, with kernel A launched once per
+    layer in its prefill."""
+    from paddle_tpu_torch.serve import artifact as ART
+
+    cfg = TT.TransformerConfig(**SERVE_CFG)
+    params = TT.init_params(0, cfg, device="cuda")
+    prompt = decoder_prompt()
+    path = os.path.join(tmp, "decoder.ptc")
+    t0 = time.perf_counter()
+    m = ART.load_compiled_model(path)
+    load_s = time.perf_counter() - t0
+    reset_counts()
+    got = m.predict(prompt)
+    torch.cuda.synchronize()
+    a_art = FA.launch_counts["fwd"]
+    reset_counts()
+    want = TT.generate(params, cfg, prompt, ART_DEC_STEPS)
+    torch.cuda.synchronize()
+    a_eager = FA.launch_counts["fwd"]
+    same = bool(torch.equal(got, want))
+    log(f"  decoder: B={DEC_B} prompt {DEC_PROMPT}, {ART_DEC_STEPS} steps "
+        f"(bench_decode's 128 cut), exported in {saved['export_s']:.1f} s, "
+        f"{saved['bytes']} bytes, loaded in {load_s:.1f} s; tokens equal "
+        f"to generate(): {same}; A launches {a_art} (eager {a_eager})")
+    if not same:
+        raise Fail("decoder artifact: tokens differ from generate()")
+    if a_art != cfg.n_layers or a_eager != cfg.n_layers:
+        raise Fail(f"decoder artifact: A launched {a_art} times (eager "
+                   f"{a_eager}), not once per layer")
+    return dict(steps=ART_DEC_STEPS, export_s=saved["export_s"],
+                load_s=load_s, bytes=saved["bytes"], a_launches=a_art,
+                eager_a_launches=a_eager)
+
+
+ART_IMAGE_CONFIG = """
+from paddle_tpu_torch.models import resnet
+def get_config():
+    return dict(model=resnet.resnet(50, num_classes=1000),
+                input_spec=({b}, {hw}, {hw}, 3), name="resnet50")
+"""
+
+
+def image_params():
+    model = image_model("resnet50")
+    spec = (ART_IMAGE_B, IMAGE_HW, IMAGE_HW, 3)
+    params, mstate = model.init(1, NM.ShapeSpec(spec), device="cuda")
+    return model, params, mstate
+
+
+def merge_model(tmp):
+    """`merge-model` of ResNet-50 at bench_image's width over a
+    parameters tar; returns its seconds."""
+    from paddle_tpu_torch import cli as CLI
+
+    cfg_path = os.path.join(tmp, "resnet50_cfg.py")
+    with open(cfg_path, "w") as f:
+        f.write(ART_IMAGE_CONFIG.format(b=ART_IMAGE_B, hw=IMAGE_HW))
+    ptar = os.path.join(tmp, "params.tar")
+    CK.save_parameters_tar(image_params()[1], ptar)
+    t0 = time.perf_counter()
+    if CLI.main(["merge-model", "--config", cfg_path, "--params", ptar,
+                 "--output", os.path.join(tmp, "resnet50.ptc"),
+                 "--device", "cuda"]) != 0:
+        raise Fail("merge-model failed")
+    return time.perf_counter() - t0
+
+
+def infer_run(tmp, saved):
+    """`infer` of the merged ResNet-50 on a batch of ART_IMAGE_B: the
+    output against the eager forward of the same weights, f32 eval."""
+    from paddle_tpu_torch import cli as CLI
+
+    x = image_batch(ART_IMAGE_B, IMAGE_HW, 1000, "cpu")[0].numpy()
+    xp = os.path.join(tmp, "x.npy")
+    np.save(xp, x)
+    t0 = time.perf_counter()
+    if CLI.main(["infer", "--artifact", os.path.join(tmp, "resnet50.ptc"),
+                 "--output-prefix", os.path.join(tmp, "out"), xp]) != 0:
+        raise Fail("infer failed")
+    infer_s = time.perf_counter() - t0
+    got = np.load(os.path.join(tmp, "out0.npy"))
+    model, params, mstate = image_params()
+    with torch.no_grad():
+        want = model.apply(params, mstate, torch.from_numpy(x).cuda(),
+                           training=False)[0].cpu().numpy()
+    err = float(np.max(np.abs(got - want)))
+    log(f"  merge-model/infer resnet50 B={ART_IMAGE_B} f32 eval: merge "
+        f"{saved['merge_s']:.1f} s, infer {infer_s:.1f} s, max abs error "
+        f"against the eager forward {err:.3e} (tolerance {ART_TOL})")
+    if not err <= ART_TOL:
+        raise Fail(f"merge-model/infer: error {err:.3e} > {ART_TOL}")
+    return dict(batch=ART_IMAGE_B, merge_s=saved["merge_s"],
+                infer_s=infer_s, max_abs_err=err)
+
+
+def export_artifacts(tmp):
+    """Write every artifact the artifact phase loads into `tmp`: the
+    float-KV and int8-KV engine bundles (buckets (PROMPT,), no verify or
+    sampled programs), the decoder and the merged ResNet-50; their
+    seconds and sizes go to `tmp`/exports.json. The export traces in
+    Python on the host (no kernel launches), so main() runs it in a
+    child process beside the serving phases (`ArtifactExports`)."""
+    from paddle_tpu_torch.serve import artifact as ART
+
+    cfg = TT.TransformerConfig(**SERVE_CFG)
+    params = TT.init_params(np.random.RandomState(0), cfg, device="cuda")
+    geom = dict(slots=SLOTS, max_len=MAX_LEN, page_size=PAGE)
+    out = {}
+    for c in (cfg, dataclasses.replace(cfg, kv_cache_dtype="int8")):
+        path = bundle_path(tmp, c)
+        t0 = time.perf_counter()
+        man = ART.save_engine_artifact(
+            DecodeEngine(params, c, policy=no_verify_policy(), **geom), path,
+            buckets=(PROMPT,), sampled=False)
+        out[c.kv_cache_dtype] = dict(
+            programs=man["programs"], export_s=man["export_s"],
+            save_s=time.perf_counter() - t0, bytes=os.path.getsize(path))
+    dec = os.path.join(tmp, "decoder.ptc")
+    meta = ART.export_decoder(TT.init_params(0, cfg, device="cuda"), cfg, dec,
+                              batch=DEC_B, prompt_len=DEC_PROMPT,
+                              steps=ART_DEC_STEPS)
+    out["decoder"] = dict(export_s=meta["export_s"],
+                          bytes=os.path.getsize(dec))
+    out["merge_s"] = merge_model(tmp)
+    with open(os.path.join(tmp, "exports.json"), "w") as f:
+        json.dump(out, f)
+
+
+class ArtifactExports:
+    """export_artifacts(tmp) in a child process, started beside the
+    serving phases and joined by the artifact phase; stopped (killed) on
+    exit if still running."""
+
+    def __init__(self, tmp):
+        self.tmp = tmp
+        self.log = open(os.path.join(tmp, "exports.log"), "w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke as S; "
+             f"S.export_artifacts({tmp!r})"],
+            cwd=REPO_DIR, stdout=self.log, stderr=subprocess.STDOUT)
+        self.t0 = time.perf_counter()
+
+    def join(self):
+        """The exports' seconds and sizes, once the child is done."""
+        t = time.perf_counter()
+        rc = self.proc.wait()
+        self.log.seek(0)
+        tail = self.log.read()[-4000:]
+        log(f"  exports (child process): done {t - self.t0:.1f} s after "
+            f"its start, waited {time.perf_counter() - t:.1f} s, rc {rc}")
+        if rc != 0:
+            raise Fail(f"export_artifacts failed (rc {rc}):\n{tail}")
+        with open(os.path.join(self.tmp, "exports.json")) as f:
+            return json.load(f)
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+
+
+def artifact_phase(exports=None):
+    """Serving artifacts on the card: engine bundles at the serving width
+    (float and int8 KV) against serve_phase's eager serves, a tampered
+    manifest, a decoder at bench_decode's width, merge-model/infer of
+    ResNet-50. `exports`: the ArtifactExports main() started; alone, the
+    phase exports in its own process first."""
+    t_phase = time.perf_counter()
+    cfg = TT.TransformerConfig(**SERVE_CFG)
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    log(f"phase artifact: {SERVE_CFG}, f32, slots={SLOTS} max_len={MAX_LEN} "
+        f"page={PAGE}, {N_REQ} requests, buckets ({PROMPT},)")
+    params = TT.init_params(np.random.RandomState(0), cfg, device="cuda")
+    prompts = make_prompts()
+    geom = dict(slots=SLOTS, max_len=MAX_LEN, page_size=PAGE)
+    out, launches = {}, {}
+    with tempfile.TemporaryDirectory() as own:
+        if exports is None:
+            export_artifacts(own)
+            with open(os.path.join(own, "exports.json")) as f:
+                saved, tmp = json.load(f), own
+        else:
+            saved, tmp = exports.join(), exports.tmp
+        ref = serve_refs("float KV", params, cfg, prompts)
+        launches["float"], out["float_kv"] = bundle_run(
+            "float KV", params, cfg, prompts, geom, ref, tmp,
+            saved["compute"])
+        out["tampered"] = tampered_run(params, cfg, prompts, geom,
+                                       bundle_path(tmp, cfg), ref, tmp)
+        ref8 = serve_refs("int8 KV", params, cfg8, prompts)
+        launches["int8_kv"], out["int8_kv"] = bundle_run(
+            "int8 KV", params, cfg8, prompts, geom, ref8, tmp,
+            saved["int8"])
+        out["decoder"] = decoder_run(tmp, saved["decoder"])
+        out["merge_infer"] = infer_run(tmp, saved)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  artifact phase: {out['phase_s']:.1f} s")
+    return launches, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5106,8 +5499,17 @@ def main() -> int:
     lstm = lstm_kernels_phase()
     gru, rnn = gru_rnn_kernels_phase()
     wide = wide_phase()
-    launched, serve = serve_phase()
-    server_launched, server = server_phase()
+    # the artifact phase's exports trace on the host in a child process
+    # while the serving phases run (they launch no kernel)
+    art_tmp = tempfile.TemporaryDirectory()
+    exports = ArtifactExports(art_tmp.name)
+    try:
+        launched, serve = serve_phase()
+        server_launched, server = server_phase()
+        art_launched, art = artifact_phase(exports)
+    finally:
+        exports.stop()
+        art_tmp.cleanup()
     train = train_phase()
     resilient = resilient_phase()
     ragged = ragged_phase()
@@ -5180,6 +5582,13 @@ def main() -> int:
             run: {k: n[k] for k in keys} for run, n in
             server_launched.items()}}
 
+    def artifact_launches(*keys):
+        # launches of the artifact phase's bundle serves (float and int8
+        # KV), counted from 0 before each: equal to the eager serve's
+        return {"artifact_launches": {
+            run: {k: n[k] for k in keys} for run, n in
+            art_launched.items()}}
+
     def split_plan(case, serve, kind):
         # the walk's device launches in that serve's run, per call at the
         # case's shape, its plan, and whether it repeated bit for bit
@@ -5201,6 +5610,8 @@ def main() -> int:
               launched["float"]["flash_fwd"], a["main_prefill_t128"],
               hmma_per_instantiation=hmma,
               **server_launches("flash_fwd", "flash_fwd_window"),
+              **artifact_launches("flash_fwd"),
+              decoder_artifact_launches=art["decoder"]["a_launches"],
               # the LM train phase's three full-width variants, counted
               # from 0 before each (a forward and a remat recompute per
               # layer per step)
@@ -5237,6 +5648,8 @@ def main() -> int:
               **split_plan(b["main_decode"], "float", "float_device"),
               **server_launches("ragged_tq1", "ragged_tqn",
                                 "float_device"),
+              **artifact_launches("ragged_tq1", "ragged_tqn",
+                                  "float_device"),
               moe_serve_launches={k: moe_out["serve_launches"]["float KV"][k]
                                   for k in ("ragged_tq1", "ragged_tqn",
                                             "float_device")}),
@@ -5249,6 +5662,7 @@ def main() -> int:
               launched["int8_kv"]["int8_tq1"], c["main_decode"],
               **split_plan(c["main_decode"], "int8_kv", "int8_device"),
               **server_launches("int8_tq1", "int8_tqn", "int8_device"),
+              **artifact_launches("int8_tq1", "int8_tqn", "int8_device"),
               moe_serve_launches={k: moe_out["serve_launches"]["int8 KV"][k]
                                   for k in ("int8_tq1", "int8_tqn",
                                             "int8_device")}),
@@ -5314,6 +5728,8 @@ def main() -> int:
     log(json.dumps({"launches": launched}))
     log(json.dumps({"serve": serve}))
     log(json.dumps({"server": server, "server_launches": server_launched,
+                    "card": smi.stdout.strip()}))
+    log(json.dumps({"artifact": art, "artifact_launches": art_launched,
                     "card": smi.stdout.strip()}))
     log(json.dumps({"train": train, "ragged": ragged}))
     log(json.dumps({"resilient": resilient}))

@@ -1,7 +1,11 @@
 """Command-line entry of the port (port of `paddle_tpu.cli`'s `train`,
-`serve` and `version` verbs):
+`merge-model`, `infer`, `serve` and `version` verbs):
 
     python -m paddle_tpu_torch train --config CFG [--device cuda|cpu] ...
+    python -m paddle_tpu_torch merge-model --config CFG [--params TAR]
+        --output ART [--device cuda|cpu]
+    python -m paddle_tpu_torch infer --artifact ART [--output-prefix P]
+        INPUT.npy ...
     python -m paddle_tpu_torch serve --config CFG --prompts FILE ...
     python -m paddle_tpu_torch version
 
@@ -31,6 +35,14 @@ yet and fail with the ROADMAP item that brings them: `--zero`,
 flags), `--transfer-guard`, `--metrics-out`, `--compile-cache`,
 `--no-compile-cache`.
 
+`merge-model` builds the config's model (seed 0), overlays a
+parameters tar (`train --save-dir`'s, from either package) and writes
+its inference forward (training=False) at the config's input_spec as a
+compiled-model artifact (`serve.artifact.export_compiled_model`) for
+--device. `infer` loads one and runs it on .npy inputs, printing each
+output's shape, dtype and mean and saving it as
+`<output-prefix><i>.npy`.
+
 `serve` takes a config script defining `get_serve_config()`, which
 returns a dict: `cfg` (the port's TransformerConfig) and `params` (its
 parameter tree, on --device), optional `eos_id`, `slots`, `max_len`.
@@ -39,11 +51,14 @@ completions leave the same way. Bare, it runs `DecodeEngine.serve`;
 `--max-queue`, `--default-deadline-ms`, `--metrics-out` or
 `--flight-dir` route through `ServingServer` (one ordered line per
 request plus a `# outcomes` counters trailer), and `--replicas N`
-through `ServingRouter` over N engines. `--http` and its flags,
-`--fleet-procs`/`--fleet-max` (ROADMAP queue 1 item 6),
-`--engine-artifact` (item 4), and `--compile-cache`,
-`--no-compile-cache`, `--transfer-guard` (no counterpart on the card,
-item 6) fail naming their item.
+through `ServingRouter` over N engines. `--engine-artifact TAR` also
+routes through `ServingServer`: every replica verifies the bundle
+(`serve.artifact.save_engine_artifact`) at boot and serves from its
+programs, or keeps the eager path with an `artifact_fallbacks` count.
+`--http` and its flags, `--fleet-procs`/`--fleet-max` (ROADMAP queue 1
+item 6), and `--compile-cache`, `--no-compile-cache`,
+`--transfer-guard` (no counterpart on the card, item 6) fail naming
+their item.
 """
 
 from __future__ import annotations
@@ -92,8 +107,6 @@ SERVE_DEFERRED_FLAGS = {
     "--http-max-requests": (True, _FLEET),
     "--fleet-procs": (True, _FLEET),
     "--fleet-max": (True, _FLEET),
-    "--engine-artifact": (True, "ROADMAP queue 1 item 4 (the serving "
-                                "artifacts)"),
     "--compile-cache": (True, _SERVE_NO_COUNTERPART),
     "--no-compile-cache": (False, _SERVE_NO_COUNTERPART),
     "--transfer-guard": (False, _SERVE_NO_COUNTERPART),
@@ -224,6 +237,55 @@ def cmd_train(args) -> int:
     return 0
 
 
+# -- merge-model / infer -----------------------------------------------------
+
+
+def cmd_merge_model(args) -> int:
+    """Write the config's inference forward, with a parameters tar
+    overlaid, as a compiled-model artifact."""
+    import torch
+
+    from paddle_tpu_torch.core.devices import resolve_device
+    from paddle_tpu_torch.serve.artifact import export_compiled_model
+    from paddle_tpu_torch.train.checkpoint import load_parameters_tar
+
+    cfg = _load_config(args.config)
+    model = cfg["model"]
+    spec = _input_spec(cfg)
+    dev = resolve_device(args.device)
+    params, mstate = model.init(0, spec, device=dev)
+    if args.params:
+        params = load_parameters_tar(params, args.params)
+
+    def forward(x):
+        out, _ = model.apply(params, mstate, x, training=False)
+        return out
+
+    x = torch.zeros(spec.shape, dtype=spec.dtype, device=dev)
+    export_compiled_model(forward, [x], args.output,
+                          name=cfg.get("name", "model"))
+    print(f"wrote compiled artifact {args.output}")
+    return 0
+
+
+def cmd_infer(args) -> int:
+    """Run a compiled-model artifact on .npy inputs."""
+    import numpy as np
+
+    from paddle_tpu_torch.serve.artifact import load_compiled_model
+
+    m = load_compiled_model(args.artifact)
+    out = m.predict(*[np.load(p) for p in args.inputs])
+    outs = list(out) if isinstance(out, (tuple, list)) else [out]
+    for i, o in enumerate(outs):
+        o = o.detach().cpu().numpy()
+        if args.output_prefix:
+            np.save(f"{args.output_prefix}{i}.npy", o)
+        print(f"output[{i}] shape={o.shape} dtype={o.dtype} "
+              f"mean={float(o.mean()):.6f}")
+    return 0
+
+
 # -- serve -------------------------------------------------------------------
 
 
@@ -294,8 +356,11 @@ def cmd_serve(args) -> int:
     sampling = [dict(one) for _ in prompts] if one else None
     # open the sink before the run: an unwritable --output fails fast
     sink = open(args.output, "w") if args.output else sys.stdout
+    # bundle adoption happens at server boot, so --engine-artifact
+    # needs the ServingServer wrapper too
     reliable = (args.max_queue is not None
                 or args.default_deadline_ms is not None
+                or args.engine_artifact is not None
                 or args.metrics_out is not None
                 or args.flight_dir is not None)
     try:
@@ -336,7 +401,8 @@ def _serve_reliable(args, eng, prompts, sampling, buckets, sink):
         max_retries=args.max_retries, buckets=buckets,
         drain_grace_s=args.drain_grace,
         drain_report_path=args.drain_report,
-        install_signal_handlers=True, tracer=tracer, flight=flight)
+        install_signal_handlers=True, tracer=tracer, flight=flight,
+        artifact_path=args.engine_artifact)
     if registry is not None:
         server.bind_metrics(registry)
     ids = {}
@@ -405,7 +471,10 @@ def _serve_fleet(args, engines, prompts, sampling, buckets, sink):
             max_queue=args.max_queue if args.max_queue is not None else 64,
             default_deadline_ms=args.default_deadline_ms,
             max_retries=args.max_retries, buckets=buckets,
-            drain_grace_s=args.drain_grace, tracer=tracer, flight=flight)
+            drain_grace_s=args.drain_grace, tracer=tracer, flight=flight,
+            # every replica boots from the same bundle, verified per
+            # replica
+            artifact_path=args.engine_artifact)
         for e in engines]
     router = ServingRouter(servers, tracer=tracer, flight=flight,
                            flight_dir=args.flight_dir)
@@ -494,6 +563,24 @@ def build_parser() -> argparse.ArgumentParser:
     _add_deferred(t, DEFERRED_FLAGS, _Deferred)
     t.set_defaults(fn=cmd_train)
 
+    m = sub.add_parser("merge-model",
+                       help="write a config's inference forward as a "
+                            "compiled-model artifact")
+    m.add_argument("--config", required=True)
+    m.add_argument("--params", default=None,
+                   help="params.tar from `train --save-dir`")
+    m.add_argument("--output", required=True)
+    m.add_argument("--device", default="cuda",
+                   help="device the artifact runs on (default cuda; "
+                        "raises without a card)")
+    m.set_defaults(fn=cmd_merge_model)
+
+    i = sub.add_parser("infer", help="run a compiled-model artifact")
+    i.add_argument("--artifact", required=True)
+    i.add_argument("--output-prefix", default=None)
+    i.add_argument("inputs", nargs="+", help=".npy input files")
+    i.set_defaults(fn=cmd_infer)
+
     sv = sub.add_parser("serve", help="continuous-batching LM serving "
                         "(token ids in, token ids out; see cmd_serve)")
     sv.add_argument("--config", required=True,
@@ -539,6 +626,12 @@ def build_parser() -> argparse.ArgumentParser:
                          "text); enables request tracing")
     sv.add_argument("--flight-dir", default=None,
                     help="flight-recorder dump directory")
+    sv.add_argument("--engine-artifact", default=None, metavar="TAR",
+                    help="engine bundle (serve.artifact."
+                         "save_engine_artifact): replicas verify its "
+                         "manifest at boot and serve from its programs; "
+                         "any mismatch keeps the eager path with an "
+                         "artifact_fallbacks count")
     _add_deferred(sv, SERVE_DEFERRED_FLAGS, _ServeDeferred)
     sv.set_defaults(fn=cmd_serve)
     return p

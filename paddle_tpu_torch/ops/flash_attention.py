@@ -14,18 +14,24 @@
   port of the JAX package's `_blockwise_backward` and, under a sliding
   window, `_windowed_backward` (which gathers only the queries a key
   block can reach). The JAX package's backward is plain JAX too.
+- `flash_fwd`: the registered operator `paddle_tpu_torch::flash_fwd(q,
+  k, v, lens, causal, window, block_k) -> (o, lse)`
+  (`torch.library.custom_op`): its CUDA implementation is
+  `flash_kernel`, its CPU one `flash_attention_reference`, its fake one
+  the shapes of o and lse, and its autograd formula `flash_backward`
+  (the counterpart of JAX's custom_vjp; block_k is the backward's key
+  block, lse takes no gradient). `torch.export` captures the operator
+  as one node, so an exported program launches kernel A through the
+  same CUDA implementation and counts its launches in `launch_counts`.
 - `flash_attention(q, k, v, *, causal, key_lens, window, block_q,
-  block_k)`: the public function with the JAX checks, an autograd
-  Function (the counterpart of JAX's custom_vjp): its forward is the
-  kernel for CUDA tensors and the plain version for CPU tensors, and it
-  keeps (q, k, v, lens, o, lse) for `flash_backward`.
+  block_k)`: the public function with the JAX checks, over `flash_fwd`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -271,24 +277,48 @@ def flash_backward(q, k, v, lens, o, lse, g, *, causal: bool,
     return back(dq * scale, q), back(dk, k), back(dv, v)
 
 
-class _FlashAttention(torch.autograd.Function):
-    """Forward: `impl` (kernel A for CUDA tensors, the plain version for
-    CPU tensors); backward: flash_backward. lens gets no gradient."""
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=(),
+                         device_types="cpu")
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              lens: torch.Tensor, causal: bool, window: Optional[int],
+              block_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse) of flash attention: kernel A on CUDA tensors, the plain
+    version on CPU tensors (looked up at call time, so a caller may
+    stand a counting version in for either). o is contiguous, as the
+    kernel writes it."""
+    o, lse = flash_attention_reference(q, k, v, lens, causal=causal,
+                                       window=window)
+    return o.contiguous(), lse
 
-    @staticmethod
-    def forward(ctx, q, k, v, lens, causal, window, block_k, impl):
-        o, lse = impl(q, k, v, lens, causal=causal, window=window)
-        ctx.save_for_backward(q, k, v, lens, o, lse)
-        ctx.causal, ctx.window, ctx.block_k = causal, window, block_k
-        return o
 
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, lens, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_backward(q, k, v, lens, o, lse, g,
-                                    causal=ctx.causal, block_k=ctx.block_k,
-                                    window=ctx.window)
-        return dq, dk, dv, None, None, None, None, None
+@flash_fwd.register_kernel("cuda")
+def _flash_fwd_cuda(q, k, v, lens, causal, window, block_k):
+    return flash_kernel(q, k, v, lens, causal=causal, window=window)
+
+
+@flash_fwd.register_fake
+def _flash_fwd_fake(q, k, v, lens, causal, window, block_k):
+    b, tq, h, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((b, h, tq), dtype=torch.float32))
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, lens, causal, window, block_k = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, lens, o, lse)
+    ctx.causal, ctx.window, ctx.block_k = causal, window, block_k
+
+
+def _flash_grad(ctx, g, g_lse):
+    q, k, v, lens, o, lse = ctx.saved_tensors
+    dq, dk, dv = flash_backward(q, k, v, lens, o, lse, g,
+                                causal=ctx.causal, block_k=ctx.block_k,
+                                window=ctx.window)
+    return dq, dk, dv, None, None, None, None
+
+
+flash_fwd.register_autograd(_flash_grad, setup_context=_flash_setup)
 
 
 def flash_attention(q, k, v, *, causal: bool = False, key_lens=None,
@@ -330,6 +360,4 @@ def flash_attention(q, k, v, *, causal: bool = False, key_lens=None,
         lens = torch.clamp(key_lens.to(device=q.device, dtype=torch.int32),
                            max=t_kv)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    impl = flash_kernel if q.is_cuda else flash_attention_reference
-    return _FlashAttention.apply(q, k, v, lens, causal, window, block_k,
-                                 impl)
+    return flash_fwd(q, k, v, lens, causal, window, block_k)[0]

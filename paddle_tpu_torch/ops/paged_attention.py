@@ -203,12 +203,14 @@ def paged_chunk_attention(q, k, v, k_arena, v_arena, pages_row, start,
     positions start..start+C-1 through the slot's table row, then attend
     each chunk query over every cached key <= its own position (shared
     prefix pages included). q/k/v [1, C, ., Dh]; pages_row [max_pages];
-    start: int. Returns (out [1, C, H, Dh], k_arena, v_arena)."""
+    start: an int or a 0-d integer tensor (read on the device, never
+    on the host: an exported chunk program takes it as an input).
+    Returns (out [1, C, H, Dh], k_arena, v_arena)."""
     c = q.shape[1]
     ap = start + torch.arange(c, dtype=torch.int32, device=q.device)
     pg, off = page_addresses(pages_row, ap, page_size=page_size)
     write_kv_pair(k_arena, v_arena, k[0], v[0], pg, off)
-    pos0 = torch.full((1,), int(start), dtype=torch.int32, device=q.device)
+    pos0 = torch.as_tensor(start, device=q.device).to(torch.int32).reshape(1)
     active = torch.ones((1,), dtype=torch.bool, device=q.device)
     out = _ragged_read(q, k_arena, v_arena, pages_row[None], pos0, active,
                        page_size=page_size, max_len=max_len, impl=impl)

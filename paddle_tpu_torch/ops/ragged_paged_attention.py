@@ -9,6 +9,15 @@ TQ=K+1: one function, one kernel.
 - `ragged_reference`: the plain PyTorch version -- gather through the
   page table (dequantizing an `(s8, scale)` pair), then
   `grouped_masked_attention`; the kernel's target.
+- `ragged_walk` / `ragged_walk_int8`: the registered operators
+  `paddle_tpu_torch::ragged_walk(q, k_arena, v_arena, page_table, pos0,
+  active, page_size, max_len)` and `paddle_tpu_torch::ragged_walk_int8(q,
+  k_data, k_scale, v_data, v_scale, page_table, pos0, active, page_size,
+  max_len)` (`torch.library.custom_op`; an int8 arena's (s8, scale) pair
+  split into its tensors): CUDA implementation the launch below (kernel
+  B, kernel C; `walk_plan`, the SM count and `device_launches` stay
+  inside it), CPU implementation `ragged_reference`, fake implementation
+  q's shape. `torch.export` captures each as one node.
 - `ragged_kernel`: the wrapper of `csrc/ragged_paged_attention.cu`'s
   split walk: the walk split over runs of keys across blocks by
   `walk_plan`, the tiles read through the arena's loader (raw float
@@ -27,7 +36,10 @@ TQ=K+1: one function, one kernel.
   card (shared memory, registers, resident blocks per SM, spills).
 - `ragged_attention(..., impl=None|"torch"|"kernel")`: None launches the
   kernel for CUDA tensors and runs the reference for CPU tensors;
-  "kernel" on a CPU tensor raises.
+  "kernel" on a CPU tensor raises (`ragged_kernel` refuses it before the
+  operator is called, so the operator's CPU implementation never turns
+  that call into a plain run); "torch" calls `ragged_reference`
+  directly.
 """
 
 from __future__ import annotations
@@ -247,12 +259,10 @@ def _check(q, k_arena, v_arena, page_table, pos0, active, page_size,
     return p, page, hkv, dh
 
 
-def ragged_kernel(q, k_arena, v_arena, page_table, pos0, active, *,
-                  page_size: int, max_len: int):
-    """Launch the CUDA walk (csrc/ragged_paged_attention.cu) on the
-    current stream: kernel B for float arenas, kernel C for (s8, scale)
-    pairs, both the split walk for `walk_plan`'s grid. CUDA tensors
-    only; raises on anything the kernel does not take."""
+def _launch(q, k_arena, v_arena, page_table, pos0, active, page_size,
+            max_len):
+    """One launch of the CUDA walk on the current stream: every check
+    of `_check`, the plan, the counts."""
     p, page, hkv, _ = _check(q, k_arena, v_arena, page_table, pos0, active,
                              page_size, max_len)
     lib = _cuda.library("ragged_paged_attention", _SIGNATURES)
@@ -284,6 +294,86 @@ def ragged_kernel(q, k_arena, v_arena, page_table, pos0, active, *,
     launch_counts[("int8_" if quant else "") + ("tq1" if tq == 1
                                                  else "tqn")] += 1
     return out
+
+
+@torch.library.custom_op("paddle_tpu_torch::ragged_walk", mutates_args=(),
+                         device_types="cpu")
+def ragged_walk(q: torch.Tensor, k_arena: torch.Tensor,
+                v_arena: torch.Tensor, page_table: torch.Tensor,
+                pos0: torch.Tensor, active: torch.Tensor, page_size: int,
+                max_len: int) -> torch.Tensor:
+    """The walk over float arenas: kernel B on CUDA tensors, the plain
+    version on CPU tensors."""
+    return ragged_reference(q, k_arena, v_arena, page_table, pos0, active,
+                            page_size=page_size, max_len=max_len)
+
+
+@ragged_walk.register_kernel("cuda")
+def _ragged_walk_cuda(q, k_arena, v_arena, page_table, pos0, active,
+                      page_size, max_len):
+    return _launch(q, k_arena, v_arena, page_table, pos0, active,
+                   page_size, max_len)
+
+
+@torch.library.custom_op("paddle_tpu_torch::ragged_walk_int8",
+                         mutates_args=(), device_types="cpu")
+def ragged_walk_int8(q: torch.Tensor, k_data: torch.Tensor,
+                     k_scale: torch.Tensor, v_data: torch.Tensor,
+                     v_scale: torch.Tensor, page_table: torch.Tensor,
+                     pos0: torch.Tensor, active: torch.Tensor,
+                     page_size: int, max_len: int) -> torch.Tensor:
+    """The walk over (s8 data, f32 scale) arenas: kernel C on CUDA
+    tensors, the plain version on CPU tensors."""
+    return ragged_reference(q, (k_data, k_scale), (v_data, v_scale),
+                            page_table, pos0, active, page_size=page_size,
+                            max_len=max_len)
+
+
+@ragged_walk_int8.register_kernel("cuda")
+def _ragged_walk_int8_cuda(q, k_data, k_scale, v_data, v_scale, page_table,
+                           pos0, active, page_size, max_len):
+    return _launch(q, (k_data, k_scale), (v_data, v_scale), page_table,
+                   pos0, active, page_size, max_len)
+
+
+@ragged_walk.register_fake
+def _ragged_walk_fake(q, *args):
+    return torch.empty_like(q)
+
+
+@ragged_walk_int8.register_fake
+def _ragged_walk_int8_fake(q, *args):
+    return torch.empty_like(q)
+
+
+def ragged_kernel(q, k_arena, v_arena, page_table, pos0, active, *,
+                  page_size: int, max_len: int):
+    """The CUDA walk (csrc/ragged_paged_attention.cu) through its
+    operator, on the current stream: kernel B for float arenas, kernel C
+    for (s8, scale) pairs, both the split walk for `walk_plan`'s grid.
+    CUDA tensors only: a tensor on another device raises here, before
+    the operator; the operator's CUDA implementation raises on anything
+    else the kernel does not take."""
+    quant = isinstance(k_arena, tuple)
+    if quant != isinstance(v_arena, tuple):
+        raise ValueError("ragged_kernel: K and V arenas must both be "
+                         "float or both (s8, scale) pairs")
+    if quant and (len(k_arena) != 2 or len(v_arena) != 2):
+        raise ValueError("ragged_kernel: an int8 arena is an (s8 data, "
+                         "f32 scale) pair")
+    arenas = (dict(k_data=k_arena[0], k_scale=k_arena[1],
+                   v_data=v_arena[0], v_scale=v_arena[1]) if quant
+              else dict(k_arena=k_arena, v_arena=v_arena))
+    for name, t in dict(q=q, **arenas, page_table=page_table, pos0=pos0,
+                        active=active).items():
+        if not t.is_cuda:
+            raise ValueError(f"ragged_kernel: {name} is on {t.device}, "
+                             f"the kernel takes CUDA tensors only")
+    if quant:
+        return ragged_walk_int8(q, *arenas.values(), page_table, pos0,
+                                active, page_size, max_len)
+    return ragged_walk(q, k_arena, v_arena, page_table, pos0, active,
+                       page_size, max_len)
 
 
 def walk_resources(device=None):

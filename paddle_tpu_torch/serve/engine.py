@@ -77,8 +77,21 @@ arena (pages shared through that pool's prefix cache are skipped) and
 `resume_slot` brings the row live there: a greedy request's next token
 is the one the source would have emitted.
 
-Serving artifacts (`bind_artifact`) are not ported yet: they raise
-NotImplementedError naming ROADMAP queue 1 item 4.
+Serving artifacts (`serve.artifact`): `bind_artifact` installs
+programs exported with `torch.export` -- the decode step, the
+speculative verify round and the saved prefill-chunk widths, each
+greedy or sampled where the host picks one or the other -- and
+`decode_step`, `spec_step` and each prefill chunk run them in place of
+the eager bodies. The programs take the engine's weights as inputs
+(the bundle holds none; its manifest's `params_hash` binds it to one
+weight tree) and the state tensors, which they update in place as the
+eager bodies do. Host integers (slot, start, true_len) enter as 0-d
+tensors, and a sampled program takes the Gumbel noise and acceptance
+uniforms the engine draws from the slots' own generators exactly as
+the eager body would, so a bundle serves the eager engine's tokens. A
+bound program that fails is dropped for good, counted in
+`artifact_fallbacks` and reported to `_artifact_hook`; the eager body
+serves that call and every later one.
 """
 
 from __future__ import annotations
@@ -91,9 +104,11 @@ import torch
 
 from paddle_tpu_torch.core.devices import resolve_device
 from paddle_tpu_torch.core.dtypes import at_least_f32, default_policy
+from paddle_tpu_torch.core.pytree import flatten_with_keys
 from paddle_tpu_torch.models import transformer as T
 from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.ops import sampling as sampling_ops
+from paddle_tpu_torch.serve import quant as _quant
 from paddle_tpu_torch.serve.paged import (PagePool, PoolExhaustedError,
                                           blocks_for)
 from paddle_tpu_torch.serve.policy import SchedulerPolicy
@@ -214,9 +229,57 @@ class DecodeSeed:
         default_factory=lambda: np.zeros((0,), np.uint8))
 
 
-_ARTIFACTS = ("serving artifacts are not ported yet (ROADMAP queue 1 "
-              "item 4: the artifacts capture kernels loaded through "
-              "ctypes, a design of their own)")
+def state_leaves(state: EngineState) -> list:
+    """The state's tensors in the order the exported programs take
+    them: per layer the K arena then the V arena (an int8 arena as its
+    data then its scale), then page_table, pos, active, last_tok, temp,
+    top_k, top_p, last_lp. The generators stay on the host."""
+    out = []
+    for k_buf, v_buf in state.caches:
+        for buf in (k_buf, v_buf):
+            out.extend(buf if isinstance(buf, tuple) else (buf,))
+    return out + [state.page_table, state.pos, state.active,
+                  state.last_tok, state.temp, state.top_k, state.top_p,
+                  state.last_lp]
+
+
+def state_from_leaves(leaves, *, n_layers: int, int8: bool,
+                      slots: int) -> EngineState:
+    """`state_leaves`' inverse (generators all None)."""
+    leaves = list(leaves)
+    per = 2 if int8 else 1
+    caches = []
+    for i in range(n_layers):
+        bufs = leaves[2 * per * i:2 * per * (i + 1)]
+        if int8:
+            caches.append(((bufs[0], bufs[1]), (bufs[2], bufs[3])))
+        else:
+            caches.append((bufs[0], bufs[1]))
+    rest = leaves[2 * per * n_layers:]
+    return EngineState(caches, *rest, generators=[None] * slots)
+
+
+def chunk_key(width: int, from_zero: bool, final: bool) -> str:
+    """The bundle's name of a prefill-chunk program."""
+    return (f"chunk_w{int(width)}_z{int(bool(from_zero))}"
+            f"_f{int(bool(final))}")
+
+
+#: what `_run_art` returns when the eager body must serve the call
+_MISS = object()
+
+
+def _scalar(value, dtype, device):
+    """A host number as a 0-d device tensor: how the prefill hands slot,
+    start, true_len and the sampler to its body, so an exported chunk
+    program takes them as inputs rather than baking them in."""
+    return torch.tensor(value, dtype=dtype, device=device)
+
+
+def _put(buf, idx, value):
+    """buf[idx] = value for a 1-element index tensor, as one in-place
+    index_copy_ (no host read of idx)."""
+    buf.index_copy_(0, idx, value.reshape(1).to(buf.dtype))
 
 
 class DecodeEngine:
@@ -288,9 +351,16 @@ class DecodeEngine:
         self.prefill_chunk = prefill_chunk
         self.prefix_cache = prefix_cache
         self.prefix_cache_blocks = prefix_cache_blocks
+        self._raw_params = params   # the step programs' (int8) tree
         self.pool: Optional[PagePool] = None  # built by init_state()
         self._admissions = 0
         self._pool_gen = None   # select_fn's stand-in for an empty slot 0
+        # serving artifacts (serve.artifact): bound programs replace the
+        # eager bodies call for call; None = the eager path
+        self._artifact: Optional[dict] = None
+        self.artifact_loads = 0
+        self.artifact_fallbacks = 0
+        self._artifact_hook = None
 
     def ping(self) -> None:
         """The health-probe surface: a host-side liveness touch (no
@@ -298,9 +368,128 @@ class DecodeEngine:
         proxy (testing.faults) raises here as a lost device would."""
         return None
 
-    def bind_artifact(self, programs, manifest):
-        raise NotImplementedError(
-            f"DecodeEngine.bind_artifact: {_ARTIFACTS}")
+    # -- serving-artifact surface (serve.artifact) -------------------------
+
+    def state_spec(self) -> EngineState:
+        """init_state()'s tensors as "meta" tensors (shape and dtype, no
+        storage), from config arithmetic alone. serve.artifact builds
+        the exported programs' example inputs from it. Paged engines
+        only: ring configs keep the eager path."""
+        if not self.paged:
+            raise ValueError(
+                "state_spec/engine artifacts support paged engines only "
+                "(attn_window configs keep the eager path)")
+        cfg, s = self.cfg, self.slots
+        meta = lambda shape, dtype: torch.empty(shape, dtype=dtype,
+                                                device="meta")
+        shape = (self.num_pages, self.page_size, cfg.kv_heads,
+                 cfg.head_dim)
+
+        def arena():
+            if cfg.kv_cache_dtype == "int8":
+                return (meta(shape, torch.int8),
+                        meta(shape[:-1], torch.float32))
+            return meta(shape, default_policy().compute_dtype)
+
+        return EngineState(
+            caches=[(arena(), arena()) for _ in self.params["blocks"]],
+            page_table=meta((s, self.max_pages_per_slot), torch.int32),
+            pos=meta((s,), torch.int32), active=meta((s,), torch.bool),
+            last_tok=meta((s,), torch.int64),
+            temp=meta((s,), torch.float32), top_k=meta((s,), torch.int32),
+            top_p=meta((s,), torch.float32),
+            last_lp=meta((s,), torch.float32), generators=[None] * s)
+
+    def artifact_manifest(self) -> dict:
+        """Everything a bundle's programs depend on, as JSON primitives:
+        the PyTorch version and device type they were exported with, the
+        compute and KV dtypes, the config, the weight tree (hashed over
+        names, shapes, dtypes and bytes), the pool geometry, eos, seed,
+        the speculative width and the walk's impl. A loader refuses a
+        bundle whose manifest differs in ANY field
+        (serve.artifact.load_engine_artifact)."""
+        import hashlib
+
+        if self.select_fn is not None:
+            raise ValueError(
+                "engine artifacts need select_fn=None: a pool-wide "
+                "select_fn is a Python closure no manifest can verify "
+                "(per-request sampling is supported)")
+        if not self.paged:
+            raise ValueError("engine artifacts support paged engines only")
+        h = hashlib.sha256()
+        for name, leaf in flatten_with_keys(self._raw_params):
+            t = leaf.detach().cpu().contiguous()
+            h.update(name.encode())
+            h.update(str(tuple(t.shape)).encode())
+            h.update(str(t.dtype).encode())
+            h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+        return {
+            "kind": "engine",
+            "torch_version": torch.__version__,
+            "device_type": self.device.type,
+            "compute_dtype": str(default_policy().compute_dtype),
+            "kv_cache_dtype": self.cfg.kv_cache_dtype,
+            "cfg_hash": hashlib.sha256(
+                repr(self.cfg).encode()).hexdigest()[:16],
+            "params_hash": h.hexdigest(),
+            "slots": int(self.slots),
+            "max_len": int(self.max_len),
+            "page_size": int(self.page_size),
+            "num_pages": int(self.num_pages),
+            "max_pages_per_slot": int(self.max_pages_per_slot),
+            "eos_id": None if self.eos_id is None else int(self.eos_id),
+            "seed": int(self.seed),
+            "spec_draft_max": int(self.policy.spec_draft_max),
+            "ragged_impl": self.ragged_impl or "auto",
+        }
+
+    def bind_artifact(self, programs: dict, manifest: dict) -> None:
+        """Install loaded programs (serve.artifact.load_engine_artifact
+        builds the dict, already verified against this engine): later
+        decode steps, verify rounds and prefill chunks of a saved width
+        run through them.
+
+        JAX's bundle also carries the page-table and retire setters; in
+        the port those are plain in-place writes with no compile to
+        skip, so they stay eager and the bundle holds none."""
+        del manifest  # verified by the loader; nothing here depends on it
+        self._artifact = dict(programs)
+        self.artifact_loads += 1
+
+    def artifact_fallback(self, member: str, error: str) -> None:
+        """Record one artifact->eager fallback (a refused bundle or a
+        bound program failing): bump the counter the server and router
+        export and tell the observability hook (ServingServer points it
+        at its flight recorder)."""
+        self.artifact_fallbacks += 1
+        if self._artifact_hook is not None:
+            self._artifact_hook(member, error)
+
+    def _art(self, name: str):
+        art = self._artifact
+        return None if art is None else art.get(name)
+
+    def _art_drop(self, name: str, exc: Exception) -> None:
+        # a program that failed once would fail every call: drop it so
+        # the steady loop does not pay an exception per step
+        if self._artifact is not None:
+            self._artifact.pop(name, None)
+        self.artifact_fallback(name, repr(exc))
+
+    def _run_art(self, name: str, params, state, *args):
+        """The bound program `name`'s outputs on (params, state, *args),
+        or _MISS when there is none or it failed (dropped and counted;
+        the caller runs the eager body). A program checks its inputs
+        before it runs, so a refused call leaves the state untouched."""
+        fn = self._art(name)
+        if fn is None:
+            return _MISS
+        try:
+            return fn(params, state, *args)
+        except Exception as e:
+            self._art_drop(name, e)
+            return _MISS
 
     # -- state ------------------------------------------------------------
 
@@ -362,45 +551,80 @@ class DecodeEngine:
         g.manual_seed(int(mix.generate_state(1, np.uint64)[0] >> 1))
         return g
 
-    def _select(self, logits, temp, top_k, top_p, generators):
+    def _select(self, logits, temp, top_k, top_p, generators, noise=None):
         """Next tokens [N] for logits [N, V]: the pool-wide select_fn
-        (given the first row's generator), argmax where every row is
-        greedy (generator None), else per-row sampling; the host knows
-        which, so the greedy step reads nothing back from the device."""
+        (given the first row's generator), argmax where no Gumbel draws
+        are given, else per-row sampling with the draws noise [N, V]
+        (the rows' own, `_draws`; temperature 0 rows take the same
+        argmax). The host knows which, so a greedy step reads nothing
+        back from the device."""
         if self.select_fn is not None:
             gen = generators[0] if generators[0] is not None \
                 else self._pool_gen
             return self.select_fn(logits, gen).long()
-        if all(g is None for g in generators):
+        if noise is None:
             return torch.argmax(at_least_f32(logits), dim=-1)
-        gens = [g if g is not None else torch.Generator(logits.device)
-                for g in generators]
         return sampling_ops.per_row_sample(logits, temp, top_k, top_p,
-                                           generators=gens).long()
+                                           noise=noise).long()
 
     # -- paged prefill (chunked, prefix-aware) -----------------------------
 
     def _chunk(self, state: EngineState, ticket: PrefillTicket,
                toks: np.ndarray, start: int, *, from_zero: bool,
                final: bool) -> None:
-        """One prefill chunk for one slot: toks [chunk_w] at absolute
-        positions start..start+chunk_w-1. A from_zero chunk runs causal
-        attention within the chunk (the flash kernel on CUDA) and writes
-        its K/V through the page table; a later chunk attends through
-        the page table over everything cached so far (the ragged walk).
-        The final chunk selects the request's first token and activates
-        the slot."""
-        cfg, params, dev = self.cfg, self.params, self.device
-        slot, true_len = ticket.slot, ticket.true_len
+        """One prefill chunk for one slot: the bound program of its
+        (width, from_zero, final) where the bundle saved one, else the
+        eager `_chunk_impl`. The host's part: the request's generator
+        and, for a sampled request's final chunk, its first draw."""
+        dev, v = self.device, self.cfg.vocab
+        gen = noise = None
+        if final and (ticket.temp > 0 or self.select_fn is not None):
+            gen = self._request_generator(ticket.req_tag, ticket.req_seed)
+            if self.select_fn is None:
+                noise = sampling_ops._row_draws(1, v, [gen], dev,
+                                                gumbel=True)
+        args = (_scalar(ticket.slot, torch.int64, dev),
+                torch.as_tensor(toks, dtype=torch.int32, device=dev),
+                _scalar(start, torch.int64, dev),
+                _scalar(ticket.true_len, torch.int64, dev),
+                _scalar(ticket.temp, torch.float32, dev),
+                _scalar(ticket.top_k, torch.int32, dev),
+                _scalar(ticket.top_p, torch.float32, dev))
+        # a width the bundle does not hold (a prefix hit's remainder)
+        # is an expected miss: the eager body serves it, uncounted
+        key = chunk_key(toks.shape[0], from_zero, final)
+        ran = self._run_art(key, self.params, state, *args,
+                            torch.zeros((1, v), device=dev)
+                            if noise is None else noise)
+        if ran is _MISS:
+            self._chunk_impl(self.params, state, *args, noise, gen=gen,
+                             from_zero=from_zero, final=final)
+        if final:
+            state.generators[ticket.slot] = gen
+
+    def _chunk_impl(self, params, state: EngineState, slot, toks, start,
+                    true_len, temp, top_k, top_p, noise, *, gen=None,
+                    from_zero: bool, final: bool) -> None:
+        """The chunk's device work: toks [chunk_w] at absolute positions
+        start..start+chunk_w-1 (slot, start, true_len and the sampler
+        are 0-d tensors, read on the device only). A from_zero chunk runs
+        causal attention within the chunk (the flash kernel on CUDA) and
+        writes its K/V through the page table; a later chunk attends
+        through the page table over everything cached so far (the
+        ragged walk). The final chunk selects the request's first token
+        and activates the slot."""
+        cfg = self.cfg
         chunk_w = toks.shape[0]
-        x = T._embed(params, torch.as_tensor(toks, device=dev)[None, :])
+        dev = toks.device
+        idx = slot.reshape(1)
+        x = T._embed(params, toks[None, :])
         ap = start + torch.arange(chunk_w, dtype=torch.int32, device=dev)
         pos = ap[None, :]
         # bucket pads and the padded tail claim no MoE expert capacity
         tok_mask = (ap < true_len)[None, :]
-        pages_row = state.page_table[slot]
+        pages_row = state.page_table.index_select(0, idx)[0]
         if from_zero:
-            lens = torch.tensor([true_len], dtype=torch.int32, device=dev)
+            lens = true_len.reshape(1).to(torch.int32)
             within = lambda q, k, v: T._attention(cfg, q, k, v, causal=True,
                                                   key_lens=lens)
             pg, off = pa.page_addresses(pages_row, ap,
@@ -419,31 +643,36 @@ class DecodeEngine:
                 x, _, _, _ = T._block_parts(cfg, p, x, pos, cached,
                                             tok_mask)
         if final:
-            self._activate(state, ticket, x[0, true_len - 1 - start])
+            x_last = x[0].index_select(0, (true_len - 1 - start).reshape(1))
+            self._activate_impl(params, state, idx, x_last, true_len, temp,
+                                top_k, top_p, noise, gen)
 
-    def _activate(self, state: EngineState, ticket: PrefillTicket,
-                  x_last) -> None:
+    def _activate_impl(self, params, state: EngineState, idx, x_last,
+                       true_len, temp, top_k, top_p, noise, gen) -> None:
         """Select the request's first token (and its full-softmax
-        logprob) from the last real prompt position's activation and
-        bring the slot live -- one definition for the ring prefill and
-        every paged final chunk."""
-        slot, true_len = ticket.slot, ticket.true_len
-        logits = T._head(self.params, x_last[None])
-        gen = (self._request_generator(ticket.req_tag, ticket.req_seed)
-               if ticket.temp > 0 or self.select_fn is not None else None)
-        state.temp[slot] = ticket.temp
-        state.top_k[slot] = ticket.top_k
-        state.top_p[slot] = ticket.top_p
-        state.generators[slot] = gen
-        one = slice(slot, slot + 1)
-        first = self._select(logits, state.temp[one], state.top_k[one],
-                             state.top_p[one], [gen])
-        first_lp = torch.log_softmax(at_least_f32(logits), dim=-1)[
-            0, first[0]]
-        state.pos[slot] = true_len
-        state.active[slot] = True
-        state.last_tok[slot] = first[0]
-        state.last_lp[slot] = first_lp
+        logprob) from the last real prompt position's activation x_last
+        [1, D] and bring the slot idx [1] live -- one definition for the
+        ring prefill and every paged final chunk. noise [1, V]: the
+        request's first Gumbel draw (None for a greedy request, whose
+        token is the argmax; an exported chunk program always takes one,
+        zeros for greedy, and the sampler's temperature 0 is the same
+        argmax); gen: the request's generator, for a pool-wide
+        select_fn."""
+        logits = T._head(params, x_last)
+        _put(state.temp, idx, temp)
+        _put(state.top_k, idx, top_k)
+        _put(state.top_p, idx, top_p)
+        first = self._select(logits, state.temp.index_select(0, idx),
+                             state.top_k.index_select(0, idx),
+                             state.top_p.index_select(0, idx), [gen], noise)
+        first_lp = torch.gather(
+            torch.log_softmax(at_least_f32(logits), dim=-1), 1,
+            first[:, None])[:, 0]
+        _put(state.pos, idx, true_len)
+        _put(state.active, idx, torch.ones((), dtype=torch.bool,
+                                           device=idx.device))
+        _put(state.last_tok, idx, first)
+        _put(state.last_lp, idx, first_lp)
 
     # -- ring (sliding-window) prefill -------------------------------------
 
@@ -483,7 +712,19 @@ class DecodeEngine:
             x, k, v, _ = T._block_parts(cfg, p, x, pos, attn, tok_mask)
             write_slot(k_buf, k[0, ring_idx])
             write_slot(v_buf, v[0, ring_idx])
-        self._activate(state, ticket, x[0, last])
+        gen = noise = None
+        if ticket.temp > 0 or self.select_fn is not None:
+            gen = self._request_generator(ticket.req_tag, ticket.req_seed)
+            if self.select_fn is None:
+                noise = sampling_ops._row_draws(1, cfg.vocab, [gen], dev,
+                                                gumbel=True)
+        self._activate_impl(
+            params, state, _scalar(slot, torch.int64, dev).reshape(1),
+            x[0, last][None], _scalar(true_len, torch.int64, dev),
+            _scalar(ticket.temp, torch.float32, dev),
+            _scalar(ticket.top_k, torch.int32, dev),
+            _scalar(ticket.top_p, torch.float32, dev), noise, gen)
+        state.generators[slot] = gen
 
     # -- admission (begin/advance; prefill() drives both) ------------------
 
@@ -601,66 +842,102 @@ class DecodeEngine:
 
     # -- the batched decode step ------------------------------------------
 
+    def _sampled(self, state: EngineState) -> bool:
+        """Whether a step must draw: some live slot samples (the host
+        knows, so a greedy step reads nothing back from the device)."""
+        return self.select_fn is None and any(
+            g is not None for g in state.generators)
+
+    def _draws(self, state: EngineState, n: int, *, gumbel: bool):
+        """[S, n] draws from the slots' own generators, exactly as the
+        eager sampler makes them (a greedy slot draws from a fresh
+        default generator and ignores the draw)."""
+        gens = [g if g is not None else torch.Generator(self.device)
+                for g in state.generators]
+        return sampling_ops._row_draws(self.slots, n, gens, self.device,
+                                       gumbel=gumbel)
+
     def decode_step(self, state: EngineState):
         """Advance every active slot one token. Returns (state, emitted
         [S], emitted_lp [S], was_active [S], finished [S]): emitted[r] is
         meaningful where was_active[r]; finished rows just emitted their
         final token (eos or cache-full) -- callers still `release_slot`
-        them so the host pool frees their pages."""
-        cfg, L = self.cfg, self.max_len
-        with torch.no_grad():
-            params = self._step_params()
-            x = T._embed(params, state.last_tok[:, None])
-            pos = state.pos[:, None]
-            if not self.paged:
-                # the rolling ring pool, per row: each row writes its
-                # own slot (the sentinel W on inactive rows drops the
-                # write) and reads the ring positions that exist
-                w = cfg.attn_window
-                slots_raw, ring_ok = T._ring_slot_valid(state.pos, w)
-                write_slots = torch.where(state.active, slots_raw,
-                                          torch.full_like(slots_raw, w))
-                valid4 = (ring_ok & state.active[:, None])[:, None, None, :]
-            for p, (k_buf, v_buf) in zip(params["blocks"], state.caches):
-                if self.paged:
-                    def attn(q, k, v, k_buf=k_buf, v_buf=v_buf):
-                        return pa.paged_decode_attention(
-                            q, k, v, k_buf, v_buf, state.page_table,
-                            state.pos, state.active,
-                            page_size=self.page_size, max_len=L,
-                            impl=self.ragged_impl)[0]
-                else:
-                    def attn(q, k, v, k_buf=k_buf, v_buf=v_buf):
-                        return T._cached_attention(q, k, v, k_buf, v_buf,
-                                                   write_slots, valid4)[0]
+        them so the host pool frees their pages. A bound "step" program
+        serves an all-greedy pool, "step_sampled" (given the slots'
+        Gumbel draws) any other."""
+        noise = None
+        if self._sampled(state):
+            noise = self._draws(state, self.cfg.vocab, gumbel=True)
+        if noise is None:
+            out = self._run_art("step", self._raw_params, state)
+        else:
+            out = self._run_art("step_sampled", self._raw_params, state,
+                                noise)
+        if out is _MISS:
+            with torch.no_grad():
+                out = self._step_impl(self._raw_params, state, noise)
+        return (state,) + tuple(out)
 
-                # inactive slots are dead compute: no MoE capacity either
-                x, _, _, _ = T._block_parts(cfg, p, x, pos, attn,
-                                            state.active[:, None])
-            logits = T._head(params, x[:, -1])
-            nxt = self._select(logits, state.temp, state.top_k,
-                               state.top_p, state.generators)
-            nxt_lp = torch.gather(
-                torch.log_softmax(at_least_f32(logits), dim=-1), 1,
-                nxt[:, None])[:, 0].float()
-            emitted = state.last_tok.clone()
-            emitted_lp = state.last_lp.clone()
-            was_active = state.active.clone()
-            fin = torch.zeros_like(was_active)
-            if self.eos_id is not None:
-                fin = was_active & (emitted == self.eos_id)
+    def _step_impl(self, raw_params, state: EngineState, noise=None):
+        """The decode step's device work over the resident tree
+        raw_params (an int8 tree is dequantized here, each step): the
+        next token by argmax (noise None), by per-row sampling with the
+        Gumbel draws noise [S, V], or by the pool-wide select_fn.
+        Returns (emitted, emitted_lp, was_active, finished)."""
+        cfg, L = self.cfg, self.max_len
+        params = (_quant.dequantize_params(raw_params)
+                  if _quant.has_quantized(raw_params) else raw_params)
+        x = T._embed(params, state.last_tok[:, None])
+        pos = state.pos[:, None]
+        if not self.paged:
+            # the rolling ring pool, per row: each row writes its own
+            # slot (the sentinel W on inactive rows drops the write) and
+            # reads the ring positions that exist
+            w = cfg.attn_window
+            slots_raw, ring_ok = T._ring_slot_valid(state.pos, w)
+            write_slots = torch.where(state.active, slots_raw,
+                                      torch.full_like(slots_raw, w))
+            valid4 = (ring_ok & state.active[:, None])[:, None, None, :]
+        for p, (k_buf, v_buf) in zip(params["blocks"], state.caches):
             if self.paged:
-                # capacity retirement bounds the full-length pool only:
-                # the ring reuses its slots, so a windowed request ends
-                # on eos or the caller's max_new alone
-                fin = fin | (was_active & (state.pos + 1 >= L))
-            cont = was_active & ~fin
-            state.pos.copy_(torch.where(cont, state.pos + 1,
-                                        torch.full_like(state.pos, L)))
-            state.active.copy_(cont)
-            state.last_tok.copy_(nxt)
-            state.last_lp.copy_(nxt_lp)
-        return state, emitted, emitted_lp, was_active, fin
+                def attn(q, k, v, k_buf=k_buf, v_buf=v_buf):
+                    return pa.paged_decode_attention(
+                        q, k, v, k_buf, v_buf, state.page_table,
+                        state.pos, state.active,
+                        page_size=self.page_size, max_len=L,
+                        impl=self.ragged_impl)[0]
+            else:
+                def attn(q, k, v, k_buf=k_buf, v_buf=v_buf):
+                    return T._cached_attention(q, k, v, k_buf, v_buf,
+                                               write_slots, valid4)[0]
+
+            # inactive slots are dead compute: no MoE capacity either
+            x, _, _, _ = T._block_parts(cfg, p, x, pos, attn,
+                                        state.active[:, None])
+        logits = T._head(params, x[:, -1])
+        nxt = self._select(logits, state.temp, state.top_k, state.top_p,
+                           state.generators, noise)
+        nxt_lp = torch.gather(
+            torch.log_softmax(at_least_f32(logits), dim=-1), 1,
+            nxt[:, None])[:, 0].float()
+        emitted = state.last_tok.clone()
+        emitted_lp = state.last_lp.clone()
+        was_active = state.active.clone()
+        fin = torch.zeros_like(was_active)
+        if self.eos_id is not None:
+            fin = was_active & (emitted == self.eos_id)
+        if self.paged:
+            # capacity retirement bounds the full-length pool only: the
+            # ring reuses its slots, so a windowed request ends on eos
+            # or the caller's max_new alone
+            fin = fin | (was_active & (state.pos + 1 >= L))
+        cont = was_active & ~fin
+        state.pos.copy_(torch.where(cont, state.pos + 1,
+                                    torch.full_like(state.pos, L)))
+        state.active.copy_(cont)
+        state.last_tok.copy_(nxt)
+        state.last_lp.copy_(nxt_lp)
+        return emitted, emitted_lp, was_active, fin
 
     def ensure_decode_page(self, state: EngineState,
                            slot: int) -> EngineState:
@@ -702,74 +979,99 @@ class DecodeEngine:
         [S], was_active [S], finished [S], n_accepted [S]): row r emitted
         emitted[r, :n_emit[r]] this round. The caller must have reserved
         pages under pos..pos+draft_len[r] (`reserve_spec_pages`) and
-        settles continuing rows with `settle_spec` after."""
-        cfg, L, dev = self.cfg, self.max_len, self.device
+        settles continuing rows with `settle_spec` after.
+
+        A bound "spec" program (all-greedy pool) or "spec_sampled" (given
+        the slots' acceptance uniforms [S, K] and Gumbel draws [S, V])
+        serves a round of the bundle's width, policy.spec_draft_max."""
+        dev = self.device
         d = torch.from_numpy(np.asarray(drafts, np.int64)).to(dev)
         dl = torch.from_numpy(np.asarray(draft_len, np.int64)).to(dev)
         k = d.shape[1]
-        with torch.no_grad():
-            params = self._step_params()
-            window = torch.cat([state.last_tok[:, None], d], dim=1)
-            x = T._embed(params, window)
-            pos = state.pos[:, None] + torch.arange(
-                k + 1, dtype=torch.int32, device=dev)[None, :]
-            # positions past a row's draft_len are padding: dead compute
-            # that must not claim MoE capacity, as inactive rows
-            tok_mask = state.active[:, None] & (
-                torch.arange(k + 1, device=dev)[None, :] <= dl[:, None])
-            for p, (k_buf, v_buf) in zip(params["blocks"], state.caches):
-                # write the whole window's K/V through the table, then
-                # the ragged read at per-row offsets; rejected positions
-                # are rolled back on the host (pool.commit) and
-                # rewritten before any later read
-                def attn(q, kk, vv, k_buf=k_buf, v_buf=v_buf):
-                    return pa.paged_verify_attention(
-                        q, kk, vv, k_buf, v_buf, state.page_table,
-                        state.pos, state.active, page_size=self.page_size,
-                        max_len=L, impl=self.ragged_impl)[0]
-
-                x, _, _, _ = T._block_parts(cfg, p, x, pos, attn, tok_mask)
-            logits = T._head(params, x)                     # [S, K+1, V]
-            # an all-greedy pool takes the sort-free argmax rule, as the
-            # plain step takes argmax; the host knows which
-            if all(g is None for g in state.generators):
-                nxt, n_acc, lp_draft, lp_next = \
-                    sampling_ops.greedy_spec_verify(logits, window, dl)
+        u = noise = None
+        if any(g is not None for g in state.generators):
+            u = self._draws(state, k, gumbel=False)
+            noise = self._draws(state, self.cfg.vocab, gumbel=True)
+        out = _MISS
+        if k == int(self.policy.spec_draft_max):
+            if u is None:
+                out = self._run_art("spec", self._raw_params, state, d, dl)
             else:
-                gens = [g if g is not None else torch.Generator(dev)
-                        for g in state.generators]
-                nxt, n_acc, lp_draft, lp_next = \
-                    sampling_ops.ngram_spec_verify(
-                        logits, window, dl, state.temp, state.top_k,
-                        state.top_p, generators=gens)
-            # a round CONSUMES window[:n_acc+1] and emits each consumed
-            # token (generate()'s emit-the-carry convention per token)
-            emitted = window
-            emitted_lp = torch.cat([state.last_lp[:, None], lp_draft], dim=1)
-            was_active = state.active.clone()
-            n_con = n_acc + 1
-            fin = torch.zeros_like(was_active)
-            n_emit = n_con
-            if self.eos_id is not None:
-                # eos anywhere in the consumed prefix finishes the row at
-                # that token; later accepted tokens go with the row
-                is_eos = (window == self.eos_id) & (
-                    torch.arange(k + 1, device=dev)[None, :]
-                    < n_con[:, None])
-                has_eos = is_eos.any(dim=1)
-                n_emit = torch.where(
-                    has_eos, torch.argmax(is_eos.to(torch.int32), dim=1) + 1,
-                    n_con)
-                fin = was_active & has_eos
-            # capacity: policy.draft_len keeps pos + n_emit <= L
-            fin = fin | (was_active & (state.pos + n_emit >= L))
-            cont = was_active & ~fin
-            state.pos.copy_(torch.where(cont, state.pos + n_emit,
-                                        torch.full_like(state.pos, L)))
-            state.active.copy_(cont)
-            state.last_tok.copy_(nxt)
-            state.last_lp.copy_(lp_next)
-        return state, emitted, emitted_lp, n_emit, was_active, fin, n_acc
+                out = self._run_art("spec_sampled", self._raw_params, state,
+                                    d, dl, u, noise)
+        if out is _MISS:
+            with torch.no_grad():
+                out = self._spec_impl(self._raw_params, state, d, dl, u,
+                                      noise)
+        return (state,) + tuple(out)
+
+    def _spec_impl(self, raw_params, state: EngineState, d, dl, u=None,
+                   noise=None):
+        """The verify round's device work (drafts d [S, K], draft_len dl
+        [S]); the all-greedy rule when u is None, else the sampled rule
+        with the given draws. Returns (emitted, emitted_lp, n_emit,
+        was_active, finished, n_accepted)."""
+        cfg, L, dev = self.cfg, self.max_len, d.device
+        k = d.shape[1]
+        params = (_quant.dequantize_params(raw_params)
+                  if _quant.has_quantized(raw_params) else raw_params)
+        window = torch.cat([state.last_tok[:, None], d], dim=1)
+        x = T._embed(params, window)
+        pos = state.pos[:, None] + torch.arange(
+            k + 1, dtype=torch.int32, device=dev)[None, :]
+        # positions past a row's draft_len are padding: dead compute
+        # that must not claim MoE capacity, as inactive rows
+        tok_mask = state.active[:, None] & (
+            torch.arange(k + 1, device=dev)[None, :] <= dl[:, None])
+        for p, (k_buf, v_buf) in zip(params["blocks"], state.caches):
+            # write the whole window's K/V through the table, then the
+            # ragged read at per-row offsets; rejected positions are
+            # rolled back on the host (pool.commit) and rewritten before
+            # any later read
+            def attn(q, kk, vv, k_buf=k_buf, v_buf=v_buf):
+                return pa.paged_verify_attention(
+                    q, kk, vv, k_buf, v_buf, state.page_table,
+                    state.pos, state.active, page_size=self.page_size,
+                    max_len=L, impl=self.ragged_impl)[0]
+
+            x, _, _, _ = T._block_parts(cfg, p, x, pos, attn, tok_mask)
+        logits = T._head(params, x)                         # [S, K+1, V]
+        # an all-greedy pool takes the sort-free argmax rule, as the
+        # plain step takes argmax; the host knows which
+        if u is None:
+            nxt, n_acc, lp_draft, lp_next = \
+                sampling_ops.greedy_spec_verify(logits, window, dl)
+        else:
+            nxt, n_acc, lp_draft, lp_next = sampling_ops.ngram_spec_verify(
+                logits, window, dl, state.temp, state.top_k, state.top_p,
+                u=u, noise=noise)
+        # a round CONSUMES window[:n_acc+1] and emits each consumed token
+        # (generate()'s emit-the-carry convention per token)
+        emitted = window
+        emitted_lp = torch.cat([state.last_lp[:, None], lp_draft], dim=1)
+        was_active = state.active.clone()
+        n_con = n_acc + 1
+        fin = torch.zeros_like(was_active)
+        n_emit = n_con
+        if self.eos_id is not None:
+            # eos anywhere in the consumed prefix finishes the row at that
+            # token; later accepted tokens go with the row
+            is_eos = (window == self.eos_id) & (
+                torch.arange(k + 1, device=dev)[None, :] < n_con[:, None])
+            has_eos = is_eos.any(dim=1)
+            n_emit = torch.where(
+                has_eos, torch.argmax(is_eos.to(torch.int32), dim=1) + 1,
+                n_con)
+            fin = was_active & has_eos
+        # capacity: policy.draft_len keeps pos + n_emit <= L
+        fin = fin | (was_active & (state.pos + n_emit >= L))
+        cont = was_active & ~fin
+        state.pos.copy_(torch.where(cont, state.pos + n_emit,
+                                    torch.full_like(state.pos, L)))
+        state.active.copy_(cont)
+        state.last_tok.copy_(nxt)
+        state.last_lp.copy_(lp_next)
+        return emitted, emitted_lp, n_emit, was_active, fin, n_acc
 
     def reserve_spec_pages(self, state: EngineState, slot: int,
                            k: int) -> EngineState:

@@ -73,11 +73,17 @@ submitted request ends in EXACTLY ONE of completed / expired / shed /
 failed, `stats` counters equal the tally over `results`, and the pool
 keeps serving after any mix of the above.
 
+Serving artifacts: `artifact_path` names an engine bundle
+(`serve.artifact.save_engine_artifact`); the replica verifies its
+manifest against the engine and the server's buckets at boot and serves
+through its programs. Any failure -- a mismatch, a missing or corrupt
+file -- keeps the eager path, counted in `artifact_fallbacks` with an
+"artifact"/"fallback" flight event: never a failed boot, never a wrong
+answer.
+
 Port notes: `RequestResult.backend` and the drain report name the
 primary engine "torch" where the JAX package says "jax"; a step reads
-its outputs back in one host copy; serving artifacts (`artifact_path`)
-are not ported yet and raise NotImplementedError naming ROADMAP queue
-1 item 4.
+its outputs back in one host copy.
 """
 
 from __future__ import annotations
@@ -415,7 +421,9 @@ class ServingServer:
         self._pending_signal: Optional[int] = None
         self.drain_report: Optional[dict] = None
 
-        # serving artifacts are not ported yet: _load_artifact raises
+        # serving artifacts (serve.artifact): a replica boots from the
+        # bundle when its manifest verifies against THIS engine; any
+        # mismatch keeps the eager path, counted and flight-recorded
         self.artifact_path = artifact_path
         if self.flight is not None and hasattr(engine,
                                                "_artifact_hook"):
@@ -474,9 +482,17 @@ class ServingServer:
                                error=error)
 
     def _load_artifact(self, path: str) -> None:
-        raise NotImplementedError(
-            "ServingServer(artifact_path=...): serving artifacts are not "
-            "ported yet (ROADMAP queue 1 item 4)")
+        """Boot-time artifact adoption: verify the bundle's manifest
+        against the engine and bind its programs; ANY failure --
+        mismatch, missing file, corrupt tar -- keeps the eager path
+        with the fallback counter and a flight event as evidence."""
+        from paddle_tpu_torch.serve.artifact import load_engine_artifact
+        try:
+            programs, manifest = load_engine_artifact(
+                self.engine, path, expect_buckets=self.buckets)
+            self.engine.bind_artifact(programs, manifest)
+        except Exception as e:
+            self.engine.artifact_fallback("load", repr(e))
 
     @property
     def draining(self) -> bool:
@@ -1655,8 +1671,8 @@ class ServingServer:
             "draft_proposed": self.stats.draft_proposed,
             "draft_accepted": self.stats.draft_accepted,
             "acceptance_rate": self.stats.acceptance_rate(),
-            # serving-artifact adoption (0 until artifacts are
-            # ported; kept so the counters match the JAX package's)
+            # serving-artifact adoption (per replica, so the router's
+            # fleet counters sum them)
             "artifact_loads": getattr(self.engine,
                                       "artifact_loads", 0),
             "artifact_fallbacks": getattr(self.engine,

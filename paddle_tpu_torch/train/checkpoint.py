@@ -20,10 +20,16 @@
   The tar helpers (`_tar_member`, `_tar_manifest`) are this module's own
   copy, with the same error messages for a torn or mismatched tar.
 
+- `export_inference_artifact` / `load_inference_artifact`: the
+  inference-only tar (params + model_state + metadata, no optimizer
+  state) in the JAX package's layout -- `tensor_{i}.npy` members in
+  JAX's flatten order of {"params", "model_state"} under keystr names
+  and a `manifest.json` -- so an artifact written by either package
+  loads in the other, as the parameters tar does.
 - `ManifestMismatchError` and `param_tree_hash` (the structure hash, the
   same as JAX's for a matching tree).
 
-The elastic (ZeRO) manager and the inference artifact are not ported yet.
+The elastic (ZeRO) manager is not ported yet (ROADMAP queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -265,11 +271,77 @@ def load_parameters_tar(template: Any, path: str) -> Any:
                 raise ValueError(
                     f"param {entry['key']}: saved shape {arr.shape} != "
                     f"template shape {tuple(tmpl.shape)}")
-            if arr.dtype.kind == "V" and entry.get("dtype") == "bfloat16":
-                # JAX's bf16 leaf: raw 2-byte values, the bfloat16 bits
-                t = torch.from_numpy(arr.view(np.int16).copy()).view(
-                    torch.bfloat16)
-            else:
-                t = torch.from_numpy(arr)
-            leaves.append(t.to(device=tmpl.device, dtype=tmpl.dtype))
+            leaves.append(_leaf_from(arr, entry, tmpl))
     return _unflatten_like(template, leaves)
+
+
+def _leaf_from(arr: np.ndarray, entry: dict, tmpl: torch.Tensor):
+    """A loaded .npy as a tensor in the template leaf's dtype and
+    device; JAX's bf16 leaf (raw 2-byte values) reads as bfloat16
+    bits."""
+    if arr.dtype.kind == "V" and entry.get("dtype") == "bfloat16":
+        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    return t.to(device=tmpl.device, dtype=tmpl.dtype)
+
+
+# ---- the inference artifact (reference: merge_model deploy file) ------------
+
+
+def export_inference_artifact(params: Any, model_state: Any, path: str,
+                              meta: Optional[dict] = None) -> None:
+    """Inference-only artifact: params + model_state (BN stats) +
+    metadata, no optimizer state (reference: merge_model deploy file,
+    python/paddle/utils/merge_model.py + trainer/MergeModel.cpp)."""
+    bundle = {"params": params, "model_state": model_state}
+    manifest = []
+    with tarfile.open(path, "w") as tar:
+        for i, (name, leaf) in enumerate(_flatten_with_keys(bundle)):
+            arr = _to_numpy(leaf)
+            buf = io.BytesIO()
+            np.save(buf, arr)
+            _add_member(tar, f"tensor_{i}.npy", buf.getvalue())
+            manifest.append({"index": i, "key": name,
+                             "shape": list(arr.shape),
+                             "dtype": str(arr.dtype)})
+        _add_member(tar, "manifest.json", json.dumps(
+            {"tensors": manifest, "meta": meta or {}}).encode())
+
+
+def load_inference_artifact(params_template: Any, model_state_template: Any,
+                            path: str):
+    """Restore (params, model_state, meta) from an inference artifact of
+    either package, each leaf in its template leaf's dtype and device."""
+    bundle = {"params": params_template, "model_state": model_state_template}
+    flat_kp = _flatten_with_keys(bundle)
+    try:
+        tar_ctx = tarfile.open(path, "r")
+    except (tarfile.TarError, EOFError) as e:
+        raise ValueError(f"{path}: not a readable inference artifact "
+                         f"(truncated or corrupt): {e}") from e
+    with tar_ctx as tar:
+        manifest = _tar_manifest(tar, path)
+        entries = manifest.get("tensors")
+        if entries is None:
+            raise ValueError(f"{path}: manifest.json has no 'tensors' — "
+                             f"not an inference artifact")
+        if len(entries) != len(flat_kp):
+            raise ValueError(
+                f"artifact has {len(entries)} tensors, template has "
+                f"{len(flat_kp)}")
+        leaves = []
+        for i, ((name, tmpl), entry) in enumerate(zip(flat_kp, entries)):
+            if entry["key"] != name:
+                raise ValueError(
+                    f"tensor {i}: saved key {entry['key']!r} != template key "
+                    f"{name!r} — architecture mismatch")
+            arr = np.load(io.BytesIO(_tar_member(tar, f"tensor_{i}.npy",
+                                                 path)))
+            if arr.shape != tuple(tmpl.shape):
+                raise ValueError(
+                    f"tensor {entry['key']}: saved shape {arr.shape} != "
+                    f"template shape {tuple(tmpl.shape)}")
+            leaves.append(_leaf_from(arr, entry, tmpl))
+    restored = _unflatten_like(bundle, leaves)
+    return restored["params"], restored["model_state"], manifest["meta"]

@@ -94,7 +94,9 @@ IMAGE_HW = 224
 TIMED, PROFILED = 10, 3
 OPTIMIZER_SPAN = "optimizer"
 HEAD_SPAN = "lm_head_ce"
-FLASH_BWD_NODE = "_FlashAttentionBackward"
+# the autograd node of the flash operator's registered backward
+# (ops.flash_attention.flash_fwd, torch.library.custom_op)
+FLASH_BWD_NODE = "GeneratedBackwardFor_paddle_tpu_torch_flash_fwd_defaultBackward"
 BLOCK_SPAN = "transformer_block"
 ROUTING_SPAN = "moe_routing_dispatch"
 EXPERT_SPAN = "moe_expert_ffn"

@@ -228,3 +228,85 @@ def test_param_tree_hash_equals_jax_for_a_matching_tree():
     wider = dict(tp, extra=torch.zeros(1))
     assert TC.param_tree_hash(wider) != TC.param_tree_hash(tp)
     assert issubclass(TC.ManifestMismatchError, ValueError)
+
+
+# ---- the inference artifact ---------------------------------------------
+
+
+def _bn_model(side):
+    """JAX's test model (Dense, BatchNorm, Dense) in either package."""
+    if side == "jax":
+        from paddle_tpu import nn
+        seq, layers = nn.Sequential, nn
+    else:
+        from paddle_tpu_torch.nn import layers
+        from paddle_tpu_torch.nn.module import Sequential as seq
+    return seq([layers.Dense(6, name="fc", activation="relu"),
+                layers.BatchNorm(name="bn"), layers.Dense(2, name="out")])
+
+
+def _bn_trees():
+    """The same params and (nonzero) BN statistics in both packages."""
+    from paddle_tpu.nn.module import ShapeSpec as JSpec
+    from paddle_tpu_torch.models.weights import params_from_numpy
+    from paddle_tpu_torch.nn.module import ShapeSpec as TSpec
+
+    jp, js = _bn_model("jax").init(jax.random.key(0), JSpec((4, 5)))
+    rs = np.random.RandomState(7)
+    js = jax.tree.map(lambda a: rs.rand(*a.shape).astype(np.float32) + 0.5,
+                      js)
+    tp, ts = _bn_model("torch").init(0, TSpec((4, 5)), device="cpu")
+    to_t = lambda tree: params_from_numpy(
+        jax.tree.map(np.asarray, tree), device="cpu")
+    return (jp, js), (to_t(jp), to_t(js)), (tp, ts)
+
+
+def test_inference_artifact_round_trip_and_crosses_packages(tmp_path):
+    """JAX's test_inference_artifact_roundtrip on the port, and the tar
+    crossing both ways: a JAX-written artifact loads in the port (and
+    drives the same inference as JAX's apply), a port-written one loads
+    in JAX, with identical leaves and keys."""
+    import jax.numpy as jnp
+
+    (jp, js), (tp, ts), (zp, zs) = _bn_trees()
+    meta = {"model": "toy"}
+    tpath, jpath = str(tmp_path / "port.tar"), str(tmp_path / "jax.tar")
+    TC.export_inference_artifact(tp, ts, tpath, meta=meta)
+    p2, s2, m2 = TC.load_inference_artifact(zp, zs, tpath)
+    assert _equal(p2, tp) and _equal(s2, ts) and m2 == meta
+    x = np.random.RandomState(0).rand(4, 5).astype(np.float32)
+    want = np.asarray(_bn_model("jax").apply(jp, js, jnp.asarray(x),
+                                             training=False)[0])
+    # JAX-written -> port: the port's inference equals JAX's
+    JC.export_inference_artifact(jp, js, jpath, meta=meta)
+    p3, s3, m3 = TC.load_inference_artifact(zp, zs, jpath)
+    assert _equal(p3, tp) and _equal(s3, ts) and m3 == meta
+    got = _bn_model("torch").apply(p3, s3, torch.from_numpy(x),
+                                   training=False)[0]
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    # port-written -> JAX
+    jz = jax.tree.map(jnp.zeros_like, (jp, js))
+    p4, s4, m4 = JC.load_inference_artifact(jz[0], jz[1], tpath)
+    for a, b in ((p4, jp), (s4, js)):
+        for (ka, va), (kb, vb) in zip(
+                jax.tree_util.tree_flatten_with_path(a)[0],
+                jax.tree_util.tree_flatten_with_path(b)[0]):
+            assert ka == kb
+            np.testing.assert_array_equal(np.asarray(va), np.asarray(vb))
+    assert m4 == meta
+
+
+def test_inference_artifact_refuses_another_tree(tmp_path):
+    (_, _), (tp, ts), _ = _bn_trees()
+    path = str(tmp_path / "a.tar")
+    TC.export_inference_artifact(tp, ts, path)
+    other = dict(tp, fc={"kernel": torch.zeros(5, 7),
+                         "bias": torch.zeros(7)})
+    with pytest.raises(ValueError, match="shape"):
+        TC.load_inference_artifact(other, ts, path)
+    with pytest.raises(ValueError, match="template has"):
+        TC.load_inference_artifact({"fc": tp["fc"]}, ts, path)
+    with pytest.raises(ValueError, match="not an inference artifact"):
+        ppath = str(tmp_path / "p.tar")
+        TC.save_parameters_tar(tp, ppath)
+        TC.load_inference_artifact(tp, ts, ppath)

@@ -209,3 +209,59 @@ def test_config_contract_is_checked(tmp_path):
     p.write_text("def get_config():\n    return {'model': None}\n")
     with pytest.raises(SystemExit, match="input_spec"):
         main(["train", "--config", str(p), "--device", "cpu"])
+
+
+def _jax_model():
+    """The config's model in the JAX package."""
+    import jax.numpy as jnp
+
+    from paddle_tpu.nn import layers as JL
+    from paddle_tpu.nn import module as JM
+    from paddle_tpu.nn import recurrent as JR
+
+    return JM.Sequential([
+        JL.Embedding(50, 8, name="emb"), JR.LSTM(8, name="lstm"),
+        JL.Lambda(lambda x: jnp.mean(x, axis=1), name="pool",
+                  out_spec_fn=lambda s: JM.ShapeSpec(
+                      (s.shape[0], s.shape[2]), s.dtype)),
+        JL.Dense(2, name="fc")])
+
+
+def test_train_merge_model_infer_matches_jax_apply(tmp_path, capsys):
+    """train -> merge-model -> infer on the CPU: the artifact's output on
+    a batch equals the JAX model's apply on the same params.tar within
+    1e-5."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from paddle_tpu.nn.module import ShapeSpec as JSpec
+    from paddle_tpu.train.checkpoint import load_parameters_tar as j_load
+
+    cfg = _config(tmp_path)
+    save = str(tmp_path / "save")
+    assert main(["train", "--config", cfg, "--device", "cpu",
+                 "--batch-size", "8", "--save-dir", save]) == 0
+    ptar = os.path.join(save, "params.tar")
+    art = str(tmp_path / "model.ptc")
+    assert main(["merge-model", "--config", cfg, "--params", ptar,
+                 "--output", art, "--device", "cpu"]) == 0
+    x = np.random.RandomState(3).randint(0, 50, (8, 10)).astype(np.int32)
+    xp = str(tmp_path / "x.npy")
+    np.save(xp, x)
+    capsys.readouterr()
+    assert main(["infer", "--artifact", art, "--output-prefix",
+                 str(tmp_path / "out"), xp]) == 0
+    out = capsys.readouterr().out
+    assert "output[0] shape=(8, 2) dtype=float32 mean=" in out
+    got = np.load(str(tmp_path / "out0.npy"))
+    model = _jax_model()
+    jp, js = model.init(jax.random.key(0), JSpec((8, 10), jnp.int32))
+    jp = j_load(jp, ptar)
+    want = np.asarray(model.apply(jp, js, jnp.asarray(x),
+                                  training=False)[0])
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    # the merged weights are the trained ones, not the config's init
+    fresh = _jax_model().apply(model.init(jax.random.key(0), JSpec(
+        (8, 10), jnp.int32))[0], js, jnp.asarray(x), training=False)[0]
+    assert not np.allclose(np.asarray(fresh), got, atol=1e-3)

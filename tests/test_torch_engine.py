@@ -146,9 +146,11 @@ def test_sampled_requests_are_seed_deterministic(models):
 
 
 def test_unported_paths_raise(models):
-    """Only the serving artifacts are left unported (they raise naming
-    their ROADMAP item); ring pools, migration, int8 KV pools and
-    speculative rounds run (their parity: tests/test_torch_serve_*)."""
+    """Every serving path of the engine is ported: ring pools, migration,
+    int8 KV pools and speculative rounds run (their parity:
+    tests/test_torch_serve_*), and serving artifacts bind to paged
+    engines (tests/test_torch_serve_artifact.py); a ring engine refuses
+    the artifact surface by name, as the JAX engine does."""
     import dataclasses
 
     _, tcfg, _, tp = models
@@ -156,8 +158,10 @@ def test_unported_paths_raise(models):
                         slots=1, max_len=16, device="cpu")
     assert not ring.paged
     assert len(ring.serve([np.arange(3)], max_new=20)[0]) == 20
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        ring.bind_artifact({}, {})
+    with pytest.raises(ValueError, match="paged engines only"):
+        ring.artifact_manifest()
+    with pytest.raises(ValueError, match="paged engines only"):
+        ring.state_spec()
     eng8 = DecodeEngine(tp, dataclasses.replace(tcfg, kv_cache_dtype="int8"),
                         slots=1, max_len=16, page_size=PAGE, device="cpu")
     assert len(eng8.serve([np.arange(3)], max_new=4)[0]) == 4

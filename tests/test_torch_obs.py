@@ -7,6 +7,7 @@ of tests/test_obs.py (a replica killed mid-burst under full
 instrumentation) must give the same spans, counters and dump on both
 serving stacks."""
 
+import itertools
 import json
 import os
 
@@ -146,9 +147,14 @@ def _arena_script(shm, name):
         arena.close(destroy=True)
 
 
-def test_shm_arena_copy_matches_the_original():
+def test_shm_arena_copy_matches_the_original(monkeypatch):
+    """Each module draws its scatter tags from a module-level counter:
+    an earlier scatter in the same process would shift one module's
+    count, so both start each script from a fresh counter."""
     tag = os.urandom(3).hex()
+    monkeypatch.setattr(j_shm, "_TAG_COUNTER", itertools.count(1))
     ref = _arena_script(j_shm, f"pt-arena-j-{tag}")
+    monkeypatch.setattr(t_shm, "_TAG_COUNTER", itertools.count(1))
     got = _arena_script(t_shm, f"pt-arena-t-{tag}")
     assert got == ref
     assert got["back"][0] == b"hello, pages" and got["freed"] > 0

@@ -68,6 +68,8 @@ MODULES = [
     "paddle_tpu_torch.obs.flight", "paddle_tpu_torch.obs.registry",
     "paddle_tpu_torch.serve", "paddle_tpu_torch.serve.shm_arena",
     "paddle_tpu_torch.serve.server", "paddle_tpu_torch.serve.router",
+    "paddle_tpu_torch.serve.artifact", "paddle_tpu_torch.serve.capi_bridge",
+    "paddle_tpu_torch.train",
 ]
 
 

@@ -85,6 +85,47 @@ def test_metrics_out_and_flight_dir(files, tmp_path):
     assert done[0]["value"] == 4
 
 
+@pytest.fixture(scope="module")
+def bundles(files):
+    """Each package's bundle of the config's engine (exported once)."""
+    from paddle_tpu.serve.artifact import save_engine_artifact as j_save
+    from paddle_tpu.serve.engine import DecodeEngine as JEngine
+    from paddle_tpu_torch.serve.artifact import save_engine_artifact
+    from paddle_tpu_torch.serve.engine import DecodeEngine
+    from torch_parity import make_models
+
+    jcfg, tcfg, jp, tp = make_models(seed=0, vocab=61, dim=32, n_layers=2,
+                                     n_heads=4, attn_impl="dense")
+    geom = dict(slots=2, max_len=24, seed=0)
+    j_save(JEngine(jp, jcfg, **geom), str(files / "jax_engine.tar"),
+           buckets=(8,))
+    save_engine_artifact(DecodeEngine(tp, tcfg, device="cpu", **geom),
+                         str(files / "torch_engine.tar"), buckets=(8,))
+    return files
+
+
+def test_engine_artifact_serve_matches_jax(bundles):
+    """--engine-artifact: each package's replica boots from its own
+    bundle of the config's engine (serve.artifact) and the transcripts,
+    counters trailer included, are equal: artifact_loads=1,
+    artifact_fallbacks=0 on both."""
+    files = bundles
+    out = {}
+    for name, main in (("jax", jax_main), ("torch", torch_main)):
+        path = files / f"out_art_{name}.txt"
+        argv = ["serve", "--config", str(files / f"{name}_cfg.py"),
+                "--prompts", str(files / "prompts.txt"), "--max-new", "4",
+                "--buckets", "8", "--output", str(path),
+                "--engine-artifact", str(files / f"{name}_engine.tar")]
+        if name == "torch":
+            argv += ["--device", "cpu"]
+        assert main(argv) == 0
+        out[name] = path.read_text().splitlines()
+    assert out["torch"] == out["jax"]
+    assert "artifact_loads=1" in out["torch"][-1]
+    assert "artifact_fallbacks=0" in out["torch"][-1]
+
+
 @pytest.mark.parametrize("flag", sorted(SERVE_DEFERRED_FLAGS))
 def test_deferred_serve_flags_name_their_roadmap_item(files, flag, capsys):
     takes_value, _ = SERVE_DEFERRED_FLAGS[flag]

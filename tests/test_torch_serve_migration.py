@@ -204,12 +204,23 @@ def test_pause_then_resume_in_place_is_invisible():
     assert out == ref
 
 
-def test_artifact_entry_points_name_their_roadmap_item():
+def test_artifact_entry_points_name_their_roadmap_item(tmp_path):
+    """The artifact entry points are ported: a server handed a bundle
+    path that holds none keeps the eager path, the failure counted once
+    with its flight event, as the JAX server does."""
+    from paddle_tpu_torch.obs.flight import FlightRecorder
+
     eng = make_engine(TORCH, slots=1, max_len=16)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        eng.bind_artifact({}, {})
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        TORCH.ServingServer(eng, artifact_path="bundle.tar")
+    flight = FlightRecorder()
+    srv = TORCH.ServingServer(eng, artifact_path=str(tmp_path / "none.tar"),
+                              flight=flight)
+    assert (eng.artifact_loads, eng.artifact_fallbacks) == (0, 1)
+    evs = [e for e in flight.events() if e["kind"] == "artifact"]
+    assert len(evs) == 1 and evs[0]["member"] == "load"
+    assert "FileNotFoundError" in evs[0]["error"]
+    assert srv.counters()["artifact_fallbacks"] == 1
+    rid = srv.submit(np.arange(3), max_new=2)
+    assert srv.run()[rid].outcome == "completed"
 
 
 def test_unported_fault_seams_fail_by_name():
