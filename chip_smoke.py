@@ -306,6 +306,41 @@ Phases, in order; any failure exits non-zero:
    3, restores them into a fresh template leaf for leaf, one more step
    from both gives the same loss bit for bit, and the parameters tar
    round-trips the params exactly.
+8a. distributed -- the distributed layer (paddle_tpu_torch.parallel,
+   core.mesh) on torch.distributed. NCCL cannot put two ranks on one
+   device, so no number here is a scaling number.
+   - World size 1 over NCCL: graft_entry.dryrun_multichip(1) (the toy
+     dp x tp ZeRO-placement step with two microbatches, ring attention,
+     ResNet-50 and seq2seq data-parallel -- the seq2seq step on F and
+     G -- and the transformer TP step with the fused CE against the
+     plain CE); the LM at bench_transformer_lm's width (lm_train's
+     weights and tokens, bf16 policy) through
+     make_sharded_train_step(param_rules=TP_RULES) on mesh (1, 1, 1) and
+     through make_zero_train_step and its zero_update=False oracle arm,
+     1 + 3 steps each beside the plain step: bit for bit, or within the
+     LM phase's bf16 tolerance (the run prints which); ZeRO bit for bit
+     with its oracle arm; A 16 launches a step, counted from 0 before
+     each run; make_context_parallel_loss, ring and Ulysses, at
+     T=2048 (loss and every gradient within 1e-4 of the plain loss's);
+     generate on TP_RULES parameters at bench_decode's B=8, 128 + 128
+     tokens, against the unsharded generate by the gap rule, A 8 in
+     the prefill.
+   - Two ranks sharing cuda:0 over gloo (spawned, joined with a
+     timeout, killed on failure): scripts/torch_gloo_cuda_probe.py
+     (started with the phase, its ranks reaching the card while the
+     world-size-1 part runs) must find exactly GLOO_CUDA (and
+     GLOO_CUDA_BF16), the collectives gloo takes on CUDA tensors; then
+     the paths of GLOO_PATHS whose
+     collectives are all on that list and that GLOO_REFUSED does not
+     name (dp and ZeRO; TP's DTensor collectives crash gloo, ring CP
+     and the pipeline need point-to-point sends: held on the CPU
+     only), at the LM's width in f32 with 2 of the 4 rows a rank,
+     sgd 0.1, 1 + 2 steps, against the plain step on the 4 rows
+     (losses rtol 1e-5, parameters after the first and the last step
+     rtol 1e-4 / atol 1e-5: JAX's DP gate), printing ms/step, A's
+     launches, the collectives and bytes a step moves; ZeRO's
+     opt_state_bytes_per_replica at two ranks is half of world size
+     1's (to within padding).
 8b. decode -- the LM's decoders at bench_decode's width
    (benchmarks/suite.py:500-668: vocab 32000, dim 512, 8 layers, 8
    heads, f32, seeded weights, B=8 prompts of 128 tokens from
@@ -3349,6 +3384,558 @@ def lm_train_phase():
                 a_launches_per_step=variants[0]["a_launches_per_step"])
 
 
+# -- distributed training on torch.distributed ----------------------------------
+
+# NCCL refuses two ranks on one device, so the card runs the distributed
+# layer at world size 1 over NCCL, and two ranks sharing cuda:0 over gloo
+# for the collectives gloo takes on CUDA tensors. GLOO_CUDA is that list
+# (f32 tensors) as scripts/torch_gloo_cuda_probe.py found it on the card
+# (torch 2.11), GLOO_CUDA_BF16 those it also takes on bf16 tensors; the
+# phase probes again and fails if the answer changed. GLOO_PATHS: the
+# two-rank paths, each with the collectives it issues; the phase runs
+# exactly those whose collectives are all on GLOO_CUDA, in f32 (the
+# default policy), with the optimizer of JAX's DP gate.
+GLOO_CUDA = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
+             "all_to_all_single")
+GLOO_CUDA_BF16 = GLOO_CUDA
+GLOO_PATHS = {"dp": ("all_reduce",),
+              "zero": ("all_reduce", "reduce_scatter_tensor",
+                       "all_gather_into_tensor"),
+              "tp": ("all_reduce", "all_gather_into_tensor",
+                     "reduce_scatter_tensor"),
+              "cp_ring": ("batch_isend_irecv", "all_reduce"),
+              "pipeline": ("batch_isend_irecv", "all_reduce")}
+# paths whose collectives are on the list but which gloo cannot run on
+# CUDA tensors all the same: DTensor's TP step (its functional, async
+# collectives) killed both ranks with SIGSEGV in a gloo thread, in bf16
+# and f32 alike (torch 2.11; the probe's synchronous calls pass)
+GLOO_REFUSED = {"tp": "SIGSEGV in gloo under DTensor's async collectives"}
+DIST_STEPS = 3            # after one warm-up step, world size 1
+DIST_GLOO_STEPS = 2       # after one warm-up step, two ranks
+DIST_GLOO_B = 2           # rows a rank; the two ranks share LM_B = 4 rows
+DIST_GLOO_LR = 0.1        # sgd, as JAX's DP gate (tests/test_parallel.py:33)
+DIST_TIMEOUT_S = 240      # the two ranks' join timeout
+DRYRUN_1_PARTS = ["toy_dp_tp_zero", "ring_attention", "resnet_dp",
+                  "seq2seq_dp", "transformer_tp"]
+
+
+def gloo_paths(cuda_list=None):
+    cuda_list = GLOO_CUDA if cuda_list is None else cuda_list
+    return [p for p, need in GLOO_PATHS.items() if p not in GLOO_REFUSED
+            and all(c in cuda_list for c in need)]
+
+
+def tree_diff(a, b):
+    """(bitwise, max rel err) of two parameter trees (DTensors read as
+    their local shard, which is the whole leaf at world size 1), in
+    tree_leaves order, each leaf's error over its own max |b|."""
+    same, worst = True, 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        x = x.to_local() if hasattr(x, "to_local") else x
+        y = y.to_local() if hasattr(y, "to_local") else y
+        same = same and torch.equal(x, y)
+        worst = max(worst, abs_err(x, y) / max(y.abs().max().item(), 1e-30))
+    return same, worst
+
+
+def timed_steps(run_step, n):
+    """(losses, ms per step after the first): run_step(i) -> loss."""
+    losses = [run_step(0)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [run_step(i) for i in range(1, n)]
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / max(n - 1, 1)
+    return [float(x) for x in losses], ms
+
+
+def dist_parity(label, got, want, loss_got, loss_want, tol):
+    """The gate of a distributed run against its reference: bit for bit
+    where expected, else within tol (param rel, loss rel)."""
+    bitwise, p_err = tree_diff(got, want)
+    l_err = max(abs(a - b) / abs(b) for a, b in zip(loss_got, loss_want))
+    bitwise = bitwise and loss_got == loss_want
+    log(f"  {label}: {'bit for bit' if bitwise else 'NOT bit for bit'}; "
+        f"params max rel err {p_err:.2e}, losses {l_err:.2e} (tol "
+        f"{tol[0]:.0e}, {tol[1]:.0e}); losses "
+        f"{['%.6f' % x for x in loss_got]} vs "
+        f"{['%.6f' % x for x in loss_want]}")
+    if not bitwise and (p_err > tol[0] or l_err > tol[1]):
+        raise Fail(f"distributed {label}: params {p_err:.2e}, losses "
+                   f"{l_err:.2e}")
+    return dict(bitwise=bitwise, param_rel_err=p_err, loss_rel_err=l_err)
+
+
+def dist_lm_phase(mesh, params0, tokens):
+    """The LM at bench_transformer_lm's width through the sharded step
+    (TP_RULES on mesh (1, 1, 1)) and the ZeRO step (and its
+    zero_update=False oracle arm) beside lm_train_phase's plain step,
+    1 + DIST_STEPS steps each from params0, under the bf16 policy."""
+    from paddle_tpu_torch.parallel import train_step as PTS
+
+    cfg = TT.TransformerConfig(**LM_CFG)
+    steps = 1 + DIST_STEPS
+    tol = LM_PARITY_TOL[torch.bfloat16]
+    out = {}
+    params = trainable(params0)
+    opt = OPT.adam(1e-3)
+    opt_state = opt.init(params)
+    FA.reset_launch_counts()
+    plain_losses, plain_ms = timed_steps(lambda i: lm_step(
+        params, cfg, tokens, opt, opt_state,
+        torch.tensor(i, dtype=torch.int32, device="cuda")), steps)
+    out["plain"] = dict(ms_per_step=plain_ms, losses=plain_losses,
+                        a_launches=FA.launch_counts["fwd"])
+    plain_params = tree_map(lambda t: t.detach(), params)
+    del opt_state
+    torch.cuda.empty_cache()
+
+    def run(label, state, step):
+        box = [state]
+
+        def one(i):
+            box[0], loss, _ = step(box[0], None, (tokens,), ())
+            return loss
+
+        FA.reset_launch_counts()
+        from torch.distributed.tensor.debug import CommDebugMode
+        with CommDebugMode() as comm:
+            losses, ms = timed_steps(one, steps)
+        launched = FA.launch_counts["fwd"]
+        log(f"  {label}: {ms:.1f} ms/step (plain {plain_ms:.1f}); A "
+            f"{launched} launches ({launched / steps:g} a step); "
+            f"collectives {dict((str(k), v) for k, v in comm.get_comm_counts().items())}")
+        want = 2 * LM_CFG["n_layers"] * steps
+        if launched != want:
+            raise Fail(f"distributed {label}: A launched {launched} times, "
+                       f"want {want}")
+        return box[0], dict(ms_per_step=ms, losses=losses,
+                            a_launches=launched,
+                            a_launches_per_step=launched / steps,
+                            collectives={str(k): v for k, v in
+                                         comm.get_comm_counts().items()})
+
+    state = PTS.shard_train_state(
+        TrainState.create(trainable(params0), {}, opt), mesh,
+        param_rules=TT.TP_RULES)
+    step = PTS.make_sharded_train_step(GRAFT.LMLoss(cfg), GRAFT.identity_loss,
+                                       opt, mesh, param_rules=TT.TP_RULES)
+    state, out["sharded"] = run("sharded step (TP_RULES)", state, step)
+    out["sharded"].update(dist_parity(
+        "sharded step vs the plain step", state.params, plain_params,
+        out["sharded"]["losses"], plain_losses, tol))
+    sharded_params = tree_map(lambda t: t.to_local().detach(), state.params)
+    del state, step
+    torch.cuda.empty_cache()
+
+    zero = {}
+    for arm in ("zero_update", "oracle"):
+        st = TrainState.create_zero(trainable(params0), {}, opt, mesh)
+        if arm == "zero_update":
+            zero["opt_state_bytes_per_replica"] = \
+                PTS.opt_state_bytes_per_replica(st.opt_state)
+        zstep = PTS.make_zero_train_step(
+            GRAFT.LMLoss(cfg), GRAFT.identity_loss, opt, mesh,
+            zero_update=arm == "zero_update")
+        st, zero[arm] = run(f"ZeRO step ({arm})", st, zstep)
+        zero[arm]["params"] = tree_map(lambda t: t.to_local().detach(),
+                                       st.params)
+        del st, zstep
+        torch.cuda.empty_cache()
+    z, o = zero["zero_update"], zero["oracle"]
+    bitwise, err = tree_diff(z["params"], o["params"])
+    log(f"  ZeRO vs its oracle arm: {'bit for bit' if bitwise else 'DIFFER'}"
+        f" (params max rel err {err:.2e}); losses {z['losses']} vs "
+        f"{o['losses']}")
+    if not bitwise or z["losses"] != o["losses"]:
+        raise Fail("distributed: ZeRO is not bit for bit its oracle arm")
+    out["zero"] = dict(zero_update={k: v for k, v in z.items()
+                                    if k != "params"},
+                       oracle={k: v for k, v in o.items() if k != "params"},
+                       bitwise_vs_oracle=True,
+                       opt_state_bytes_per_replica=zero[
+                           "opt_state_bytes_per_replica"])
+    out["zero"].update(dist_parity("ZeRO step vs the sharded step",
+                                   z["params"], sharded_params, z["losses"],
+                                   out["sharded"]["losses"], tol))
+    return out
+
+
+def dist_cp_phase(mesh, params0, tokens):
+    """make_context_parallel_loss, ring and Ulysses, at the LM's width
+    and T=LM_PARITY_T beside the plain loss (kernel A): loss and every
+    gradient within 1e-4 (f32 policy)."""
+    cfg = TT.TransformerConfig(**LM_CFG)
+    short = tokens[:, :LM_PARITY_T].contiguous()
+    params = trainable(params0)
+    loss = TT.loss(params, cfg, short)
+    want = torch.autograd.grad(loss, tree_leaves(params))
+    want_loss = loss.item()
+    out = {}
+    for kind in ("ring", "ulysses"):
+        params = trainable(params0)
+        fn = TT.make_context_parallel_loss(cfg, mesh, kind=kind)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = fn(params, short)
+        got = torch.autograd.grad(loss, tree_leaves(params))
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        g_err, _ = leaf_rel_errs(params0, got, want)
+        l_err = abs(loss.item() - want_loss) / abs(want_loss)
+        log(f"  context parallel ({kind}) T={LM_PARITY_T}: loss "
+            f"{loss.item():.6f} vs plain {want_loss:.6f} ({l_err:.2e}); "
+            f"gradients max rel err {g_err:.2e} (tol 1e-4); {ms:.1f} ms")
+        if l_err > 1e-4 or g_err > 1e-4:
+            raise Fail(f"distributed CP {kind}: loss {l_err:.2e}, "
+                       f"gradients {g_err:.2e}")
+        out[kind] = dict(loss_rel_err=l_err, grad_rel_err=g_err, ms=ms)
+    return out
+
+
+def dist_tp_generate(mesh):
+    """TP generate at bench_decode's B=8, 128 + 128 tokens, on TP_RULES
+    parameters (mesh (1, 1, 1)) beside the unsharded generate: tokens
+    equal or differing by the gap rule; A runs in the prefill."""
+    from paddle_tpu_torch.parallel import sharding as PSH
+
+    cfg = TT.TransformerConfig(**SERVE_CFG)
+    plain_cfg = dataclasses.replace(cfg, attn_impl="dense")
+    params = TT.init_params(0, cfg, device="cuda")
+    prompt = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, (DEC_B, DEC_PROMPT)).astype(np.int32)).cuda()
+    sharded = PSH.place(params, PSH.make_param_shardings(params, mesh,
+                                                         TT.TP_RULES))
+    FA.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = TT.generate(sharded, cfg, PSH.place(prompt, PSH.batch_sharding(
+        mesh)), steps=DEC_STEPS)
+    toks = toks.full_tensor() if hasattr(toks, "full_tensor") else toks
+    torch.cuda.synchronize()
+    tp_s = time.perf_counter() - t0
+    launched = FA.launch_counts["fwd"]
+    t0 = time.perf_counter()
+    ref = TT.generate(params, cfg, prompt, steps=DEC_STEPS)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    teach = teacher_logits(params, plain_cfg, ref, DEC_PROMPT)
+
+    def gap(row, step):
+        top2 = torch.topk(teach[row, step], 2).values
+        return (top2[0] - top2[1]).item()
+
+    same = decode_gap_rule("TP generate", toks, ref, DEC_PROMPT, gap)
+    log(f"  TP generate: {tp_s:.2f} s vs unsharded {ref_s:.2f} s; A "
+        f"{launched} launches (want {cfg.n_layers}, the prefill)")
+    if launched != cfg.n_layers:
+        raise Fail(f"distributed TP generate: A launched {launched} times")
+    return dict(rows_equal=same, s=tp_s, unsharded_s=ref_s,
+                a_launches=launched)
+
+
+def gloo_path_run(path, world, mesh, ref, cfg, params0, tokens):
+    """One two-rank path ("dp", "zero" or "tp") at the LM's width, 1 +
+    DIST_GLOO_STEPS steps, held against the reference's parameters."""
+    from paddle_tpu_torch.core import mesh as MESH
+    from paddle_tpu_torch.parallel import collectives as COLL
+    from paddle_tpu_torch.parallel import train_step as PTS
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    opt = OPT.sgd(DIST_GLOO_LR)
+    steps = 1 + DIST_GLOO_STEPS
+    COLL.reset_launch_counts()
+    FA.reset_launch_counts()
+    out = {}
+    if path == "dp":
+        st = PTS.shard_train_state(TrainState.create(
+            trainable(params0), {}, opt), mesh)
+        step = PTS.make_sharded_train_step(
+            GRAFT.LMLoss(cfg), GRAFT.identity_loss, opt, mesh)
+    elif path == "zero":
+        # adam's flat moments at two ranks, beside world size 1's (the
+        # steps run sgd, whose state is empty)
+        adam = TrainState.create_zero(params0, {}, OPT.adam(1e-3), mesh)
+        out["zero_bytes"] = PTS.opt_state_bytes_per_replica(adam.opt_state)
+        del adam
+        st = TrainState.create_zero(trainable(params0), {}, opt, mesh)
+        step = PTS.make_zero_train_step(
+            GRAFT.LMLoss(cfg), GRAFT.identity_loss, opt, mesh)
+    elif path == "tp":
+        tmesh = MESH.build_mesh(MESH.MeshConfig(1, world, 1), device="cuda")
+        st = PTS.shard_train_state(TrainState.create(
+            trainable(params0), {}, opt), tmesh, param_rules=TT.TP_RULES)
+        step = PTS.make_sharded_train_step(
+            GRAFT.LMLoss(cfg), GRAFT.identity_loss, opt, tmesh,
+            param_rules=TT.TP_RULES)
+    else:
+        raise ValueError(f"no two-rank path {path!r}")
+    box, first = [st], []
+    full = lambda params: tree_map(lambda t: (
+        t.full_tensor() if hasattr(t, "full_tensor") else t).cpu(), params)
+
+    def one(i):
+        box[0], loss, _ = step(box[0], None, (tokens,), ())
+        if i == 0:
+            first.append(full(box[0].params))
+        return loss
+
+    with CommDebugMode() as comm:
+        losses, ms = timed_steps(one, steps)
+    errs, close = [], True
+    for got, want in ((first[0], ref["params1"]),
+                      (full(box[0].params), ref["params"])):
+        pairs = list(zip(tree_leaves(got), tree_leaves(want)))
+        errs.append(max(abs_err(g, w) for g, w in pairs))
+        # rtol 1e-4 / atol 1e-5 (tests/test_parallel.py:58-61)
+        close = close and all(torch.allclose(g, w, rtol=1e-4, atol=1e-5)
+                              for g, w in pairs)
+    out.update(
+        losses=losses, ms_per_step=ms,
+        loss_rel_err=max(abs(a - b) / abs(b) for a, b in
+                         zip(losses, ref["losses"])),
+        # after step 1 and after the last step
+        param_max_abs_err=errs, params_close=close,
+        a_launches=FA.launch_counts["fwd"],
+        collectives=dict(COLL.launch_counts),
+        bytes_moved=dict(COLL.bytes_moved),
+        dtensor_collectives={str(k): v for k, v in
+                             comm.get_comm_counts().items()})
+    return out
+
+
+def gloo_rank(rank, world, rdv, ref_path, out_path, cuda_list):
+    """One of two ranks sharing cuda:0 over gloo: the paths whose
+    collectives are all on the fixed list `cuda_list`, each rank's
+    results written to out_path.<rank> as each path ends (a path that
+    fails records its error; one whose peer failed may hang, and the
+    parent's timeout ends it)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    import traceback
+
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.core import mesh as MESH
+    from paddle_tpu_torch.parallel import distributed as PD
+
+    PD.initialize(f"file://{rdv}", world, rank, device="cuda",
+                  backend="gloo")
+    ref = torch.load(ref_path)
+    cfg = TT.TransformerConfig(**LM_CFG)
+    tokens = ref["tokens"].cuda()
+    params0 = tree_map(lambda t: t.cuda(), ref["params0"])
+    mesh = MESH.build_mesh(MESH.MeshConfig(world, 1, 1), device="cuda")
+    res = {}
+    for path in gloo_paths(cuda_list):
+        try:
+            res[path] = gloo_path_run(path, world, mesh, ref, cfg, params0,
+                                      tokens)
+        except Exception:
+            res[path] = {"error": traceback.format_exc()[-3000:]}
+        torch.cuda.empty_cache()
+        with open(f"{out_path}.{rank}", "w") as f:
+            json.dump(res, f)
+    PD.sync_hosts()
+    dist.destroy_process_group()
+
+
+def start_gloo_probe():
+    """scripts/torch_gloo_cuda_probe.py in a child process (each
+    collective in a fresh pair of ranks: a refused one may abort its
+    process), started while the world-size-1 part runs: its ranks spend
+    their time reaching the card."""
+    return subprocess.Popen(
+        [sys.executable, os.path.join(REPO_DIR, "scripts",
+                                      "torch_gloo_cuda_probe.py")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def gloo_probe(proc):
+    """The probe's answer: {collective: True or what happened}."""
+    try:
+        out, err = proc.communicate(timeout=DIST_TIMEOUT_S + 60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    lines = [l for l in out.splitlines() if l.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        raise Fail(f"distributed: the gloo probe exited {proc.returncode}: "
+                   f"{err[-2000:]}")
+    return json.loads(lines[-1])["gloo_cuda"]
+
+
+def dist_gloo_phase(params0, tokens, probe_proc):
+    """Two ranks sharing cuda:0 over gloo: the probe, which must find
+    GLOO_CUDA and GLOO_CUDA_BF16, then the paths of gloo_paths() at the
+    LM's width in f32, B=DIST_GLOO_B a rank over LM_B rows, against the
+    plain step on all LM_B rows, sgd(DIST_GLOO_LR), 1 + DIST_GLOO_STEPS
+    steps: losses rtol 1e-5, the parameters after the first and the
+    last step rtol 1e-4 / atol 1e-5 (JAX's DP gate,
+    tests/test_parallel.py:58-61; adam's first steps move a parameter
+    whose gradient is ~0 by ~lr either way, so the gate keeps JAX's
+    sgd)."""
+    import multiprocessing as mp
+
+    t0 = time.perf_counter()
+    probe = gloo_probe(probe_proc)
+    log(f"  gloo on cuda:0, each collective in its own two ranks (waited "
+        f"{time.perf_counter() - t0:.1f} s for the probe): {probe}")
+    found = tuple(k for k, v in probe.items()
+                  if v is True or str(v).startswith("f32 only"))
+    found_bf16 = tuple(k for k, v in probe.items() if v is True)
+    if found != GLOO_CUDA or found_bf16 != GLOO_CUDA_BF16:
+        raise Fail(f"distributed: gloo's CUDA collectives changed: found "
+                   f"{found} (bf16 {found_bf16}), the fixed lists are "
+                   f"{GLOO_CUDA} (bf16 {GLOO_CUDA_BF16})")
+    res = {"probe": probe,
+           "held_on_cpu_only": {p: GLOO_REFUSED.get(p, "collectives " + str(
+               [c for c in need if c not in GLOO_CUDA]))
+               for p, need in GLOO_PATHS.items() if p not in gloo_paths()}}
+    log(f"  gloo: two-rank paths {gloo_paths()}; held on the CPU only: "
+        f"{res['held_on_cpu_only']}")
+    if not gloo_paths():
+        return res
+
+    cfg = TT.TransformerConfig(**LM_CFG)
+    rows = tokens[:DIST_GLOO_B * 2].contiguous()
+    params = trainable(params0)
+    opt = OPT.sgd(DIST_GLOO_LR)
+    opt_state = opt.init(params)
+    host = lambda tree: tree_map(lambda t: t.detach().cpu(), tree)
+    first = []
+
+    def one(i):
+        loss = lm_step(params, cfg, rows, opt, opt_state,
+                       torch.tensor(i, dtype=torch.int32, device="cuda"))
+        if i == 0:
+            first.append(host(params))
+        return loss
+
+    losses, ms = timed_steps(one, 1 + DIST_GLOO_STEPS)
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = os.path.join(tmp, "ref.pt")
+        torch.save({"tokens": rows.cpu(), "losses": losses,
+                    "params0": host(params0), "params1": first[0],
+                    "params": host(params)}, ref_path)
+        del params, opt_state
+        torch.cuda.empty_cache()
+        out = os.path.join(tmp, "gloo.json")
+        procs = [ctx.Process(target=gloo_rank, args=(
+            r, 2, os.path.join(tmp, "rendezvous"), ref_path, out,
+            GLOO_CUDA))
+            for r in range(2)]
+        for p in procs:
+            p.start()
+        deadline = time.time() + DIST_TIMEOUT_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.time()))
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+        ranks = []
+        for r in range(2):
+            path = f"{out}.{r}"
+            ranks.append(json.load(open(path)) if os.path.exists(path)
+                         else {})
+        errors = {f"rank {r} {p}": v["error"] for r, got in
+                  enumerate(ranks) for p, v in got.items() if "error" in v}
+        res.update(ranks[0])
+    res["plain"] = dict(losses=losses, ms_per_step=ms)
+    for path in gloo_paths():
+        r = res.get(path, {})
+        if "losses" not in r:
+            continue
+        per_step = {k: v // (1 + DIST_GLOO_STEPS)
+                    for k, v in r["bytes_moved"].items() if v}
+        log(f"  gloo {path}: {r['ms_per_step']:.1f} ms/step (plain one "
+            f"process, {2 * DIST_GLOO_B} rows: {ms:.1f}); losses "
+            f"{['%.6f' % x for x in r['losses']]} vs "
+            f"{['%.6f' % x for x in losses]} ({r['loss_rel_err']:.2e}); "
+            f"params close {r['params_close']} (max abs err after step 1 "
+            f"and after step {1 + DIST_GLOO_STEPS}: "
+            f"{['%.2e' % e for e in r['param_max_abs_err']]}); A "
+            f"{r['a_launches']} launches; "
+            f"explicit collectives {r['collectives']}, bytes a step "
+            f"{per_step}; DTensor's {r['dtensor_collectives']}")
+    if alive or any(p.exitcode != 0 for p in procs) or errors \
+            or set(ranks[0]) != set(gloo_paths()):
+        raise Fail(f"distributed gloo ranks: exit codes "
+                   f"{[p.exitcode for p in procs]} ({len(alive)} killed at "
+                   f"the {DIST_TIMEOUT_S} s timeout); paths done "
+                   f"{sorted(ranks[0])}; errors {errors}")
+    for path in gloo_paths():
+        r = res[path]
+        if r["loss_rel_err"] > 1e-5 or not r["params_close"]:
+            raise Fail(f"distributed gloo {path}: losses "
+                       f"{r['loss_rel_err']:.2e}, params close "
+                       f"{r['params_close']}")
+    return res
+
+
+def distributed_phase():
+    """The distributed layer on the card (see the module docstring,
+    phase 8a): world size 1 over NCCL, then two ranks over gloo, the
+    gloo probe running from the start."""
+    from paddle_tpu_torch.core import mesh as MESH
+
+    t_phase = time.perf_counter()
+    log(f"phase distributed: NCCL at world size 1, then two ranks on "
+        f"cuda:0 over gloo (paths {gloo_paths()})")
+    torch.cuda.empty_cache()
+    probe = start_gloo_probe()
+    try:
+        mesh = MESH.build_mesh(MESH.MeshConfig(1, 1, 1))
+        out = {}
+        t0 = time.perf_counter()
+        rep = GRAFT.dryrun_multichip(1)
+        out["dryrun"] = dict(rep, s=time.perf_counter() - t0)
+        log(f"  dryrun_multichip(1): ran {rep['ran']} in "
+            f"{out['dryrun']['s']:.1f} s; losses {rep['losses']}")
+        if rep["ran"] != DRYRUN_1_PARTS:
+            raise Fail(f"distributed: dryrun_multichip(1) ran {rep['ran']}")
+        rs = np.random.RandomState(0)
+        tokens = torch.from_numpy(rs.randint(0, LM_CFG["vocab"], (LM_B, LM_T))
+                                  .astype(np.int32)).cuda()
+        params0 = TT.init_params(LM_SEED, TT.TransformerConfig(**LM_CFG),
+                                 device="cuda")
+        # the parts timed least closely first, while the probe's ranks start
+        out["context_parallel"] = dist_cp_phase(mesh, params0, tokens)
+        torch.cuda.empty_cache()
+        out["tp_generate"] = dist_tp_generate(mesh)
+        torch.cuda.empty_cache()
+        prev = TD.default_policy()
+        TD.set_default_policy(TD.bf16_compute_policy())
+        try:
+            out["lm"] = dist_lm_phase(mesh, params0, tokens)
+        finally:
+            TD.set_default_policy(prev)
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+        out["gloo"] = dist_gloo_phase(params0, tokens, probe)
+    finally:
+        if probe.poll() is None:
+            probe.kill()
+            probe.wait()
+    if "zero" in out["gloo"]:
+        one = out["lm"]["zero"]["opt_state_bytes_per_replica"]
+        two = out["gloo"]["zero"]["zero_bytes"]
+        log(f"  ZeRO opt_state_bytes_per_replica: world 1 {one}, two ranks "
+            f"{two}")
+        if not one / 2 <= two <= one / 2 + 1024 * len(tree_leaves(params0)):
+            raise Fail(f"distributed: ZeRO at 2 ranks holds {two} bytes, "
+                       f"world 1 {one}")
+    out["s"] = time.perf_counter() - t_phase
+    log(f"  phase distributed: {out['s']:.1f} s")
+    return out
+
+
 # -- the LM's decoders at bench_decode's width ---------------------------------
 
 # bench_decode(batch=8, prompt_len=128, steps=128, dim=512, n_layers=8,
@@ -5518,6 +6105,7 @@ def main() -> int:
     srnn = simple_rnn_phase()
     family = rnn_family_phase()
     lm = lm_train_phase()
+    dist_out = distributed_phase()
     dec = decode_phase()
     moe_out = moe_phase()
     image = image_phase()
@@ -5628,6 +6216,21 @@ def main() -> int:
                   "a_launches_per_step"],
               moe_serve_launches={k: v["flash_fwd"] for k, v in
                                   moe_out["serve_launches"].items()},
+              # the distributed phase: the sharded and ZeRO LM steps at
+              # world size 1 (1 + 3 steps each, counted from 0 before
+              # each), TP generate's prefill, and rank 0 of each
+              # two-rank gloo path (1 + 2 steps on 2 of the 4 rows)
+              distributed_launches={
+                  "sharded_step": dist_out["lm"]["sharded"]["a_launches"],
+                  "zero_step": dist_out["lm"]["zero"]["zero_update"][
+                      "a_launches"],
+                  "zero_oracle_step": dist_out["lm"]["zero"]["oracle"][
+                      "a_launches"],
+                  "tp_generate": dist_out["tp_generate"]["a_launches"],
+                  **{f"gloo_{p}_rank0": dist_out["gloo"][p]["a_launches"]
+                     for p in gloo_paths()}},
+              distributed_launches_per_step=dist_out["lm"]["sharded"][
+                  "a_launches_per_step"],
               other_shapes={k: {f: a[k][f] for f in (
                   "ms", "library_ms", "bound_ms", "err", "row_rel_err",
                   "library_err") if f in a[k]} for k in (
@@ -5738,6 +6341,8 @@ def main() -> int:
     log(json.dumps({"wide_cases": wide}))
     log(json.dumps({"rnn_family": family, "card": smi.stdout.strip()}))
     log(json.dumps({"lm_train": lm, "card": smi.stdout.strip()}))
+    log(json.dumps({"distributed": dist_out, "card": smi.stdout.strip()},
+                   default=str))
     log(json.dumps({"decode": dec, "moe": moe_out,
                     "card": smi.stdout.strip()}))
     log(json.dumps({"image": image, "card": smi.stdout.strip()}))

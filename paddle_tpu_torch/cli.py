@@ -29,10 +29,16 @@ command resumes. `--save-dir` writes `params.tar` (the parameters tar,
 loadable by either package). The device defaults to cuda, which raises
 without a card; `--device cpu` runs the plain PyTorch path.
 
-The distributed and instrumentation flags of the JAX verb are not ported
-yet and fail with the ROADMAP item that brings them: `--zero`,
-`--elastic` (and its gang flags), `--coordinator` (and its process
-flags), `--transfer-guard`, `--metrics-out`, `--compile-cache`,
+`--coordinator ADDR --num-processes N --process-id I` joins an N-process
+job before anything else (`parallel.distributed.initialize`: ADDR is
+host:port or a `tcp://`/`file://` URL; NCCL on the card, gloo on the
+CPU); each process then trains as the single-process verb does, and only
+process 0 writes `--save-dir`. The elastic and instrumentation flags of
+the JAX verb are not ported yet and fail with the ROADMAP item that
+brings them: `--zero` (its checkpoints restore through the
+ElasticCheckpointManager and its rollbacks rebuild through
+ResilientTrainer's step_builder), `--elastic` (and its gang flags),
+`--transfer-guard`, `--metrics-out`, `--compile-cache`,
 `--no-compile-cache`.
 
 `merge-model` builds the config's model (seed 0), overlays a
@@ -70,7 +76,9 @@ import sys
 import time
 from typing import Optional
 
-_DISTRIBUTED = "ROADMAP queue 1 item 5 (distributed training)"
+_ELASTIC = ("ROADMAP queue 1 item 5, sub-item 6 (the elastic layer: "
+            "ElasticCheckpointManager, ResilientTrainer's step_builder, "
+            "the gang supervisor)")
 _OBS = "ROADMAP queue 1 item 6 (the train verb's metrics export)"
 _NO_COUNTERPART = ("there is no XLA compile cache to keep on the card; the "
                    "JAX package's compilation_cache has no counterpart "
@@ -78,14 +86,11 @@ _NO_COUNTERPART = ("there is no XLA compile cache to keep on the card; the "
 
 #: flag -> (takes a value, why it is refused)
 DEFERRED_FLAGS = {
-    "--zero": (False, _DISTRIBUTED),
-    "--elastic": (True, _DISTRIBUTED),
-    "--total-steps": (True, _DISTRIBUTED),
-    "--min-procs": (True, _DISTRIBUTED),
-    "--gang-deadline": (True, _DISTRIBUTED),
-    "--coordinator": (True, _DISTRIBUTED),
-    "--num-processes": (True, _DISTRIBUTED),
-    "--process-id": (True, _DISTRIBUTED),
+    "--zero": (False, _ELASTIC),
+    "--elastic": (True, _ELASTIC),
+    "--total-steps": (True, _ELASTIC),
+    "--min-procs": (True, _ELASTIC),
+    "--gang-deadline": (True, _ELASTIC),
     "--transfer-guard": (False, "ROADMAP queue 1 item 6 (the analysis "
                                 "guards)"),
     "--metrics-out": (True, _OBS),
@@ -178,6 +183,18 @@ def cmd_train(args) -> int:
     from paddle_tpu_torch.train.checkpoint import save_parameters_tar
     from paddle_tpu_torch.train.trainer import Trainer
 
+    # joining the job precedes everything else
+    primary = True
+    if args.coordinator:
+        from paddle_tpu_torch.parallel import distributed
+
+        distributed.initialize(coordinator_address=args.coordinator,
+                               num_processes=args.num_processes,
+                               process_id=args.process_id,
+                               device=args.device)
+        primary = distributed.is_primary()
+        print(f"joined the job: process {distributed.process_index()} of "
+              f"{distributed.process_count()}", flush=True)
     cfg = _load_config(args.config)
     loss_fn = cfg.get("loss_fn") or (
         lambda lo, la: torch.mean(losses.softmax_cross_entropy(lo, la)))
@@ -229,7 +246,7 @@ def cmd_train(args) -> int:
     else:
         state = trainer.train(state, batches, num_passes=num_passes,
                               event_handler=handler)
-    if args.save_dir:
+    if args.save_dir and primary:
         os.makedirs(args.save_dir, exist_ok=True)
         out = os.path.join(args.save_dir, "params.tar")
         save_parameters_tar(state.params, out)
@@ -560,6 +577,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="abort (exit 75) if no step completes for this "
                         "many seconds")
     t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--coordinator", default=None,
+                   help="host:port (or a tcp:// or file:// URL) of the "
+                        "job's rendezvous for multi-process jobs")
+    t.add_argument("--num-processes", type=int, default=None)
+    t.add_argument("--process-id", type=int, default=None)
     _add_deferred(t, DEFERRED_FLAGS, _Deferred)
     t.set_defaults(fn=cmd_train)
 

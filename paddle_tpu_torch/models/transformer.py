@@ -23,13 +23,21 @@ capacity and the aux.
 Decoders, each over dense KV buffers and one `_block_parts` body:
 `generate` (greedy or any `select_fn`, e.g. `make_sampler`/`sample`;
 right-padded prompts; a rolling sliding-window cache; int8 KV caches;
-weight-only int8 params), `speculative_generate` and
-`speculative_sample` (a draft proposes, the target verifies a window in
-one forward; per-row position pointers, an eager loop with one host
-read per round) and `beam_decode` (over `ops.beam_search`). The
-one-shot prefills go through `_attention` (kernel A on CUDA); the
-cached steps and windows read full-length buffers through dense masked
-einsums, as the JAX package's `_cached_attention` does.
+weight-only int8 params; tensor-parallel DTensor params),
+`speculative_generate` and `speculative_sample` (a draft proposes, the
+target verifies a window in one forward; per-row position pointers, an
+eager loop with one host read per round) and `beam_decode` (over
+`ops.beam_search`). The one-shot prefills go through `_attention`
+(kernel A on CUDA); the cached steps and windows read full-length
+buffers through dense masked einsums, as the JAX package's
+`_cached_attention` does.
+
+Parallelism: `TP_RULES`/`TP_MOE_RULES` place the parameters for
+`parallel.make_sharded_train_step` (DTensors; kernel A runs on each
+rank's batch and head shards through its sharding rule), `generate`
+takes such parameters for tensor-parallel decoding, and
+`make_context_parallel_loss` runs every attention layer as ring or
+Ulysses attention over the `seq` axis.
 
 Randomness: a categorical draw is `argmax(logits + gumbel)`. The
 Gumbel draws come from a `torch.Generator` on the logits' device (drawn
@@ -50,7 +58,10 @@ from torch.utils.checkpoint import checkpoint
 from paddle_tpu_torch.core.devices import resolve_device
 from paddle_tpu_torch.core.dtypes import (at_least_f32, default_policy,
                                           sqrt_in)
-from paddle_tpu_torch.core.pytree import tree_map
+from paddle_tpu_torch.core.mesh import (MODEL_AXIS, SEQ_AXIS, P, as_rows,
+                                        is_replicated, rows_weight,
+                                        split_rows)
+from paddle_tpu_torch.core.pytree import tree_leaves, tree_map
 from paddle_tpu_torch.nn import initializers
 from paddle_tpu_torch.ops import linalg
 from paddle_tpu_torch.ops import losses as losses_ops
@@ -61,7 +72,20 @@ from paddle_tpu_torch.ops.paged_attention import (grouped_masked_attention,
 from paddle_tpu_torch.ops import beam_search as bs
 from paddle_tpu_torch.ops import sampling as sampling_ops
 from paddle_tpu_torch.parallel import moe
+from paddle_tpu_torch.parallel.sharding import MEGATRON_RULES
 from paddle_tpu_torch.serve import quant as _quant
+
+# tensor-parallel rules for this family: megatron MLP/attention splits
+# plus the LM head sharded over the vocab dim
+TP_RULES = list(MEGATRON_RULES) + [(r"lm_head/kernel$", P(None, MODEL_AXIS))]
+
+# MoE variant: stacked expert weights sharded over their expert dim
+# (axis 0) on the model axis. The router rule must come FIRST: rules
+# are first-match and MEGATRON's `out` alternation would otherwise catch
+# the substring in "r-out-er" and shard the router's d_model dim (the
+# router is replicated by design, as the expert-parallel path keeps it).
+TP_MOE_RULES = ([(r"moe/router/kernel$", P())] + TP_RULES +
+                [(r"moe/(w1|b1|w2|b2)$", P(MODEL_AXIS))])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -280,7 +304,14 @@ def _block_parts(cfg: TransformerConfig, p, x, positions, attn_fn,
 
 
 def _embed(params, tokens):
-    x = params["embed"]["table"][tokens.long()]
+    table = params["embed"]["table"]
+    if split_rows(tokens) and is_replicated(table):
+        # data parallel: each rank's rows looked up in its copy
+        # (`core.mesh.split_rows`)
+        x = as_rows(rows_weight(table, tokens)[tokens.to_local().long()],
+                    tokens)
+    else:
+        x = table[tokens.long()]
     return x.to(default_policy().compute_dtype)
 
 
@@ -358,8 +389,11 @@ def _nll(params, cfg: TransformerConfig, hidden, targets):
         return losses_ops.chunked_lm_head_nll(hidden, kernel, targets,
                                               chunk=cfg.fused_ce_chunk)
     logits = at_least_f32(linalg.matmul(hidden, kernel))
-    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
-    return torch.logsumexp(logits, dim=-1) - gold
+    # the gold logit keeps its last dim until the subtraction: a
+    # vocab-sharded DTensor's gather is a masked partial sum whose mask
+    # has the gather's shape
+    gold = torch.gather(logits, -1, targets.long()[..., None])
+    return (torch.logsumexp(logits, dim=-1, keepdim=True) - gold)[..., 0]
 
 
 def loss(params, cfg: TransformerConfig, tokens, lengths=None,
@@ -395,6 +429,86 @@ def score(params, cfg: TransformerConfig, tokens, lengths=None):
     gold = torch.where(mask, gold, 0.0)
     n = torch.clamp(torch.sum(mask, dim=1), min=1)
     return gold, -torch.sum(gold, dim=1) / n
+
+
+def make_context_parallel_loss(cfg: TransformerConfig, mesh, *,
+                               kind: str = "ring",
+                               batch_axis: Optional[str] = None):
+    """Context parallelism for the LM: the tokens' positions are split
+    over the mesh `seq` axis and every attention layer runs as ring (or
+    Ulysses) attention, exact causal attention where no rank ever holds
+    the whole sequence's K/V (`parallel.ring_attention`).
+
+    Returns loss_fn(params, tokens, lengths=None), run by every rank of
+    the mesh: `loss`'s value and gradients. tokens [B, n*seq_shards + 1]
+    and params are full values, the same on every rank (plain tensors or
+    replicated DTensors). Each rank takes its block of the input
+    positions (and of the rows, over `batch_axis`), runs the stack on it
+    at its global positions, and the per-rank nll sums are summed
+    (`collectives.all_reduce_sum`); the parameters enter through
+    `collectives.pvary`, so each rank's gradient is the whole one. MoE
+    blocks route over every token of the batch at once, which a split
+    sequence cannot give: a config with experts is refused, as is a
+    sliding window (as in JAX)."""
+    from paddle_tpu_torch.parallel import collectives as C
+    from paddle_tpu_torch.parallel import ring_attention as RA
+
+    if cfg.attn_window is not None:
+        raise ValueError(
+            "attn_window is not supported under context parallelism: "
+            "the ring/Ulysses attention has no sliding-band plumbing, "
+            "and silently training full-attention would diverge from "
+            "every other (windowed) path")
+    if cfg.moe_experts:
+        raise ValueError("MoE blocks route over the whole batch's tokens; "
+                         "context parallelism splits them over `seq`")
+    inner = {"ring": RA.ring_attention,
+             "ulysses": RA.ulysses_attention}.get(kind)
+    if inner is None:
+        raise ValueError(f"unknown kind {kind!r}: expected 'ring' or 'ulysses'")
+    axes = (batch_axis, SEQ_AXIS) if batch_axis else (SEQ_AXIS,)
+
+    def attn(q, k, v):
+        return inner(q, k, v, axis=SEQ_AXIS, causal=True, mesh=mesh)
+
+    def full(x):
+        return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+    def loss_fn(params, tokens, lengths=None):
+        tokens = full(tokens).to(mesh.device)
+        b, t = tokens.shape[0], tokens.shape[1] - 1
+        n_seq = mesh.shape[SEQ_AXIS]
+        if t % n_seq:
+            raise ValueError(f"{t} input positions do not split over "
+                             f"{n_seq} seq shards")
+        c = t // n_seq
+        start = mesh.axis_index(SEQ_AXIS) * c
+        rows = slice(None)
+        if batch_axis:
+            nb = mesh.shape[batch_axis]
+            rows = slice(mesh.axis_index(batch_axis) * (b // nb),
+                         (mesh.axis_index(batch_axis) + 1) * (b // nb))
+        p_loc = tree_map(lambda p: C.pvary(full(p), axes, mesh=mesh), params)
+        inp = tokens[rows, start:start + c]
+        tgt = tokens[rows, start + 1:start + c + 1]
+        pos = torch.arange(start, start + c, dtype=torch.int32,
+                           device=inp.device).expand(inp.shape)
+        in_mask = _input_mask(tokens, lengths)
+        hid, _ = _forward(p_loc, cfg, inp, positions=pos,
+                          token_mask=None if in_mask is None
+                          else in_mask[rows, start:start + c],
+                          attn_fn=attn, return_hidden=True)
+        nll = _nll(p_loc, cfg, hid, tgt)
+        mask = _target_mask(tokens, lengths)
+        if mask is None:
+            return C.all_reduce_sum(torch.sum(nll) / (b * t), axes,
+                                    mesh=mesh)
+        mask = mask[rows, start:start + c]
+        count = C._raw_all_reduce(torch.sum(mask).float(), mesh, axes)
+        return C.all_reduce_sum(torch.sum(nll * mask)
+                                / torch.clamp(count, min=1), axes, mesh=mesh)
+
+    return loss_fn
 
 
 def _int8_step_params(params):
@@ -485,6 +599,39 @@ def _cached_attention(q, k, v, k_buf, v_buf, t, valid):
     return grouped_masked_attention(q, k_read, v_read, valid), k_buf, v_buf
 
 
+def _plain_replicated(params):
+    """For DTensor (tensor-parallel) parameters, the context in which
+    the plain tensors a decoder makes (positions, masks, the prompt)
+    count as replicated; else nothing."""
+    import contextlib
+
+    leaf = next(iter(tree_leaves(params)), None)
+    if hasattr(leaf, "to_local"):
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+
+        return implicit_replication()
+    return contextlib.nullcontext()
+
+
+def _cache_like(k, length: int):
+    """Zeros [B, length, Hkv, Dh] in k's dtype and device; for a
+    DTensor k (tensor-parallel parameters) a DTensor placed as k is, so
+    the cache's writes and reads stay on each rank's shards."""
+    shape = (k.shape[0], length) + tuple(k.shape[2:])
+    if not hasattr(k, "to_local"):
+        return torch.zeros(shape, dtype=k.dtype, device=k.device)
+    from torch.distributed.tensor import DTensor
+
+    local = k.to_local()
+    buf = torch.zeros((local.shape[0], length) + tuple(local.shape[2:]),
+                      dtype=local.dtype, device=local.device)
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(buf, k.device_mesh, k.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=stride)
+
+
 def _argmax(logits, rng=None):
     """The greedy selector: the first maximum of the logits in at least
     f32 (jnp.argmax's tie rule)."""
@@ -532,7 +679,7 @@ def generate(params, cfg: TransformerConfig, prompt, steps: int, *,
         rng = torch.Generator(device=dev)
         rng.manual_seed(0)
     params, step_params = _int8_step_params(params)
-    with torch.no_grad():
+    with torch.no_grad(), _plain_replicated(params):
         x = _embed(params, prompt)
         pos = torch.arange(t0, dtype=torch.int32, device=dev).expand(b, t0)
         if prompt_lens is None:
@@ -547,8 +694,7 @@ def generate(params, cfg: TransformerConfig, prompt, steps: int, *,
         caches = []
         for p in params["blocks"]:
             x, k, v, _ = _block_parts(cfg, p, x, pos, prefill, key_ok)
-            k_buf = torch.zeros((b, cache_len) + tuple(k.shape[2:]),
-                                dtype=k.dtype, device=dev)
+            k_buf = _cache_like(k, cache_len)
             v_buf = torch.zeros_like(k_buf)
             if rolling:
                 # the last `window` prompt positions, each at its ring

@@ -48,9 +48,14 @@ def params_from_numpy(tree, *, device=None, dtype=torch.float32):
 def params_to_numpy(tree):
     """The port's parameter tree -> nested dicts/lists of numpy arrays
     (bf16 leaves come back as float32, which numpy can hold; quantized
-    leaves as QuantizedTensor(q, scale) pairs of numpy arrays)."""
+    leaves as QuantizedTensor(q, scale) pairs of numpy arrays). A sharded
+    leaf (a DTensor) is gathered first, so a checkpoint written from a
+    sharded run is the unsharded one; every rank of its mesh calls this
+    then."""
 
     def arr(t):
+        if hasattr(t, "full_tensor"):
+            t = t.full_tensor()
         t = t.detach().cpu()
         if t.dtype == torch.bfloat16:
             t = t.float()

@@ -31,6 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.core.dtypes import Policy, default_policy
+from paddle_tpu_torch.core.mesh import (as_rows, is_replicated, rows_weight,
+                                        split_rows)
 
 IntOr2 = Union[int, Tuple[int, int], Sequence[int]]
 
@@ -156,12 +158,31 @@ def conv2d(
         # channels_last strides
         xc = xc.contiguous()
         w = kernel.permute(3, 2, 0, 1).to(policy.compute_dtype, **copy)
-    y = F.conv2d(xc, w, stride=_pair(stride), padding=pad,
-                 dilation=_pair(dilation), groups=groups)
+    conv = (_batch_split_conv if split_rows(xc) and is_replicated(w)
+            else F.conv2d)
+    y = conv(xc, w, stride=_pair(stride), padding=pad,
+             dilation=_pair(dilation), groups=groups)
     y = _nhwc(y).to(policy.accum_dtype)
     if bias is not None:
         y = y + bias
     return y
+
+
+def _by_rows(fn, x, *args, **kw):
+    """fn on each rank's own rows of a batch-split DTensor x (a pool
+    needs no other row; torch 2.11's DTensor has no sharding strategy
+    for max_pool2d_with_indices), else fn(x)."""
+    if not split_rows(x):
+        return fn(x, *args, **kw)
+    return as_rows(fn(x.to_local(), *args, **kw), x)
+
+
+def _batch_split_conv(x, w, **kw):
+    """F.conv2d of a batch-split DTensor on each rank's own rows: a
+    convolution needs no other row, and DTensor's convolution handler
+    (torch 2.11) exchanges width halos whenever the convolution pads, as
+    if the width were split."""
+    return as_rows(F.conv2d(x.to_local(), rows_weight(w, x), **kw), x)
 
 
 def space_to_depth(x, block: IntOr2 = 2):
@@ -243,7 +264,7 @@ def _max_pool2d_raw(x, window, stride, pad2):
     # torch's max pools take padding up to half the window
     xc, pad = _padded(x, pad2, (window[0] // 2, window[1] // 2),
                       _lowest(x.dtype))
-    return _nhwc(F.max_pool2d(xc, window, stride, padding=pad))
+    return _nhwc(_by_rows(F.max_pool2d, xc, window, stride, padding=pad))
 
 
 class _MaxPool2dTieSplit(torch.autograd.Function):
@@ -327,16 +348,16 @@ def avg_pool2d(
     # channels_last memory is wrong whenever padding > 0 (torch 2.11.0,
     # forward right); F.pad's zeros are what it would count
     xc, pad = _padded(x, pad2, (0, 0), 0.0)
-    summed = F.avg_pool2d(xc, win, strd, padding=pad,
-                          count_include_pad=True, divisor_override=1)
+    summed = _by_rows(F.avg_pool2d, xc, win, strd, padding=pad,
+                      count_include_pad=True, divisor_override=1)
     if count_include_pad or pad2 == ((0, 0), (0, 0)):
         return _nhwc(summed / (win[0] * win[1]))
     # the count of real (unpadded) elements in each window, from a ones
     # plane of the input's size
     ones = x.new_ones((1,) + tuple(x.shape[1:3]) + (1,))
     oc, pad = _padded(ones, pad2, (0, 0), 0.0)
-    counts = F.avg_pool2d(oc, win, strd, padding=pad,
-                          count_include_pad=True, divisor_override=1)
+    counts = _by_rows(F.avg_pool2d, oc, win, strd, padding=pad,
+                      count_include_pad=True, divisor_override=1)
     return _nhwc(summed / counts)
 
 

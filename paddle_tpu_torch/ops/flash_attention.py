@@ -23,6 +23,10 @@
   block, lse takes no gradient). `torch.export` captures the operator
   as one node, so an exported program launches kernel A through the
   same CUDA implementation and counts its launches in `launch_counts`.
+  On DTensor operands (the sharded LM step) the operator runs by the
+  sharding rule `core.mesh` registers -- batch or heads split, never
+  the sequence -- on each rank's local shards, its backward too
+  (`_local_backward`).
 - `flash_attention(q, k, v, *, causal, key_lens, window, block_q,
   block_k)`: the public function with the JAX checks, over `flash_fwd`.
 """
@@ -312,10 +316,43 @@ def _flash_setup(ctx, inputs, output):
 
 def _flash_grad(ctx, g, g_lse):
     q, k, v, lens, o, lse = ctx.saved_tensors
-    dq, dk, dv = flash_backward(q, k, v, lens, o, lse, g,
-                                causal=ctx.causal, block_k=ctx.block_k,
-                                window=ctx.window)
+    back = lambda *t: flash_backward(*t, causal=ctx.causal,
+                                     block_k=ctx.block_k, window=ctx.window)
+    if _is_dtensor(q):
+        return _local_backward(back, q, k, v, lens, o, lse, g) + (None,) * 4
+    dq, dk, dv = back(q, k, v, lens, o, lse, g)
     return dq, dk, dv, None, None, None, None
+
+
+def _is_dtensor(t) -> bool:
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _local_backward(back, q, k, v, lens, o, lse, g):
+    """The backward of DTensor operands, shard by shard. The operator's
+    sharding rule (`core.mesh`) splits batch and heads alike on q, k, v
+    and o, so each rank's gradients are those of its own shards. The
+    saved inputs are as the caller passed them (the rule's
+    redistribution runs below autograd): q, k, v and g come to o's
+    placements, lens [B] to o's batch split, first."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh, at = o.device_mesh, o.placements
+    if not _is_dtensor(lens):
+        lens = DTensor.from_local(lens, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
+    lens = lens.redistribute(mesh, [p if p == Shard(0) else Replicate()
+                                    for p in at])
+    q, k, v, g = (t.redistribute(mesh, at) for t in (q, k, v, g))
+    grads = back(*(t.to_local() for t in (q, k, v, lens, o, lse, g)))
+    # the gradients come back as permuted views: contiguous, as the
+    # DTensor's (contiguous) strides say
+    return tuple(DTensor.from_local(d.contiguous(), mesh, at,
+                                    run_check=False, shape=like.shape,
+                                    stride=like.stride())
+                 for d, like in zip(grads, (q, k, v)))
 
 
 flash_fwd.register_autograd(_flash_grad, setup_context=_flash_setup)

@@ -53,9 +53,12 @@ def chunked_lm_head_nll(hidden, kernel, targets, *, chunk: int = 2048,
         logits = at_least_f32(linalg.matmul(hc, kernel))
         if bias is not None:
             logits = logits + at_least_f32(bias)[None, :]
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, 1, yc[:, None])[:, 0]
-        return lse - gold
+        # the gold logit keeps its last dim until the subtraction (a
+        # vocab-sharded DTensor's gather is a masked partial sum whose
+        # mask has the gather's shape)
+        lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+        gold = torch.gather(logits, 1, yc[:, None])
+        return (lse - gold)[:, 0]
 
     grad = torch.is_grad_enabled()
     nll = []

@@ -1,18 +1,73 @@
-"""Parallelism layers (port of `paddle_tpu.parallel`). Ported so far:
-the single-device mixture-of-experts FFN (`moe`). The mesh, data,
-tensor, pipeline, sequence and expert parallelism come with the
-distributed slice (ROADMAP queue 1 item 5)."""
+"""Parallelism (port of `paddle_tpu.parallel`) on `torch.distributed`:
+sharding rules and the sharded train step on DTensors, the explicit
+ZeRO step, the named collectives, ring and Ulysses attention, the GPipe
+pipeline, expert-parallel and single-device mixture-of-experts, and the
+process bootstrap (`distributed`).
 
+Not ported yet, by ROADMAP queue 1 item 5's sub-items: the sharded
+embeddings (`sparse`: ShardedEmbedding, HostOffloadEmbedding, the
+all-to-all lookups; sub-item 3), `blocked_matmul` and the pipeline's
+`tp_axis` (sub-item 5), and the elastic layer (`launch`, the gang
+supervisor; sub-item 6). The parameter-server client belongs to item 6.
+"""
+
+from paddle_tpu_torch.parallel.sharding import (
+    MEGATRON_RULES,
+    batch_sharding,
+    make_param_shardings,
+    zero_shardings,
+)
+from paddle_tpu_torch.parallel.train_step import (
+    aot_compile_train_step,
+    make_sharded_train_step,
+    make_zero_train_step,
+    opt_state_bytes_per_replica,
+    shard_train_state,
+    train_state_shardings,
+    zero_init_opt_state,
+    zero_opt_shardings,
+    zero_state_shardings,
+    zero_true_sizes,
+)
+from paddle_tpu_torch.parallel import collectives
+# NB: the bare per-rank `ring_attention` fn stays on the submodule --
+# re-exporting it here would shadow the `parallel.ring_attention` module.
+from paddle_tpu_torch.parallel.ring_attention import (
+    dense_attention,
+    make_sequence_parallel_attention,
+    ulysses_attention,
+)
+from paddle_tpu_torch.parallel import distributed
 from paddle_tpu_torch.parallel import moe
 from paddle_tpu_torch.parallel.moe import (ECRouting, MoEOutput, Routing,
                                            capacity_for,
                                            expert_choice_ffn,
                                            expert_choice_routing,
                                            gather_combine, init_moe_params,
+                                           make_expert_parallel_ffn,
                                            moe_ffn, scatter_dispatch,
-                                           top_k_gating, top_k_routing)
+                                           shard_moe_params, top_k_gating,
+                                           top_k_routing)
+from paddle_tpu_torch.parallel import pipeline
+from paddle_tpu_torch.parallel.pipeline import (
+    make_pipeline_forward,
+    make_pipeline_train_step,
+    shard_stage_params,
+    stack_stage_params,
+)
 
-__all__ = ["moe", "ECRouting", "MoEOutput", "Routing", "capacity_for",
-           "expert_choice_ffn", "expert_choice_routing", "gather_combine",
-           "init_moe_params", "moe_ffn", "scatter_dispatch", "top_k_gating",
-           "top_k_routing"]
+__all__ = [
+    "MEGATRON_RULES", "batch_sharding", "make_param_shardings",
+    "zero_shardings", "aot_compile_train_step", "make_sharded_train_step",
+    "make_zero_train_step", "opt_state_bytes_per_replica",
+    "shard_train_state", "train_state_shardings", "zero_init_opt_state",
+    "zero_opt_shardings", "zero_state_shardings", "zero_true_sizes",
+    "collectives", "dense_attention", "make_sequence_parallel_attention",
+    "ulysses_attention", "distributed", "moe", "ECRouting", "MoEOutput",
+    "Routing", "capacity_for", "expert_choice_ffn",
+    "expert_choice_routing", "gather_combine", "init_moe_params",
+    "make_expert_parallel_ffn", "moe_ffn", "scatter_dispatch",
+    "shard_moe_params", "top_k_gating", "top_k_routing", "pipeline",
+    "make_pipeline_forward", "make_pipeline_train_step",
+    "shard_stage_params", "stack_stage_params",
+]

@@ -20,9 +20,12 @@ Randomness: the router jitter is a [T, E] multiplier drawn uniformly in
 [1 - jitter, 1 + jitter) from a `torch.Generator`, or injected
 (`jitter_noise=`) so a test can hand over JAX's own draws.
 
-The expert-parallel pieces (`shard_moe_params`,
-`make_expert_parallel_ffn`) belong to the distributed slice and raise
-until it lands.
+Expert parallelism (`shard_moe_params`, `make_expert_parallel_ffn`):
+experts sharded over the mesh `model` axis; per-rank code routes the
+rank's tokens and exchanges the dispatched [E, C, D] block with ONE
+tiled all-to-all each way (`collectives.all_to_all`), or, with the
+tokens replicated, runs the local experts' assignments only and sums
+the partial combines.
 """
 
 from __future__ import annotations
@@ -35,9 +38,6 @@ import torch.nn.functional as F
 from paddle_tpu_torch.core.devices import resolve_device
 from paddle_tpu_torch.core.pytree import tree_map
 from paddle_tpu_torch.nn import initializers
-
-_DISTRIBUTED = ("is not ported yet: expert parallelism belongs to the "
-                "distributed slice (ROADMAP queue 1 item 5)")
 
 
 def _gelu(x):
@@ -70,11 +70,124 @@ def init_moe_params(rng, n_experts: int, d_model: int, d_ff: int,
 
 
 def shard_moe_params(params, mesh, *, axis: str = "model"):
-    raise NotImplementedError(f"shard_moe_params {_DISTRIBUTED}")
+    """Expert-shard the stacked weights over `axis` (router replicated):
+    DTensors on the mesh; params are full tensors, the same on every
+    rank."""
+    from paddle_tpu_torch.core.mesh import NamedSharding, P, distribute
+
+    e = params["w1"].shape[0]
+    if e % mesh.shape[axis] != 0:
+        raise ValueError(f"{e} experts not divisible by {axis} axis size "
+                         f"{mesh.shape[axis]}")
+
+    def put(x, spec):
+        return distribute(x, NamedSharding(mesh, spec))
+
+    return {
+        "router": {"kernel": put(params["router"]["kernel"], P())},
+        "w1": put(params["w1"], P(axis)), "b1": put(params["b1"], P(axis)),
+        "w2": put(params["w2"], P(axis)), "b2": put(params["b2"], P(axis)),
+    }
 
 
-def make_expert_parallel_ffn(mesh, **kwargs):
-    raise NotImplementedError(f"make_expert_parallel_ffn {_DISTRIBUTED}")
+def make_expert_parallel_ffn(mesh, *, axis: str = "model",
+                             data_axis=None, k: int = 2,
+                             capacity_factor: float = 1.25,
+                             jitter: float = 0.0, activation=_gelu,
+                             dispatch_impl: str = "auto"):
+    """Build an expert-parallel MoE FFN over `mesh`, run by every rank.
+
+    Experts are sharded over `axis` (shard_moe_params). With
+    `data_axis`, the token axis is split over (data_axis, axis) jointly:
+    each rank routes its own tokens, dispatches into [E, C_loc, D], ONE
+    tiled all-to-all regroups the block so every rank holds its OWN
+    experts' tokens from all ranks of `axis`, the FFN runs over the
+    local experts, and the mirrored all-to-all brings the results home
+    for the local combine. Without it the tokens are replicated: every
+    rank computes the same routing, runs only its local experts'
+    assignments and sums the partial combines (no all-to-all, 1/n the
+    expert FLOPs).
+
+    Returns fn(params, x [T, D], rng=None, jitter_noise=None) ->
+    MoEOutput, y a DTensor placed like the tokens (sharded over
+    (data_axis, axis), or replicated), aux_loss and dropped the same on
+    every rank. params: shard_moe_params's DTensors or full tensors; x:
+    the full [T, D] (a plain tensor, the same on every rank) or a
+    DTensor. T must divide by the ranks it is split over. jitter: the
+    router jitter, drawn from `rng` per rank, or taken from
+    `jitter_noise` [T, E] (split like x: JAX's per-shard draws laid end
+    to end). Replicated values the per-rank code uses differently
+    (router, replicated tokens) enter through `collectives.pvary`, so
+    their gradients come back whole on every rank."""
+    from paddle_tpu_torch.parallel import collectives as C
+
+    n_exp_shards = mesh.shape[axis]
+    tok_axes = (data_axis, axis) if data_axis else None
+    tok_spec = (tok_axes, None) if data_axis else (None, None)
+
+    def fn(params, x, rng=None, jitter_noise=None):
+        w_local = {n: C.shard_local(params[n], (axis,) + (None,) * (
+            params[n].ndim - 1), mesh=mesh)
+            for n in ("w1", "b1", "w2", "b2")}
+        router = params["router"]["kernel"]
+        if hasattr(router, "full_tensor"):
+            router = router.full_tensor()
+        x_full_shape = x.shape
+        x_loc = C.shard_local(x, tok_spec, mesh=mesh)
+        noise = None
+        if jitter_noise is not None:
+            noise = C.shard_local(jitter_noise, tok_spec, mesh=mesh).detach()
+        t_loc, d = x_loc.shape
+        e_loc = w_local["w1"].shape[0]
+        e = e_loc * n_exp_shards
+        cap = capacity_for(t_loc, e, capacity_factor, k)
+        if data_axis is None:
+            # tokens replicated: identical routing on every rank; only
+            # the local experts' assignments run, partial combines summed
+            logits = x_loc @ router
+            routing = top_k_routing(logits, k, cap, rng=rng, jitter=jitter,
+                                    jitter_noise=noise)
+            shard = mesh.axis_index(axis)
+            local_e = routing.expert - shard * e_loc
+            in_range = (local_e >= 0) & (local_e < e_loc) & routing.keep
+            gate = C.pvary(routing.gate, axis, mesh=mesh)
+            r_loc = routing._replace(
+                expert=torch.clamp(local_e, 0, e_loc - 1), keep=in_range,
+                gate=gate * in_range.float())
+            xv = C.pvary(x_loc, axis, mesh=mesh)
+            local_in, dense_c = _dispatch_expert_in(r_loc, xv, e_loc, cap,
+                                                    dispatch_impl)
+            out = _expert_ffn(w_local, local_in, activation)
+            y = _combine_out(r_loc, dense_c, out, cap)
+            y = C.all_reduce_sum(y, axis, mesh=mesh).to(x_loc.dtype)
+            aux, dropped = routing.aux_loss, routing.dropped
+        else:
+            # each data replica of an expert sees other tokens
+            w_local = {n: C.pvary(w, data_axis, mesh=mesh)
+                       for n, w in w_local.items()}
+            router_v = C.pvary(router, tok_axes, mesh=mesh)
+            logits = x_loc @ router_v
+            routing = top_k_routing(logits, k, cap, rng=rng, jitter=jitter,
+                                    jitter_noise=noise)
+            expert_in, combine = _dispatch_expert_in(routing, x_loc, e, cap,
+                                                     dispatch_impl)
+            # rank j receives its local experts' buffers from every rank
+            recv = C.all_to_all(expert_in, axis, split_axis=0,
+                                concat_axis=0, mesh=mesh)
+            grouped = recv.reshape(n_exp_shards, e_loc, cap, d) \
+                .transpose(0, 1).reshape(e_loc, n_exp_shards * cap, d)
+            out = _expert_ffn(w_local, grouped, activation)
+            back = out.reshape(e_loc, n_exp_shards, cap, d).transpose(0, 1) \
+                .reshape(n_exp_shards * e_loc, cap, d)
+            home = C.all_to_all(back, axis, split_axis=0, concat_axis=0,
+                                mesh=mesh)
+            y = _combine_out(routing, combine, home, cap).to(x_loc.dtype)
+            aux = C.all_reduce_mean(routing.aux_loss, tok_axes, mesh=mesh)
+            dropped = C.all_reduce_mean(routing.dropped, tok_axes, mesh=mesh)
+        y = C.from_local(y, tok_spec, x_full_shape, mesh=mesh)
+        return MoEOutput(y, aux, dropped)
+
+    return fn
 
 
 def capacity_for(n_tokens: int, n_experts: int,

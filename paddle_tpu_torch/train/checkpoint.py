@@ -29,7 +29,8 @@
 - `ManifestMismatchError` and `param_tree_hash` (the structure hash, the
   same as JAX's for a matching tree).
 
-The elastic (ZeRO) manager is not ported yet (ROADMAP queue 1 item 5).
+The elastic (ZeRO) manager is not ported yet: it belongs to the elastic
+layer (ROADMAP queue 1 item 5, sub-item 6).
 """
 
 from __future__ import annotations

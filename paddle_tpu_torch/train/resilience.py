@@ -29,8 +29,8 @@ its ring to `flight_dir` (default the checkpoint directory) on a
 divergence rollback, an exhausted budget and the drain, and
 `bind_metrics` registers the outcome ledger. Seams of layers the port
 does not have yet raise NotImplementedError when given:
-`pserver_client` (ROADMAP queue 1 item 6), `step_builder` (the ZeRO and
-elastic steps, queue 1 item 5).
+`pserver_client` (ROADMAP queue 1 item 6), `step_builder` (the rebuild
+of the ZeRO and elastic steps, queue 1 item 5's elastic sub-item 6).
 """
 
 from __future__ import annotations
@@ -60,8 +60,9 @@ log = logging.getLogger(__name__)
 _UNPORTED_SEAMS = {
     "pserver_client": ("the pserver client is not ported yet (ROADMAP "
                        "queue 1 item 6)"),
-    "step_builder": ("the ZeRO and elastic train steps are not ported yet "
-                     "(ROADMAP queue 1 item 5)"),
+    "step_builder": ("rebuilding the ZeRO and elastic train steps belongs "
+                     "to the elastic layer, not ported yet (ROADMAP queue "
+                     "1 item 5, sub-item 6)"),
 }
 
 _MASK64 = (1 << 64) - 1

@@ -258,10 +258,16 @@ def test_init_moe_params_tree_and_distributions_match_jax():
 
 
 def test_expert_parallel_pieces_raise_naming_the_distributed_slice():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        TM.shard_moe_params({}, None)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        TM.make_expert_parallel_ffn(None, k=2)
-    assert "shard_moe_params" not in TPAR.__all__
-    assert "make_expert_parallel_ffn" not in TPAR.__all__
+    """The expert-parallel pieces came with the distributed slice
+    (tests/test_torch_moe_ep.py holds them against JAX): exported beside
+    the single-device FFN, and shard_moe_params refuses an expert count
+    the model axis does not divide before it places anything."""
+    import types
+
+    assert "shard_moe_params" in TPAR.__all__
+    assert "make_expert_parallel_ffn" in TPAR.__all__
     assert TPAR.moe_ffn is TM.moe_ffn
+    mesh = types.SimpleNamespace(shape={"model": 3})
+    with pytest.raises(ValueError, match="4 experts not divisible by "
+                                         "model axis size 3"):
+        TM.shard_moe_params({"w1": torch.zeros(4, 2, 2)}, mesh)

@@ -70,6 +70,12 @@ MODULES = [
     "paddle_tpu_torch.serve.server", "paddle_tpu_torch.serve.router",
     "paddle_tpu_torch.serve.artifact", "paddle_tpu_torch.serve.capi_bridge",
     "paddle_tpu_torch.train",
+    "paddle_tpu_torch.core.mesh", "paddle_tpu_torch.parallel.distributed",
+    "paddle_tpu_torch.parallel.collectives",
+    "paddle_tpu_torch.parallel.sharding",
+    "paddle_tpu_torch.parallel.train_step",
+    "paddle_tpu_torch.parallel.ring_attention",
+    "paddle_tpu_torch.parallel.pipeline",
 ]
 
 
