@@ -124,16 +124,17 @@ Phases, in order; any failure exits non-zero:
      on the same engine (bare, server, server, bare); int8 prints its
      faulted run's tokens/s beside serve_phase's bare run; the
      server's counters are printed.
-   - ServingRouter over two replicas (8 slots each, on the one card):
-     the prefix-affinity hit rate and tokens/s against one replica;
-     replica 0 killed at its 41st decode step (every request ends once,
-     the dead replica's redistributed); replica 0 retired at its 10th
-     step (its queue moves, its 8 in-flight requests finish in place,
-     32 prefills for 32 requests).
+   - ServingRouter over two replicas (8 slots each, on the one card),
+     each run on the first ROUTER_REQ (24) requests: the prefix-affinity
+     hit rate and tokens/s against one replica; replica 0 killed at its
+     41st decode step (every request ends once, the dead replica's
+     redistributed); replica 0 retired at its 10th step (its queue
+     moves, its 8 in-flight requests finish in place, one prefill a
+     request).
    - Disaggregation: one role="prefill" replica, two role="decode",
      every request routed to the prefill tier and in waves the decode
      tier can take: float and int8 KV, inline and over a ShmArena data
-     plane (each run the first 16 requests: two waves). Every request
+     plane (each run the first DISAGG_REQ (8) requests). Every request
      crosses by export_request/
      import_request; its tokens equal the unified replica's (else the
      gap rule); the decode tier's TQ=1 walk launches equal its steps x
@@ -291,7 +292,8 @@ Phases, in order; any failure exits non-zero:
    over max |plain| per gradient within f32 1e-4 / bf16 2e-2. The
    backward alone at T=8192 B=4 is timed beside SDPA's backward and its
    bound (2.5 x the forward's products). Then three variants (full
-   causal, attn_window 1024, fused_ce_chunk 2048), a warm-up step and 5
+   causal, attn_window 1024, fused_ce_chunk 2048), a warm-up step and
+   LM_STEPS (2)
    timed steps each: ms/step, tokens/s (B x T over the step), the
    step's analytic FLOP count and its share of 989 TFLOP/s (mfu_pct);
    A's launches counted from 0 before the warm-up must be 16 a step (a
@@ -311,9 +313,10 @@ Phases, in order; any failure exits non-zero:
    device, so no number here is a scaling number.
    - World size 1 over NCCL: graft_entry.dryrun_multichip(1) (the toy
      dp x tp ZeRO-placement step with two microbatches, ring attention,
-     ResNet-50 and seq2seq data-parallel -- the seq2seq step on F and
-     G -- and the transformer TP step with the fused CE against the
-     plain CE); the LM at bench_transformer_lm's width (lm_train's
+     the sharded embedding's lookups, ResNet-50 and seq2seq
+     data-parallel -- the seq2seq step on F and G --, the CTR step, and
+     the transformer TP step with the fused CE against the plain CE;
+     the engine pool is skipped for the world size); the LM at bench_transformer_lm's width (lm_train's
      weights and tokens, bf16 policy) through
      make_sharded_train_step(param_rules=TP_RULES) on mesh (1, 1, 1) and
      through make_zero_train_step and its zero_update=False oracle arm,
@@ -322,8 +325,8 @@ Phases, in order; any failure exits non-zero:
      with its oracle arm; A 16 launches a step, counted from 0 before
      each run; make_context_parallel_loss, ring and Ulysses, at
      T=2048 (loss and every gradient within 1e-4 of the plain loss's);
-     generate on TP_RULES parameters at bench_decode's B=8, 128 + 128
-     tokens, against the unsharded generate by the gap rule, A 8 in
+     generate on TP_RULES parameters at bench_decode's B=8, 128-token
+     prompts and DIST_TP_STEPS (32) new tokens, against the unsharded generate by the gap rule, A 8 in
      the prefill.
    - Two ranks sharing cuda:0 over gloo (spawned, joined with a
      timeout, killed on failure): scripts/torch_gloo_cuda_probe.py
@@ -341,10 +344,52 @@ Phases, in order; any failure exits non-zero:
      launches, the collectives and bytes a step moves; ZeRO's
      opt_state_bytes_per_replica at two ranks is half of world size
      1's (to within padding).
-8b. decode -- the LM's decoders at bench_decode's width
+8b. sparse_elastic -- the rest of the distributed layer, within ~150 s:
+   - CTR at bench_ctr_sparse's width (benchmarks/suite.py:267, sizes at
+     :811-815: batch 4096, 32 slots, vocab 1,000,000, dim 64, adam 1e-3
+     on the MLP, row lr 0.05, f32), world size 1 over NCCL: the first
+     step against the port's plain run of the same step on the CPU at
+     full width, for the all-to-all and the psum exchange (loss 1e-5,
+     MLP 1e-4, touched rows 1e-5, every untouched row bit for bit); 2
+     warm-up and 20 timed steps: ms/batch, rows/s, examples/s, the row
+     exchange's GB/s and its share of 3.35 TB/s, as the bench reckons
+     them (:316-327).
+   - HostOffloadEmbedding at the same vocab and dim, the batch's 131072
+     ids: one lookup and one apply_row_grads; rows bit for bit
+     ShardedEmbedding's; the card's peak memory grows by at most 2x the
+     looked-up rows' bytes (the rows alone are 13% of the table's, so
+     a tenth of the table cannot bound it) and never by the table; ms
+     per lookup and per update.
+   - Two gloo ranks on cuda:0 (gloo_rank's "sparse_elastic" job): the
+     CTR step with both tables row-sharded over model=2 and the
+     all-to-all exchange, 2048 rows a rank, 1 + CTR_GLOO_STEPS steps
+     against the one-process steps (losses 1e-5, parameters rtol 1e-4 /
+     atol 1e-5), all_to_all_single launches and bytes a step, ms/step;
+     then one ZeRO LM step at lm_train's width (f32, adam) saved through
+     the ElasticCheckpointManager.
+   - That state restored at world size 1 over NCCL: unpadded parameters
+     and adam's m and v bit for bit, the manifest's data 2 -> 1,
+     reshard_restores 1; one more step from it bit for bit the same step
+     from the saved state loaded without resharding; A 16 a step.
+   - The DecodeEngine pool over TP_RULES parameters at bench_engine's
+     width on a one-rank model axis (B and C dispatched through their
+     DTensor rules), float and int8 KV, the serve phase's first 8
+     requests: tokens bit for bit and A/B/C launches equal to the
+     single-device engine's; tokens/s beside it.
+   - A GangSupervisor over two members on cuda:0 (gloo): the resilient
+     phase's bench_lstm classifier through `train --elastic`'s builder,
+     GANG_STEPS steps, rank 1 SIGKILLed at heartbeat step GANG_KILL_AT:
+     one reform at one member, which restores the last committed step
+     through the reshard path, runs every later step once and finishes
+     with its last loss finite and below its first; the gang epoch,
+     steps lost, reform seconds and D/E launches in the members.
+   - dryrun_multichip(1) again: it runs the sharded embedding and the
+     CTR step and skips only the engine pool, for the world size.
+8c. decode -- the LM's decoders at bench_decode's width
    (benchmarks/suite.py:500-668: vocab 32000, dim 512, 8 layers, 8
    heads, f32, seeded weights, B=8 prompts of 128 tokens from
-   RandomState(0), 128 new tokens), attn_impl "auto" so that kernel A
+   RandomState(0), DEC_STEPS (64; the bench's 128, cut) new tokens),
+   attn_impl "auto" so that kernel A
    runs every prefill: greedy generate, sample (temperature 0.8, top_p
    0.95, Gumbel draws from a seeded card generator injected, so both
    paths draw the same), beam_decode (beam 4), speculative_generate
@@ -361,8 +406,8 @@ Phases, in order; any failure exits non-zero:
    filtered logits plus the step's draw, or the nucleus boundary's
    distance from top_p) is <= 1e-3; beam rows equal, or the plain
    search's smallest candidate gap <= 1e-3, scores within 1e-4; draft =
-   target takes at most ceil(128 / 5) + 2 rounds a row.
-8c. moe -- the mixture-of-experts LM at bench_moe_lm's width
+   target takes at most ceil(DEC_STEPS / 5) + 2 rounds a row.
+8d. moe -- the mixture-of-experts LM at bench_moe_lm's width
    (benchmarks/suite.py:452: vocab 32000, dim 512, 8 layers, 8 heads,
    every other block 8 experts, top-2, capacity 1.25, remat, adam 1e-3,
    f32, B=8, T=2048, seeded weights and tokens; the scatter dispatch).
@@ -376,7 +421,8 @@ Phases, in order; any failure exits non-zero:
    memory, each MoE block's dropped fraction and aux loss in the first
    step; A 16 launches a step, losses finite and falling). Then
    DecodeEngine over an MoE model at bench_engine's width (moe_experts
-   8) on float and int8 KV, the first 16 of serve_phase's requests,
+   8) on float and int8 KV, the first MOE_SERVE_REQ (8) of
+   serve_phase's requests,
    against the plain path by the gap rule (A and B, or A and C,
    launched).
 9. image -- the image models (no kernel of their own: cuDNN convs, torch
@@ -397,7 +443,8 @@ Phases, in order; any failure exits non-zero:
    the bench's lr 0.1 diverges on one repeated batch, in JAX as in the
    port --, softmax CE, make_train_step(donate=True), cuDNN benchmark
    mode): resnet50 B=64 and 256, its s2d and both remat variants at 256,
-   alexnet 128, googlenet 128, vgg19 64, smallnet 512: 1 + 5 timed steps
+   alexnet 128, googlenet 128, vgg19 64, smallnet 512: 1 + IMAGE_STEPS
+   (2) timed steps
    (ms_per_batch, imgs_per_sec, mfu_pct, peak memory; every loss finite,
    the last below the first, BN running stats moved). bench_trainer_loop
    (resnet50 B=64 through Trainer.train) beside the raw step, alexnet
@@ -407,8 +454,12 @@ Phases, in order; any failure exits non-zero:
    the server phase and of the MoE serves, A per decoder and per MoE
    step), the serve, server, train, seq2seq,
    generation, LM train, decode, MoE and image numbers, the wide cases, the card's
-   name and power limit, a `kernels` JSON line (nine entries, A-I; A adds its
-   HMMA counts and its launches in the LM train phase; B and C their
+   name and power limit, a `phase_seconds` JSON line (each phase's wall
+   seconds, the build's and the total; each phase also logs its seconds
+   as it ends), a `kernels` JSON line (nine entries, A-I; A adds its
+   HMMA counts and its launches in the LM train phase and the
+   sparse_elastic phase's ZeRO steps; B and C their launches in the TP
+   engine pool and their
    device launches in the float and int8
    serves and per call and their split plan; D, F and H their device
    launches and whether they repeated bit for bit (D and H also their
@@ -416,7 +467,7 @@ Phases, in order; any failure exits non-zero:
    device launches in the main path's run and
    per call, their phase split and whether they repeated bit for bit;
    D and E also their launches in each resilient CLI child and in the
-   in-process ResilientTrainer run, and in the rnn_family phase's SRL,
+   in-process ResilientTrainer run, in the elastic gang's members, and in the rnn_family phase's SRL,
    db_lstm and bidi_lstm runs with their cases at the SRL and
    quick_start shapes), the resilient and rnn_family phases' numbers, and
    last the device JSON line.
@@ -510,6 +561,12 @@ SERVER_PREFILL_FAULT, SERVER_DECODE_FAULT = 3, 20
 SERVER_DEADLINE_REQS, SERVER_DEADLINE_MS, STEP_MS = (1, 6), 60.0, 1.0
 ROUTER_KILL_AT, ROUTER_RETIRE_AT, IMPORT_KILL_AT = 40, 10, 0
 TIMED_REQ = 16          # the clean server-vs-bare turns: two waves
+# the router's runs (clean, a kill, a retirement) and the serve CLI take
+# the first ROUTER_REQ requests (cut from 32: three waves over two
+# replicas of 8 slots, so replica 0 still holds a queue when it
+# retires); each disaggregated run the first DISAGG_REQ (one wave of
+# the decode tier, cut from 16; the first import is still killed)
+ROUTER_REQ, DISAGG_REQ = 24, 8
 # bench_decode's swa row (benchmarks/suite.py:500, :601-624): batch 8,
 # 128-token prompts, window max(steps, 16) = 128, steps * 8 = 1024 new
 # tokens, cut to 256 to keep the smoke near 700 s (the ring wraps three
@@ -536,7 +593,7 @@ RNN_T, RNN_B, RNN_H = 100, 64, 512
 # CE over 2048-position chunks (:856-866)
 LM_CFG = dict(vocab=32000, dim=512, n_layers=8, n_heads=8, remat=True)
 LM_B, LM_T, LM_SEED = 4, 8192, 0
-LM_WINDOW, LM_CE_CHUNK, LM_STEPS = 1024, 2048, 5
+LM_WINDOW, LM_CE_CHUNK, LM_STEPS = 1024, 2048, 2   # steps cut from 10
 # parity with the plain path: the sequence cut to 2048, 3 steps;
 # (first-step gradient, loss) tolerances per compute dtype
 LM_PARITY_T, LM_PARITY_STEPS = 2048, 3
@@ -3415,8 +3472,10 @@ DIST_GLOO_STEPS = 2       # after one warm-up step, two ranks
 DIST_GLOO_B = 2           # rows a rank; the two ranks share LM_B = 4 rows
 DIST_GLOO_LR = 0.1        # sgd, as JAX's DP gate (tests/test_parallel.py:33)
 DIST_TIMEOUT_S = 240      # the two ranks' join timeout
-DRYRUN_1_PARTS = ["toy_dp_tp_zero", "ring_attention", "resnet_dp",
-                  "seq2seq_dp", "transformer_tp"]
+DIST_TP_STEPS = 32        # TP generate's new tokens (bench_decode's 128, cut)
+DRYRUN_1_PARTS = ["toy_dp_tp_zero", "ring_attention", "sharded_embedding",
+                  "resnet_dp", "ctr_alltoall", "seq2seq_dp",
+                  "transformer_tp"]
 
 
 def gloo_paths(cuda_list=None):
@@ -3594,8 +3653,8 @@ def dist_cp_phase(mesh, params0, tokens):
 
 
 def dist_tp_generate(mesh):
-    """TP generate at bench_decode's B=8, 128 + 128 tokens, on TP_RULES
-    parameters (mesh (1, 1, 1)) beside the unsharded generate: tokens
+    """TP generate at bench_decode's B=8, 128-token prompts and
+    DIST_TP_STEPS new tokens, on TP_RULES parameters (mesh (1, 1, 1)) beside the unsharded generate: tokens
     equal or differing by the gap rule; A runs in the prefill."""
     from paddle_tpu_torch.parallel import sharding as PSH
 
@@ -3610,13 +3669,13 @@ def dist_tp_generate(mesh):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     toks = TT.generate(sharded, cfg, PSH.place(prompt, PSH.batch_sharding(
-        mesh)), steps=DEC_STEPS)
+        mesh)), steps=DIST_TP_STEPS)
     toks = toks.full_tensor() if hasattr(toks, "full_tensor") else toks
     torch.cuda.synchronize()
     tp_s = time.perf_counter() - t0
     launched = FA.launch_counts["fwd"]
     t0 = time.perf_counter()
-    ref = TT.generate(params, cfg, prompt, steps=DEC_STEPS)
+    ref = TT.generate(params, cfg, prompt, steps=DIST_TP_STEPS)
     torch.cuda.synchronize()
     ref_s = time.perf_counter() - t0
     teach = teacher_logits(params, plain_cfg, ref, DEC_PROMPT)
@@ -3704,16 +3763,21 @@ def gloo_path_run(path, world, mesh, ref, cfg, params0, tokens):
     return out
 
 
-def gloo_rank(rank, world, rdv, ref_path, out_path, cuda_list):
-    """One of two ranks sharing cuda:0 over gloo: the paths whose
-    collectives are all on the fixed list `cuda_list`, each rank's
-    results written to out_path.<rank> as each path ends (a path that
-    fails records its error; one whose peer failed may hang, and the
-    parent's timeout ends it)."""
+def gloo_rank(rank, world, rdv, ref_path, out_path, cuda_list, job="lm"):
+    """One of two ranks sharing cuda:0 over gloo: job "lm", the LM paths
+    whose collectives are all on the fixed list `cuda_list`; job
+    "sparse_elastic", the CTR step over model=2 and the ZeRO LM step
+    saved for the elastic restore. Each rank's results are written to
+    out_path.<rank> as each path ends (a path that fails records its
+    error; one whose peer failed may hang, and the parent's timeout ends
+    it)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
+    import faulthandler
     import traceback
+
+    faulthandler.enable()   # a crash in a collective names its frame
 
     import torch.distributed as dist
 
@@ -3723,6 +3787,22 @@ def gloo_rank(rank, world, rdv, ref_path, out_path, cuda_list):
     PD.initialize(f"file://{rdv}", world, rank, device="cuda",
                   backend="gloo")
     ref = torch.load(ref_path)
+    if job == "sparse_elastic":
+        res = {}
+        for name, run in (("ctr", lambda o: ctr_gloo_run(ref, o)),
+                          ("zero_save", lambda o: zero_save_run(
+                              ref, o, ref["ckpt_dir"]))):
+            res[name] = {}
+            try:
+                run(res[name])
+            except Exception:
+                res[name] = {"error": traceback.format_exc()[-3000:]}
+            torch.cuda.empty_cache()
+            with open(f"{out_path}.{rank}", "w") as f:
+                json.dump(res, f)
+        PD.sync_hosts()
+        dist.destroy_process_group()
+        return
     cfg = TT.TransformerConfig(**LM_CFG)
     tokens = ref["tokens"].cuda()
     params0 = tree_map(lambda t: t.cuda(), ref["params0"])
@@ -3936,6 +4016,623 @@ def distributed_phase():
     return out
 
 
+# -- sparse embeddings, the TP engine pool, the elastic layer ------------------
+
+# bench_ctr_sparse(batch=4096, slots=32, vocab=1_000_000, dim=64, iters=20)
+# (benchmarks/suite.py:267, sizes at :811-815): wide & deep over two
+# tables of vocab + 1 rows, MLP (64, 32) -> 1, adam 1e-3 on the MLP, row
+# SGD at 0.05 on the tables, f32; 2 warm-up steps, 20 timed
+CTR_B, CTR_SLOTS, CTR_VOCAB, CTR_DIM = 4096, 32, 1_000_000, 64
+CTR_WARMUP, CTR_ITERS, CTR_ROW_LR, CTR_SEED = 2, 20, 0.05, 0
+CTR_GLOO_STEPS = 2        # after one warm-up step, two ranks on cuda:0
+TP_POOL_REQ = 8           # the serve phase's first 8 of its 32 requests
+# the elastic gang: the resilient phase's bench_lstm classifier (one
+# batch of 64 repeated, 32 rows a member) through `train --elastic`'s
+# builder, two members on cuda:0 over gloo, SIGKILL of rank 1 at its
+# heartbeat step GANG_KILL_AT
+GANG_STEPS, GANG_EVERY, GANG_KILL_AT, GANG_DEADLINE_S = 6, 2, 2, 400
+# the resilient phase's config with (input, label) samples and the
+# default CE, as `train --elastic`'s builder takes them
+GANG_CONFIG = (RES_CONFIG
+               .replace("yield padded, np.int64(label), np.float32(1.0)",
+                        "yield padded, np.int64(label)")
+               .replace('"loss_fn": weighted_ce, ', ""))
+assert GANG_CONFIG.count("np.float32(1.0)") == 0 \
+    and GANG_CONFIG.count("weighted_ce,") == 0
+
+
+def ctr_batch():
+    rs = np.random.RandomState(0)
+    ids = torch.from_numpy(rs.randint(0, CTR_VOCAB, (CTR_B, CTR_SLOTS))
+                           .astype(np.int32))
+    labels = torch.from_numpy(rs.randint(0, 2, CTR_B).astype(np.int32))
+    return ids, labels
+
+
+def ctr_model(mesh, exchange="alltoall"):
+    from paddle_tpu_torch.models.ctr import CTRModel
+
+    return CTRModel(vocab=CTR_VOCAB, embed_dim=CTR_DIM, mesh=mesh,
+                    exchange=exchange)
+
+
+def ctr_params(model, full):
+    """A copy of a full parameter tree (CPU tensors) placed by the model:
+    the tables padded to its sharded row count, then row-sharded (the
+    steps update in place, so `full` must stay as it is)."""
+    pad = lambda t, rows: torch.cat([t, t.new_zeros(
+        (rows - t.shape[0],) + tuple(t.shape[1:]))])
+    return model.place({"deep": pad(full["deep"], model.table.padded_vocab),
+                        "wide": pad(full["wide"], model.wide.padded_vocab),
+                        "mlp": tree_map(torch.clone, full["mlp"])})
+
+
+def ctr_run(model, params, ids, labels, steps, on_step=None):
+    """(losses, final params) of `steps` CTR steps from `params` (placed),
+    adam(1e-3) on the MLP."""
+    opt = OPT.adam(1e-3)
+    opt_state = opt.init(params["mlp"])
+    step = model.make_train_step(opt, {})
+    dev = model.mesh.device
+    ids, labels = ids.to(dev), labels.to(dev)
+    losses = []
+    for i in range(steps):
+        params, opt_state, loss = step(
+            params, opt_state, ids, labels, CTR_ROW_LR,
+            torch.tensor(i, dtype=torch.int32, device=dev))
+        losses.append(loss)
+        if on_step is not None:
+            on_step(i)
+    return [float(l) for l in losses], params
+
+
+def host_tree(tree):
+    """A tree of (D)Tensors as full CPU tensors (gathered by synchronous
+    collectives, which gloo takes on CUDA tensors: `gather_full`)."""
+    from paddle_tpu_torch.core.mesh import gather_full
+
+    return tree_map(lambda t: gather_full(t).detach().cpu(), tree)
+
+
+def ctr_gate(full0, ids, labels, mesh, cpu_mesh):
+    """The first CTR step on the card against the port's plain run of the
+    same step on the CPU, at full width, per exchange: loss 1e-5
+    (relative), MLP 1e-4 and touched rows 1e-5 (max abs error over the
+    reference's max |value|), rows no id touched bit for bit unchanged."""
+    touched = torch.zeros(CTR_VOCAB + 1, dtype=torch.bool)
+    touched[ids.reshape(-1).long()] = True
+    out = {}
+    for ex in ("alltoall", "psum"):
+        card_m, cpu_m = ctr_model(mesh, ex), ctr_model(cpu_mesh, ex)
+        (l_card,), p_card = ctr_run(card_m, ctr_params(card_m, full0), ids,
+                                    labels, 1)
+        (l_cpu,), p_cpu = ctr_run(cpu_m, ctr_params(cpu_m, full0), ids,
+                                  labels, 1)
+        p_card, p_cpu = host_tree(p_card), host_tree(p_cpu)
+        errs = {"loss": abs(l_card - l_cpu) / abs(l_cpu),
+                "mlp": max(abs_err(a, b) / b.abs().max().item() for a, b in
+                           zip(tree_leaves(p_card["mlp"]),
+                               tree_leaves(p_cpu["mlp"])))}
+        untouched_same = True
+        for k in ("deep", "wide"):
+            got, want = p_card[k][:CTR_VOCAB + 1], p_cpu[k][:CTR_VOCAB + 1]
+            errs[k] = (abs_err(got[touched], want[touched])
+                       / want[touched].abs().max().item())
+            untouched_same = untouched_same and torch.equal(
+                got[~touched], full0[k][~touched])
+        log(f"  CTR first step, {ex}: loss {l_card:.7f} vs CPU "
+            f"{l_cpu:.7f} ({errs['loss']:.2e}, tol 1e-5); MLP "
+            f"{errs['mlp']:.2e} (1e-4); touched rows deep "
+            f"{errs['deep']:.2e} wide {errs['wide']:.2e} (1e-5); "
+            f"{int((~touched).sum())} untouched rows bit for bit: "
+            f"{untouched_same}")
+        if (errs["loss"] > 1e-5 or errs["mlp"] > 1e-4 or errs["deep"] > 1e-5
+                or errs["wide"] > 1e-5 or not untouched_same):
+            raise Fail(f"CTR {ex}: first step against the CPU {errs}, "
+                       f"untouched rows unchanged {untouched_same}")
+        out[ex] = dict(errs, untouched_bitwise=untouched_same,
+                       loss=l_card, loss_cpu=l_cpu,
+                       touched_rows=int(touched.sum()))
+    return out
+
+
+def ctr_timing(full0, ids, labels, mesh):
+    """bench_ctr_sparse's measure: CTR_WARMUP steps, then CTR_ITERS steps
+    ending in a sync, all-to-all exchange; the bench's reckoning
+    (benchmarks/suite.py:316-327): rows moved per step are the deep and
+    wide lookups and their pushes, (dim + 1) f32 values each way."""
+    model = ctr_model(mesh)
+    params = ctr_params(model, full0)
+    opt = OPT.adam(1e-3)
+    opt_state = opt.init(params["mlp"])
+    step = model.make_train_step(opt, {})
+    ids, labels = ids.cuda(), labels.cuda()
+    i0 = torch.zeros((), dtype=torch.int32, device="cuda")
+    for _ in range(CTR_WARMUP):
+        params, opt_state, loss = step(params, opt_state, ids, labels,
+                                       CTR_ROW_LR, i0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(CTR_ITERS):
+        params, opt_state, loss = step(params, opt_state, ids, labels,
+                                       CTR_ROW_LR, i0)
+    loss = float(loss)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / CTR_ITERS
+    rows = CTR_B * CTR_SLOTS * 2 * 2
+    row_bytes = CTR_B * CTR_SLOTS * 2 * (CTR_DIM + 1) * 4
+    out = dict(ms_per_batch=1e3 * dt, rows_per_sec=rows / dt,
+               examples_per_sec=CTR_B / dt,
+               row_exchange_gbps=row_bytes / dt / 1e9,
+               hbm_share=(row_bytes / dt) / HBM_BYTES_PER_S,
+               last_loss=loss)
+    log(f"  CTR at bench_ctr_sparse's width (B={CTR_B}, {CTR_SLOTS} slots, "
+        f"vocab {CTR_VOCAB}, dim {CTR_DIM}, deep table "
+        f"{(CTR_VOCAB + 1) * CTR_DIM * 4 / 1e6:.1f} MB): "
+        f"{out['ms_per_batch']:.3f} ms/batch, {out['rows_per_sec']:.4g} "
+        f"rows/s, {out['examples_per_sec']:.4g} examples/s, row exchange "
+        f"{out['row_exchange_gbps']:.2f} GB/s = "
+        f"{100 * out['hbm_share']:.3f}% of 3.35 TB/s")
+    if not np.isfinite(loss):
+        raise Fail(f"CTR timing: loss {loss}")
+    return out
+
+
+def host_offload_gate(full0, ids, mesh):
+    """HostOffloadEmbedding at the CTR table's vocab and dim for the
+    batch's ids: one lookup and one apply_row_grads. Its rows equal
+    ShardedEmbedding's bit for bit; the card's peak memory grows by the
+    [K, D] rows the lookup returns (at most 2x their bytes), never by the table; the host table's update equals the
+    same row SGD on the card. (A tenth of the table's bytes cannot bound
+    the growth: the lookup's own [K, D] output is 13% of the table.)"""
+    from paddle_tpu_torch.parallel import sparse as SP
+
+    model = ctr_model(mesh)
+    deep = model.table.place(full0["deep"])
+    flat = ids.reshape(-1).cuda()
+    ref = model.table.lookup(deep, flat)
+    emb = SP.HostOffloadEmbedding(CTR_VOCAB + 1, CTR_DIM)
+    table = emb.place(full0["deep"].clone())
+    grads = torch.randn(ref.shape, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda") * 1e-2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    rows = emb.lookup(table, flat)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    emb.apply_row_grads(table, flat, grads, CTR_ROW_LR)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    grown = torch.cuda.max_memory_allocated() - base
+    rows_bytes = rows.numel() * rows.element_size()
+    table_bytes = table.numel() * table.element_size()
+    exact = torch.equal(rows, ref)
+    want = full0["deep"].cuda().index_add_(
+        0, flat.long(), -CTR_ROW_LR * grads).cpu()
+    upd_err = abs_err(table, want)
+    out = dict(rows_bitwise=exact, peak_growth_bytes=grown,
+               rows_bytes=rows_bytes, table_bytes=table_bytes,
+               growth_over_table=grown / table_bytes,
+               lookup_ms=1e3 * (t1 - t0), update_ms=1e3 * (t2 - t1),
+               update_max_abs_err=upd_err, pinned=table.is_pinned())
+    log(f"  HostOffloadEmbedding ({CTR_VOCAB + 1} x {CTR_DIM} on the host, "
+        f"pinned {out['pinned']}; {flat.numel()} ids): rows bit for bit "
+        f"{exact}; the card's peak grew {grown / 2**20:.1f} MiB "
+        f"({100 * grown / table_bytes:.1f}% of the table's "
+        f"{table_bytes / 2**20:.1f} MiB; the rows alone "
+        f"{rows_bytes / 2**20:.1f} MiB); lookup {out['lookup_ms']:.2f} "
+        f"ms, update {out['update_ms']:.2f} ms; update vs the card's "
+        f"row SGD {upd_err:.2e}")
+    if not exact or grown > 2 * rows_bytes or grown >= table_bytes / 2 \
+            or upd_err > 1e-6 or not out["pinned"]:
+        raise Fail(f"host offload: {out}")
+    return out
+
+
+def ctr_gloo_run(ref, out):
+    """Rank side: the CTR step with both tables row-sharded over model=2,
+    the all-to-all exchange, 1 + CTR_GLOO_STEPS steps at full width
+    (CTR_B / 2 rows a rank), against the one-process steps: losses 1e-5
+    (relative), parameters rtol 1e-4 / atol 1e-5."""
+    from paddle_tpu_torch.core import mesh as MESH
+    from paddle_tpu_torch.parallel import collectives as COLL
+
+    mesh = MESH.build_mesh(MESH.MeshConfig(1, 2, 1), device="cuda")
+    model = ctr_model(mesh)
+    params = ctr_params(model, ref["ctr_params0"])
+    COLL.reset_launch_counts()
+    marks = []
+
+    def on_step(i):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    losses, params = ctr_run(model, params, ref["ctr_ids"],
+                             ref["ctr_labels"], 1 + CTR_GLOO_STEPS, on_step)
+    counts, moved = dict(COLL.launch_counts), dict(COLL.bytes_moved)
+    got = host_tree(params)
+    close, worst = True, 0.0
+    for k, want in ref["ctr_params"].items():
+        for g, w in zip(tree_leaves(got[k]), tree_leaves(want)):
+            g = g[:w.shape[0]]
+            worst = max(worst, abs_err(g, w))
+            close = close and torch.allclose(g, w, rtol=1e-4, atol=1e-5)
+    out.update(
+        losses=losses, loss_rel_err=max(abs(a - b) / abs(b) for a, b in
+                                        zip(losses, ref["ctr_losses"])),
+        params_close=close, param_max_abs_err=worst,
+        ms_per_step=1e3 * (marks[-1] - marks[0]) / CTR_GLOO_STEPS,
+        all_to_all_per_step=counts["all_to_all"] / (1 + CTR_GLOO_STEPS),
+        all_to_all_bytes_per_step=moved["all_to_all"] // (1 + CTR_GLOO_STEPS),
+        collectives=counts)
+
+
+def zero_save_run(ref, out, ckpt_dir):
+    """Rank side: one ZeRO LM step at lm_train's width (f32, adam, so the
+    moments are not empty) on two ranks, B = DIST_GLOO_B a rank, saved
+    through the ElasticCheckpointManager; rank 0 also writes the state's
+    full parameters and unpadded moments for the parent's bit-for-bit
+    check."""
+    from paddle_tpu_torch.core import mesh as MESH
+    from paddle_tpu_torch.parallel import train_step as PTS
+
+    cfg = TT.TransformerConfig(**LM_CFG)
+    mesh = MESH.build_mesh(MESH.MeshConfig(2, 1, 1), device="cuda")
+    params0 = TT.init_params(LM_SEED, cfg, device="cuda")
+    opt = OPT.adam(1e-3)
+    st = TrainState.create_zero(params0, {}, opt, mesh)
+    step = PTS.make_zero_train_step(GRAFT.LMLoss(cfg), GRAFT.identity_loss,
+                                    opt, mesh)
+    FA.reset_launch_counts()
+    st, loss, _ = step(st, None, (ref["lm_tokens"].cuda(),), ())
+    out["zero_a_launches"] = FA.launch_counts["fwd"]
+    out["zero_loss"] = float(loss)
+    CK.ElasticCheckpointManager(ckpt_dir, mesh=mesh).save(st)
+    full = {"params": host_tree(st.params), "step": int(st.step),
+            "opt": unpadded_moments(st.params, st.opt_state)}
+    if mesh.axis_index("data") == 0:
+        torch.save(full, os.path.join(ckpt_dir, "saved_state.pt"))
+
+
+def unpadded_moments(params, opt_state):
+    """{keystr: the unpadded CPU vector} of every flat ZeRO moment."""
+    from paddle_tpu_torch.core.pytree import flatten_with_keys
+    from paddle_tpu_torch.parallel.train_step import zero_true_sizes
+
+    sizes = dict(flatten_with_keys(zero_true_sizes(params, opt_state)))
+    return {k: v.reshape(-1)[:sizes[k]] for k, v in
+            flatten_with_keys(host_tree(opt_state))}
+
+
+def elastic_restore_gate(ckpt_dir, tokens):
+    """The two-rank ZeRO state restored at world size 1 over NCCL: the
+    unpadded parameters and adam's m and v bit for bit the saved ones,
+    the manifest's data 2 -> 1, reshard_restores == 1; then one more
+    world-size-1 ZeRO step from it is bit for bit the same step from the
+    saved state loaded without resharding (built from the saved tensors
+    directly: at one rank the flat layout is the unpadded vector)."""
+    from paddle_tpu_torch.core import mesh as MESH
+    from paddle_tpu_torch.core.pytree import flatten_with_keys, unflatten_like
+    from paddle_tpu_torch.parallel import train_step as PTS
+
+    cfg = TT.TransformerConfig(**LM_CFG)
+    mesh = MESH.build_mesh(MESH.MeshConfig(1, 1, 1), device="cuda")
+    opt = OPT.adam(1e-3)
+    template = lambda: TrainState.create_zero(
+        TT.init_params(LM_SEED, cfg, device="cuda"), {}, opt, mesh)
+    mgr = CK.ElasticCheckpointManager(ckpt_dir, mesh=mesh)
+    restored = mgr.restore(template())
+    manifest = json.load(open(mgr._manifest_path(mgr.latest_step())))
+    saved = torch.load(os.path.join(ckpt_dir, "saved_state.pt"))
+    got = unpadded_moments(restored.params, restored.opt_state)
+    params_same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(host_tree(restored.params)),
+        tree_leaves(saved["params"])))
+    moments_same = (sorted(got) == sorted(saved["opt"]) and all(
+        torch.equal(got[k], saved["opt"][k]) for k in got))
+    # the same state, loaded without resharding
+    plain = template()
+    plain_opt = unflatten_like(plain.opt_state, [
+        MESH.distribute(saved["opt"][k].cuda(), MESH.NamedSharding(
+            mesh, MESH.P(*(("data",) if leaf.dim() else ()))))
+        for k, leaf in flatten_with_keys(plain.opt_state)])
+    plain = TrainState(
+        params=tree_map(lambda t: MESH.distribute(
+            t.cuda(), MESH.replicated(mesh)), saved["params"]),
+        model_state={}, opt_state=plain_opt,
+        step=MESH.distribute(torch.tensor(saved["step"], dtype=torch.int32,
+                                          device="cuda"),
+                             MESH.replicated(mesh)))
+    step = PTS.make_zero_train_step(GRAFT.LMLoss(cfg), GRAFT.identity_loss,
+                                    opt, mesh)
+    FA.reset_launch_counts()
+    st_a, loss_a, _ = step(restored, None, (tokens,), ())
+    st_b, loss_b, _ = step(plain, None, (tokens,), ())
+    a_launches = FA.launch_counts["fwd"]
+    next_same = (float(loss_a) == float(loss_b) and all(
+        torch.equal(a, b) for a, b in zip(
+            tree_leaves(host_tree(st_a.params)),
+            tree_leaves(host_tree(st_b.params)))) and all(
+        torch.equal(a, b) for a, b in zip(
+            tree_leaves(host_tree(st_a.opt_state)),
+            tree_leaves(host_tree(st_b.opt_state)))))
+    out = dict(params_bitwise=params_same, moments_bitwise=moments_same,
+               manifest_data_shards=manifest["data_shards"],
+               mesh_data=mesh.shape["data"],
+               reshard_restores=mgr.reshard_restores,
+               next_step_bitwise=next_same, a_launches=a_launches,
+               restored_step=int(restored.step))
+    log(f"  elastic: a two-rank ZeRO LM state (adam, step "
+        f"{out['restored_step']}) restored at world size 1: params bit for "
+        f"bit {params_same}, m and v bit for bit {moments_same}, data "
+        f"{manifest['data_shards']} -> {mesh.shape['data']}, "
+        f"reshard_restores {mgr.reshard_restores}; one more step from it "
+        f"and from the state loaded without resharding bit for bit "
+        f"{next_same}; A {a_launches} launches in those two steps")
+    if not (params_same and moments_same and next_same) \
+            or manifest["data_shards"] != 2 or mgr.reshard_restores != 1 \
+            or a_launches != 2 * 2 * cfg.n_layers:
+        raise Fail(f"elastic restore: {out}")
+    return out
+
+
+def tp_pool_gate(mesh):
+    """The DecodeEngine pool over TP_RULES parameters at bench_engine's
+    width (SERVE_CFG, slots 8, max_len 256, page 16) on a one-rank
+    model axis over NCCL: the parameters and arenas are DTensors, so
+    every cached read runs B or C through its DTensor rule. Float and
+    int8 KV, the serve phase's first TP_POOL_REQ requests: tokens bit
+    for bit the single-device engine's, and A's, B's and C's launches
+    equal to its."""
+    from paddle_tpu_torch.parallel import sharding as PSH
+
+    cfg = TT.TransformerConfig(**SERVE_CFG)
+    params = TT.init_params(np.random.RandomState(0), cfg, device="cuda")
+    sharded = PSH.place(params, PSH.make_param_shardings(params, mesh,
+                                                         TT.TP_RULES))
+    prompts = make_prompts()[:TP_POOL_REQ]
+    geom = dict(slots=SLOTS, max_len=MAX_LEN, page_size=PAGE)
+    out = {}
+    for kv, keys in (("compute", ("flash_fwd", "ragged_tq1", "ragged_tqn",
+                                  "float_device")),
+                     ("int8", ("flash_fwd", "int8_tq1", "int8_tqn",
+                               "int8_device"))):
+        c = dataclasses.replace(cfg, kv_cache_dtype=kv)
+        DecodeEngine(sharded, c, **geom).serve(prompts[:1], max_new=2)
+        one, one_s, one_n = timed_serve(DecodeEngine(params, c, **geom),
+                                        prompts)
+        eng = DecodeEngine(sharded, c, **geom)
+        tp, tp_s, tp_n = timed_serve(eng, prompts)
+        arena = eng.init_state().caches[0][0]
+        arena = arena[0] if kv == "int8" else arena
+        n_tok = sum(len(t) for t in tp)
+        same = tp == one
+        launches_equal = all(tp_n[k] == one_n[k] for k in keys)
+        out[kv] = dict(tokens_equal=same, launches=tp_n,
+                       single_launches=one_n, tokens_per_s=n_tok / tp_s,
+                       single_tokens_per_s=n_tok / one_s,
+                       arena_placements=str(arena.placements))
+        log(f"  TP engine pool, {kv} KV ({TP_POOL_REQ} requests, "
+            f"{n_tok} tokens, arenas {arena.placements}): "
+            f"{n_tok / tp_s:.1f} tokens/s vs single-device "
+            f"{n_tok / one_s:.1f}; tokens bit for bit {same}; launches "
+            f"{ {k: tp_n[k] for k in keys} } vs "
+            f"{ {k: one_n[k] for k in keys} }")
+        if not same or not launches_equal or not all(tp_n[k] for k in keys):
+            raise Fail(f"TP engine pool {kv}: tokens equal {same}, "
+                       f"launches {tp_n} vs {one_n}")
+    return out
+
+
+def gang_gate(tmp):
+    """`train --elastic`'s gang: a GangSupervisor over two members on
+    cuda:0 (gloo on its CUDA tensors), the resilient phase's bench_lstm
+    classifier through `cli._gang_job_from_config`, GANG_STEPS steps, a
+    checkpoint every GANG_EVERY, rank 1 SIGKILLed at its heartbeat step
+    GANG_KILL_AT. The gang must reform once at one member, which resumes
+    from the last committed step through the resharded restore, runs
+    every later step once and finishes; its last loss finite and below
+    its first. D's and E's launches come from the members' logs (the
+    config prints them at exit)."""
+    from paddle_tpu_torch.parallel.launch import GangSupervisor
+
+    cfg_path = os.path.join(tmp, "gang_config.py")
+    with open(cfg_path, "w") as f:
+        f.write(GANG_CONFIG.format(vocab=LSTM_VOCAB, hidden=LSTM_H,
+                                   t=LSTM_T, b=LSTM_B, batches=1))
+    sup = GangSupervisor(
+        "paddle_tpu_torch.cli:_gang_job_from_config",
+        {"config": cfg_path, "batch_size": LSTM_B, "learning_rate": 0.01},
+        workdir=os.path.join(tmp, "gang"),
+        checkpoint_dir=os.path.join(tmp, "gang_ckpt"), num_processes=2,
+        total_steps=GANG_STEPS, checkpoint_every=GANG_EVERY, seed=0,
+        grace_s=10.0, poll_s=0.1, heartbeat_timeout_s=120.0,
+        boot_timeout_s=300.0,
+        extra_env={"PYTHONPATH": REPO_DIR})
+    plan = FaultPlan(gang_kill_step_at=GANG_KILL_AT, gang_kill_rank=1)
+    plan.wrap_gang(sup)
+    marks = {}
+    faulted_tick, observe = sup._tick, sup._observe_heartbeats
+
+    def tick():
+        faulted_tick()
+        if plan.count("gangkill") and "kill" not in marks:
+            marks["kill"] = time.monotonic()
+
+    def observe_heartbeats(ranks):
+        observe(ranks)
+        if sup.gang_epoch == 1 and "reformed_step" not in marks and any(
+                sup.member_heartbeat(r) for r in ranks):
+            marks["reformed_step"] = time.monotonic()
+
+    sup._tick, sup._observe_heartbeats = tick, observe_heartbeats
+    t0 = time.perf_counter()
+    run = sup.run(deadline_s=GANG_DEADLINE_S)
+    wall = time.perf_counter() - t0
+    c = sup.counters()
+    res = run["results"][0] if run["results"] else {}
+    d = e = 0
+    for name in sorted(os.listdir(sup.workdir)):
+        if name.startswith("log_"):
+            m = re.search(r"kernel launches: D (\d+) E (\d+)",
+                          open(os.path.join(sup.workdir, name)).read())
+            if m:
+                d, e = d + int(m.group(1)), e + int(m.group(2))
+    r = res.get("restored_step")
+    losses = res.get("losses", [])
+    killed_at = int(plan.fired[0].split("@")[1]) if plan.fired else None
+    out = dict(counters=c, wall_s=wall, restored_step=r,
+               final_step=res.get("final_step"), steps=res.get("steps"),
+               losses=losses, fired=list(plan.fired),
+               member_reshard_restores=res.get("counters", {}).get(
+                   "reshard_restores"),
+               # steps the dead gang completed past the restored one
+               steps_lost=(killed_at + 1 - r if r is not None
+                           and killed_at is not None else None),
+               reform_s=(marks["reformed_step"] - marks["kill"]
+                         if len(marks) == 2 else None),
+               d_launches=d, e_launches=e)
+    log(f"  gang: epoch {c['gang_epoch']}, reforms {c['reforms']}, members "
+        f"lost {c['members_lost']}, fired {plan.fired}; the survivor "
+        f"resumed at step {r} (steps lost {out['steps_lost']}, reshard "
+        f"restores {out['member_reshard_restores']}), ran {out['steps']} "
+        f"to step {out['final_step']}, losses "
+        f"{['%.5f' % x for x in losses]}; from the kill to the reformed "
+        f"gang's first step {out['reform_s']} s; D {d} E {e} launches in "
+        f"the members; {wall:.1f} s in all")
+    if (c["reforms"] != 1 or c["members_lost"] != 1 or r is None
+            or not 0 < r < GANG_STEPS or out["final_step"] != GANG_STEPS
+            or out["steps"] != list(range(r, GANG_STEPS))
+            or not out["member_reshard_restores"]
+            or not all(np.isfinite(losses)) or not losses[-1] < losses[0]
+            or not d or not e):
+        raise Fail(f"gang: {out}")
+    return out
+
+
+def sparse_elastic_phase():
+    """Phase 8b (see the module docstring): the CTR model at
+    bench_ctr_sparse's width, the host-offload table, the CTR step on two
+    gloo ranks, the TP engine pool, the elastic layer (reshard on
+    restore, the gang), dryrun_multichip(1)."""
+    import multiprocessing as mp
+
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.core import mesh as MESH
+
+    t_phase = time.perf_counter()
+    log(f"phase sparse_elastic: CTR (B={CTR_B}, vocab {CTR_VOCAB}, dim "
+        f"{CTR_DIM}), host offload, two gloo ranks, the TP engine pool, "
+        f"the elastic layer")
+    torch.cuda.empty_cache()
+    out, secs = {}, {}
+    mesh = MESH.build_mesh(MESH.MeshConfig(1, 1, 1))
+    cpu_mesh = MESH.build_mesh(MESH.MeshConfig(1, 1, 1), "cpu")
+    ids, labels = ctr_batch()
+    with torch.no_grad():
+        full0 = host_tree(ctr_model(mesh).init(CTR_SEED, CTR_B,
+                                               CTR_SLOTS)[0])
+
+    t0 = time.perf_counter()
+    out["ctr_gate"] = ctr_gate(full0, ids, labels, mesh, cpu_mesh)
+    out["ctr"] = ctr_timing(full0, ids, labels, mesh)
+    out["host_offload"] = host_offload_gate(full0, ids, mesh)
+    secs["ctr"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    # the two-rank jobs: their reference first, then the ranks
+    t0 = time.perf_counter()
+    ref_losses, ref_params = ctr_run(ctr_model(mesh), ctr_params(
+        ctr_model(mesh), full0), ids, labels, 1 + CTR_GLOO_STEPS)
+    rs = np.random.RandomState(0)
+    lm_tokens = torch.from_numpy(rs.randint(
+        0, LM_CFG["vocab"], (2 * DIST_GLOO_B, LM_T)).astype(np.int32))
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = os.path.join(tmp, "ref.pt")
+        torch.save({"ctr_params0": full0, "ctr_ids": ids,
+                    "ctr_labels": labels, "ctr_losses": ref_losses,
+                    "ctr_params": host_tree(ref_params),
+                    "lm_tokens": lm_tokens,
+                    "ckpt_dir": os.path.join(tmp, "zero_ckpt")}, ref_path)
+        del ref_params
+        torch.cuda.empty_cache()
+        res_path = os.path.join(tmp, "ranks.json")
+        procs = [ctx.Process(target=gloo_rank, args=(
+            r, 2, os.path.join(tmp, "rendezvous"), ref_path, res_path,
+            GLOO_CUDA, "sparse_elastic")) for r in range(2)]
+        for p in procs:
+            p.start()
+        deadline = time.time() + DIST_TIMEOUT_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.time()))
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+        ranks = [json.load(open(f"{res_path}.{r}"))
+                 if os.path.exists(f"{res_path}.{r}") else {}
+                 for r in range(2)]
+        errors = {f"rank {r} {k}": v["error"] for r, got in enumerate(ranks)
+                  for k, v in got.items() if "error" in v}
+        if alive or errors or any(p.exitcode != 0 for p in procs) \
+                or set(ranks[0]) != {"ctr", "zero_save"}:
+            raise Fail(f"sparse_elastic gloo ranks: exit codes "
+                       f"{[p.exitcode for p in procs]} ({len(alive)} killed "
+                       f"at the {DIST_TIMEOUT_S} s timeout); jobs "
+                       f"{sorted(ranks[0])}; errors {errors}")
+        g = out["ctr_gloo"] = ranks[0]["ctr"]
+        log(f"  CTR on two gloo ranks (model=2, {CTR_B // 2} rows a rank): "
+            f"{g['ms_per_step']:.1f} ms/step; losses "
+            f"{['%.7f' % x for x in g['losses']]} vs one process "
+            f"{['%.7f' % x for x in ref_losses]} ({g['loss_rel_err']:.2e}); "
+            f"params close {g['params_close']} (max abs err "
+            f"{g['param_max_abs_err']:.2e}); all_to_all_single "
+            f"{g['all_to_all_per_step']:.0f} a step, "
+            f"{g['all_to_all_bytes_per_step']} bytes a step (rank 0); "
+            f"collectives {g['collectives']}")
+        if g["loss_rel_err"] > 1e-5 or not g["params_close"] \
+                or not g["all_to_all_per_step"] \
+                or g["collectives"]["all_gather"]:
+            raise Fail(f"CTR on two gloo ranks: {g}")
+        secs["gloo"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["zero_save"] = ranks[0]["zero_save"]
+        out["elastic_restore"] = elastic_restore_gate(
+            os.path.join(tmp, "zero_ckpt"), lm_tokens.cuda())
+        secs["elastic_restore"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    out["tp_pool"] = tp_pool_gate(mesh)
+    secs["tp_pool"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["gang"] = gang_gate(tmp)
+    secs["gang"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    rep = GRAFT.dryrun_multichip(1)
+    out["dryrun"] = dict(rep, s=time.perf_counter() - t0)
+    log(f"  dryrun_multichip(1): ran {rep['ran']}, skipped "
+        f"{rep['skipped']} in {out['dryrun']['s']:.1f} s")
+    if rep["ran"] != DRYRUN_1_PARTS or list(rep["skipped"]) != [
+            "engine_pool"]:
+        raise Fail(f"sparse_elastic: dryrun_multichip(1) ran {rep['ran']}, "
+                   f"skipped {rep['skipped']}")
+    secs["dryrun"] = out["dryrun"]["s"]
+    dist.destroy_process_group()
+    out["seconds"] = secs
+    out["s"] = time.perf_counter() - t_phase
+    log(f"  phase sparse_elastic: {out['s']:.1f} s ({secs})")
+    return out
+
+
 # -- the LM's decoders at bench_decode's width ---------------------------------
 
 # bench_decode(batch=8, prompt_len=128, steps=128, dim=512, n_layers=8,
@@ -3944,8 +4641,9 @@ def distributed_phase():
 # max(512 // 4, 16) = 128, 2 layers, seed 7, dense attention: head_dim
 # 16, which kernel A is not built for); draft_k 4; sampling at
 # temperature 0.8, top_p 0.95; beam 4. The target runs attn_impl "auto"
-# (kernel A in every prefill; the bench's "dense" would run no kernel)
-DEC_B, DEC_PROMPT, DEC_STEPS, DEC_K, DEC_BEAM = 8, 128, 128, 4, 4
+# (kernel A in every prefill; the bench's "dense" would run no kernel);
+# new tokens cut to 64 from the bench's 128
+DEC_B, DEC_PROMPT, DEC_STEPS, DEC_K, DEC_BEAM = 8, 128, 64, 4, 4
 DEC_DRAFT = dict(vocab=32000, dim=128, n_layers=2, n_heads=8,
                  attn_impl="dense")
 DEC_DRAFT_SEED, DEC_TEMP, DEC_TOP_P = 7, 0.8, 0.95
@@ -4187,7 +4885,7 @@ MOE_B, MOE_T, MOE_STEPS, MOE_EC_STEPS = 8, 2048, 5, 2
 #: the MoE engine: bench_engine's width and requests (serve_phase's), cut
 #: from 32 to the first 16 (8 share the prefix) to keep the phase short:
 #: a 32-request serve takes ~18-24 s on each path (H100 80GB HBM3, 700 W)
-MOE_SERVE_REQ = 16
+MOE_SERVE_REQ = 8       # cut from 32
 
 
 class routing_spy:
@@ -4398,7 +5096,7 @@ def moe_phase():
 # bench_image (benchmarks/suite.py:112-141: momentum(0.1, mu=0.9), softmax
 # CE, make_train_step(donate=True), bf16 policy, inputs RandomState(0).rand,
 # labels RandomState(1)) at the configs of :765-775; resnet50 also at 64
-IMAGE_HW, IMAGE_STEPS = 224, 5
+IMAGE_HW, IMAGE_STEPS = 224, 2   # steps cut from 20
 IMAGE_CONFIGS = (("resnet50", 64), ("resnet50", 256), ("resnet50_s2d", 256),
                  ("resnet50_remat", 256), ("resnet50_remat_full", 256),
                  ("alexnet", 128), ("googlenet", 128), ("vgg19", 64),
@@ -5601,11 +6299,13 @@ def server_phase():
         "int8 KV", params, cfg8, prompts, geom, ref8, ())
 
     # two replicas on the card, clean: affinity, throughput
+    full_prompts, prompts = prompts, prompts[:ROUTER_REQ]
+    rplain = ref["plain"][:ROUTER_REQ]
     router = make_router(params, cfg, 2)
     _, res, rtoks, wall, launches["router"] = router_run(
         router, prompts, "router")
     need_launched(launches["router"], cfg, "router")
-    gap_rule("router", rtoks, ref["plain"], prompts, params, plain_cfg)
+    gap_rule("router", rtoks, rplain, prompts, params, plain_cfg)
     n_tok = sum(len(t) for t in rtoks)
     one = out["server_float"]["bare_run_tok_s"]
     out["router"] = dict(
@@ -5630,7 +6330,7 @@ def server_phase():
             or c["replicas_lost"] != 1 or not moved
             or len(router.results) != len(prompts)):
         raise Fail(f"router kill: fired {plan.fired}, counters {c}")
-    gap_rule("router kill", ktoks, ref["plain"], prompts, params, plain_cfg)
+    gap_rule("router kill", ktoks, rplain, prompts, params, plain_cfg)
     out["router_kill"] = dict(redistributed=c["redistributed"],
                               moved=moved, replicas_lost=c["replicas_lost"])
     log(f"  router, replica 0 killed at decode step {ROUTER_KILL_AT}: "
@@ -5661,8 +6361,7 @@ def server_phase():
                    f"{len(stayed)}/{SLOTS}, admitted {c['fleet_admitted']} "
                    f"for {len(prompts)} requests, redistributed "
                    f"{c['redistributed']} of {queued} queued")
-    gap_rule("router retire", btoks, ref["plain"], prompts, params,
-             plain_cfg)
+    gap_rule("router retire", btoks, rplain, prompts, params, plain_cfg)
     out["router_retire"] = dict(redistributed=c["redistributed"],
                                 finished_in_place=len(stayed),
                                 admitted=c["fleet_admitted"])
@@ -5672,19 +6371,19 @@ def server_phase():
         f"{len(prompts)} requests (nothing recomputed)")
 
     # (c) disaggregation: one prefill replica, two decode replicas; each
-    # run (the float inline one with the import kill) takes the first two
-    # waves, 16 requests (all 32 before the smoke passed 700 s)
+    # run (the float inline one with the import kill) takes the first
+    # DISAGG_REQ requests
     for kv, c_, r_ in (("float", cfg, ref), ("int8", cfg8, ref8)):
         for shm in (False, True):
             key = f"disagg_{kv}_{'shm' if shm else 'inline'}"
-            n = 2 * SLOTS
+            n = DISAGG_REQ
             launches[key], out[key] = disagg_run(
-                key, params, c_, prompts[:n],
+                key, params, c_, full_prompts[:n],
                 dict(r_, kernel=r_["kernel"][:n], plain=r_["plain"][:n]),
                 shm=shm, kill=(kv == "float" and not shm))
 
     launches["ring"], out["ring"] = ring_run(params, cfg,
-                                             prompts[:RING_REQ])
+                                             full_prompts[:RING_REQ])
     paged_tok_s = out["server_float"]["bare_run_tok_s"]
     log(f"  ring pool {out['ring']['tok_s']:.1f} against the paged pool's "
         f"{paged_tok_s:.1f} generated tokens/s")
@@ -6058,10 +6757,25 @@ def artifact_phase(exports=None):
     return launches, out
 
 
+#: each phase's wall seconds, in the order they ran (`run_phase`)
+PHASE_S = {}
+
+
+def run_phase(name, fn, *args):
+    """fn(*args), its wall seconds logged as it ends and kept in
+    PHASE_S[name]."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_S[name] = time.perf_counter() - t0
+    log(f"phase {name} done: {PHASE_S[name]:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    t_main = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
@@ -6072,43 +6786,45 @@ def main() -> int:
     log("phase build")
     t0 = time.perf_counter()
     built = _cuda.build_all()
+    PHASE_S["build"] = time.perf_counter() - t0
     log(f"  built {sorted(built) or 'nothing (cached)'} in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{PHASE_S['build']:.1f} s")
     for name in _cuda.SOURCES:
         for line in _cuda.build_log(name).splitlines():
             if any(w in line for w in ("entry function", "registers",
                                        "spill")):
                 log(f"  {name}: {line.strip()}")
 
-    hmma = flash_hmma_counts()
-    walk_res = walk_resources_check()
-    a, b, c = kernels_phase()
-    lstm = lstm_kernels_phase()
-    gru, rnn = gru_rnn_kernels_phase()
-    wide = wide_phase()
+    hmma = run_phase("hmma", flash_hmma_counts)
+    walk_res = run_phase("walk_resources", walk_resources_check)
+    a, b, c = run_phase("kernels", kernels_phase)
+    lstm = run_phase("lstm_kernels", lstm_kernels_phase)
+    gru, rnn = run_phase("gru_rnn_kernels", gru_rnn_kernels_phase)
+    wide = run_phase("wide", wide_phase)
     # the artifact phase's exports trace on the host in a child process
     # while the serving phases run (they launch no kernel)
     art_tmp = tempfile.TemporaryDirectory()
     exports = ArtifactExports(art_tmp.name)
     try:
-        launched, serve = serve_phase()
-        server_launched, server = server_phase()
-        art_launched, art = artifact_phase(exports)
+        launched, serve = run_phase("serve", serve_phase)
+        server_launched, server = run_phase("server", server_phase)
+        art_launched, art = run_phase("artifact", artifact_phase, exports)
     finally:
         exports.stop()
         art_tmp.cleanup()
-    train = train_phase()
-    resilient = resilient_phase()
-    ragged = ragged_phase()
-    s2s, trained, batch0 = seq2seq_phase()
-    gen = generation_phase(trained, batch0)
-    srnn = simple_rnn_phase()
-    family = rnn_family_phase()
-    lm = lm_train_phase()
-    dist_out = distributed_phase()
-    dec = decode_phase()
-    moe_out = moe_phase()
-    image = image_phase()
+    train = run_phase("train", train_phase)
+    resilient = run_phase("resilient", resilient_phase)
+    ragged = run_phase("ragged", ragged_phase)
+    s2s, trained, batch0 = run_phase("seq2seq", seq2seq_phase)
+    gen = run_phase("generation", generation_phase, trained, batch0)
+    srnn = run_phase("simple_rnn", simple_rnn_phase)
+    family = run_phase("rnn_family", rnn_family_phase)
+    lm = run_phase("lm_train", lm_train_phase)
+    dist_out = run_phase("distributed", distributed_phase)
+    sparse = run_phase("sparse_elastic", sparse_elastic_phase)
+    dec = run_phase("decode", decode_phase)
+    moe_out = run_phase("moe", moe_phase)
+    image = run_phase("image", image_phase)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6231,6 +6947,14 @@ def main() -> int:
                      for p in gloo_paths()}},
               distributed_launches_per_step=dist_out["lm"]["sharded"][
                   "a_launches_per_step"],
+              # the sparse_elastic phase: rank 0's two-rank ZeRO LM step
+              # (saved for the elastic restore), and the two steps at
+              # world size 1 from the resharded and the unresharded state
+              sparse_elastic_launches={
+                  "zero_save_rank0": sparse["zero_save"]["zero_a_launches"],
+                  "restored_steps": sparse["elastic_restore"]["a_launches"],
+                  "tp_pool": {kv: sparse["tp_pool"][kv]["launches"][
+                      "flash_fwd"] for kv in ("compute", "int8")}},
               other_shapes={k: {f: a[k][f] for f in (
                   "ms", "library_ms", "bound_ms", "err", "row_rel_err",
                   "library_err") if f in a[k]} for k in (
@@ -6255,7 +6979,11 @@ def main() -> int:
                                   "float_device"),
               moe_serve_launches={k: moe_out["serve_launches"]["float KV"][k]
                                   for k in ("ragged_tq1", "ragged_tqn",
-                                            "float_device")}),
+                                            "float_device")},
+              # the TP engine pool (through B's DTensor rule), float KV
+              tp_pool_launches={k: sparse["tp_pool"]["compute"]["launches"][k]
+                                for k in ("ragged_tq1", "ragged_tqn",
+                                          "float_device")}),
         entry("ragged_paged_walk[tq>1]", walk,
               "paddle_tpu/ops/ragged_paged_attention.py:153",
               launched["float"]["ragged_tqn"], b["main_chunk"],
@@ -6268,7 +6996,11 @@ def main() -> int:
               **artifact_launches("int8_tq1", "int8_tqn", "int8_device"),
               moe_serve_launches={k: moe_out["serve_launches"]["int8 KV"][k]
                                   for k in ("int8_tq1", "int8_tqn",
-                                            "int8_device")}),
+                                            "int8_device")},
+              # the TP engine pool (through C's DTensor rule), int8 KV
+              tp_pool_launches={k: sparse["tp_pool"]["int8"]["launches"][k]
+                                for k in ("int8_tq1", "int8_tqn",
+                                          "int8_device")}),
         entry("ragged_paged_walk_int8[tq>1]", walk,
               "paddle_tpu/ops/ragged_paged_attention.py:188",
               launched["int8_kv"]["int8_tqn"], c["main_chunk"],
@@ -6285,7 +7017,9 @@ def main() -> int:
                                         / train["launches"]["D"]),
               us_per_step=lstm["main"]["D"]["us_per_step"],
               bitwise=lstm["main"]["D"]["bitwise"],
-              **resilient_launches(resilient, "D"), **family_launches("D")),
+              **resilient_launches(resilient, "D"), **family_launches("D"),
+              # the elastic gang's members (each process's count, summed)
+              gang_member_launches=sparse["gang"]["d_launches"]),
         entry("lstm_bwd", "paddle_tpu_torch/csrc/fused_lstm.cu",
               "paddle_tpu/ops/pallas_lstm.py:86", train["launches"]["E"],
               lstm["main"]["E"],
@@ -6293,7 +7027,8 @@ def main() -> int:
               rel_err=lstm["main"]["E"]["rel_err"],
               **redesigned(lstm["main"]["E"], train["launches"]["E"],
                            train["device_launches"]["E"]),
-              **resilient_launches(resilient, "E"), **family_launches("E")),
+              **resilient_launches(resilient, "E"), **family_launches("E"),
+              gang_member_launches=sparse["gang"]["e_launches"]),
         # F and G: launches of the seq2seq phase's run (2 of each per
         # step); H and I: of the simple_rnn phase's forward and backward
         entry("gru_fwd", "paddle_tpu_torch/csrc/fused_gru.cu",
@@ -6346,6 +7081,10 @@ def main() -> int:
     log(json.dumps({"decode": dec, "moe": moe_out,
                     "card": smi.stdout.strip()}))
     log(json.dumps({"image": image, "card": smi.stdout.strip()}))
+    log(json.dumps({"sparse_elastic": sparse, "card": smi.stdout.strip()},
+                   default=str))
+    PHASE_S["total"] = time.perf_counter() - t_main
+    log(json.dumps({"phase_seconds": PHASE_S}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,8 @@
     python -m paddle_tpu_torch infer --artifact ART [--output-prefix P]
         INPUT.npy ...
     python -m paddle_tpu_torch serve --config CFG --prompts FILE ...
+    python -m paddle_tpu_torch launch (--hosts A,B | --emit-jobset NAME)
+        -- train --config CFG ...
     python -m paddle_tpu_torch version
 
 A config script is a Python file defining `get_config()`, which returns
@@ -33,13 +35,28 @@ without a card; `--device cpu` runs the plain PyTorch path.
 job before anything else (`parallel.distributed.initialize`: ADDR is
 host:port or a `tcp://`/`file://` URL; NCCL on the card, gloo on the
 CPU); each process then trains as the single-process verb does, and only
-process 0 writes `--save-dir`. The elastic and instrumentation flags of
-the JAX verb are not ported yet and fail with the ROADMAP item that
-brings them: `--zero` (its checkpoints restore through the
-ElasticCheckpointManager and its rollbacks rebuild through
-ResilientTrainer's step_builder), `--elastic` (and its gang flags),
-`--transfer-guard`, `--metrics-out`, `--compile-cache`,
-`--no-compile-cache`.
+process 0 writes `--save-dir`.
+
+`--zero` lands the optimizer state in the ZeRO layout over the job's
+data mesh (one rank per process; `parallel.make_zero_train_step`: the
+same updates at ~1/N optimizer bytes a rank; the batch size must divide
+the process count); with `--checkpoint-dir` its checkpoints go through
+the `ElasticCheckpointManager` (a checkpoint written at one process
+count restores at another) and a rollback's LR backoff rebuilds the ZeRO
+step through ResilientTrainer's `step_builder`. `--elastic N` makes the
+CLI process a `parallel.launch.GangSupervisor` over N trainer processes
+(ZeRO over a gloo group -- NCCL where each member has a card of its
+own), for `--total-steps` steps; a dead or wedged member tears the gang
+down and it reforms at the surviving count (not below `--min-procs`,
+within `--gang-deadline` seconds), resuming from the durable
+checkpoint; it requires `--checkpoint-dir` and a deterministic reader.
+The instrumentation flags of the JAX verb are not ported yet and fail
+with the ROADMAP item that brings them: `--transfer-guard`,
+`--metrics-out`, `--compile-cache`, `--no-compile-cache`.
+
+`launch` fans a command out to `--hosts` over ssh with the rendezvous
+flags appended (`parallel.launch.launch_ssh`, `--dry-run` prints the ssh
+commands), or prints a JobSet manifest (`--emit-jobset NAME`).
 
 `merge-model` builds the config's model (seed 0), overlays a
 parameters tar (`train --save-dir`'s, from either package) and writes
@@ -76,9 +93,6 @@ import sys
 import time
 from typing import Optional
 
-_ELASTIC = ("ROADMAP queue 1 item 5, sub-item 6 (the elastic layer: "
-            "ElasticCheckpointManager, ResilientTrainer's step_builder, "
-            "the gang supervisor)")
 _OBS = "ROADMAP queue 1 item 6 (the train verb's metrics export)"
 _NO_COUNTERPART = ("there is no XLA compile cache to keep on the card; the "
                    "JAX package's compilation_cache has no counterpart "
@@ -86,11 +100,6 @@ _NO_COUNTERPART = ("there is no XLA compile cache to keep on the card; the "
 
 #: flag -> (takes a value, why it is refused)
 DEFERRED_FLAGS = {
-    "--zero": (False, _ELASTIC),
-    "--elastic": (True, _ELASTIC),
-    "--total-steps": (True, _ELASTIC),
-    "--min-procs": (True, _ELASTIC),
-    "--gang-deadline": (True, _ELASTIC),
     "--transfer-guard": (False, "ROADMAP queue 1 item 6 (the analysis "
                                 "guards)"),
     "--metrics-out": (True, _OBS),
@@ -173,13 +182,118 @@ def cmd_version(_args) -> int:
     return 0
 
 
+def _gang_job_from_config(*, config: str, batch_size: int,
+                          learning_rate: float = 0.01) -> dict:
+    """Gang builder (the `parallel.launch` contract) over a train config
+    script: `train --elastic N` ships this function's "module:function"
+    name across the spawn boundary, and every gang member -- those booted
+    after a reform too -- rebuilds the job from the config file. The
+    reader must be deterministic: a reformed member replays the same
+    batches from the resume cursor."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import data as data_mod
+    from paddle_tpu_torch.data.batch import stack_columns
+    from paddle_tpu_torch.ops import losses
+    from paddle_tpu_torch.optim import optimizers
+
+    cfg = _load_config(config)
+    loss_fn = cfg.get("loss_fn") or (
+        lambda lo, la: torch.mean(losses.softmax_cross_entropy(lo, la)))
+
+    def batches(total_steps):
+        # materialized: the gang wants GLOBAL batches from any resume
+        # cursor; ragged tails are dropped (every member keeps
+        # batch/num_processes rows)
+        out = []
+        while len(out) < total_steps:
+            produced = False
+            for samples in data_mod.batch_reader(
+                    cfg["reader"], batch_size, drop_last=True)():
+                cols = stack_columns(samples)
+                if len(cols) != 2:
+                    raise SystemExit(
+                        "--elastic needs (input, label) samples, got "
+                        f"{len(cols)}-field samples")
+                out.append((np.asarray(cols[0]), np.asarray(cols[1])))
+                produced = True
+                if len(out) == total_steps:
+                    break
+            if not produced:
+                raise SystemExit(
+                    "config reader yielded no full batches of "
+                    f"{batch_size}")
+        return out
+
+    return {
+        "model": cfg["model"],
+        "loss_fn": loss_fn,
+        "optimizer": (cfg.get("optimizer")
+                      or optimizers.sgd(learning_rate)),
+        "input_specs": (_input_spec(cfg),),
+        "batches": batches,
+    }
+
+
+def _cmd_train_elastic(args) -> int:
+    """`train --elastic N`: this process is the GangSupervisor (it
+    trains nothing itself); N child trainers run the ZeRO step in one
+    process group. Dead or wedged members are detected (exits,
+    heartbeats, the watchdog's exit 75), the gang tears down, reforms at
+    the surviving count and resumes from the durable sharded checkpoint
+    in --checkpoint-dir, which a later `train --checkpoint-dir --zero`
+    (or `--elastic M`) run resumes at any process count."""
+    from paddle_tpu_torch.parallel.launch import (GangFailedError,
+                                                  GangSupervisor)
+
+    if not args.checkpoint_dir:
+        raise SystemExit("--elastic requires --checkpoint-dir (the gang "
+                         "resumes from durable sharded checkpoints)")
+    sup = GangSupervisor(
+        "paddle_tpu_torch.cli:_gang_job_from_config",
+        {"config": os.path.abspath(args.config),
+         "batch_size": args.batch_size,
+         "learning_rate": args.learning_rate},
+        workdir=os.path.join(args.checkpoint_dir, "gang"),
+        checkpoint_dir=args.checkpoint_dir,
+        num_processes=args.elastic,
+        total_steps=args.total_steps,
+        checkpoint_every=args.checkpoint_every or 2,
+        seed=args.seed,
+        min_procs=args.min_procs,
+        watchdog_timeout_s=args.watchdog_timeout,
+        device=args.device)
+    try:
+        out = sup.run(deadline_s=args.gang_deadline)
+    except GangFailedError as e:
+        print(f"elastic gang failed: {e}", flush=True)
+        return 1
+    c = sup.counters()
+    print(f"elastic gang done: {len(out['results'])} member(s) at "
+          f"gang epoch {int(c['gang_epoch'])}, reforms "
+          f"{int(c['reforms'])}, members lost {int(c['members_lost'])}, "
+          f"wedged fenced {int(c['fenced_wedged'])}")
+    for res in sorted(out["results"], key=lambda r: r["rank"]):
+        tail = (f" cost {res['losses'][-1]:.6f}" if res["losses"] else "")
+        print(f"  rank {res['rank']}: resumed@{res['restored_step']} "
+              f"finished step {res['final_step']}{tail}", flush=True)
+    return 0
+
+
 def cmd_train(args) -> int:
+    # the elastic gang forks trainer processes: the supervisor trains
+    # nothing, so it dispatches before anything else
+    if args.elastic:
+        return _cmd_train_elastic(args)
+
     import torch
 
     from paddle_tpu_torch import data as data_mod
     from paddle_tpu_torch.ops import losses
     from paddle_tpu_torch.optim import optimizers
     from paddle_tpu_torch.train import events as E
+    from paddle_tpu_torch.core.pytree import tree_map
     from paddle_tpu_torch.train.checkpoint import save_parameters_tar
     from paddle_tpu_torch.train.trainer import Trainer
 
@@ -210,6 +324,26 @@ def cmd_train(args) -> int:
         raise SystemExit("config provides no 'reader' for training")
     feeder = data_mod.DataFeeder(device=trainer.device)
     batches = lambda: feeder(data_mod.batch_reader(reader, args.batch_size))
+    zero_mesh = None
+    if args.zero:
+        from paddle_tpu_torch.core.mesh import MeshConfig, build_mesh
+        from paddle_tpu_torch.parallel import distributed
+        from paddle_tpu_torch.parallel.train_step import make_zero_train_step
+        from paddle_tpu_torch.train.state import TrainState
+
+        n = distributed.process_count()
+        if args.batch_size % n:
+            raise SystemExit(f"--zero: batch size {args.batch_size} must "
+                             f"divide the {n}-process data mesh")
+        zero_mesh = build_mesh(MeshConfig(data=n), trainer.device)
+        # the same init draw as the replicated path: only the optimizer
+        # state's layout changes (flat, padded, split over the data
+        # axis); the update is the same
+        state = TrainState.create_zero(state.params, state.model_state,
+                                       trainer.optimizer, zero_mesh)
+        trainer._train_step = make_zero_train_step(
+            cfg["model"], loss_fn, trainer.optimizer, zero_mesh,
+            metrics_fn=cfg.get("metrics_fn"))
 
     t0 = time.monotonic()
 
@@ -229,13 +363,27 @@ def cmd_train(args) -> int:
         from paddle_tpu_torch.train.resilience import (Preempted,
                                                        ResilientTrainer)
 
+        manager = step_builder = None
+        if zero_mesh is not None:
+            # reshard-on-restore: a ZeRO checkpoint written at one
+            # process count restores at this one, and the LR-backoff
+            # rebuild goes through the ZeRO step
+            from paddle_tpu_torch.train.checkpoint import (
+                ElasticCheckpointManager)
+
+            manager = ElasticCheckpointManager(args.checkpoint_dir,
+                                               mesh=zero_mesh)
+            step_builder = lambda opt: make_zero_train_step(
+                cfg["model"], loss_fn, opt, zero_mesh,
+                metrics_fn=cfg.get("metrics_fn"), donate=False)
         rt = ResilientTrainer(
             trainer, args.checkpoint_dir,
             checkpoint_every_n_batches=args.checkpoint_every,
             bad_step_policy=args.bad_step_policy,
             max_bad_steps=args.max_bad_steps,
             lr_backoff=args.lr_backoff,
-            watchdog_timeout_s=args.watchdog_timeout)
+            watchdog_timeout_s=args.watchdog_timeout,
+            checkpoint_manager=manager, step_builder=step_builder)
         try:
             state = rt.run(state, batches, num_passes=num_passes,
                            event_handler=handler)
@@ -246,10 +394,16 @@ def cmd_train(args) -> int:
     else:
         state = trainer.train(state, batches, num_passes=num_passes,
                               event_handler=handler)
+    params = state.params
+    if zero_mesh is not None:
+        from paddle_tpu_torch.core.mesh import gather_full
+
+        # the replicated DTensors' full values (the same on every rank)
+        params = tree_map(gather_full, params)
     if args.save_dir and primary:
         os.makedirs(args.save_dir, exist_ok=True)
         out = os.path.join(args.save_dir, "params.tar")
-        save_parameters_tar(state.params, out)
+        save_parameters_tar(params, out)
         print(f"saved parameters to {out}", flush=True)
     return 0
 
@@ -544,6 +698,28 @@ def _serve_fleet(args, engines, prompts, sampling, buckets, sink):
     return 0
 
 
+def cmd_launch(args) -> int:
+    from paddle_tpu_torch.parallel import launch as launch_mod
+
+    command = list(args.command)
+    if command and command[0] == "--":
+        command = command[1:]
+    if not command:
+        raise SystemExit("launch needs a command, e.g. "
+                         "`launch --hosts a,b -- train --config cfg.py`")
+    if args.emit_jobset:
+        sys.stdout.write(launch_mod.emit_jobset(
+            args.emit_jobset, image=args.image, command=command,
+            num_hosts=args.num_hosts, tpu_topology=args.tpu_topology))
+        return 0
+    if not args.hosts:
+        raise SystemExit("launch needs --hosts or --emit-jobset")
+    hosts = [h for h in args.hosts.split(",") if h]
+    return launch_mod.launch_ssh(
+        hosts, command, coordinator_port=args.coordinator_port,
+        workdir=args.workdir, python=args.python, dry_run=args.dry_run)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="paddle_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -582,6 +758,26 @@ def build_parser() -> argparse.ArgumentParser:
                         "job's rendezvous for multi-process jobs")
     t.add_argument("--num-processes", type=int, default=None)
     t.add_argument("--process-id", type=int, default=None)
+    t.add_argument("--zero", action="store_true",
+                   help="ZeRO-shard the optimizer state over the job's "
+                        "processes (parallel.make_zero_train_step); the "
+                        "batch size must divide the process count")
+    t.add_argument("--elastic", type=int, default=None, metavar="N",
+                   help="run an N-process elastic gang (parallel.launch."
+                        "GangSupervisor): dead or wedged members are "
+                        "detected, the gang reforms at the surviving "
+                        "count and resumes from the durable ZeRO "
+                        "checkpoint; requires --checkpoint-dir and a "
+                        "deterministic reader")
+    t.add_argument("--total-steps", type=int, default=100,
+                   help="with --elastic: total optimizer steps for the "
+                        "gang")
+    t.add_argument("--min-procs", type=int, default=1,
+                   help="with --elastic: fail rather than reform below "
+                        "this many members")
+    t.add_argument("--gang-deadline", type=float, default=3600.0,
+                   help="with --elastic: wall-clock bound on the whole "
+                        "gang run")
     _add_deferred(t, DEFERRED_FLAGS, _Deferred)
     t.set_defaults(fn=cmd_train)
 
@@ -656,6 +852,27 @@ def build_parser() -> argparse.ArgumentParser:
                          "artifact_fallbacks count")
     _add_deferred(sv, SERVE_DEFERRED_FLAGS, _ServeDeferred)
     sv.set_defaults(fn=cmd_serve)
+
+    la = sub.add_parser(
+        "launch", help="fan a paddle_tpu_torch command out to N hosts, or "
+                       "emit a JobSet manifest")
+    la.add_argument("--hosts", default=None,
+                    help="comma-separated ssh destinations; the first is "
+                         "the coordinator")
+    la.add_argument("--coordinator-port", type=int, default=1234)
+    la.add_argument("--workdir", default=None)
+    la.add_argument("--python", default="python")
+    la.add_argument("--dry-run", action="store_true",
+                    help="print the ssh commands without running them")
+    la.add_argument("--emit-jobset", default=None, metavar="NAME",
+                    help="print a k8s JobSet manifest instead of ssh")
+    la.add_argument("--image", default="paddle-tpu:latest")
+    la.add_argument("--num-hosts", type=int, default=4)
+    la.add_argument("--tpu-topology", default="4x4")
+    la.add_argument("command", nargs=argparse.REMAINDER,
+                    help="command after `python -m paddle_tpu_torch`, "
+                         "e.g. `train --config cfg.py`")
+    la.set_defaults(fn=cmd_launch)
     return p
 
 

@@ -25,9 +25,10 @@ layer read it two ways:
   when they are not given one, as a `shard_map` body names the axes of
   its enclosing mesh.
 
-DTensor takes no sharding rule for an operator it does not know:
-kernel A's (`paddle_tpu_torch::flash_fwd`) is registered here, when a
-mesh is first built.
+DTensor takes no sharding rule for an operator it does not know: the
+rules of kernel A (`paddle_tpu_torch::flash_fwd`) and of kernels B and C
+(`paddle_tpu_torch::ragged_walk`, `ragged_walk_int8`) are registered
+here, when a mesh is first built.
 """
 
 from __future__ import annotations
@@ -182,7 +183,7 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
     distributed.ensure_initialized(dev)
     if dev.type == "cuda":
         dev = torch.device("cuda", torch.cuda.current_device())
-    _register_flash_sharding()
+    _register_kernel_sharding()
     ranks = (list(range(dist.get_world_size())) if ranks is None
              else list(ranks))
     shape = tuple(int(s) for s in shape)
@@ -250,6 +251,42 @@ def batch_sharding(mesh: Mesh) -> NamedSharding:
     return NamedSharding(mesh, P(DATA_AXIS))
 
 
+def gather_full(x):
+    """A DTensor's full value (a plain tensor, the same on every rank of
+    its mesh) by synchronous `torch.distributed` collectives: an
+    all-gather over each mesh dim it is split on (innermost first, so
+    the blocks concatenate in row-major mesh order) and an all-reduce
+    over each it is partial on. DTensor's own `full_tensor` runs its
+    functional collectives, which gloo on CUDA tensors does not survive
+    (a SIGSEGV in a gloo thread, torch 2.11); uneven splits take it all
+    the same. A plain tensor comes back as it is."""
+    if not hasattr(x, "to_local"):
+        return x
+    import torch.distributed as dist
+    from torch.distributed.tensor import Partial
+
+    mesh, shape = x.device_mesh, x.shape
+    local = x.to_local()
+    for i, p in reversed(list(enumerate(x.placements))):
+        n = mesh.size(i)
+        if n == 1:
+            continue
+        group = mesh.get_group(i)
+        if isinstance(p, Partial):
+            local = local.clone()
+            dist.all_reduce(local, group=group)
+        elif p.is_shard():
+            d = p.dim
+            if shape[d] % n:
+                return x.full_tensor()
+            moved = local.movedim(d, 0).contiguous()
+            out = moved.new_empty((moved.shape[0] * n,)
+                                  + tuple(moved.shape[1:]))
+            dist.all_gather_into_tensor(out, moved, group=group)
+            local = out.movedim(0, d)
+    return local
+
+
 # -- per-rank rows under data parallelism ----------------------------------
 # An op whose rows are independent (a convolution, a pool, an embedding
 # lookup) runs on each rank's own rows of a batch-split DTensor: no rank
@@ -299,16 +336,26 @@ def as_rows(y, like):
                               run_check=False, shape=shape, stride=stride)
 
 
-_FLASH_RULE = []
+_KERNEL_RULES = []
 
 
-def _register_flash_sharding() -> None:
-    """Kernel A's DTensor sharding rule: batch or heads split alike on
-    q, k, v and o (lse [B, H, Tq] follows: dim 0 or 1), the sequence and
-    head_dim never; lens [B] follows the batch split. The operator then
-    runs on each rank's local shards (kernel A on CUDA tensors), and its
-    backward does too (`ops.flash_attention._local_backward`)."""
-    if _FLASH_RULE:
+def _register_kernel_sharding() -> None:
+    """The kernels' DTensor sharding rules (registered once).
+
+    Kernel A: batch or heads split alike on q, k, v and o (lse
+    [B, H, Tq] follows: dim 0 or 1), the sequence and head_dim never;
+    lens [B] follows the batch split. The operator then runs on each
+    rank's local shards (kernel A on CUDA tensors), and its backward
+    does too (`ops.flash_attention._local_backward`).
+
+    Kernels B and C (the ragged walk over float arenas, and over
+    (s8, scale) arenas): all replicated, or the heads split alike on q
+    [R, Tq, H, Dh], the arenas [P, page, Hkv, Dh] (C's scale planes
+    [P, page, Hkv] too) and the output, with the page table, positions
+    and active flags replicated. Each rank then walks its own heads
+    (kernel B or C on CUDA tensors). `ops.ragged_paged_attention`
+    refuses any other placement before the operator."""
+    if _KERNEL_RULES:
         return
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import register_sharding
@@ -325,4 +372,20 @@ def _register_flash_sharding() -> None:
             ([Shard(2), Shard(1)], [Shard(2)] * 3 + [r] + statics),
         ]
 
-    _FLASH_RULE.append(_flash_rule)
+    from paddle_tpu_torch.ops import ragged_paged_attention  # noqa: F401
+
+    @register_sharding(torch.ops.paddle_tpu_torch.ragged_walk.default)
+    def _walk_rule(q, k_arena, v_arena, page_table, pos0, active,
+                   page_size, max_len):
+        r, h = Replicate(), Shard(2)
+        return [([r], [r] * 6 + [None, None]),
+                ([h], [h, h, h, r, r, r, None, None])]
+
+    @register_sharding(torch.ops.paddle_tpu_torch.ragged_walk_int8.default)
+    def _walk_int8_rule(q, k_data, k_scale, v_data, v_scale, page_table,
+                        pos0, active, page_size, max_len):
+        r, h = Replicate(), Shard(2)
+        return [([r], [r] * 8 + [None, None]),
+                ([h], [h] * 5 + [r, r, r, None, None])]
+
+    _KERNEL_RULES.extend([_flash_rule, _walk_rule, _walk_int8_rule])

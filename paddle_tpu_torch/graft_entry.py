@@ -68,11 +68,13 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
       (counted by `CommDebugMode` on the DTensor paths);
     - context parallelism moves K/V by point-to-point sends and never
       all-gathers the sequence; expert parallelism does an all-to-all
-      (counted by `parallel.collectives.launch_counts`).
-
-    Not ported here: `ShardedEmbedding` and the CTR all-to-all step
-    (ROADMAP queue 1 item 5, sub-item 3) and the DecodeEngine pool over
-    tensor-parallel parameters (its TP engine pool item)."""
+      (counted by `parallel.collectives.launch_counts`);
+    - the CTR step's sparse exchange stays an all-to-all: it launches
+      `all_to_all_single` (at two ranks or more), no all-gather, and no
+      all-reduce but the MLP's gradient and the loss (JAX asserts the
+      all-to-all in the compiled HLO);
+    - the DecodeEngine pool over TP_RULES parameters serves the tokens
+      of the single-process pool (skipped at n = 1, as in JAX)."""
     import math
 
     import torch.distributed as dist
@@ -87,11 +89,7 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
         raise ValueError(f"{n_devices} ranks asked for, the job has "
                          f"{dist.get_world_size()}")
     ranks = list(range(n_devices))
-    report = {"ran": [], "skipped": {
-        "sharded_embedding": "ROADMAP queue 1 item 5, sub-item 3",
-        "ctr_alltoall": "ROADMAP queue 1 item 5, sub-item 3",
-        "engine_pool": "ROADMAP queue 1 item 5, the TP engine pool"},
-        "signatures": {}, "losses": {}}
+    report = {"ran": [], "skipped": {}, "signatures": {}, "losses": {}}
 
     def finite(part, loss):
         value = float(loss)
@@ -118,10 +116,19 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
     if sp_mesh.contains_me:
         _dryrun_ring(sp_mesh, n_devices, two, dev)
         report["ran"].append("ring_attention")
+    if mesh.contains_me:
+        _dryrun_sharded_embedding(mesh, n_devices)
+        report["ran"].append("sharded_embedding")
     dp_mesh = mesh_of(data=n_devices)
     if dp_mesh.contains_me:
         finite("resnet_dp", _dryrun_resnet_dp(dp_mesh, n_devices))
         report["ran"].append("resnet_dp")
+    ctr_mesh = mesh_of(data=1, model=n_devices)
+    if ctr_mesh.contains_me:
+        finite("ctr_alltoall", _dryrun_ctr_alltoall(ctr_mesh, n_devices,
+                                                    report))
+        report["ran"].append("ctr_alltoall")
+    if dp_mesh.contains_me:
         finite("seq2seq_dp", _dryrun_seq2seq(dp_mesh, n_devices, dev))
         report["ran"].append("seq2seq_dp")
     n_pipe = 4 if n_devices % 4 == 0 else two
@@ -163,6 +170,12 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
         if not report["signatures"]["tp_decode_all_reduce"]:
             raise AssertionError("dryrun TP decode: no all-reduce")
         report["ran"].append("tp_decode")
+    if two > 1 and mesh.contains_me:
+        _dryrun_engine_pool(mesh, dev)
+        report["ran"].append("engine_pool")
+    elif two == 1:
+        report["skipped"]["engine_pool"] = ("tensor parallelism needs an "
+                                            "even world size of 2 or more")
     return report
 
 
@@ -212,6 +225,89 @@ def _dryrun_ring(mesh, n, sp, dev):
     out = attn(q, q, q)
     if not torch.isfinite(out.to_local()).all():
         raise AssertionError("dryrun ring attention: non-finite output")
+
+
+def _dryrun_sharded_embedding(mesh, n):
+    """The row-sharded embedding over the model axis: the psum lookup on
+    a 64 x 8 table, and the owner-routed all-to-all lookup."""
+    from paddle_tpu_torch.core import mesh as mesh_lib
+    from paddle_tpu_torch.parallel import sparse
+
+    emb = sparse.ShardedEmbedding(vocab=64, dim=8, mesh=mesh)
+    table = emb.init(1)
+    batch = max(8, n * 2)
+    r = np.random.RandomState(2)
+    ids = torch.from_numpy(r.randint(0, 64, (batch,))).to(mesh.device)
+    vecs = emb.lookup(table, ids)
+    n_model = mesh.shape["model"]
+    k = batch - (batch % n_model) or n_model
+    vecs2 = emb.alltoall_lookup(table, ids[:k])
+    if not torch.equal(mesh_lib.gather_full(vecs2), vecs[:k]):
+        raise AssertionError("dryrun sharded embedding: the all-to-all "
+                             "lookup differs from the psum lookup")
+
+
+def _dryrun_ctr_alltoall(mesh, n, report):
+    """The CTR wide & deep sparse train step: row-sharded tables over the
+    model axis, the owner-routed all-to-all lookup and row-gradient push.
+    The exchange must stay an all-to-all: `all_to_all_single` launched
+    (at n >= 2), no all-gather, and no all-reduce but one per MLP
+    gradient leaf and the loss's -- never a table shard's."""
+    from paddle_tpu_torch.core.pytree import tree_leaves
+    from paddle_tpu_torch.models.ctr import CTRModel
+    from paddle_tpu_torch.optim import optimizers as O
+    from paddle_tpu_torch.parallel import collectives as C
+
+    model = CTRModel(vocab=256, embed_dim=8, mesh=mesh, exchange="alltoall")
+    batch, slots = 2 * n, 4
+    r = np.random.RandomState(5)
+    params, mlp_state = model.init(0, batch, slots)
+    opt = O.adam(1e-3)
+    opt_state = opt.init(params["mlp"])
+    step = model.make_train_step(opt, mlp_state)
+    dev = mesh.device
+    ids = torch.from_numpy(r.randint(0, 256, (batch, slots)).astype(
+        np.int32)).to(dev)
+    labels = torch.from_numpy(r.randint(0, 2, batch).astype(np.int32)).to(
+        dev)
+    C.reset_launch_counts()
+    params, opt_state, loss = step(params, opt_state, ids, labels, 0.05,
+                                   torch.zeros((), dtype=torch.int32,
+                                               device=dev))
+    counts = dict(C.launch_counts)
+    report["signatures"]["ctr_all_to_all"] = counts["all_to_all"]
+    report["signatures"]["ctr_all_gather"] = counts["all_gather"]
+    report["signatures"]["ctr_all_reduce"] = counts["all_reduce"]
+    mlp_leaves = len(tree_leaves(params["mlp"]))
+    if n > 1 and (not counts["all_to_all"] or counts["all_gather"]
+                  or counts["all_reduce"] != mlp_leaves + 1):
+        raise AssertionError(f"CTR sparse step lost its all-to-all: "
+                             f"collectives {counts}")
+    return loss
+
+
+def _dryrun_engine_pool(mesh, dev):
+    """The continuous-batching DecodeEngine pool over TP_RULES (megatron-
+    sharded) parameters: its K/V arenas split their heads over the model
+    axis, and it serves requests token-equal to the single-device pool."""
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.parallel import sharding as S
+    from paddle_tpu_torch.serve.engine import DecodeEngine
+
+    cfg = T.TransformerConfig(vocab=64, dim=16, n_layers=2, n_heads=2,
+                              attn_impl="dense")
+    params = T.init_params(0, cfg, device=dev)
+    sharded = S.place(params, S.make_param_shardings(params, mesh,
+                                                     T.TP_RULES))
+    prompts = [np.random.RandomState(13 + i).randint(
+        0, 64, (4 + i,)).astype(np.int32) for i in range(3)]
+    got_tp = DecodeEngine(sharded, cfg, slots=2, max_len=16,
+                          device=dev).serve(prompts, max_new=4)
+    got_1d = DecodeEngine(params, cfg, slots=2, max_len=16,
+                          device=dev).serve(prompts, max_new=4)
+    if got_tp != got_1d:
+        raise AssertionError(f"dryrun engine pool: TP tokens {got_tp} != "
+                             f"single-device {got_1d}")
 
 
 def _dryrun_resnet_dp(mesh, n):

@@ -1,6 +1,6 @@
-"""Losses (port of `paddle_tpu.ops.losses.softmax_cross_entropy` and
-`chunked_lm_head_nll`; the other losses come with the models that use
-them)."""
+"""Losses (port of `paddle_tpu.ops.losses.softmax_cross_entropy`,
+`sigmoid_cross_entropy` and `chunked_lm_head_nll`; the other losses come
+with the models that use them)."""
 
 from __future__ import annotations
 
@@ -22,6 +22,15 @@ def softmax_cross_entropy(logits, labels, *, label_smoothing: float = 0.0):
         onehot = onehot * (1.0 - label_smoothing) + \
             label_smoothing / num_classes
     return -torch.sum(onehot * log_p, dim=-1)
+
+
+def sigmoid_cross_entropy(logits, labels):
+    """Element-wise binary CE from logits, in the numerically stable
+    form max(x, 0) - x * y + log1p(exp(-|x|)) (at least f32)."""
+    logits = at_least_f32(logits)
+    labels = at_least_f32(labels)
+    return (torch.clamp(logits, min=0) - logits * labels
+            + torch.log1p(torch.exp(-torch.abs(logits))))
 
 
 def chunked_lm_head_nll(hidden, kernel, targets, *, chunk: int = 2048,

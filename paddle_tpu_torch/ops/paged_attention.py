@@ -21,6 +21,14 @@ dropped (`write_kv` implements the drop without a host sync).
 
 Writes update the arena IN PLACE (the JAX functions return a new
 arena); the functions still return the arenas so the call shapes match.
+
+Tensor-parallel pools: arenas may be DTensors whose heads dim (2) is
+split over the mesh (or replicated). A write then puts each rank's own
+heads of the new K/V into its local arena shard, and a read splits q's
+heads as the arenas' and walks them through the ragged operators under
+kernels B's and C's sharding rules (`ops.ragged_paged_attention.
+dtensor_walk`); the page table, positions and flags stay plain
+(replicated) tensors.
 """
 
 from __future__ import annotations
@@ -28,6 +36,30 @@ from __future__ import annotations
 import torch
 
 from paddle_tpu_torch.core.dtypes import at_least_f32, sqrt_in
+from paddle_tpu_torch.core.mesh import gather_full
+
+
+def _lead(arena):
+    return arena[0] if isinstance(arena, tuple) else arena
+
+
+def _is_dtensor(t) -> bool:
+    return hasattr(t, "placements")
+
+
+def heads_like_arena(x, arena, heads_dim: int):
+    """x (a DTensor or a plain, replicated tensor) placed with its heads
+    dim split as the DTensor arena's heads dim (2) is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    lead = _lead(arena)
+    mesh = lead.device_mesh
+    want = [Shard(heads_dim) if p == Shard(2) else Replicate()
+            for p in lead.placements]
+    if not _is_dtensor(x):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    return x.redistribute(mesh, want)
 
 
 def num_pages_of(arena) -> int:
@@ -131,6 +163,13 @@ def write_kv_pair(k_arena, v_arena, k, v, pages, offsets):
 
 
 def _write_planned(arenas, news, pages, offsets):
+    if _is_dtensor(_lead(arenas[0])):
+        # each rank writes its own heads into its local arena shard
+        news = [heads_like_arena(n, a, n.dim() - 2).to_local()
+                for n, a in zip(news, arenas)]
+        arenas = [tuple(t.to_local() for t in a) if isinstance(a, tuple)
+                  else a.to_local() for a in arenas]
+        pages, offsets = gather_full(pages), gather_full(offsets)
     plan = _drop_plan(arenas[0][0] if isinstance(arenas[0], tuple)
                       else arenas[0], pages, offsets)
     for arena, new in zip(arenas, news):
@@ -252,6 +291,8 @@ def _ragged_read(q, k_arena, v_arena, page_table, pos0, active, *,
     (ops.ragged_paged_attention), kernel on CUDA tensors."""
     from paddle_tpu_torch.ops import ragged_paged_attention as _rpa
 
+    if _is_dtensor(_lead(k_arena)):
+        q = heads_like_arena(q, k_arena, 2)
     return _rpa.ragged_attention(q, k_arena, v_arena, page_table, pos0,
                                  active, page_size=page_size,
                                  max_len=max_len, impl=impl)

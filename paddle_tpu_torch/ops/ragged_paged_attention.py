@@ -39,7 +39,12 @@ TQ=K+1: one function, one kernel.
   "kernel" on a CPU tensor raises (`ragged_kernel` refuses it before the
   operator is called, so the operator's CPU implementation never turns
   that call into a plain run); "torch" calls `ragged_reference`
-  directly.
+  directly. DTensor arenas (a tensor-parallel engine pool) go through
+  the operators whatever impl says: DTensor dispatches them by kernels
+  B's and C's sharding rules (`core.mesh._register_kernel_sharding`), so
+  each rank walks its local heads with the kernel (CUDA) or the
+  reference (CPU). `dtensor_walk` refuses placements the rules do not
+  take.
 """
 
 from __future__ import annotations
@@ -303,9 +308,11 @@ def ragged_walk(q: torch.Tensor, k_arena: torch.Tensor,
                 pos0: torch.Tensor, active: torch.Tensor, page_size: int,
                 max_len: int) -> torch.Tensor:
     """The walk over float arenas: kernel B on CUDA tensors, the plain
-    version on CPU tensors."""
+    version on CPU tensors (contiguous, as the kernel's output and the
+    fake's are)."""
     return ragged_reference(q, k_arena, v_arena, page_table, pos0, active,
-                            page_size=page_size, max_len=max_len)
+                            page_size=page_size,
+                            max_len=max_len).contiguous()
 
 
 @ragged_walk.register_kernel("cuda")
@@ -323,10 +330,10 @@ def ragged_walk_int8(q: torch.Tensor, k_data: torch.Tensor,
                      pos0: torch.Tensor, active: torch.Tensor,
                      page_size: int, max_len: int) -> torch.Tensor:
     """The walk over (s8 data, f32 scale) arenas: kernel C on CUDA
-    tensors, the plain version on CPU tensors."""
+    tensors, the plain version on CPU tensors (contiguous)."""
     return ragged_reference(q, (k_data, k_scale), (v_data, v_scale),
                             page_table, pos0, active, page_size=page_size,
-                            max_len=max_len)
+                            max_len=max_len).contiguous()
 
 
 @ragged_walk_int8.register_kernel("cuda")
@@ -395,12 +402,68 @@ def walk_resources(device=None):
     return out
 
 
+def _placements_ok(t, want) -> bool:
+    return hasattr(t, "placements") and tuple(t.placements) == tuple(want)
+
+
+def dtensor_walk(q, k_arena, v_arena, page_table, pos0, active, *,
+                 page_size: int, max_len: int):
+    """The walk over DTensor arenas through its operator, under B's and
+    C's sharding rules. The arenas (and C's scale planes) must each be
+    split on the heads dim (2) or replicated on every mesh dim, all
+    placed alike, and q placed as they are; the page table, positions
+    and active flags replicated (plain tensors count as replicated).
+    Any other placement raises ValueError here, before the operator."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    quant = isinstance(k_arena, tuple)
+    arenas = list(k_arena) + list(v_arena) if quant else [k_arena, v_arena]
+    lead = arenas[0]
+    if not hasattr(lead, "placements"):
+        raise ValueError("dtensor_walk: the arenas are not DTensors")
+    want = tuple(lead.placements)
+    if any(p not in (Shard(2), Replicate()) for p in want):
+        raise ValueError(f"ragged walk: arena placements {want}; the rules "
+                         f"take the heads dim split (Shard(2)) or "
+                         f"replicated")
+    for name, t in [("arena", a) for a in arenas] + [("q", q)]:
+        if not _placements_ok(t, want):
+            raise ValueError(
+                f"ragged walk: {name} placed "
+                f"{getattr(t, 'placements', 'as a plain tensor')}, the "
+                f"arenas {want}: the rules split q's heads as the arenas'")
+    mesh = lead.device_mesh
+    rep = [Replicate()] * mesh.ndim
+
+    def replicated(name, t):
+        if not hasattr(t, "placements"):
+            return DTensor.from_local(t, mesh, rep, run_check=False)
+        if not _placements_ok(t, rep):
+            raise ValueError(f"ragged walk: {name} placed {t.placements}; "
+                             f"the rules take it replicated")
+        return t
+
+    page_table = replicated("page_table", page_table)
+    pos0 = replicated("pos0", pos0)
+    active = replicated("active", active)
+    if quant:
+        return ragged_walk_int8(q, *arenas, page_table, pos0, active,
+                                page_size, max_len)
+    return ragged_walk(q, k_arena, v_arena, page_table, pos0, active,
+                       page_size, max_len)
+
+
 def ragged_attention(q, k_arena, v_arena, page_table, pos0, active, *,
                      page_size: int, max_len: int, impl=None):
     """Dispatch: impl in {None, "torch", "kernel"}. None = the kernel
-    for CUDA tensors, the reference for CPU tensors."""
+    for CUDA tensors, the reference for CPU tensors. DTensor arenas go
+    through `dtensor_walk` (the operators under B's and C's rules)."""
     if impl not in (None, "torch", "kernel"):
         raise ValueError(f"impl must be None|torch|kernel, got {impl!r}")
+    lead = k_arena[0] if isinstance(k_arena, tuple) else k_arena
+    if hasattr(lead, "placements"):
+        return dtensor_walk(q, k_arena, v_arena, page_table, pos0, active,
+                            page_size=page_size, max_len=max_len)
     if impl == "kernel" or (impl is None and q.is_cuda):
         return ragged_kernel(q, k_arena, v_arena, page_table, pos0,
                              active, page_size=page_size, max_len=max_len)

@@ -1,14 +1,13 @@
 """Parallelism (port of `paddle_tpu.parallel`) on `torch.distributed`:
 sharding rules and the sharded train step on DTensors, the explicit
 ZeRO step, the named collectives, ring and Ulysses attention, the GPipe
-pipeline, expert-parallel and single-device mixture-of-experts, and the
-process bootstrap (`distributed`).
-
-Not ported yet, by ROADMAP queue 1 item 5's sub-items: the sharded
-embeddings (`sparse`: ShardedEmbedding, HostOffloadEmbedding, the
-all-to-all lookups; sub-item 3), `blocked_matmul` and the pipeline's
-`tp_axis` (sub-item 5), and the elastic layer (`launch`, the gang
-supervisor; sub-item 6). The parameter-server client belongs to item 6.
+pipeline (with `tp_axis`), expert-parallel and single-device
+mixture-of-experts, the sharded sparse embeddings (`sparse`:
+ShardedEmbedding, HostOffloadEmbedding, the all-to-all lookups), the
+ring and blocked matmuls (`blocked_matmul`), the process bootstrap
+(`distributed`) and the launcher with the elastic gang supervisor
+(`launch`, imported on use). The parameter-server client belongs to
+ROADMAP queue 1 item 6.
 """
 
 from paddle_tpu_torch.parallel.sharding import (
@@ -48,7 +47,21 @@ from paddle_tpu_torch.parallel.moe import (ECRouting, MoEOutput, Routing,
                                            moe_ffn, scatter_dispatch,
                                            shard_moe_params, top_k_gating,
                                            top_k_routing)
+from paddle_tpu_torch.parallel import blocked_matmul
 from paddle_tpu_torch.parallel import pipeline
+from paddle_tpu_torch.parallel import sparse
+from paddle_tpu_torch.parallel.sparse import (
+    HostOffloadEmbedding,
+    LookupSurface,
+    ShardedEmbedding,
+    alltoall_lookup,
+    alltoall_push_row_grads,
+    rowwise_sgd_update,
+    shard_rows,
+    sharded_embedding_bag,
+    sharded_lookup,
+    unique_rows_grad,
+)
 from paddle_tpu_torch.parallel.pipeline import (
     make_pipeline_forward,
     make_pipeline_train_step,
@@ -69,5 +82,9 @@ __all__ = [
     "make_expert_parallel_ffn", "moe_ffn", "scatter_dispatch",
     "shard_moe_params", "top_k_gating", "top_k_routing", "pipeline",
     "make_pipeline_forward", "make_pipeline_train_step",
-    "shard_stage_params", "stack_stage_params",
+    "shard_stage_params", "stack_stage_params", "blocked_matmul", "sparse",
+    "HostOffloadEmbedding", "LookupSurface", "ShardedEmbedding",
+    "alltoall_lookup", "alltoall_push_row_grads", "rowwise_sgd_update",
+    "shard_rows", "sharded_embedding_bag", "sharded_lookup",
+    "unique_rows_grad",
 ]

@@ -11,27 +11,31 @@ without hand-written reverse plumbing.
 
 Constraints (those of stacked-stage pipelining): every stage shares one
 parameter structure and shape, and the activation shape is constant
-across stages. `tp_axis` (tensor parallelism inside each stage, over
-`blocked_matmul.tp_dense`) is not ported yet.
+across stages.
+
+`tp_axis` (opt-in) adds tensor parallelism inside every stage: the
+matrix leaves of the stacked params ([S, K, N]) also split their
+contracting dim over that second mesh axis, and stage_fn takes a third
+argument `mm(x, w_loc) -> x @ w`, `blocked_matmul.tp_dense` (the
+row-parallel dense; `tp_overlap=True` its reduce ring). The stage body
+routes every big matmul through `mm`; activations stay replicated over
+the tp axis.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import torch
 
 from paddle_tpu_torch.core.mesh import Mesh, NamedSharding, P
 from paddle_tpu_torch.core.pytree import tree_leaves, tree_map, tree_map_multi
+from paddle_tpu_torch.parallel import blocked_matmul
 from paddle_tpu_torch.parallel import collectives as C
 from paddle_tpu_torch.parallel import sharding as shard_lib
 
 PIPE_AXIS = "pipe"
-
-_TP_AXIS = ("tp_axis is not ported yet: the row-parallel stage matmul "
-            "is parallel/blocked_matmul.py's tp_dense (ROADMAP queue 1 "
-            "item 5, blocked_matmul)")
-
 
 def stack_stage_params(per_stage_params):
     """Stack a list of S identical-structure param trees into one tree
@@ -39,18 +43,25 @@ def stack_stage_params(per_stage_params):
     return tree_map_multi(lambda *xs: torch.stack(xs), *per_stage_params)
 
 
-def _check_tp(tp_axis: Optional[str]) -> None:
-    if tp_axis is not None:
-        raise NotImplementedError(_TP_AXIS)
+def _stage_spec(x, axis: str, tp_axis: Optional[str]) -> tuple:
+    """Spec of one stacked-stage leaf: the stage dim over `axis`; with
+    tensor parallelism on, matrix leaves (ndim >= 3: [S, K, N]) also
+    split their contracting dim over `tp_axis` (the row-parallel layout
+    `blocked_matmul.tp_dense` takes), vectors (biases) stay replicated
+    over it."""
+    if tp_axis is not None and x.ndim >= 3:
+        return (axis, tp_axis) + (None,) * (x.ndim - 2)
+    return (axis,) + (None,) * (x.ndim - 1)
 
 
 def shard_stage_params(stacked, mesh: Mesh, axis: str = PIPE_AXIS,
                        tp_axis: Optional[str] = None):
     """Place the stacked stage params so each pipe rank holds its own
-    stage's slice (DTensors sharded on dim 0 over `axis`)."""
-    _check_tp(tp_axis)
-    sh = NamedSharding(mesh, P(axis))
-    return shard_lib.place(stacked, tree_map(lambda _: sh, stacked))
+    stage's slice (DTensors sharded on dim 0 over `axis`; with
+    `tp_axis`, each tp rank its weight-row block)."""
+    return shard_lib.place(stacked, tree_map(
+        lambda x: NamedSharding(mesh, P(*_stage_spec(x, axis, tp_axis))),
+        stacked))
 
 
 def make_pipeline_forward(stage_fn: Callable, mesh: Mesh, *,
@@ -70,12 +81,15 @@ def make_pipeline_forward(stage_fn: Callable, mesh: Mesh, *,
     and the last stage's outputs from ticks S-1 .. S-2+M are the
     results, in microbatch order (zero elsewhere, then summed over the
     axis so every rank holds them)."""
-    _check_tp(tp_axis)
     n_stage = mesh.shape[axis]
+    tp_mm = None
+    if tp_axis is not None:
+        tp_mm = functools.partial(blocked_matmul.tp_dense, axis=tp_axis,
+                                  overlap=tp_overlap, mesh=mesh)
 
     def fwd(stacked_params, micro_x):
         local = tree_map(lambda x: C.shard_local(
-            x, (axis,) + (None,) * (x.ndim - 1), mesh=mesh), stacked_params)
+            x, _stage_spec(x, axis, tp_axis), mesh=mesh), stacked_params)
         lead = tree_leaves(local)[0].shape[0]
         if lead != 1:
             raise ValueError(
@@ -98,7 +112,8 @@ def make_pipeline_forward(stage_fn: Callable, mesh: Mesh, *,
             # the activation produced LAST tick moves one stage right
             inbound = C.ppermute_ring(act, axis, shift=1, mesh=mesh)
             x_in = torch.where(first, micro_x[min(t, m - 1)], inbound)
-            act = stage_fn(params, x_in)
+            act = (stage_fn(params, x_in) if tp_mm is None
+                   else stage_fn(params, x_in, tp_mm))
             outs.append(act)
         results = torch.stack(outs[n_stage - 1:n_stage - 1 + m])
         results = torch.where(last, results, torch.zeros_like(results))

@@ -92,6 +92,18 @@ the eager body would, so a bundle serves the eager engine's tokens. A
 bound program that fails is dropped for good, counted in
 `artifact_fallbacks` and reported to `_artifact_hook`; the eager body
 serves that call and every later one.
+
+Tensor-parallel pools: `params` may be DTensors placed by
+`transformer.TP_RULES` (`parallel.sharding.make_param_shardings`). The
+K/V arenas (float, or int8 with their scale planes) are then DTensors
+on the parameters' mesh with the heads dim split over its `model` axis
+(each rank holds the local shard's `kv_geometry`: kv_heads over the
+axis size); page tables, positions and tokens stay plain (replicated)
+tensors, and the tokens are read back once a step as in one process.
+Each cached read walks each rank's own heads through kernel B's or C's
+DTensor sharding rule (`ops.paged_attention`). Paged pools only: a
+ring (sliding-window) pool, KV migration and the artifact programs take
+plain tensors.
 """
 
 from __future__ import annotations
@@ -104,7 +116,8 @@ import torch
 
 from paddle_tpu_torch.core.devices import resolve_device
 from paddle_tpu_torch.core.dtypes import at_least_f32, default_policy
-from paddle_tpu_torch.core.pytree import flatten_with_keys
+from paddle_tpu_torch.core.mesh import gather_full
+from paddle_tpu_torch.core.pytree import flatten_with_keys, tree_leaves
 from paddle_tpu_torch.models import transformer as T
 from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.ops import sampling as sampling_ops
@@ -352,6 +365,12 @@ class DecodeEngine:
         self.prefix_cache = prefix_cache
         self.prefix_cache_blocks = prefix_cache_blocks
         self._raw_params = params   # the step programs' (int8) tree
+        # tensor-parallel parameters (DTensors): the mesh the arenas are
+        # split over, heads on its "model" dim
+        leaf = next(iter(tree_leaves(params)), None)
+        self._tp_mesh = getattr(leaf, "device_mesh", None)
+        if self._tp_mesh is not None:
+            self._tp_check()
         self.pool: Optional[PagePool] = None  # built by init_state()
         self._admissions = 0
         self._pool_gen = None   # select_fn's stand-in for an empty slot 0
@@ -361,6 +380,45 @@ class DecodeEngine:
         self.artifact_loads = 0
         self.artifact_fallbacks = 0
         self._artifact_hook = None
+
+    def _tp_check(self) -> None:
+        """A tensor-parallel pool: paged, and heads that divide over the
+        mesh's model axis."""
+        if not self.paged:
+            raise ValueError("a tensor-parallel (DTensor) engine needs a "
+                             "paged pool; ring pools take plain params")
+        tp = self._tp_size()
+        for what, n in (("n_heads", self.cfg.n_heads),
+                        ("kv_heads", self.cfg.kv_heads)):
+            if n % tp:
+                raise ValueError(f"{what} {n} does not split over the "
+                                 f"{tp}-rank model axis")
+
+    def _tp_size(self) -> int:
+        names = self._tp_mesh.mesh_dim_names or ()
+        return (self._tp_mesh.size(names.index("model"))
+                if "model" in names else 1)
+
+    def _tp_arena(self, local):
+        """A local arena shard (this rank's heads) as the pool's DTensor
+        arena: heads split over the mesh's model dim."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        names = self._tp_mesh.mesh_dim_names or ()
+        placements = [Shard(2) if n == "model" else Replicate()
+                      for n in names]
+        shape = list(local.shape)
+        shape[2] *= self._tp_size()
+        shape = torch.Size(shape)
+        return DTensor.from_local(local, self._tp_mesh, placements,
+                                  run_check=False, shape=shape,
+                                  stride=torch.empty(shape,
+                                                     device="meta").stride())
+
+    def _replicated(self):
+        """The context of a device body: plain tensors count as
+        replicated over a tensor-parallel pool's mesh."""
+        return T._plain_replicated(self._raw_params)
 
     def ping(self) -> None:
         """The health-probe surface: a host-side liveness touch (no
@@ -496,7 +554,9 @@ class DecodeEngine:
     def init_state(self) -> EngineState:
         cfg, s, dev = self.cfg, self.slots, self.device
         policy = default_policy()
-        hkv, dh = cfg.kv_heads, cfg.head_dim
+        # this rank's heads: a tensor-parallel pool's local shard
+        hkv, dh = self.kv_geometry()["kv_heads"], cfg.head_dim
+        tp = self._tp_mesh is not None
         if self.paged:
             # block-paged arenas addressed through the page table
             shape = (self.num_pages, self.page_size, hkv, dh)
@@ -516,10 +576,13 @@ class DecodeEngine:
         def arena():
             if cfg.kv_cache_dtype == "int8":
                 # zeros quantize to data 0 with the eps-floor scale
-                return (torch.zeros(shape, dtype=torch.int8, device=dev),
+                pair = (torch.zeros(shape, dtype=torch.int8, device=dev),
                         torch.full(shape[:-1], 1e-8 / 127.0,
                                    dtype=torch.float32, device=dev))
-            return torch.zeros(shape, dtype=policy.compute_dtype, device=dev)
+                return (tuple(self._tp_arena(t) for t in pair) if tp
+                        else pair)
+            buf = torch.zeros(shape, dtype=policy.compute_dtype, device=dev)
+            return self._tp_arena(buf) if tp else buf
 
         self._admissions = 0
         self._pool_gen = None
@@ -597,8 +660,9 @@ class DecodeEngine:
                             torch.zeros((1, v), device=dev)
                             if noise is None else noise)
         if ran is _MISS:
-            self._chunk_impl(self.params, state, *args, noise, gen=gen,
-                             from_zero=from_zero, final=final)
+            with self._replicated():
+                self._chunk_impl(self.params, state, *args, noise, gen=gen,
+                                 from_zero=from_zero, final=final)
         if final:
             state.generators[ticket.slot] = gen
 
@@ -658,7 +722,7 @@ class DecodeEngine:
         zeros for greedy, and the sampler's temperature 0 is the same
         argmax); gen: the request's generator, for a pool-wide
         select_fn."""
-        logits = T._head(params, x_last)
+        logits = gather_full(T._head(params, x_last))
         _put(state.temp, idx, temp)
         _put(state.top_k, idx, top_k)
         _put(state.top_p, idx, top_p)
@@ -874,7 +938,7 @@ class DecodeEngine:
             out = self._run_art("step_sampled", self._raw_params, state,
                                 noise)
         if out is _MISS:
-            with torch.no_grad():
+            with torch.no_grad(), self._replicated():
                 out = self._step_impl(self._raw_params, state, noise)
         return (state,) + tuple(out)
 
@@ -914,7 +978,7 @@ class DecodeEngine:
             # inactive slots are dead compute: no MoE capacity either
             x, _, _, _ = T._block_parts(cfg, p, x, pos, attn,
                                         state.active[:, None])
-        logits = T._head(params, x[:, -1])
+        logits = gather_full(T._head(params, x[:, -1]))
         nxt = self._select(logits, state.temp, state.top_k, state.top_p,
                            state.generators, noise)
         nxt_lp = torch.gather(
@@ -1000,7 +1064,7 @@ class DecodeEngine:
                 out = self._run_art("spec_sampled", self._raw_params, state,
                                     d, dl, u, noise)
         if out is _MISS:
-            with torch.no_grad():
+            with torch.no_grad(), self._replicated():
                 out = self._spec_impl(self._raw_params, state, d, dl, u,
                                       noise)
         return (state,) + tuple(out)
@@ -1035,7 +1099,7 @@ class DecodeEngine:
                     max_len=L, impl=self.ragged_impl)[0]
 
             x, _, _, _ = T._block_parts(cfg, p, x, pos, attn, tok_mask)
-        logits = T._head(params, x)                         # [S, K+1, V]
+        logits = gather_full(T._head(params, x))            # [S, K+1, V]
         # an all-greedy pool takes the sort-free argmax rule, as the
         # plain step takes argmax; the host knows which
         if u is None:
@@ -1209,11 +1273,14 @@ class DecodeEngine:
     def kv_geometry(self) -> dict:
         """The fields two engines must agree on for a KV-block migration
         between them to be meaningful (the server's import gate): arena
-        geometry, cache dtype and the paging convention."""
+        geometry, cache dtype and the paging convention. A
+        tensor-parallel pool's kv_heads are one rank's (its local arena
+        shard)."""
+        tp = self._tp_size() if self._tp_mesh is not None else 1
         return {
             "page_size": int(self.page_size),
             "max_pages_per_slot": int(self.max_pages_per_slot),
-            "kv_heads": int(self.cfg.kv_heads),
+            "kv_heads": int(self.cfg.kv_heads) // tp,
             "head_dim": int(self.cfg.head_dim),
             "kv_cache_dtype": self.cfg.kv_cache_dtype,
             "vocab": int(self.cfg.vocab),

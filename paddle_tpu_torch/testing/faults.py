@@ -23,11 +23,15 @@ ran, not that the fault missed. The faults:
   allocation reports exhaustion, a prefix-cache hit is corrupted);
 - router faults (`wrap_replica_engine`: a replica dies at its nth decode
   step or mid KV import, or every decode skews the clock; `wrap_probe`:
-  blackholed health probes) and data-plane faults (`wrap_arena`).
+  blackholed health probes) and data-plane faults (`wrap_arena`);
+- training gang faults on a `parallel.launch.GangSupervisor`
+  (`wrap_gang`): a real SIGKILL (`gang_kill_step_at`/`gang_kill_rank`)
+  or SIGSTOP (`gang_wedge_step_at`/`gang_wedge_rank`) of a member once
+  its heartbeat reports the step.
 
-The fleet, cluster, gang, pserver, master and online fields of the JAX
-plan wait for the layers they wrap (ROADMAP queue 1 items 5-6): passing
-one is a TypeError naming it. `build_chaos_replica` needs the process
+The fleet, cluster, pserver, master and online fields of the JAX plan
+wait for the layers they wrap (ROADMAP queue 1 item 6): passing one is
+a TypeError naming it. `build_chaos_replica` needs the process
 fleet and raises naming its item.
 """
 
@@ -78,6 +82,11 @@ class FaultPlan:
     arena_kill_scatter_at: Optional[int] = None   # nth segment written
     arena_kill_adopt_at: Optional[int] = None     # nth segment adopted
     arena_error_at: Optional[int] = None          # nth scatter() call
+    # -- training gang faults (parallel.launch, via wrap_gang) --
+    gang_kill_step_at: Optional[int] = None       # victim heartbeat step
+    gang_kill_rank: int = 1                       # rank of the victim
+    gang_wedge_step_at: Optional[int] = None      # SIGSTOP, not SIGKILL
+    gang_wedge_rank: int = 1                      # rank of the victim
     once: bool = True
     fired: List[str] = dataclasses.field(default_factory=list)
 

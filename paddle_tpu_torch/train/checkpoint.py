@@ -28,9 +28,10 @@
   loads in the other, as the parameters tar does.
 - `ManifestMismatchError` and `param_tree_hash` (the structure hash, the
   same as JAX's for a matching tree).
-
-The elastic (ZeRO) manager is not ported yet: it belongs to the elastic
-layer (ROADMAP queue 1 item 5, sub-item 6).
+- `ElasticCheckpointManager`: the CheckpointManager for ZeRO-layout
+  states (`TrainState.create_zero`) on a mesh, with a topology manifest
+  `zero_topology_{step}.json` beside each step, and reshard-on-restore
+  when the data axis' size differs from the one that saved.
 """
 
 from __future__ import annotations
@@ -176,6 +177,228 @@ def param_tree_hash(params) -> str:
               str(leaf.dtype).replace("torch.", ""))
              for name, leaf in _flatten_with_keys(params)]
     return hashlib.sha256(repr(items).encode()).hexdigest()[:16]
+
+
+# ---- elastic (ZeRO) checkpoints: topology manifest + reshard-on-restore ----
+
+
+def _gather(x):
+    """A leaf's full value on the CPU (a DTensor is gathered: every rank
+    of its mesh takes part, `core.mesh.gather_full`)."""
+    from paddle_tpu_torch.core.mesh import gather_full
+
+    x = gather_full(x)
+    return x.detach().cpu() if isinstance(x, torch.Tensor) else x
+
+
+def _place_like(value: torch.Tensor, tmpl):
+    """value (a full CPU tensor) placed as the template leaf is: a
+    DTensor on its mesh with its placements (each rank keeps its own
+    block), a plain tensor on its device."""
+    if hasattr(tmpl, "placements"):
+        from torch.distributed.tensor import distribute_tensor
+
+        local = tmpl.to_local()
+        return distribute_tensor(value.to(device=local.device,
+                                          dtype=tmpl.dtype),
+                                 tmpl.device_mesh, tmpl.placements,
+                                 src_data_rank=None)
+    return value.to(device=tmpl.device, dtype=tmpl.dtype)
+
+
+def _leaves(tree) -> list:
+    """Leaves in JAX's flatten order (the manifest's order)."""
+    return [leaf for _, leaf in _flatten_with_keys(tree)]
+
+
+def _mesh_primary(mesh) -> bool:
+    """This rank is the mesh's first (index 0 on every axis)."""
+    return all(mesh.axis_index(a) == 0 for a in mesh.axis_names)
+
+
+def _mesh_barrier(mesh) -> None:
+    """Every rank of the mesh waits for every other: a barrier on each
+    axis' group in turn (rank 0's write then precedes every rank's
+    return, through the chain of axes)."""
+    import torch.distributed as dist
+
+    for axis in mesh.axis_names:
+        if mesh.shape[axis] > 1:
+            dist.barrier(group=mesh.get_group(axis))
+
+
+class ElasticCheckpointManager(CheckpointManager):
+    """CheckpointManager for ZeRO-layout TrainStates that records how the
+    optimizer state was sharded (a topology manifest beside each step)
+    and reshards on restore when the current mesh's data-axis size
+    differs from the one that saved: a run checkpointed on N ranks
+    resumes on M bit for bit, since the flat layout differs between
+    sizes only by trailing zero padding.
+
+    Every rank of the mesh calls `save` (the sharded leaves are gathered
+    collectively); the mesh's first rank writes the step, then the
+    manifest atomically (tmp + rename), and all its ranks wait for it. A committed step without
+    a manifest is a torn save: `restore` raises ValueError for it (and
+    for a corrupt manifest), so `restore_with_fallback` walks back past
+    it. A manifest whose param-tree hash disagrees with the template
+    raises `ManifestMismatchError`. `reshard_restores` counts the
+    restores that resharded."""
+
+    MANIFEST_FORMAT = 1
+
+    def __init__(self, directory: str, *, mesh, max_to_keep: int = 3,
+                 async_save: bool = False):
+        super().__init__(directory, max_to_keep=max_to_keep,
+                         async_save=async_save)
+        self.mesh = mesh
+        self.reshard_restores = 0
+
+    def _manifest_path(self, step: int) -> str:
+        return os.path.join(self.directory, f"zero_topology_{step}.json")
+
+    def save(self, state: TrainState, step: Optional[int] = None) -> int:
+        from paddle_tpu_torch.core.mesh import DATA_AXIS
+        from paddle_tpu_torch.core.pytree import tree_map
+        from paddle_tpu_torch.parallel.train_step import zero_true_sizes
+
+        full = TrainState(*(tree_map(_gather, part) for part in state))
+        step = int(full.step) if step is None else int(step)
+        if _mesh_primary(self.mesh):
+            super().save(full, step)
+            sizes = _leaves(zero_true_sizes(state.params, state.opt_state))
+            manifest = {
+                "format": self.MANIFEST_FORMAT,
+                "kind": "zero_topology",
+                "step": step,
+                "data_shards": int(self.mesh.shape[DATA_AXIS]),
+                "param_hash": param_tree_hash(state.params),
+                "opt_leaves": [
+                    {"true_size": int(t), "shape": list(leaf.shape),
+                     "dtype": str(leaf.dtype).replace("torch.", "")}
+                    for t, leaf in zip(sizes, _leaves(full.opt_state))],
+            }
+            path = self._manifest_path(step)
+            tmp = f"{path}.tmp.{os.getpid()}"
+            with open(tmp, "w") as f:
+                json.dump(manifest, f)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, path)
+            self._prune_manifests()
+        _mesh_barrier(self.mesh)
+        return step
+
+    def _prune_manifests(self) -> None:
+        """Drop manifests whose step retention already deleted."""
+        live = set(self.all_steps())
+        for name in os.listdir(self.directory):
+            if not (name.startswith("zero_topology_")
+                    and name.endswith(".json")):
+                continue
+            try:
+                s = int(name[len("zero_topology_"):-len(".json")])
+            except ValueError:
+                continue
+            if s not in live:
+                try:
+                    os.unlink(os.path.join(self.directory, name))
+                except OSError:
+                    pass
+
+    def _load_manifest(self, step: int) -> dict:
+        path = self._manifest_path(step)
+        try:
+            with open(path) as f:
+                manifest = json.load(f)
+        except FileNotFoundError:
+            raise ValueError(
+                f"checkpoint step {step} has no topology manifest "
+                f"({path}) — torn save or a non-elastic checkpoint; "
+                f"treating as unrestorable") from None
+        except (json.JSONDecodeError, UnicodeDecodeError, OSError) as e:
+            raise ValueError(
+                f"checkpoint step {step}: corrupt topology manifest: "
+                f"{e}") from e
+        if manifest.get("kind") != "zero_topology":
+            raise ValueError(
+                f"checkpoint step {step}: {path} is not a zero topology "
+                f"manifest")
+        return manifest
+
+    def restore(self, template: TrainState,
+                step: Optional[int] = None) -> TrainState:
+        """The saved state placed as `template` is (a ZeRO-layout state
+        for this mesh); flat optimizer buffers saved at another data-axis
+        size are cut to their true size and re-padded for this one
+        (`parallel.train_step.reshard_zero_leaf`)."""
+        from paddle_tpu_torch.core.mesh import DATA_AXIS
+        from paddle_tpu_torch.parallel.train_step import (
+            reshard_zero_leaf, zero_leaf_spec, zero_pad)
+
+        step = self.latest_step() if step is None else int(step)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {self.directory}")
+        manifest = self._load_manifest(step)
+        want = param_tree_hash(template.params)
+        got = manifest.get("param_hash")
+        if got != want:
+            raise ManifestMismatchError(
+                f"checkpoint step {step} was saved for a different "
+                f"parameter tree (manifest hash {got}, template hash "
+                f"{want}) — refusing to reshard")
+        m = int(self.mesh.shape[DATA_AXIS])
+        n = int(manifest["data_shards"])
+        entries = manifest["opt_leaves"]
+        opt_leaves = _leaves(template.opt_state)
+        if len(entries) != len(opt_leaves):
+            raise ManifestMismatchError(
+                f"checkpoint step {step}: manifest records "
+                f"{len(entries)} optimizer-state leaves, template has "
+                f"{len(opt_leaves)} — optimizer changed since save")
+        path = os.path.join(self._step_dir(step), _STATE_FILE)
+        if not os.path.isfile(path):
+            raise FileNotFoundError(f"no checkpoint for step {step} under "
+                                    f"{self.directory}")
+        saved = torch.load(path, map_location="cpu", weights_only=True)
+        keys = _flatten_with_keys(template._asdict())
+        if sorted(saved) != sorted(k for k, _ in keys):
+            raise ValueError(
+                f"checkpoint step {step} holds leaves "
+                f"{sorted(set(saved) ^ set(k for k, _ in keys))} that the "
+                f"template does not (or the reverse)")
+        opt_ids = {id(t): i for i, t in enumerate(opt_leaves)}
+        leaves = []
+        for name, tmpl in keys:
+            value = saved[name]
+            tshape = tuple(tmpl.shape)
+            i = opt_ids.get(id(tmpl))
+            if i is None or tuple(value.shape) == tshape and n == m:
+                if tuple(value.shape) != tshape:
+                    raise ValueError(
+                        f"checkpoint step {step}: {name} saved as "
+                        f"{tuple(value.shape)}, template {tshape}")
+                leaves.append(_place_like(value, tmpl))
+                continue
+            true = int(entries[i]["true_size"])
+            if len(tshape) == 1 and zero_leaf_spec(tmpl, m) == (DATA_AXIS,):
+                if tshape[0] != zero_pad(true, m):
+                    raise ManifestMismatchError(
+                        f"checkpoint step {step}: flat leaf of true size "
+                        f"{true} wants padded length {zero_pad(true, m)} "
+                        f"on {m} shards, template has {tshape[0]} — "
+                        f"layout mismatch")
+                leaves.append(reshard_zero_leaf(value.to(tmpl.dtype), true,
+                                                self.mesh))
+            elif tuple(value.shape) == tshape:
+                leaves.append(_place_like(value, tmpl))
+            else:
+                raise ManifestMismatchError(
+                    f"checkpoint step {step}: optimizer leaf saved as "
+                    f"{tuple(value.shape)} does not fit template shape "
+                    f"{tshape} and is not a flat ZeRO buffer")
+        if n != m:
+            self.reshard_restores += 1
+        return TrainState(**_unflatten_like(template._asdict(), leaves))
 
 
 # ---- v2 Parameters tar parity (reference: v2/parameters.py:328,358) ----

@@ -27,10 +27,13 @@ The obs seams are JAX's: `tracer` opens one span per executed step
 attempt, `flight` records bad steps and the preemption drain and dumps
 its ring to `flight_dir` (default the checkpoint directory) on a
 divergence rollback, an exhausted budget and the drain, and
-`bind_metrics` registers the outcome ledger. Seams of layers the port
-does not have yet raise NotImplementedError when given:
-`pserver_client` (ROADMAP queue 1 item 6), `step_builder` (the rebuild
-of the ZeRO and elastic steps, queue 1 item 5's elastic sub-item 6).
+`bind_metrics` registers the outcome ledger. The elastic seams are
+JAX's: `step_builder(optimizer) -> step` replaces the plain step (the
+ZeRO step of `train --zero` and the gang members) and is called again
+with the grad-scaled optimizer after an LR backoff; `gang_epoch` tags
+every step span and `counters()`. The `pserver_client` seam belongs to a
+layer the port does not have yet (ROADMAP queue 1 item 6) and raises
+NotImplementedError when given.
 """
 
 from __future__ import annotations
@@ -60,9 +63,6 @@ log = logging.getLogger(__name__)
 _UNPORTED_SEAMS = {
     "pserver_client": ("the pserver client is not ported yet (ROADMAP "
                        "queue 1 item 6)"),
-    "step_builder": ("rebuilding the ZeRO and elastic train steps belongs "
-                     "to the elastic layer, not ported yet (ROADMAP queue "
-                     "1 item 5, sub-item 6)"),
 }
 
 _MASK64 = (1 << 64) - 1
@@ -298,8 +298,7 @@ class ResilientTrainer:
                  pserver_client: Optional[Any] = None,
                  step_builder: Optional[Callable] = None,
                  gang_epoch: int = 0):
-        given = dict(pserver_client=pserver_client,
-                     step_builder=step_builder)
+        given = dict(pserver_client=pserver_client)
         for name, value in given.items():
             if value is not None:
                 raise NotImplementedError(
@@ -330,6 +329,10 @@ class ResilientTrainer:
         self.tracer = tracer
         self.flight = flight
         self.flight_dir = flight_dir or checkpoint_dir
+        # the elastic seams: step_builder(optimizer) -> step replaces the
+        # plain step (and rebuilds it after an LR backoff); gang_epoch
+        # tags spans and counters, so a reformed gang's are told apart
+        self.step_builder = step_builder
         self.gang_epoch = int(gang_epoch)
         self.bad_steps: List[BadStep] = []
         self.save_errors: List[str] = []
@@ -391,6 +394,9 @@ class ResilientTrainer:
         opt = tr.optimizer
         if self._lr_scale != 1.0:
             opt = _scale_grads(opt, self._lr_scale)
+        if self.step_builder is not None:
+            self._step = self.step_builder(opt)
+            return
         # donate=False: the previous state must survive the step so a
         # bad update can be discarded without touching the checkpoint
         self._step = make_train_step(

@@ -1,6 +1,6 @@
 """The port's multi-rank dry run (`graft_entry.dryrun_multichip`, every
 distributed path on tiny shapes, as `__graft_entry__.dryrun_multichip`
-runs them) over 4 ranks and over 1 of a 4-rank gloo group, with the JAX dryrun's
+runs them) over 4 ranks, over 2 and over 1 of a 4-rank gloo group, with the JAX dryrun's
 collective signatures, and `train --coordinator` over a file
 rendezvous with two processes."""
 
@@ -19,10 +19,11 @@ from test_torch_cli import _config, _template
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-ALL_PARTS = ["toy_dp_tp_zero", "ring_attention", "resnet_dp", "seq2seq_dp",
-             "pipeline", "transformer_tp", "moe_ep", "transformer_cp",
-             "tp_decode"]
-NOT_PORTED = {"sharded_embedding", "ctr_alltoall", "engine_pool"}
+ALL_PARTS = ["toy_dp_tp_zero", "ring_attention", "sharded_embedding",
+             "resnet_dp", "ctr_alltoall", "seq2seq_dp", "pipeline",
+             "transformer_tp", "moe_ep", "transformer_cp", "tp_decode",
+             "engine_pool"]
+NOT_PORTED = {}
 
 
 @pytest.fixture(scope="module")
@@ -39,9 +40,17 @@ def four(runs):
 def test_dryrun_4_runs_every_ported_part(four):
     for r, rep in enumerate(four):
         assert rep["ran"] == ALL_PARTS, r
-        assert set(rep["skipped"]) == NOT_PORTED
-        assert all("ROADMAP queue 1 item 5" in v
-                   for v in rep["skipped"].values())
+        assert rep["skipped"] == NOT_PORTED
+
+
+def test_dryrun_2_runs_every_part(runs):
+    for r in (0, 1):
+        assert runs[r][2]["ran"] == ALL_PARTS, r
+        assert runs[r][2]["skipped"] == NOT_PORTED
+        sig = runs[r][2]["signatures"]
+        assert sig["ctr_all_to_all"] > 0 and sig["ctr_all_gather"] == 0
+    for r in (2, 3):
+        assert runs[r][2]["ran"] == []
 
 
 def test_dryrun_4_keeps_jax_collective_signatures(four):
@@ -53,6 +62,10 @@ def test_dryrun_4_keeps_jax_collective_signatures(four):
         assert sig["tp_decode_all_reduce"] > 0
         assert sig["moe_all_to_all"] > 0
         assert sig["cp_ppermute"] > 0 and sig["cp_all_gather"] == 0
+        # the CTR exchange stays an all-to-all: no all-gather, and the
+        # all-reduces are the MLP gradient's 6 leaves and the loss
+        assert sig["ctr_all_to_all"] > 0 and sig["ctr_all_gather"] == 0
+        assert sig["ctr_all_reduce"] == 7
 
 
 def test_dryrun_4_losses_agree_across_ranks(four):
@@ -66,9 +79,14 @@ def test_dryrun_4_losses_agree_across_ranks(four):
 
 def test_dryrun_1_runs_the_one_rank_parts(runs):
     assert runs[0][1]["ran"] == ["toy_dp_tp_zero", "ring_attention",
-                                 "resnet_dp", "seq2seq_dp", "transformer_tp"]
-    assert runs[0][1]["signatures"] == {"toy_all_reduce": 0,
-                                        "tp_all_reduce": 0}
+                                 "sharded_embedding", "resnet_dp",
+                                 "ctr_alltoall", "seq2seq_dp",
+                                 "transformer_tp"]
+    # only the world size skips a part, as in JAX at n = 1
+    assert list(runs[0][1]["skipped"]) == ["engine_pool"]
+    assert runs[0][1]["signatures"] == {
+        "toy_all_reduce": 0, "tp_all_reduce": 0, "ctr_all_to_all": 0,
+        "ctr_all_gather": 0, "ctr_all_reduce": 0}
     for r in (1, 2, 3):
         assert runs[r][1]["ran"] == []
 

@@ -76,6 +76,11 @@ MODULES = [
     "paddle_tpu_torch.parallel.train_step",
     "paddle_tpu_torch.parallel.ring_attention",
     "paddle_tpu_torch.parallel.pipeline",
+    "paddle_tpu_torch.parallel.sparse",
+    "paddle_tpu_torch.parallel.blocked_matmul",
+    "paddle_tpu_torch.parallel.launch", "paddle_tpu_torch.models.ctr",
+    "paddle_tpu_torch.ops.embedding", "paddle_tpu_torch.cluster",
+    "paddle_tpu_torch.cluster.lease", "paddle_tpu_torch.testing.gang",
 ]
 
 

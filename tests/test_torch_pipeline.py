@@ -62,7 +62,12 @@ def _cases():
 
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):
-    payload = {"cases": _cases()}
+    r = np.random.default_rng(8)
+    tp = {"per": [{"w": (r.standard_normal((8, 8)) * 0.3).astype(np.float32),
+                   "b": r.standard_normal(8).astype(np.float32)}
+                  for _ in range(2)],
+          "x": r.standard_normal((5, 4, 8)).astype(np.float32)}
+    payload = {"cases": _cases(), "tp": tp}
     out = torch_dist.run_group(4, "pipeline_cases", payload,
                                tmp_path_factory.mktemp("pipe"))
     return payload, out
@@ -148,5 +153,49 @@ def test_pipeline_train_step_matches_jax(setup, s):
 
 
 def test_pipeline_tp_axis_is_not_ported_yet(setup):
-    _, out = setup
-    assert "blocked_matmul" in out[0][4]["tp_axis"]
+    """`tp_axis` (tests/test_blocked_matmul.py TestPipelineTensorParallel)
+    on a (pipe 2, tp 2) mesh against JAX's pipeline with `tp_axis` on its
+    mesh of the same shape and against the plain pipeline: both tp arms'
+    outputs, and the gradients through the reduce ring."""
+    from jax.sharding import Mesh
+
+    payload, out = setup
+    case = payload["tp"]
+    stacked = PP.stack_stage_params(
+        [{k: jnp.asarray(v) for k, v in p.items()} for p in case["per"]])
+    x = jnp.asarray(case["x"])
+    relu = lambda p, a: jax.nn.relu(a @ p["w"] + p["b"])
+    relu_tp = lambda p, a, mm: jax.nn.relu(mm(a, p["w"]) + p["b"])
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("pipe", "tp"))
+    pipe = _jmesh(2)
+    plain = PP.make_pipeline_forward(relu, pipe)
+    ref = jax.jit(plain)(PP.shard_stage_params(stacked, pipe), x)
+    g_ref = jax.jit(jax.grad(lambda p: jnp.sum(plain(p, x) ** 2)))(
+        PP.shard_stage_params(stacked, pipe))
+    sharded = PP.shard_stage_params(stacked, mesh, tp_axis="tp")
+    fwds = {arm: PP.make_pipeline_forward(relu_tp, mesh, tp_axis="tp",
+                                          tp_overlap=overlap)
+            for arm, overlap in (("overlap", True), ("naive", False))}
+    runs = {  # explicit literal: one jit wrapper per arm (GL004)
+        "overlap": (jax.jit(fwds["overlap"]), jax.jit(jax.grad(
+            lambda p: jnp.sum(fwds["overlap"](p, x) ** 2)))),
+        "naive": (jax.jit(fwds["naive"]), jax.jit(jax.grad(
+            lambda p: jnp.sum(fwds["naive"](p, x) ** 2)))),
+    }
+    for arm, (fwd, grad) in runs.items():
+        want, g_jax = fwd(sharded, x), grad(sharded)
+        for r in range(4):
+            got = out[r]["tp"]
+            assert got["placements"] == "(Shard(dim=0), Shard(dim=1))"
+            assert got["local_w"] == (1, 4, 8)
+            np.testing.assert_allclose(got[arm], np.asarray(want),
+                                       rtol=2e-6, atol=2e-6)
+            np.testing.assert_allclose(got[arm], np.asarray(ref),
+                                       rtol=2e-6, atol=2e-6)
+            for k in ("w", "b"):
+                np.testing.assert_allclose(got[f"{arm}_grads"][k],
+                                           np.asarray(g_jax[k]), rtol=1e-5,
+                                           atol=1e-5)
+                np.testing.assert_allclose(got[f"{arm}_grads"][k],
+                                           np.asarray(g_ref[k]), rtol=1e-5,
+                                           atol=1e-5)

@@ -278,10 +278,20 @@ def test_bad_policy_and_backoff_are_checked(tmp_path):
 @pytest.mark.parametrize("seam", ["tracer", "flight", "pserver_client",
                                   "step_builder"])
 def test_unported_seams_raise(tmp_path, seam):
-    """pserver_client and step_builder still raise naming their item;
-    the obs seams (tracer, flight) are ported and bind to a registry
-    (their parity with JAX: test_obs_seams_match_jax)."""
+    """pserver_client still raises naming its item; the obs seams
+    (tracer, flight) are ported and bind to a registry (their parity
+    with JAX: test_obs_seams_match_jax); step_builder is ported: the
+    builder makes the step from the trainer's optimizer (the ZeRO step
+    in tests/test_torch_elastic.py)."""
     from paddle_tpu_torch.obs import FlightRecorder, MetricsRegistry, Tracer
+
+    if seam == "step_builder":
+        built = []
+        tr = _trainer()
+        rt = ResilientTrainer(tr, str(tmp_path), step_builder=lambda opt: (
+            built.append(opt) or "the step"))
+        assert built == [tr.optimizer] and rt._step == "the step"
+        return
 
     if seam in ("tracer", "flight"):
         obj = Tracer() if seam == "tracer" else FlightRecorder()

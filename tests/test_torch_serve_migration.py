@@ -227,9 +227,11 @@ def test_unported_fault_seams_fail_by_name():
     from paddle_tpu_torch.testing.faults import build_chaos_replica
 
     for field in ("fleet_sigkill_at", "cluster_sigkill_at",
-                  "gang_kill_step_at", "pserver_kill_push_at",
-                  "online_kill_step_at"):
+                  "pserver_kill_push_at", "online_kill_step_at"):
         with pytest.raises(TypeError, match=field):
             TORCH.FaultPlan(**{field: 1})
+    # the gang faults came with the elastic layer (wrap_gang)
+    plan = TORCH.FaultPlan(gang_kill_step_at=1, gang_wedge_step_at=2)
+    assert (plan.gang_kill_rank, plan.gang_wedge_rank) == (1, 1)
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         build_chaos_replica()

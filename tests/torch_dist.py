@@ -657,11 +657,44 @@ def pipeline_cases(rank, world, payload):
                 got["placements"] = str(params["w"].placements)
                 got["params"] = full_tree(params)
             out[name] = got
-        try:
-            PP.make_pipeline_forward(stage_fn, mesh, tp_axis="model")
-        except NotImplementedError as e:
-            out["tp_axis"] = str(e)
+    tp = payload.get("tp")
+    if tp is not None:
+        res["tp"] = pipeline_tp_case(tp)
     return res
+
+
+def relu_stage(params, x):
+    return torch.relu(x @ params["w"] + params["b"])
+
+
+def relu_stage_tp(params, x, mm):
+    return torch.relu(mm(x, params["w"]) + params["b"])
+
+
+def pipeline_tp_case(case):
+    """The pipeline with `tp_axis` on a (pipe 2, tp 2) mesh over the 4
+    ranks: forward in both tp arms and the gradients of sum(out^2)."""
+    from paddle_tpu_torch.core import mesh as M
+    from paddle_tpu_torch.parallel import pipeline as PP
+
+    mesh = M.make_mesh((2, 2), ("pipe", "tp"), "cpu")
+    per = [{k: _t(v) for k, v in p.items()} for p in case["per"]]
+    stacked = PP.stack_stage_params(per)
+    x = _t(case["x"])
+    sharded = PP.shard_stage_params(stacked, mesh, tp_axis="tp")
+    out = {"placements": str(sharded["w"].placements),
+           "local_w": tuple(sharded["w"].to_local().shape)}
+    for arm, overlap in (("overlap", True), ("naive", False)):
+        fwd = PP.make_pipeline_forward(relu_stage_tp, mesh, tp_axis="tp",
+                                       tp_overlap=overlap)
+        with torch.no_grad():
+            out[arm] = fwd(sharded, x).numpy()
+        live = {k: v.detach().requires_grad_() for k, v in sharded.items()}
+        loss = torch.sum(fwd(live, x) ** 2)
+        g = torch.autograd.grad(loss, list(live.values()))
+        out[f"{arm}_grads"] = {k: gi.full_tensor().numpy()
+                               for k, gi in zip(live, g)}
+    return out
 
 
 # ---- test_torch_moe_ep.py ----
@@ -721,8 +754,9 @@ def moe_ep_cases(rank, world, payload):
 
 
 def dryrun_case(rank, world, payload):
-    """dryrun_multichip(world), then dryrun_multichip(1) (rank 0's mesh;
-    the other ranks build the meshes and skip)."""
+    """dryrun_multichip(world), then dryrun_multichip(2) and (1) (ranks
+    [0, 1] and rank 0's meshes; the other ranks build the meshes and
+    skip)."""
     from paddle_tpu_torch.graft_entry import dryrun_multichip
 
-    return {n: dryrun_multichip(n, device="cpu") for n in (world, 1)}
+    return {n: dryrun_multichip(n, device="cpu") for n in (world, 2, 1)}
