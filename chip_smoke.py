@@ -119,7 +119,7 @@ Phases, in order; any failure exits non-zero:
      call) and a decode fault (the 21st step), and two requests whose
      60 ms deadline expires mid-decode: reconcile() holds, those two
      expire with partial tokens, the rest complete, 9 requeues, A and B
-     (A and C for int8) launched. Float KV then runs the first 16
+     (A and C for int8) launched. Float KV then runs the first 8
      requests clean, timed in turns against the bare engine's serve()
      on the same engine (bare, server, server, bare); int8 prints its
      faulted run's tokens/s beside serve_phase's bare run; the
@@ -143,7 +143,7 @@ Phases, in order; any failure exits non-zero:
      (router_kill_import_at) and the same payload lands on replica 2.
      ms per migrated slot (export + import, synchronized) and the bytes
      exported are printed.
-   - The ring pool at bench_decode's swa row (window 128, 8 prompts, 256
+   - The ring pool at bench_decode's swa row (window 128, 8 prompts, 128
      new tokens, cut from 1024): A launches once per layer per request,
      each with the window and the key bound, no B or C; tokens against
      the plain rolling generate() by the gap rule; tokens/s against the
@@ -280,6 +280,51 @@ Phases, in order; any failure exits non-zero:
    ~1e-4 from float64; their errors are printed), and
    cross_entropy_over_beam (E=8, B=128, K=4, gold pruned in a third of
    the rows): outputs 1e-5 relative, losses and gradients 1e-4.
+7c. pserver_ctr -- the parameter-server tier and CTR serving at
+   bench_ctr_sparse's table (benchmarks/suite.py:267, sizes at :811-815:
+   vocab 1,000,000, dim 64, 32 slots, f32, row lr 0.05; seeded), on the
+   host except the cache's arena, the rows PServerEmbedding hands out and
+   the CTR tower, which live on the card. It launches none of A-I.
+   1. The native library (recordio, task queue; g++) built from
+      paddle_tpu_torch/native/src into paddle_tpu_torch/_build, its
+      seconds printed; PServerGroup(1,000,000, 64, n_shards=2,
+      replicated) (128 MiB a shard, 512 MiB with the backups), a seeded
+      table loaded through PServerEmbedding(device="cuda").init:
+      fetch_table equals the drawn table bit for bit.
+   2. StreamingTrainer over a TaskQueue of PS_TASKS (8) JSON tasks of
+      bench_ctr_sparse's batch (4096 x 32 ids: 131072 rows pulled and
+      pushed a task), its lookups landing on the card; a twin tier with
+      the same table streams the same tasks with shard 0's primary
+      killed on its 4th push (FaultPlan(pserver_kill_push_at=3)): the
+      final tables equal bit for bit, the kill fired once, the client
+      failed over. s/task, rows/s and the failover's seconds (the push
+      that met the dead primary against a clean push) are printed.
+   3. TieredEmbedCache(hot_rows=131072, host_rows=524288,
+      max_staleness=0) (a 32 MiB arena) and CtrServer(init_tower(0, 64),
+      slots=32, max_batch=256) over 200 requests of 256 x 32 ids drawn
+      Zipf(1.1) over the vocab (a seeded permutation spreads the hot ids
+      over both shards; 5% -1 pads), shard 1's primary killed before
+      request 100. Gates: (a) every score within 1e-6 of the same tower
+      on CPU tensors over rows read straight from the shards; (c) the
+      cache invalidated on the failover and (a) holds past it; (b) a
+      second trainer pushes into 64 hot rows with its ACKs fed to the
+      cache (bind_push_feed): the next request refills them, scores them
+      as updated, and the cache's rows equal the shards'; (d) two
+      all-hit lookups back to back, no sync between them, each return
+      their own rows (each slot vector crosses from a fresh pinned
+      buffer); (e) a steady-state all-hit request under torch.profiler
+      copies two vectors to the card (the slot vector and the mask, 32
+      KiB each) and one back (the scores); this gate runs in a fresh
+      process, the same cache and server over the same shards, because
+      the profiler records no device activity at all in the smoke's own
+      process once lm_train has run. requests/s, examples/s, p50 and p99
+      ms per request, the cache's counters, the arena's MiB and the
+      kernels per all-hit request are printed.
+   4. Kernels A-I's launch counts, set to 0 at the phase's start, are
+      printed (in the phase's JSON line) and must all be 0.
+   The phase alone: `python3 -c "import torch;
+   torch.backends.cuda.matmul.allow_tf32 = False; import chip_smoke as
+   S; S.pserver_ctr_phase()"` (it builds no CUDA kernel).
 8. lm_train -- the transformer LM's training path at
    bench_transformer_lm's width (benchmarks/suite.py:331: vocab 32000,
    dim 512, 8 layers, 8 heads, remat, bf16 policy, B=4, T=8192, adam
@@ -320,7 +365,7 @@ Phases, in order; any failure exits non-zero:
      weights and tokens, bf16 policy) through
      make_sharded_train_step(param_rules=TP_RULES) on mesh (1, 1, 1) and
      through make_zero_train_step and its zero_update=False oracle arm,
-     1 + 3 steps each beside the plain step: bit for bit, or within the
+     1 + 2 steps each beside the plain step: bit for bit, or within the
      LM phase's bf16 tolerance (the run prints which); ZeRO bit for bit
      with its oracle arm; A 16 launches a step, counted from 0 before
      each run; make_context_parallel_loss, ring and Ulysses, at
@@ -338,7 +383,7 @@ Phases, in order; any failure exits non-zero:
      name (dp and ZeRO; TP's DTensor collectives crash gloo, ring CP
      and the pipeline need point-to-point sends: held on the CPU
      only), at the LM's width in f32 with 2 of the 4 rows a rank,
-     sgd 0.1, 1 + 2 steps, against the plain step on the 4 rows
+     sgd 0.1, 1 + 1 steps, against the plain step on the 4 rows
      (losses rtol 1e-5, parameters after the first and the last step
      rtol 1e-4 / atol 1e-5: JAX's DP gate), printing ms/step, A's
      launches, the collectives and bytes a step moves; ZeRO's
@@ -373,7 +418,7 @@ Phases, in order; any failure exits non-zero:
      from the saved state loaded without resharding; A 16 a step.
    - The DecodeEngine pool over TP_RULES parameters at bench_engine's
      width on a one-rank model axis (B and C dispatched through their
-     DTensor rules), float and int8 KV, the serve phase's first 8
+     DTensor rules), float and int8 KV, the serve phase's first 4
      requests: tokens bit for bit and A/B/C launches equal to the
      single-device engine's; tokens/s beside it.
    - A GangSupervisor over two members on cuda:0 (gloo): the resilient
@@ -388,7 +433,7 @@ Phases, in order; any failure exits non-zero:
 8c. decode -- the LM's decoders at bench_decode's width
    (benchmarks/suite.py:500-668: vocab 32000, dim 512, 8 layers, 8
    heads, f32, seeded weights, B=8 prompts of 128 tokens from
-   RandomState(0), DEC_STEPS (64; the bench's 128, cut) new tokens),
+   RandomState(0), DEC_STEPS (32; the bench's 128, cut) new tokens),
    attn_impl "auto" so that kernel A
    runs every prefill: greedy generate, sample (temperature 0.8, top_p
    0.95, Gumbel draws from a seeded card generator injected, so both
@@ -456,7 +501,8 @@ Phases, in order; any failure exits non-zero:
    generation, LM train, decode, MoE and image numbers, the wide cases, the card's
    name and power limit, a `phase_seconds` JSON line (each phase's wall
    seconds, the build's and the total; each phase also logs its seconds
-   as it ends), a `kernels` JSON line (nine entries, A-I; A adds its
+   as it ends), a `kernels` JSON line (nine entries, A-I, each with its
+   launches in the pserver_ctr phase, which must be 0; A adds its
    HMMA counts and its launches in the LM train phase and the
    sparse_elastic phase's ZeRO steps; B and C their launches in the TP
    engine pool and their
@@ -489,6 +535,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -560,7 +607,7 @@ N_WEIGHT_REQ, N_SPEC_REQ = 8, 16
 SERVER_PREFILL_FAULT, SERVER_DECODE_FAULT = 3, 20
 SERVER_DEADLINE_REQS, SERVER_DEADLINE_MS, STEP_MS = (1, 6), 60.0, 1.0
 ROUTER_KILL_AT, ROUTER_RETIRE_AT, IMPORT_KILL_AT = 40, 10, 0
-TIMED_REQ = 16          # the clean server-vs-bare turns: two waves
+TIMED_REQ = 8           # the clean server-vs-bare turns: one wave
 # the router's runs (clean, a kill, a retirement) and the serve CLI take
 # the first ROUTER_REQ requests (cut from 32: three waves over two
 # replicas of 8 slots, so replica 0 still holds a queue when it
@@ -569,9 +616,9 @@ TIMED_REQ = 16          # the clean server-vs-bare turns: two waves
 ROUTER_REQ, DISAGG_REQ = 24, 8
 # bench_decode's swa row (benchmarks/suite.py:500, :601-624): batch 8,
 # 128-token prompts, window max(steps, 16) = 128, steps * 8 = 1024 new
-# tokens, cut to 256 to keep the smoke near 700 s (the ring wraps three
-# times either way)
-RING_WINDOW, RING_REQ, RING_NEW = 128, 8, 256   # the row's 1024, cut
+# tokens, cut to 128 to keep the smoke near 930 s (the ring wraps
+# either way: 128 prompt tokens and 128 new past a window of 128)
+RING_WINDOW, RING_REQ, RING_NEW = 128, 8, 128   # the row's 1024, cut
 REPO_DIR = os.path.dirname(os.path.abspath(__file__))
 
 # bench_lstm(hidden=512, batch=64, seq_len=100, vocab=10000)
@@ -3467,8 +3514,8 @@ GLOO_PATHS = {"dp": ("all_reduce",),
 # collectives) killed both ranks with SIGSEGV in a gloo thread, in bf16
 # and f32 alike (torch 2.11; the probe's synchronous calls pass)
 GLOO_REFUSED = {"tp": "SIGSEGV in gloo under DTensor's async collectives"}
-DIST_STEPS = 3            # after one warm-up step, world size 1
-DIST_GLOO_STEPS = 2       # after one warm-up step, two ranks
+DIST_STEPS = 2            # after one warm-up step, world size 1
+DIST_GLOO_STEPS = 1       # after one warm-up step, two ranks
 DIST_GLOO_B = 2           # rows a rank; the two ranks share LM_B = 4 rows
 DIST_GLOO_LR = 0.1        # sgd, as JAX's DP gate (tests/test_parallel.py:33)
 DIST_TIMEOUT_S = 240      # the two ranks' join timeout
@@ -4025,7 +4072,7 @@ def distributed_phase():
 CTR_B, CTR_SLOTS, CTR_VOCAB, CTR_DIM = 4096, 32, 1_000_000, 64
 CTR_WARMUP, CTR_ITERS, CTR_ROW_LR, CTR_SEED = 2, 20, 0.05, 0
 CTR_GLOO_STEPS = 2        # after one warm-up step, two ranks on cuda:0
-TP_POOL_REQ = 8           # the serve phase's first 8 of its 32 requests
+TP_POOL_REQ = 4           # the serve phase's first 4 of its 32 requests
 # the elastic gang: the resilient phase's bench_lstm classifier (one
 # batch of 64 repeated, 32 rows a member) through `train --elastic`'s
 # builder, two members on cuda:0 over gloo, SIGKILL of rank 1 at its
@@ -4633,6 +4680,542 @@ def sparse_elastic_phase():
     return out
 
 
+# -- the parameter-server tier and CTR serving at bench_ctr_sparse's table ------
+
+# bench_ctr_sparse's table (benchmarks/suite.py:267, sizes at :811-815):
+# vocab 1,000,000, dim 64, 32 slots, batch 4096, row lr 0.05 (CTR_*), on
+# a PServerGroup of two replicated shards. The stream: PS_TASKS tasks of
+# one batch each (131072 rows pulled and pushed a task); the twin run's
+# shard-0 primary is killed on its PS_KILL_PUSH_AT-th push (one push to
+# shard 0 a task). Serving: an arena of PS_HOT rows (32 MiB), PS_HOST
+# host rows, PS_REQ requests of [PS_REQ_B, CTR_SLOTS] ids drawn
+# Zipf(PS_ZIPF) over the vocab with a PS_PAD share of -1 pads, shard 1's
+# primary killed before request PS_REQ // 2; PS_FRESH_ROWS hot rows
+# pushed by another trainer for the freshness gate
+PS_TASKS, PS_KILL_PUSH_AT, PS_SEED = 8, 3, 0
+PS_HOT, PS_HOST = 131072, 524288
+PS_REQ, PS_REQ_B, PS_ZIPF, PS_PAD = 200, 256, 1.1, 0.05
+PS_FRESH_ROWS, PS_SCORE_TOL = 64, 1e-6
+PS_CHUNK = 131072     # rows a frame for the gates' whole-table moves
+
+#: the native library's build (`build_native`): path, seconds, cached
+NATIVE_BUILD = {}
+
+
+def build_native():
+    """Build the native library (recordio, the task queue; g++) from
+    paddle_tpu_torch/native/src, timed into NATIVE_BUILD. main() runs it
+    beside the nvcc builds; the pserver_ctr phase alone runs it first."""
+    from paddle_tpu_torch.native import build as NB
+
+    t0 = time.perf_counter()
+    NATIVE_BUILD["cached"] = os.path.exists(NB.lib_path())
+    NATIVE_BUILD["lib"] = NB.ensure_built()
+    NATIVE_BUILD["s"] = time.perf_counter() - t0
+
+
+def reset_all_counts():
+    reset_counts()
+    FL.reset_launch_counts()
+    reset_time_loop_counts()
+
+
+def all_counts():
+    """Launches of kernels A-I since their counts were last set to 0."""
+    c = counts()
+    return {"A": c["flash_fwd"], "B": c["ragged_tq1"] + c["ragged_tqn"],
+            "C": c["int8_tq1"] + c["int8_tqn"],
+            "D": FL.launch_counts["fwd"], "E": FL.launch_counts["bwd"],
+            **time_loop_counts()}
+
+
+def ctr_plain_scores(tower, rows, padded):
+    """The CTR tower on CPU tensors: rows [B*S, D] read straight from
+    the shards, padded [B, S] ids (-1 pads) -> [B] scores."""
+    b, s = padded.shape
+    v = torch.from_numpy(rows).reshape(b, s, -1)
+    mask = torch.from_numpy((padded >= 0).astype(np.float32))
+    pooled = v.sum(dim=1) / mask.sum(dim=1, keepdim=True).clamp_min(1.0)
+    w = {k: torch.from_numpy(np.asarray(t, np.float32))
+         for k, t in tower.items()}
+    h = torch.relu(pooled @ w["w1"] + w["b1"])
+    return torch.sigmoid(h @ w["w2"] + w["b2"]).numpy()
+
+
+def ctr_requests(rng):
+    """PS_REQ requests of [PS_REQ_B, CTR_SLOTS] ids: Zipf(PS_ZIPF) ranks
+    (the tail folded into the vocab) through a seeded permutation, so
+    the hot ids spread over both shards; a PS_PAD share of -1 pads.
+    Returns (requests, the permutation: perm[r] is the id of rank r)."""
+    perm = rng.permutation(CTR_VOCAB)
+    n = PS_REQ * PS_REQ_B * CTR_SLOTS
+    ids = perm[(rng.zipf(PS_ZIPF, n) - 1) % CTR_VOCAB].astype(np.int64)
+    ids[rng.rand(n) < PS_PAD] = -1
+    return ids.reshape(PS_REQ, PS_REQ_B, CTR_SLOTS), perm
+
+
+def score_gate(label, server, plain, tower, reqs, scores):
+    """Every score within PS_SCORE_TOL of the plain path over rows read
+    straight from the shards now (`plain.get_rows`): the max abs error."""
+    err = 0.0
+    for req, got in zip(reqs, scores):
+        padded = np.full((server.max_batch, server.slots), -1, np.int64)
+        padded[:req.shape[0], :req.shape[1]] = req
+        want = ctr_plain_scores(tower, plain.get_rows(padded.reshape(-1)),
+                                padded)[:req.shape[0]]
+        err = max(err, float(np.abs(got - want).max()))
+    if not err <= PS_SCORE_TOL:
+        raise Fail(f"pserver_ctr {label}: scores {err:.3e} from the plain "
+                   f"path (tolerance {PS_SCORE_TOL})")
+    return err
+
+
+def ctr_copy_profile(server, req):
+    """One steady-state all-hit request under torch.profiler: the bytes
+    of each host-to-device and device-to-host copy (from the exported
+    trace) and the names of the kernels it launched."""
+    server.score(req)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        server.score(req)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    copies = {"HtoD": [], "DtoH": [], "other": []}
+    kernels = []
+    for ev in trace.get("traceEvents", []):
+        cat, name = ev.get("cat", ""), ev.get("name", "")
+        if cat == "gpu_memcpy":
+            kind = next((k for k in ("HtoD", "DtoH") if k in name), "other")
+            copies[kind].append(int(ev.get("args", {}).get("bytes", -1)))
+        elif cat == "kernel":
+            kernels.append(name)
+    return copies, kernels
+
+
+def start_copy_child(group):
+    """ctr_copy_child over `group`'s shards in a fresh process: it
+    reaches the card while the phase streams and serves, then waits for
+    a line on its standard input (copy_child_result)."""
+    specs = [[s.shard_id, s.row_lo, s.row_hi, s.endpoints]
+             for s in group.specs]
+    return subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke as S; "
+         f"S.ctr_copy_child({specs!r})"],
+        cwd=REPO_DIR, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def copy_child_result(proc):
+    """Let the child measure, and read its JSON line."""
+    try:
+        out, err = proc.communicate("go\n", timeout=180)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    lines = [l for l in out.splitlines() if l.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        raise Fail(f"pserver_ctr copies: the child exited "
+                   f"{proc.returncode}: {err[-2000:]}")
+    return json.loads(lines[-1])
+
+
+def ctr_copy_child(specs):
+    """Gate (e)'s measurement, in a process of its own: torch.profiler
+    records no device activity in the smoke's process once lm_train has
+    run there (scripts/torch_profiler_after_phases.py). The cache and
+    server of serve_gates over the shards `specs` ([shard id, row lo,
+    row hi, endpoints] each), request 1 scored twice, then
+    ctr_copy_profile; prints the copies, the kernels, the cache
+    counters' change over the profiled requests and its seconds."""
+    from paddle_tpu_torch.native.pserver import ShardSpec
+    from paddle_tpu_torch.parallel.pserver_client import (PServerClient,
+                                                          PServerEmbedding)
+    from paddle_tpu_torch.serve.ctr import CtrServer, init_tower
+    from paddle_tpu_torch.serve.embed_cache import TieredEmbedCache
+
+    torch.zeros(1, device="cuda")
+    req = ctr_requests(np.random.RandomState(PS_SEED))[0][1]
+    # no profiler session before the measured one: after a warm-up
+    # session the measured one recorded one of the two copies in
+    sys.stdin.readline()
+    t0 = time.perf_counter()
+    client = PServerClient(
+        [ShardSpec(s, lo, hi, [tuple(e) for e in eps])
+         for s, lo, hi, eps in specs], CTR_DIM, trainer_id=4,
+        backoff_base=0.005, backoff_max=0.1)
+    try:
+        client.register()
+        cache = TieredEmbedCache(
+            PServerEmbedding(client, device="cuda"),
+            PServerEmbedding.Handle(CTR_VOCAB, CTR_DIM), hot_rows=PS_HOT,
+            host_rows=PS_HOST, max_staleness=0, device="cuda")
+        server = CtrServer(cache, init_tower(PS_SEED, CTR_DIM),
+                           slots=CTR_SLOTS, max_batch=PS_REQ_B,
+                           device="cuda")
+        for _ in range(2):      # fill, then past any failover refill
+            server.score(req)
+        before = cache.counters()
+        t1 = time.perf_counter()
+        copies, kernels = ctr_copy_profile(server, req)
+        after = cache.counters()
+    finally:
+        client.close()
+    print(json.dumps(dict(copies=copies, kernels=kernels, counters={
+        k: after[k] - before[k] for k in ("hits_device", "hits_host",
+                                          "misses", "stale_refills",
+                                          "pulls")},
+        seconds={"fill": t1 - t0, "profile": time.perf_counter() - t1})),
+        flush=True)
+
+
+def stream_run(group, label, plan=None):
+    """PS_TASKS streaming tasks through a fresh client of `group`
+    (trainer 7) and a PServerEmbedding on the card: each task's
+    seconds, each push's seconds and whether a failover happened in it,
+    the client's failover counters and stats."""
+    from paddle_tpu_torch.native.taskqueue import TaskQueue
+    from paddle_tpu_torch.parallel.pserver_client import (PServerClient,
+                                                          PServerEmbedding)
+    from paddle_tpu_torch.train.online import StreamingTrainer
+
+    q = TaskQueue()
+    for i in range(PS_TASKS):
+        q.add_task(json.dumps({"seed": i, "batch": CTR_B,
+                               "slots": CTR_SLOTS,
+                               "vocab": CTR_VOCAB}).encode())
+    client = PServerClient(group.specs, CTR_DIM, trainer_id=7,
+                           backoff_base=0.005, backoff_max=0.1)
+    try:
+        client.register()
+        emb = PServerEmbedding(client, device="cuda")
+        landed = set()
+        lookup = emb.alltoall_lookup
+
+        def on_device_lookup(table, ids, **kw):
+            rows = lookup(table, ids, **kw)
+            landed.add(rows.device.type)
+            return rows
+
+        emb.alltoall_lookup = on_device_lookup
+        pushes = []
+        push = client.push_row_grads
+
+        def timed_push(*a, **kw):
+            before = sum(client.shard_failovers())
+            t0 = time.perf_counter()
+            push(*a, **kw)
+            pushes.append((time.perf_counter() - t0,
+                           sum(client.shard_failovers()) > before))
+
+        client.push_row_grads = timed_push
+        trainer = StreamingTrainer(q, emb, None, lr=CTR_ROW_LR)
+        task_s = []
+        for _ in range(PS_TASKS):
+            t0 = time.perf_counter()
+            if trainer.run(1) != 1:
+                raise Fail(f"pserver_ctr {label}: a task was not consumed")
+            task_s.append(time.perf_counter() - t0)
+        if landed != {"cuda"}:
+            raise Fail(f"pserver_ctr {label}: lookups landed on {landed}")
+        return dict(task_s=task_s, pushes=pushes,
+                    failovers=client.shard_failovers(),
+                    stats=dict(client.stats),
+                    fired=list(plan.fired) if plan else [])
+    finally:
+        client.close()
+        q.close()
+
+
+def serve_gates(group, handle, out, secs, child):
+    """Section 3 of the phase: CTR serving through the tiered cache
+    (gates (a)-(e) of the module docstring); `child`: the
+    start_copy_child process that measures gate (e)."""
+    from paddle_tpu_torch.parallel.pserver_client import (PServerClient,
+                                                          PServerEmbedding)
+    from paddle_tpu_torch.serve.ctr import CtrServer, init_tower
+    from paddle_tpu_torch.serve.embed_cache import TieredEmbedCache
+
+    read, plain, push = (PServerClient(group.specs, CTR_DIM, trainer_id=t,
+                                       backoff_base=0.005, backoff_max=0.1)
+                         for t in (1, 2, 3))
+    try:
+        for c in (read, plain, push):
+            c.register()
+        cache = TieredEmbedCache(
+            PServerEmbedding(read, device="cuda"), handle,
+            hot_rows=PS_HOT, host_rows=PS_HOST, max_staleness=0,
+            device="cuda")
+        tower = init_tower(PS_SEED, CTR_DIM)
+        server = CtrServer(cache, tower, slots=CTR_SLOTS,
+                           max_batch=PS_REQ_B, device="cuda")
+        reqs, perm = ctr_requests(np.random.RandomState(PS_SEED))
+
+        # (a) and (c): the traffic, shard 1's primary killed mid-way
+        lat, scores = [], []
+        t0 = time.perf_counter()
+        for i, req in enumerate(reqs):
+            if i == PS_REQ // 2:
+                group.primaries[1].kill()
+            t1 = time.perf_counter()
+            scores.append(server.score(req))
+            lat.append(time.perf_counter() - t1)
+        secs["serve"] = wall = time.perf_counter() - t0
+        c = cache.counters()
+        t0 = time.perf_counter()
+        err = score_gate("traffic", server, plain, tower, reqs, scores)
+        secs["score_gate"] = time.perf_counter() - t0
+        lat_ms = np.asarray(lat) * 1e3
+        srv = out["serve"] = dict(
+            requests_per_s=PS_REQ / wall,
+            examples_per_s=PS_REQ * PS_REQ_B / wall,
+            p50_ms=float(np.percentile(lat_ms, 50)),
+            p99_ms=float(np.percentile(lat_ms, 99)),
+            kill_request_ms=float(lat_ms[PS_REQ // 2]),
+            score_max_abs_err=err, counters=c,
+            rows_per_pull=c["rows_pulled"] / max(c["pulls"], 1),
+            arena_mib=cache._arena.numel() * 4 / 2 ** 20,
+            read_failovers=read.shard_failovers())
+        log(f"  serve: {srv['requests_per_s']:.1f} requests/s, "
+            f"{srv['examples_per_s']:.0f} examples/s; p50 "
+            f"{srv['p50_ms']:.2f} ms, p99 {srv['p99_ms']:.2f} ms per "
+            f"request (request {PS_REQ // 2}, as shard 1's primary died: "
+            f"{srv['kill_request_ms']:.2f} ms); scores {err:.2e} from the "
+            f"plain path; arena {srv['arena_mib']:.1f} MiB; device hits "
+            f"{c['hits_device']}, host hits {c['hits_host']}, misses "
+            f"{c['misses']}, stale refills {c['stale_refills']}, "
+            f"{srv['rows_per_pull']:.0f} rows per pull ({c['pulls']} "
+            f"pulls), evictions device {c['evictions_device']} host "
+            f"{c['evictions_host']}, failover invalidations "
+            f"{c['invalidations_failover']} (read client failovers "
+            f"{srv['read_failovers']}), overflow {c['overflow_lookups']}")
+        if c["invalidations_failover"] < 1 or srv["read_failovers"][1] < 1:
+            raise Fail(f"pserver_ctr serve: shard 1's primary died and the "
+                       f"cache saw no failover: {srv}")
+
+        # (b) freshness: another trainer pushes into hot rows
+        t_gates = time.perf_counter()
+        hot = perm[:PS_FRESH_ROWS].astype(np.int64)
+        cache.lookup(hot)
+        cache.bind_push_feed(push)
+        before = cache.counters()
+        g = np.random.RandomState(1).standard_normal(
+            (PS_FRESH_ROWS, CTR_DIM)).astype(np.float32)
+        push.push_row_grads(hot, g, CTR_ROW_LR)
+        req = reqs[0].copy()
+        req[:PS_FRESH_ROWS // CTR_SLOTS] = hot.reshape(-1, CTR_SLOTS)
+        fresh = server.score(req)
+        ferr = score_gate("freshness", server, plain, tower, [req], [fresh])
+        refills = cache.counters()["stale_refills"] - before["stale_refills"]
+        rows_ok = bool(np.array_equal(cache.lookup(hot).cpu().numpy(),
+                                      plain.get_rows(hot)))
+        audit = cache.reconcile(plain.shard_stats())
+        fr = out["freshness"] = dict(score_max_abs_err=ferr,
+                                     rows_bitwise=rows_ok,
+                                     stale_refills=refills, reconcile=audit)
+        log(f"  freshness: {PS_FRESH_ROWS} hot rows pushed by trainer 3 "
+            f"(its ACKs feed the cache); the next request refilled "
+            f"{refills} stale rows, scores {ferr:.2e} from the fresh plain "
+            f"path, the pushed rows bit for bit {rows_ok}; reconcile "
+            f"{audit}")
+        if not rows_ok or refills < PS_FRESH_ROWS \
+                or not cache.reconcile()["ok"]:
+            raise Fail(f"pserver_ctr freshness: {fr}")
+
+        secs["freshness"] = time.perf_counter() - t_gates
+        # (d) two all-hit lookups back to back, no sync between them
+        a_ids, b_ids = reqs[1].reshape(-1), reqs[2].reshape(-1)
+        cache.lookup(a_ids)
+        cache.lookup(b_ids)
+        torch.cuda.synchronize()
+        pulls = cache.counters()["pulls"]
+        ra = cache.lookup(a_ids)
+        rb = cache.lookup(b_ids)
+        torch.cuda.synchronize()
+        st = out["staging"] = dict(
+            a_bitwise=bool(np.array_equal(ra.cpu().numpy(),
+                                          plain.get_rows(a_ids))),
+            b_bitwise=bool(np.array_equal(rb.cpu().numpy(),
+                                          plain.get_rows(b_ids))),
+            pulls=cache.counters()["pulls"] - pulls,
+            device=ra.device.type)
+        log(f"  staging: two all-hit lookups back to back, each its own "
+            f"rows: {st['a_bitwise']}, {st['b_bitwise']} (pulls "
+            f"{st['pulls']}, rows on {st['device']})")
+        if not (st["a_bitwise"] and st["b_bitwise"]) or st["pulls"] \
+                or st["device"] != "cuda":
+            raise Fail(f"pserver_ctr staging: {st}")
+
+        # (e) a steady-state all-hit request's copies and kernels
+        t_prof = time.perf_counter()
+        slot_bytes = PS_REQ_B * CTR_SLOTS * 4      # int32 slots, padded
+        mask_bytes = PS_REQ_B * CTR_SLOTS * 4      # f32 [B, S]
+        res = copy_child_result(child)
+        copies, kernels, moved = res["copies"], res["kernels"], \
+            res["counters"]
+        cp = out["copies"] = dict(copies=copies, kernels=len(kernels),
+                                  kernel_names=sorted(set(kernels)),
+                                  slot_bytes=slot_bytes,
+                                  mask_bytes=mask_bytes, counters=moved,
+                                  child_s=res["seconds"])
+        log(f"  all-hit request under the profiler (a fresh process, the "
+            f"same cache and server over the same shards): host-to-device "
+            f"copies {copies['HtoD']} bytes (slot vector {slot_bytes}, "
+            f"mask {mask_bytes}), device-to-host {copies['DtoH']} bytes, "
+            f"other copies {copies['other']}; {len(kernels)} kernels per "
+            f"request; its cache's counters over the warm and the profiled "
+            f"request {moved}; the child's seconds after its go "
+            f"{res['seconds']}")
+        if len(copies["HtoD"]) != 2 or len(copies["DtoH"]) != 1 \
+                or copies["other"] or moved["hits_device"] < 1 \
+                or any(moved[k] for k in ("hits_host", "misses",
+                                          "stale_refills", "pulls")) \
+                or any(b > max(slot_bytes, mask_bytes)
+                       for b in copies["HtoD"]) \
+                or copies["DtoH"][0] > PS_REQ_B * 4:
+            raise Fail(f"pserver_ctr copies: {cp}")
+        secs["profile"] = time.perf_counter() - t_prof
+        secs["gates"] = time.perf_counter() - t_gates
+    finally:
+        for c in (read, plain, push):
+            c.close()
+
+
+def pserver_ctr_phase():
+    """Phase 7c (see the module docstring): the pserver tier, streaming
+    training through a primary's death, and CTR serving through the
+    tiered cache, at bench_ctr_sparse's table."""
+    from paddle_tpu_torch.native.pserver import PServerGroup
+    from paddle_tpu_torch.parallel.pserver_client import (PServerClient,
+                                                          PServerEmbedding)
+    from paddle_tpu_torch.parallel.sparse import _normal_table
+
+    t_phase = time.perf_counter()
+    reset_all_counts()
+    out, secs = {}, {}
+    log(f"phase pserver_ctr: PServerGroup({CTR_VOCAB}, {CTR_DIM}, "
+        f"n_shards=2, replicated), {PS_TASKS} streaming tasks of "
+        f"{CTR_B} x {CTR_SLOTS} ids, CTR serving of {PS_REQ} requests "
+        f"[{PS_REQ_B}, {CTR_SLOTS}] through an arena of {PS_HOT} rows")
+    where = "in the build phase, beside nvcc"
+    if not NATIVE_BUILD:
+        build_native()
+        where = "here"
+    secs["build"] = NATIVE_BUILD["s"]
+    log(f"  native library {os.path.relpath(NATIVE_BUILD['lib'], REPO_DIR)}"
+        f": {'cached' if NATIVE_BUILD['cached'] else 'built'} {where} in "
+        f"{secs['build']:.2f} s")
+
+    groups, child = [], None
+    try:
+        # 1. the tier and its table
+        t0 = time.perf_counter()
+        group = PServerGroup(CTR_VOCAB, CTR_DIM, n_shards=2, replicated=True)
+        groups.append(group)
+        child = start_copy_child(group)
+        with PServerClient(group.specs, CTR_DIM, trainer_id=0,
+                           backoff_base=0.005, backoff_max=0.1) as client:
+            client.register()
+            emb = PServerEmbedding(client, device="cuda")
+            handle = emb.init(PS_SEED)
+            secs["load"] = time.perf_counter() - t0
+            drawn = _normal_table(PS_SEED, CTR_VOCAB, CTR_DIM,
+                                  emb.init_scale).numpy()
+            t0 = time.perf_counter()
+            table0 = client.fetch_table(chunk_rows=PS_CHUNK)
+            secs["fetch"] = time.perf_counter() - t0
+            if not np.array_equal(table0, drawn):
+                raise Fail("pserver_ctr: fetch_table differs from the "
+                           "drawn table")
+            log(f"  tier up, {CTR_VOCAB} x {CTR_DIM} drawn and loaded on "
+                f"both replicas in {secs['load']:.2f} s; fetch_table "
+                f"{secs['fetch']:.2f} s, bit for bit the drawn table")
+            # the twin tier for the faulted stream, the same table
+            t0 = time.perf_counter()
+            twin = PServerGroup(CTR_VOCAB, CTR_DIM, n_shards=2,
+                                replicated=True)
+            groups.append(twin)
+            with PServerClient(twin.specs, CTR_DIM, trainer_id=0) as tc:
+                tc.register()
+                tc.load_table(drawn, chunk_rows=PS_CHUNK)
+            del drawn
+            secs["twin_load"] = time.perf_counter() - t0
+
+            # 2. streaming training, unfaulted and through a primary's
+            # death
+            t0 = time.perf_counter()
+            clean = stream_run(group, "stream")
+            plan = FaultPlan(pserver_kill_push_at=PS_KILL_PUSH_AT)
+            plan.wrap_pserver_shard(twin.primaries[0])
+            faulted = stream_run(twin, "faulted stream", plan)
+            secs["stream"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            trained = client.fetch_table(chunk_rows=PS_CHUNK)
+        with PServerClient(twin.specs, CTR_DIM, trainer_id=0) as tc:
+            same = np.array_equal(trained,
+                                  tc.fetch_table(chunk_rows=PS_CHUNK))
+        moved = int(np.count_nonzero((trained != table0).any(axis=1)))
+        del trained, table0
+        twin.stop()
+        groups.remove(twin)
+        secs["stream_gate"] = time.perf_counter() - t0
+        rows_task = CTR_B * CTR_SLOTS
+        med = float(np.median(clean["task_s"]))
+        kill = PS_KILL_PUSH_AT
+        # the push that met the dead primary (connect refused, the chain
+        # advanced, re-registered on the backup, the same epoch re-sent)
+        # against the median clean push
+        hit = [t for t, moved_on in faulted["pushes"] if moved_on]
+        push_med = float(np.median([t for t, _ in clean["pushes"]]))
+        sm = out["stream"] = dict(
+            s_per_task=med, task_s=clean["task_s"],
+            faulted_task_s=faulted["task_s"],
+            rows_pulled_per_s=rows_task / med,
+            rows_pushed_per_s=rows_task / med, push_s=push_med,
+            failover_push_s=hit, failover_s=(hit[0] - push_med if hit
+                                             else None),
+            failovers=faulted["failovers"], fired=faulted["fired"],
+            client_stats=faulted["stats"], rows_moved=moved,
+            table_bitwise=same)
+        log(f"  stream: {med:.3f} s/task (median of {PS_TASKS}), "
+            f"{rows_task / med:.3e} rows/s pulled and as many pushed; the "
+            f"twin with shard 0's primary killed on push #{kill}: fired "
+            f"{faulted['fired']}, client failovers {faulted['failovers']}, "
+            f"stats {faulted['stats']}; the push through the failover "
+            f"{hit} s against a clean push's {push_med:.4f} s; final tables "
+            f"bit for bit {same} ({moved} rows moved)")
+        if not same or plan.count("pskill") != 1 or len(hit) != 1 \
+                or faulted["failovers"][0] < 1 or moved == 0:
+            raise Fail(f"pserver_ctr stream: {sm}")
+
+        # 3. CTR serving through the tiered cache
+        t0 = time.perf_counter()
+        serve_gates(group, handle, out, secs, child)
+        secs["serving_part"] = time.perf_counter() - t0
+    finally:
+        if child is not None and child.poll() is None:
+            child.kill()
+            child.wait()
+        for g in groups:
+            g.stop()
+
+    # 4. the phase launches none of the kernels A-I
+    out["launches"] = all_counts()
+    log(f"  kernels A-I launched in the phase: {out['launches']}")
+    if any(out["launches"].values()):
+        raise Fail(f"pserver_ctr launched kernels: {out['launches']}")
+    out["seconds"] = secs
+    out["s"] = time.perf_counter() - t_phase
+    log(f"  phase pserver_ctr: {out['s']:.1f} s ({secs})")
+    return out
+
+
 # -- the LM's decoders at bench_decode's width ---------------------------------
 
 # bench_decode(batch=8, prompt_len=128, steps=128, dim=512, n_layers=8,
@@ -4642,8 +5225,8 @@ def sparse_elastic_phase():
 # 16, which kernel A is not built for); draft_k 4; sampling at
 # temperature 0.8, top_p 0.95; beam 4. The target runs attn_impl "auto"
 # (kernel A in every prefill; the bench's "dense" would run no kernel);
-# new tokens cut to 64 from the bench's 128
-DEC_B, DEC_PROMPT, DEC_STEPS, DEC_K, DEC_BEAM = 8, 128, 64, 4, 4
+# new tokens cut to 32 from the bench's 128
+DEC_B, DEC_PROMPT, DEC_STEPS, DEC_K, DEC_BEAM = 8, 128, 32, 4, 4
 DEC_DRAFT = dict(vocab=32000, dim=128, n_layers=2, n_heads=8,
                  attn_impl="dense")
 DEC_DRAFT_SEED, DEC_TEMP, DEC_TOP_P = 7, 0.8, 0.95
@@ -6785,8 +7368,23 @@ def main() -> int:
 
     log("phase build")
     t0 = time.perf_counter()
-    built = _cuda.build_all()
+    def native_build():
+        try:
+            build_native()
+        except Exception as e:      # raised below, after the join
+            NATIVE_BUILD["error"] = repr(e)
+
+    native_thread = threading.Thread(target=native_build)
+    native_thread.start()
+    try:
+        built = _cuda.build_all()
+    finally:
+        native_thread.join()
+    if "lib" not in NATIVE_BUILD:
+        raise Fail(f"the native library (g++) did not build: "
+                   f"{NATIVE_BUILD.get('error')}")
     PHASE_S["build"] = time.perf_counter() - t0
+    log(f"  native library built in {NATIVE_BUILD['s']:.1f} s beside nvcc")
     log(f"  built {sorted(built) or 'nothing (cached)'} in "
         f"{PHASE_S['build']:.1f} s")
     for name in _cuda.SOURCES:
@@ -6819,6 +7417,7 @@ def main() -> int:
     gen = run_phase("generation", generation_phase, trained, batch0)
     srnn = run_phase("simple_rnn", simple_rnn_phase)
     family = run_phase("rnn_family", rnn_family_phase)
+    pctr = run_phase("pserver_ctr", pserver_ctr_phase)
     lm = run_phase("lm_train", lm_train_phase)
     dist_out = run_phase("distributed", distributed_phase)
     sparse = run_phase("sparse_elastic", sparse_elastic_phase)
@@ -6933,9 +7532,9 @@ def main() -> int:
               moe_serve_launches={k: v["flash_fwd"] for k, v in
                                   moe_out["serve_launches"].items()},
               # the distributed phase: the sharded and ZeRO LM steps at
-              # world size 1 (1 + 3 steps each, counted from 0 before
+              # world size 1 (1 + 2 steps each, counted from 0 before
               # each), TP generate's prefill, and rank 0 of each
-              # two-rank gloo path (1 + 2 steps on 2 of the 4 rows)
+              # two-rank gloo path (1 + 1 steps on 2 of the 4 rows)
               distributed_launches={
                   "sharded_step": dist_out["lm"]["sharded"]["a_launches"],
                   "zero_step": dist_out["lm"]["zero"]["zero_update"][
@@ -7082,6 +7681,8 @@ def main() -> int:
                     "card": smi.stdout.strip()}))
     log(json.dumps({"image": image, "card": smi.stdout.strip()}))
     log(json.dumps({"sparse_elastic": sparse, "card": smi.stdout.strip()},
+                   default=str))
+    log(json.dumps({"pserver_ctr": pctr, "card": smi.stdout.strip()},
                    default=str))
     PHASE_S["total"] = time.perf_counter() - t_main
     log(json.dumps({"phase_seconds": PHASE_S}))

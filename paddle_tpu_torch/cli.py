@@ -1,5 +1,6 @@
 """Command-line entry of the port (port of `paddle_tpu.cli`'s `train`,
-`merge-model`, `infer`, `serve` and `version` verbs):
+`merge-model`, `infer`, `serve`, `launch`, `master` and `version`
+verbs):
 
     python -m paddle_tpu_torch train --config CFG [--device cuda|cpu] ...
     python -m paddle_tpu_torch merge-model --config CFG [--params TAR]
@@ -9,6 +10,8 @@
     python -m paddle_tpu_torch serve --config CFG --prompts FILE ...
     python -m paddle_tpu_torch launch (--hosts A,B | --emit-jobset NAME)
         -- train --config CFG ...
+    python -m paddle_tpu_torch master [--port P] [--dataset F.rio ...]
+        [--snapshot PATH] [--snapshot-period S]
     python -m paddle_tpu_torch version
 
 A config script is a Python file defining `get_config()`, which returns
@@ -57,6 +60,13 @@ with the ROADMAP item that brings them: `--transfer-guard`,
 `launch` fans a command out to `--hosts` over ssh with the rendezvous
 flags appended (`parallel.launch.launch_ssh`, `--dry-run` prints the ssh
 commands), or prints a JobSet manifest (`--emit-jobset NAME`).
+
+`master` runs the native task-queue master (`native.TaskQueue` behind a
+`native.MasterServer` on 127.0.0.1): it partitions recordio files into
+chunk-range tasks (`--chunks-per-task`), or recovers its queue from
+`--snapshot` where that file exists, snapshots there every
+`--snapshot-period` seconds and once more on SIGINT, and serves
+`native.MasterClient`s until then.
 
 `merge-model` builds the config's model (seed 0), overlays a
 parameters tar (`train --save-dir`'s, from either package) and writes
@@ -720,6 +730,35 @@ def cmd_launch(args) -> int:
         workdir=args.workdir, python=args.python, dry_run=args.dry_run)
 
 
+def cmd_master(args) -> int:
+    from paddle_tpu_torch.native import MasterServer, TaskQueue
+
+    q = TaskQueue(timeout_ms=args.task_timeout_ms,
+                  max_retries=args.max_retries)
+    if args.snapshot and os.path.exists(args.snapshot):
+        q.restore(args.snapshot)
+        print(f"recovered master state from {args.snapshot}", flush=True)
+    else:
+        for path in args.dataset:
+            n = q.add_file_chunks(path, chunks_per_task=args.chunks_per_task)
+            print(f"{path}: {n} tasks", flush=True)
+    q.start()
+    srv = MasterServer(q, port=args.port)
+    print(f"master serving on 127.0.0.1:{srv.port}", flush=True)
+    try:
+        while True:
+            time.sleep(args.snapshot_period)
+            if args.snapshot:
+                q.snapshot(args.snapshot)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if args.snapshot:
+            q.snapshot(args.snapshot)
+        srv.stop()
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="paddle_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -873,6 +912,18 @@ def build_parser() -> argparse.ArgumentParser:
                     help="command after `python -m paddle_tpu_torch`, "
                          "e.g. `train --config cfg.py`")
     la.set_defaults(fn=cmd_launch)
+
+    ms = sub.add_parser("master", help="the native task-queue master "
+                        "over recordio chunk tasks")
+    ms.add_argument("--port", type=int, default=0)
+    ms.add_argument("--dataset", nargs="*", default=[],
+                    help="recordio files to partition into tasks")
+    ms.add_argument("--chunks-per-task", type=int, default=1)
+    ms.add_argument("--task-timeout-ms", type=int, default=60000)
+    ms.add_argument("--max-retries", type=int, default=3)
+    ms.add_argument("--snapshot", default=None)
+    ms.add_argument("--snapshot-period", type=float, default=30.0)
+    ms.set_defaults(fn=cmd_master)
     return p
 
 

@@ -5,9 +5,9 @@ pipeline (with `tp_axis`), expert-parallel and single-device
 mixture-of-experts, the sharded sparse embeddings (`sparse`:
 ShardedEmbedding, HostOffloadEmbedding, the all-to-all lookups), the
 ring and blocked matmuls (`blocked_matmul`), the process bootstrap
-(`distributed`) and the launcher with the elastic gang supervisor
-(`launch`, imported on use). The parameter-server client belongs to
-ROADMAP queue 1 item 6.
+(`distributed`), the launcher with the elastic gang supervisor
+(`launch`, imported on use), and the parameter-server client
+(`pserver_client`: PServerClient, PServerEmbedding).
 """
 
 from paddle_tpu_torch.parallel.sharding import (
@@ -62,6 +62,12 @@ from paddle_tpu_torch.parallel.sparse import (
     sharded_lookup,
     unique_rows_grad,
 )
+from paddle_tpu_torch.parallel.pserver_client import (
+    PServerClient,
+    PServerEmbedding,
+    PServerError,
+    ShardConn,
+)
 from paddle_tpu_torch.parallel.pipeline import (
     make_pipeline_forward,
     make_pipeline_train_step,
@@ -86,5 +92,6 @@ __all__ = [
     "HostOffloadEmbedding", "LookupSurface", "ShardedEmbedding",
     "alltoall_lookup", "alltoall_push_row_grads", "rowwise_sgd_update",
     "shard_rows", "sharded_embedding_bag", "sharded_lookup",
-    "unique_rows_grad",
+    "unique_rows_grad", "PServerClient", "PServerEmbedding",
+    "PServerError", "ShardConn",
 ]

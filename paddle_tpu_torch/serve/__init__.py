@@ -1,6 +1,7 @@
 """Serving: the paged decode engine, its reliability server, the
-multi-replica router, the serving artifacts and the C-API bridge (port
-of `paddle_tpu.serve`'s `artifact`, `capi_bridge`, `engine`, `paged`,
+multi-replica router, the serving artifacts, the C-API bridge and CTR
+serving over the tiered embedding cache (port of `paddle_tpu.serve`'s
+`artifact`, `capi_bridge`, `ctr`, `embed_cache`, `engine`, `paged`,
 `policy`, `router`, `server` and `shm_arena` names). The HTTP edge, the
 process fleet and its transport are not ported yet (ROADMAP queue 1
 item 6).
@@ -17,6 +18,9 @@ _NAMES = {
         "ArtifactMismatchError", "CompiledModel", "export_compiled_model",
         "export_decoder", "load_compiled_model", "load_engine_artifact",
         "save_engine_artifact"),
+    "paddle_tpu_torch.serve.ctr": ("CtrServer", "init_tower"),
+    "paddle_tpu_torch.serve.embed_cache": (
+        "CacheBacking", "TieredEmbedCache"),
     "paddle_tpu_torch.serve.engine": (
         "DecodeEngine", "DecodeSeed", "EngineState", "PoolStats",
         "PrefillTicket"),

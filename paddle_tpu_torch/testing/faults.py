@@ -27,12 +27,18 @@ ran, not that the fault missed. The faults:
 - training gang faults on a `parallel.launch.GangSupervisor`
   (`wrap_gang`): a real SIGKILL (`gang_kill_step_at`/`gang_kill_rank`)
   or SIGSTOP (`gang_wedge_step_at`/`gang_wedge_rank`) of a member once
-  its heartbeat reports the step.
+  its heartbeat reports the step;
+- a master-connection drop before the nth `MasterClient` RPC
+  (`wrap_master_client`);
+- parameter-server faults on a `native.pserver.PServerShard`
+  (`wrap_pserver_shard`): the shard killed on the nth push or get_rows,
+  a lost ACK, a slow replica, a snapshot-write error;
+- a streaming trainer's death at its nth step (`wrap_online_trainer`).
 
-The fleet, cluster, pserver, master and online fields of the JAX plan
-wait for the layers they wrap (ROADMAP queue 1 item 6): passing one is
-a TypeError naming it. `build_chaos_replica` needs the process
-fleet and raises naming its item.
+The fleet and cluster fields of the JAX plan wait for the layers they
+wrap (ROADMAP queue 1 item 6): passing one is a TypeError naming it.
+`build_chaos_replica` needs the process fleet and raises naming its
+item.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ import dataclasses
 import os
 import random
 import signal
+import time
 from typing import Any, Callable, List, Optional
 
 import numpy as np
@@ -65,6 +72,7 @@ class FaultPlan:
     preempt_at: Optional[int] = None          # global batch index
     preempt_signal: int = signal.SIGTERM
     checkpoint_error_at: Optional[int] = None  # nth save() call
+    master_drop_at: Optional[int] = None      # nth MasterClient RPC
     # -- serving faults (serve.server, via wrap_engine) --
     serve_prefill_error_at: Optional[int] = None  # nth prefill call
     serve_decode_error_at: Optional[int] = None   # nth decode_step call
@@ -87,6 +95,15 @@ class FaultPlan:
     gang_kill_rank: int = 1                       # rank of the victim
     gang_wedge_step_at: Optional[int] = None      # SIGSTOP, not SIGKILL
     gang_wedge_rank: int = 1                      # rank of the victim
+    # -- parameter-server faults (native.pserver, via wrap_pserver_shard) --
+    pserver_kill_push_at: Optional[int] = None    # nth push received
+    pserver_kill_get_at: Optional[int] = None     # nth get_rows received
+    pserver_lost_ack_at: Optional[int] = None     # nth push ACK dropped
+    pserver_replica_delay_at: Optional[int] = None  # nth repl record
+    pserver_replica_delay_s: float = 0.0          # stall per delayed record
+    pserver_snapshot_error_at: Optional[int] = None  # nth snapshot write
+    # -- online-learning faults (train.online, via wrap_online_trainer) --
+    online_kill_step_at: Optional[int] = None     # nth streaming step
     once: bool = True
     fired: List[str] = dataclasses.field(default_factory=list)
 
@@ -94,6 +111,7 @@ class FaultPlan:
         self._rng = random.Random(self.seed)
         self._batch_counter = 0
         self._save_counter = 0
+        self._call_counter = 0
         self._serve_prefill_counter = 0
         self._serve_decode_counter = 0
         self._serve_call_counter = 0
@@ -105,6 +123,12 @@ class FaultPlan:
         self._arena_scatter_counter = 0
         self._arena_adopt_counter = 0
         self._arena_begin_counter = 0
+        self._pserver_push_counter = 0
+        self._pserver_get_counter = 0
+        self._pserver_ack_counter = 0
+        self._pserver_repl_counter = 0
+        self._pserver_snap_counter = 0
+        self._online_step_counter = 0
 
     # -- bookkeeping ------------------------------------------------------
 
@@ -433,6 +457,131 @@ class FaultPlan:
 
         supervisor._tick = tick
         return supervisor
+
+    # -- parameter-server faults ------------------------------------------
+
+    def wrap_pserver_shard(self, shard):
+        """Install this plan on a `native.pserver.PServerShard` via its
+        `fault_hook` seam. Counters are plan-global across every shard
+        wrapped by the same plan, so a test wrapping one shard gets
+        exact indices; wrapping several interleaves them in arrival
+        order. Fault points:
+
+        - "push_recv" (before the update is applied): the
+          `pserver_kill_push_at`-th push KILLS the shard — listener
+          and connections close, no ACK, nothing applied there;
+        - "push_pre_ack" (applied + replicated, reply unsent): the
+          `pserver_lost_ack_at`-th push drops the connection — the
+          lost-ACK shape whose retry the epoch watermark must DUP;
+        - "get_recv" (before rows are read): the
+          `pserver_kill_get_at`-th get_rows KILLS the shard — the
+          serving read path must fail over to the backup, and any
+          cache above it must notice the new authority (failover
+          counter) and re-validate, since a backup is a PREFIX of its
+          primary and the watermark may legally rewind;
+        - "repl_apply" (backup side): the `pserver_replica_delay_at`-th
+          replicated record sleeps `pserver_replica_delay_s` — a slow
+          replica stretches the chain without breaking it;
+        - "snapshot": the `pserver_snapshot_error_at`-th snapshot write
+          raises OSError — the flaky-NFS shape, shard must keep
+          serving."""
+        from paddle_tpu_torch.native import pserver as _ps
+
+        plan = self
+
+        def hook(event: str) -> None:
+            if event == "push_recv":
+                idx = plan._pserver_push_counter
+                plan._pserver_push_counter += 1
+                if (idx == plan.pserver_kill_push_at
+                        and not plan._spent("pskill")):
+                    plan._note("pskill", idx)
+                    raise _ps.KillShard(f"injected shard kill on push "
+                                        f"#{idx}")
+            elif event == "get_recv":
+                idx = plan._pserver_get_counter
+                plan._pserver_get_counter += 1
+                if (idx == plan.pserver_kill_get_at
+                        and not plan._spent("psgetkill")):
+                    plan._note("psgetkill", idx)
+                    raise _ps.KillShard(f"injected shard kill on "
+                                        f"get_rows #{idx}")
+            elif event == "push_pre_ack":
+                idx = plan._pserver_ack_counter
+                plan._pserver_ack_counter += 1
+                if (idx == plan.pserver_lost_ack_at
+                        and not plan._spent("pslostack")):
+                    plan._note("pslostack", idx)
+                    raise _ps.DropConnection(f"injected lost ACK on "
+                                             f"push #{idx}")
+            elif event == "repl_apply":
+                idx = plan._pserver_repl_counter
+                plan._pserver_repl_counter += 1
+                if (idx == plan.pserver_replica_delay_at
+                        and not plan._spent("psslowrepl")):
+                    plan._note("psslowrepl", idx)
+                    import time as _time
+
+                    _time.sleep(plan.pserver_replica_delay_s)
+            elif event == "snapshot":
+                idx = plan._pserver_snap_counter
+                plan._pserver_snap_counter += 1
+                if (idx == plan.pserver_snapshot_error_at
+                        and not plan._spent("pssnap")):
+                    plan._note("pssnap", idx)
+                    raise OSError(f"injected snapshot-write failure "
+                                  f"#{idx}")
+
+        shard.fault_hook = hook
+        return shard
+
+    # -- online-learning faults -------------------------------------------
+
+    def wrap_online_trainer(self, trainer):
+        """Install this plan on a `train.online.StreamingTrainer` via
+        its `fault_hook` seam: the `online_kill_step_at`-th streaming
+        step raises FaultError BEFORE the task is fetched — the
+        mid-stream death shape. The task's lease expires back to todo,
+        and a reformed trainer (same trainer_id, fresh client) must
+        resume with its push numbering adopted from the shard's applied
+        epochs, so the replayed task's pushes stay exactly-once."""
+        plan = self
+
+        def hook(event: str) -> None:
+            if event == "step":
+                idx = plan._online_step_counter
+                plan._online_step_counter += 1
+                if (idx == plan.online_kill_step_at
+                        and not plan._spent("onlinekill")):
+                    plan._note("onlinekill", idx)
+                    raise FaultError(f"injected online-trainer death "
+                                     f"at step #{idx}")
+
+        trainer.fault_hook = hook
+        return trainer
+
+    # -- master-connection faults -----------------------------------------
+
+    def wrap_master_client(self, client):
+        """Monkeypatch a native.MasterClient so its socket is torn down
+        right before the `master_drop_at`-th RPC — the client's
+        backoff-reconnect path must then carry the call."""
+        plan = self
+        inner_call = client._call
+
+        def flaky_call(payload, idempotent=True):
+            idx = plan._call_counter
+            plan._call_counter += 1
+            if idx == plan.master_drop_at and not plan._spent("drop"):
+                plan._note("drop", idx)
+                try:
+                    client._sock.close()
+                except (OSError, AttributeError):
+                    pass    # already dropped — the fault still "fired"
+            return inner_call(payload, idempotent=idempotent)
+
+        client._call = flaky_call
+        return client
 
 
 def _poison_batch(batch):

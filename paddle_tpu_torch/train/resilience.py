@@ -31,9 +31,10 @@ divergence rollback, an exhausted budget and the drain, and
 JAX's: `step_builder(optimizer) -> step` replaces the plain step (the
 ZeRO step of `train --zero` and the gang members) and is called again
 with the grad-scaled optimizer after an LR backoff; `gang_epoch` tags
-every step span and `counters()`. The `pserver_client` seam belongs to a
-layer the port does not have yet (ROADMAP queue 1 item 6) and raises
-NotImplementedError when given.
+every step span and `counters()`. The `pserver_client` seam is JAX's: a
+`parallel.pserver_client.PServerClient` whose push/pull events ride the
+live step attempt's span (its `obs_hook`) and whose exactly-once ledger
+`bind_metrics` registers under `{prefix}_pserver`.
 """
 
 from __future__ import annotations
@@ -59,11 +60,6 @@ from paddle_tpu_torch.train.state import TrainState
 from paddle_tpu_torch.train.trainer import Trainer, make_train_step
 
 log = logging.getLogger(__name__)
-
-_UNPORTED_SEAMS = {
-    "pserver_client": ("the pserver client is not ported yet (ROADMAP "
-                       "queue 1 item 6)"),
-}
 
 _MASK64 = (1 << 64) - 1
 
@@ -298,12 +294,6 @@ class ResilientTrainer:
                  pserver_client: Optional[Any] = None,
                  step_builder: Optional[Callable] = None,
                  gang_epoch: int = 0):
-        given = dict(pserver_client=pserver_client)
-        for name, value in given.items():
-            if value is not None:
-                raise NotImplementedError(
-                    f"ResilientTrainer({name}=...): "
-                    f"{_UNPORTED_SEAMS[name]}")
         if bad_step_policy not in ("skip", "rollback"):
             raise ValueError(
                 f"bad_step_policy must be skip|rollback, got "
@@ -329,6 +319,9 @@ class ResilientTrainer:
         self.tracer = tracer
         self.flight = flight
         self.flight_dir = flight_dir or checkpoint_dir
+        # pserver push/pull events ride the live step span (the client's
+        # obs_hook seam) so the trainer step -> pserver trail is one trace
+        self.pserver_client = pserver_client
         # the elastic seams: step_builder(optimizer) -> step replaces the
         # plain step (and rebuilds it after an LR backoff); gang_epoch
         # tags spans and counters, so a reformed gang's are told apart
@@ -381,6 +374,9 @@ class ResilientTrainer:
         if self.flight is not None:
             registry.register_source(f"{prefix}_flight",
                                      self.flight.counters, labels=labels)
+        if self.pserver_client is not None:
+            self.pserver_client.bind_metrics(
+                registry, prefix=f"{prefix}_pserver", labels=labels)
 
     def _flight_dump(self, reason: str, /, **extra) -> None:
         # positional-only: the fault paths carry their own `reason=` tag
@@ -621,6 +617,13 @@ class ResilientTrainer:
                     span = self.tracer.start(
                         f"step{gidx}", "train.step", pass_id=pass_id,
                         batch_id=batch_id, gang_epoch=self.gang_epoch)
+                    if self.pserver_client is not None:
+                        # point the client's obs seam at THIS attempt's
+                        # span; Span.event on a closed span is a no-op,
+                        # so a stale hook between steps is harmless
+                        self.pserver_client.obs_hook = (
+                            lambda event, ctx, _s=span:
+                            _s.event(event, **ctx))
                 inputs, labels = self.trainer._split_batch(batch)
                 step_rng.manual_seed(step_seed(self.trainer.seed, gidx))
                 prev_state = state

@@ -81,6 +81,13 @@ MODULES = [
     "paddle_tpu_torch.parallel.launch", "paddle_tpu_torch.models.ctr",
     "paddle_tpu_torch.ops.embedding", "paddle_tpu_torch.cluster",
     "paddle_tpu_torch.cluster.lease", "paddle_tpu_torch.testing.gang",
+    "paddle_tpu_torch.wire", "paddle_tpu_torch.cluster.membership",
+    "paddle_tpu_torch.native", "paddle_tpu_torch.native.build",
+    "paddle_tpu_torch.native.recordio", "paddle_tpu_torch.native.loader",
+    "paddle_tpu_torch.native.taskqueue", "paddle_tpu_torch.native.pserver",
+    "paddle_tpu_torch.parallel.pserver_client",
+    "paddle_tpu_torch.serve.embed_cache", "paddle_tpu_torch.serve.ctr",
+    "paddle_tpu_torch.train.online",
 ]
 
 

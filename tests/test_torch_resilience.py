@@ -278,12 +278,15 @@ def test_bad_policy_and_backoff_are_checked(tmp_path):
 @pytest.mark.parametrize("seam", ["tracer", "flight", "pserver_client",
                                   "step_builder"])
 def test_unported_seams_raise(tmp_path, seam):
-    """pserver_client still raises naming its item; the obs seams
-    (tracer, flight) are ported and bind to a registry (their parity
-    with JAX: test_obs_seams_match_jax); step_builder is ported: the
-    builder makes the step from the trainer's optimizer (the ZeRO step
-    in tests/test_torch_elastic.py)."""
+    """Every seam is ported now. The obs seams (tracer, flight) bind to a
+    registry (their parity with JAX: test_obs_seams_match_jax);
+    step_builder makes the step from the trainer's optimizer (the ZeRO
+    step in tests/test_torch_elastic.py); pserver_client binds the
+    client's exactly-once ledger under {prefix}_pserver (the run through
+    a shard kill: tests/test_torch_pserver.py)."""
+    from paddle_tpu_torch.native.pserver import ShardSpec
     from paddle_tpu_torch.obs import FlightRecorder, MetricsRegistry, Tracer
+    from paddle_tpu_torch.parallel.pserver_client import PServerClient
 
     if seam == "step_builder":
         built = []
@@ -303,8 +306,14 @@ def test_unported_seams_raise(tmp_path, seam):
         assert "train_bad_steps" in names
         assert any(n.startswith(f"train_{part}_") for n in names)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        ResilientTrainer(_trainer(), str(tmp_path), **{seam: object()})
+    client = PServerClient([ShardSpec(0, 0, 8, [("127.0.0.1", 1)])], 4)
+    rt = ResilientTrainer(_trainer(), str(tmp_path), pserver_client=client)
+    assert rt.pserver_client is client
+    reg = MetricsRegistry()
+    rt.bind_metrics(reg)
+    names = {r["name"] for r in reg.snapshot()["series"]}
+    assert {"train_pserver_pushes", "train_pserver_duplicate_acks",
+            "train_pserver_reregistrations"} <= names
 
 
 # -- checkpoints -------------------------------------------------------------

@@ -226,10 +226,14 @@ def test_artifact_entry_points_name_their_roadmap_item(tmp_path):
 def test_unported_fault_seams_fail_by_name():
     from paddle_tpu_torch.testing.faults import build_chaos_replica
 
-    for field in ("fleet_sigkill_at", "cluster_sigkill_at",
-                  "pserver_kill_push_at", "online_kill_step_at"):
+    for field in ("fleet_sigkill_at", "cluster_sigkill_at"):
         with pytest.raises(TypeError, match=field):
             TORCH.FaultPlan(**{field: 1})
+    # the pserver, master and online faults came with the pserver tier
+    plan = TORCH.FaultPlan(pserver_kill_push_at=1, online_kill_step_at=2,
+                           master_drop_at=3)
+    assert (plan.pserver_kill_push_at, plan.online_kill_step_at,
+            plan.master_drop_at) == (1, 2, 3)
     # the gang faults came with the elastic layer (wrap_gang)
     plan = TORCH.FaultPlan(gang_kill_step_at=1, gang_wedge_step_at=2)
     assert (plan.gang_kill_rank, plan.gang_wedge_rank) == (1, 1)
