@@ -104,9 +104,9 @@ Phases, in order; any failure exits non-zero:
      and the plain engine must match generate() on two requests.
    - int8 KV (kv_cache_dtype="int8"): the same 32 requests launch A and
      C (TQ=1 and TQ>1).
-   - int8 weights (serve.quant.quantize_params), float KV: 8 requests.
+   - int8 weights (serve.quant.quantize_params), float KV: 4 requests.
    - speculative (serve(speculative=True), NGramProposer, 4 drafts), on
-     the float and the int8 pool: 16 requests, half repeating a
+     the float and the int8 pool: 8 requests, half repeating a
      16-token motif; tokens agree with the same engine's one-token
      decode, and every verify round read the cache through B or C with
      TQ=5 (at least rounds x layers TQ>1 launches).
@@ -134,7 +134,7 @@ Phases, in order; any failure exits non-zero:
    - Disaggregation: one role="prefill" replica, two role="decode",
      every request routed to the prefill tier and in waves the decode
      tier can take: float and int8 KV, inline and over a ShmArena data
-     plane (each run the first DISAGG_REQ (8) requests). Every request
+     plane (each run the first DISAGG_REQ (4) requests). Every request
      crosses by export_request/
      import_request; its tokens equal the unified replica's (else the
      gap rule); the decode tier's TQ=1 walk launches equal its steps x
@@ -143,15 +143,16 @@ Phases, in order; any failure exits non-zero:
      (router_kill_import_at) and the same payload lands on replica 2.
      ms per migrated slot (export + import, synchronized) and the bytes
      exported are printed.
-   - The ring pool at bench_decode's swa row (window 128, 8 prompts, 128
+   - The ring pool at bench_decode's swa row (window 128, RING_REQ (4) prompts, 128
      new tokens, cut from 1024): A launches once per layer per request,
      each with the window and the key bound, no B or C; tokens against
      the plain rolling generate() by the gap rule; tokens/s against the
      paged pool's.
    - `python -m paddle_tpu_torch serve --replicas 2 --max-queue 64
-     --metrics-out` in a child process at this width: its lines equal
-     the in-process router's tokens (else the gap rule), every request
-     completed, the metrics file parses.
+     --metrics-out` in a child process at this width on the first
+     CLI_REQ (8) requests: its lines equal the in-process router's
+     tokens (else the gap rule), every request completed, the metrics
+     file parses.
 3c. artifact -- the serving artifacts (serve.artifact, torch.export),
    A, B and C running as registered operators inside the exported
    programs. The exports (both bundles, the decoder, merge-model) trace
@@ -161,14 +162,15 @@ Phases, in order; any failure exits non-zero:
    - an engine bundle (buckets (128,), sampled=False; no speculative
      width, so no verify programs) of the float-KV engine and of the
      int8-KV engine,
-     saved, loaded into a fresh engine and bound: the
-     32 requests of serve_phase must come out bit for bit equal to that
-     phase's eager serve, with artifact_fallbacks 0, one "step" program
-     call per decode step, the 128-wide from-zero chunk program serving
-     the prefills (a prefix hit's 64-wide remainder is an expected miss,
-     served eagerly), and A, B and C launched exactly as often as in the
-     eager serve (A 136, B or C 4096 + 120 calls, 8432 device
-     launches). Cold start (an engine from its weights, the bundle
+     saved, loaded into a fresh engine and bound: the first
+     ART_BUNDLE_REQ (8) requests of serve_phase must come out bit for
+     bit equal to an eager engine's serve of them, with
+     artifact_fallbacks 0, one "step" program call per decode step, the
+     128-wide from-zero chunk program serving the prefills (a prefix
+     hit's 64-wide remainder is an expected miss, served eagerly), and
+     A, B and C launched exactly as often as in the eager serve (A 40,
+     B or C 1024 + 24 calls, 2096 device launches, for 8 requests).
+     Cold start (an engine from its weights, the bundle
      loaded and bound, one prefill, its first token on the host) and
      tokens/s are printed beside the eager engine's.
    - a bundle whose manifest names another PyTorch version: refused at
@@ -199,9 +201,10 @@ Phases, in order; any failure exits non-zero:
    weight of 1.0 per sample, loss mean(w * CE)) through `python -m
    paddle_tpu_torch train --checkpoint-dir ... --checkpoint-every 8
    --save-dir ...` over 32 batches, in child processes that print their
-   D and E launches as they exit (2 of each per step): uninterrupted;
-   then SIGTERM once the child has logged batch 13 (drain save, exit
-   143) and a rerun that resumes from the drain save: its params.tar
+   D and E launches as they exit (2 of each per step): uninterrupted,
+   and beside it one sent SIGTERM once it has logged batch 13 (drain
+   save, exit 143), then a rerun that resumes from the drain save: its
+   params.tar
    must be byte-identical to the uninterrupted one's. In process on the
    card, over 12 batches: NaN at batch 5 under bad_step_policy "skip"
    (bit for bit a clean run without batch 5, at the same step indices)
@@ -291,7 +294,7 @@ Phases, in order; any failure exits non-zero:
       replicated) (128 MiB a shard, 512 MiB with the backups), a seeded
       table loaded through PServerEmbedding(device="cuda").init:
       fetch_table equals the drawn table bit for bit.
-   2. StreamingTrainer over a TaskQueue of PS_TASKS (8) JSON tasks of
+   2. StreamingTrainer over a TaskQueue of PS_TASKS (4) JSON tasks of
       bench_ctr_sparse's batch (4096 x 32 ids: 131072 rows pulled and
       pushed a task), its lookups landing on the card; a twin tier with
       the same table streams the same tasks with shard 0's primary
@@ -325,6 +328,47 @@ Phases, in order; any failure exits non-zero:
    The phase alone: `python3 -c "import torch;
    torch.backends.cuda.matmul.allow_tf32 = False; import chip_smoke as
    S; S.pserver_ctr_phase()"` (it builds no CUDA kernel).
+7d. fleet -- the wire-based serving fleet at bench_engine's width (the
+   serve phase's model, seed and requests), its replicas in processes of
+   their own, each with a CUDA context on the card
+   (`serve.fleet.FleetSupervisor`; every child builds its server with
+   `chip_smoke:fleet_server`, imported by name, whose counters() carry
+   the child's A/B/C launches and the digests of the KV pages it moved;
+   the compute mode is printed beside the card's name and must allow
+   several contexts):
+   1. Three unified replica processes (float KV) behind
+      `serve.http_edge.HttpEdge`; serve_phase's 32 requests streamed over
+      sockets by 16 concurrent clients (`testing.traffic.stream_generate`,
+      128 new tokens); once every replica holds live work,
+      FaultPlan(fleet_sigkill_at=0) SIGKILLs replica 1 and the supervisor
+      repairs the floor with a new process. Gates: every stream ends in
+      exactly one completed outcome; its tokens equal the serve phase's
+      kernel-path tokens by the gap rule; the fleet's, the router's and
+      the edge's books balance (32 completed, none failed or shed, one
+      replica lost, its work redistributed); every live child launched A
+      and B; no child outlives the drain. Printed: requests/s, tokens/s,
+      p50/p99 time to first token and inter-token gap, the boot (spawn to
+      ready, three at once), the repair (kill to the new child's ready),
+      RPC frames per sweep and rpc_frames_coalesced, each child's
+      launches, and tokens/s beside that of the serve phase's one engine
+      in this process on the same 32 requests.
+   2. A prefill process and a decode process over the supervisor's
+      shared-memory arena, int8 KV, the first 8 requests: every request
+      crosses (card -> host -> arena -> the other child's card). Gates:
+      tokens equal the int8 serve's by the gap rule; the decode child
+      launched C (TQ=1) on the imported pages, the prefill child none;
+      no data-plane fallback; the pages the decode child copies on the
+      card after each import are bit for bit the ones the prefill child
+      exported (CRC32 sums equal, 8 each; both children take them in the
+      reconcile RPC after the run, outside the timed ones). Printed: ms
+      per migrated slot (the export and import RPCs) and bytes per
+      slot.
+   The phase alone: `python3 -c "import torch;
+   torch.backends.cuda.matmul.allow_tf32 = False; import chip_smoke as
+   S; from paddle_tpu_torch.ops import _cuda; _cuda.build_all(
+   ['flash_attention', 'ragged_paged_attention']); S.fleet_phase()"` (it
+   serves its float and int8 references first when serve_phase has not
+   run).
 8. lm_train -- the transformer LM's training path at
    bench_transformer_lm's width (benchmarks/suite.py:331: vocab 32000,
    dim 512, 8 layers, 8 heads, remat, bf16 policy, B=4, T=8192, adam
@@ -338,7 +382,7 @@ Phases, in order; any failure exits non-zero:
    backward alone at T=8192 B=4 is timed beside SDPA's backward and its
    bound (2.5 x the forward's products). Then three variants (full
    causal, attn_window 1024, fused_ce_chunk 2048), a warm-up step and
-   LM_STEPS (2)
+   LM_STEPS (1)
    timed steps each: ms/step, tokens/s (B x T over the step), the
    step's analytic FLOP count and its share of 989 TFLOP/s (mfu_pct);
    A's launches counted from 0 before the warm-up must be 16 a step (a
@@ -365,13 +409,14 @@ Phases, in order; any failure exits non-zero:
      weights and tokens, bf16 policy) through
      make_sharded_train_step(param_rules=TP_RULES) on mesh (1, 1, 1) and
      through make_zero_train_step and its zero_update=False oracle arm,
-     1 + 2 steps each beside the plain step: bit for bit, or within the
+     1 + DIST_STEPS (1) steps each beside the plain step: bit for bit,
+     or within the
      LM phase's bf16 tolerance (the run prints which); ZeRO bit for bit
      with its oracle arm; A 16 launches a step, counted from 0 before
      each run; make_context_parallel_loss, ring and Ulysses, at
      T=2048 (loss and every gradient within 1e-4 of the plain loss's);
      generate on TP_RULES parameters at bench_decode's B=8, 128-token
-     prompts and DIST_TP_STEPS (32) new tokens, against the unsharded generate by the gap rule, A 8 in
+     prompts and DIST_TP_STEPS (16) new tokens, against the unsharded generate by the gap rule, A 8 in
      the prefill.
    - Two ranks sharing cuda:0 over gloo (spawned, joined with a
      timeout, killed on failure): scripts/torch_gloo_cuda_probe.py
@@ -433,7 +478,7 @@ Phases, in order; any failure exits non-zero:
 8c. decode -- the LM's decoders at bench_decode's width
    (benchmarks/suite.py:500-668: vocab 32000, dim 512, 8 layers, 8
    heads, f32, seeded weights, B=8 prompts of 128 tokens from
-   RandomState(0), DEC_STEPS (32; the bench's 128, cut) new tokens),
+   RandomState(0), DEC_STEPS (16; the bench's 128, cut) new tokens),
    attn_impl "auto" so that kernel A
    runs every prefill: greedy generate, sample (temperature 0.8, top_p
    0.95, Gumbel draws from a seeded card generator injected, so both
@@ -466,7 +511,7 @@ Phases, in order; any failure exits non-zero:
    memory, each MoE block's dropped fraction and aux loss in the first
    step; A 16 launches a step, losses finite and falling). Then
    DecodeEngine over an MoE model at bench_engine's width (moe_experts
-   8) on float and int8 KV, the first MOE_SERVE_REQ (8) of
+   8) on float and int8 KV, the first MOE_SERVE_REQ (4) of
    serve_phase's requests,
    against the plain path by the gap rule (A and B, or A and C,
    launched).
@@ -481,15 +526,16 @@ Phases, in order; any failure exits non-zero:
    1e-4 where the CPU's own one-ulp spread stays under 1e-5 (AlexNet,
    SmallNet; elsewhere an ulp decides near ties or BN batch statistics,
    and the errors are printed); resnet50 also under the bf16 policy
-   (eval logits 2e-2, loss 1e-2, op by op 2e-2) and 3 momentum steps
-   (f64: losses 1e-3, BN state 1e-4; f32 and bf16 printed). Then
+   (eval logits 2e-2, loss 1e-2, op by op 2e-2) and 1 + 1 momentum steps
+   in f64 (losses 1e-3; BN state, velocity and each parameter's change
+   1e-4). Then
    bench_image's configs (benchmarks/suite.py:112, :765-775; bf16,
    momentum(0.01, mu=0.9) --
    the bench's lr 0.1 diverges on one repeated batch, in JAX as in the
    port --, softmax CE, make_train_step(donate=True), cuDNN benchmark
    mode): resnet50 B=64 and 256, its s2d and both remat variants at 256,
    alexnet 128, googlenet 128, vgg19 64, smallnet 512: 1 + IMAGE_STEPS
-   (2) timed steps
+   (1) timed step
    (ms_per_batch, imgs_per_sec, mfu_pct, peak memory; every loss finite,
    the last below the first, BN running stats moved). bench_trainer_loop
    (resnet50 B=64 through Trainer.train) beside the raw step, alexnet
@@ -502,7 +548,8 @@ Phases, in order; any failure exits non-zero:
    name and power limit, a `phase_seconds` JSON line (each phase's wall
    seconds, the build's and the total; each phase also logs its seconds
    as it ends), a `kernels` JSON line (nine entries, A-I, each with its
-   launches in the pserver_ctr phase, which must be 0; A adds its
+   launches in the pserver_ctr phase, which must be 0; A, B and C add
+   their launches in the fleet phase's replica processes; A adds its
    HMMA counts and its launches in the LM train phase and the
    sparse_elastic phase's ZeRO steps; B and C their launches in the TP
    engine pool and their
@@ -537,6 +584,22 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
+
+if __name__ == "__main__":
+    # Python compiles every module it imports that has no bytecode
+    # cache; where the installation ships none and the environment
+    # forbids writing one (PYTHONDONTWRITEBYTECODE), each process -- this
+    # one and every child a phase starts -- compiles torch anew (on an
+    # H100 host a fleet child took 11.6 s from its spawn to its builder
+    # without a cache, 5.7 s with one). Keep the cache in the checkout's
+    # build directory; the children inherit it through the environment.
+    _PYCACHE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "paddle_tpu_torch", "_build", "pycache")
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = _PYCACHE
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = _PYCACHE
 
 import numpy as np
 import torch
@@ -548,7 +611,7 @@ from paddle_tpu_torch import graft_entry as GRAFT
 from paddle_tpu_torch import metrics as MET
 from paddle_tpu_torch.core import dtypes as TD
 from paddle_tpu_torch.core.pytree import (tree_leaves, tree_map,
-                                          tree_map_with_name)
+                                          tree_map_multi, tree_map_with_name)
 from paddle_tpu_torch.models import alexnet as IM_ALEXNET
 from paddle_tpu_torch.models import bilstm_crf as TBC
 from paddle_tpu_torch.models import googlenet as IM_GOOGLENET
@@ -600,25 +663,26 @@ GAP_LIMIT = 1e-3
 SERVE_CFG = dict(vocab=32000, dim=512, n_layers=8, n_heads=8)
 SLOTS, MAX_LEN, PAGE = 8, 256, 16
 N_REQ, PROMPT, SHARED, MAX_NEW = 32, 128, 64, 128
-N_WEIGHT_REQ, N_SPEC_REQ = 8, 16
+N_WEIGHT_REQ, N_SPEC_REQ = 4, 8     # cut from 8 and 16 (the fleet phase)
 # the server phase: a prefill fault and a decode fault (0-based calls of
 # the wrapped engine), two requests whose deadline (ms on a ManualClock
 # that one decode step advances by STEP_MS) expires mid-decode
 SERVER_PREFILL_FAULT, SERVER_DECODE_FAULT = 3, 20
 SERVER_DEADLINE_REQS, SERVER_DEADLINE_MS, STEP_MS = (1, 6), 60.0, 1.0
 ROUTER_KILL_AT, ROUTER_RETIRE_AT, IMPORT_KILL_AT = 40, 10, 0
-TIMED_REQ = 8           # the clean server-vs-bare turns: one wave
-# the router's runs (clean, a kill, a retirement) and the serve CLI take
-# the first ROUTER_REQ requests (cut from 32: three waves over two
-# replicas of 8 slots, so replica 0 still holds a queue when it
-# retires); each disaggregated run the first DISAGG_REQ (one wave of
-# the decode tier, cut from 16; the first import is still killed)
-ROUTER_REQ, DISAGG_REQ = 24, 8
+TIMED_REQ = 4           # the clean server-vs-bare turns (cut from 8)
+# the router's runs (clean, a kill, a retirement) take the first
+# ROUTER_REQ requests (cut from 32: three waves over two replicas of 8
+# slots, so replica 0 still holds a queue when it retires), the serve CLI
+# the first CLI_REQ of those (cut from 24); each disaggregated run the
+# first DISAGG_REQ (cut from 16, then 8; the first import is still
+# killed)
+ROUTER_REQ, CLI_REQ, DISAGG_REQ = 24, 8, 4
 # bench_decode's swa row (benchmarks/suite.py:500, :601-624): batch 8,
 # 128-token prompts, window max(steps, 16) = 128, steps * 8 = 1024 new
 # tokens, cut to 128 to keep the smoke near 930 s (the ring wraps
 # either way: 128 prompt tokens and 128 new past a window of 128)
-RING_WINDOW, RING_REQ, RING_NEW = 128, 8, 128   # the row's 1024, cut
+RING_WINDOW, RING_REQ, RING_NEW = 128, 4, 128   # the row's 8 and 1024, cut
 REPO_DIR = os.path.dirname(os.path.abspath(__file__))
 
 # bench_lstm(hidden=512, batch=64, seq_len=100, vocab=10000)
@@ -640,7 +704,7 @@ RNN_T, RNN_B, RNN_H = 100, 64, 512
 # CE over 2048-position chunks (:856-866)
 LM_CFG = dict(vocab=32000, dim=512, n_layers=8, n_heads=8, remat=True)
 LM_B, LM_T, LM_SEED = 4, 8192, 0
-LM_WINDOW, LM_CE_CHUNK, LM_STEPS = 1024, 2048, 2   # steps cut from 10
+LM_WINDOW, LM_CE_CHUNK, LM_STEPS = 1024, 2048, 1   # steps cut from 10
 # parity with the plain path: the sequence cut to 2048, 3 steps;
 # (first-step gradient, loss) tolerances per compute dtype
 LM_PARITY_T, LM_PARITY_STEPS = 2048, 3
@@ -1849,13 +1913,17 @@ def resilient_phase():
                     "--checkpoint-every", str(RES_CKPT_EVERY), "--save-dir",
                     os.path.join(tmp, "save_" + name), "--log-period", "1"]
 
-        # 1. uninterrupted; 2. SIGTERM after batch 13, drain, exit 143;
-        # the rerun resumes from the drain save
-        ref_out, ref_wall = res_cli_run(cli("A"), f"uninterrupted CLI run "
-                                        f"({RES_BATCHES} batches)")
-        pre_out, pre_wall = res_cli_run(
-            cli("B"), f"CLI run, SIGTERM after batch {RES_PREEMPT_AFTER}",
-            want_rc=143, preempt_after=RES_PREEMPT_AFTER)
+        # 1. uninterrupted, beside 2. SIGTERM after batch 13, drain, exit
+        # 143 (two processes on the card at once); the rerun resumes from
+        # the drain save
+        with ThreadPoolExecutor(1) as pool:
+            ref_run = pool.submit(res_cli_run, cli("A"), f"uninterrupted "
+                                  f"CLI run ({RES_BATCHES} batches)")
+            pre_out, pre_wall = res_cli_run(
+                cli("B"), f"CLI run, SIGTERM after batch "
+                f"{RES_PREEMPT_AFTER}", want_rc=143,
+                preempt_after=RES_PREEMPT_AFTER)
+            ref_out, ref_wall = ref_run.result()
         m = re.search(r"checkpoint saved at step (\d+)", pre_out)
         if m is None:
             raise Fail(f"resilient: the preempted child did not report its "
@@ -3514,12 +3582,12 @@ GLOO_PATHS = {"dp": ("all_reduce",),
 # collectives) killed both ranks with SIGSEGV in a gloo thread, in bf16
 # and f32 alike (torch 2.11; the probe's synchronous calls pass)
 GLOO_REFUSED = {"tp": "SIGSEGV in gloo under DTensor's async collectives"}
-DIST_STEPS = 2            # after one warm-up step, world size 1
+DIST_STEPS = 1            # after one warm-up step, world size 1 (cut from 2)
 DIST_GLOO_STEPS = 1       # after one warm-up step, two ranks
 DIST_GLOO_B = 2           # rows a rank; the two ranks share LM_B = 4 rows
 DIST_GLOO_LR = 0.1        # sgd, as JAX's DP gate (tests/test_parallel.py:33)
 DIST_TIMEOUT_S = 240      # the two ranks' join timeout
-DIST_TP_STEPS = 32        # TP generate's new tokens (bench_decode's 128, cut)
+DIST_TP_STEPS = 16        # TP generate's new tokens (bench_decode's 128, cut)
 DRYRUN_1_PARTS = ["toy_dp_tp_zero", "ring_attention", "sharded_embedding",
                   "resnet_dp", "ctr_alltoall", "seq2seq_dp",
                   "transformer_tp"]
@@ -4073,6 +4141,7 @@ CTR_B, CTR_SLOTS, CTR_VOCAB, CTR_DIM = 4096, 32, 1_000_000, 64
 CTR_WARMUP, CTR_ITERS, CTR_ROW_LR, CTR_SEED = 2, 20, 0.05, 0
 CTR_GLOO_STEPS = 2        # after one warm-up step, two ranks on cuda:0
 TP_POOL_REQ = 4           # the serve phase's first 4 of its 32 requests
+TP_POOL_NEW = 32          # new tokens a request (the serve phase's 128, cut)
 # the elastic gang: the resilient phase's bench_lstm classifier (one
 # batch of 64 repeated, 32 rows a member) through `train --elastic`'s
 # builder, two members on cuda:0 over gloo, SIGKILL of rank 1 at its
@@ -4430,9 +4499,9 @@ def tp_pool_gate(mesh):
     width (SERVE_CFG, slots 8, max_len 256, page 16) on a one-rank
     model axis over NCCL: the parameters and arenas are DTensors, so
     every cached read runs B or C through its DTensor rule. Float and
-    int8 KV, the serve phase's first TP_POOL_REQ requests: tokens bit
-    for bit the single-device engine's, and A's, B's and C's launches
-    equal to its."""
+    int8 KV, the serve phase's first TP_POOL_REQ requests, TP_POOL_NEW
+    new tokens each: tokens bit for bit the single-device engine's, and
+    A's, B's and C's launches equal to its."""
     from paddle_tpu_torch.parallel import sharding as PSH
 
     cfg = TT.TransformerConfig(**SERVE_CFG)
@@ -4449,9 +4518,9 @@ def tp_pool_gate(mesh):
         c = dataclasses.replace(cfg, kv_cache_dtype=kv)
         DecodeEngine(sharded, c, **geom).serve(prompts[:1], max_new=2)
         one, one_s, one_n = timed_serve(DecodeEngine(params, c, **geom),
-                                        prompts)
+                                        prompts, TP_POOL_NEW)
         eng = DecodeEngine(sharded, c, **geom)
-        tp, tp_s, tp_n = timed_serve(eng, prompts)
+        tp, tp_s, tp_n = timed_serve(eng, prompts, TP_POOL_NEW)
         arena = eng.init_state().caches[0][0]
         arena = arena[0] if kv == "int8" else arena
         n_tok = sum(len(t) for t in tp)
@@ -4692,7 +4761,7 @@ def sparse_elastic_phase():
 # Zipf(PS_ZIPF) over the vocab with a PS_PAD share of -1 pads, shard 1's
 # primary killed before request PS_REQ // 2; PS_FRESH_ROWS hot rows
 # pushed by another trainer for the freshness gate
-PS_TASKS, PS_KILL_PUSH_AT, PS_SEED = 8, 3, 0
+PS_TASKS, PS_KILL_PUSH_AT, PS_SEED = 4, 3, 0    # tasks cut from 8
 PS_HOT, PS_HOST = 131072, 524288
 PS_REQ, PS_REQ_B, PS_ZIPF, PS_PAD = 200, 256, 1.1, 0.05
 PS_FRESH_ROWS, PS_SCORE_TOL = 64, 1e-6
@@ -5216,6 +5285,493 @@ def pserver_ctr_phase():
     return out
 
 
+# -- the process fleet: replica processes behind the HTTP edge ----------------
+
+# the fleet phase at bench_engine's width: FLEET_REPLICAS unified replica
+# processes behind HttpEdge, serve_phase's 32 requests streamed by
+# FLEET_CLIENTS concurrent clients, one replica SIGKILLed mid-burst; then
+# a prefill and a decode process over the supervisor's shared-memory
+# arena, int8 KV, FLEET_DISAGG_REQ requests
+FLEET_REPLICAS, FLEET_CLIENTS, FLEET_DISAGG_REQ = 3, 16, 8
+FLEET_KILL_AFTER = 8        # sweeps of the burst before the SIGKILL
+FLEET_BOOT_S = 300.0        # a child's boot limit (spawn to ready)
+FLEET_STREAM_S = 600.0      # a client's socket limit
+FLEET_ARENA_SEGS, FLEET_ARENA_SEG_KB = 32, 1024
+
+
+def fleet_server(*, kv_cache_dtype="compute", role="unified",
+                 data_plane=None, device="cuda"):
+    """The fleet phase's replica builder, imported by name in each child
+    process (`ReplicaSpec(builder="chip_smoke:fleet_server")`): serve_phase's
+    model from the same seed on the card behind a ServingServer, warmed
+    by one short serve; its counters() also carry this process's launch
+    counts (A, B, C, from 0 after the warm-up) and the CRC32 digests of
+    the KV pages it exported and of those it imported, as its arenas
+    held them just after each import -- the transport's state block
+    brings them to the parent. The timed export and import RPCs only
+    keep the pages (the exported host arrays; a copy on the card of
+    each imported slot's pages); the digests are taken in the server's
+    reconcile(), which the parent calls after the run."""
+    import zlib
+
+    from paddle_tpu_torch.serve.server import ServingServer
+
+    t0 = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TT.TransformerConfig(**SERVE_CFG, kv_cache_dtype=kv_cache_dtype)
+    params = TT.init_params(np.random.RandomState(0), cfg, device=device)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    eng = DecodeEngine(params, cfg, slots=SLOTS, max_len=MAX_LEN,
+                       page_size=PAGE, device=device)
+    eng.serve(make_prompts()[:1], max_new=2)
+    torch.cuda.synchronize()
+    # the boot's parts in this process (epoch ms where the builder
+    # starts: the parent subtracts its spawn time for import + start-up)
+    digest = {"kv_exports": 0, "kv_export_crc": 0, "kv_imports": 0,
+              "kv_import_crc": 0, "boot_builder_at_ms": int(t0 * 1000),
+              "boot_weights_ms": int((t1 - t0) * 1000),
+              "boot_warmup_ms": int((time.time() - t1) * 1000)}
+    kept = {"export": [], "import": []}
+
+    def crc(kv):
+        c = 0
+        for layer in kv:
+            for part in layer:
+                for a in (part if isinstance(part, tuple) else (part,)):
+                    a = a.cpu().numpy() if torch.is_tensor(a) else a
+                    c = zlib.crc32(np.ascontiguousarray(a).tobytes(), c)
+        return c
+
+    export, import_ = eng.export_slot_kv, eng.import_slot_kv
+
+    def export_slot_kv(state, pages):
+        kv = export(state, pages)
+        kept["export"].append(kv)
+        return kv
+
+    def import_slot_kv(state, slot, pages, start_block, kv):
+        state = import_(state, slot, pages, start_block, kv)
+        idx = torch.as_tensor(np.asarray(pages, np.int64), device=device)
+        take = lambda b: (tuple(t.index_select(0, idx) for t in b)
+                          if isinstance(b, tuple) else b.index_select(0, idx))
+        kept["import"].append([(take(k), take(v)) for k, v in state.caches])
+        return state
+
+    eng.export_slot_kv, eng.import_slot_kv = export_slot_kv, import_slot_kv
+    srv = ServingServer(eng, role=role, max_queue=64, buckets=(PROMPT,),
+                        data_plane=data_plane)
+    reset_counts()
+    own, reconcile = srv.counters, srv.reconcile
+
+    def digest_kept():
+        for kind in ("export", "import"):
+            for kv in kept[kind]:
+                digest[f"kv_{kind}s"] += 1
+                digest[f"kv_{kind}_crc"] = (digest[f"kv_{kind}_crc"]
+                                            + crc(kv)) % (1 << 62)
+            kept[kind].clear()
+        reconcile()
+
+    def counters():
+        c = own()
+        c.update({f"launch_{k}": v for k, v in counts().items()})
+        c.update(digest)
+        return c
+
+    srv.counters, srv.reconcile = counters, digest_kept
+    return srv
+
+
+def boot_parts(rep, spawned_at, ready_s):
+    """One child's boot from its spawn (epoch seconds) to ready, in
+    parts: the interpreter's start and imports up to the builder, the
+    weights drawn onto the card (the CUDA context comes up there), the
+    warm-up serve, and (with `ready_s`, spawn to ready) the rest: server,
+    listener, handshake."""
+    c = rep.server.counters()
+    start = c["boot_builder_at_ms"] / 1000.0 - spawned_at
+    w, warm = c["boot_weights_ms"] / 1000.0, c["boot_warmup_ms"] / 1000.0
+    parts = {"to_builder": round(start, 3), "weights": round(w, 3),
+             "warmup": round(warm, 3)}
+    if ready_s is not None:
+        parts["rest"] = round(ready_s - start - w - warm, 3)
+    return parts
+
+
+def child_launches(rep):
+    """{kernel: launches} of one replica child, from the last state block
+    its transport delivered (a dead child's last one)."""
+    c = rep.server.counters()
+    return {k[len("launch_"):]: v for k, v in c.items()
+            if k.startswith("launch_")}
+
+
+def proc_gone(pid):
+    """True when `pid` has exited (missing, or a zombie awaiting reap)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] == "Z"
+    except (FileNotFoundError, ProcessLookupError):
+        return True
+
+
+def fleet_unified(params, prompts, ref):
+    """FLEET_REPLICAS replica processes behind HttpEdge: the 32 requests
+    streamed over real sockets by FLEET_CLIENTS clients (client j sends
+    request j, then request j + FLEET_CLIENTS once the fleet is back at
+    its floor), one replica SIGKILLed mid-burst (FaultPlan.wrap_fleet)
+    after FLEET_KILL_AFTER sweeps with every replica holding live work;
+    gates and numbers as fleet_phase says."""
+    from paddle_tpu_torch.serve.fleet import FleetSupervisor, ReplicaSpec
+    from paddle_tpu_torch.serve.http_edge import HttpEdge
+    from paddle_tpu_torch.testing.traffic import slo_report, stream_generate
+
+    plain_cfg = dataclasses.replace(TT.TransformerConfig(**SERVE_CFG),
+                                    attn_impl="dense")
+    spec = ReplicaSpec(builder="chip_smoke:fleet_server",
+                       io_timeout=120.0, device="cuda")
+    sup = FleetSupervisor(spec, min_replicas=FLEET_REPLICAS,
+                          max_replicas=FLEET_REPLICAS,
+                          boot_timeout_s=FLEET_BOOT_S)
+    out, times, pids = {}, {}, set()
+    t0, epoch0 = time.perf_counter(), time.time()
+    sup.start()
+    out["boot_s"] = time.perf_counter() - t0
+    out["boot_parts_s"] = [boot_parts(r, epoch0, out["boot_s"])
+                           for r in sup.router.replicas]
+    pids.update(p.pid for p in sup.procs.values())
+    log(f"  {FLEET_REPLICAS} replica processes ready in {out['boot_s']:.1f} "
+        f"s, spawned together; each child's parts (s): "
+        f"{out['boot_parts_s']}")
+    spawn = sup._spawn_member
+    repaired = threading.Event()
+
+    def timed_spawn(spec_):
+        times["spawn_start"] = time.perf_counter()
+        times["spawn_epoch"] = time.time()
+        rid = spawn(spec_)
+        times["ready"] = time.perf_counter()
+        repaired.set()
+        return rid
+
+    sup._spawn_member = timed_spawn
+    plan = FaultPlan(fleet_sigkill_at=0, fleet_sigkill_replica=1)
+    sweeps = [0]
+    edge = HttpEdge(sup.router, sweep_fn=lambda: sup.sweep(),
+                    submit_fn=sup.submit,
+                    drain_fn=lambda why: sup.drain(reason=why)).start()
+    results = [None] * len(prompts)
+    try:
+        inner = sup.sweep
+
+        def counted():
+            # the plan's wrapper, installed over this one, kills the
+            # victim just before the first sweep after it is armed
+            if plan.fired and "kill" not in times:
+                times["kill"] = time.perf_counter()
+            sweeps[0] += 1
+            return inner()
+
+        sup.sweep = counted
+
+        def client(j):
+            results[j] = stream_generate(edge.addr, prompts[j], MAX_NEW,
+                                         timeout_s=FLEET_STREAM_S)
+            # the second request waits for the repair: the new child
+            # then meets live traffic (the survivors are still busy)
+            if repaired.wait(FLEET_STREAM_S) and "abort" not in times:
+                results[j + FLEET_CLIENTS] = stream_generate(
+                    edge.addr, prompts[j + FLEET_CLIENTS], MAX_NEW,
+                    timeout_s=FLEET_STREAM_S)
+
+        if len(prompts) != 2 * FLEET_CLIENTS:
+            raise Fail(f"fleet: {len(prompts)} requests for "
+                       f"{FLEET_CLIENTS} clients of two each")
+        t_burst = time.perf_counter()
+        with ThreadPoolExecutor(FLEET_CLIENTS) as pool:
+            base = sweeps[0]
+            futures = [pool.submit(client, j) for j in range(FLEET_CLIENTS)]
+            # arm the kill mid-burst: FLEET_KILL_AFTER sweeps into it,
+            # every replica holding live work
+            while (sweeps[0] - base < FLEET_KILL_AFTER
+                   or not all(r.pending for r in sup.router.replicas)):
+                if (sweeps[0] - base >= FLEET_KILL_AFTER
+                        and edge.counters()["active_streams"] == 0):
+                    times["abort"] = True
+                    repaired.set()      # release the waiting clients
+                    done = [(r.status, r.outcome, r.error)
+                            for r in results if r]
+                    raise Fail(f"fleet: the first wave ended before every "
+                               f"replica held work: {done}")
+                time.sleep(0.002)
+            plan.wrap_fleet(sup)
+            for f in futures:
+                f.result()
+        wall = time.perf_counter() - t_burst
+        edge.drain(reason="fleet phase done")
+        if not edge.wait_drained(timeout_s=60.0):
+            raise Fail("fleet: the edge did not drain")
+        sup.reconcile()
+        c = sup.router.counters()
+        e = edge.counters()
+        per_child = {r.rid: child_launches(r) for r in sup.router.replicas}
+        served = {r.rid: sum(res.replica == r.rid
+                             for res in sup.router.results.values())
+                  for r in sup.router.replicas}
+        frames = sum(r.server.counters()["rpc_client_frames"]
+                     for r in sup.router.replicas)
+        coalesced = sum(r.server.counters()["rpc_frames_coalesced"]
+                        for r in sup.router.replicas)
+        alive = [r.rid for r in sup.router.replicas if r.alive]
+        pids.update(p.pid for p in sup.procs.values() if p is not None)
+        respawn_parts = boot_parts(sup.router.replicas[-1],
+                                   times["spawn_epoch"],
+                                   times["ready"] - times["spawn_start"])
+    finally:
+        edge.close()
+        sup.shutdown(drain=False)
+    # gates: exactly one completed outcome per stream, equal tokens by the
+    # gap rule, balanced books, every live child launched A and B, and no
+    # process left behind
+    bad = [(i, r.status, r.outcome, r.error) for i, r in enumerate(results)
+           if r is None or r.status != 200 or r.outcome != "completed"]
+    if bad:
+        raise Fail(f"fleet: streams not completed: {bad}")
+    if plan.fired != ["fleetkill@0"] or c["replicas_lost"] != 1:
+        raise Fail(f"fleet: the kill: fired {plan.fired}, lost "
+                   f"{c['replicas_lost']}")
+    if not (c["completed"] == len(prompts) == c["fleet_completed"]
+            == e["requests"] == e["completed"]) or c["failed"] or c["shed"]:
+        raise Fail(f"fleet: books do not balance: router {c}, edge {e}")
+    if c["redistributed"] < 1:
+        raise Fail("fleet: the killed replica's work was not redistributed")
+    toks = [r.tokens for r in results]
+    same = check_greedy("fleet over HTTP", toks, ref, prompts, params,
+                        plain_cfg)
+    idle = [rid for rid in alive if not (per_child[rid]["flash_fwd"]
+                                         and per_child[rid]["ragged_tq1"])]
+    if idle:
+        raise Fail(f"fleet: live children without A and B launches: "
+                   f"{ {r: per_child[r] for r in idle} }; requests "
+                   f"finished by each replica: {served}")
+    orphans = [p for p in pids if not proc_gone(p)]
+    if orphans:
+        raise Fail(f"fleet: processes outlived the drain: {orphans}")
+    slo = slo_report(results, wall)
+    n_tok = sum(len(t) for t in toks)
+    out.update(
+        requests=len(prompts), clients=FLEET_CLIENTS, wall_s=wall,
+        requests_per_s=len(prompts) / wall, tokens_per_s=n_tok / wall,
+        p50_ttft_s=slo["p50_ttft_s"], p99_ttft_s=slo["p99_ttft_s"],
+        p50_itg_s=slo["p50_itg_s"], p99_itg_s=slo["p99_itg_s"],
+        same=same, sweeps=sweeps[0], rpc_frames=frames,
+        rpc_frames_per_sweep=frames / max(sweeps[0], 1),
+        rpc_frames_coalesced=coalesced,
+        repair_s=times["ready"] - times["kill"],
+        respawn_boot_s=times["ready"] - times["spawn_start"],
+        respawn_parts_s=respawn_parts,
+        redistributed=c["redistributed"], launches=per_child,
+        served=served,
+        alive=alive, spawned=sup.stats["spawned"])
+    log(f"  fleet over HTTP: {len(prompts)} streams, "
+        f"{out['requests_per_s']:.2f} requests/s, {out['tokens_per_s']:.1f} tokens/s; TTFT p50 "
+        f"{slo['p50_ttft_s']:.3f} s p99 {slo['p99_ttft_s']:.3f}; gap p50 "
+        f"{slo['p50_itg_s'] * 1e3:.2f} ms p99 {slo['p99_itg_s'] * 1e3:.2f}; "
+        f"repair {out['repair_s']:.1f} s (the new child's boot "
+        f"{out['respawn_boot_s']:.1f}: {respawn_parts}); {frames} frames "
+        f"over {sweeps[0]} "
+        f"sweeps ({out['rpc_frames_per_sweep']:.2f} a sweep), "
+        f"{coalesced} coalesced; requests finished by each replica "
+        f"{served}; launches per child {per_child}")
+    return out
+
+
+class FleetPair:
+    """The disaggregated pair's supervisor (it owns the shared-memory
+    arena) and its two children, started at once -- the fleet phase
+    starts them beside the unified trio, so the five boot together."""
+
+    def __init__(self):
+        from paddle_tpu_torch.serve.fleet import (FleetSupervisor,
+                                                  ReplicaProcess,
+                                                  ReplicaSpec)
+        from paddle_tpu_torch.serve.transport import (ProcessReplica,
+                                                      ReplicaClient)
+
+        pending = []
+
+        def spawn(_spec):
+            # the supervisor takes the started children in role order
+            proc = pending.pop(0)
+            proc.wait_ready(FLEET_BOOT_S)
+            return ProcessReplica(ReplicaClient(proc.addr, io_timeout=120.0),
+                                  proc=proc, clock=self.sup.clock)
+
+        self.sup = FleetSupervisor(
+            ReplicaSpec(builder="chip_smoke:fleet_server"), min_replicas=2,
+            max_replicas=2, spawn=spawn, data_plane_segs=FLEET_ARENA_SEGS,
+            data_plane_seg_kb=FLEET_ARENA_SEG_KB,
+            router_kwargs=dict(policy=prefill_first_policy()))
+        if self.sup.arena is None:
+            raise Fail("fleet disaggregated: no shared-memory arena")
+        self.t0, self.epoch0 = time.perf_counter(), time.time()
+        self.procs = [ReplicaProcess(ReplicaSpec(
+            builder="chip_smoke:fleet_server", device="cuda",
+            kwargs=dict(kv_cache_dtype="int8", role=role,
+                        data_plane=self.sup.arena.name))).start()
+            for role in ("prefill", "decode")]
+        pending.extend(self.procs)
+
+    def close(self):
+        self.sup.shutdown(drain=False)
+        for p in self.procs:
+            p.kill()
+            p.reap()
+
+
+def fleet_disagg(pair, prompts, ref):
+    """The pair -- one prefill and one decode process over the
+    supervisor's shared-memory arena, int8 KV: every request crosses
+    processes (pages card -> host -> arena -> the other child's card);
+    gates and numbers as fleet_phase says."""
+    cfg8 = TT.TransformerConfig(**SERVE_CFG, kv_cache_dtype="int8")
+    params = TT.init_params(np.random.RandomState(0), cfg8, device="cuda")
+    sup = pair.sup
+    try:
+        sup.start()
+        boot = time.perf_counter() - pair.t0
+        parts = [boot_parts(r, pair.epoch0, None)
+                 for r in sup.router.replicas]
+        src, dst = (r.server for r in sup.router.replicas)
+        ex, im, pages = [], [], []
+        timed_calls(src, "export_request", ex)
+        timed_calls(dst, "import_request", im)
+        export = src.export_request
+
+        def counted(req_id):
+            payload = export(req_id)
+            pages.append(payload["n_pages"])
+            return payload
+
+        src.export_request = counted
+        t0 = time.perf_counter()
+        ids = [sup.submit(p, max_new=MAX_NEW) for p in prompts]
+        res = sup.run()
+        wall = time.perf_counter() - t0
+        sup.reconcile()
+        c = sup.router.counters()
+        sc, dc = src.counters(), dst.counters()
+        pids = [p.pid for p in pair.procs]
+    finally:
+        pair.close()
+    bad = [r for r in ids if res[r].outcome != "completed"]
+    if bad:
+        raise Fail(f"fleet disaggregated: not completed: {bad}")
+    if c["migrations"] != len(prompts) or c["migration_failed"]:
+        raise Fail(f"fleet disaggregated: {c['migrations']} migrations of "
+                   f"{len(prompts)}, {c['migration_failed']} failed")
+    if c["fleet_data_plane_fallbacks"]:
+        raise Fail(f"fleet disaggregated: "
+                   f"{c['fleet_data_plane_fallbacks']} data-plane fallbacks")
+    if not dc["launch_int8_tq1"] or sc["launch_int8_tq1"]:
+        raise Fail(f"fleet disaggregated: C launches: prefill child "
+                   f"{sc['launch_int8_tq1']}, decode child "
+                   f"{dc['launch_int8_tq1']}")
+    if not (sc["kv_exports"] == dc["kv_imports"] == len(prompts)
+            and sc["kv_export_crc"] == dc["kv_import_crc"]):
+        raise Fail(f"fleet disaggregated: migrated pages differ: exported "
+                   f"{sc['kv_exports']} (crc {sc['kv_export_crc']}), "
+                   f"imported {dc['kv_imports']} (crc "
+                   f"{dc['kv_import_crc']})")
+    if any(not proc_gone(p) for p in pids):
+        raise Fail(f"fleet disaggregated: processes left: {pids}")
+    toks = [res[r].tokens for r in ids]
+    same = check_greedy("fleet disaggregated", toks, ref, prompts, params,
+                        dataclasses.replace(cfg8, attn_impl="dense"))
+    moved = len(ex)
+    bytes_out = sum(pages) * page_bytes(cfg8)
+    n_tok = sum(len(t) for t in toks)
+    launches = {"prefill": {k[len("launch_"):]: v for k, v in sc.items()
+                            if k.startswith("launch_")},
+                "decode": {k[len("launch_"):]: v for k, v in dc.items()
+                           if k.startswith("launch_")}}
+    out = dict(
+        requests=len(prompts), spawn_to_start_s=boot, boot_parts_s=parts,
+        wall_s=wall,
+        tokens_per_s=n_tok / wall, migrations=c["migrations"],
+        ms_per_migrated_slot=1000.0 * (sum(ex) + sum(im)) / moved,
+        export_rpc_ms=1000.0 * sum(ex) / moved,
+        import_rpc_ms=1000.0 * sum(im) / moved,
+        bytes_per_migrated_slot=bytes_out / moved, pages=sum(pages),
+        same=same, launches=launches, kv_crc=sc["kv_export_crc"])
+    log(f"  disaggregated pair (int8 KV, shm arena): booted beside the "
+        f"trio (each child's parts, s: {parts}); "
+        f"{len(prompts)} migrations across processes, pages bit for bit "
+        f"(crc {sc['kv_export_crc']}); {out['ms_per_migrated_slot']:.2f} ms "
+        f"per migrated slot (export RPC {out['export_rpc_ms']:.2f} + import "
+        f"RPC {out['import_rpc_ms']:.2f}), "
+        f"{out['bytes_per_migrated_slot']:.0f} bytes a slot; {out['tokens_per_s']:.1f} tokens/s; launches "
+        f"{launches}")
+    return out
+
+
+def fleet_phase():
+    """The process fleet at bench_engine's width (see the module
+    docstring, 7d)."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,compute_mode",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    card = smi.stdout.strip()
+    log(f"phase fleet: {FLEET_REPLICAS} replica processes x {SERVE_CFG}, "
+        f"slots={SLOTS} max_len={MAX_LEN} page={PAGE}, {N_REQ} requests "
+        f"over HTTP by {FLEET_CLIENTS} clients; card: {card}")
+    if "Exclusive" in card:
+        raise Fail(f"fleet: the card's compute mode refuses a second "
+                   f"context: {card}")
+    cfg = TT.TransformerConfig(**SERVE_CFG)
+    params = TT.init_params(np.random.RandomState(0), cfg, device="cuda")
+    prompts = make_prompts()
+    refs = serve_refs("float KV", params, cfg, prompts)
+    ref = refs["kernel"]
+    ref8 = serve_refs("int8 KV", params,
+                      dataclasses.replace(cfg, kv_cache_dtype="int8"),
+                      prompts)["kernel"]
+    # the yardstick: the same requests through one engine in this process
+    # (the serve phase's measured run)
+    out = {"card": card, "in_process": dict(
+        tokens_per_s=sum(len(t) for t in ref) / refs["wall"],
+        wall_s=refs["wall"])}
+    # the disaggregated pair boots beside the unified trio, then waits
+    pair = FleetPair()
+    try:
+        out["unified"] = fleet_unified(params, prompts, ref)
+    except BaseException:
+        pair.close()
+        raise
+    out["http_vs_in_process"] = (out["unified"]["tokens_per_s"]
+                                 / out["in_process"]["tokens_per_s"])
+    out["disaggregated"] = fleet_disagg(pair, prompts[:FLEET_DISAGG_REQ],
+                                        ref8[:FLEET_DISAGG_REQ])
+    launched = out["unified"]["launches"]
+    out["launches"] = {
+        "flash_fwd": (sum(v["flash_fwd"] for v in launched.values())
+                      + sum(v["flash_fwd"] for v in
+                            out["disaggregated"]["launches"].values())),
+        "ragged_tq1": sum(v["ragged_tq1"] for v in launched.values()),
+        "ragged_tqn": sum(v["ragged_tqn"] for v in launched.values()),
+        "int8_tq1": out["disaggregated"]["launches"]["decode"]["int8_tq1"],
+        "int8_tqn": sum(v["int8_tqn"] for v in
+                        out["disaggregated"]["launches"].values())}
+    log(f"  fleet phase launches, summed over the children: "
+        f"{out['launches']}; over HTTP {out['http_vs_in_process']:.3f}x "
+        f"the tokens/s of one engine in process "
+        f"({out['in_process']['tokens_per_s']:.1f}) on the same requests "
+        f"({card})")
+    return out
+
+
 # -- the LM's decoders at bench_decode's width ---------------------------------
 
 # bench_decode(batch=8, prompt_len=128, steps=128, dim=512, n_layers=8,
@@ -5226,7 +5782,7 @@ def pserver_ctr_phase():
 # temperature 0.8, top_p 0.95; beam 4. The target runs attn_impl "auto"
 # (kernel A in every prefill; the bench's "dense" would run no kernel);
 # new tokens cut to 32 from the bench's 128
-DEC_B, DEC_PROMPT, DEC_STEPS, DEC_K, DEC_BEAM = 8, 128, 32, 4, 4
+DEC_B, DEC_PROMPT, DEC_STEPS, DEC_K, DEC_BEAM = 8, 128, 16, 4, 4
 DEC_DRAFT = dict(vocab=32000, dim=128, n_layers=2, n_heads=8,
                  attn_impl="dense")
 DEC_DRAFT_SEED, DEC_TEMP, DEC_TOP_P = 7, 0.8, 0.95
@@ -5468,7 +6024,7 @@ MOE_B, MOE_T, MOE_STEPS, MOE_EC_STEPS = 8, 2048, 5, 2
 #: the MoE engine: bench_engine's width and requests (serve_phase's), cut
 #: from 32 to the first 16 (8 share the prefix) to keep the phase short:
 #: a 32-request serve takes ~18-24 s on each path (H100 80GB HBM3, 700 W)
-MOE_SERVE_REQ = 8       # cut from 32
+MOE_SERVE_REQ = 4       # cut from 32, then 8
 
 
 class routing_spy:
@@ -5679,7 +6235,9 @@ def moe_phase():
 # bench_image (benchmarks/suite.py:112-141: momentum(0.1, mu=0.9), softmax
 # CE, make_train_step(donate=True), bf16 policy, inputs RandomState(0).rand,
 # labels RandomState(1)) at the configs of :765-775; resnet50 also at 64
-IMAGE_HW, IMAGE_STEPS = 224, 2   # steps cut from 20
+IMAGE_HW, IMAGE_STEPS = 224, 1   # steps cut from 20
+IMAGE_PARITY_STEPS = 1           # resnet50's momentum steps: 1 + 1, cut
+                                 # from 1 + 2
 IMAGE_CONFIGS = (("resnet50", 64), ("resnet50", 256), ("resnet50_s2d", 256),
                  ("resnet50_remat", 256), ("resnet50_remat_full", 256),
                  ("alexnet", 128), ("googlenet", 128), ("vgg19", 64),
@@ -5691,7 +6249,7 @@ FWD_GFLOPS = {"resnet50": 8.2, "resnet50_s2d": 8.2, "resnet50_remat": 8.2,
               "resnet50_remat_full": 8.2, "vgg19": 39.0, "alexnet": 1.4,
               "googlenet": 3.0}
 # CUDA against the port's CPU path: (model, batch, side) at f32; resnet50
-# also under the bf16 policy and for 3 momentum steps
+# also under the bf16 policy and for 1 + 1 momentum steps in f64
 IMAGE_PARITY = (("resnet50", 4, IMAGE_HW), ("googlenet", 2, IMAGE_HW),
                 ("alexnet", 2, IMAGE_HW), ("vgg19", 2, IMAGE_HW),
                 ("smallnet", 2, 32))
@@ -5968,8 +6526,9 @@ def image_parity_case(name, batch, hw):
 def image_resnet50_extra(model, params, mstate, x, y, truth):
     """resnet50's bf16-policy step (CUDA vs CPU: eval logits and loss
     directly, the step op by op; the gradients against the CPU f64 run
-    printed for both devices) and 3 momentum steps on both devices: f64
-    gated (losses 1e-3, BN state 1e-4), f32 and bf16 printed."""
+    printed for both devices) and 1 + IMAGE_PARITY_STEPS momentum steps
+    in f64 on both devices, gated: the losses at 1e-3; the BN state, the
+    velocity and each parameter's change at 1e-4."""
     bf16 = TD.bf16_compute_policy()
     tol, loss_tol = IMAGE_TOL[torch.bfloat16]
     xc, yc = x.cuda(), y.cuda()
@@ -5989,31 +6548,40 @@ def image_resnet50_extra(model, params, mstate, x, y, truth):
         f"({grad_err['cpu'][0]})")
     fails, op_replay = replay_gate(replay, tol, "bf16 step op by op")
     bad += [f"bf16_op:{n}" for n in fails]
-    steps = {}
-    for label, policy in (("f64", F64), ("f32", TD.Policy()),
-                          ("bf16", bf16)):
-        runs = {}
-        for dev, xx, yy in (("cuda", xc, yc), ("cpu", x, y)):
-            state, losses, _ = image_steps(model, params, mstate, xx, yy,
-                                           policy=policy)
-            runs[dev] = ([v.item() for v in losses], tree_map(
-                lambda a: a.double().cpu(), state.model_state))
-        g, c = runs["cuda"], runs["cpu"]
-        l_err = max(abs(a - b) / abs(b) for a, b in zip(g[0], c[0]))
-        s_err = tree_err(g[1], c[1])
-        steps[label] = dict(cuda_losses=g[0], cpu_losses=c[0],
-                            loss_rel_err=l_err, state_err=s_err)
-        gated = label == "f64"
-        log(f"    3 momentum steps, {label}{'' if gated else ' (printed)'}: "
-            f"losses {['%.6f' % v for v in g[0]]} vs "
-            f"{['%.6f' % v for v in c[0]]}: {l_err:.2e}; BN state "
-            f"{s_err[1]:.2e} ({s_err[0]})")
-        if gated and (l_err > IMAGE_TOL[torch.float32][1]
-                      or s_err[1] > IMAGE_TOL[torch.float32][0]):
-            bad.append("f64_three_steps")
+    # 1 + IMAGE_PARITY_STEPS momentum steps in f64 on both devices: the
+    # losses and BN state, and after the last update -- the first that
+    # reads mu * v -- the velocity and each parameter's change from its
+    # start (the losses and BN state are set before that update)
+    runs = {}
+    host = lambda t: tree_map(lambda a: a.double().cpu(), t)
+    for dev, xx, yy in (("cuda", xc, yc), ("cpu", x, y)):
+        state, losses, _ = image_steps(model, params, mstate, xx, yy,
+                                       policy=F64, steps=IMAGE_PARITY_STEPS)
+        runs[dev] = dict(
+            losses=[v.item() for v in losses],
+            bn_state=host(state.model_state),
+            velocity=host(state.opt_state["velocity"]),
+            param_change=tree_map_multi(
+                lambda a, b: a.double().cpu() - b.double(), state.params,
+                params))
+    g, c = runs["cuda"], runs["cpu"]
+    l_err = max(abs(a - b) / abs(b) for a, b in zip(g["losses"],
+                                                     c["losses"]))
+    errs = {k: tree_err(g[k], c[k])
+            for k in ("bn_state", "velocity", "param_change")}
+    steps = dict(cuda_losses=g["losses"], cpu_losses=c["losses"],
+                 loss_rel_err=l_err, **{f"{k}_err": v
+                                        for k, v in errs.items()})
+    log(f"    {1 + IMAGE_PARITY_STEPS} momentum steps, f64: losses "
+        f"{['%.6f' % v for v in g['losses']]} vs "
+        f"{['%.6f' % v for v in c['losses']]}: {l_err:.2e}; "
+        + ", ".join(f"{k} {v[1]:.2e} ({v[0]})" for k, v in errs.items()))
+    f32_tol, f32_loss_tol = IMAGE_TOL[torch.float32]
+    if l_err > f32_loss_tol or any(v[1] > f32_tol for v in errs.values()):
+        bad.append("f64_momentum_steps")
     return dict(bad=bad, bf16=dict(eval_logits=eval_err, loss=loss_err,
                                    grads_vs_f64=grad_err, op_replay=op_replay),
-                three_steps=steps)
+                momentum_steps=steps)
 
 
 def bn_means(state):
@@ -6181,24 +6749,35 @@ def image_phase():
     log("phase image: parity with the port's CPU path, then bench_image's "
         f"configs (bf16 policy, momentum {IMAGE_LR}/0.9, softmax CE, "
         "make_train_step(donate=True))")
-    parity = [image_parity_case(*c) for c in IMAGE_PARITY]
+    t_phase, parts = time.perf_counter(), {}
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        r = fn(*a)
+        parts[name] = round(time.perf_counter() - t, 3)
+        return r
+
+    parity = [timed(f"parity_{c[0]}", image_parity_case, *c)
+              for c in IMAGE_PARITY]
     torch.cuda.empty_cache()
     prev = torch.backends.cudnn.benchmark
     torch.backends.cudnn.benchmark = True
     log("  torch.backends.cudnn.benchmark = True for the training runs")
     try:
-        train = [image_train(*c) for c in IMAGE_CONFIGS]
-        loop = image_trainer_loop()
+        train = [timed(f"train_{c[0]}_b{c[1]}", image_train, *c)
+                 for c in IMAGE_CONFIGS]
+        loop = timed("trainer_loop", image_trainer_loop)
         raw = next(r for r in train if r["bench"] == "resnet50"
                    and r["batch"] == TRAINER_LOOP_B)
         log(f"  bench_trainer_loop resnet50 B={TRAINER_LOOP_B}: "
             f"{loop['ms_per_batch']:.2f} ms/batch through Trainer.train vs "
             f"{raw['ms_per_batch']:.2f} raw step")
-        dropout = image_trainer_dropout()
-        entry = image_graft_entry()
+        dropout = timed("trainer_dropout", image_trainer_dropout)
+        entry = timed("graft_entry", image_graft_entry)
     finally:
         torch.backends.cudnn.benchmark = prev
     torch.cuda.empty_cache()
+    log(f"  phase image: {time.perf_counter() - t_phase:.1f} s ({parts})")
     # the parity gates are read last, so that one run reads every model
     bad = {p["model"]: p["failing"] for p in parity if p["failing"]}
     if bad:
@@ -6255,13 +6834,14 @@ def counts():
             "int8_device": RPA.device_launches["int8"]}
 
 
-def timed_serve(eng, prompts, **kw):
-    """Serve with every launch count set to 0 just before; returns
-    (tokens, wall seconds, launch counts of this run)."""
+def timed_serve(eng, prompts, max_new=None, **kw):
+    """Serve (max_new: MAX_NEW unless given) with every launch count set
+    to 0 just before; returns (tokens, wall seconds, launch counts of
+    this run)."""
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    toks = eng.serve(prompts, max_new=MAX_NEW, **kw)
+    toks = eng.serve(prompts, max_new=max_new or MAX_NEW, **kw)
     torch.cuda.synchronize()
     return toks, time.perf_counter() - t0, counts()
 
@@ -6970,7 +7550,8 @@ def server_phase():
     paged_tok_s = out["server_float"]["bare_run_tok_s"]
     log(f"  ring pool {out['ring']['tok_s']:.1f} against the paged pool's "
         f"{paged_tok_s:.1f} generated tokens/s")
-    out["cli"] = cli_run(prompts, rtoks, params, plain_cfg)
+    out["cli"] = cli_run(prompts[:CLI_REQ], rtoks[:CLI_REQ], params,
+                         plain_cfg)
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"  server phase: {out['wall_s']:.1f} s")
     return launches, out
@@ -6987,6 +7568,9 @@ ART_DEC_STEPS = 4
 # the tampered-manifest server's eager serve after the refusal: SLOTS
 # requests, their first ART_TAMPER_NEW tokens (cut from MAX_NEW)
 ART_TAMPER_NEW = 16
+# each bundle serves the first ART_BUNDLE_REQ requests, one wave of the
+# slots (cut from N_REQ), beside an eager engine on the same requests
+ART_BUNDLE_REQ = SLOTS
 ART_TOL = 1e-4
 
 
@@ -7021,13 +7605,14 @@ def bundle_path(tmp, cfg):
 
 def bundle_run(label, params, cfg, prompts, geom, ref, tmp, saved):
     """Load the bundle export_artifacts saved for this engine into a
-    fresh engine and serve the requests through it: tokens bit for bit
-    the eager serve's, no fallback, the eager serve's launches of A, B
-    and C; cold start (load to first token) and tokens/s beside the
-    eager engine's."""
+    fresh engine and serve the first ART_BUNDLE_REQ requests through it
+    and through an eager engine: tokens bit for bit the eager serve's,
+    no fallback, the eager serve's launches of A, B and C; cold start
+    (load to first token) and tokens/s beside the eager engine's."""
     from paddle_tpu_torch.serve import artifact as ART
 
     path = bundle_path(tmp, cfg)
+    prompts = prompts[:ART_BUNDLE_REQ]
     mk = lambda: DecodeEngine(params, cfg, policy=no_verify_policy(), **geom)
     log(f"  {label} bundle: {len(saved['programs'])} programs "
         f"{saved['programs']}, {saved['bytes']} bytes, exported and saved in "
@@ -7056,13 +7641,15 @@ def bundle_run(label, params, cfg, prompts, geom, ref, tmp, saved):
     eng._artifact = progs = counting_programs(eng._artifact)
     toks, wall, launched = timed_serve(eng, prompts, buckets=(PROMPT,))
     st = eng.last_stats
+    etoks, ewall, elaunched = timed_serve(mk(), prompts)
     n_tok = sum(len(t) for t in toks)
-    same = sum(a == b for a, b in zip(toks, ref["kernel"]))
-    log(f"  {label} bundle: {n_tok} tokens in {wall:.3f} s = "
-        f"{n_tok / wall:.1f} generated tokens/s (eager {n_tok / ref['wall']:.1f}"
-        f"); cold start {cold:.3f} s (eager engine {eager_cold:.3f} s); "
-        f"program calls {progs.calls}; launches {launched} (eager "
-        f"{ref['launched']}); tokens equal on {same}/{len(toks)}")
+    same = sum(a == b for a, b in zip(toks, etoks))
+    log(f"  {label} bundle: {len(prompts)} requests, {n_tok} tokens in "
+        f"{wall:.3f} s = {n_tok / wall:.1f} generated tokens/s (eager "
+        f"{n_tok / ewall:.1f}); cold start {cold:.3f} s (eager engine "
+        f"{eager_cold:.3f} s); program calls {progs.calls}; launches "
+        f"{launched} (eager {elaunched}); tokens equal on "
+        f"{same}/{len(toks)}")
     if same != len(toks):
         raise Fail(f"{label} bundle: tokens differ from the eager serve's "
                    f"on {len(toks) - same} requests")
@@ -7073,16 +7660,17 @@ def bundle_run(label, params, cfg, prompts, geom, ref, tmp, saved):
             f"chunk_w{PROMPT}_z1_f1"] == 0:
         raise Fail(f"{label} bundle: program calls {progs.calls}, "
                    f"{st.steps} steps")
-    diff = {k: (launched[k], ref["launched"][k]) for k in launched
-            if launched[k] != ref["launched"][k]}
+    diff = {k: (launched[k], elaunched[k]) for k in launched
+            if launched[k] != elaunched[k]}
     if diff:
         raise Fail(f"{label} bundle: launches differ from the eager "
                    f"serve's: {diff}")
     return launched, dict(
         programs=saved["programs"], bundle_bytes=saved["bytes"],
         save_s=saved["save_s"], export_s=saved["export_s"],
-        cold_start_s=cold, eager_cold_start_s=eager_cold, wall_s=wall,
-        tok_s=n_tok / wall, eager_tok_s=n_tok / ref["wall"],
+        requests=len(prompts), cold_start_s=cold,
+        eager_cold_start_s=eager_cold, wall_s=wall, tok_s=n_tok / wall,
+        eager_tok_s=n_tok / ewall,
         program_calls=dict(progs.calls), steps=st.steps, same=same)
 
 
@@ -7311,7 +7899,8 @@ def artifact_phase(exports=None):
     cfg = TT.TransformerConfig(**SERVE_CFG)
     cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
     log(f"phase artifact: {SERVE_CFG}, f32, slots={SLOTS} max_len={MAX_LEN} "
-        f"page={PAGE}, {N_REQ} requests, buckets ({PROMPT},)")
+        f"page={PAGE}, bundles serve {ART_BUNDLE_REQ} requests, buckets "
+        f"({PROMPT},)")
     params = TT.init_params(np.random.RandomState(0), cfg, device="cuda")
     prompts = make_prompts()
     geom = dict(slots=SLOTS, max_len=MAX_LEN, page_size=PAGE)
@@ -7418,6 +8007,7 @@ def main() -> int:
     srnn = run_phase("simple_rnn", simple_rnn_phase)
     family = run_phase("rnn_family", rnn_family_phase)
     pctr = run_phase("pserver_ctr", pserver_ctr_phase)
+    fleet = run_phase("fleet", fleet_phase)
     lm = run_phase("lm_train", lm_train_phase)
     dist_out = run_phase("distributed", distributed_phase)
     sparse = run_phase("sparse_elastic", sparse_elastic_phase)
@@ -7525,6 +8115,9 @@ def main() -> int:
               # serves
               decode_launches={k: v["a_launches"] for k, v in dec.items()
                                if k != "wall_s"},
+              # the fleet phase's replica processes (each child's count
+              # from its transport's last state block, summed)
+              fleet_launches=fleet["launches"]["flash_fwd"],
               moe_train_launches={k: moe_out[k]["a_launches"]
                                   for k in ("topk", "expert_choice")},
               moe_train_launches_per_step=moe_out["topk"][
@@ -7532,7 +8125,7 @@ def main() -> int:
               moe_serve_launches={k: v["flash_fwd"] for k, v in
                                   moe_out["serve_launches"].items()},
               # the distributed phase: the sharded and ZeRO LM steps at
-              # world size 1 (1 + 2 steps each, counted from 0 before
+              # world size 1 (1 + DIST_STEPS steps each, counted from 0 before
               # each), TP generate's prefill, and rank 0 of each
               # two-rank gloo path (1 + 1 steps on 2 of the 4 rows)
               distributed_launches={
@@ -7572,6 +8165,7 @@ def main() -> int:
               "paddle_tpu/ops/ragged_paged_attention.py:153",
               launched["float"]["ragged_tq1"], b["main_decode"],
               **split_plan(b["main_decode"], "float", "float_device"),
+              fleet_launches=fleet["launches"]["ragged_tq1"],
               **server_launches("ragged_tq1", "ragged_tqn",
                                 "float_device"),
               **artifact_launches("ragged_tq1", "ragged_tqn",
@@ -7586,11 +8180,13 @@ def main() -> int:
         entry("ragged_paged_walk[tq>1]", walk,
               "paddle_tpu/ops/ragged_paged_attention.py:153",
               launched["float"]["ragged_tqn"], b["main_chunk"],
+              fleet_launches=fleet["launches"]["ragged_tqn"],
               **split_plan(b["main_chunk"], "float", "float_device")),
         entry("ragged_paged_walk_int8[tq=1]", walk,
               "paddle_tpu/ops/ragged_paged_attention.py:188",
               launched["int8_kv"]["int8_tq1"], c["main_decode"],
               **split_plan(c["main_decode"], "int8_kv", "int8_device"),
+              fleet_launches=fleet["launches"]["int8_tq1"],
               **server_launches("int8_tq1", "int8_tqn", "int8_device"),
               **artifact_launches("int8_tq1", "int8_tqn", "int8_device"),
               moe_serve_launches={k: moe_out["serve_launches"]["int8 KV"][k]
@@ -7603,6 +8199,7 @@ def main() -> int:
         entry("ragged_paged_walk_int8[tq>1]", walk,
               "paddle_tpu/ops/ragged_paged_attention.py:188",
               launched["int8_kv"]["int8_tqn"], c["main_chunk"],
+              fleet_launches=fleet["launches"]["int8_tqn"],
               **split_plan(c["main_chunk"], "int8_kv", "int8_device")),
         # D and E: launches of the train phase's run (2 of each per step)
         # (their tolerance holds rel_err, max abs error over max |plain|)
@@ -7683,6 +8280,8 @@ def main() -> int:
     log(json.dumps({"sparse_elastic": sparse, "card": smi.stdout.strip()},
                    default=str))
     log(json.dumps({"pserver_ctr": pctr, "card": smi.stdout.strip()},
+                   default=str))
+    log(json.dumps({"fleet": fleet, "card": smi.stdout.strip()},
                    default=str))
     PHASE_S["total"] = time.perf_counter() - t_main
     log(json.dumps({"phase_seconds": PHASE_S}))

@@ -7,7 +7,8 @@ verbs):
         --output ART [--device cuda|cpu]
     python -m paddle_tpu_torch infer --artifact ART [--output-prefix P]
         INPUT.npy ...
-    python -m paddle_tpu_torch serve --config CFG --prompts FILE ...
+    python -m paddle_tpu_torch serve --config CFG (--prompts FILE | --http P)
+        [--replicas N | --fleet-procs N [--fleet-max M]] ...
     python -m paddle_tpu_torch launch (--hosts A,B | --emit-jobset NAME)
         -- train --config CFG ...
     python -m paddle_tpu_torch master [--port P] [--dataset F.rio ...]
@@ -88,10 +89,16 @@ through `ServingRouter` over N engines. `--engine-artifact TAR` also
 routes through `ServingServer`: every replica verifies the bundle
 (`serve.artifact.save_engine_artifact`) at boot and serves from its
 programs, or keeps the eager path with an `artifact_fallbacks` count.
-`--http` and its flags, `--fleet-procs`/`--fleet-max` (ROADMAP queue 1
-item 6), and `--compile-cache`, `--no-compile-cache`,
-`--transfer-guard` (no counterpart on the card, item 6) fail naming
-their item.
+`--fleet-procs N` serves through N replica PROCESSES behind
+`serve.fleet.FleetSupervisor` (each builds its engine from the config on
+--device in its own process; SIGKILL-safe failover, autoscaling up to
+`--fleet-max`). `--http PORT` serves the streaming HTTP front door
+(`serve.http_edge.HttpEdge`) instead of a prompts batch, over one
+server, `--replicas N` or `--fleet-procs N`, until SIGTERM or until
+`--http-max-requests` requests have finished; `--http-addr-file` gets
+"host port" once the listener is bound. `--compile-cache`,
+`--no-compile-cache` and `--transfer-guard` have no counterpart on the
+card and fail naming their item.
 """
 
 from __future__ import annotations
@@ -118,19 +125,12 @@ DEFERRED_FLAGS = {
 }
 
 
-_FLEET = "ROADMAP queue 1 item 6 (the HTTP edge and the process fleet)"
 _SERVE_NO_COUNTERPART = ("it has no counterpart on the card: the JAX "
                          "package's compile cache and transfer guard "
                          "are XLA's (ROADMAP queue 1 item 6)")
 
 #: the serve verb's deferred flags, as DEFERRED_FLAGS
 SERVE_DEFERRED_FLAGS = {
-    "--http": (True, _FLEET),
-    "--http-host": (True, _FLEET),
-    "--http-addr-file": (True, _FLEET),
-    "--http-max-requests": (True, _FLEET),
-    "--fleet-procs": (True, _FLEET),
-    "--fleet-max": (True, _FLEET),
     "--compile-cache": (True, _SERVE_NO_COUNTERPART),
     "--no-compile-cache": (False, _SERVE_NO_COUNTERPART),
     "--transfer-guard": (False, _SERVE_NO_COUNTERPART),
@@ -525,8 +525,20 @@ def cmd_serve(args) -> int:
                      else args.max_len),
             eos_id=sc.get("eos_id"), seed=args.seed, device=args.device)
 
+    if args.fleet_procs is not None and args.replicas is not None:
+        raise SystemExit(
+            "--fleet-procs and --replicas are mutually exclusive: one "
+            "fleet of in-process replicas OR one fleet of processes")
     buckets = (tuple(int(b) for b in args.buckets.split(","))
                if args.buckets else None)
+    if args.http is not None:
+        # network mode: the HTTP front door replaces the prompts batch;
+        # clients drive the fleet over sockets until SIGTERM (or
+        # --http-max-requests) drains it
+        return _serve_http(args, make_engine, buckets)
+    if args.prompts is None:
+        raise SystemExit("--prompts is required (unless --http PORT "
+                         "serves over the network instead)")
     with open(args.prompts) as f:
         prompts = [np.asarray([int(t) for t in line.split()], np.int32)
                    for line in f if line.strip()]
@@ -545,6 +557,11 @@ def cmd_serve(args) -> int:
                 or args.metrics_out is not None
                 or args.flight_dir is not None)
     try:
+        if args.fleet_procs:
+            # N replica PROCESSES behind the fleet supervisor; each
+            # builds its own engine in its process
+            return _serve_fleet_procs(args, prompts, sampling, buckets,
+                                      sink)
         if args.replicas is not None and args.replicas > 1:
             engines = [make_engine() for _ in range(args.replicas)]
             return _serve_fleet(args, engines, prompts, sampling, buckets,
@@ -708,6 +725,170 @@ def _serve_fleet(args, engines, prompts, sampling, buckets, sink):
     return 0
 
 
+def _fleet_spec(args, buckets, max_queue):
+    """The `ReplicaSpec` of a `--fleet-procs` replica: the config script
+    runs in each child (`serve.fleet.build_server_from_config`) on
+    --device, with the serve knobs as plain data."""
+    from paddle_tpu_torch.serve.fleet import ReplicaSpec
+
+    return ReplicaSpec(
+        builder="paddle_tpu_torch.serve.fleet:build_server_from_config",
+        kwargs=dict(
+            config=os.path.abspath(args.config), slots=args.slots,
+            max_len=args.max_len, seed=args.seed, max_queue=max_queue,
+            default_deadline_ms=args.default_deadline_ms,
+            max_retries=args.max_retries, buckets=buckets,
+            drain_grace_s=args.drain_grace,
+            artifact=args.engine_artifact),
+        device=args.device)
+
+
+def _fleet_supervisor(args, spec, registry, flight):
+    from paddle_tpu_torch.serve.fleet import FleetSupervisor
+
+    return FleetSupervisor(
+        spec, min_replicas=args.fleet_procs,
+        max_replicas=max(args.fleet_procs,
+                         args.fleet_max or args.fleet_procs),
+        registry=registry, flight=flight, flight_dir=args.flight_dir)
+
+
+def _serve_http(args, make_engine, buckets):
+    """`serve --http PORT`: the streaming HTTP front door
+    (serve.http_edge). Bare, one reliability server behind a 1-replica
+    router; `--replicas N` the in-process fleet; `--fleet-procs N` the
+    process fleet with autoscaling. Serves until SIGTERM (edge drain,
+    then fleet drain, then the drain report) or until
+    `--http-max-requests` requests have finished. `--http-addr-file`
+    gets the bound address (written atomically AFTER the listener is
+    up), so port 0 works for parallel test runs."""
+    from paddle_tpu_torch.obs import MetricsRegistry
+    from paddle_tpu_torch.serve.http_edge import HttpEdge
+    from paddle_tpu_torch.serve.router import ServingRouter
+    from paddle_tpu_torch.serve.server import ServingServer
+
+    registry, tracer, flight = _obs_stack(args.metrics_out, args.flight_dir)
+    if registry is None:
+        # the edge serves GET /metrics: a live scrape target does not
+        # depend on --metrics-out (a snapshot file at exit)
+        registry = MetricsRegistry()
+    max_queue = args.max_queue if args.max_queue is not None else 64
+    sup = None
+    if args.fleet_procs:
+        sup = _fleet_supervisor(args, _fleet_spec(args, buckets, max_queue),
+                                registry, flight)
+        sup.start()
+        # the supervisor's sweep drives autoscale/reap on the edge's
+        # drive thread; its submit routes through admission control
+        edge = HttpEdge(sup.router, host=args.http_host, port=args.http,
+                        sweep_fn=sup.sweep, submit_fn=sup.submit,
+                        drain_fn=lambda why: sup.drain(reason=why),
+                        registry=registry,
+                        drain_report_path=args.drain_report)
+    else:
+        servers = [
+            ServingServer(
+                make_engine(), max_queue=max_queue,
+                default_deadline_ms=args.default_deadline_ms,
+                max_retries=args.max_retries, buckets=buckets,
+                drain_grace_s=args.drain_grace, tracer=tracer,
+                flight=flight, artifact_path=args.engine_artifact)
+            for _ in range(args.replicas or 1)]
+        router = ServingRouter(servers, tracer=tracer, flight=flight,
+                               flight_dir=args.flight_dir)
+        router.bind_metrics(registry)
+        edge = HttpEdge(router, host=args.http_host, port=args.http,
+                        registry=registry, tracer=tracer,
+                        drain_report_path=args.drain_report)
+    edge.start()
+    edge.install_signals()
+    if args.http_addr_file:
+        tmp = f"{args.http_addr_file}.tmp"
+        with open(tmp, "w") as f:
+            f.write(f"{edge.addr[0]} {edge.addr[1]}\n")
+        os.replace(tmp, args.http_addr_file)
+    print(f"# serving HTTP on {edge.addr[0]}:{edge.addr[1]}", flush=True)
+    limit = args.http_max_requests
+    drained = False
+    try:
+        while not edge.draining:
+            if limit is not None:
+                c = edge.counters()
+                if c["requests"] >= limit and c["active_streams"] == 0:
+                    edge.drain(reason=f"served {limit} requests "
+                                      "(--http-max-requests)")
+                    break
+            time.sleep(0.05)
+        drained = edge.wait_drained(timeout_s=args.drain_grace)
+    finally:
+        edge.close()
+        if sup is not None:
+            sup.shutdown(drain=False)
+    c = edge.counters()
+    print("# outcomes " + " ".join(f"{k}={v}" for k, v in c.items()),
+          flush=True)
+    _write_metrics(registry, args.metrics_out)
+    return 0 if drained else 1
+
+
+def _serve_fleet_procs(args, prompts, sampling, buckets, sink):
+    """`serve --fleet-procs N`: the cross-process fleet (serve.fleet).
+    Each replica runs its ServingServer in its own process over the
+    socket transport; the supervisor owns spawn/reap/autoscale (up to
+    --fleet-max) and the router owns exactly-once failover, so a
+    replica SIGKILL mid-batch redistributes its ledger instead of
+    losing requests. The batch feeds the fleet between sweeps,
+    SIGTERM/SIGINT drains the whole fleet, and the transcript is the
+    shared ordered format plus the fleet `# outcomes` trailer."""
+    import signal
+
+    from paddle_tpu_torch.serve.router import QueueFullError
+
+    # the parent-side tracer has no replica to hand spans to across the
+    # process boundary; children run their own obs stacks
+    registry, _tracer, flight = _obs_stack(args.metrics_out,
+                                           args.flight_dir)
+    max_queue = args.max_queue if args.max_queue is not None else 64
+    sup = _fleet_supervisor(args, _fleet_spec(args, buckets, max_queue),
+                            registry, flight)
+    sup.start()
+
+    def handler(signum, frame):
+        sup.drain(reason=f"signal {signum}")
+
+    prev = {s: signal.signal(s, handler)
+            for s in (signal.SIGTERM, signal.SIGINT)}
+    ids = {}
+    try:
+        cursor = 0
+        while cursor < len(prompts) and not sup.router.draining:
+            if (sup.router.queue_space() <= 0
+                    and any(r.routable() for r in sup.router.replicas)):
+                # queues full but the fleet is healthy: a sweep drains
+                # them (and may scale out), then keep feeding
+                sup.sweep()
+                continue
+            try:
+                ids[cursor] = sup.submit(
+                    prompts[cursor], max_new=args.max_new,
+                    sampling=(sampling[cursor] if sampling else None))
+            except (ValueError, QueueFullError) as e:
+                ids[cursor] = e.rr_id   # ledgered under its id
+            cursor += 1
+            sup.sweep()
+        results = sup.run()
+        sup.reconcile()
+        counters = sup.router.counters()
+        counters.update(sup.counters())
+    finally:
+        for s, h in prev.items():
+            signal.signal(s, h)
+        sup.shutdown(drain=False)
+    _render_serve_results(args, sink, prompts, ids, results, counters)
+    _write_metrics(registry, args.metrics_out)
+    return 0
+
+
 def cmd_launch(args) -> int:
     from paddle_tpu_torch.parallel import launch as launch_mod
 
@@ -842,16 +1023,42 @@ def build_parser() -> argparse.ArgumentParser:
                         "(token ids in, token ids out; see cmd_serve)")
     sv.add_argument("--config", required=True,
                     help="script defining get_serve_config()")
-    sv.add_argument("--prompts", required=True,
+    sv.add_argument("--prompts", default=None,
                     help="file: one whitespace-separated id sequence "
-                         "per line")
+                         "per line (required unless --http)")
     sv.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda; raises "
                          "without a card)")
     sv.add_argument("--max-new", type=int, default=128)
+    sv.add_argument("--http", type=int, default=None, metavar="PORT",
+                    help="serve the streaming HTTP front door on this "
+                         "port instead of a prompts batch (0 = "
+                         "ephemeral): POST /v1/generate streams tokens "
+                         "by chunked transfer, a client disconnect "
+                         "cancels its request, overload sheds 429 at the "
+                         "edge, SIGTERM drains the edge then the fleet")
+    sv.add_argument("--http-host", default="127.0.0.1",
+                    help="bind address for --http")
+    sv.add_argument("--http-addr-file", default=None, metavar="PATH",
+                    help="write 'host port' here once the --http "
+                         "listener is bound (atomic; pairs with --http 0)")
+    sv.add_argument("--http-max-requests", type=int, default=None,
+                    metavar="N",
+                    help="drain and exit after N HTTP requests have "
+                         "finished (default: serve until SIGTERM)")
     sv.add_argument("--replicas", type=int, default=None,
                     help="serve through N replicas behind the "
                          "prefix-affinity router (serve.router)")
+    sv.add_argument("--fleet-procs", type=int, default=None,
+                    help="serve through N replica PROCESSES behind the "
+                         "fleet supervisor (serve.fleet): each runs its "
+                         "ServingServer on --device in its own process "
+                         "over the socket transport, with SIGKILL-safe "
+                         "exactly-once failover and autoscaling up to "
+                         "--fleet-max")
+    sv.add_argument("--fleet-max", type=int, default=None,
+                    help="autoscale ceiling for --fleet-procs (default: "
+                         "the floor)")
     sv.add_argument("--slots", type=int, default=None)
     sv.add_argument("--max-len", type=int, default=None)
     sv.add_argument("--buckets", default=None,

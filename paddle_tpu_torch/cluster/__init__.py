@@ -10,9 +10,16 @@
   topology from a view (`PServerClient.from_membership`) and the gang
   supervisor mirrors its members into one (`GangSupervisor(
   membership=...)`).
+- ``cluster.agent`` -- the per-host agent process: spawns and fences
+  its host's replica processes (`serve.fleet.ReplicaProcess`),
+  registers them as its inventory, renews its lease, and tears down
+  fenced on eviction. It never touches the card; its replicas do.
 
-The per-host agent is not ported yet (ROADMAP queue 1 item 6).
+The agent's names resolve on first use, so `cluster.lease` and
+`cluster.membership` users do not load the serving stack.
 """
+
+import importlib
 
 from paddle_tpu_torch.cluster.lease import Lease, LeaseTable
 from paddle_tpu_torch.cluster.membership import (ClusterView,
@@ -20,5 +27,17 @@ from paddle_tpu_torch.cluster.membership import (ClusterView,
                                                  MembershipServer,
                                                  MembershipService)
 
-__all__ = ["ClusterView", "Lease", "LeaseTable", "MembershipClient",
-           "MembershipServer", "MembershipService"]
+_AGENT = ("AgentProcess", "AgentSpec")
+
+__all__ = sorted(["ClusterView", "Lease", "LeaseTable", "MembershipClient",
+                  "MembershipServer", "MembershipService", *_AGENT])
+
+
+def __getattr__(name):
+    if name not in _AGENT:
+        raise AttributeError(
+            f"module 'paddle_tpu_torch.cluster' has no attribute {name!r}")
+    value = getattr(importlib.import_module("paddle_tpu_torch.cluster.agent"),
+                    name)
+    globals()[name] = value
+    return value

@@ -126,6 +126,21 @@ def library(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
     return lib
 
 
+def skip_dynamo_guard(op) -> None:
+    """Let a `torch.library.custom_op`'s registered kernels run without
+    the dynamo guard torch wraps around each of them. The guard imports
+    torch._dynamo at a process's first call of a kernel (with sympy and
+    the distributed packages: seconds on an H100's host), and a replica
+    process or a CLI child pays that in its boot. The guard only matters
+    under torch.compile, which the port does not use: its operators run
+    eagerly, or under torch.export, which calls their fakes. Where a
+    torch release wraps its kernels otherwise, this changes nothing."""
+    for fn in getattr(op, "_backend_fns", {}).values():
+        inner = getattr(fn, "__wrapped__", None)
+        if inner is not None:
+            setattr(inner, "__dynamo_disable", inner)
+
+
 def check_launch(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: kernel launch failed with CUDA "

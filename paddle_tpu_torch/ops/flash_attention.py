@@ -300,6 +300,9 @@ def _flash_fwd_cuda(q, k, v, lens, causal, window, block_k):
     return flash_kernel(q, k, v, lens, causal=causal, window=window)
 
 
+_cuda.skip_dynamo_guard(flash_fwd)
+
+
 @flash_fwd.register_fake
 def _flash_fwd_fake(q, k, v, lens, causal, window, block_k):
     b, tq, h, _ = q.shape

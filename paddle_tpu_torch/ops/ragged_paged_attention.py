@@ -343,6 +343,10 @@ def _ragged_walk_int8_cuda(q, k_data, k_scale, v_data, v_scale, page_table,
                    pos0, active, page_size, max_len)
 
 
+_cuda.skip_dynamo_guard(ragged_walk)
+_cuda.skip_dynamo_guard(ragged_walk_int8)
+
+
 @ragged_walk.register_fake
 def _ragged_walk_fake(q, *args):
     return torch.empty_like(q)

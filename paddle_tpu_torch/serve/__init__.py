@@ -1,17 +1,15 @@
 """Serving: the paged decode engine, its reliability server, the
-multi-replica router, the serving artifacts, the C-API bridge and CTR
+multi-replica router, the process fleet over its socket transport, the
+streaming HTTP edge, the serving artifacts, the C-API bridge and CTR
 serving over the tiered embedding cache (port of `paddle_tpu.serve`'s
-`artifact`, `capi_bridge`, `ctr`, `embed_cache`, `engine`, `paged`,
-`policy`, `router`, `server` and `shm_arena` names). The HTTP edge, the
-process fleet and its transport are not ported yet (ROADMAP queue 1
-item 6).
+names).
 
-The names resolve on first use, so loading an artifact
-(`serve.artifact`, `serve.capi_bridge`) imports no model code."""
+The names (and the `quant` submodule) resolve on first use, so loading
+an artifact (`serve.artifact`, `serve.capi_bridge`) imports no model
+code, and a process that only spawns and fences replicas
+(`serve.fleet.ReplicaProcess`, the per-host agent) imports no torch."""
 
 import importlib
-
-from paddle_tpu_torch.serve import quant
 
 _NAMES = {
     "paddle_tpu_torch.serve.artifact": (
@@ -21,6 +19,10 @@ _NAMES = {
     "paddle_tpu_torch.serve.ctr": ("CtrServer", "init_tower"),
     "paddle_tpu_torch.serve.embed_cache": (
         "CacheBacking", "TieredEmbedCache"),
+    "paddle_tpu_torch.serve.fleet": (
+        "AutoscalePolicy", "FleetSupervisor", "ReplicaProcess",
+        "ReplicaSpec"),
+    "paddle_tpu_torch.serve.http_edge": ("HttpEdge",),
     "paddle_tpu_torch.serve.engine": (
         "DecodeEngine", "DecodeSeed", "EngineState", "PoolStats",
         "PrefillTicket"),
@@ -35,6 +37,9 @@ _NAMES = {
         "Request", "RequestResult", "ServingServer"),
     "paddle_tpu_torch.serve.shm_arena": (
         "ArenaError", "ArenaFull", "ArenaUnavailable", "ShmArena"),
+    "paddle_tpu_torch.serve.transport": (
+        "ProcessReplica", "ReplicaClient", "ReplicaTransportServer",
+        "TransportCallError", "TransportConnectError", "TransportError"),
 }
 _MODULE_OF = {name: mod for mod, names in _NAMES.items() for name in names}
 
@@ -42,6 +47,8 @@ __all__ = ["quant"] + sorted(_MODULE_OF)
 
 
 def __getattr__(name):
+    if name == "quant":
+        return importlib.import_module("paddle_tpu_torch.serve.quant")
     mod = _MODULE_OF.get(name)
     if mod is None:
         raise AttributeError(

@@ -1,6 +1,5 @@
 """Deterministic, seed-driven fault injection for training and serving
-(port of the training, serving, router and data-plane parts of
-`paddle_tpu.testing.faults`).
+(port of `paddle_tpu.testing.faults`).
 
 `FaultPlan` is one switchboard: a test declares WHERE faults strike
 (sample index, global batch index, nth checkpoint save) and wraps the
@@ -33,12 +32,16 @@ ran, not that the fault missed. The faults:
 - parameter-server faults on a `native.pserver.PServerShard`
   (`wrap_pserver_shard`): the shard killed on the nth push or get_rows,
   a lost ACK, a slow replica, a snapshot-write error;
-- a streaming trainer's death at its nth step (`wrap_online_trainer`).
-
-The fleet and cluster fields of the JAX plan wait for the layers they
-wrap (ROADMAP queue 1 item 6): passing one is a TypeError naming it.
-`build_chaos_replica` needs the process fleet and raises naming its
-item.
+- a streaming trainer's death at its nth step (`wrap_online_trainer`);
+- process faults on a `serve.fleet.FleetSupervisor` (`wrap_fleet`): a
+  real SIGKILL of one replica child (`fleet_sigkill_at`/
+  `fleet_sigkill_replica`) right before the nth sweep;
+- host faults on a membership-mode supervisor (`wrap_cluster`): a real
+  SIGKILL of one per-host agent (`cluster_sigkill_at`/
+  `cluster_sigkill_host`), its lease expired on the membership
+  service's `ManualClock`;
+- `build_chaos_replica`, the spawn-importable replica builder whose
+  child arms data-plane faults on its own arena handle.
 """
 
 from __future__ import annotations
@@ -86,6 +89,12 @@ class FaultPlan:
     router_kill_import_at: Optional[int] = None   # nth KV-block import
     router_probe_drop_first_n: Optional[int] = None  # blackholed probes
     router_slow_decode_s: float = 0.0             # clock skew per decode
+    # -- fleet process faults (serve.fleet, via wrap_fleet) --
+    fleet_sigkill_at: Optional[int] = None        # nth supervisor sweep
+    fleet_sigkill_replica: int = 0                # rid of the victim child
+    # -- cluster faults (cluster.agent + membership, via wrap_cluster) --
+    cluster_sigkill_at: Optional[int] = None      # nth supervisor sweep
+    cluster_sigkill_host: str = ""                # host_id of the victim
     # -- data-plane faults (serve.shm_arena, via wrap_arena) --
     arena_kill_scatter_at: Optional[int] = None   # nth segment written
     arena_kill_adopt_at: Optional[int] = None     # nth segment adopted
@@ -120,6 +129,8 @@ class FaultPlan:
         self._router_decode_counter = 0
         self._router_import_counter = 0
         self._router_probe_counter = 0
+        self._fleet_sweep_counter = 0
+        self._cluster_sweep_counter = 0
         self._arena_scatter_counter = 0
         self._arena_adopt_counter = 0
         self._arena_begin_counter = 0
@@ -307,6 +318,94 @@ class FaultPlan:
 
         replica.probe_hook = hook
         return replica
+
+    def wrap_fleet(self, supervisor):
+        """Install a REAL process kill on a `serve.fleet`
+        FleetSupervisor: right before the `fleet_sigkill_at`-th
+        supervisor sweep, the child process of replica
+        `fleet_sigkill_replica` gets SIGKILL -- no drain, no goodbye
+        frame, its sockets, its CUDA context and its in-flight decode
+        state die with the address space (`join` makes the death
+        visible before the sweep runs, so the fault is deterministic
+        rather than racing the scheduler). The sweep must then discover
+        the corpse through the transport (connect failures / a dead
+        `proc.alive()`), harvest the router-side mirror ledger, and
+        redistribute with exactly-once outcomes."""
+        plan = self
+
+        inner_sweep = supervisor.sweep
+
+        def sweep():
+            idx = plan._fleet_sweep_counter
+            plan._fleet_sweep_counter += 1
+            if (idx == plan.fleet_sigkill_at
+                    and not plan._spent("fleetkill")):
+                proc = supervisor.procs.get(plan.fleet_sigkill_replica)
+                if proc is not None and proc.alive():
+                    plan._note("fleetkill", idx)
+                    os.kill(proc.pid, signal.SIGKILL)
+                    proc.proc.join(10.0)
+            return inner_sweep()
+
+        supervisor.sweep = sweep
+        return supervisor
+
+    def wrap_cluster(self, supervisor, agents, *, clock, service,
+                     settle_timeout_s: float = 30.0):
+        """Install a REAL host death on a membership-mode
+        `FleetSupervisor`: right before the `cluster_sigkill_at`-th
+        sweep, the agent of host `cluster_sigkill_host` (from `agents`,
+        a host_id -> AgentProcess map) gets SIGKILL -- its replica
+        grandchildren die with it on the watchdog chain, and nothing
+        deregisters. The membership service's injected `ManualClock`
+        then advances in TWO half-TTL steps: on a frozen clock every
+        renewal re-arms to the same deadline, so one jump past the TTL
+        would strand the SURVIVORS too (a renewal at or past the
+        deadline is refused by design). Instead the wrap jumps half a
+        TTL, BLOCKS (bounded, real time) until every surviving host has
+        renewed past that jump (its `service.lease_margins()` entry
+        exceeds the remaining half -- the agents' renew loops run on
+        the wall clock), then jumps the rest: only the victim's
+        deadline is now behind the clock. The sweep that follows
+        evicts EXACTLY the victim: one lease expiry, one epoch bump,
+        one view change. Needs `ttl_s > 2` so survivors keep a positive
+        margin after the second jump."""
+        plan = self
+
+        inner_sweep = supervisor.sweep
+
+        def sweep():
+            idx = plan._cluster_sweep_counter
+            plan._cluster_sweep_counter += 1
+            if (idx == plan.cluster_sigkill_at
+                    and not plan._spent("agentkill")):
+                victim = agents[plan.cluster_sigkill_host]
+                ttl = victim.spec.ttl_s
+                half = ttl / 2.0
+                plan._note("agentkill", idx)
+                victim.kill()
+                victim.proc.join(10.0)
+                clock.advance(half)
+                survivors = [h for h in agents
+                             if h != plan.cluster_sigkill_host]
+                deadline = time.monotonic() + settle_timeout_s
+                while True:
+                    margins = service.lease_margins()
+                    # a pre-jump lease has at most `ttl - half` left;
+                    # more proves a renewal AFTER the jump
+                    if all(margins.get(h, -1.0) > ttl - half
+                           for h in survivors):
+                        break
+                    if time.monotonic() > deadline:
+                        raise FaultError(
+                            f"surviving agents never renewed past the "
+                            f"clock jump: {margins}")
+                    time.sleep(0.02)
+                clock.advance(half + 1.0)
+            return inner_sweep()
+
+        supervisor.sweep = sweep
+        return supervisor
 
     def wrap_arena(self, arena):
         """Install data-plane faults on a `serve.shm_arena.ShmArena`
@@ -862,9 +961,16 @@ class _FlakyCheckpoints:
 
 
 def build_chaos_replica(fault_plan: Optional[dict] = None, **kwargs):
-    """The JAX package's spawn-importable replica factory for
-    data-plane chaos runs `serve.fleet.build_server_from_config` in a
-    child process; the process fleet is not ported yet."""
-    raise NotImplementedError(
-        "build_chaos_replica needs the process fleet (serve.fleet), "
-        "which is not ported yet (ROADMAP queue 1 item 6)")
+    """Spawn-importable `ReplicaSpec` builder for data-plane chaos:
+    `serve.fleet.build_server_from_config` plus a `FaultPlan` armed on
+    the replica's OWN arena handle (`fault_plan` is the plan's kwargs --
+    plain data, as the spawn boundary requires). Chaos runs point
+    prefill/decode children here to die by SIGKILL mid-scatter or
+    mid-adopt inside a REAL process, then check that the supervisor's
+    orphan-reclaim sweep frees every segment."""
+    from paddle_tpu_torch.serve.fleet import build_server_from_config
+
+    server = build_server_from_config(**kwargs)
+    if fault_plan and server.data_plane is not None:
+        FaultPlan(**fault_plan).wrap_arena(server.data_plane)
+    return server

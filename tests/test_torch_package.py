@@ -87,7 +87,10 @@ MODULES = [
     "paddle_tpu_torch.native.taskqueue", "paddle_tpu_torch.native.pserver",
     "paddle_tpu_torch.parallel.pserver_client",
     "paddle_tpu_torch.serve.embed_cache", "paddle_tpu_torch.serve.ctr",
-    "paddle_tpu_torch.train.online",
+    "paddle_tpu_torch.train.online", "paddle_tpu_torch.testing.traffic",
+    "paddle_tpu_torch.serve.transport", "paddle_tpu_torch.serve.http_edge",
+    "paddle_tpu_torch.serve.fleet", "paddle_tpu_torch.cluster.agent",
+    "paddle_tpu_torch.testing.fleet",
 ]
 
 
@@ -204,3 +207,35 @@ def test_missing_nvcc_raises_instead_of_falling_back(monkeypatch):
 def test_build_dir_is_ignored_by_git():
     ignored = open(os.path.join(REPO, ".gitignore")).read().split()
     assert "paddle_tpu_torch/_build/" in ignored
+
+
+def test_first_operator_call_imports_no_dynamo():
+    """Kernels A, B and C are torch.library operators; torch guards each
+    registered kernel against dynamo and imports torch._dynamo at a
+    process's first call (seconds: a replica process pays it in its
+    boot). The port runs its operators eagerly, so the guard is skipped
+    (`ops._cuda.skip_dynamo_guard`): the first calls import no dynamo
+    and give the plain versions' results."""
+    code = """
+import sys, torch
+from paddle_tpu_torch.ops import flash_attention as FA
+from paddle_tpu_torch.ops import ragged_paged_attention as RPA
+q = torch.randn(1, 16, 2, 64)
+lens = torch.full((1,), 16, dtype=torch.int32)
+o = FA.flash_attention(q, q, q, causal=True)
+ref, _ = FA.flash_attention_reference(q, q, q, lens, causal=True)
+assert torch.equal(o, ref)
+qd = torch.randn(1, 1, 2, 8)
+k = torch.randn(4, 4, 2, 8)
+table = torch.tensor([[0, 1]], dtype=torch.int32)
+pos0 = torch.tensor([5], dtype=torch.int32)
+active = torch.tensor([True])
+w = RPA.ragged_walk(qd, k, k, table, pos0, active, 4, 8)
+assert torch.equal(w, RPA.ragged_reference(qd, k, k, table, pos0, active,
+                                           page_size=4, max_len=8))
+print("torch._dynamo" in sys.modules)
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"

@@ -3,16 +3,22 @@ prompts file (padded to one bucket) through both packages' CLIs (bare,
 through ServingServer with --max-queue, through ServingRouter with
 --replicas 2) must print
 the same transcript -- token lines and the `# outcomes` counters
-trailer; the obs flags write a metrics file and flight dumps; the flags
-whose layers are not ported fail naming their ROADMAP item."""
+trailer; the obs flags write a metrics file and flight dumps. `--http`
+serves the same tokens over the streaming edge as JAX's `--http`, and
+`--fleet-procs 2` (replica processes on the CPU, the config run in each
+child) the same transcript tokens as JAX's `--replicas 2`. The flags
+with no counterpart on the card fail naming their ROADMAP item."""
 
 import json
+import threading
+import time
 
+import numpy as np
 import pytest
 import torch
 
 from paddle_tpu.cli import main as jax_main
-from paddle_tpu_torch.cli import SERVE_DEFERRED_FLAGS
+from paddle_tpu_torch.cli import SERVE_DEFERRED_FLAGS, build_parser
 from paddle_tpu_torch.cli import main as torch_main
 
 CONFIG = '''
@@ -38,19 +44,32 @@ def files(tmp_path_factory):
     return d
 
 
+_JAX_RUNS = {}
+
+
+def _jax_lines(files, *flags):
+    """JAX's transcript of the prompts under `flags`, run once per module
+    (its engines compile on every run)."""
+    key = (str(files),) + flags
+    if key not in _JAX_RUNS:
+        path = files / "out_jax.txt"
+        assert jax_main(["serve", "--config", str(files / "jax_cfg.py"),
+                         "--prompts", str(files / "prompts.txt"),
+                         "--max-new", "4", "--buckets", "8", "--output",
+                         str(path)] + list(flags)) == 0
+        _JAX_RUNS[key] = path.read_text().splitlines()
+    return _JAX_RUNS[key]
+
+
 def _both(files, *flags):
-    out = {}
-    for name, main in (("jax", jax_main), ("torch", torch_main)):
-        path = files / f"out_{name}.txt"
-        argv = ["serve", "--config", str(files / f"{name}_cfg.py"),
-                "--prompts", str(files / "prompts.txt"), "--max-new", "4",
-                "--buckets", "8", "--output", str(path)] + list(flags)
-        if name == "torch":
-            argv += ["--device", "cpu"]
-        assert main(argv) == 0
-        out[name] = path.read_text().splitlines()
-    assert out["torch"] == out["jax"]
-    return out["torch"]
+    path = files / "out_torch.txt"
+    assert torch_main(["serve", "--config", str(files / "torch_cfg.py"),
+                       "--prompts", str(files / "prompts.txt"),
+                       "--max-new", "4", "--buckets", "8", "--output",
+                       str(path), "--device", "cpu"] + list(flags)) == 0
+    lines = path.read_text().splitlines()
+    assert lines == _jax_lines(files, *flags)
+    return lines
 
 
 def test_bare_serve_matches_jax(files):
@@ -126,8 +145,27 @@ def test_engine_artifact_serve_matches_jax(bundles):
     assert "artifact_fallbacks=0" in out["torch"][-1]
 
 
-@pytest.mark.parametrize("flag", sorted(SERVE_DEFERRED_FLAGS))
+#: the serve flags that were deferred before the HTTP edge and the process
+#: fleet were ported: flag -> (its argparse dest, a value)
+PORTED_SERVE_FLAGS = {
+    "--http": ("http", "0"), "--http-host": ("http_host", "0.0.0.0"),
+    "--http-addr-file": ("http_addr_file", "a.txt"),
+    "--http-max-requests": ("http_max_requests", "3"),
+    "--fleet-procs": ("fleet_procs", "2"), "--fleet-max": ("fleet_max", "4"),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(SERVE_DEFERRED_FLAGS)
+                         + sorted(PORTED_SERVE_FLAGS))
 def test_deferred_serve_flags_name_their_roadmap_item(files, flag, capsys):
+    """A flag with no counterpart on the card fails naming its item; the
+    edge's and the fleet's flags, once deferred, now parse."""
+    if flag in PORTED_SERVE_FLAGS:
+        dest, value = PORTED_SERVE_FLAGS[flag]
+        args = build_parser().parse_args(
+            ["serve", "--config", "cfg.py", flag, value])
+        assert str(getattr(args, dest)) == value
+        return
     takes_value, _ = SERVE_DEFERRED_FLAGS[flag]
     argv = ["serve", "--config", "cfg.py", "--prompts", "p.txt", flag] + (
         ["1"] if takes_value else [])
@@ -136,6 +174,91 @@ def test_deferred_serve_flags_name_their_roadmap_item(files, flag, capsys):
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert f"{flag} is not ported yet" in err and "ROADMAP queue 1" in err
+
+
+def _wait_addr(addr_file, alive, timeout_s=60.0):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if addr_file.exists():
+            host, port = addr_file.read_text().split()
+            return host, int(port)
+        assert alive(), "serve --http exited before binding"
+        time.sleep(0.05)
+    raise AssertionError("serve --http never published its address")
+
+
+def test_http_serve_matches_jax(files, tmp_path):
+    """`serve --http 0 --http-addr-file F --http-max-requests 2`: each
+    package's verb runs its edge in a thread, a raw-socket client
+    streams two completions from each, the tokens are equal, and the
+    request limit drains the run to rc 0."""
+    from paddle_tpu_torch.testing.traffic import stream_generate
+
+    got = {}
+    for name, main in (("jax", jax_main), ("torch", torch_main)):
+        addr_file = tmp_path / f"addr_{name}.txt"
+        argv = ["serve", "--config", str(files / f"{name}_cfg.py"),
+                "--http", "0", "--http-addr-file", str(addr_file),
+                "--http-max-requests", "2", "--max-queue", "8",
+                "--buckets", "8"]
+        if name == "torch":
+            argv += ["--device", "cpu"]
+        rc = {}
+        t = threading.Thread(target=lambda: rc.update(v=main(argv)),
+                             daemon=True)
+        t.start()
+        addr = _wait_addr(addr_file, t.is_alive)
+        streams = [stream_generate(addr, p, 5)
+                   for p in ([1, 2, 3, 4, 5], [7, 8, 9])]
+        t.join(timeout=60.0)
+        got[name] = ([(r.status, r.outcome, r.tokens) for r in streams],
+                     rc.get("v"))
+    assert got["torch"] == got["jax"]
+    assert [s[:2] for s in got["torch"][0]] == [(200, "completed")] * 2
+    assert got["torch"][1] == 0
+
+
+FLEET_CONFIG = '''
+from paddle_tpu_torch.models import transformer as T
+from paddle_tpu_torch.testing.fleet import TINY, tiny_params
+
+
+def get_serve_config():
+    return {{"cfg": T.TransformerConfig(**TINY),
+            "params": tiny_params(weights={weights!r}, device="cpu"),
+            "slots": 2, "max_len": 24}}
+'''
+
+
+def test_fleet_procs_serve_matches_jax(files, tmp_path):
+    """`serve --fleet-procs 2`: two replica processes on the CPU, each
+    running a torch-only config (the shared weights from an .npz) in its
+    own process; the transcript's token lines equal JAX's `--replicas 2`
+    run of the same prompts, and the trailer carries the fleet and
+    supervisor counters."""
+    import jax
+
+    from paddle_tpu_torch.testing.fleet import TINY, save_tiny_weights
+    from torch_parity import make_models
+
+    _, _, jp, _ = make_models(seed=0, **TINY)
+    weights = save_tiny_weights(str(tmp_path / "w.npz"), jax.device_get(jp))
+    cfg = tmp_path / "fleet_cfg.py"
+    cfg.write_text(FLEET_CONFIG.format(weights=weights))
+    path = tmp_path / "out_torch.txt"
+    assert torch_main(["serve", "--config", str(cfg), "--prompts",
+                       str(files / "prompts.txt"), "--max-new", "4",
+                       "--buckets", "8", "--max-queue", "8", "--output",
+                       str(path), "--fleet-procs", "2", "--device",
+                       "cpu"]) == 0
+    lines = path.read_text().splitlines()
+    assert lines[:-1] == _jax_lines(files, "--replicas", "2",
+                                    "--max-queue", "8")[:-1]
+    assert len(lines) == 5
+    trailer = lines[-1]
+    for field in ("completed=4", "fleet_completed=4", "spawned=2",
+                  "procs_alive=2", "replicas_lost=0"):
+        assert field in trailer.split(), (field, trailer)
 
 
 def test_serve_device_defaults_to_cuda(files, monkeypatch):

@@ -224,11 +224,18 @@ def test_artifact_entry_points_name_their_roadmap_item(tmp_path):
 
 
 def test_unported_fault_seams_fail_by_name():
+    """Every seam of the JAX plan is ported now: the fleet and cluster
+    fields come with their wraps (exercised on real processes in
+    tests/test_torch_fleet.py and test_torch_agent.py), and
+    build_chaos_replica builds a server (test_torch_fleet.py)."""
     from paddle_tpu_torch.testing.faults import build_chaos_replica
 
-    for field in ("fleet_sigkill_at", "cluster_sigkill_at"):
-        with pytest.raises(TypeError, match=field):
-            TORCH.FaultPlan(**{field: 1})
+    plan = TORCH.FaultPlan(fleet_sigkill_at=1, fleet_sigkill_replica=2,
+                           cluster_sigkill_at=3, cluster_sigkill_host="h")
+    assert (plan.fleet_sigkill_at, plan.fleet_sigkill_replica,
+            plan.cluster_sigkill_at, plan.cluster_sigkill_host) == (
+        1, 2, 3, "h")
+    assert callable(plan.wrap_fleet) and callable(plan.wrap_cluster)
     # the pserver, master and online faults came with the pserver tier
     plan = TORCH.FaultPlan(pserver_kill_push_at=1, online_kill_step_at=2,
                            master_drop_at=3)
@@ -237,5 +244,6 @@ def test_unported_fault_seams_fail_by_name():
     # the gang faults came with the elastic layer (wrap_gang)
     plan = TORCH.FaultPlan(gang_kill_step_at=1, gang_wedge_step_at=2)
     assert (plan.gang_kill_rank, plan.gang_wedge_rank) == (1, 1)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    # the builder's own keyword contract: a config script is required
+    with pytest.raises(TypeError, match="config"):
         build_chaos_replica()
