@@ -369,6 +369,37 @@ Phases, in order; any failure exits non-zero:
    ['flash_attention', 'ragged_paged_attention']); S.fleet_phase()"` (it
    serves its float and int8 references first when serve_phase has not
    run).
+7e. zoo -- the five remaining zoo models and the leaf ops, on torch ops
+   alone (no kernel of A-I lies on this path), within ~30 s. Each model
+   at its own widths, trained through its entry points on the card:
+   word2vec (the imikolov surrogate's 1000 words, embed 32, hidden 256,
+   context 4; softmax `loss`, and `loss_nce` over 16 log-uniform
+   negatives a row), recommender (`RecommenderConfig` defaults, the
+   movielens surrogate's users, movies and 18 categories, ragged
+   category lists and titles), traffic (24 terms, 24 horizons, emb 16, 4
+   classes; the class follows the mean speed) at B=256; GANTrainer
+   (mlp_generator(784), mlp_discriminator(), both adam(2e-4, beta1=0.5))
+   on the MNIST surrogate and VAE(784) on its binarised images at B=128.
+   For each: the first step on the card against the same step on CPU
+   tensors from the same weights and injected noise (word2vec's
+   negatives, the VAE's eps, the GAN's two latent batches): loss 1e-3,
+   each leaf's gradient 1e-4 (the GAN: both losses, and the gradients
+   each adam update received), on the leaves where f32 is well
+   conditioned (the CPU's f32 within 1e-5 of a float64 run on the CPU;
+   the rest printed); then 1 + 5 steps on the card on one batch (adam
+   1e-3; NCE negatives, the VAE's eps and the GAN's latents drawn on the
+   card), every loss finite and the last below the first (the GAN's
+   discriminator loss), ms per step printed (ending in a sync). Then
+   every function of the leaf ops (losses, linalg, sampling's NCE,
+   log-uniform and hsigmoid, the in-graph metrics, misc, the two norms,
+   ctc, the rest of conv, detection), 83 cases at the JAX tests' shapes,
+   on card tensors against the same call on CPU tensors: ids, masks,
+   matches, NMS keep-masks and top-k equal, floats and the gradients of
+   seeded cotangents within 1e-4 of their max (an impossible CTC row
+   costs ~1e30 on both); the generator-driven draws run on the card.
+   Kernels A-I's launch counts, set to 0 at the phase's start, must all
+   be 0. The phase alone: `python3 -c "import chip_smoke as S;
+   S.zoo_phase()"` (it builds no CUDA kernel).
 8. lm_train -- the transformer LM's training path at
    bench_transformer_lm's width (benchmarks/suite.py:331: vocab 32000,
    dim 512, 8 layers, 8 heads, remat, bf16 policy, B=4, T=8192, adam
@@ -547,8 +578,9 @@ Phases, in order; any failure exits non-zero:
    generation, LM train, decode, MoE and image numbers, the wide cases, the card's
    name and power limit, a `phase_seconds` JSON line (each phase's wall
    seconds, the build's and the total; each phase also logs its seconds
-   as it ends), a `kernels` JSON line (nine entries, A-I, each with its
-   launches in the pserver_ctr phase, which must be 0; A, B and C add
+   as it ends), a `kernels` JSON line (nine kernels, A-I, in eleven
+   entries, each with its launches in the pserver_ctr and zoo phases,
+   which must be 0, B's and C's summed over their two entries; A, B and C add
    their launches in the fleet phase's replica processes; A adds its
    HMMA counts and its launches in the LM train phase and the
    sparse_elastic phase's ZeRO steps; B and C their launches in the TP
@@ -623,17 +655,29 @@ from paddle_tpu_torch.models import srl as TSRL
 from paddle_tpu_torch.models import text_lstm as TTL
 from paddle_tpu_torch.models import transformer as TT
 from paddle_tpu_torch.models import vgg as IM_VGG
+from paddle_tpu_torch.models import gan as ZGAN
+from paddle_tpu_torch.models import recommender as ZREC
+from paddle_tpu_torch.models import traffic as ZTRAFFIC
+from paddle_tpu_torch.models import vae as ZVAE
+from paddle_tpu_torch.models import word2vec as ZW2V
 from paddle_tpu_torch.nn import layers as NL
 from paddle_tpu_torch.nn import module as NM
 from paddle_tpu_torch.nn import recurrent as NR
 from paddle_tpu_torch.ops import _cuda
 from paddle_tpu_torch.ops import beam_search as BS
 from paddle_tpu_torch.ops import crf as CRF
+from paddle_tpu_torch.ops import conv as ZCONV
+from paddle_tpu_torch.ops import ctc as ZCTC
+from paddle_tpu_torch.ops import detection as ZDET
 from paddle_tpu_torch.ops import flash_attention as FA
 from paddle_tpu_torch.ops import fused_gru as FG
 from paddle_tpu_torch.ops import fused_lstm as FL
 from paddle_tpu_torch.ops import fused_rnn as FR
+from paddle_tpu_torch.ops import linalg as ZLIN
 from paddle_tpu_torch.ops import losses as LS
+from paddle_tpu_torch.ops import metrics as ZMET
+from paddle_tpu_torch.ops import misc as ZMISC
+from paddle_tpu_torch.ops import norm as ZNORM
 from paddle_tpu_torch.ops import paged_attention as PA
 from paddle_tpu_torch.ops import ragged_paged_attention as RPA
 from paddle_tpu_torch.ops import rnn as RNN
@@ -5772,6 +5816,599 @@ def fleet_phase():
     return out
 
 
+# -- the five remaining zoo models and the leaf ops (no kernel) -----------------
+
+# the zoo phase: each model at its own widths (word2vec at the imikolov
+# dictionary's 1000 words, embed 32, hidden 256, context 4 (the book
+# chapter's); the recommender at RecommenderConfig's defaults over the
+# movielens surrogate's users, movies and categories; traffic at its
+# defaults; the GAN's 784-256-256 MLPs and the VAE(784) on the MNIST
+# surrogate), at the phase's batches
+ZOO_BATCH = {"word2vec": 256, "word2vec_nce": 256, "recommender": 256,
+             "traffic": 256, "gan": 128, "vae": 128}
+ZOO_STEPS = 5                 # timed, after the parity step
+ZOO_LR = 1e-3                 # adam, but the GAN's own adam(2e-4, 0.5)
+W2V_CONTEXT, W2V_NOISE = 4, 16
+ZOO_LOSS_RTOL, ZOO_GRAD_RTOL, ZOO_OPS_RTOL = 1e-3, 1e-4, 1e-4
+
+
+def zoo_data():
+    """Each model's CPU weights, loss and batch (the numpy surrogates,
+    seeded) with its injected noise, and how a training step on the card
+    draws that noise there: {name: (init() -> params, loss_fn, args,
+    redraw(args, generator) -> args or None)}, and the GAN's real
+    batch."""
+    zoo, ds = TDATA.dataset_zoo, TDATA.datasets
+    rs = np.random.RandomState(0)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+
+    vocab = len(zoo.imikolov_build_dict())
+    b = ZOO_BATCH["word2vec"]
+    grams = np.asarray(list(zoo.imikolov(zoo.imikolov_build_dict(),
+                                         n=W2V_CONTEXT + 1)())[:b], np.int64)
+    ctx, nxt = t(grams[:, :W2V_CONTEXT]), t(grams[:, W2V_CONTEXT])
+    w2v_kw = dict(embed_dim=32, hidden=256, context=W2V_CONTEXT)
+    noise = SAMP.log_uniform_sample(torch.Generator().manual_seed(1),
+                                    W2V_NOISE, vocab, (b,))
+
+    b = ZOO_BATCH["recommender"]
+    rows = list(zoo.movielens(n=b, seed=0)())
+    u, g, a, j, m, c, score = map(np.asarray, zip(*rows))
+    cfg = ZREC.RecommenderConfig(
+        n_users=zoo.movielens_max_user_id() + 1,
+        n_movies=zoo.movielens_max_movie_id() + 1,
+        n_categories=zoo.movielens_movie_categories())
+    cats = np.stack([c, (c + 5) % cfg.n_categories,
+                     (c + 7) % cfg.n_categories], 1)
+    titles = (m[:, None] * 7 + np.arange(6)[None, :] * 13) % cfg.title_vocab
+    rec_batch = {k: t(v.astype(np.int64)) for k, v in dict(
+        user_id=u, gender_id=g, age_id=a, job_id=j, movie_id=m,
+        cat_ids=cats, cat_lengths=rs.randint(1, 4, b),
+        title_ids=titles, title_lengths=rs.randint(1, 7, b)).items()}
+    rating = t(score.astype(np.float32))
+
+    b = ZOO_BATCH["traffic"]
+    speed = rs.rand(b, 24).astype(np.float32)
+    # the class of every horizon follows the mean speed (learnable)
+    klass = np.clip(speed.mean(1, keepdims=True) * 4, 0, 3.99).astype(
+        np.int64).repeat(24, 1)
+
+    images = np.stack([img for img, _ in ds.mnist(synthetic_n=128)()])
+    flat = images.reshape(len(images), 784)
+    vae_x = t((flat > 0.5).astype(np.float32))
+    vae = ZVAE.VAE(784)
+    vae_eps = torch.randn((ZOO_BATCH["vae"], 32),
+                          generator=torch.Generator().manual_seed(2))
+    vae_state = vae.init(0, NM.ShapeSpec((ZOO_BATCH["vae"], 784)),
+                         device="cpu")[1]
+
+    def vae_loss(params, x, eps):
+        out, _ = vae.apply(params, vae_state, x, training=True, eps=eps)
+        return ZVAE.elbo_loss(out, x)
+
+    return {
+        "word2vec": (lambda: ZW2V.init_params(0, vocab, device="cpu",
+                                              **w2v_kw),
+                     ZW2V.loss, (ctx, nxt), None),
+        "word2vec_nce": (
+            lambda: ZW2V.init_params(0, vocab, device="cpu", **w2v_kw),
+            lambda p, c, n, z: ZW2V.loss_nce(p, c, n, num_noise=W2V_NOISE,
+                                             noise_ids=z),
+            (ctx, nxt, noise),
+            lambda a, gen: [a[0], a[1], SAMP.log_uniform_sample(
+                gen, W2V_NOISE, vocab, (a[0].shape[0],))]),
+        "recommender": (lambda: ZREC.init_params(0, cfg, device="cpu"),
+                        ZREC.loss, (rec_batch, rating), None),
+        "traffic": (lambda: ZTRAFFIC.init_params(0, device="cpu"),
+                    ZTRAFFIC.loss, (t(speed), t(klass)), None),
+        "vae": (lambda: vae.init(0, NM.ShapeSpec((ZOO_BATCH["vae"], 784)),
+                                 device="cpu")[0],
+                vae_loss, (vae_x, vae_eps),
+                lambda a, gen: [a[0], torch.randn(a[1].shape, generator=gen,
+                                                  device=a[1].device)]),
+        "gan": t(flat[:ZOO_BATCH["gan"]]),
+    }
+
+
+def zoo_loss_and_grads(loss_fn, params, args, device, dtype=None):
+    """loss_fn(params, *args) and its gradients (params' tree) on
+    `device`, every float cast to `dtype` where one is given."""
+    cast = lambda x: x.to(device=device, dtype=dtype if (
+        dtype is not None and x.is_floating_point()) else x.dtype)
+    p = trainable(tree_map(cast, params))
+    loss = loss_fn(p, *tree_map(cast, list(args)))
+    got = iter(torch.autograd.grad(loss, tree_leaves(p)))
+    return loss.item(), tree_map(lambda _: next(got), p)
+
+
+def zoo_gate(name, run):
+    """The first step on the card against the same step on CPU tensors:
+    run(device, dtype) -> (losses, gradient tree). Losses within
+    ZOO_LOSS_RTOL; gradients leaf by leaf within ZOO_GRAD_RTOL (floored
+    as the seq2seq phase's), on the leaves where f32 is well conditioned:
+    where the CPU's f32 gradient is within ZOO_GRAD_RTOL / 10 of a
+    float64 run on the CPU (the rest printed beside their float64
+    errors)."""
+    lk, gk = run("cuda", None)
+    lp, gp = run("cpu", None)
+    _, g64 = with_policy(F64, run, "cpu", torch.float64)
+    errs, cpu64 = leaf_errs(gk, gp), leaf_errs(gp, g64)
+    card64 = leaf_errs(gk, g64)
+    gated = [n for n in errs if cpu64[n] <= ZOO_GRAD_RTOL / 10]
+    l_err = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(lk, lp))
+    g_err = max((errs[n] for n in gated), default=0.0)
+    out = dict(loss=lk, plain_loss=lp, loss_rel_err=l_err,
+               grad_rel_err=g_err, leaves_gated=len(gated),
+               leaves=len(errs),
+               not_gated={n: {"err": errs[n], "cuda_vs_f64": card64[n],
+                              "cpu_vs_f64": cpu64[n]}
+                          for n in errs if n not in gated})
+    log(f"  {name}: card vs CPU, loss {lk} / {lp} (rel {l_err:.2e}, tol "
+        f"{ZOO_LOSS_RTOL:.0e}); gradients max rel err {g_err:.2e} over "
+        f"{len(gated)} of {len(errs)} leaves (tol {ZOO_GRAD_RTOL:.0e})")
+    if out["not_gated"]:
+        log("    not gated (the CPU's f32 over float64's by more than "
+            f"{ZOO_GRAD_RTOL / 10:.0e}), card vs CPU / card vs f64 / CPU "
+            "vs f64: " + ", ".join(
+                f"{n} {v['err']:.1e}/{v['cuda_vs_f64']:.1e}/"
+                f"{v['cpu_vs_f64']:.1e}" for n, v in out["not_gated"].items()))
+    if l_err > ZOO_LOSS_RTOL or g_err > ZOO_GRAD_RTOL or not gated:
+        raise Fail(f"zoo: {name}'s first step differs between the card and "
+                   f"the CPU: {out}")
+    return out
+
+
+def zoo_train(name, step, n=ZOO_STEPS):
+    """1 + n calls of step(i) -> loss tensor on the card: (losses, ms per
+    timed step, ending in a sync). The losses must be finite and the
+    last below the first."""
+    torch.cuda.synchronize()
+    losses = [step(0)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1, n + 1):
+        losses.append(step(i))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    losses = [v.item() for v in losses]
+    log(f"  {name}: {ms:.3f} ms/step over {n} steps; losses "
+        f"{['%.6f' % v for v in losses]}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise Fail(f"zoo: {name}'s losses do not fall: {losses}")
+    return losses, ms
+
+
+def zoo_model(name, init, loss_fn, args, redraw):
+    """A model's parity gate, then 1 + ZOO_STEPS adam steps on the card
+    on the same batch, its noise drawn anew each step on the card
+    (`redraw`)."""
+    params0 = init()
+
+    def run(dev, dtype):
+        loss, grads = zoo_loss_and_grads(loss_fn, params0, args, dev, dtype)
+        return [loss], grads
+
+    out = zoo_gate(name, run)
+    params = tree_to(params0, "cuda")
+    dargs = tree_map(lambda x: x.to("cuda"), list(args))
+    opt = OPT.adam(ZOO_LR)
+    opt_state = opt.init(params)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def step(i):
+        a = dargs if redraw is None else redraw(dargs, gen)
+        p = trainable(params)
+        loss = loss_fn(p, *a)
+        grads = iter(torch.autograd.grad(loss, tree_leaves(p)))
+        opt.update(tree_map(lambda _: next(grads), params), opt_state,
+                   params, torch.tensor(i, dtype=torch.int32,
+                                        device="cuda"))
+        return loss.detach()
+
+    out["losses"], out["ms_per_step"] = zoo_train(name, step)
+    return out
+
+
+def recording(opt, seen):
+    """`opt`, keeping a copy of the gradients each update receives."""
+    def update(grads, state, params, step):
+        seen.append(tree_map(lambda g: g.detach().clone(), grads))
+        return opt.update(grads, state, params, step)
+    return OPT.Optimizer(opt.init, update)
+
+
+def zoo_gan(real):
+    """GANTrainer(mlp_generator(784), mlp_discriminator()): the first
+    train_step (a discriminator and a generator update, each adam(2e-4,
+    beta1=0.5)) on the card against CPU tensors from the same weights and
+    latent batches -- both losses, and the gradients each update
+    received --, then 1 + ZOO_STEPS steps on the card with the latents
+    drawn there; the discriminator's loss must fall."""
+    b = real.shape[0]
+    state0 = ZGAN.GANTrainer(ZGAN.mlp_generator(784),
+                             ZGAN.mlp_discriminator(), data_dim=784
+                             ).init_state(0, b, device="cpu")
+    zg = torch.Generator().manual_seed(4)
+    z = [torch.randn((b, 64), generator=zg) for _ in range(2)]
+
+    def trainer(seen_d=None, seen_g=None):
+        adam = lambda: OPT.adam(2e-4, beta1=0.5)
+        rec = lambda seen: recording(adam(), seen) if seen is not None \
+            else adam()
+        return ZGAN.GANTrainer(ZGAN.mlp_generator(784),
+                               ZGAN.mlp_discriminator(), data_dim=784,
+                               g_optimizer=rec(seen_g),
+                               d_optimizer=rec(seen_d))
+
+    def state_on(tr, dev, dtype=None):
+        gp, dp = (tree_to(p, dev, dtype) for p in (state0.g_params,
+                                                   state0.d_params))
+        return ZGAN.GANState(gp, {}, tr.g_optim.init(gp), dp, {},
+                             tr.d_optim.init(dp),
+                             torch.zeros((), dtype=torch.int32, device=dev))
+
+    def run(dev, dtype):
+        seen_d, seen_g = [], []
+        tr = trainer(seen_d, seen_g)
+        dt = dtype or torch.float32
+        _, d, g = tr.train_step(state_on(tr, dev, dtype),
+                                real.to(dev, dt),
+                                z=[v.to(dev, dt) for v in z])
+        return [d.item(), g.item()], {"d": seen_d[0], "g": seen_g[0]}
+
+    out = zoo_gate("gan", run)
+    tr = trainer()
+    state = state_on(tr, "cuda")
+    dreal = real.to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    g_losses = []
+
+    def step(i):
+        nonlocal state
+        state, d, g = tr.train_step(state, dreal, gen)
+        g_losses.append(g)
+        return d
+
+    out["d_losses"], out["ms_per_step"] = zoo_train("gan", step)
+    out["g_losses"] = [v.item() for v in g_losses]
+    if not all(np.isfinite(out["g_losses"])):
+        raise Fail(f"zoo: the generator's losses: {out['g_losses']}")
+    out["sample_shape"] = list(tr.sample(state, gen, 4).shape)
+    return out
+
+
+# -- the leaf ops (queue 1 item 6.1) on the card against the CPU --------------
+
+
+def _flat(out):
+    if isinstance(out, (tuple, list)):
+        return [a for o in out for a in _flat(o)]
+    return [out]
+
+
+def op_card_vs_cpu(name, fn, args, *, diff=(), exact=False):
+    """fn(*args) on card tensors against the same call on CPU tensors
+    (numpy args become tensors on each side; keywords go in closures).
+    Integer and bool outputs must be equal, floats too where exact;
+    other floats within ZOO_OPS_RTOL of their max |CPU value|. `diff`:
+    the args whose gradients of sum(out_i * c_i) over the float outputs,
+    with seeded cotangents c_i, agree the same way. Returns the worst
+    float error."""
+    def call(dev):
+        t = [torch.from_numpy(np.array(a)).to(dev)
+             if isinstance(a, (np.ndarray, np.generic)) else a for a in args]
+        for k in diff:
+            t[k] = t[k].clone().requires_grad_(True)
+        with torch.set_grad_enabled(bool(diff)):
+            outs = _flat(fn(*t))
+            grads = []
+            if diff:
+                rs = np.random.RandomState(0)
+                s = sum((o * torch.from_numpy(rs.standard_normal(
+                    tuple(o.shape)).astype(np.float32)).to(o.device, o.dtype)
+                         ).sum() for o in outs if o.is_floating_point())
+                grads = torch.autograd.grad(s, [t[k] for k in diff])
+        return ([o.detach().cpu() for o in outs], [g.cpu() for g in grads])
+
+    (ok, gk), (op, gp) = call("cuda"), call("cpu")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(ok + gk, op + gp)):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise Fail(f"zoo ops: {name} output {i}: {a.shape} {a.dtype} on "
+                       f"the card, {b.shape} {b.dtype} on the CPU")
+        if exact or not b.is_floating_point():
+            if not torch.equal(a, b):
+                raise Fail(f"zoo ops: {name} output {i} differs between the "
+                           f"card and the CPU")
+            continue
+        err = rel_err(a, b) if b.numel() else 0.0
+        worst = max(worst, err)
+        if not err <= ZOO_OPS_RTOL:
+            raise Fail(f"zoo ops: {name} output {i}: {err:.2e} from the CPU "
+                       f"(tol {ZOO_OPS_RTOL:.0e})")
+    return worst
+
+
+def zoo_op_cases():
+    """(name, fn, numpy args, keywords of op_card_vs_cpu) for every
+    function of the leaf ops, at the JAX tests' shapes (seeded)."""
+    rs = np.random.RandomState(0)
+    f = lambda *s: rs.standard_normal(s).astype(np.float32)
+    bits = lambda *s: (rs.rand(*s) > 0.5).astype(np.float32)
+    probs = lambda *s: (lambda z: (z / z.sum(-1, keepdims=True)).astype(
+        np.float32))(np.exp(f(*s)))
+    tied = lambda: rs.randint(0, 3, (16, 6)).astype(np.float32)
+    ids = lambda hi, *s: rs.randint(0, hi, s).astype(np.int64)
+    d = dict(diff=(0,))
+    cases = []
+    add = lambda name, fn, args, **kw: cases.append((name, fn, args, kw))
+
+    # losses
+    add("reduce_loss", lambda a, w: LS.reduce_loss(a, w), [f(6), rs.rand(
+        6).astype(np.float32)], diff=(0, 1))
+    add("softmax_cross_entropy", LS.softmax_cross_entropy,
+        [f(4, 6), ids(6, 4)], **d)
+    add("soft_label_cross_entropy", LS.soft_label_cross_entropy,
+        [f(4, 6), probs(4, 6)], diff=(0, 1))
+    add("cross_entropy_with_probs", LS.cross_entropy_with_probs,
+        [probs(4, 6), ids(6, 4)], **d)
+    add("sigmoid_cross_entropy", LS.sigmoid_cross_entropy,
+        [3 * f(4, 6), bits(4, 6)], **d)
+    add("multi_binary_label_cross_entropy",
+        LS.multi_binary_label_cross_entropy, [3 * f(4, 6), bits(4, 6)], **d)
+    add("squared_error", LS.squared_error, [f(4, 3, 2), f(4, 3, 2)],
+        diff=(0, 1))
+    add("squared_error[rank 1]", LS.squared_error, [f(6), f(6)],
+        diff=(0, 1))
+    add("huber_regression", lambda a, b: LS.huber_regression(a, b, 0.5),
+        [2 * f(5, 4), f(5, 4)], diff=(0, 1))
+    add("huber_classification", LS.modified_huber_loss,
+        [np.asarray([-3.0, -0.5, 0.2, 2.5, -1.5, 0.9], np.float32),
+         np.asarray([1, 1, 0, 1, 0, 0], np.float32)], **d)
+    add("smooth_l1", lambda a, b: LS.smooth_l1(a, b, 2.0), [f(5, 4),
+                                                          f(5, 4)],
+        diff=(0, 1))
+    add("hinge_loss", LS.hinge_loss, [2 * f(4, 3), bits(4, 3)], **d)
+    add("rank_cost", LS.rank_cost,
+        [np.asarray([0.3, -1.0, 25.0, -30.0, 2.0], np.float32),
+         np.asarray([0.1, 0.5, -1.0, 0.0, 2.0], np.float32),
+         rs.rand(5).astype(np.float32)], diff=(0, 1, 2))
+    add("margin_rank_loss", lambda a, b, c: LS.margin_rank_loss(a, b, c,
+                                                               0.1),
+        [f(6), f(6), np.where(rs.rand(6) > 0.5, 1.0, -1.0).astype(
+            np.float32)], diff=(0, 1))
+    add("lambda_rank_segment", lambda s, r: LS.lambda_rank_segment(
+        s, r, ndcg_num=3),
+        [np.asarray([0.5, 1.2, 0.5, -0.3, 1.2, 0.0, 0.5, 2.0], np.float32),
+         np.asarray([2, 0, 1, 3, 1, 0, 2, 1], np.float32)], **d)
+    add("cos_sim", lambda a, b: LS.cos_sim(a, b, scale=5.0),
+        [f(4, 8), f(4, 8)], diff=(0, 1))
+    add("squared_l2_distance", LS.squared_l2_distance, [f(4, 5), f(4, 5)],
+        diff=(0, 1))
+    add("l1_norm", LS.l1_norm, [f(4, 5)], **d)
+    add("squared_l2_norm", LS.squared_l2_norm, [f(4, 5)], **d)
+    # linalg
+    add("multiplex", ZLIN.multiplex, [np.asarray([2, 0, 1, 2], np.int64),
+                                      f(4, 3), f(4, 3), f(4, 3)],
+        diff=(1, 2, 3))
+    add("bilinear_tensor_product", ZLIN.bilinear_tensor_product,
+        [f(3, 4), f(3, 5), f(2, 4, 5), f(2)], diff=(0, 1, 2, 3))
+    add("conv_shift", ZLIN.conv_shift, [f(3, 7), f(3, 3)], diff=(0, 1))
+    add("dot_prod", ZLIN.dot_prod, [f(4, 5), f(4, 5)], diff=(0, 1))
+    add("out_prod", ZLIN.out_prod, [f(4, 5), f(4, 3)], diff=(0, 1))
+    add("convex_comb", ZLIN.convex_comb, [rs.rand(2, 3).astype(np.float32),
+                                          f(2, 12)], diff=(0, 1))
+    add("selective_fc", ZLIN.selective_fc,
+        [f(3, 6), f(6, 20), f(20), np.asarray([[0, 5, 19], [1, 1, 2],
+                                               [7, 3, 11]], np.int64)],
+        diff=(0, 1, 2))
+    # in-graph metrics: ties, where the first maximum wins
+    lab = ids(6, 16)
+    add("accuracy", ZMET.accuracy, [tied(), lab])
+    add("classification_error", ZMET.classification_error, [tied(), lab])
+    add("top_k_accuracy", lambda a, b: ZMET.top_k_accuracy(a, b, 3),
+        [tied(), lab])
+    # misc
+    add("power", ZMISC.power, [(rs.rand(3, 4) + 0.5).astype(np.float32),
+                               np.asarray([1.0, 2.0, 0.5], np.float32)],
+        diff=(0, 1))
+    add("slope_intercept", lambda x: ZMISC.slope_intercept(x, 2.0, 1.0),
+        [f(3, 4)], **d)
+    add("sum_to_one_norm", ZMISC.sum_to_one_norm,
+        [(rs.rand(4, 5) + 0.1).astype(np.float32)], **d)
+    add("switch_order", lambda a: ZMISC.switch_order(a, (0, 2, 3, 1),
+                                                     (2, 60)),
+        [f(2, 4, 5, 3)], exact=True)
+    add("trans", ZMISC.trans, [f(2, 3, 7)], exact=True)
+    add("resize", lambda a: ZMISC.resize(a, 21), [f(3, 7)], exact=True)
+    add("maxid", lambda a: ZMISC.maxid(a, beam=3), [tied()], exact=True)
+    p = probs(6, 9)
+    gumbel = -np.log(-np.log(rs.uniform(1e-6, 1.0, p.shape))).astype(
+        np.float32)
+    add("sampling_id", lambda q, g: ZMISC.sampling_id(None, q, noise=g),
+        [p, gumbel])
+    add("scale_shift", ZMISC.scale_shift, [f(3, 4), np.float32(1.5),
+                                           np.float32(-0.5)],
+        diff=(0, 1, 2))
+    add("scale_sub_region", lambda x, b: ZMISC.scale_sub_region(x, b, 10.0),
+        [f(2, 4, 4, 3), np.asarray([[1, 1, 2, 3, 2, 4], [2, 3, 1, 4, 1, 1]],
+                                   np.int64)], **d)
+    x = f(16, 3) * 4 + 2
+    stats = {"mean": x.mean(0), "std": x.std(0), "min": x.min(0),
+             "max": x.max(0), "decimal_scale": np.asarray(
+                 [10.0, 100.0, 10.0], np.float32)}
+    keys = sorted(stats)
+    add("data_norm", lambda a, *s: ZMISC.data_norm(a, dict(zip(keys, s)),
+                                                   mode="min-max"),
+        [x] + [stats[k] for k in keys], **d)
+    add("row_conv", ZMISC.row_conv, [f(2, 6, 3), f(3, 3),
+                                     np.asarray([6, 4], np.int64)],
+        diff=(0, 1))
+    # norms
+    add("cross_channel_norm", ZNORM.cross_channel_norm,
+        [f(2, 3, 3, 4), f(4)], diff=(0, 1))
+    add("l2_normalize", lambda a: ZNORM.l2_normalize(a, axis=1),
+        [f(3, 5, 4)], **d)
+    # ctc
+    # and a row no alignment fits (three labels, two repeated, in three
+    # frames: ~1e30 with finite gradients)
+    lp = torch.log_softmax(torch.from_numpy(f(2, 3, 3)), -1).numpy()
+    add("ctc_loss", ZCTC.ctc_loss,
+        [lp, np.asarray([3, 2], np.int64), np.asarray([[1, 2], [2, 0]],
+                                                      np.int64),
+         np.asarray([2, 1], np.int64)], **d)
+    add("ctc_loss[impossible]", ZCTC.ctc_loss,
+        [lp, np.asarray([3, 3], np.int64), np.asarray([[1, 1, 2]] * 2,
+                                                      np.int64),
+         np.asarray([3, 3], np.int64)], **d)
+    lp = torch.log_softmax(torch.from_numpy(f(3, 9, 4)), -1).numpy()
+    add("ctc_greedy_decode", ZCTC.ctc_greedy_decode,
+        [lp, np.asarray([9, 5, 0], np.int64)], exact=True)
+    # sampling
+    add("log_uniform_sample", lambda u: SAMP.log_uniform_sample(
+        None, 16, 1000, u=u), [rs.rand(64, 16).astype(np.float32)],
+        exact=True)
+    add("log_uniform_prob", lambda i: SAMP.log_uniform_prob(i, 40),
+        [np.arange(40)])
+    add("nce_loss", lambda *a: SAMP.nce_loss(*a, noise_probs=SAMP
+                                             .log_uniform_prob(
+                                                 torch.arange(12, device=a[
+                                                     0].device), 12)),
+        [0.3 * f(12, 4), 0.1 * f(12), 0.3 * f(3, 4),
+         np.asarray([1, 5, 9], np.int64), ids(12, 3, 5)], diff=(0, 1, 2))
+    codes = SAMP.build_binary_tree_codes(7)
+    add("hsigmoid_loss", SAMP.hsigmoid_loss,
+        [0.3 * f(6, 4), 0.1 * f(6), 0.3 * f(3, 4), ids(7, 3), *codes],
+        diff=(0, 1, 2))
+    add("hsigmoid_predict", SAMP.hsigmoid_predict,
+        [0.3 * f(6, 4), 0.1 * f(6), 0.3 * f(3, 4), *codes], diff=(0, 1, 2))
+    # conv
+    for stride, k, pad in ((1, 3, "SAME"), (2, 4, "SAME"), (2, 3, "VALID"),
+                           (2, 3, ((1, 0), (2, 1)))):
+        add(f"conv2d_transpose[s{stride} k{k} {pad}]",
+            lambda x, w, b, s=stride, p=pad: ZCONV.conv2d_transpose(
+                x, w, stride=s, padding=p, bias=b),
+            [f(2, 5, 6, 3), f(k, k, 3, 4), f(4)], diff=(0, 1, 2))
+    add("depthwise_conv2d", lambda x, w: ZCONV.depthwise_conv2d(
+        x, w, stride=2), [f(2, 7, 6, 3), f(3, 3, 1, 6)], diff=(0, 1))
+    add("spp", lambda a: ZCONV.spp(a, 3, "max"), [f(2, 7, 9, 3)], **d)
+    add("pad", lambda a: ZCONV.pad(a, ((0, 0), (1, 2), (0, 1), (0, 0)), 0.5),
+        [f(2, 3, 4, 2)], **d)
+    add("crop", lambda a: ZCONV.crop(a, (1, 4, 3, 1), (1, 3, 2, 2)),
+        [f(2, 6, 5, 3)], **d)
+    add("im2col", lambda a: ZCONV.im2col(a, 3, stride=2, padding="SAME"),
+        [f(2, 7, 6, 3)], **d)
+    add("roi_pool", lambda a, r: ZCONV.roi_pool(a, r, (3, 2), 0.5),
+        [f(2, 8, 8, 3), np.asarray([[0, 0, 0, 7, 7], [1, 1.5, 2.2, 5.1, 6.8],
+                                    [1, 3, 3, 3, 3], [0, 6, 6, 14, 12]],
+                                   np.float32)], **d)
+    add("conv3d", lambda a, w, b: ZCONV.conv3d(a, w, stride=2,
+                                               padding="SAME", bias=b),
+        [f(2, 5, 6, 7, 3), f(3, 2, 3, 3, 4), f(4)], diff=(0, 1, 2))
+    add("max_pool3d", lambda a: ZCONV.max_pool3d(a, 3, stride=2,
+                                                 padding="SAME"),
+        [f(2, 5, 6, 7, 3)], **d)
+    add("avg_pool3d", lambda a: ZCONV.avg_pool3d(a, 3, stride=2,
+                                                 padding="SAME"),
+        [f(2, 5, 6, 7, 3)], **d)
+    add("maxout", lambda a: ZCONV.maxout(a, 2), [f(3, 4, 6)], **d)
+    add("block_expand", lambda a: ZCONV.block_expand(a, (3, 2), stride=1),
+        [f(2, 6, 7, 3)], **d)
+    for hw, out in (((4, 5), (8, 7)), ((8, 8), (3, 5))):
+        for ac in (False, True):
+            add(f"bilinear_interp[{hw}->{out} align_corners={ac}]",
+                lambda a, o=out, c=ac: ZCONV.bilinear_interp(
+                    a, o, align_corners=c), [f(2, *hw, 3)], **d)
+        add(f"nearest_interp[{hw}->{out}]",
+            lambda a, o=out: ZCONV.nearest_interp(a, o), [f(2, *hw, 3)],
+            exact=True)
+    add("rotate90", lambda a: ZCONV.rotate90(a, reverse=True),
+        [f(2, 3, 5, 2)], exact=True)
+    add("max_pool2d_with_index", lambda a: ZCONV.max_pool2d_with_index(
+        a, 3, stride=2, padding=1),
+        [rs.randint(0, 3, (2, 5, 7, 2)).astype(np.float32)], exact=True)
+    add("max_unpool2d", lambda a: ZCONV.max_unpool2d(
+        *ZCONV.max_pool2d_with_index(a, 2, stride=1), (5, 5)),
+        [f(1, 5, 5, 2)], exact=True)
+    # detection (prior_boxes and build_binary_tree_codes are host numpy)
+    priors = ZDET.prior_boxes((4, 4), (64, 64), [24.0])
+    n = priors.shape[0]
+    lo = rs.uniform(0.05, 0.55, (n, 2))
+    gt = np.concatenate([lo, lo + rs.uniform(0.1, 0.4, (n, 2))],
+                        1).astype(np.float32)
+    add("encode_boxes", lambda g, p: ZDET.encode_boxes(g, p), [gt, priors],
+        **d)
+    add("decode_boxes", lambda x, p: ZDET.decode_boxes(x, p),
+        [0.5 * f(n, 4), priors], **d)
+    add("iou", ZDET.iou, [gt[:5], gt[5:9]], diff=(0, 1))
+    add("match_priors", lambda p, g, v: ZDET.match_priors(p, g, v, 0.2),
+        [priors, gt[:4], np.asarray([True, True, False, True])],
+        exact=True)
+    add("multibox_loss", lambda l, c, p, g, y, v: ZDET.multibox_loss(
+        l, c, p, g, y, v),
+        [0.1 * f(n, 4), f(n, 3), priors, gt[:3], np.asarray([1, 2, 1],
+                                                             np.int64),
+         np.asarray([True, True, False])], diff=(0, 1))
+    boxes = gt[:12]
+    add("nms_mask", ZDET.nms_mask, [boxes, (np.round(rs.rand(12) * 3) / 3
+                                            ).astype(np.float32)],
+        exact=True)
+    add("detection_output", lambda l, c, p: ZDET.detection_output(
+        l, c, p, num_classes=3, top_k=40, pre_nms_top_k=10),
+        [0.3 * f(n, 4), 2 * f(n, 3), priors])
+    add("detection_output[ties]", lambda l, c, p: ZDET.detection_output(
+        l, c, p, num_classes=3, top_k=50, pre_nms_top_k=12),
+        [np.zeros((n, 4), np.float32), np.zeros((n, 3), np.float32),
+         priors])
+    return cases
+
+
+def zoo_ops_sweep():
+    """Every leaf op on card tensors against CPU tensors; the generator
+    paths (sampling_id, log_uniform_sample) drawn on the card."""
+    errs = {}
+    for name, fn, args, kw in zoo_op_cases():
+        errs[name] = op_card_vs_cpu(name, fn, args, **kw)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    ids = SAMP.log_uniform_sample(gen, 16, 1000, (64,))
+    draw = ZMISC.sampling_id(gen, torch.full((64, 9), 1 / 9,
+                                             device="cuda"))
+    if (not ids.is_cuda or int(ids.min()) < 0
+            or int(ids.max()) >= 1000 or int(draw.max()) >= 9):
+        raise Fail(f"zoo ops: draws on the card out of range: {ids}, {draw}")
+    worst = max(errs, key=errs.get)
+    log(f"  ops: {len(errs)} cases of the leaf ops equal on the card and "
+        f"the CPU (ids, masks, matches, top-k exact; floats at most "
+        f"{errs[worst]:.2e} of their max, {worst}; tol {ZOO_OPS_RTOL:.0e})")
+    return {"cases": len(errs), "worst": worst, "worst_err": errs[worst]}
+
+
+def zoo_phase():
+    """The five remaining zoo models trained on the card, then the leaf
+    ops' sweep; kernels A-I must not launch."""
+    t_phase = time.perf_counter()
+    # float32 means float32 on the card too (main() sets the same)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reset_all_counts()
+    data = zoo_data()
+    log(f"phase zoo: word2vec, recommender, traffic, GAN and VAE at their "
+        f"own widths, batches {ZOO_BATCH}, 1 + {ZOO_STEPS} steps each")
+    out = {}
+    for name in ("word2vec", "word2vec_nce", "recommender", "traffic",
+                 "vae"):
+        out[name] = zoo_model(name, *data[name])
+    out["gan"] = zoo_gan(data["gan"])
+    out["ops"] = zoo_ops_sweep()
+    out["launches"] = all_counts()
+    log(f"  kernels A-I launched in the phase: {out['launches']}")
+    if any(out["launches"].values()):
+        raise Fail(f"zoo launched kernels: {out['launches']}")
+    out["s"] = time.perf_counter() - t_phase
+    log(f"  phase zoo: {out['s']:.1f} s")
+    return out
+
+
 # -- the LM's decoders at bench_decode's width ---------------------------------
 
 # bench_decode(batch=8, prompt_len=128, steps=128, dim=512, n_layers=8,
@@ -8008,6 +8645,7 @@ def main() -> int:
     family = run_phase("rnn_family", rnn_family_phase)
     pctr = run_phase("pserver_ctr", pserver_ctr_phase)
     fleet = run_phase("fleet", fleet_phase)
+    zoo = run_phase("zoo", zoo_phase)
     lm = run_phase("lm_train", lm_train_phase)
     dist_out = run_phase("distributed", distributed_phase)
     sparse = run_phase("sparse_elastic", sparse_elastic_phase)
@@ -8259,6 +8897,11 @@ def main() -> int:
               **redesigned(rnn["main"]["I"], srnn["launches"]["I"],
                            srnn["device_launches"]["I"])),
     ]
+    # the kernel-free phases: each kernel's launches there (B and C summed
+    # over their two entries each), which the phases held at 0
+    for kern, letter in zip(kernels, "ABBCCDEFGHI"):
+        kern["pserver_ctr_launches"] = pctr["launches"][letter]
+        kern["zoo_launches"] = zoo["launches"][letter]
     log(json.dumps({"launches": launched}))
     log(json.dumps({"serve": serve}))
     log(json.dumps({"server": server, "server_launches": server_launched,
@@ -8283,6 +8926,7 @@ def main() -> int:
                    default=str))
     log(json.dumps({"fleet": fleet, "card": smi.stdout.strip()},
                    default=str))
+    log(json.dumps({"zoo": zoo, "card": smi.stdout.strip()}))
     PHASE_S["total"] = time.perf_counter() - t_main
     log(json.dumps({"phase_seconds": PHASE_S}))
     log(json.dumps({"kernels": kernels}))

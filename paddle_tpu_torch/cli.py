@@ -54,9 +54,10 @@ own), for `--total-steps` steps; a dead or wedged member tears the gang
 down and it reforms at the surviving count (not below `--min-procs`,
 within `--gang-deadline` seconds), resuming from the durable
 checkpoint; it requires `--checkpoint-dir` and a deterministic reader.
-The instrumentation flags of the JAX verb are not ported yet and fail
-with the ROADMAP item that brings them: `--transfer-guard`,
-`--metrics-out`, `--compile-cache`, `--no-compile-cache`.
+The instrumentation flags of the JAX verb fail naming their ROADMAP
+item: `--metrics-out` is not ported yet; `--transfer-guard`,
+`--compile-cache` and `--no-compile-cache` have no counterpart on the
+card (XLA's transfer guard and compile cache).
 
 `launch` fans a command out to `--hosts` over ssh with the rendezvous
 flags appended (`parallel.launch.launch_ssh`, `--dry-run` prints the ssh
@@ -114,11 +115,12 @@ _OBS = "ROADMAP queue 1 item 6 (the train verb's metrics export)"
 _NO_COUNTERPART = ("there is no XLA compile cache to keep on the card; the "
                    "JAX package's compilation_cache has no counterpart "
                    "(ROADMAP queue 1 item 6)")
+_NO_GUARD = ("it has no counterpart on the card: the JAX package's "
+             "transfer guard is XLA's (ROADMAP queue 1 item 6)")
 
 #: flag -> (takes a value, why it is refused)
 DEFERRED_FLAGS = {
-    "--transfer-guard": (False, "ROADMAP queue 1 item 6 (the analysis "
-                                "guards)"),
+    "--transfer-guard": (False, _NO_GUARD),
     "--metrics-out": (True, _OBS),
     "--compile-cache": (True, _NO_COUNTERPART),
     "--no-compile-cache": (False, _NO_COUNTERPART),

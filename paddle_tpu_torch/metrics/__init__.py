@@ -10,9 +10,9 @@ Two tiers, as in the JAX package:
   arrays (`Trainer.evaluate(evaluators=...)` hands them each batch's
   outputs and labels on the host).
 
-`base`, `chunk` and `editdist` are copies of the JAX package's
-framework-free modules. `detection` (DetectionMAPEvaluator) waits for
-`ops/detection.py` (ROADMAP queue 1 item 6).
+`base`, `chunk`, `editdist` and `detection` (DetectionMAPEvaluator,
+`iou_matrix`, `average_precision`) are copies of the JAX package's
+framework-free modules.
 """
 
 from paddle_tpu_torch.metrics.base import CombinedEvaluator, Evaluator
@@ -27,6 +27,7 @@ from paddle_tpu_torch.metrics.classify import (
     confusion_matrix,
 )
 from paddle_tpu_torch.metrics.chunk import ChunkEvaluator, extract_chunks
+from paddle_tpu_torch.metrics.detection import DetectionMAPEvaluator
 from paddle_tpu_torch.metrics.editdist import (
     CTCErrorEvaluator,
     ctc_greedy_decode,
@@ -52,6 +53,7 @@ __all__ = [
     "confusion_matrix",
     "ChunkEvaluator",
     "extract_chunks",
+    "DetectionMAPEvaluator",
     "CTCErrorEvaluator",
     "ctc_greedy_decode",
     "edit_distance",

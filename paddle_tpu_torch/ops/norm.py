@@ -1,5 +1,5 @@
-"""Normalization (port of `paddle_tpu.ops.norm`'s batch_norm, layer_norm
-and lrn). Not ported yet: cross_channel_norm, l2_normalize."""
+"""Normalization (port of `paddle_tpu.ops.norm`): batch_norm, layer_norm,
+lrn, cross_channel_norm and l2_normalize."""
 
 from __future__ import annotations
 
@@ -110,3 +110,18 @@ def lrn(x, *, size: int = 5, alpha: float = 1e-4, beta: float = 0.75,
     sq = F.pad(torch.square(x), (half, size - 1 - half))
     window = sq.unfold(-1, size, 1).sum(dim=-1)
     return x * torch.pow(k + alpha * window, -beta)
+
+
+def cross_channel_norm(x, scale, *, epsilon: float = 1e-10):
+    """L2-normalize across the channels (last axis), then scale per
+    channel (the SSD norm layer)."""
+    norm = torch.sqrt(torch.sum(torch.square(x), dim=-1, keepdim=True)
+                      + epsilon)
+    return x / norm * scale
+
+
+def l2_normalize(x, axis: int = -1, epsilon: float = 1e-12):
+    """x / sqrt(sum(x^2) + epsilon) along `axis`."""
+    norm = torch.sqrt(torch.sum(torch.square(x), dim=axis, keepdim=True)
+                      + epsilon)
+    return x / norm

@@ -1,5 +1,6 @@
-"""Per-row token sampling and the speculative verify rules (mirror of
-the serving sampler in `paddle_tpu.ops.sampling`).
+"""Per-row token sampling, the speculative verify rules, and the
+sampled and tree-structured output losses (port of
+`paddle_tpu.ops.sampling`).
 
 `per_row_filter_logits` / `per_row_sample` are the
 temperature/top-k/top-p convention the serving engine draws through.
@@ -19,15 +20,25 @@ the verify rule's acceptance uniforms) are injectable (`noise=`, `u=`),
 so a test can hand the port the draws the JAX side used; otherwise each
 row draws from its own `torch.Generator` (the engine's per-slot
 streams). Those streams do not reproduce `jax.random`'s bits.
+
+Losses for large vocabularies: noise-contrastive estimation (`nce_loss`)
+with the log-uniform candidate sampler (`log_uniform_sample`, whose
+uniforms are injectable as `u=`, `log_uniform_prob`), and the
+hierarchical sigmoid over a complete binary tree
+(`build_binary_tree_codes`, a numpy copy; `hsigmoid_loss`,
+`hsigmoid_predict`).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import math
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from paddle_tpu_torch.core.dtypes import at_least_f32
+from paddle_tpu_torch.ops.activations import softplus
 
 
 def per_row_filter_logits(logits, temperature, top_k, top_p):
@@ -197,3 +208,115 @@ def ngram_spec_verify(logits, window, draft_len, temperature, top_k, top_p,
                            next_tok[:, None])[:, 0]
     return (next_tok, n_acc, lp_draft.to(torch.float32),
             lp_next.to(torch.float32))
+
+
+# -- sampled and tree-structured output losses --------------------------------
+
+
+def log_uniform_sample(generator: Optional[torch.Generator],
+                       num_samples: int, vocab: int, shape=(), *,
+                       u: Optional[torch.Tensor] = None, device=None):
+    """Log-uniform (Zipf-like) negative ids, P(k) proportional to
+    log((k+2)/(k+1)): int64 ids [*shape, num_samples], k = clip(int(exp(u
+    * log(vocab + 1)) - 1), 0, vocab - 1). u: the uniforms (injected), or
+    drawn in f32 from `generator` on `device` (or the generator's)."""
+    if u is None:
+        dev = device if device is not None else (
+            generator.device if generator is not None else None)
+        u = torch.rand((*shape, num_samples), generator=generator,
+                       device=dev)
+    ids = torch.exp(u * math.log(float(vocab + 1))) - 1.0
+    return torch.clamp(ids.to(torch.int32), 0, vocab - 1).long()
+
+
+def log_uniform_prob(ids, vocab: int):
+    """The sampler's probability of each id (f32)."""
+    k = ids.to(torch.float32)
+    return torch.log((k + 2.0) / (k + 1.0)) / math.log(float(vocab + 1))
+
+
+def nce_loss(weights, bias, hidden, labels, noise_ids, *, noise_probs=None,
+             true_probs=None):
+    """Noise-contrastive estimation, per example [B]: softplus(-s+) +
+    sum softplus(s-) over the true class's and the S noise ids' logits
+    (weights [V, D], bias [V], hidden [B, D], labels [B], noise_ids
+    [B, S]). noise_probs: the sampler's probabilities for the log(k Q)
+    correction, either [V] per class (the true class's looked up) or
+    [B, S] per sample, which then needs true_probs [B]; None: plain
+    binary logistic (uniform noise)."""
+    labels = labels.long()
+    noise_ids = noise_ids.long()
+    true_logit = (weights[labels] * hidden).sum(-1) + bias[labels]
+    noise_logit = torch.einsum("bsd,bd->bs", weights[noise_ids], hidden) \
+        + bias[noise_ids]
+    if noise_probs is not None:
+        k = noise_ids.shape[-1]
+        q = torch.as_tensor(noise_probs, device=hidden.device)
+        if q.ndim == 1:
+            true_q, nq = q[labels], q[noise_ids]
+        else:
+            if true_probs is None:
+                raise ValueError(
+                    "noise_probs is per-sample [B, S]; pass true_probs [B] "
+                    "so the log(k*Q) correction applies to the true class "
+                    "too (omitting it biases the NCE objective)")
+            true_q = torch.as_tensor(true_probs, device=hidden.device)
+            nq = q
+        true_logit = true_logit - torch.log(k * true_q + 1e-20)
+        noise_logit = noise_logit - torch.log(k * nq + 1e-20)
+    return softplus(-true_logit) + softplus(noise_logit).sum(-1)
+
+
+def build_binary_tree_codes(num_classes: int
+                            ) -> Tuple[np.ndarray, np.ndarray]:
+    """Complete-binary-tree paths for the hierarchical sigmoid: (node_ids
+    [V, depth] int32 with -1 padding, signs [V, depth] f32, +1 for a left
+    child). Internal node i has children 2i+1 and 2i+2; the classes are
+    the leaves after the num_classes - 1 internal nodes."""
+    num_internal = num_classes - 1
+    depth = max(int(np.ceil(np.log2(max(num_classes, 2)))), 1)
+    node_ids = np.full((num_classes, depth), -1, np.int32)
+    signs = np.zeros((num_classes, depth), np.float32)
+    for c in range(num_classes):
+        path = []
+        node = num_internal + c
+        while node > 0:
+            parent = (node - 1) // 2
+            is_left = node == 2 * parent + 1
+            path.append((parent, 1.0 if is_left else -1.0))
+            node = parent
+        path.reverse()
+        for d, (nid, sign) in enumerate(path):
+            node_ids[c, d] = nid
+            signs[c, d] = sign
+    return node_ids, signs
+
+
+def _tree_codes(node_ids, signs, device):
+    ids = torch.as_tensor(node_ids, device=device).long()
+    return ids, torch.as_tensor(signs, device=device)
+
+
+def hsigmoid_loss(node_weights, node_bias, hidden, labels, node_ids, signs):
+    """Hierarchical-sigmoid loss per example [B]: the sum of
+    -log sigmoid(sign * logit) over the label's path (node_weights
+    [num_internal, D], node_bias [num_internal], hidden [B, D], labels
+    [B], node_ids/signs [V, depth] from build_binary_tree_codes)."""
+    ids, sgn = _tree_codes(node_ids, signs, hidden.device)
+    labels = labels.long()
+    ids, sgn = ids[labels], sgn[labels]                       # [B, depth]
+    safe = torch.clamp(ids, min=0)
+    logits = torch.einsum("bkd,bd->bk", node_weights[safe], hidden) \
+        + node_bias[safe]
+    losses = softplus(-sgn * logits)
+    return torch.where(ids >= 0, losses, 0.0).sum(-1)
+
+
+def hsigmoid_predict(node_weights, node_bias, hidden, node_ids, signs):
+    """log P(class) under the tree for every class: [B, V]."""
+    ids, sgn = _tree_codes(node_ids, signs, hidden.device)
+    safe = torch.clamp(ids, min=0)
+    logits = torch.einsum("vkd,bd->bvk", node_weights[safe], hidden) \
+        + node_bias[safe][None]
+    logp = -softplus(-sgn[None] * logits)
+    return torch.where((ids >= 0)[None], logp, 0.0).sum(-1)

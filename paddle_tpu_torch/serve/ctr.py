@@ -12,8 +12,8 @@ The tower goes to the device once and runs as eager torch ops over the
 fixed [max_batch, slots] bucket (requests pad up). A request moves its
 slot vector (inside the cache's lookup) and its slot mask to the device
 and its scores back: one device-to-host copy. `score_request` is the
-HTTP front door's entry point; the route itself (POST /v1/ctr/score)
-comes with the port's HTTP edge (ROADMAP queue 1 item 6).
+HTTP front door's entry point, behind the edge's POST /v1/ctr/score
+route (`serve/http_edge.py`).
 
 Observability: per-request spans on the shared tracer (gather/forward
 events ride the request's trail), a request-latency histogram, and the

@@ -90,7 +90,12 @@ MODULES = [
     "paddle_tpu_torch.train.online", "paddle_tpu_torch.testing.traffic",
     "paddle_tpu_torch.serve.transport", "paddle_tpu_torch.serve.http_edge",
     "paddle_tpu_torch.serve.fleet", "paddle_tpu_torch.cluster.agent",
-    "paddle_tpu_torch.testing.fleet",
+    "paddle_tpu_torch.testing.fleet", "paddle_tpu_torch.ops.metrics",
+    "paddle_tpu_torch.ops.misc", "paddle_tpu_torch.ops.ctc",
+    "paddle_tpu_torch.ops.detection", "paddle_tpu_torch.metrics.detection",
+    "paddle_tpu_torch.models.traffic", "paddle_tpu_torch.models.word2vec",
+    "paddle_tpu_torch.models.recommender", "paddle_tpu_torch.models.vae",
+    "paddle_tpu_torch.models.gan",
 ]
 
 

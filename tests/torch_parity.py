@@ -96,3 +96,69 @@ def assert_tree_close(got, want, tol):
     if errs:
         worst = max(errs, key=errs.get)
         assert errs[worst] <= tol, (worst, errs[worst])
+
+
+def _flat_outputs(out):
+    if isinstance(out, (tuple, list)):
+        return [a for o in out for a in _flat_outputs(o)]
+    return [out]
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def op_parity(jax_fn, torch_fn, args, *, tol=1e-5, exact=False, diff=(),
+              grad_tol=1e-5, seed=0, jit=True):
+    """jax_fn(*args) against torch_fn(*args) on the same numpy inputs
+    (each arg goes to jnp.asarray on one side and torch.from_numpy on the
+    other; use closures for keywords). Every output must have the same
+    shape; floats agree within `tol` of the output's max |value| (max
+    abs error over max |want|), integer and bool outputs exactly (and
+    floats too where exact=True). `diff` names the args to differentiate:
+    the gradients of sum(out_i * c_i) over the float outputs, with seeded
+    random cotangents c_i, agree within grad_tol the same way. The JAX
+    side runs under jax.jit (eager op-by-op dispatch compiles every
+    primitive), unless jit=False (a function that reads concrete values
+    while it traces). Returns the port's outputs."""
+    wrap = jax.jit if jit else (lambda f: f)
+    jargs = [jnp.asarray(a) for a in args]
+    targs = [torch.from_numpy(np.array(a)) for a in args]
+    want = _flat_outputs(wrap(jax_fn)(*jargs))
+    got = _flat_outputs(torch_fn(*targs))
+    assert len(want) == len(got), (len(want), len(got))
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = _np(g), np.asarray(w)
+        assert g.shape == w.shape, (i, g.shape, w.shape)
+        if exact or not np.issubdtype(w.dtype, np.floating):
+            np.testing.assert_array_equal(g, w, err_msg=f"output {i}")
+        else:
+            err = rel_err(g, w)
+            assert err <= tol, (i, err)
+    if diff:
+        rs = np.random.RandomState(seed)
+        floats = [i for i, w in enumerate(want)
+                  if np.issubdtype(np.asarray(w).dtype, np.floating)]
+        cots = {i: rs.standard_normal(np.shape(want[i])).astype(np.float32)
+                for i in floats}
+
+        def jscalar(*vals):
+            a = list(jargs)
+            for k, v in zip(diff, vals):
+                a[k] = v
+            outs = _flat_outputs(jax_fn(*a))
+            return sum(jnp.sum(outs[i] * cots[i]) for i in floats)
+
+        jg = wrap(jax.grad(jscalar, argnums=tuple(range(len(diff)))))(
+            *[jargs[k] for k in diff])
+        for k in diff:
+            targs[k] = targs[k].clone().requires_grad_(True)
+        outs = _flat_outputs(torch_fn(*targs))
+        s = sum((outs[i] * torch.from_numpy(cots[i])).sum() for i in floats)
+        tg = torch.autograd.grad(s, [targs[k] for k in diff])
+        for k, g, w in zip(diff, tg, jg):
+            err = rel_err(g, np.asarray(w))
+            assert err <= grad_tol, ("grad", k, err)
+    return got
